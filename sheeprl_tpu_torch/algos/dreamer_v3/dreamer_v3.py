@@ -1,0 +1,553 @@
+"""DreamerV3 training in PyTorch (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``).
+
+One gradient step (``make_train_fn``) is the JAX package's ``one_step``:
+world model (coupled scan, decoupled scan, or decoupled with the LN-GRU
+sequence kernels), the actor through the imagination rollout, the critic,
+Moments and the target-critic EMA. A burst of G steps is a Python loop over
+the leading axis of the sampled batches. The modules are updated in place.
+
+Every draw of the step takes pre-drawn noise (``draw_train_noise``), so the
+tests can hand the port the JAX package's exact gumbel draws.
+
+``main`` is the serial loop of the JAX package. The overlap engine, the
+actor fleet, telemetry, the RunGuard, checkpoints, ``test()`` and the model
+manager are not ported yet; metrics print to stdout.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...config import Config, instantiate
+from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from ...envs import spaces
+from ...distributions import (
+    BernoulliSafeMode,
+    Independent,
+    OneHotCategoricalStraightThrough,
+    TwoHotEncodingDistribution,
+    gumbel_noise,
+)
+from ...ops import lambda_values as lambda_values_op
+from ...ops import ln_gru
+from ...ops.transforms import unrolled_cumprod
+from ...optim import Clipped, clipped
+from ...utils.env import episode_stats, vectorize
+from ...utils.registry import register_algorithm
+from ...utils.utils import Ratio, get_device
+from .agent import Actor, WorldModel, actor_dists, build_agent, compute_stochastic_state, sample_actor_actions
+from .loss import reconstruction_loss
+from .utils import (
+    AGGREGATOR_KEYS,
+    MomentsState,
+    check_precision,
+    decode_obs_dists,
+    init_moments,
+    normalize_obs,
+    prepare_obs,
+    update_moments,
+)
+
+METRIC_KEYS = (
+    "Loss/world_model_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "State/post_entropy",
+    "State/prior_entropy",
+    "Loss/policy_loss",
+    "Loss/value_loss",
+)
+
+
+class DV3Optimizers:
+    """The clipped world-model / actor / critic optimizers and the gradient
+    step counter that paces the target-critic EMA."""
+
+    def __init__(self, wm: Clipped, actor: Clipped, critic: Clipped):
+        self.wm, self.actor, self.critic = wm, actor, critic
+        self.step = 0
+
+
+def build_optimizers(cfg: Config, wm: torch.nn.Module, actor: torch.nn.Module, critic: torch.nn.Module) -> DV3Optimizers:
+    return DV3Optimizers(
+        clipped(instantiate(cfg.algo.world_model.optimizer, list(wm.parameters())), cfg.algo.world_model.clip_gradients),
+        clipped(instantiate(cfg.algo.actor.optimizer, list(actor.parameters())), cfg.algo.actor.clip_gradients),
+        clipped(instantiate(cfg.algo.critic.optimizer, list(critic.parameters())), cfg.algo.critic.clip_gradients),
+    )
+
+
+def _action_noise_shapes(lead, actions_dim, is_continuous):
+    if is_continuous:
+        return [(*lead, int(sum(actions_dim)))]
+    return [(*lead, int(a)) for a in actions_dim]
+
+
+def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bool, generator, device) -> Dict[str, Any]:
+    """Every random draw of one gradient step, in the shapes the step takes:
+    ``post`` [T,B,S,D] (posterior samples), ``act0`` and ``img_a`` per action
+    head ([TB, A_i] and [horizon, TB, A_i]), ``img_z`` [horizon, TB, S, D].
+    Gumbel for categorical heads, standard normal for a continuous one."""
+    wm_cfg = cfg.algo.world_model
+    S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    horizon, TB = int(cfg.algo.horizon), T * B
+
+    def act(lead):
+        draw = (lambda s: torch.randn(s, generator=generator, device=device)) if is_continuous else (
+            lambda s: gumbel_noise(s, generator, device)
+        )
+        return [draw(s) for s in _action_noise_shapes(lead, actions_dim, is_continuous)]
+
+    return {
+        "post": gumbel_noise((T, B, S, D), generator, device),
+        "act0": act((TB,)),
+        "img_z": gumbel_noise((horizon, TB, S, D), generator, device),
+        "img_a": act((horizon, TB)),
+    }
+
+
+def _apply_grads(opt: Clipped, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
+    """Step ``opt``; a parameter without a gradient gets zeros, so Adam's
+    moments decay for it exactly as optax updates every leaf."""
+    params = opt.params
+    if grads is not None:
+        for p, g in zip(params, grads):
+            p.grad = g
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.step()
+
+
+def make_train_fn(
+    wm: WorldModel,
+    actor: Actor,
+    critic: torch.nn.Module,
+    target_critic: torch.nn.Module,
+    optimizers: DV3Optimizers,
+    cfg: Config,
+    is_continuous: bool,
+    actions_dim: Sequence[int],
+):
+    """Returns ``train(moments, batches, noise=None, generator=None) ->
+    (moments, metrics)``: G gradient steps over ``batches`` [G, T, B, ...]
+    (tensors on the modules' device). ``noise`` is a list of G
+    ``draw_train_noise`` dicts; without it the draws come from
+    ``generator``. Metrics are [G] tensors, left on the device."""
+    check_precision(cfg)
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    wm_cfg = cfg.algo.world_model
+    S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    stoch_flat = S * D
+    decoupled = bool(wm_cfg.select("decoupled_rssm") or False)
+    R = int(wm_cfg.recurrent_model.recurrent_state_size)
+    # LN-GRU sequence kernels (ops/ln_gru.py): only the decoupled path
+    # qualifies (its GRU inputs are time-parallel); `interpret` runs their
+    # plain versions, which take any shape
+    gru_mode = wm_cfg.select("pallas_gru") or False
+    gru_plain = gru_mode == "interpret"
+    use_kernel = decoupled and bool(gru_mode)
+    if gru_mode and not decoupled:
+        print(
+            "[dreamer_v3] algo.world_model.pallas_gru is set but UNUSED: decoupled_rssm=False — the "
+            "step-by-step GRU runs instead",
+            file=sys.stderr,
+        )
+    F_gru = int(wm_cfg.recurrent_model.dense_units)
+    if use_kernel and not gru_plain and not ln_gru.fits_smem(F_gru, R):
+        raise ValueError(
+            f"algo.world_model.pallas_gru=True: the LN-GRU kernels do not take F={F_gru}, H={R} (H must "
+            "be a multiple of 4 and one row must fit a block's shared memory); set pallas_gru=interpret "
+            "or False"
+        )
+    horizon = int(cfg.algo.horizon)
+    gamma = float(cfg.algo.gamma)
+    lmbda = float(cfg.algo.lmbda)
+    ent_coef = float(cfg.algo.actor.ent_coef)
+    tau = float(cfg.algo.critic.tau)
+    target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
+    moments_cfg = cfg.algo.actor.moments
+    rssm = wm.rssm
+
+    def world_model_step(batch, noise):
+        T, B = batch["rewards"].shape[:2]
+        batch_obs = normalize_obs({k: batch[k] for k in cnn_keys + mlp_keys}, cnn_keys)
+        is_first = batch["is_first"].clone()
+        is_first[0] = 1.0
+        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0)
+
+        embedded = wm.embed(batch_obs)  # [T, B, E]
+        initial = rssm.initial_states((B,))
+        if decoupled:
+            # posterior of the whole sequence in one time-parallel MLP; the
+            # posterior driving step i is the step i-1 sample (zeros at i=0)
+            post_logits = rssm.representation_logits(embedded)
+            zs = compute_stochastic_state(post_logits, D, noise["post"]).reshape(T, B, stoch_flat)
+            z_prev = torch.cat([torch.zeros_like(zs[:1]), zs[:-1]], dim=0)
+            if use_kernel:
+                h0_row, z0_row = initial
+                z_in = (1 - is_first) * z_prev + is_first * z0_row[None]
+                a_in = (1 - is_first) * batch_actions
+                feats = rssm.recurrent_features(torch.cat([z_in, a_in], dim=-1))
+                gru = rssm.recurrent_model.gru
+                hs = ln_gru.gru_sequence(
+                    feats, is_first, h0_row, gru.fused.weight.t(), gru.LayerNorm_0.weight,
+                    gru.LayerNorm_0.bias, plain=gru_plain,
+                )
+                prior_logits = rssm._transition(hs)
+            else:
+                h = batch_actions.new_zeros(B, R)
+                hs_l, prior_l = [], []
+                for t in range(T):
+                    h, pl = rssm.dynamic_decoupled(z_prev[t], h, batch_actions[t], is_first[t], initial)
+                    hs_l.append(h)
+                    prior_l.append(pl)
+                hs, prior_logits = torch.stack(hs_l), torch.stack(prior_l)
+        else:
+            h = batch_actions.new_zeros(B, R)
+            z = batch_actions.new_zeros(B, stoch_flat)
+            hs_l, zs_l, post_l, prior_l = [], [], [], []
+            for t in range(T):
+                h, z, pol, prl = rssm.dynamic(
+                    z, h, batch_actions[t], embedded[t], is_first[t], noise["post"][t], initial=initial
+                )
+                hs_l.append(h)
+                zs_l.append(z)
+                post_l.append(pol)
+                prior_l.append(prl)
+            hs, zs = torch.stack(hs_l), torch.stack(zs_l)
+            post_logits, prior_logits = torch.stack(post_l), torch.stack(prior_l)
+        latents = torch.cat([zs, hs], dim=-1)
+        po, obs_targets = decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys)
+        pr = TwoHotEncodingDistribution(wm.reward(latents), dims=1)
+        pc = Independent(BernoulliSafeMode(logits=wm.cont(latents)), 1)
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+            po,
+            obs_targets,
+            pr,
+            batch["rewards"],
+            prior_logits.reshape(T, B, S, D),
+            post_logits.reshape(T, B, S, D),
+            float(wm_cfg.kl_dynamic),
+            float(wm_cfg.kl_representation),
+            float(wm_cfg.kl_free_nats),
+            float(wm_cfg.kl_regularizer),
+            pc,
+            1 - batch["terminated"],
+            float(wm_cfg.continue_scale_factor),
+        )
+        optimizers.wm.zero_grad()
+        rec_loss.backward()
+        _apply_grads(optimizers.wm)
+        metrics = {
+            "Loss/world_model_loss": rec_loss,
+            "Loss/observation_loss": observation_loss,
+            "Loss/reward_loss": reward_loss,
+            "Loss/state_loss": state_loss,
+            "Loss/continue_loss": continue_loss,
+            "State/kl": kl,
+        }
+        post_ent = Independent(OneHotCategoricalStraightThrough(logits=post_logits.reshape(T, B, S, D)), 1).entropy()
+        prior_ent = Independent(OneHotCategoricalStraightThrough(logits=prior_logits.reshape(T, B, S, D)), 1).entropy()
+        metrics["State/post_entropy"] = post_ent.mean()
+        metrics["State/prior_entropy"] = prior_ent.mean()
+        return zs.detach(), hs.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def rollout(z0, h0, noise):
+        """Imagination from every posterior state: [H+1, TB, L] states and
+        actions. Runs with the world model as updated this step."""
+        state0 = torch.cat([z0, h0], dim=-1)
+        acts0, _ = sample_actor_actions(actor, actor(state0), noise["act0"])
+        a0 = torch.cat(acts0, dim=-1)
+        z, h, a = z0, h0, a0
+        states, actions = [state0], [a0]
+        for i in range(horizon):
+            z, h = rssm.imagination(z, h, a, noise["img_z"][i])
+            state = torch.cat([z, h], dim=-1)
+            acts, _ = sample_actor_actions(actor, actor(state.detach()), [n[i] for n in noise["img_a"]])
+            a = torch.cat(acts, dim=-1)
+            states.append(state)
+            actions.append(a)
+        return torch.stack(states), torch.stack(actions)
+
+    def behaviour_step(batch, zs, hs, moments: MomentsState, noise):
+        T, B = batch["rewards"].shape[:2]
+        TB = T * B
+        true_continue0 = (1 - batch["terminated"]).reshape(TB, 1)
+        # the discrete objective reaches the actor only through the log-probs
+        # of detached trajectories, so its rollout needs no graph; the
+        # continuous objective differentiates through the dynamics
+        with torch.set_grad_enabled(is_continuous):
+            trajectories, imagined_actions = rollout(zs.reshape(TB, stoch_flat), hs.reshape(TB, R), noise)
+            values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
+            rewards_img = TwoHotEncodingDistribution(wm.reward(trajectories), dims=1).mean
+            continues = Independent(BernoulliSafeMode(logits=wm.cont(trajectories)), 1).mode
+            continues = torch.cat([true_continue0[None], continues[1:]], dim=0)
+            lv = lambda_values_op(rewards_img[1:], values[1:], continues[1:] * gamma, lmbda)
+        discount = (unrolled_cumprod(continues * gamma) / gamma).detach()
+        moments, offset, invscale = update_moments(
+            moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
+            float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
+        )
+        advantage = (lv - offset) / invscale - (values[:-1] - offset) / invscale
+        dists = actor_dists(actor, actor(trajectories.detach()))
+        if is_continuous:
+            objective = advantage
+        else:
+            logprobs, start = [], 0
+            for d, adim in zip(dists, actions_dim):
+                act = imagined_actions[..., start : start + adim].detach()
+                logprobs.append(d.log_prob(act)[..., None][:-1])
+                start += adim
+            objective = sum(logprobs) * advantage.detach()
+        entropy = ent_coef * sum(d.entropy() for d in dists)[..., None]
+        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
+        actor_params = optimizers.actor.params
+        grads = torch.autograd.grad(policy_loss, actor_params, allow_unused=True)
+        _apply_grads(optimizers.actor, grads)
+
+        traj_sg, lv_sg = trajectories.detach(), lv.detach()
+        qv = TwoHotEncodingDistribution(critic(traj_sg[:-1]), dims=1)
+        with torch.no_grad():
+            target_values = TwoHotEncodingDistribution(target_critic(traj_sg[:-1]), dims=1).mean
+        value_loss = torch.mean((-qv.log_prob(lv_sg) - qv.log_prob(target_values)) * discount[:-1, ..., 0])
+        optimizers.critic.zero_grad()
+        value_loss.backward()
+        _apply_grads(optimizers.critic)
+
+        optimizers.step += 1
+        if optimizers.step % target_freq == 0:
+            with torch.no_grad():
+                for t, s in zip(target_critic.parameters(), critic.parameters()):
+                    t.copy_((1 - tau) * t + tau * s)
+        return moments, policy_loss.detach(), value_loss.detach()
+
+    def one_step(batch, moments, noise):
+        zs, hs, metrics = world_model_step(batch, noise)
+        moments, policy_loss, value_loss = behaviour_step(batch, zs, hs, moments, noise)
+        metrics["Loss/policy_loss"] = policy_loss
+        metrics["Loss/value_loss"] = value_loss
+        return moments, metrics
+
+    def train(moments: MomentsState, batches: Dict[str, torch.Tensor], noise=None, generator=None):
+        G, T, B = batches["rewards"].shape[:3]
+        device = batches["rewards"].device
+        steps: List[Dict[str, torch.Tensor]] = []
+        for g in range(G):
+            batch = {k: v[g] for k, v in batches.items()}
+            step_noise = (
+                noise[g] if noise is not None
+                else draw_train_noise(cfg, T, B, actions_dim, is_continuous, generator, device)
+            )
+            moments, metrics = one_step(batch, moments, step_noise)
+            steps.append(metrics)
+        return moments, {k: torch.stack([m[k] for m in steps]) for k in METRIC_KEYS}
+
+    return train
+
+
+def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_continuous: bool, num_envs: int):
+    """Recurrent player: state = (h, z, a), all [N, ...] on the modules'
+    device. ``step(obs, state, noise=None, generator=None, greedy=False)``
+    takes host observations (``prepare_obs``) and returns (env_actions,
+    actions, state); ``noise`` is ``{"repr": [N,S,D], "act": [per head]}``."""
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    device = next(wm.parameters()).device
+
+    @torch.no_grad()
+    def init_state(mask=None, state=None):
+        h0, z0 = wm.rssm.initial_states((num_envs,))
+        h0 = h0.contiguous()
+        a0 = torch.zeros(num_envs, int(sum(actions_dim)), device=device)
+        if state is None or mask is None:
+            return (h0, z0, a0)
+        m = torch.as_tensor(np.asarray(mask), device=device)[:, None]
+        return tuple(torch.where(m, x0, x) for x0, x in zip((h0, z0, a0), state))
+
+    @torch.no_grad()
+    def step(obs: Dict[str, np.ndarray], state, noise=None, generator=None, greedy: bool = False):
+        h, z, a = state
+        obs_t = normalize_obs({k: torch.as_tensor(v, device=device) for k, v in obs.items()}, cnn_keys)
+        embedded = wm.embed(obs_t)
+        h = wm.rssm.recurrent_model(torch.cat([z, a], dim=-1), h)
+        z = wm.rssm.representation_step(h, embedded, noise["repr"] if noise else None, generator)
+        pre = actor(torch.cat([z, h], dim=-1))
+        acts, _ = sample_actor_actions(actor, pre, noise["act"] if noise else None, generator, greedy)
+        a = torch.cat(acts, dim=-1)
+        if is_continuous:
+            env_actions = a
+        else:
+            env_actions = torch.stack([torch.argmax(x, dim=-1) for x in acts], dim=-1)
+        return env_actions, a, (h, z, a)
+
+    return init_state, step
+
+
+def _to_device(batch: Dict[str, np.ndarray], cnn_keys, device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in batch.items():
+        arr = np.asarray(v) if k in cnn_keys else np.asarray(v, np.float32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device, non_blocking=True)
+    return out
+
+
+@register_algorithm(name="dreamer_v3")
+def main(cfg: Config) -> None:
+    """The serial DreamerV3 loop: act, store, train G steps per the replay
+    ratio, print metrics every ``metric.log_every`` policy steps."""
+    if bool(cfg.algo.overlap.enabled):
+        raise NotImplementedError(
+            "algo.overlap.enabled=True: the overlap engine is not ported yet — run the serial loop "
+            "with algo.overlap.enabled=False"
+        )
+    if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
+        raise NotImplementedError("algo.fleet.workers > 0: the actor fleet is not ported yet")
+    if bool(cfg.buffer.select("memmap", False)):
+        raise NotImplementedError("buffer.memmap=True: memmap storage is not ported yet")
+    check_precision(cfg)
+    device = get_device(cfg)
+    torch.manual_seed(int(cfg.seed))
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(cfg.seed))
+
+    envs = vectorize(cfg, int(cfg.seed), 0)
+    obs_space = envs.single_observation_space
+    action_space = envs.single_action_space
+    num_envs = int(cfg.env.num_envs)
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    obs_keys = cnn_keys + mlp_keys
+    is_continuous = isinstance(action_space, spaces.Box)
+    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
+    if is_continuous:
+        actions_dim = [int(np.prod(action_space.shape))]
+    elif is_multidiscrete:
+        actions_dim = [int(n) for n in action_space.nvec]
+    else:
+        actions_dim = [int(action_space.n)]
+    act_total = int(sum(actions_dim))
+
+    wm, actor, critic, target_critic = build_agent(cfg, obs_space, actions_dim, is_continuous, device)
+    optimizers = build_optimizers(cfg, wm, actor, critic)
+    moments = init_moments(device)
+    seq_len = int(cfg.algo.per_rank_sequence_length)
+    buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
+    rb = EnvIndependentReplayBuffer(
+        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=int(cfg.seed)
+    )
+    train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
+    player_init, player_step = make_player(wm, actor, cfg, actions_dim, is_continuous, num_envs)
+    ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    batch_size = int(cfg.algo.per_rank_batch_size)
+    total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else 4 * num_envs
+    learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
+    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
+    log_every = int(cfg.metric.log_every)
+    log_on = int(cfg.metric.select("log_level", 1) or 0) > 0
+
+    obs, _ = envs.reset(seed=int(cfg.seed))
+    player_state = player_init()
+    step_data: Dict[str, np.ndarray] = {k: np.asarray(obs[k])[np.newaxis] for k in obs_keys}
+    step_data["actions"] = np.zeros((1, num_envs, act_total), np.float32)
+    step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["is_first"] = np.ones((1, num_envs, 1), np.float32)
+
+    pending: List[Dict[str, torch.Tensor]] = []
+    episodes: Dict[str, List[float]] = {"Rewards/rew_avg": [], "Game/ep_len_avg": []}
+    policy_step, last_log, grad_steps = 0, 0, 0
+    t0 = time.perf_counter()
+    while policy_step < total_steps:
+        if policy_step <= learning_starts:
+            actions_env = np.stack([action_space.sample() for _ in range(num_envs)])
+            if is_continuous:
+                actions_np = actions_env.reshape(num_envs, -1).astype(np.float32)
+            else:
+                acts2d = actions_env.reshape(num_envs, -1)
+                actions_np = np.concatenate(
+                    [np.eye(adim, dtype=np.float32)[acts2d[:, j]] for j, adim in enumerate(actions_dim)], axis=-1
+                )
+        else:
+            host_obs = prepare_obs(obs, cnn_keys, mlp_keys, num_envs)
+            env_actions, actions_cat, player_state = player_step(host_obs, player_state, generator=generator)
+            actions_np = actions_cat.cpu().numpy()
+            actions_env = env_actions.cpu().numpy()
+            if is_continuous:
+                actions_env = actions_env.reshape(num_envs, -1)
+            elif not is_multidiscrete:
+                actions_env = actions_env.reshape(num_envs)
+
+        step_data["actions"] = actions_np.reshape(1, num_envs, -1)
+        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+        next_obs, rewards, terminated, truncated, info = envs.step(actions_env)
+        policy_step += num_envs
+        dones = np.logical_or(terminated, truncated)
+        for ep_rew, ep_len in episode_stats(info):
+            episodes["Rewards/rew_avg"].append(ep_rew)
+            episodes["Game/ep_len_avg"].append(ep_len)
+
+        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+        if "final_obs" in info:
+            for i, fo in enumerate(info["final_obs"]):
+                if fo is not None:
+                    for k in obs_keys:
+                        real_next_obs[k][i] = np.asarray(fo[k])
+        for k in obs_keys:
+            step_data[k] = np.asarray(next_obs[k])[np.newaxis]
+        step_data["is_first"] = np.zeros((1, num_envs, 1), np.float32)
+        step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
+        step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
+        step_data["rewards"] = clip_rewards_fn(np.asarray(rewards, np.float32).reshape(1, num_envs, 1))
+
+        dones_idxes = np.nonzero(dones)[0].tolist()
+        if dones_idxes:
+            # closing row for the finished episodes, then an open row
+            reset_data: Dict[str, np.ndarray] = {k: real_next_obs[k][dones_idxes][np.newaxis] for k in obs_keys}
+            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), act_total), np.float32)
+            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            step_data["rewards"][:, dones_idxes] = 0
+            step_data["terminated"][:, dones_idxes] = 0
+            step_data["truncated"][:, dones_idxes] = 0
+            step_data["is_first"][:, dones_idxes] = 1
+            mask = np.zeros((num_envs,), bool)
+            mask[dones_idxes] = True
+            player_state = player_init(mask, player_state)
+        obs = next_obs
+
+        if policy_step >= learning_starts:
+            g = ratio(policy_step)
+            if g > 0:
+                sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=g)
+                batches = _to_device(sample, cnn_keys, device)
+                moments, metrics = train(moments, batches, generator=generator)
+                grad_steps += g
+                if log_on:
+                    pending.append(metrics)
+
+        if log_on and (policy_step - last_log >= log_every or cfg.dry_run or policy_step >= total_steps):
+            line = {"policy_step": policy_step, "grad_steps": grad_steps,
+                    "sps": round(policy_step / max(time.perf_counter() - t0, 1e-9), 3)}
+            for k in AGGREGATOR_KEYS:
+                if k in episodes and episodes[k]:
+                    line[k] = float(np.mean(episodes[k]))
+                elif pending and k in pending[0]:
+                    line[k] = float(torch.cat([m[k] for m in pending]).mean())
+            print("[dreamer_v3] " + " ".join(f"{k}={v}" for k, v in line.items()), flush=True)
+            pending.clear()
+            for v in episodes.values():
+                v.clear()
+            last_log = policy_step
+    envs.close()

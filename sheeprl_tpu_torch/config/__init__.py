@@ -1,0 +1,5 @@
+from .compose import CONFIG_ROOT, compose
+from .container import Config, resolve_interpolations
+from .instantiate import instantiate, locate
+
+__all__ = ["Config", "compose", "instantiate", "locate", "resolve_interpolations", "CONFIG_ROOT"]

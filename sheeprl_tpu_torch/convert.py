@@ -1,0 +1,132 @@
+"""Map the JAX package's parameter and optimizer-state trees (nested dicts of
+numpy arrays) onto the port's state dicts.
+
+The port's modules carry the flax tree's names (see models/models.py), so a
+flax path becomes a state-dict key by a rewrite:
+
+* ``.../LayerNorm_k/LayerNorm_0/scale`` → ``....LayerNorm_k.weight`` (the JAX
+  package wraps flax's ``nn.LayerNorm`` in its own ``LayerNorm``), ``bias``
+  stays ``bias``;
+* a Dense ``kernel`` [in, out] → ``weight`` [out, in] (this covers the fused
+  GRU kernel [F+H, 3H] → [3H, F+H]);
+* a Conv ``kernel`` HWIO → ``weight`` OIHW;
+* a ConvTranspose ``kernel`` built with ``transpose_kernel=True``, laid out
+  (kh, kw, out, in) as the HWIO kernel of the convolution it transposes, →
+  ``weight`` [in, out, kh, kw]: an axis swap and no spatial flip
+  (tests/test_torch_convert.py pins this against flax);
+* ``initial_recurrent_state`` keeps its name.
+
+The module type at each path decides the kernel layout. ``load_dreamer_v3``
+loads ``{wm, actor, critic, target_critic}`` and, optionally, the optax adam
+states (``mu``/``nu``/``count``) and the target-EMA step counter.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def torch_key(path: str) -> str:
+    """The state-dict key of a flax parameter path (before the leaf rename)."""
+    parts = []
+    for p in path.split("/"):
+        if p == "LayerNorm_0" and parts and parts[-1].startswith("LayerNorm_"):
+            continue
+        parts.append(p)
+    return ".".join(parts)
+
+
+def kernel_to_torch(kernel: np.ndarray, module: nn.Module) -> np.ndarray:
+    if isinstance(module, nn.Linear):
+        return kernel.T
+    if isinstance(module, nn.ConvTranspose2d):
+        return kernel.transpose(3, 2, 0, 1)
+    if isinstance(module, nn.Conv2d):
+        return kernel.transpose(3, 2, 0, 1)
+    raise TypeError(f"no kernel layout for {type(module).__name__}")
+
+
+def params_to_state_dict(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (or any tree of the same structure, e.g. adam's
+    ``mu``) as a state dict of ``module``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in flatten(params).items():
+        key = torch_key(path)
+        mod_path, _, leaf = key.rpartition(".")
+        if leaf == "kernel":
+            leaf = "weight"
+            arr = kernel_to_torch(arr, module.get_submodule(mod_path))
+        elif leaf == "scale":
+            leaf = "weight"
+        name = f"{mod_path}.{leaf}" if mod_path else leaf
+        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return sd
+
+
+def load_params(params: Mapping[str, Any], module: nn.Module) -> None:
+    """Load a flax parameter tree into ``module`` (strict: every parameter
+    of both sides must match)."""
+    module.load_state_dict(params_to_state_dict(params, module), strict=True)
+
+
+def find_adam_state(opt_state: Any) -> Any:
+    """The ``ScaleByAdamState`` inside an optax chain state."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = find_adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, module: nn.Module, opt_state: Any) -> None:
+    """optax adam moments → ``torch.optim.Adam`` state of ``module``'s
+    parameters (the optimizer must own exactly those parameters)."""
+    adam = find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (mu, nu, count) in the optax state")
+    mu = params_to_state_dict(adam.mu, module)
+    nu = params_to_state_dict(adam.nu, module)
+    step = float(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step),
+            "exp_avg": mu[name].to(p.device).clone(),
+            "exp_avg_sq": nu[name].to(p.device).clone(),
+        }
+
+
+def load_dreamer_v3(
+    params: Mapping[str, Any],
+    wm: nn.Module,
+    actor: nn.Module,
+    critic: nn.Module,
+    target_critic: nn.Module,
+    opt_states: Optional[Mapping[str, Any]] = None,
+    optimizers: Any = None,
+) -> None:
+    """Load the JAX DreamerV3 ``params`` (and, with ``optimizers``, its
+    ``opt_states``) into the port's modules and ``DV3Optimizers``."""
+    for key, module in (("wm", wm), ("actor", actor), ("critic", critic), ("target_critic", target_critic)):
+        load_params(params[key], module)
+    if opt_states is not None and optimizers is not None:
+        load_adam_state(optimizers.wm.optimizer, wm, opt_states["wm"])
+        load_adam_state(optimizers.actor.optimizer, actor, opt_states["actor"])
+        load_adam_state(optimizers.critic.optimizer, critic, opt_states["critic"])
+        optimizers.step = int(np.asarray(opt_states["step"]))

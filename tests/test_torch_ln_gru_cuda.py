@@ -1,0 +1,94 @@
+"""The LN-GRU CUDA kernels against their plain PyTorch passes on the card.
+Marked ``cuda``: they skip without an NVIDIA GPU (the kernels have no CPU
+mode). This file imports neither JAX nor the JAX package, so it also runs on
+a machine that has only PyTorch:  pytest tests/test_torch_ln_gru_cuda.py
+
+Tolerance: rtol = atol = 1e-4 (f32 sums in another order than cuBLAS)."""
+import numpy as np
+import pytest
+import torch
+
+from sheeprl_tpu_torch.ops import ln_gru
+
+T, B, F, H = 6, 4, 16, 8
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(seed=0, batched_hfirst=False):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((T, B, F)).astype(np.float32)
+    first = np.zeros((T, B, 1), np.float32)
+    first[0] = 1.0
+    first[3, 1] = 1.0
+    hshape = (B, H) if batched_hfirst else (H,)
+    h_first = (0.5 * rng.standard_normal(hshape)).astype(np.float32)
+    w = (rng.standard_normal((F + H, 3 * H)) / np.sqrt(F + H)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(3 * H)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(3 * H)).astype(np.float32)
+    return feats, first, h_first, w, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["hfirst_H", "hfirst_BH"])
+def test_kernels_match_plain_on_card(batched):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(6, batched_hfirst=batched)
+    dev = [torch.from_numpy(a.copy()).cuda().requires_grad_(i in (0, 2, 3, 4, 5)) for i, a in enumerate(args)]
+    ref = [torch.from_numpy(a.copy()).cuda().requires_grad_(i in (0, 2, 3, 4, 5)) for i, a in enumerate(args)]
+    before = [k.launches for k in ln_gru.KERNELS]
+    (ln_gru.gru_sequence(*dev) ** 2).sum().backward()
+    (ln_gru.gru_sequence(*ref, plain=True) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches for k in ln_gru.KERNELS] == [b + 1 for b in before]
+    for a, b in zip(dev, ref):
+        if b.grad is not None:
+            torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_the_plain_path():
+    """A CUDA tensor the kernel does not take raises; it is not computed by
+    the plain version instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    feats, first, h_first, w, scale, bias = (torch.from_numpy(a).cuda() for a in _inputs(7, True))
+    with pytest.raises(TypeError):
+        ln_gru.ln_gru_fwd(feats.double(), first, h_first, w, scale, bias)
+    with pytest.raises(ValueError):
+        ln_gru.ln_gru_fwd(feats, first, h_first, w.t(), scale, bias)
+
+
+def _decoupled_train_fn(device, recurrent_size, gru_mode):
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+
+    cfg = compose("config", [
+        "exp=dreamer_v3", "algo=dreamer_v3_XS", "algo.dense_units=16",
+        "algo.world_model.encoder.cnn_channels_multiplier=2",
+        f"algo.world_model.recurrent_model.recurrent_state_size={recurrent_size}",
+        "algo.world_model.recurrent_model.dense_units=16", "algo.world_model.transition_model.hidden_size=16",
+        "algo.world_model.representation_model.hidden_size=16", "algo.world_model.discrete_size=4",
+        "algo.world_model.stochastic_size=4", "algo.world_model.decoupled_rssm=True",
+        f"algo.world_model.pallas_gru={gru_mode}",
+    ])
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    wm, actor, critic, target = build_agent(cfg, space, [4], False, torch.device(device))
+    opts = dv3.build_optimizers(cfg, wm, actor, critic)
+    return dv3.make_train_fn(wm, actor, critic, target, opts, cfg, False, [4])
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_train_step_refuses_a_shape_the_kernels_do_not_take(device):
+    """pallas_gru=True with an H the kernels do not take (not a multiple of
+    4) raises when the train step is built, on the card as on the host; the
+    plain passes (pallas_gru=interpret) take it."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    with pytest.raises(ValueError, match="do not take"):
+        _decoupled_train_fn(device, 6, True)
+    assert callable(_decoupled_train_fn(device, 6, "interpret"))
+    assert callable(_decoupled_train_fn(device, 8, True))
