@@ -9,13 +9,22 @@ that fails and then prints no result:
 1. card      — nvidia-smi name and power limit (also printed raw on its own
                line), torch and CUDA versions;
 2. build     — nvcc builds the LN-GRU kernels from csrc/ln_gru.cu (timed;
-               ptxas register / shared-memory / spill lines);
-3. kernels   — each kernel against its plain PyTorch version at the
-               DreamerV3-S GRU shapes (T=64, B=16, F=H=512, resets in
-               mid-sequence), h_first of shape [H] and [B,H]: the forward and
-               all five gradients, TF32 off, with the tolerances printed; the
+               ptxas register / shared-memory / spill lines); for the
+               DreamerV3-S and XS widths, the CTAs of a cluster and each
+               CTA's shared memory (the fit rule of ops/ln_gru.py, which
+               also gives the build its layout) and how many clusters the
+               card holds at once (cudaOccupancyMaxActiveClusters);
+3. kernels   — at the DreamerV3-S (T=64, B=16, F=H=512) and XS (F=H=256)
+               GRU shapes, resets in mid-sequence: the whole sequence on the
+               kernels against the plain passes (the forward and all five
+               gradients, h_first of shape [H] and [B,H]), and each of the
+               five kernels against its plain version on the same inputs,
+               TF32 off, with the tolerances printed; at DreamerV3-S the
                kernels' and plain versions' medians over timed reps (CUDA
-               events) beside the bound computed from the shapes;
+               events), the recurrent kernels' probe variants without their
+               product (the cost of the barriers and the rest of a step),
+               the one PyTorch call that computes the same function where
+               there is one, and the bound computed from the shapes;
 4. train     — DreamerV3-S gradient steps through make_train_fn, MsPacman-
                shaped (64x64x3, 9 actions), T=64, B=16, horizon 15: three
                decoupled steps on the kernels (losses finite, each kernel's
@@ -27,10 +36,13 @@ that fails and then prints no result:
 5. run       — the serial training loop through the CLI entry point
                (sheeprl_tpu_torch.cli.run) on the dummy env at DreamerV3-S
                width on the kernel path; every kernel count is set to 0 just
-               before it and must be > 0 just after;
-6. kernels   — one {"kernels": [...]} line: launches from phase 5, times
-               from phase 3, bound, largest error (and, beside
-               ln_gru_wgrad, cuBLAS's dW product alone);
+               before it and must be > 0 just after; then the blocks of each
+               kernel's last launch on that path, as its CUDA entry recorded
+               the grid it launched;
+6. kernels   — one {"kernels": [...]} line: launches and blocks from phase
+               5 (SMs = the smaller of the blocks and the card's SMs), times
+               from phase 3, bound, largest error at either shape (and,
+               beside ln_gru_wgrad, cuBLAS's dW product alone);
 7. the last line: {"ok": true, "device": {...}}.
 
 Times and rates are of this run on this card; compare versions only within
@@ -51,6 +63,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 T, B, F, H = 64, 16, 512, 512
+# the GRU shapes of the presets the kernels take (the cluster split changes with H)
+SHAPES = {"S": (T, B, 512, 512), "XS": (T, B, 256, 256)}
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)  # |kernel - plain| <= atol + rtol * max|plain|
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 
@@ -106,62 +120,142 @@ def phase_kernels(torch, ln_gru):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def _kernels_vs_plain(torch, ln_gru):
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    feats = torch.randn(T, B, F, device=dev, generator=g)
-    first = torch.zeros(T, B, 1, device=dev)
+def gru_inputs(torch, shape, dev, seed=0):
+    T_, B_, F_, H_ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(T_, B_, F_, device=dev, generator=g)
+    first = torch.zeros(T_, B_, 1, device=dev)
     first[0] = 1.0
     first[21, 3] = 1.0
     first[40, 7:10] = 1.0
-    w = torch.randn(F + H, 3 * H, device=dev, generator=g) / (F + H) ** 0.5
-    scale = 1.0 + 0.1 * torch.randn(3 * H, device=dev, generator=g)
-    bias = 0.1 * torch.randn(3 * H, device=dev, generator=g)
-    cot = torch.randn(T, B, H, device=dev, generator=g)
-    errors = {}
-    for shape in ((H,), (B, H)):
-        h_first = 0.5 * torch.randn(*shape, device=dev, generator=g)
-        grads = {}
-        for plain in (False, True):
-            leaves = [t.clone().requires_grad_(True) for t in (feats, h_first, w, scale, bias)]
-            hs = ln_gru.gru_sequence(leaves[0], first, *leaves[1:], plain=plain)
-            (hs * cot).sum().backward()
-            grads[plain] = [hs.detach()] + [t.grad for t in leaves]
-        torch.cuda.synchronize()
-        tag = "hfirst_" + "x".join(map(str, shape))
-        names = ("hs", "dfeats", "dh_first", "dW", "dscale", "dbias")
-        for i, n in enumerate(names):
-            check(f"{tag}.{n}", grads[False][i], grads[True][i], FWD_TOL if i == 0 else GRAD_TOL, errors)
+    w = torch.randn(F_ + H_, 3 * H_, device=dev, generator=g) / (F_ + H_) ** 0.5
+    scale = 1.0 + 0.1 * torch.randn(3 * H_, device=dev, generator=g)
+    bias = 0.1 * torch.randn(3 * H_, device=dev, generator=g)
+    cot = torch.randn(T_, B_, H_, device=dev, generator=g)
+    return feats, first, w, scale, bias, cot, g
 
-    # times of each pass at these shapes, the plain versions beside them
-    hf = (0.5 * torch.randn(B, H, device=dev, generator=g)).contiguous()
-    hs = ln_gru.ln_gru_fwd(feats, first, hf, w, scale, bias)
-    _, _, dy, dy_raw, yn, xh = ln_gru.ln_gru_bwd(feats, first, hs, hf, w, scale, bias, cot)
-    M, K, N = T * B, F + H, 3 * H
-    xh2, dyr2, dy2, yn2 = xh.reshape(M, K), dy_raw.reshape(M, N), dy.reshape(M, N), yn.reshape(M, N)
+
+def _kernels_vs_plain(torch, ln_gru):
+    dev = torch.device("cuda")
+    errors = {}
+    for label, shape in SHAPES.items():
+        T_, B_, F_, H_ = shape
+        feats, first, w, scale, bias, cot, g = gru_inputs(torch, shape, dev)
+        # the whole sequence: forward and the five gradients
+        for hshape in ((H_,), (B_, H_)):
+            h_first = 0.5 * torch.randn(*hshape, device=dev, generator=g)
+            grads = {}
+            for plain in (False, True):
+                leaves = [t.clone().requires_grad_(True) for t in (feats, h_first, w, scale, bias)]
+                hs = ln_gru.gru_sequence(leaves[0], first, *leaves[1:], plain=plain)
+                (hs * cot).sum().backward()
+                grads[plain] = [hs.detach()] + [t.grad for t in leaves]
+            torch.cuda.synchronize()
+            tag = f"{label}.hfirst_" + "x".join(map(str, hshape))
+            names = ("hs", "dfeats", "dh_first", "dW", "dscale", "dbias")
+            for i, n in enumerate(names):
+                check(f"{tag}.{n}", grads[False][i], grads[True][i], FWD_TOL if i == 0 else GRAD_TOL, errors)
+        # each kernel against its plain version on the same inputs
+        hf = (0.5 * torch.randn(B_, H_, device=dev, generator=g)).contiguous()
+        M = T_ * B_
+        wx, wh, x2 = w[:F_], w[F_:], feats.reshape(M, F_)
+        gx = ln_gru.ln_gru_xproj(x2, wx)
+        check(f"{label}.xproj.gx", gx, ln_gru.xproj_plain(x2, wx), FWD_TOL, errors)
+        gx = gx.reshape(T_, B_, 3 * H_)
+        fw = ln_gru.ln_gru_fwd(gx, first, hf, wh, scale, bias)
+        for n, a, b in zip(("hs", "yn", "istd"), fw, ln_gru.forward_plain(gx, first, hf, wh, scale, bias)):
+            check(f"{label}.fwd.{n}", a, b, FWD_TOL, errors)
+        hs, yn, istd = fw
+        bw = ln_gru.ln_gru_bwd(feats, first, hs, hf, wh, scale, bias, cot, yn, istd)
+        bw_plain = ln_gru.backward_plain(feats, first, hs, hf, wh, scale, bias, cot, yn, istd)
+        for n, a, b in zip(("dh_first", "dy", "dy_raw", "xh"), bw, bw_plain):
+            check(f"{label}.bwd.{n}", a, b, GRAD_TOL, errors)
+        xh2, dyr2, dy2, yn2 = bw[3].reshape(M, -1), bw[2].reshape(M, -1), bw[1].reshape(M, -1), yn.reshape(M, -1)
+        check(f"{label}.dx.dfeats", ln_gru.ln_gru_dx(dyr2, wx), ln_gru.dx_plain(dyr2, wx), GRAD_TOL, errors)
+        wg = ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)
+        for n, a, b in zip(("dW", "dscale", "dbias"), wg, ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2)):
+            check(f"{label}.wgrad.{n}", a, b, GRAD_TOL, errors)
+        if label == "S":
+            timed = (feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2)
+
+    # times at DreamerV3-S, the plain versions and library calls beside them
+    feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2 = timed
+    fwd_args = (gx, first, hf, wh, scale, bias)
+    bwd_args = (feats, first, hs, hf, wh, scale, bias, cot, yn, istd)
     t = {
-        "ln_gru_fwd": (
-            time_ms(lambda: ln_gru.ln_gru_fwd(feats, first, hf, w, scale, bias)),
-            time_ms(lambda: ln_gru.forward_plain(feats, first, hf, w, scale, bias)),
-        ),
-        "ln_gru_bwd": (
-            time_ms(lambda: ln_gru.ln_gru_bwd(feats, first, hs, hf, w, scale, bias, cot)),
-            time_ms(lambda: ln_gru.backward_plain(feats, first, hs, hf, w, scale, bias, cot), reps=10),
-        ),
-        "ln_gru_wgrad": (
-            time_ms(lambda: ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)),
-            time_ms(lambda: ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2)),
-        ),
+        "ln_gru_xproj": (time_ms(lambda: ln_gru.ln_gru_xproj(x2, wx)), time_ms(lambda: ln_gru.xproj_plain(x2, wx))),
+        "ln_gru_fwd": (time_ms(lambda: ln_gru.ln_gru_fwd(*fwd_args)),
+                       time_ms(lambda: ln_gru.forward_plain(*fwd_args), reps=10)),
+        "ln_gru_bwd": (time_ms(lambda: ln_gru.ln_gru_bwd(*bwd_args)),
+                       time_ms(lambda: ln_gru.backward_plain(*bwd_args), reps=10)),
+        "ln_gru_dx": (time_ms(lambda: ln_gru.ln_gru_dx(dyr2, wx)), time_ms(lambda: ln_gru.dx_plain(dyr2, wx))),
+        "ln_gru_wgrad": (time_ms(lambda: ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)),
+                         time_ms(lambda: ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2))),
+    }
+    # one PyTorch call computing the same function, where there is one
+    library = {
+        "ln_gru_xproj": time_ms(lambda: torch.mm(x2, wx)),
+        "ln_gru_dx": time_ms(lambda: torch.mm(dyr2, wx.t())),
     }
     mm_ms = time_ms(lambda: torch.mm(xh2.t(), dyr2))
+    no_product = no_product_ms(torch, ln_gru, fwd_args, bwd_args)
     f32 = 4
-    row_in = T * B * F + T * B + B * H + K * N + 2 * N
+    M, K, N = T * B, F + H, 3 * H
     bounds = {
-        "ln_gru_fwd": bound_ms(2 * M * K * N, f32 * (row_in + T * B * H)),
-        "ln_gru_bwd": bound_ms(4 * M * K * N, f32 * (row_in + 2 * T * B * H + T * B * F + B * H + 3 * M * N + M * K)),
+        "ln_gru_xproj": bound_ms(2 * M * F * N, f32 * (M * F + F * N + M * N)),
+        "ln_gru_fwd": bound_ms(2 * M * H * N, f32 * (M * N + M + B * H + H * N + 2 * N + M * H + M * N + M)),
+        "ln_gru_bwd": bound_ms(2 * M * H * N, f32 * (M * F + M + 2 * M * H + B * H + H * N + 2 * N + M * N + M
+                                                     + B * H + 2 * M * N + M * K)),
+        "ln_gru_dx": bound_ms(2 * M * N * F, f32 * (M * N + F * N + M * F)),
         "ln_gru_wgrad": bound_ms(2 * M * K * N + 3 * M * N, f32 * (M * K + 3 * M * N + K * N + 2 * N)),
     }
-    return errors, t, bounds, mm_ms
+    return errors, t, bounds, mm_ms, library, no_product
+
+
+def no_product_ms(torch, ln_gru, fwd_args, bwd_args):
+    """The recurrent kernels' probe variants (ln_gru_fwd_probe,
+    ln_gru_bwd_probe: the kernel with its product left out), timed on the
+    same inputs: two cluster barriers a step, the DSMEM exchanges, the gate
+    math and the loads and stores. Their outputs are not the function's."""
+    lib = ln_gru._lib()
+    gx, first, hf, wh, scale, bias = fwd_args
+    feats = bwd_args[0]
+    T_, B_, F_ = feats.shape
+    H_ = wh.shape[0]
+    units = ln_gru.cluster_split(H_)[1]
+    smem_fwd, smem_bwd = ln_gru.smem_bytes(H_)
+    empty = lambda *shape: torch.empty(*shape, device=feats.device)  # noqa: E731
+    fwd_out = (empty(T_, B_, H_), empty(T_, B_, 3 * H_), empty(T_, B_))
+    bwd_out = (empty(B_, H_), empty(T_, B_, 3 * H_), empty(T_, B_, 3 * H_), empty(T_, B_, F_ + H_))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(fn, args, dims, smem):
+        rc = fn(*(a.data_ptr() for a in args), *dims, units, smem, stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}: {lib.ln_gru_error_string(rc).decode()}")
+
+    return {
+        "ln_gru_fwd": time_ms(lambda: launch(lib.ln_gru_fwd_probe, fwd_args + fwd_out, (T_, B_, H_), smem_fwd)),
+        "ln_gru_bwd": time_ms(lambda: launch(lib.ln_gru_bwd_probe, bwd_args + bwd_out, (T_, B_, F_, H_),
+                                             smem_bwd)),
+    }
+
+
+def cluster_report(ln_gru):
+    """CTAs, shared memory and resident clusters of the recurrent kernels at
+    each preset width; fails if a preset does not fit or the card holds no
+    cluster."""
+    out = {}
+    for label, (_, _, F_, H_) in SHAPES.items():
+        if not ln_gru.fits_smem(F_, H_):
+            raise AssertionError(f"{label}: F={F_}, H={H_} does not fit the cluster kernels")
+        fwd, bwd = ln_gru.cluster_capacity(H_)
+        if min(fwd, bwd) < 1:
+            raise AssertionError(f"{label}: the card holds no cluster (forward {fwd}, backward {bwd})")
+        out[label] = {"H": H_, "cluster_ctas": ln_gru.cluster_split(H_)[0], "smem_bytes": ln_gru.smem_bytes(H_),
+                      "max_active_clusters": {"fwd": fwd, "bwd": bwd},
+                      "clusters_needed": -(-B // ln_gru.ROWS_PER_CLUSTER)}
+    return out
 
 
 def make_batch(torch, G, n_act, dev, seed):
@@ -307,7 +401,9 @@ def phase_run(torch, ln_gru, overrides=()):
     counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
     if min(counts.values()) < 1:
         raise AssertionError(f"the CLI run launched {counts}")
-    return counts, seconds, args
+    # the grid of each kernel's last launch on this path, as its entry recorded it
+    blocks = {k.__name__: int(ln_gru._lib().ln_gru_last_blocks(i)) for i, k in enumerate(ln_gru.KERNELS)}
+    return counts, blocks, seconds, args
 
 
 def main() -> int:
@@ -338,16 +434,18 @@ def main() -> int:
         lib, log = ln_gru.build(force=True)
         seconds = time.perf_counter() - t0
         ptxas = [l.strip() for l in log.splitlines() if "Used" in l or "spill" in l or "Function properties" in l]
-        emit("build", ok=True, seconds=round(seconds, 3), library=os.path.relpath(lib, HERE), ptxas=ptxas)
+        clusters = cluster_report(ln_gru)
+        emit("build", ok=True, seconds=round(seconds, 3), library=os.path.relpath(lib, HERE), ptxas=ptxas,
+             clusters=clusters)
     except Exception as err:  # noqa: BLE001
         return fail("build", err)
 
     try:
-        errors, times, bounds, mm_ms = phase_kernels(torch, ln_gru)
-        emit("kernels_vs_plain", ok=True, shapes=dict(T=T, B=B, F=F, H=H), fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
+        errors, times, bounds, mm_ms, library, no_product = phase_kernels(torch, ln_gru)
+        emit("kernels_vs_plain", ok=True, shapes=SHAPES, timed_shape="S", fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
              max_abs_err=errors, times_ms={k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in times.items()},
-             bound_ms={k: v[0] for k, v in bounds.items()}, dW_torch_mm_ms=mm_ms,
-             peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES))
+             library_ms=library, no_product_ms=no_product, bound_ms={k: v[0] for k, v in bounds.items()},
+             dW_torch_mm_ms=mm_ms, peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES))
     except Exception as err:  # noqa: BLE001
         return fail("kernels_vs_plain", err)
 
@@ -358,31 +456,39 @@ def main() -> int:
         return fail("train", err)
 
     try:
-        counts, seconds, args = phase_run(torch, ln_gru)
-        emit("run", ok=True, seconds=round(seconds, 3), launches=counts, args=args)
+        counts, blocks, seconds, args = phase_run(torch, ln_gru)
+        emit("run", ok=True, seconds=round(seconds, 3), launches=counts, last_launch_blocks=blocks, args=args)
     except Exception as err:  # noqa: BLE001
         return fail("run", err)
 
-    err_of = {
-        "ln_gru_fwd": ("hs",),
-        "ln_gru_bwd": ("dfeats", "dh_first"),
-        "ln_gru_wgrad": ("dW", "dscale", "dbias"),
+    replaces = {  # the pallas_call each kernel's work comes from
+        "ln_gru_xproj": "sheeprl_tpu/ops/pallas_gru.py:127",
+        "ln_gru_fwd": "sheeprl_tpu/ops/pallas_gru.py:127",
+        "ln_gru_bwd": "sheeprl_tpu/ops/pallas_gru.py:227",
+        "ln_gru_dx": "sheeprl_tpu/ops/pallas_gru.py:227",
+        "ln_gru_wgrad": "sheeprl_tpu/ops/pallas_gru.py:227",
     }
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = []
-    for name, outs in err_of.items():
+    for name, src in replaces.items():
+        short = name[len("ln_gru_"):]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/ln_gru.cu",
-            "replaces": "sheeprl_tpu/ops/pallas_gru.py:127" if name == "ln_gru_fwd" else "sheeprl_tpu/ops/pallas_gru.py:227",
+            "replaces": src,
             "launches": counts[name],
-            "max_abs_err": max(v for k, v in errors.items() if k.split(".")[1] in outs),
+            "max_abs_err": max(v for k, v in errors.items() if k.split(".")[1] == short),
             "ms": times[name][0],
             "plain_ms": times[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            "library_ms": None,
+            "library_ms": library.get(name),
+            "blocks": blocks[name],
+            "sms": min(n_sm, blocks[name]),
         })
+        if name in no_product:
+            kernels[-1]["no_product_ms"] = no_product[name]
         if name == "ln_gru_wgrad":
             # no one call computes dW, dscale and dbias; cuBLAS's dW product
             # alone, on the same inputs, is the library time to beat

@@ -165,8 +165,8 @@ def make_train_fn(
     if use_kernel and not gru_plain and not ln_gru.fits_smem(F_gru, R):
         raise ValueError(
             f"algo.world_model.pallas_gru=True: the LN-GRU kernels do not take F={F_gru}, H={R} (H must "
-            "be a multiple of 4 and one row must fit a block's shared memory); set pallas_gru=interpret "
-            "or False"
+            "split into at most 16 cluster CTAs of 8, 16 or 32 units whose W_h slice fits shared "
+            "memory, so H <= 512, and F must be a multiple of 4); set pallas_gru=interpret or False"
         )
     horizon = int(cfg.algo.horizon)
     gamma = float(cfg.algo.gamma)

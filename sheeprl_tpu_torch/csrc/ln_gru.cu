@@ -1,317 +1,206 @@
 // LayerNorm-GRU sequence kernels for Hopper (sm_90a), bound with ctypes.
 //
 // Port of the two Pallas TPU kernels of sheeprl_tpu/ops/pallas_gru.py:
-//   ln_gru_fwd    replaces _pallas_forward  (pallas_gru.py:106-150)
-//   ln_gru_bwd    replaces _pallas_backward (pallas_gru.py:153-268), together
-//   ln_gru_wgrad  with the dW/dscale/dbias accumulation of that kernel body.
+//   ln_gru_xproj  Gx = feats W_x for all T*B rows           } _pallas_forward
+//   ln_gru_fwd    the recurrence on thread-block clusters   } (pallas_gru.py:106-150)
+//   ln_gru_bwd    the reverse sweep on the same clusters    } _pallas_backward
+//   ln_gru_dx     dfeats = dy_raw W_x^T for all T*B rows    } (pallas_gru.py:153-268)
+//   ln_gru_wgrad  dW, dscale, dbias over all T*B rows       }
 //
-// Per step t and batch row b (eps 1e-3, two-pass LN statistics):
+// Per step t and batch row b (eps 1e-3, LN statistics over the 3H columns):
 //   h_in = (1 - f) h + f h_first[b]
-//   y    = LN([x, h_in] W) * scale + bias          W: [F+H, 3H] row-major
+//   y    = LN(x W_x + h_in W_h) * scale + bias      W = [W_x; W_h]: [F+H, 3H] row-major
 //   r = sigmoid(y_r), c = tanh(r y_c), u = sigmoid(y_u - 1)
 //   h'   = u c + (1 - u) h_in
 //
-// Design. A TPU grid runs in order on one core, so the Pallas kernels carry
-// h (and the recurrent cotangent) in VMEM scratch from one grid step to the
-// next. CUDA blocks run in parallel and in no order, so the sequential axis
-// becomes a loop INSIDE a block, and the grid runs over what is independent:
-// the batch rows, whose recurrences never interact. Each of ln_gru_fwd and
-// ln_gru_bwd is one block per batch row (grid = B), looping over t.
-//   * The [F+H] input row lives in shared memory; threads own 4-column
-//     groups of the 3H output and stream W row by row as float4, consecutive
-//     threads on consecutive columns (coalesced); the rows are split between
-//     up to 4 thread groups so that more loads are in flight. W (6 MiB at
-//     DreamerV3-S) does not fit shared memory but stays in the 50 MB L2
-//     across steps and blocks.
-//   * The LayerNorm over 3H uses block reductions; the gates join columns H
-//     apart, so a barrier separates the matvec from the gate math.
-//   * ln_gru_bwd recomputes y_raw from the saved hidden states (as the Pallas
-//     kernel does), runs the cell and LN backward, and computes
-//     dxh = dy_raw W^T with one warp per row of W (float4 loads) and a warp
-//     reduction. The
-//     recurrent cotangent and the dh_first accumulator are per row, so no
-//     atomics are needed. It writes dy, dy_raw, yn and xh per (t, b) to
-//     scratch, and ln_gru_wgrad reduces them over all T*B rows:
-//     dW = xh^T dy_raw (tiled shared-memory SGEMM), dscale = sum dy*yn,
-//     dbias = sum dy. Every sum has a fixed order: results are deterministic.
+// Design.
+//   * x does not depend on h, so x W_x for all T*B rows (ln_gru_xproj) and,
+//     in the backward, dy_raw W_x^T (ln_gru_dx) are time-parallel SGEMMs over
+//     the whole card, outside the serial loop. They and ln_gru_wgrad share one
+//     double-buffered tiled SGEMM (tile_gemm).
+//   * The recurrence runs on thread-block clusters of NC = H / HS CTAs (16 at
+//     DreamerV3-S), one cluster for each group of kRows = 4 batch rows (4
+//     clusters, 64 SMs at B = 16). CTA c owns the HS hidden units
+//     J_c = [c*HS, (c+1)*HS) and their three gate columns {j, H+j, 2H+j}, so
+//     the gate math needs no exchange. It loads its [H, 3*HS] slice of W_h
+//     into shared memory once (192 KiB at DV3-S) and keeps it there for all
+//     T steps: no block reads W in the loop.
+//   * Forward step: y_raw = Gx[t] + h_in W_h on the CTA's columns (FFMA in
+//     registers, the H rows of the sum split over the 8 warps and added in
+//     warp order); per-row partial LN statistics (mean and M2 over the 3*HS
+//     columns) pushed into every CTA of the cluster through distributed
+//     shared memory (DSMEM); cluster barrier; the NC partials combined by
+//     Chan's formula in CTA order; the gates and h' for J_c; h', already
+//     reset-blended for step t+1, staged in shared memory and pushed as one
+//     contiguous block of float4 into every CTA's h buffer; second cluster
+//     barrier. Every CTA has read h_t before it reaches the first barrier, so
+//     one h buffer is enough. The forward saves yn and istd (6 MiB at
+//     DV3-S), so the backward recomputes no product.
+//   * Backward step: the cell backward for J_c from the saved yn; the LN
+//     backward's row sums (sum dyn, sum dyn*yn) pushed through DSMEM like the
+//     forward's statistics; dy_raw on the CTA's columns; the partial
+//     dh_in = dy_raw[:, cols_c] W_h[:, cols_c]^T over all H units; a
+//     reduce-scatter: CTA c pushes the partial of J_d into CTA d's receive
+//     buffer, and CTA d adds the NC partials of its units in CTA order; the
+//     reset mask routes the cotangent into dh and dh_first. It writes dy,
+//     dy_raw and xh for ln_gru_wgrad.
+//   * The step's elementwise work is spread over the CTA's threads (one
+//     unit x row each at DV3-S), and each DSMEM push is a warp-contiguous
+//     span: the cost of a step outside its product is the two barriers and
+//     the pushes, not one warp's serial work.
+//   Every sum has a fixed order (no atomics): results are deterministic.
 //
-// Bound. At DreamerV3-S (T=64, B=16, F=H=512) the forward does
-// 2*T*B*(F+H)*3H = 3.2 GFLOP of f32 FMA, the backward about twice that (the
-// recompute and dX), ln_gru_wgrad another 3.2 GFLOP; all three are bound by
-// operations (f32 outside the tensor cores), not bytes. This first version
-// keeps only B=16 of the 132 SMs busy in ln_gru_fwd/ln_gru_bwd and runs at a
-// small fraction of that bound. The next step is a redesign: the 3H columns
-// of a row split across a thread block cluster (LN statistics through
-// distributed shared memory) and the per-step product on the tensor cores.
+// Layout. ops/ln_gru.py holds the recurrent kernels' layout and passes it to
+// nvcc (LN_GRU_ROWS, LN_GRU_THREADS, LN_GRU_MAX_CLUSTER); it also picks the
+// units of a CTA and sums each kernel's shared memory (its fit rule), and the
+// entries take both as arguments.
+//
+// Bound. At DreamerV3-S (T=64, B=16, F=H=512) ln_gru_xproj and ln_gru_dx do
+// 2*T*B*F*3H = 1.6 GFLOP each, ln_gru_fwd and ln_gru_bwd 2*T*B*H*3H = 1.6
+// GFLOP each, ln_gru_wgrad 3.2 GFLOP: all are bound by f32 operations outside
+// the tensor cores (67 TFLOP/s), not by bytes. The recurrent kernels occupy
+// NC * ceil(B / kRows) SMs and pay two cluster barriers a step; their time
+// is set by that serial chain, not by the FLOPs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 768;
-constexpr int kPsum = 4 * kThreads;  // floats of the matvec's partial rows
-
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 constexpr float kEps = 1e-3f;
 
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+// --------------------------------------------------------------------------
+// tile_gemm: C[I, J] = sum_d A(d, i) B(d, j) over d < D. One kTile x kTile
+// output tile per block; each thread owns a 4x4 block of adjacent outputs,
+// so one stage row costs it two 16-byte shared-memory reads for 16 FMAs.
+// Stages of kDepth rows are double-buffered: the global loads of stage s+1
+// are in flight while stage s is multiplied. An operand is either contiguous
+// along its output index (element (d, o) at P[d * ld + o]) or along the sum
+// (element (d, o) at P[o * ld + d]); the stage loads follow the contiguous
+// index so that neighbouring threads read neighbouring addresses.
+// --------------------------------------------------------------------------
+constexpr int kTile = 64;
+constexpr int kDepth = 16;
+// pads the rows of an operand stored along the sum: spreads its stores over
+// the banks and keeps rows 16-byte aligned
+constexpr int kPad = 4;
+constexpr int kGemmThreads = 256;
+constexpr int kPer = kDepth * kTile / kGemmThreads;  // stage elements a thread loads
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <bool kAlongSum>
+__device__ __forceinline__ void stage_index(int e, int& d, int& o) {
+  d = kAlongSum ? e % kDepth : e / kTile;
+  o = kAlongSum ? e / kDepth : e % kTile;
+}
+
+template <bool kAlongSum>
+__device__ __forceinline__ void fetch_stage(const float* __restrict__ P, int ld, int d0, int D, int o0,
+                                            int O, float (&r)[kPer]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int q = 0; q < kPer; ++q) {
+    int d, o;
+    stage_index<kAlongSum>(threadIdx.x + kGemmThreads * q, d, o);
+    d += d0;
+    o += o0;
+    r[q] = (d < D && o < O) ? P[kAlongSum ? (size_t)o * ld + d : (size_t)d * ld + o] : 0.f;
+  }
 }
 
-// Sum over the block, returned to every thread. `red` holds >= 32 floats.
-// The leading barrier also publishes every shared write made before the call.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
+template <bool kAlongSum>
+constexpr int kStageLd = kTile + (kAlongSum ? kPad : 0);  // row stride of a stage in shared memory
+
+template <bool kAlongSum>
+__device__ __forceinline__ void store_stage(float (*S)[kStageLd<kAlongSum>], const float (&r)[kPer]) {
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    int d, o;
+    stage_index<kAlongSum>(threadIdx.x + kGemmThreads * q, d, o);
+    S[d][o] = r[q];
+  }
+}
+
+template <bool kAAlongSum, bool kBAlongSum>
+__device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, const float* __restrict__ Bm,
+                                          int ldb, float* __restrict__ C, int ldc, int I, int J, int D) {
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  __shared__ __align__(16) float As[2][kDepth][kStageLd<kAAlongSum>];
+  __shared__ __align__(16) float Bs[2][kDepth][kStageLd<kBAlongSum>];
+  // thread (tx, ty) owns rows i0 + 4ty .. +3 and columns j0 + 4tx .. +3 of C
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float ra[kPer], rb[kPer];
+  float acc[4][4] = {};
+  fetch_stage<kAAlongSum>(A, lda, 0, D, i0, I, ra);
+  fetch_stage<kBAlongSum>(Bm, ldb, 0, D, j0, J, rb);
+  store_stage<kAAlongSum>(As[0], ra);
+  store_stage<kBAlongSum>(Bs[0], rb);
   __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < nw; ++i) s += red[i];
-  return s;
-}
-
-// y = xh · W for one row (N a multiple of 4). W is read as float4 (4
-// consecutive columns per thread and load); when the block has threads to
-// spare, the K rows are split between G <= 4 groups of threads so that more
-// loads are in flight, and the groups' partial rows ([G, N] in `psum`, at
-// most kPsum floats) are added in a fixed order. Afterwards thread t owns the
-// columns t + m * blockDim.x of y; returns its partial sum of them. y and
-// psum are 16-byte aligned.
-__device__ float matvec_rows(const float* __restrict__ xh, const float* __restrict__ W,
-                             float* __restrict__ y, float* __restrict__ psum, int K, int N) {
-  const int NV = N >> 2, nt = blockDim.x;
-  const int G = max(1, min(4, nt / NV));
-  const int kc = (K + G - 1) / G;
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  float* dst = G == 1 ? y : psum;
-  for (int e = threadIdx.x; e < G * NV; e += nt) {
-    const int g = e / NV, c = e - g * NV;
-    const int k0 = g * kc, k1 = min(K, k0 + kc);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* wp = W4 + (size_t)k0 * NV + c;
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k, wp += NV) {
-      const float x = xh[k];
-      const float4 w = __ldg(wp);
-      acc.x = fmaf(x, w.x, acc.x);
-      acc.y = fmaf(x, w.y, acc.y);
-      acc.z = fmaf(x, w.z, acc.z);
-      acc.w = fmaf(x, w.w, acc.w);
+  for (int d0 = 0, buf = 0; d0 < D; d0 += kDepth, buf ^= 1) {
+    const bool next = d0 + kDepth < D;
+    if (next) {
+      fetch_stage<kAAlongSum>(A, lda, d0 + kDepth, D, i0, I, ra);
+      fetch_stage<kBAlongSum>(Bm, ldb, d0 + kDepth, D, j0, J, rb);
     }
-    reinterpret_cast<float4*>(dst)[e] = acc;
-  }
-  __syncthreads();
-  float part = 0.f;
-  for (int j = threadIdx.x; j < N; j += nt) {
-    float v = dst[j];
-    for (int g = 1; g < G; ++g) v += psum[g * N + j];
-    if (G > 1) y[j] = v;
-    part += v;
-  }
-  return part;
-}
-
-// LN statistics of y over N (two passes: mean, then mean squared deviation).
-__device__ void ln_stats(const float* y, float part, int N, float* red, float* mu, float* istd) {
-  const float m = block_sum(part, red) / N;
-  float sq = 0.f;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    const float d = y[j] - m;
-    sq += d * d;
-  }
-  const float var = block_sum(sq, red) / N;
-  *mu = m;
-  *istd = rsqrtf(var + kEps);
-}
-
-// ln_gru_fwd: replaces _pallas_forward. Bound: operations, 2*T*B*(F+H)*3H f32
-// FMA work (0.048 ms at DV3-S on a 67 TFLOP/s H100). One block per batch row,
-// time loop inside, W streamed from L2 every step (see the note above).
-__global__ void __launch_bounds__(kThreads)
-ln_gru_fwd_kernel(const float* __restrict__ feats, const float* __restrict__ first,
-                  const float* __restrict__ h_first, const float* __restrict__ W,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  float* __restrict__ out, int T, int B, int F, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = F + H, N = 3 * H, b = blockIdx.x;
-  float* psum = smem;            // [kPsum]
-  float* xh = psum + kPsum;      // [K]: x_t, then the carry h (reset-blended in place)
-  float* y = xh + pad4(K);       // [N]
-  float* red = y + pad4(N);      // [32]
-  for (int j = threadIdx.x; j < H; j += blockDim.x) xh[F + j] = 0.f;
-
-  for (int t = 0; t < T; ++t) {
-    const int row = t * B + b;
-    const float f = first[row];
-    for (int k = threadIdx.x; k < F; k += blockDim.x) xh[k] = feats[(size_t)row * F + k];
-    for (int j = threadIdx.x; j < H; j += blockDim.x)
-      xh[F + j] = (1.f - f) * xh[F + j] + f * h_first[(size_t)b * H + j];
-    __syncthreads();
-
-    const float part = matvec_rows(xh, W, y, psum, K, N);
-    float mu, istd;
-    ln_stats(y, part, N, red, &mu, &istd);
-
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float yr = (y[j] - mu) * istd * scale[j] + bias[j];
-      const float yc = (y[H + j] - mu) * istd * scale[H + j] + bias[H + j];
-      const float yu = (y[2 * H + j] - mu) * istd * scale[2 * H + j] + bias[2 * H + j];
-      const float r = sigmoidf_(yr);
-      const float c = tanhf(r * yc);
-      const float u = sigmoidf_(yu - 1.f);
-      const float h_new = u * c + (1.f - u) * xh[F + j];
-      xh[F + j] = h_new;
-      out[(size_t)row * H + j] = h_new;
+#pragma unroll
+    for (int r = 0; r < kDepth; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[buf][r][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][r][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bq[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bq[q], acc[i][q]);
+    }
+    // the other buffer was last read before the previous barrier
+    if (next) {
+      store_stage<kAAlongSum>(As[buf ^ 1], ra);
+      store_stage<kBAlongSum>(Bs[buf ^ 1], rb);
     }
     __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ii = i0 + 4 * ty + i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int jj = j0 + 4 * tx + q;
+      if (ii < I && jj < J) C[(size_t)ii * ldc + jj] = acc[i][q];
+    }
   }
 }
 
-// ln_gru_bwd: replaces the reverse sweep of _pallas_backward. Bound:
-// operations, twice the forward's (the recompute and dX; 0.096 ms at DV3-S).
-// One block per batch row, reverse time loop inside; the weight gradient is
-// left to ln_gru_wgrad through the scratch rows this kernel writes.
-__global__ void __launch_bounds__(kThreads)
-ln_gru_bwd_kernel(const float* __restrict__ feats, const float* __restrict__ first,
-                  const float* __restrict__ hs, const float* __restrict__ h_first,
-                  const float* __restrict__ W, const float* __restrict__ scale,
-                  const float* __restrict__ bias, const float* __restrict__ g,
-                  float* __restrict__ dfeats, float* __restrict__ dh_first,
-                  float* __restrict__ dy_out, float* __restrict__ dyraw_out,
-                  float* __restrict__ yn_out, float* __restrict__ xh_out,
-                  int T, int B, int F, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = F + H, N = 3 * H, b = blockIdx.x;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  float* psum = smem;             // [kPsum]
-  float* xh = psum + kPsum;       // [K]  [x_t, h_in]
-  float* yn = xh + pad4(K);       // [N]  y_raw, then normalised in place
-  float* dy = yn + pad4(N);       // [N]  cotangent of the affine output y
-  float* dyr = dy + pad4(N);      // [N]  cotangent of y_raw
-  float* dh = dyr + pad4(N);      // [H]  recurrent cotangent flowing into step t
-  float* dhin = dh + pad4(H);     // [H]  cotangent of h_in
-  float* dhf = dhin + pad4(H);    // [H]  dh_first accumulator of this row
-  float* red = dhf + pad4(H);     // [32]
-  for (int j = threadIdx.x; j < H; j += blockDim.x) { dh[j] = 0.f; dhf[j] = 0.f; }
+// ln_gru_xproj: Gx[M, N] = X[M, F] W_x[F, N] (the input half of the
+// forward's product, all T*B rows at once). Bound: operations, 2*M*F*N.
+__global__ void __launch_bounds__(kGemmThreads, 4)
+ln_gru_xproj_kernel(const float* __restrict__ x, const float* __restrict__ wx, float* __restrict__ gx,
+                    int M, int F, int N) {
+  tile_gemm<true, false>(x, F, wx, N, gx, N, M, N, F);
+}
 
-  for (int t = T - 1; t >= 0; --t) {
-    const int row = t * B + b;
-    const float f = first[row];
-    // ---- recompute the step's forward pre-activations ----
-    for (int k = threadIdx.x; k < F; k += blockDim.x) xh[k] = feats[(size_t)row * F + k];
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float hp = t > 0 ? hs[((size_t)(t - 1) * B + b) * H + j] : 0.f;
-      xh[F + j] = (1.f - f) * hp + f * h_first[(size_t)b * H + j];
-    }
-    __syncthreads();
-    const float part = matvec_rows(xh, W, yn, psum, K, N);
-    float mu, istd;
-    ln_stats(yn, part, N, red, &mu, &istd);
-    for (int j = threadIdx.x; j < N; j += blockDim.x) yn[j] = (yn[j] - mu) * istd;
-    __syncthreads();
-
-    // ---- cell backward ----
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      const float y_r = yn[j] * scale[j] + bias[j];
-      const float y_c = yn[H + j] * scale[H + j] + bias[H + j];
-      const float y_u = yn[2 * H + j] * scale[2 * H + j] + bias[2 * H + j];
-      const float r = sigmoidf_(y_r);
-      const float c = tanhf(r * y_c);
-      const float u = sigmoidf_(y_u - 1.f);
-      const float h_in = xh[F + j];
-      const float d = g[(size_t)row * H + j] + dh[j];
-      const float du = d * (c - h_in);
-      const float dc = d * u;
-      dhin[j] = d * (1.f - u);
-      const float d_rc = dc * (1.f - c * c);
-      const float dr = d_rc * y_c;
-      dy[j] = dr * r * (1.f - r);
-      dy[H + j] = d_rc * r;
-      dy[2 * H + j] = du * u * (1.f - u);
-    }
-
-    // ---- affine + LayerNorm backward over N = 3H ----
-    float s1 = 0.f, s2 = 0.f;
-    __syncthreads();
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const float dyn = dy[j] * scale[j];
-      s1 += dyn;
-      s2 += dyn * yn[j];
-    }
-    const float m1 = block_sum(s1, red) / N;
-    const float m2 = block_sum(s2, red) / N;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      const float v = istd * (dy[j] * scale[j] - m1 - yn[j] * m2);
-      dyr[j] = v;
-      const size_t o = (size_t)row * N + j;
-      dy_out[o] = dy[j];
-      dyraw_out[o] = v;
-      yn_out[o] = yn[j];
-    }
-    for (int k = threadIdx.x; k < K; k += blockDim.x) xh_out[(size_t)row * K + k] = xh[k];
-    __syncthreads();
-
-    // ---- dxh = dy_raw W^T: one warp per row of W, float4 loads ----
-    const int NV = N >> 2;
-    const float4* dyr4 = reinterpret_cast<const float4*>(dyr);
-    for (int k = wid; k < K; k += nw) {
-      const float4* wr = reinterpret_cast<const float4*>(W) + (size_t)k * NV;
-      float s = 0.f;
-      for (int c = lane; c < NV; c += 32) {
-        const float4 w = __ldg(wr + c), d = dyr4[c];
-        s = fmaf(d.x, w.x, fmaf(d.y, w.y, fmaf(d.z, w.z, fmaf(d.w, w.w, s))));
-      }
-      s = warp_sum(s);
-      if (lane == 0) {
-        if (k < F) dfeats[(size_t)row * F + k] = s;
-        else dhin[k - F] += s;
-      }
-    }
-    __syncthreads();
-
-    // ---- the reset mask routes the carry cotangent ----
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      dh[j] = (1.f - f) * dhin[j];
-      dhf[j] += f * dhin[j];
-    }
-    __syncthreads();
-  }
-  for (int j = threadIdx.x; j < H; j += blockDim.x) dh_first[(size_t)b * H + j] = dhf[j];
+// ln_gru_dx: dX[M, F] = dY_raw[M, N] W_x[F, N]^T (the input cotangent, all
+// T*B rows after the reverse sweep). Bound: operations, 2*M*N*F.
+__global__ void __launch_bounds__(kGemmThreads, 4)
+ln_gru_dx_kernel(const float* __restrict__ dyr, const float* __restrict__ wx, float* __restrict__ dx,
+                 int M, int F, int N) {
+  tile_gemm<true, true>(dyr, N, wx, N, dx, F, M, F, N);
 }
 
 // ln_gru_wgrad: replaces the dW/dscale/dbias accumulators of _pallas_backward.
-// Bound: operations, 2*T*B*(F+H)*3H (0.048 ms at DV3-S). A plain tiled
-// shared-memory SGEMM over all T*B rows, one output tile per block, so no two
-// blocks write one output and the sums have a fixed order. Each thread owns a
-// 4x4 block of adjacent outputs, so one stage row costs it two 16-byte
-// shared-memory reads for 16 FMAs. Stages are double-buffered: the global
-// loads of stage s+1 are in flight while stage s is multiplied.
-constexpr int kTile = 64;   // dW tile: kTile rows (k) x kTile columns (j)
-constexpr int kDepth = 16;  // rows of xh / dy_raw per shared-memory stage
-constexpr int kWgradThreads = 256;
-constexpr int kPer = kDepth * kTile / kWgradThreads;  // stage elements a thread loads
-
-// dW[K, N] = xh[M, K]^T dy_raw[M, N]; the extra row of blocks
+// Bound: operations, 2*T*B*(F+H)*3H (0.048 ms at DV3-S). dW[K, N] =
+// xh[M, K]^T dy_raw[M, N], one output tile per block, so no two blocks write
+// one output and the sums have a fixed order; the extra row of blocks
 // (blockIdx.y == gridDim.y - 1) computes dscale = sum_m dy*yn and
-// dbias = sum_m dy for its kTile columns. Four blocks fit an SM, so at
-// DV3-S the 384 tile blocks and 24 column-sum blocks run in one wave.
-__global__ void __launch_bounds__(kWgradThreads, 4)
+// dbias = sum_m dy for its kTile columns. Four blocks fit an SM, so at DV3-S
+// the 384 tile blocks and 24 column-sum blocks run in one wave.
+__global__ void __launch_bounds__(kGemmThreads, 4)
 ln_gru_wgrad_kernel(const float* __restrict__ xh, const float* __restrict__ dyr,
                     const float* __restrict__ dy, const float* __restrict__ yn,
                     float* __restrict__ dW, float* __restrict__ dscale, float* __restrict__ dbias,
                     int M, int K, int N) {
-  const int j0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
   if (blockIdx.y == gridDim.y - 1) {
     __shared__ float ps[4][kTile], pb[4][kTile];
-    const int c = tid % kTile, p = tid / kTile, j = j0 + c;
+    const int tid = threadIdx.x, c = tid % kTile, p = tid / kTile, j = blockIdx.x * kTile + c;
     float s1 = 0.f, s2 = 0.f;
     if (j < N) {
 #pragma unroll 8
@@ -330,109 +219,618 @@ ln_gru_wgrad_kernel(const float* __restrict__ xh, const float* __restrict__ dyr,
     }
     return;
   }
-  const int k0 = blockIdx.y * kTile;
-  __shared__ __align__(16) float As[2][kDepth][kTile];  // xh rows m, columns k
-  __shared__ __align__(16) float Bs[2][kDepth][kTile];  // dy_raw rows m, columns j
-  // thread (tx, ty) owns dW rows k0 + 4ty .. +3 and columns j0 + 4tx .. +3
-  const int tx = tid % 16, ty = tid / 16;
-  float ra[kPer], rb[kPer];
-  auto load = [&](int m0) {
+  tile_gemm<false, false>(xh, K, dyr, N, dW, N, K, N, M);
+}
+
+// --------------------------------------------------------------------------
+// The recurrent kernels on thread-block clusters (see the design note).
+// Grid (NC, ceil(B / kRows)), cluster (NC, 1, 1), kSeqThreads threads.
+// Two thread layouts:
+//   * the product: warp w sums its share of the H rows of the product; its
+//     lane l owns unit l % HS of the CTA and the RPT = kRows*HS/32 rows
+//     (l / HS) * RPT .. +RPT-1, so a warp covers HS units x kRows rows;
+//   * the step's elementwise work: thread t owns unit j = c*HS + t % HS and
+//     the RPE rows (t / HS) * RPE .. +RPE-1; the kRows*HS items fill whole
+//     warps, which may leave the last warps idle.
+// Each kernel carves its dynamic shared memory in the order of the sum that
+// smem_bytes in ops/ln_gru.py makes for it.
+// --------------------------------------------------------------------------
+#if !defined(LN_GRU_ROWS) || !defined(LN_GRU_THREADS) || !defined(LN_GRU_MAX_CLUSTER)
+#error "build with sheeprl_tpu_torch.ops.ln_gru.build(), which passes the recurrent kernels' layout"
+#endif
+constexpr int kRows = LN_GRU_ROWS;              // batch rows of one cluster
+constexpr int kSeqThreads = LN_GRU_THREADS;     // threads of a CTA
+constexpr int kSeqWarps = kSeqThreads / 32;
+constexpr int kMaxCluster = LN_GRU_MAX_CLUSTER; // the largest (non-portable) cluster on Hopper
+static_assert(kSeqThreads % 32 == 0 && 32 % kRows == 0, "whole warps; a warp covers whole rows");
+
+template <int G>  // sum over the aligned group of G lanes (a power of two) holding this lane
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + kWgradThreads * i, r = e / kTile, c = e % kTile, m = m0 + r;
-      ra[i] = (m < M && k0 + c < K) ? xh[(size_t)m * K + k0 + c] : 0.f;
-      rb[i] = (m < M && j0 + c < N) ? dyr[(size_t)m * N + j0 + c] : 0.f;
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int R>  // R consecutive floats, 16-byte aligned where R % 4 == 0 (8 bytes where R == 2)
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x, v[i + 1] = q.y, v[i + 2] = q.z, v[i + 3] = q.w;
     }
-  };
-  auto store = [&](int buf) {
+  } else if constexpr (R == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + kWgradThreads * i;
-      As[buf][e / kTile][e % kTile] = ra[i];
-      Bs[buf][e / kTile][e % kTile] = rb[i];
-    }
-  };
-  float acc[4][4] = {};
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int m0 = 0, buf = 0; m0 < M; m0 += kDepth, buf ^= 1) {
-    const bool next = m0 + kDepth < M;
-    if (next) load(m0 + kDepth);
-#pragma unroll
-    for (int r = 0; r < kDepth; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[buf][r][4 * ty]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][r][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bq[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bq[q], acc[i][q]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (next) store(buf ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + 4 * ty + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + 4 * tx + q;
-      if (k < K && j < N) dW[(size_t)k * N + j] = acc[i][q];
-    }
+    for (int i = 0; i < R; ++i) v[i] = p[i];
   }
 }
 
-int launch_checked(const void* fn, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+template <int R>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (R == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = v[i];
   }
-  return 0;
+}
+
+// 1 / x, correctly rounded like 1.f / x, without the division's slow path.
+__device__ __forceinline__ float sigmoid_rn(float x) { return __frcp_rn(1.f + expf(-x)); }
+
+// The CTA's [H, 3*hs] slice of W_h (columns {j, H+j, 2H+j} for j in J_c,
+// row stride 3H in global memory) into S, row stride ld.
+__device__ void load_slice(float* S, int ld, const float* __restrict__ Wh, int H, int hs, int c) {
+  const int q4 = hs / 4, per_row = 3 * q4;
+  for (int e = threadIdx.x; e < H * per_row; e += blockDim.x) {
+    const int k = e / per_row, rem = e - k * per_row, g = rem / q4, v = rem - g * q4;
+    const float4 w = __ldg(reinterpret_cast<const float4*>(Wh + (size_t)k * 3 * H + g * H + c * hs) + v);
+    float* d = S + (size_t)k * ld + g * hs + 4 * v;
+    d[0] = w.x, d[1] = w.y, d[2] = w.z, d[3] = w.w;
+  }
+}
+
+// Two values for each of this thread's R rows (from row r0) into slot
+// [crank][row][2] of `buf` in every CTA of the cluster; the HS lanes that
+// share the rows (and, after group_sum, the values) split the destinations.
+template <int HS, int R>
+__device__ __forceinline__ void push_row_pairs(cg::cluster_group& cluster, float* buf, int nc, int crank,
+                                               int ej, int r0, const float (&v)[2 * R]) {
+  for (int q = ej; q < nc; q += HS)
+    store_rows<2 * R>(cluster.map_shared_rank(buf, q) + (crank * kRows + r0) * 2, v);
+}
+
+// ln_gru_fwd: the recurrence of _pallas_forward, from Gx = x W_x. Bound:
+// operations, 2*T*B*H*3H (0.024 ms at DV3-S on a 67 TFLOP/s H100); it
+// occupies NC * ceil(B / kRows) SMs and pays two cluster barriers a step.
+// kSkipProduct leaves out h_in W_h: the probe variant (ln_gru_fwd_probe)
+// that times the rest of a step; its result is not the function's.
+template <int HS, bool kSkipProduct>
+__global__ void __launch_bounds__(kSeqThreads, 1)
+ln_gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ first,
+                  const float* __restrict__ h_first, const float* __restrict__ Wh,
+                  const float* __restrict__ scale, const float* __restrict__ bias,
+                  float* __restrict__ hs_out, float* __restrict__ yn_out,
+                  float* __restrict__ istd_out, int T, int B, int H) {
+  constexpr int NCOL = 3 * HS, RPT = kRows * HS / 32;
+  constexpr int RPE = kRows * HS > kSeqThreads ? kRows * HS / kSeqThreads : 1;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = H / HS, crank = (int)cluster.block_rank(), b0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int jl = lane % HS, rg = lane / HS;  // product layout
+  const int ej = tid % HS, r0 = (tid / HS) * RPE, j = crank * HS + ej;  // elementwise layout
+  const bool ew = r0 < kRows;
+  float* Ws = smem;                             // [H][NCOL]
+  float* hbuf = Ws + (size_t)H * NCOL;          // [H][kRows]
+  float* part = hbuf + (size_t)H * kRows;       // [kSeqWarps][kRows][NCOL]
+  float* stat = part + kSeqWarps * kRows * NCOL;  // [nc][kRows][2]
+  float* hnext = stat + nc * kRows * 2;         // [HS][kRows]
+
+  load_slice(Ws, NCOL, Wh, H, HS, crank);
+  for (int e = tid; e < H * kRows; e += kSeqThreads) {  // h_in of step 0: the carry starts at 0
+    const int k = e / kRows, b = b0 + e % kRows;
+    hbuf[e] = b < B ? first[b] * h_first[(size_t)b * H + k] : 0.f;
+  }
+  float sc[3], bi[3], hf[RPE];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) sc[g] = scale[g * H + j], bi[g] = bias[g * H + j];
+#pragma unroll
+  for (int i = 0; i < RPE; ++i) {
+    const int b = b0 + r0 + i;
+    hf[i] = ew && b < B ? h_first[(size_t)b * H + j] : 0.f;
+  }
+  auto load_gx = [&](int t, float (&v)[3][RPE], float (&f)[RPE]) {
+#pragma unroll
+    for (int i = 0; i < RPE; ++i) {
+      const int b = b0 + r0 + i;
+      const bool ok = ew && t < T && b < B;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) v[g][i] = ok ? gx[((size_t)t * B + b) * 3 * H + g * H + j] : 0.f;
+      f[i] = ok ? first[(size_t)t * B + b] : 0.f;
+    }
+  };
+  float gcur[3][RPE], f0[RPE];  // step 0's reset is already in h_in
+  load_gx(0, gcur, f0);
+  cluster.sync();  // every CTA has started (DSMEM is safe to use) and holds h_in of step 0
+
+  const int kc = kSkipProduct ? 0 : H / kSeqWarps;
+  for (int t = 0; t < T; ++t) {
+    float gnext[3][RPE], fnext[RPE];  // the next step's inputs, in flight during the product
+    load_gx(t + 1, gnext, fnext);
+    {  // this warp's share of the sum h_in W_h on the CTA's columns
+      float acc[3][RPT] = {};
+      const int k0 = warp * (H / kSeqWarps);
+      const float* wp = Ws + (size_t)k0 * NCOL + jl;
+      const float* hp = hbuf + (size_t)k0 * kRows + rg * RPT;
+#pragma unroll 4
+      for (int k = 0; k < kc; ++k, wp += NCOL, hp += kRows) {
+        float hv[RPT];
+        load_rows<RPT>(hp, hv);
+        const float w0 = wp[0], w1 = wp[HS], w2 = wp[2 * HS];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          acc[0][i] = fmaf(w0, hv[i], acc[0][i]);
+          acc[1][i] = fmaf(w1, hv[i], acc[1][i]);
+          acc[2][i] = fmaf(w2, hv[i], acc[2][i]);
+        }
+      }
+      float* p = part + warp * kRows * NCOL;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) p[(rg * RPT + i) * NCOL + g * HS + jl] = acc[g][i];
+    }
+    __syncthreads();
+    float y[3][RPE];
+    if (ew) {
+      // y_raw = Gx + the warps' shares in warp order; the row's partial
+      // statistics over this CTA's columns go to every CTA
+      float st[2 * RPE];
+#pragma unroll
+      for (int i = 0; i < RPE; ++i) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float* p = part + (r0 + i) * NCOL + g * HS + ej;
+          float s = p[0];
+#pragma unroll
+          for (int w = 1; w < kSeqWarps; ++w) s += p[w * kRows * NCOL];
+          y[g][i] = gcur[g][i] + s;
+        }
+        const float m = group_sum<HS>(y[0][i] + y[1][i] + y[2][i]) * (1.f / NCOL);
+        const float d0 = y[0][i] - m, d1 = y[1][i] - m, d2 = y[2][i] - m;
+        st[2 * i] = m;
+        st[2 * i + 1] = group_sum<HS>(d0 * d0 + d1 * d1 + d2 * d2);
+      }
+      push_row_pairs<HS, RPE>(cluster, stat, nc, crank, ej, r0, st);
+    }
+    cluster.sync();  // (1) the statistics have arrived; every CTA is done reading h_in
+    if (ew) {
+      float hn[RPE];
+#pragma unroll
+      for (int i = 0; i < RPE; ++i) {
+        const int row = r0 + i, b = b0 + row;
+        float m = 0.f, m2 = 0.f;  // Chan's formula over the nc partials, in CTA order
+        for (int q = 0; q < nc; ++q) {
+          const float2 s = *reinterpret_cast<const float2*>(stat + (q * kRows + row) * 2);
+          const float delta = s.x - m;
+          m += delta / (float)(q + 1);
+          m2 += s.y + delta * delta * ((float)(NCOL * q) / (float)(q + 1));
+        }
+        const float is = rsqrtf(m2 / (float)(nc * NCOL) + kEps);
+        float yn[3], ya[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) yn[g] = (y[g][i] - m) * is, ya[g] = yn[g] * sc[g] + bi[g];
+        const float r = sigmoid_rn(ya[0]);
+        const float c = tanhf(r * ya[1]);
+        const float u = sigmoid_rn(ya[2] - 1.f);
+        const float h_new = u * c + (1.f - u) * hbuf[j * kRows + row];
+        if (b < B) {
+          const size_t o = (size_t)t * B + b;
+          hs_out[o * H + j] = h_new;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) yn_out[o * 3 * H + g * H + j] = yn[g];
+          if (j == 0) istd_out[o] = is;
+        }
+        hn[i] = (1.f - fnext[i]) * h_new + fnext[i] * hf[i];  // h_in of step t+1
+      }
+      store_rows<RPE>(hnext + ej * kRows + r0, hn);
+    }
+    __syncthreads();
+    if (t + 1 < T) {  // the CTA's block of h_in into every CTA's h buffer, as float4
+      constexpr int V = HS * kRows / 4;
+      for (int e = tid; e < nc * V; e += kSeqThreads) {
+        const int q = e / V, v = e - q * V;
+        reinterpret_cast<float4*>(cluster.map_shared_rank(hbuf, q) + crank * HS * kRows)[v] =
+            reinterpret_cast<const float4*>(hnext)[v];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPE; ++i)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) gcur[g][i] = gnext[g][i];
+    cluster.sync();  // (2) h_in of step t+1 has arrived in every CTA
+  }
+}
+
+// ln_gru_bwd: the reverse sweep of _pallas_backward, from the forward's
+// saved yn and istd (no recompute). Bound: operations, 2*T*B*H*3H for
+// dh_in = dy_raw W_h^T (0.024 ms at DV3-S); same SMs and barriers as the
+// forward. The input cotangent (ln_gru_dx) and the weight gradient
+// (ln_gru_wgrad) come after it from the dy, dy_raw and xh it writes.
+// kSkipProduct leaves out dy_raw W_h^T (the probe variant, ln_gru_bwd_probe).
+template <int HS, bool kSkipProduct>
+__global__ void __launch_bounds__(kSeqThreads, 1)
+ln_gru_bwd_kernel(const float* __restrict__ feats, const float* __restrict__ first,
+                  const float* __restrict__ hs, const float* __restrict__ h_first,
+                  const float* __restrict__ Wh, const float* __restrict__ scale,
+                  const float* __restrict__ bias, const float* __restrict__ g,
+                  const float* __restrict__ yn, const float* __restrict__ istd,
+                  float* __restrict__ dh_first, float* __restrict__ dy_out,
+                  float* __restrict__ dyr_out, float* __restrict__ xh_out,
+                  int T, int B, int F, int H) {
+  constexpr int NCOL = 3 * HS, LDW = NCOL + 1;
+  constexpr int RPE = kRows * HS > kSeqThreads ? kRows * HS / kSeqThreads : 1;
+  constexpr int KPT = (kMaxCluster * HS + kSeqThreads - 1) / kSeqThreads;  // units of dh_in a thread sums
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = H / HS, crank = (int)cluster.block_rank(), b0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int ej = tid % HS, r0 = (tid / HS) * RPE, j = crank * HS + ej;  // elementwise layout
+  const bool ew = r0 < kRows;
+  const int N = 3 * H, K = F + H;
+  float* Ws = smem;                          // [H][LDW]: odd stride, so lanes on consecutive k hit distinct banks
+  float* recv = Ws + (size_t)H * LDW;        // [nc][HS][kRows]
+  float* dyrs = recv + nc * kRows * HS;      // [NCOL][kRows]
+  float* stat = dyrs + NCOL * kRows;         // [nc][kRows][2]
+
+  load_slice(Ws, LDW, Wh, H, HS, crank);
+  {  // xh[:, :, :F] = feats for the cluster's rows, the columns shared among its CTAs
+    const int rows = min(kRows, B - b0), F4 = F / 4;
+    const size_t n = (size_t)T * rows * F4;
+    for (size_t e = (size_t)crank * kSeqThreads + tid; e < n; e += (size_t)nc * kSeqThreads) {
+      const int c4 = (int)(e % F4);
+      const size_t tr = e / F4;
+      const size_t o = (size_t)(tr / rows) * B + b0 + (int)(tr % rows);
+      *reinterpret_cast<float4*>(xh_out + o * K + 4 * c4) = __ldg(reinterpret_cast<const float4*>(feats + o * F) + c4);
+    }
+  }
+  float sc[3], bi[3], hf[RPE], dh[RPE] = {}, dhf[RPE] = {};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sc[q] = scale[q * H + j], bi[q] = bias[q * H + j];
+#pragma unroll
+  for (int i = 0; i < RPE; ++i) {
+    const int b = b0 + r0 + i;
+    hf[i] = ew && b < B ? h_first[(size_t)b * H + j] : 0.f;
+  }
+  // one step's inputs of this thread's rows, loaded a step ahead
+  float ynv[3][RPE], gv[RPE], fv[RPE], hp[RPE], isv[RPE];
+  float ynn[3][RPE], gn[RPE], fn[RPE], hpn[RPE], isn[RPE];
+  auto load_step = [&](int t, float (&y_)[3][RPE], float (&g_)[RPE], float (&f_)[RPE], float (&h_)[RPE],
+                       float (&s_)[RPE]) {
+#pragma unroll
+    for (int i = 0; i < RPE; ++i) {
+      const int b = b0 + r0 + i;
+      const bool ok = ew && t >= 0 && b < B;
+      const size_t o = (size_t)t * B + b;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) y_[q][i] = ok ? yn[o * N + q * H + j] : 0.f;
+      g_[i] = ok ? g[o * H + j] : 0.f;
+      f_[i] = ok ? first[o] : 0.f;
+      h_[i] = ok && t > 0 ? hs[(o - B) * H + j] : 0.f;
+      s_[i] = ok ? istd[o] : 0.f;
+    }
+  };
+  load_step(T - 1, ynv, gv, fv, hp, isv);
+  cluster.sync();  // every CTA has started (DSMEM is safe to use)
+
+  const int ncol = kSkipProduct ? 0 : NCOL;
+  for (int t = T - 1; t >= 0; --t) {
+    float dd[RPE], dyn[3][RPE];  // d (1 - u), the direct part of dh_in; dy * scale
+    if (ew) {
+      float st[2 * RPE];
+#pragma unroll
+      for (int i = 0; i < RPE; ++i) {
+        const int b = b0 + r0 + i;
+        const float h_in = (1.f - fv[i]) * hp[i] + fv[i] * hf[i];
+        float ya[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) ya[q] = ynv[q][i] * sc[q] + bi[q];
+        const float r = sigmoid_rn(ya[0]);
+        const float c = tanhf(r * ya[1]);
+        const float u = sigmoid_rn(ya[2] - 1.f);
+        const float d = gv[i] + dh[i];
+        const float du = d * (c - h_in);
+        const float d_rc = d * u * (1.f - c * c);
+        dd[i] = d * (1.f - u);
+        const float dy[3] = {d_rc * ya[1] * r * (1.f - r), d_rc * r, du * u * (1.f - u)};
+        if (b < B) {
+          const size_t o = (size_t)t * B + b;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) dy_out[o * N + q * H + j] = dy[q];
+          xh_out[o * K + F + j] = h_in;
+        }
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          dyn[q][i] = dy[q] * sc[q];
+          s1 += dyn[q][i];
+          s2 += dyn[q][i] * ynv[q][i];
+        }
+        st[2 * i] = group_sum<HS>(s1);
+        st[2 * i + 1] = group_sum<HS>(s2);
+      }
+      push_row_pairs<HS, RPE>(cluster, stat, nc, crank, ej, r0, st);
+    }
+    cluster.sync();  // (1) the LN-backward row sums have arrived
+    if (ew) {
+#pragma unroll
+      for (int i = 0; i < RPE; ++i) {
+        const int row = r0 + i, b = b0 + row;
+        float s1 = 0.f, s2 = 0.f;  // the nc partial sums in CTA order
+        for (int q = 0; q < nc; ++q) {
+          const float2 s = *reinterpret_cast<const float2*>(stat + (q * kRows + row) * 2);
+          s1 += s.x;
+          s2 += s.y;
+        }
+        const float m1 = s1 / (float)N, m2 = s2 / (float)N;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float v = isv[i] * (dyn[q][i] - m1 - ynv[q][i] * m2);
+          if (b < B) dyr_out[((size_t)t * B + b) * N + q * H + j] = v;
+          dyrs[(q * HS + ej) * kRows + row] = v;
+        }
+      }
+    }
+    load_step(t - 1, ynn, gn, fn, hpn, isn);  // in flight during the product
+    __syncthreads();
+    {  // this CTA's partial of dh_in = dy_raw W_h^T for units tid + p * kSeqThreads
+      float acc[KPT][kRows] = {};
+      for (int c = 0; c < ncol; ++c) {
+        float dv[kRows];
+        load_rows<kRows>(dyrs + c * kRows, dv);
+#pragma unroll
+        for (int p = 0; p < KPT; ++p) {
+          const float w = Ws[min(tid + p * kSeqThreads, H - 1) * LDW + c];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) acc[p][r] = fmaf(w, dv[r], acc[p][r]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < KPT; ++p) {  // reduce-scatter: unit k's partial goes to the CTA that owns k
+        const int k = tid + p * kSeqThreads;
+        if (k < H) {
+          const int q = k / HS;
+          store_rows<kRows>(cluster.map_shared_rank(recv, q) + (crank * HS + k - q * HS) * kRows, acc[p]);
+        }
+      }
+    }
+    cluster.sync();  // (2) every CTA's partial of J_c has arrived
+    if (ew) {
+#pragma unroll
+      for (int i = 0; i < RPE; ++i) {
+        float s = 0.f;
+        for (int q = 0; q < nc; ++q) s += recv[(q * HS + ej) * kRows + r0 + i];
+        const float dh_in = dd[i] + s;
+        dh[i] = (1.f - fv[i]) * dh_in;  // the reset mask routes the carry cotangent
+        dhf[i] += fv[i] * dh_in;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPE; ++i) {
+      gv[i] = gn[i], fv[i] = fn[i], hp[i] = hpn[i], isv[i] = isn[i];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ynv[q][i] = ynn[q][i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPE; ++i) {
+    const int b = b0 + r0 + i;
+    if (ew && b < B) dh_first[(size_t)b * H + j] = dhf[i];
+  }
+}
+
+using FwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, float*, float*, float*, int, int, int);
+using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, const float*, const float*, const float*, const float*, float*,
+                           float*, float*, float*, int, int, int, int);
+
+// The instance for HS units a CTA (4, 8, 16 or 32), or nullptr where a
+// warp's lanes would not cover HS units x kRows rows or H does not split
+// into at most kMaxCluster such CTAs.
+template <int HS, bool kSkipProduct>
+FwdKernel fwd_instance() {
+  if constexpr (kRows * HS >= 32) return ln_gru_fwd_kernel<HS, kSkipProduct>;
+  else return nullptr;
+}
+template <int HS, bool kSkipProduct>
+BwdKernel bwd_instance() {
+  if constexpr (kRows * HS >= 32) return ln_gru_bwd_kernel<HS, kSkipProduct>;
+  else return nullptr;
+}
+
+template <bool kSkipProduct>
+FwdKernel fwd_kernel(int H, int hs) {
+  if (hs <= 0 || H % hs || H / hs > kMaxCluster || H % kSeqWarps) return nullptr;
+  switch (hs) {
+    case 4: return fwd_instance<4, kSkipProduct>();
+    case 8: return fwd_instance<8, kSkipProduct>();
+    case 16: return fwd_instance<16, kSkipProduct>();
+    case 32: return fwd_instance<32, kSkipProduct>();
+  }
+  return nullptr;
+}
+
+template <bool kSkipProduct>
+BwdKernel bwd_kernel(int H, int hs) {
+  if (hs <= 0 || H % hs || H / hs > kMaxCluster || H % kSeqWarps) return nullptr;
+  switch (hs) {
+    case 4: return bwd_instance<4, kSkipProduct>();
+    case 8: return bwd_instance<8, kSkipProduct>();
+    case 16: return bwd_instance<16, kSkipProduct>();
+    case 32: return bwd_instance<32, kSkipProduct>();
+  }
+  return nullptr;
+}
+
+// The launch of a recurrent kernel: grid (NC, ceil(B / kRows)) in clusters
+// of NC CTAs; sets the kernel's shared-memory and cluster-size attributes.
+template <typename Kern>
+cudaError_t cluster_config(Kern kernel, int nc, int B, size_t smem, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && nc > 8)
+    e = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(nc, (B + kRows - 1) / kRows, 1);
+  cfg->blockDim = dim3(kSeqThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = nc;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+// Blocks of the last launch that each entry made, in the order of
+// ops/ln_gru.py's KERNELS (the probes record nothing).
+enum { kXproj, kFwd, kBwd, kDx, kWgrad, kNumKernels };
+int g_last_blocks[kNumKernels];
+
+int record(int kernel, dim3 grid, cudaError_t e) {
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) g_last_blocks[kernel] = (int)(grid.x * grid.y * grid.z);
+  return (int)e;
+}
+
+// units: hidden units of a CTA; smem: its shared-memory bytes (both from the
+// fit rule of ops/ln_gru.py).
+template <bool kSkipProduct>
+cudaError_t launch_fwd(const float* gx, const float* first, const float* h_first, const float* Wh,
+                       const float* scale, const float* bias, float* hs, float* yn, float* istd, int T, int B,
+                       int H, int units, int smem, void* stream, dim3* grid) {
+  FwdKernel k = fwd_kernel<kSkipProduct>(H, units);
+  if (!k) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, k, gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H);
+  *grid = cfg.gridDim;
+  return e;
+}
+
+template <bool kSkipProduct>
+cudaError_t launch_bwd(const float* feats, const float* first, const float* hs, const float* h_first,
+                       const float* Wh, const float* scale, const float* bias, const float* g, const float* yn,
+                       const float* istd, float* dh_first, float* dy, float* dyraw, float* xh, int T, int B,
+                       int F, int H, int units, int smem, void* stream, dim3* grid) {
+  BwdKernel k = bwd_kernel<kSkipProduct>(H, units);
+  if (!k || F % 4) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernelEx(&cfg, k, feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw,
+                           xh, T, B, F, H);
+  *grid = cfg.gridDim;
+  return e;
 }
 
 }  // namespace
 
-// Shared-memory bytes of one block (the Python fit check uses the same sums).
-extern "C" size_t ln_gru_fwd_smem_bytes(int F, int H) {
-  return (size_t)(kPsum + pad4(F + H) + pad4(3 * H) + 32) * 4;
-}
-extern "C" size_t ln_gru_bwd_smem_bytes(int F, int H) {
-  return (size_t)(kPsum + pad4(F + H) + 3 * pad4(3 * H) + 3 * pad4(H) + 32) * 4;
-}
-
 extern "C" const char* ln_gru_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-extern "C" int ln_gru_fwd(const float* feats, const float* first, const float* h_first,
-                          const float* W, const float* scale, const float* bias, float* out,
-                          int T, int B, int F, int H, void* stream) {
-  const size_t smem = ln_gru_fwd_smem_bytes(F, H);
-  int rc = launch_checked((const void*)ln_gru_fwd_kernel, smem);
-  if (rc) return rc;
-  ln_gru_fwd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(feats, first, h_first, W, scale,
-                                                                 bias, out, T, B, F, H);
-  return (int)cudaGetLastError();
+// Blocks of the last launch of kernel k (0 xproj, 1 fwd, 2 bwd, 3 dx,
+// 4 wgrad) through its entry; 0 before the first.
+extern "C" int ln_gru_last_blocks(int k) { return k >= 0 && k < kNumKernels ? g_last_blocks[k] : -1; }
+
+// Clusters of the forward (which = 0) or backward (which = 1) kernel that the
+// card can hold at once; minus a CUDA error code if it cannot tell.
+extern "C" int ln_gru_max_active_clusters(int which, int H, int units, int smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (which == 0) {
+    if (FwdKernel k = fwd_kernel<false>(H, units)) {
+      e = cluster_config(k, H / units, kRows, smem, 0, &cfg, &attr);
+      if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, (const void*)k, &cfg);
+    }
+  } else if (BwdKernel k = bwd_kernel<false>(H, units)) {
+    e = cluster_config(k, H / units, kRows, smem, 0, &cfg, &attr);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, (const void*)k, &cfg);
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
-extern "C" int ln_gru_bwd(const float* feats, const float* first, const float* hs,
-                          const float* h_first, const float* W, const float* scale,
-                          const float* bias, const float* g, float* dfeats, float* dh_first,
-                          float* dy, float* dyraw, float* yn, float* xh, int T, int B, int F,
-                          int H, void* stream) {
-  const size_t smem = ln_gru_bwd_smem_bytes(F, H);
-  int rc = launch_checked((const void*)ln_gru_bwd_kernel, smem);
-  if (rc) return rc;
-  ln_gru_bwd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      feats, first, hs, h_first, W, scale, bias, g, dfeats, dh_first, dy, dyraw, yn, xh, T, B, F, H);
-  return (int)cudaGetLastError();
+extern "C" int ln_gru_xproj(const float* x, const float* wx, float* gx, int M, int F, int N, void* stream) {
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  ln_gru_xproj_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(x, wx, gx, M, F, N);
+  return record(kXproj, grid, cudaSuccess);
+}
+
+extern "C" int ln_gru_fwd(const float* gx, const float* first, const float* h_first, const float* Wh,
+                          const float* scale, const float* bias, float* hs, float* yn, float* istd, int T,
+                          int B, int H, int units, int smem, void* stream) {
+  dim3 grid;
+  cudaError_t e = launch_fwd<false>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, smem, stream,
+                                    &grid);
+  return record(kFwd, grid, e);
+}
+
+// ln_gru_fwd without its product h_in W_h: a timing probe of the rest of a
+// step (barriers, DSMEM pushes, gate math, loads and stores).
+extern "C" int ln_gru_fwd_probe(const float* gx, const float* first, const float* h_first, const float* Wh,
+                                const float* scale, const float* bias, float* hs, float* yn, float* istd, int T,
+                                int B, int H, int units, int smem, void* stream) {
+  dim3 grid;
+  cudaError_t e = launch_fwd<true>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, smem, stream,
+                                   &grid);
+  return (int)(e == cudaSuccess ? cudaGetLastError() : e);
+}
+
+extern "C" int ln_gru_bwd(const float* feats, const float* first, const float* hs, const float* h_first,
+                          const float* Wh, const float* scale, const float* bias, const float* g,
+                          const float* yn, const float* istd, float* dh_first, float* dy, float* dyraw,
+                          float* xh, int T, int B, int F, int H, int units, int smem, void* stream) {
+  dim3 grid;
+  cudaError_t e = launch_bwd<false>(feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw, xh,
+                                    T, B, F, H, units, smem, stream, &grid);
+  return record(kBwd, grid, e);
+}
+
+// ln_gru_bwd without its product dy_raw W_h^T: a timing probe, as above.
+extern "C" int ln_gru_bwd_probe(const float* feats, const float* first, const float* hs, const float* h_first,
+                                const float* Wh, const float* scale, const float* bias, const float* g,
+                                const float* yn, const float* istd, float* dh_first, float* dy, float* dyraw,
+                                float* xh, int T, int B, int F, int H, int units, int smem, void* stream) {
+  dim3 grid;
+  cudaError_t e = launch_bwd<true>(feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw, xh,
+                                   T, B, F, H, units, smem, stream, &grid);
+  return (int)(e == cudaSuccess ? cudaGetLastError() : e);
+}
+
+extern "C" int ln_gru_dx(const float* dyraw, const float* wx, float* dx, int M, int F, int N, void* stream) {
+  dim3 grid((F + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  ln_gru_dx_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(dyraw, wx, dx, M, F, N);
+  return record(kDx, grid, cudaSuccess);
 }
 
 extern "C" int ln_gru_wgrad(const float* xh, const float* dyraw, const float* dy, const float* yn,
-                            float* dW, float* dscale, float* dbias, int M, int K, int N,
-                            void* stream) {
+                            float* dW, float* dscale, float* dbias, int M, int K, int N, void* stream) {
   dim3 grid((N + kTile - 1) / kTile, (K + kTile - 1) / kTile + 1);
-  ln_gru_wgrad_kernel<<<grid, kWgradThreads, 0, (cudaStream_t)stream>>>(xh, dyraw, dy, yn, dW, dscale, dbias,
-                                                             M, K, N);
-  return (int)cudaGetLastError();
+  ln_gru_wgrad_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(xh, dyraw, dy, yn, dW, dscale, dbias,
+                                                                      M, K, N);
+  return record(kWgrad, grid, cudaSuccess);
 }

@@ -4,24 +4,38 @@ PyTorch versions.
 Port of ``sheeprl_tpu/ops/pallas_gru.py``. Per step (eps 1e-3)::
 
     h   = (1 - first) * h + first * h_first
-    y   = LN([x, h] @ W) * scale + bias
+    y   = LN(x @ W_x + h @ W_h) * scale + bias        W = [W_x; W_h]: [F+H, 3H]
     r, c, u = split(y, 3)
     h'  = sigmoid(u - 1) * tanh(sigmoid(r) * c) + (1 - sigmoid(u - 1)) * h
 
-Three kernels, written by hand in CUDA C++ (``csrc/ln_gru.cu``, which explains
+Five kernels, written by hand in CUDA C++ (``csrc/ln_gru.cu``, which explains
 their design and bound):
 
-* ``ln_gru_fwd``   — the forward scan (replaces ``_pallas_forward``);
-* ``ln_gru_bwd``   — the reverse BPTT sweep: recompute, cell + LN backward,
-  ``dX = dy_raw·Wᵀ`` (replaces ``_pallas_backward``);
+* ``ln_gru_xproj`` — ``Gx = x·W_x`` for all T·B rows, outside the time loop;
+* ``ln_gru_fwd``   — the recurrence on thread-block clusters, each CTA with
+  its slice of ``W_h`` resident in shared memory; saves ``yn`` and ``istd``
+  (together with ``ln_gru_xproj`` it replaces ``_pallas_forward``);
+* ``ln_gru_bwd``   — the reverse sweep on the same clusters, from the saved
+  ``yn`` (no recompute);
+* ``ln_gru_dx``    — ``dfeats = dy_raw·W_xᵀ`` for all T·B rows after it;
 * ``ln_gru_wgrad`` — ``dW = Σ xhᵀ·dy_raw``, ``dscale``, ``dbias`` over all
-  T·B rows (the accumulators of ``_pallas_backward``).
+  T·B rows (with the two before it, ``_pallas_backward``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
-kernel's plain version (``forward_plain``, ``backward_plain``,
-``wgrad_plain``) for CPU tensors. ``gru_sequence`` binds the three into a
-``torch.autograd.Function``. The shared library is built with ``nvcc`` at
-first use, into ``csrc/build/`` keyed by a hash of the source.
+kernel's plain version (``xproj_plain``, ``forward_plain``,
+``backward_plain``, ``dx_plain``, ``wgrad_plain``) for CPU tensors.
+``forward_cluster_emulated`` and ``backward_cluster_emulated`` replay the
+recurrent kernels' algorithm CTA by CTA in PyTorch, for the CPU tests.
+``gru_sequence`` binds the kernels into a ``torch.autograd.Function``. The
+shared library is built with ``nvcc`` at first use, into ``csrc/build/``
+keyed by a hash of the source.
+
+The recurrent kernels take H when it splits into at most 16 CTAs of 8, 16
+or 32 hidden units each (H <= 512: DreamerV3-XS and S, not M or L) and a
+CTA's shared memory fits (``fits_smem``); F must be a multiple of 4. A
+cluster takes ``ROWS_PER_CLUSTER`` batch rows. This module holds the
+recurrent kernels' layout: ``build`` passes it to nvcc, and the wrappers
+pass each launch its units per CTA and shared-memory bytes.
 """
 from __future__ import annotations
 
@@ -32,70 +46,99 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 _EPS = 1e-3
-_THREADS = 768  # kThreads of the CUDA source
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use (232,448 bytes)
+# the recurrent kernels' layout, compiled into the CUDA source as -D flags
+ROWS_PER_CLUSTER = 4  # batch rows of one cluster (LN_GRU_ROWS)
+_WARPS = 8  # warps of one CTA (LN_GRU_THREADS / 32)
+_MAX_CLUSTER = 16  # CTAs of the largest (non-portable) cluster on Hopper (LN_GRU_MAX_CLUSTER)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "ln_gru.cu"
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DLN_GRU_ROWS={ROWS_PER_CLUSTER}", f"-DLN_GRU_THREADS={32 * _WARPS}", f"-DLN_GRU_MAX_CLUSTER={_MAX_CLUSTER}",
 )
 
 
 # --------------------------------------------------------------------------
 # fit check
 # --------------------------------------------------------------------------
-def smem_bytes(in_features: int, hidden_size: int) -> Tuple[int, int]:
-    """(forward, backward) shared-memory bytes of one block: the matvec's
-    partial rows (4 floats a thread), the input row and the 3H output row
-    (+ the backward's three 3H cotangent rows and three H rows), each padded
-    to 4 floats, plus 32 floats of reduction scratch — the sums of
-    ``ln_gru_{fwd,bwd}_smem_bytes`` in the CUDA source."""
-    F, H = int(in_features), int(hidden_size)
-    pad4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
-    psum = 4 * _THREADS
-    return (
-        (psum + pad4(F + H) + pad4(3 * H) + 32) * 4,
-        (psum + pad4(F + H) + 3 * pad4(3 * H) + 3 * pad4(H) + 32) * 4,
-    )
+def cluster_split(hidden_size: int) -> Optional[Tuple[int, int]]:
+    """(CTAs of a cluster, hidden units of a CTA): the smallest of 4, 8, 16,
+    32 units (at least 32 / ROWS_PER_CLUSTER, so that a warp's lanes cover a
+    CTA's units x rows) that splits H into at most 16 CTAs — 16 x 32 at
+    DreamerV3-S — or None when none does, or when H does not split over the
+    warps of a CTA's product."""
+    H = int(hidden_size)
+    if H % _WARPS:
+        return None
+    for units in (4, 8, 16, 32):
+        if units * ROWS_PER_CLUSTER >= 32 and H % units == 0 and H // units <= _MAX_CLUSTER:
+            return H // units, units
+    return None
+
+
+def smem_bytes(hidden_size: int) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one CTA, which each launch
+    requests; (0, 0) when H does not split. The kernels carve their shared
+    memory in the order of these sums. Forward: the W_h slice [H, 3·units],
+    h_in [H, rows], each warp's partial product [rows, 3·units], every
+    CTA's row statistics and the CTA's next h_in [units, rows].
+    Backward: the W_h slice with rows padded by one float, the
+    reduce-scatter receive buffer [CTAs, units, rows], dy_raw
+    [3·units, rows] and every CTA's row sums."""
+    split = cluster_split(hidden_size)
+    if split is None:
+        return 0, 0
+    nc, units = split
+    H, ncol, R = int(hidden_size), 3 * units, ROWS_PER_CLUSTER
+    fwd = H * ncol + H * R + _WARPS * R * ncol + nc * R * 2 + units * R
+    bwd = H * (ncol + 1) + nc * R * units + ncol * R + nc * R * 2
+    return 4 * fwd, 4 * bwd
 
 
 def fits_smem(in_features: int, hidden_size: int) -> bool:
-    """Whether the kernels take this shape: both kernels' rows fit one
-    block's shared memory on Hopper (227 KB; W itself streams from L2), and
-    H is a multiple of 4 (W's rows are read as float4)."""
-    return hidden_size % 4 == 0 and max(smem_bytes(in_features, hidden_size)) <= _SMEM_LIMIT
+    """Whether the kernels take this shape: H splits into whole CTA slices of
+    a cluster of at most 16 (``cluster_split``), each CTA's W_h slice and
+    buffers fit its shared memory (227 KB), and F is a multiple of 4 (the
+    backward copies x into the weight-gradient rows as float4)."""
+    fwd, bwd = smem_bytes(hidden_size)
+    return in_features % 4 == 0 and 0 < max(fwd, bwd) <= _SMEM_LIMIT
 
 
 # --------------------------------------------------------------------------
 # plain versions (the CPU path and the reference on the card)
 # --------------------------------------------------------------------------
-def _cell_parts(x, h_in, w, scale, bias, hidden_size: int):
-    """One step from the reset-blended carry ``h_in``; returns every
-    intermediate the backward needs: (xh, istd, yn, r, y2, c, u, h_out)."""
-    xh = torch.cat([x, h_in], dim=-1)
-    y_raw = xh @ w
+def _gates(yn, h_in, scale, bias, hidden_size: int):
+    """Affine and gates from the normalised pre-activation [.., 3H]: h'."""
+    y = yn * scale + bias
+    H = hidden_size
+    r = torch.sigmoid(y[..., :H])
+    c = torch.tanh(r * y[..., H : 2 * H])
+    u = torch.sigmoid(y[..., 2 * H :] - 1.0)
+    return u * c + (1.0 - u) * h_in
+
+
+def _ln_gates(y_raw, h_in, scale, bias, hidden_size: int):
+    """LN, affine and gates of one step from its pre-activation; returns
+    (istd, yn, h_out)."""
     mu = y_raw.mean(-1, keepdim=True)
     var = ((y_raw - mu) ** 2).mean(-1, keepdim=True)
     istd = torch.rsqrt(var + _EPS)
     yn = (y_raw - mu) * istd
-    y = yn * scale + bias
-    H = hidden_size
-    r = torch.sigmoid(y[..., :H])
-    y2 = y[..., H : 2 * H]
-    c = torch.tanh(r * y2)
-    u = torch.sigmoid(y[..., 2 * H :] - 1.0)
-    return xh, istd, yn, r, y2, c, u, u * c + (1.0 - u) * h_in
+    return istd, yn, _gates(yn, h_in, scale, bias, hidden_size)
 
 
-def forward_plain(feats, first, h_first, w, scale, bias) -> torch.Tensor:
-    """The forward scan in PyTorch ops (``h_first`` [B, H] or [H])."""
+def reference_sequence(feats, first, h_first, w, scale, bias) -> torch.Tensor:
+    """The scan of the JAX package's ``reference_sequence``, ``[x, h]·W`` in
+    one product, in PyTorch ops (``h_first`` [B, H] or [H]): autograd
+    through it is the reference the kernels' gradients are held against."""
     T, B, _ = feats.shape
     H = h_first.shape[-1]
     h_first = h_first.expand(B, H)
@@ -103,28 +146,55 @@ def forward_plain(feats, first, h_first, w, scale, bias) -> torch.Tensor:
     outs = []
     for t in range(T):
         h_in = (1.0 - first[t]) * h + first[t] * h_first
-        h = _cell_parts(feats[t], h_in, w, scale, bias, H)[-1]
+        h = _ln_gates(torch.cat([feats[t], h_in], dim=-1) @ w, h_in, scale, bias, H)[-1]
         outs.append(h)
     return torch.stack(outs, dim=0)
 
 
-def reference_sequence(feats, first, h_first, w, scale, bias) -> torch.Tensor:
-    """Autograd through the plain scan: the reference the kernels' gradients
-    are held against."""
-    return forward_plain(feats, first, h_first, w, scale, bias)
+def xproj_plain(x, wx) -> torch.Tensor:
+    """Gx = x·W_x: x [M, F], wx [F, 3H]."""
+    return x @ wx
 
 
-def backward_plain(feats, first, hs, h_first, w, scale, bias, g):
-    """The kernel's reverse sweep step by step, in PyTorch ops. ``h_first``
-    is [B, H]. Returns (dfeats [T,B,F], dh_first [B,H], dy, dy_raw, yn
-    [T,B,3H], xh [T,B,F+H]) — the last four are what ``ln_gru_bwd`` writes
-    to scratch for ``ln_gru_wgrad``."""
+def forward_plain(gx, first, h_first, w_h, scale, bias):
+    """The recurrence from Gx [T, B, 3H]; ``h_first`` [B, H], ``w_h``
+    [H, 3H]. Returns (hs [T, B, H], yn [T, B, 3H], istd [T, B])."""
+    T, B, _ = gx.shape
+    H = w_h.shape[0]
+    h = gx.new_zeros(B, H)
+    hs, yns, istds = [], [], []
+    for t in range(T):
+        h_in = (1.0 - first[t]) * h + first[t] * h_first
+        istd, yn, h = _ln_gates(gx[t] + h_in @ w_h, h_in, scale, bias, H)
+        hs.append(h)
+        yns.append(yn)
+        istds.append(istd[:, 0])
+    return torch.stack(hs), torch.stack(yns), torch.stack(istds)
+
+
+def _cell_backward(d, yn, h_in, scale, bias, H):
+    """Cell and affine backward of one step from the saved yn; returns
+    (dy [.., 3H], d·(1-u), the direct part of dh_in)."""
+    y = yn * scale + bias
+    r = torch.sigmoid(y[..., :H])
+    y2 = y[..., H : 2 * H]
+    c = torch.tanh(r * y2)
+    u = torch.sigmoid(y[..., 2 * H :] - 1.0)
+    du = d * (c - h_in)
+    d_rc = d * u * (1.0 - c * c)
+    dy = torch.cat([d_rc * y2 * r * (1.0 - r), d_rc * r, du * u * (1.0 - u)], dim=-1)
+    return dy, d * (1.0 - u)
+
+
+def backward_plain(feats, first, hs, h_first, w_h, scale, bias, g, yn, istd):
+    """The kernel's reverse sweep step by step, in PyTorch ops, from the
+    forward's yn and istd (no recompute). ``h_first`` is [B, H]. Returns
+    (dh_first [B,H], dy, dy_raw [T,B,3H], xh [T,B,F+H]) — the last three are
+    what ``ln_gru_dx`` and ``ln_gru_wgrad`` read."""
     T, B, F = feats.shape
-    H = h_first.shape[-1]
-    dfeats = torch.empty_like(feats)
+    H = w_h.shape[0]
     dy_s = feats.new_empty(T, B, 3 * H)
     dyr_s = torch.empty_like(dy_s)
-    yn_s = torch.empty_like(dy_s)
     xh_s = feats.new_empty(T, B, F + H)
     dh = feats.new_zeros(B, H)
     dh_first = feats.new_zeros(B, H)
@@ -132,24 +202,21 @@ def backward_plain(feats, first, hs, h_first, w, scale, bias, g):
         f = first[t]
         h_prev = hs[t - 1] if t > 0 else torch.zeros_like(dh)
         h_in = (1.0 - f) * h_prev + f * h_first
-        xh, istd, yn, r, y2, c, u, _ = _cell_parts(feats[t], h_in, w, scale, bias, H)
-        d = g[t] + dh
-        du = d * (c - h_in)
-        dc = d * u
-        dh_in = d * (1.0 - u)
-        d_rc = dc * (1.0 - c * c)
-        dy = torch.cat([d_rc * y2 * r * (1.0 - r), d_rc * r, du * u * (1.0 - u)], dim=-1)
+        dy, dh_in = _cell_backward(g[t] + dh, yn[t], h_in, scale, bias, H)
         dyn = dy * scale
-        dy_raw = istd * (
-            dyn - dyn.mean(-1, keepdim=True) - yn * (dyn * yn).mean(-1, keepdim=True)
+        dy_raw = istd[t][:, None] * (
+            dyn - dyn.mean(-1, keepdim=True) - yn[t] * (dyn * yn[t]).mean(-1, keepdim=True)
         )
-        dxh = dy_raw @ w.t()
-        dfeats[t] = dxh[..., :F]
-        dh_in = dh_in + dxh[..., F:]
+        dh_in = dh_in + dy_raw @ w_h.t()
         dh = (1.0 - f) * dh_in
         dh_first = dh_first + f * dh_in
-        dy_s[t], dyr_s[t], yn_s[t], xh_s[t] = dy, dy_raw, yn, xh
-    return dfeats, dh_first, dy_s, dyr_s, yn_s, xh_s
+        dy_s[t], dyr_s[t], xh_s[t] = dy, dy_raw, torch.cat([feats[t], h_in], dim=-1)
+    return dh_first, dy_s, dyr_s, xh_s
+
+
+def dx_plain(dy_raw, wx) -> torch.Tensor:
+    """dfeats = dy_raw·W_xᵀ: dy_raw [M, 3H], wx [F, 3H]."""
+    return dy_raw @ wx.t()
 
 
 def wgrad_plain(xh, dy_raw, dy, yn):
@@ -158,10 +225,112 @@ def wgrad_plain(xh, dy_raw, dy, yn):
 
 
 # --------------------------------------------------------------------------
+# the recurrent kernels' algorithm, CTA by CTA (for the CPU tests)
+# --------------------------------------------------------------------------
+def _cta_layout(H: int, n_cta: int) -> Tuple[List[slice], List[torch.Tensor]]:
+    """Units J_c and gate columns {j, H+j, 2H+j : j in J_c} of each CTA."""
+    units = H // n_cta
+    J = [slice(c * units, (c + 1) * units) for c in range(n_cta)]
+    cols = [torch.cat([torch.arange(j.start, j.stop) + g * H for g in range(3)]) for j in J]
+    return J, cols
+
+
+def forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta: int):
+    """``ln_gru_xproj`` + ``ln_gru_fwd`` as the kernels compute them, with
+    ``n_cta`` CTAs a cluster: Gx outside the loop; each CTA's y_raw on its
+    gate columns from its W_h slice; per-CTA (mean, M2) combined by Chan's
+    formula in CTA order; the gates of the CTA's units. ``h_first`` is
+    [B, H]; returns (hs, yn, istd) like ``forward_plain``."""
+    T, B, F = feats.shape
+    H = w.shape[1] // 3
+    ncol = 3 * H // n_cta
+    J, cols = _cta_layout(H, n_cta)
+    gx = (feats.reshape(T * B, F) @ w[:F]).reshape(T, B, 3 * H)
+    slices = [w[F:][:, col] for col in cols]
+    hs, yns, istds = [], [], []
+    h_in = first[0] * h_first
+    for t in range(T):
+        y = [gx[t][:, col] + h_in @ wc for col, wc in zip(cols, slices)]
+        m, m2 = y[0].new_zeros(B), y[0].new_zeros(B)
+        for q, yc in enumerate(y):  # Chan's formula, CTA order
+            mq = yc.mean(-1)
+            delta = mq - m
+            m = m + delta / (q + 1)
+            m2 = m2 + ((yc - mq[:, None]) ** 2).sum(-1) + delta * delta * (ncol * q / (q + 1))
+        istd = torch.rsqrt(m2 / (3 * H) + _EPS)
+        h_new = torch.empty_like(h_in)
+        yn = gx.new_empty(B, 3 * H)
+        for j, col, yc in zip(J, cols, y):
+            ync = (yc - m[:, None]) * istd[:, None]
+            yn[:, col] = ync
+            h_new[:, j] = _gates(ync, h_in[:, j], scale[col], bias[col], j.stop - j.start)
+        hs.append(h_new)
+        yns.append(yn)
+        istds.append(istd)
+        if t + 1 < T:
+            h_in = (1.0 - first[t + 1]) * h_new + first[t + 1] * h_first
+    return torch.stack(hs), torch.stack(yns), torch.stack(istds)
+
+
+def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta: int):
+    """``ln_gru_bwd`` + ``ln_gru_dx`` + ``ln_gru_wgrad`` as the kernels
+    compute them, with ``n_cta`` CTAs a cluster: each CTA's cell backward
+    from the saved yn on its units; the LN-backward row sums added over the
+    CTAs in order; each CTA's partial dh_in = dy_raw[:, cols_c]·W_h[:, cols_c]ᵀ
+    over all H units; the reduce-scatter that adds the partials of J_d in
+    CTA order; dfeats after the loop. ``h_first`` is [B, H]. Returns
+    (dfeats, dh_first [B, H], dW, dscale, dbias)."""
+    T, B, F = feats.shape
+    H = w.shape[1] // 3
+    J, cols = _cta_layout(H, n_cta)
+    slices = [w[F:][:, col] for col in cols]
+    dy_s = feats.new_empty(T, B, 3 * H)
+    dyr_s = torch.empty_like(dy_s)
+    xh_s = feats.new_empty(T, B, F + H)
+    dh = feats.new_zeros(B, H)
+    dh_first = feats.new_zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        f = first[t]
+        h_prev = hs[t - 1] if t > 0 else torch.zeros_like(dh)
+        h_in = (1.0 - f) * h_prev + f * h_first
+        dd = torch.empty_like(dh)
+        dyn, s1, s2 = [], 0.0, 0.0
+        for j, col in zip(J, cols):  # each CTA: cell backward of its units, its row sums
+            units = j.stop - j.start
+            dy_c, dd[:, j] = _cell_backward(g[t][:, j] + dh[:, j], yn[t][:, col], h_in[:, j],
+                                            scale[col], bias[col], units)
+            dy_s[t][:, col] = dy_c
+            dyn.append(dy_c * scale[col])
+            s1 = s1 + dyn[-1].sum(-1)
+            s2 = s2 + (dyn[-1] * yn[t][:, col]).sum(-1)
+        m1, m2 = s1 / (3 * H), s2 / (3 * H)
+        partial = []
+        for col, dync, wc in zip(cols, dyn, slices):
+            dyr_c = istd[t][:, None] * (dync - m1[:, None] - yn[t][:, col] * m2[:, None])
+            dyr_s[t][:, col] = dyr_c
+            partial.append(dyr_c @ wc.t())  # [B, H]: this CTA's share of every unit
+        dh_in = torch.empty_like(dh)
+        for j in J:  # reduce-scatter: CTA d adds the partials of J_d in CTA order
+            s = partial[0][:, j]
+            for p in partial[1:]:
+                s = s + p[:, j]
+            dh_in[:, j] = dd[:, j] + s
+        dh = (1.0 - f) * dh_in
+        dh_first = dh_first + f * dh_in
+        xh_s[t] = torch.cat([feats[t], h_in], dim=-1)
+    M = T * B
+    dfeats = (dyr_s.reshape(M, 3 * H) @ w[:F].t()).reshape(T, B, F)
+    dw, dscale, dbias = wgrad_plain(xh_s.reshape(M, -1), dyr_s.reshape(M, -1), dy_s.reshape(M, -1),
+                                    yn.reshape(M, -1))
+    return dfeats, dh_first, dw, dscale, dbias
+
+
+# --------------------------------------------------------------------------
 # the CUDA library: built with nvcc at first use, bound with ctypes
 # --------------------------------------------------------------------------
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
+_CAPACITY: Dict[Tuple[int, int], Tuple[int, int]] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -203,15 +372,65 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            lib.ln_gru_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_P]
-            lib.ln_gru_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_P]
+            lib.ln_gru_xproj.argtypes = [_P] * 3 + [_I] * 3 + [_P]
+            lib.ln_gru_fwd.argtypes = lib.ln_gru_fwd_probe.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+            lib.ln_gru_bwd.argtypes = lib.ln_gru_bwd_probe.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+            lib.ln_gru_dx.argtypes = [_P] * 3 + [_I] * 3 + [_P]
             lib.ln_gru_wgrad.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-            for fn in (lib.ln_gru_fwd, lib.ln_gru_bwd, lib.ln_gru_wgrad):
-                fn.restype = _I
+            for name in ("xproj", "fwd", "fwd_probe", "bwd", "bwd_probe", "dx", "wgrad"):
+                getattr(lib, f"ln_gru_{name}").restype = _I
+            lib.ln_gru_max_active_clusters.argtypes = [_I] * 4
+            lib.ln_gru_max_active_clusters.restype = _I
+            lib.ln_gru_last_blocks.argtypes = [_I]
+            lib.ln_gru_last_blocks.restype = _I
             lib.ln_gru_error_string.argtypes = [_I]
             lib.ln_gru_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+def _error(code: int) -> str:
+    return _lib().ln_gru_error_string(code).decode()
+
+
+def cluster_capacity(hidden_size: int, device: Optional[torch.device] = None) -> Tuple[int, int]:
+    """How many clusters of ``ln_gru_fwd`` and of ``ln_gru_bwd`` the card can
+    hold at once at this H (``cudaOccupancyMaxActiveClusters``, with the
+    kernels' shared memory and cluster size); raises if the card cannot
+    tell. The launch needs ceil(B / ROWS_PER_CLUSTER) clusters; fewer than
+    that run in turns, none is refused."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), int(hidden_size))
+    if key not in _CAPACITY:
+        lib = _lib()
+        units = cluster_split(key[1])[1]
+        with torch.cuda.device(key[0]):
+            got = tuple(lib.ln_gru_max_active_clusters(which, key[1], units, smem)
+                        for which, smem in enumerate(smem_bytes(key[1])))
+        for name, n in zip(("ln_gru_fwd", "ln_gru_bwd"), got):
+            if n < 0:
+                raise RuntimeError(f"{name}: the cluster occupancy query failed: {_error(-n)}")
+        _CAPACITY[key] = got
+    return _CAPACITY[key]
+
+
+def _require_clusters(name: str, device: torch.device, hidden_size: int) -> Tuple[int, Tuple[int, int]]:
+    """Raise unless the kernels take this H and the card holds at least one
+    of their clusters: a CUDA tensor never takes the plain path. Returns the
+    launch's units per CTA and (forward, backward) shared-memory bytes."""
+    if not 0 < max(smem_bytes(hidden_size)) <= _SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: H={hidden_size} is not a shape the kernels take (H must split into at most 16 CTAs "
+            "of 8, 16 or 32 units whose W_h slice fits shared memory)"
+        )
+    fwd, bwd = cluster_capacity(hidden_size, device)
+    if min(fwd, bwd) < 1:
+        nc = cluster_split(hidden_size)[0]
+        raise RuntimeError(
+            f"{name}: this card cannot hold one cluster of {nc} CTAs with {max(smem_bytes(hidden_size))} "
+            f"bytes of shared memory each (clusters: forward {fwd}, backward {bwd})"
+        )
+    return cluster_split(hidden_size)[1], smem_bytes(hidden_size)
 
 
 def _check(name: str, device: torch.device, **tensors) -> None:
@@ -226,77 +445,116 @@ def _check(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
+def _require_aligned(name: str, **tensors) -> None:
+    """Tensors the kernel reads as float4."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
 def _launch(name: str, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
-        msg = _lib().ln_gru_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+        raise RuntimeError(f"{name}: CUDA error {rc}: {_error(rc)}")
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def ln_gru_fwd(feats, first, h_first, w, scale, bias) -> torch.Tensor:
-    """Forward scan: feats [T,B,F], first [T,B,1], h_first [B,H],
-    w [F+H,3H], scale/bias [3H] → hs [T,B,H]."""
-    if not feats.is_cuda:
-        return forward_plain(feats, first, h_first, w, scale, bias)
-    T, B, F = feats.shape
-    H = h_first.shape[-1]
+def _empty(device, *shape) -> torch.Tensor:
+    return torch.empty(*shape, device=device, dtype=torch.float32)
+
+
+def ln_gru_xproj(x, wx) -> torch.Tensor:
+    """x [M, F], wx [F, N] → Gx = x·wx [M, N] (the input half of the
+    forward's product, all rows at once)."""
+    if not x.is_cuda:
+        return xproj_plain(x, wx)
+    M, F = x.shape
+    N = wx.shape[-1]
+    _check("ln_gru_xproj", x.device, x=(x, (M, F)), wx=(wx, (F, N)))
+    out = _empty(x.device, M, N)
+    _launch("ln_gru_xproj", _lib().ln_gru_xproj, x.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
+    ln_gru_xproj.launches += 1
+    return out
+
+
+ln_gru_xproj.launches = 0
+
+
+def ln_gru_fwd(gx, first, h_first, w_h, scale, bias):
+    """The recurrence: Gx [T,B,3H], first [T,B,1], h_first [B,H], w_h
+    [H,3H], scale/bias [3H] → (hs [T,B,H], yn [T,B,3H], istd [T,B])."""
+    if not gx.is_cuda:
+        return forward_plain(gx, first, h_first, w_h, scale, bias)
+    T, B, N = gx.shape
+    H = w_h.shape[0]
     _check(
-        "ln_gru_fwd", feats.device, feats=(feats, (T, B, F)), first=(first, (T, B, 1)),
-        h_first=(h_first, (B, H)), w=(w, (F + H, 3 * H)), scale=(scale, (3 * H,)),
-        bias=(bias, (3 * H,)),
+        "ln_gru_fwd", gx.device, gx=(gx, (T, B, 3 * H)), first=(first, (T, B, 1)), h_first=(h_first, (B, H)),
+        w_h=(w_h, (H, 3 * H)), scale=(scale, (3 * H,)), bias=(bias, (3 * H,)),
     )
-    if not fits_smem(F, H) or w.data_ptr() % 16:
-        raise ValueError(f"ln_gru_fwd: F={F}, H={H} (or W's alignment) is not a shape the kernel takes")
-    lib = _lib()
-    out = torch.empty(T, B, H, device=feats.device, dtype=torch.float32)
+    _require_aligned("ln_gru_fwd", w_h=w_h)
+    units, (smem, _) = _require_clusters("ln_gru_fwd", gx.device, H)
+    hs, yn, istd = _empty(gx.device, T, B, H), _empty(gx.device, T, B, 3 * H), _empty(gx.device, T, B)
     _launch(
-        "ln_gru_fwd", lib.ln_gru_fwd, feats.data_ptr(), first.data_ptr(), h_first.data_ptr(),
-        w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), T, B, F, H, _stream(),
+        "ln_gru_fwd", _lib().ln_gru_fwd, gx.data_ptr(), first.data_ptr(), h_first.data_ptr(), w_h.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), hs.data_ptr(), yn.data_ptr(), istd.data_ptr(), T, B, H, units, smem,
+        _stream(),
     )
     ln_gru_fwd.launches += 1
-    return out
+    return hs, yn, istd
 
 
 ln_gru_fwd.launches = 0
 
 
-def ln_gru_bwd(feats, first, hs, h_first, w, scale, bias, g):
-    """Reverse sweep: the forward's inputs plus hs and g [T,B,H] → (dfeats,
-    dh_first [B,H], dy, dy_raw, yn [T,B,3H], xh [T,B,F+H])."""
+def ln_gru_bwd(feats, first, hs, h_first, w_h, scale, bias, g, yn, istd):
+    """Reverse sweep: feats [T,B,F], first, hs and g [T,B,H], h_first [B,H],
+    w_h [H,3H], scale/bias, and the forward's yn [T,B,3H] and istd [T,B] →
+    (dh_first [B,H], dy, dy_raw [T,B,3H], xh [T,B,F+H])."""
     if not feats.is_cuda:
-        return backward_plain(feats, first, hs, h_first, w, scale, bias, g)
+        return backward_plain(feats, first, hs, h_first, w_h, scale, bias, g, yn, istd)
     T, B, F = feats.shape
-    H = h_first.shape[-1]
+    H = w_h.shape[0]
     _check(
-        "ln_gru_bwd", feats.device, feats=(feats, (T, B, F)), first=(first, (T, B, 1)),
-        hs=(hs, (T, B, H)), h_first=(h_first, (B, H)), w=(w, (F + H, 3 * H)),
-        scale=(scale, (3 * H,)), bias=(bias, (3 * H,)), g=(g, (T, B, H)),
+        "ln_gru_bwd", feats.device, feats=(feats, (T, B, F)), first=(first, (T, B, 1)), hs=(hs, (T, B, H)),
+        h_first=(h_first, (B, H)), w_h=(w_h, (H, 3 * H)), scale=(scale, (3 * H,)), bias=(bias, (3 * H,)),
+        g=(g, (T, B, H)), yn=(yn, (T, B, 3 * H)), istd=(istd, (T, B)),
     )
-    if not fits_smem(F, H) or w.data_ptr() % 16:
-        raise ValueError(f"ln_gru_bwd: F={F}, H={H} (or W's alignment) is not a shape the kernel takes")
-    lib = _lib()
-    kw = dict(device=feats.device, dtype=torch.float32)
-    dfeats = torch.empty(T, B, F, **kw)
-    dh_first = torch.empty(B, H, **kw)
-    dy = torch.empty(T, B, 3 * H, **kw)
-    dy_raw = torch.empty(T, B, 3 * H, **kw)
-    yn = torch.empty(T, B, 3 * H, **kw)
-    xh = torch.empty(T, B, F + H, **kw)
+    if F % 4:
+        raise ValueError(f"ln_gru_bwd: F={F} is not a shape the kernel takes (F must be a multiple of 4)")
+    _require_aligned("ln_gru_bwd", feats=feats, w_h=w_h)
+    units, (_, smem) = _require_clusters("ln_gru_bwd", feats.device, H)
+    dev = feats.device
+    dh_first, xh = _empty(dev, B, H), _empty(dev, T, B, F + H)
+    dy, dy_raw = _empty(dev, T, B, 3 * H), _empty(dev, T, B, 3 * H)
     _launch(
-        "ln_gru_bwd", lib.ln_gru_bwd, feats.data_ptr(), first.data_ptr(), hs.data_ptr(),
-        h_first.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(),
-        dfeats.data_ptr(), dh_first.data_ptr(), dy.data_ptr(), dy_raw.data_ptr(), yn.data_ptr(),
-        xh.data_ptr(), T, B, F, H, _stream(),
+        "ln_gru_bwd", _lib().ln_gru_bwd, feats.data_ptr(), first.data_ptr(), hs.data_ptr(), h_first.data_ptr(),
+        w_h.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(), yn.data_ptr(), istd.data_ptr(),
+        dh_first.data_ptr(), dy.data_ptr(), dy_raw.data_ptr(), xh.data_ptr(), T, B, F, H, units, smem, _stream(),
     )
     ln_gru_bwd.launches += 1
-    return dfeats, dh_first, dy, dy_raw, yn, xh
+    return dh_first, dy, dy_raw, xh
 
 
 ln_gru_bwd.launches = 0
+
+
+def ln_gru_dx(dy_raw, wx) -> torch.Tensor:
+    """dy_raw [M, N], wx [F, N] → dfeats = dy_raw·wxᵀ [M, F]."""
+    if not dy_raw.is_cuda:
+        return dx_plain(dy_raw, wx)
+    M, N = dy_raw.shape
+    F = wx.shape[0]
+    _check("ln_gru_dx", dy_raw.device, dy_raw=(dy_raw, (M, N)), wx=(wx, (F, N)))
+    out = _empty(dy_raw.device, M, F)
+    _launch("ln_gru_dx", _lib().ln_gru_dx, dy_raw.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
+    ln_gru_dx.launches += 1
+    return out
+
+
+ln_gru_dx.launches = 0
 
 
 def ln_gru_wgrad(xh, dy_raw, dy, yn):
@@ -309,13 +567,9 @@ def ln_gru_wgrad(xh, dy_raw, dy, yn):
         "ln_gru_wgrad", xh.device, xh=(xh, (M, K)), dy_raw=(dy_raw, (M, N)), dy=(dy, (M, N)),
         yn=(yn, (M, N)),
     )
-    lib = _lib()
-    kw = dict(device=xh.device, dtype=torch.float32)
-    dW = torch.empty(K, N, **kw)
-    dscale = torch.empty(N, **kw)
-    dbias = torch.empty(N, **kw)
+    dW, dscale, dbias = _empty(xh.device, K, N), _empty(xh.device, N), _empty(xh.device, N)
     _launch(
-        "ln_gru_wgrad", lib.ln_gru_wgrad, xh.data_ptr(), dy_raw.data_ptr(), dy.data_ptr(),
+        "ln_gru_wgrad", _lib().ln_gru_wgrad, xh.data_ptr(), dy_raw.data_ptr(), dy.data_ptr(),
         yn.data_ptr(), dW.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), M, K, N, _stream(),
     )
     ln_gru_wgrad.launches += 1
@@ -323,7 +577,8 @@ def ln_gru_wgrad(xh, dy_raw, dy, yn):
 
 
 ln_gru_wgrad.launches = 0
-KERNELS = (ln_gru_fwd, ln_gru_bwd, ln_gru_wgrad)
+# in the order of the CUDA source's launch records (ln_gru_last_blocks)
+KERNELS = (ln_gru_xproj, ln_gru_fwd, ln_gru_bwd, ln_gru_dx, ln_gru_wgrad)
 
 
 def reset_launch_counts() -> None:
@@ -337,27 +592,31 @@ def reset_launch_counts() -> None:
 class _LNGRUSequence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, first, h_first, w, scale, bias, plain):
-        T, B, _ = feats.shape
+        T, B, F = feats.shape
         H = h_first.shape[-1]
-        args = [feats, first, h_first.expand(B, H), w, scale, bias]
-        args = [a.contiguous().float() for a in args]
-        hs = (forward_plain if plain else ln_gru_fwd)(*args)
-        ctx.save_for_backward(*args, hs)
+        args = [a.contiguous().float() for a in (feats, first, h_first.expand(B, H), w, scale, bias)]
+        feats, first, h_first, w, scale, bias = args
+        xproj, fwd = (xproj_plain, forward_plain) if plain else (ln_gru_xproj, ln_gru_fwd)
+        gx = xproj(feats.reshape(T * B, F), w[:F]).reshape(T, B, 3 * H)
+        hs, yn, istd = fwd(gx, first, h_first, w[F:], scale, bias)
+        ctx.save_for_backward(*args, hs, yn, istd)
         ctx.plain = plain
         ctx.h_first_1d = h_first.dim() == 1
         return hs
 
     @staticmethod
     def backward(ctx, g):
-        feats, first, h_first, w, scale, bias, hs = ctx.saved_tensors
-        bwd, wgrad = (backward_plain, wgrad_plain) if ctx.plain else (ln_gru_bwd, ln_gru_wgrad)
-        dfeats, dh_first, dy, dy_raw, yn, xh = bwd(
-            feats, first, hs, h_first, w, scale, bias, g.contiguous().float()
-        )
-        M = feats.shape[0] * feats.shape[1]
-        dw, dscale, dbias = wgrad(
-            xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1), yn.reshape(M, -1)
-        )
+        feats, first, h_first, w, scale, bias, hs, yn, istd = ctx.saved_tensors
+        T, B, F = feats.shape
+        M = T * B
+        if ctx.plain:
+            bwd, dx, wgrad = backward_plain, dx_plain, wgrad_plain
+        else:
+            bwd, dx, wgrad = ln_gru_bwd, ln_gru_dx, ln_gru_wgrad
+        dh_first, dy, dy_raw, xh = bwd(feats, first, hs, h_first, w[F:], scale, bias, g.contiguous().float(), yn,
+                                       istd)
+        dfeats = dx(dy_raw.reshape(M, -1), w[:F]).reshape(T, B, F)
+        dw, dscale, dbias = wgrad(xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1), yn.reshape(M, -1))
         if ctx.h_first_1d:  # forward broadcast [H] -> [B, H]: reduce back
             dh_first = dh_first.sum(0)
         return dfeats, None, dh_first, dw, dscale, dbias, None
@@ -375,6 +634,6 @@ def gru_sequence(feats, first, h_first, w, scale, bias, plain: bool = False) -> 
                  ``pallas_gru: interpret``). Otherwise CUDA tensors launch the
                  kernels and CPU tensors take the plain passes.
 
-    Returns [T, B, H] hidden states; the backward is the reverse sweep plus
-    the weight-gradient reduction."""
+    Returns [T, B, H] hidden states; the backward is the reverse sweep, the
+    input cotangent and the weight-gradient reduction."""
     return _LNGRUSequence.apply(feats, first, h_first, w, scale, bias, plain)

@@ -1,7 +1,9 @@
 """The LN-GRU sequence of the PyTorch port against the JAX package's Pallas
 kernel (run in interpret mode) and its reference scan — the counterparts of
-the eight tests of tests/test_pallas_gru.py. The kernels themselves are held
-against these plain passes on the card by tests/test_torch_ln_gru_cuda.py.
+the eight tests of tests/test_pallas_gru.py — and the recurrent kernels'
+cluster algorithm, emulated CTA by CTA, against the same JAX reference. The
+kernels themselves are held against the plain passes on the card by
+tests/test_torch_ln_gru_cuda.py.
 
 Tolerances: rtol = atol = 1e-5 for hidden states, 1e-4 for gradients (f32
 sums over F+H and over T·B rows taken in different orders)."""
@@ -79,10 +81,22 @@ def test_gradient_parity_with_jax_kernel():
 
 
 def test_fits_smem_guard():
-    assert ln_gru.fits_smem(512, 512)  # DreamerV3-S: 22 KB forward, 40 KB backward
-    assert ln_gru.fits_smem(1024, 4096)  # XL: the backward's rows take 224 KB of 227
-    assert not ln_gru.fits_smem(2048, 8192)
-    assert not ln_gru.fits_smem(512, 510)  # W's rows are read as float4
+    """The cluster rule: H splits into at most 16 CTAs of 8, 16 or 32 units,
+    each CTA's W_h slice and buffers fit 227 KB of shared memory, and F is a
+    multiple of 4."""
+    assert ln_gru.cluster_split(512) == (16, 32)  # DreamerV3-S: 16 CTAs x 32 units
+    assert ln_gru.cluster_split(256) == (16, 16)  # XS
+    assert ln_gru.cluster_split(8) == (1, 8)  # a warp covers 8 units x 4 rows
+    assert ln_gru.smem_bytes(512) == (218112, 208896)  # what a DreamerV3-S launch requests
+    assert f"-DLN_GRU_ROWS={ln_gru.ROWS_PER_CLUSTER}" in ln_gru.NVCC_FLAGS  # the build takes this layout
+    for F, H in ((256, 256), (512, 512)):  # the presets the JAX kernel takes
+        assert pg.fits_vmem(F, H) and ln_gru.fits_smem(F, H)
+    assert not ln_gru.fits_smem(640, 1024)  # M: 32 units a CTA would need 32 CTAs
+    assert not ln_gru.fits_smem(768, 2048)  # L
+    assert not ln_gru.fits_smem(1024, 4096)  # XL
+    assert not ln_gru.fits_smem(512, 510)  # no whole slices
+    assert not ln_gru.fits_smem(12, 12)
+    assert not ln_gru.fits_smem(510, 512)  # x is copied as float4
 
 
 def test_transposed_weight_view_matches_contiguous():
@@ -138,3 +152,62 @@ def test_plain_passes_match_autograd_reference():
     for a, b in zip(ta, tb):
         if a.grad is not None:
             np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
+EMU = dict(T=5, B=3, F=24, H=32)
+
+
+def _emu_inputs(seed):
+    """Mid-sequence resets in every row but one; h_first [B, H]."""
+    T, B, F, H = EMU.values()
+    rng = np.random.default_rng(seed)
+    first = np.zeros((T, B, 1), np.float32)
+    first[0] = 1.0
+    first[2, 1] = 1.0
+    first[3, 0] = 1.0
+    return (
+        rng.standard_normal((T, B, F)).astype(np.float32),
+        first,
+        (0.5 * rng.standard_normal((B, H))).astype(np.float32),
+        (rng.standard_normal((F + H, 3 * H)) / np.sqrt(F + H)).astype(np.float32),
+        (1.0 + 0.1 * rng.standard_normal(3 * H)).astype(np.float32),
+        (0.1 * rng.standard_normal(3 * H)).astype(np.float32),
+        rng.standard_normal((T, B, H)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("n_cta", [4, 16])
+def test_cluster_forward_emulation_matches_jax(n_cta):
+    """The recurrent kernel's decomposition — Gx out of the loop, gate-column
+    slices per CTA, Chan-combined LN statistics — gives the JAX reference's
+    hidden states, and the yn/istd it saves are the plain forward's."""
+    args = _emu_inputs(8)[:6]
+    ref = np.asarray(pg.reference_sequence(*map(jnp.asarray, args)))
+    ta = _torch(args)
+    hs, yn, istd = ln_gru.forward_cluster_emulated(*ta, n_cta)
+    np.testing.assert_allclose(hs.numpy(), ref, **FWD_TOL)
+    F = EMU["F"]
+    gx = ln_gru.xproj_plain(ta[0].reshape(-1, F), ta[3][:F]).reshape(EMU["T"], EMU["B"], -1)
+    _, yn_p, istd_p = ln_gru.forward_plain(gx, ta[1], ta[2], ta[3][F:], ta[4], ta[5])
+    np.testing.assert_allclose(yn.numpy(), yn_p.numpy(), **FWD_TOL)
+    np.testing.assert_allclose(istd.numpy(), istd_p.numpy(), **FWD_TOL)
+
+
+@pytest.mark.parametrize("n_cta", [4, 16])
+def test_cluster_backward_emulation_matches_jax_vjp(n_cta):
+    """The reverse sweep's decomposition — cell backward from the saved yn
+    (no recompute), LN row sums over the CTAs, per-CTA partial dh_in and the
+    fixed-order reduce-scatter, dfeats after the loop — gives the five
+    gradients of the JAX reference's VJP."""
+    args = _emu_inputs(9)
+    ja = list(map(jnp.asarray, args))
+    _, vjp = jax.vjp(
+        lambda feats, hf, w, scale, bias: pg.reference_sequence(feats, ja[1], hf, w, scale, bias),
+        ja[0], ja[2], ja[3], ja[4], ja[5],
+    )
+    want = vjp(ja[6])
+    feats, first, h_first, w, scale, bias, g = _torch(args)
+    hs, yn, istd = ln_gru.forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta)
+    got = ln_gru.backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta)
+    for name, a, b in zip(("dfeats", "dh_first", "dW", "dscale", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)

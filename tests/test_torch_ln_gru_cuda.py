@@ -28,20 +28,47 @@ def _inputs(seed=0, batched_hfirst=False):
     return feats, first, h_first, w, scale, bias
 
 
+def _card_inputs(shape, seed, batched_hfirst):
+    T, B, F, H = shape
+    rng = np.random.default_rng(seed)
+    first = np.zeros((T, B, 1), np.float32)
+    first[0] = 1.0
+    first[T // 2, 1] = 1.0
+    first[T - 2, 3:6] = 1.0
+    hshape = (B, H) if batched_hfirst else (H,)
+    return (
+        rng.standard_normal((T, B, F)).astype(np.float32),
+        first,
+        (0.5 * rng.standard_normal(hshape)).astype(np.float32),
+        (rng.standard_normal((F + H, 3 * H)) / np.sqrt(F + H)).astype(np.float32),
+        (1.0 + 0.1 * rng.standard_normal(3 * H)).astype(np.float32),
+        (0.1 * rng.standard_normal(3 * H)).astype(np.float32),
+    )
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(8, 16, 512, 512), (8, 16, 256, 256), (5, 6, 24, 32)], ids=["S", "XS", "small_partial_cluster"]
+)
 @pytest.mark.parametrize("batched", [False, True], ids=["hfirst_H", "hfirst_BH"])
-def test_kernels_match_plain_on_card(batched):
+def test_kernels_match_plain_on_card(batched, shape):
+    """All five kernels at the DreamerV3-S and XS GRU widths (the cluster
+    split changes with H: 16 CTAs of 32 or of 16 units), T cut to 8; and at
+    4 CTAs of 8 units with a last cluster that holds 2 of its 4 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = _inputs(6, batched_hfirst=batched)
+    args = _card_inputs(shape, 6, batched)
     dev = [torch.from_numpy(a.copy()).cuda().requires_grad_(i in (0, 2, 3, 4, 5)) for i, a in enumerate(args)]
     ref = [torch.from_numpy(a.copy()).cuda().requires_grad_(i in (0, 2, 3, 4, 5)) for i, a in enumerate(args)]
     before = [k.launches for k in ln_gru.KERNELS]
-    (ln_gru.gru_sequence(*dev) ** 2).sum().backward()
-    (ln_gru.gru_sequence(*ref, plain=True) ** 2).sum().backward()
+    out = ln_gru.gru_sequence(*dev)
+    (out ** 2).sum().backward()
+    want = ln_gru.gru_sequence(*ref, plain=True)
+    (want ** 2).sum().backward()
     torch.cuda.synchronize()
     assert [k.launches for k in ln_gru.KERNELS] == [b + 1 for b in before]
+    torch.testing.assert_close(out, want, **GRAD_TOL)
     for a, b in zip(dev, ref):
         if b.grad is not None:
             torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL)
@@ -54,10 +81,33 @@ def test_cuda_tensor_never_takes_the_plain_path():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     feats, first, h_first, w, scale, bias = (torch.from_numpy(a).cuda() for a in _inputs(7, True))
+    gx = ln_gru.ln_gru_xproj(feats.reshape(T * B, F), w[:F]).reshape(T, B, 3 * H)
     with pytest.raises(TypeError):
-        ln_gru.ln_gru_fwd(feats.double(), first, h_first, w, scale, bias)
+        ln_gru.ln_gru_fwd(gx.double(), first, h_first, w[F:], scale, bias)
     with pytest.raises(ValueError):
-        ln_gru.ln_gru_fwd(feats, first, h_first, w.t(), scale, bias)
+        ln_gru.ln_gru_fwd(gx, first, h_first, w[F:].t(), scale, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1024, 510], ids=["M_width", "no_whole_slices"])
+def test_shape_outside_the_cluster_fit_raises_on_card(H):
+    """An H the clusters do not take (more than 16 CTAs of 32 units, or no
+    whole slices) raises on a CUDA tensor, in the wrapper and through
+    gru_sequence; nothing falls back to the plain passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    Tn, Bn, Fn = 2, 8, 64
+    rng = np.random.default_rng(11)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()  # noqa: E731
+    feats, w, hf = mk(Tn, Bn, Fn), mk(Fn + H, 3 * H), mk(Bn, H)
+    first = torch.ones(Tn, Bn, 1, device="cuda")
+    scale, bias = torch.ones(3 * H, device="cuda"), torch.zeros(3 * H, device="cuda")
+    fwd_before = ln_gru.ln_gru_fwd.launches
+    with pytest.raises(ValueError, match="not a shape the kernels take"):
+        ln_gru.ln_gru_fwd(mk(Tn, Bn, 3 * H), first, hf, w[Fn:], scale, bias)
+    with pytest.raises(ValueError, match="not a shape the kernels take"):
+        ln_gru.gru_sequence(feats, first, hf, w, scale, bias)
+    assert ln_gru.ln_gru_fwd.launches == fwd_before
 
 
 def _decoupled_train_fn(device, recurrent_size, gru_mode):
@@ -83,9 +133,10 @@ def _decoupled_train_fn(device, recurrent_size, gru_mode):
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_train_step_refuses_a_shape_the_kernels_do_not_take(device):
-    """pallas_gru=True with an H the kernels do not take (not a multiple of
-    4) raises when the train step is built, on the card as on the host; the
-    plain passes (pallas_gru=interpret) take it."""
+    """pallas_gru=True with an H the kernels do not take (6 splits into no
+    whole CTA slices of 8, 16 or 32 units) raises when the train step is
+    built, on the card as on the host; the plain passes
+    (pallas_gru=interpret) take it."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     with pytest.raises(ValueError, match="do not take"):
