@@ -19,12 +19,17 @@ that fails and then prints no result:
                kernels against the plain passes (the forward and all five
                gradients, h_first of shape [H] and [B,H]), and each of the
                five kernels against its plain version on the same inputs,
-               TF32 off, with the tolerances printed; at DreamerV3-S the
-               kernels' and plain versions' medians over timed reps (CUDA
-               events), the recurrent kernels' probe variants without their
-               product (the cost of the barriers and the rest of a step),
-               the one PyTorch call that computes the same function where
-               there is one, and the bound computed from the shapes;
+               TF32 off, with the tolerances printed; the two 3xTF32 GEMMs
+               (ln_gru_xproj, ln_gru_dx) also against a float64 product on
+               the card (their error at most F64_FACTOR times torch.mm's in
+               f32) and two launches of each bitwise equal; at DreamerV3-S
+               the kernels' and plain versions' medians over timed reps
+               (CUDA events, each launch queued behind a spin so that the
+               host's launch cost stays out of the device time), the
+               recurrent kernels' probe variants without their product (the
+               cost of the barriers and the rest of a step), the one
+               PyTorch call that computes the same function where there is
+               one, and the bound computed from the shapes;
 4. train     — DreamerV3-S gradient steps through make_train_fn, MsPacman-
                shaped (64x64x3, 9 actions), T=64, B=16, horizon 15: three
                decoupled steps on the kernels (losses finite, each kernel's
@@ -41,8 +46,10 @@ that fails and then prints no result:
                the grid it launched;
 6. kernels   — one {"kernels": [...]} line: launches and blocks from phase
                5 (SMs = the smaller of the blocks and the card's SMs), times
-               from phase 3, bound, largest error at either shape (and,
-               beside ln_gru_wgrad, cuBLAS's dW product alone);
+               from phase 3, the bound and the f32-only bound beside it, the
+               kernel's arithmetic (3xtf32 or f32-simt), largest error at
+               either shape (and, beside ln_gru_wgrad, cuBLAS's dW product
+               alone);
 7. the last line: {"ok": true, "device": {...}}.
 
 Times and rates are of this run on this card; compare versions only within
@@ -59,14 +66,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores and HBM bandwidth
+# tensor cores, dense TF32 on them, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 T, B, F, H = 64, 16, 512, 512
 # the GRU shapes of the presets the kernels take (the cluster split changes with H)
 SHAPES = {"S": (T, B, 512, 512), "XS": (T, B, 256, 256)}
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)  # |kernel - plain| <= atol + rtol * max|plain|
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+# a 3xTF32 GEMM's largest error against float64 may be at most this many
+# times torch.mm's in f32 (TF32 off); a lost correction term gives plain
+# TF32's, about a hundred times larger
+F64_FACTOR = 4
+GEMMS = ("ln_gru_xproj", "ln_gru_dx")  # the kernels in 3xTF32 on the tensor cores
+SPIN_CYCLES = 1_000_000  # device clock cycles a timed launch is queued behind (about 0.5 ms)
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,12 +93,22 @@ def fail(phase: str, err: BaseException) -> int:
 
 
 def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    """The least time the card could take for ``flops`` f32-accurate
+    operations on ``nbytes`` bytes (ms), what bounds it, and the bound
+    without the tensor cores beside it: operations at the faster of f32
+    outside the tensor cores and three TF32 products on them (3xTF32), or
+    bytes, whichever takes longer."""
+    t_simt, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = min(t_simt, 3 * flops / PEAK_TF32_FLOPS)
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", max(t_simt, t_bytes) * 1e3
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times."""
+    """Median of per-call CUDA-event times. Each call is queued behind a
+    spin of SPIN_CYCLES on the device, so that its launches are on the
+    queue before the first event fires: the time is the device's, not the
+    host's launch cost (a call whose host work outlasts the spin, like the
+    plain recurrences' thousands of launches, still shows the host's pace)."""
     import torch
 
     for _ in range(warmup):
@@ -92,6 +116,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     pairs = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -106,6 +131,20 @@ def check(name, got, ref, tol, errors) -> None:
     errors[name] = err
     if not err <= limit:
         raise AssertionError(f"{name}: max |kernel - plain| = {err:.3e} > {limit:.3e}")
+
+
+def check_gemm(torch, name, got, a, b, launch, f64_errors) -> None:
+    """A 3xTF32 GEMM's output ``got`` of a·b: its largest error against a
+    float64 product on the card at most F64_FACTOR times torch.mm's in f32,
+    and another launch on the same inputs bitwise equal to it."""
+    ref = torch.mm(a.double(), b.double())
+    err = float((got.double() - ref).abs().max())
+    mm_err = float((torch.mm(a, b).double() - ref).abs().max())
+    f64_errors[name] = {"kernel": err, "torch_mm": mm_err}
+    if not err <= F64_FACTOR * mm_err:
+        raise AssertionError(f"{name}: max |kernel - f64| = {err:.3e} > {F64_FACTOR} x torch.mm's {mm_err:.3e}")
+    if not torch.equal(launch(), got):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
 def phase_kernels(torch, ln_gru):
@@ -137,7 +176,7 @@ def gru_inputs(torch, shape, dev, seed=0):
 
 def _kernels_vs_plain(torch, ln_gru):
     dev = torch.device("cuda")
-    errors = {}
+    errors, f64_errors = {}, {}
     for label, shape in SHAPES.items():
         T_, B_, F_, H_ = shape
         feats, first, w, scale, bias, cot, g = gru_inputs(torch, shape, dev)
@@ -161,6 +200,7 @@ def _kernels_vs_plain(torch, ln_gru):
         wx, wh, x2 = w[:F_], w[F_:], feats.reshape(M, F_)
         gx = ln_gru.ln_gru_xproj(x2, wx)
         check(f"{label}.xproj.gx", gx, ln_gru.xproj_plain(x2, wx), FWD_TOL, errors)
+        check_gemm(torch, f"{label}.xproj", gx, x2, wx, lambda: ln_gru.ln_gru_xproj(x2, wx), f64_errors)
         gx = gx.reshape(T_, B_, 3 * H_)
         fw = ln_gru.ln_gru_fwd(gx, first, hf, wh, scale, bias)
         for n, a, b in zip(("hs", "yn", "istd"), fw, ln_gru.forward_plain(gx, first, hf, wh, scale, bias)):
@@ -171,7 +211,9 @@ def _kernels_vs_plain(torch, ln_gru):
         for n, a, b in zip(("dh_first", "dy", "dy_raw", "xh"), bw, bw_plain):
             check(f"{label}.bwd.{n}", a, b, GRAD_TOL, errors)
         xh2, dyr2, dy2, yn2 = bw[3].reshape(M, -1), bw[2].reshape(M, -1), bw[1].reshape(M, -1), yn.reshape(M, -1)
-        check(f"{label}.dx.dfeats", ln_gru.ln_gru_dx(dyr2, wx), ln_gru.dx_plain(dyr2, wx), GRAD_TOL, errors)
+        dfeats = ln_gru.ln_gru_dx(dyr2, wx)
+        check(f"{label}.dx.dfeats", dfeats, ln_gru.dx_plain(dyr2, wx), GRAD_TOL, errors)
+        check_gemm(torch, f"{label}.dx", dfeats, dyr2, wx.t(), lambda: ln_gru.ln_gru_dx(dyr2, wx), f64_errors)
         wg = ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)
         for n, a, b in zip(("dW", "dscale", "dbias"), wg, ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2)):
             check(f"{label}.wgrad.{n}", a, b, GRAD_TOL, errors)
@@ -209,7 +251,7 @@ def _kernels_vs_plain(torch, ln_gru):
         "ln_gru_dx": bound_ms(2 * M * N * F, f32 * (M * N + F * N + M * F)),
         "ln_gru_wgrad": bound_ms(2 * M * K * N + 3 * M * N, f32 * (M * K + 3 * M * N + K * N + 2 * N)),
     }
-    return errors, t, bounds, mm_ms, library, no_product
+    return errors, f64_errors, t, bounds, mm_ms, library, no_product
 
 
 def no_product_ms(torch, ln_gru, fwd_args, bwd_args):
@@ -441,11 +483,14 @@ def main() -> int:
         return fail("build", err)
 
     try:
-        errors, times, bounds, mm_ms, library, no_product = phase_kernels(torch, ln_gru)
+        errors, f64_errors, times, bounds, mm_ms, library, no_product = phase_kernels(torch, ln_gru)
         emit("kernels_vs_plain", ok=True, shapes=SHAPES, timed_shape="S", fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
-             max_abs_err=errors, times_ms={k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in times.items()},
-             library_ms=library, no_product_ms=no_product, bound_ms={k: v[0] for k, v in bounds.items()},
-             dW_torch_mm_ms=mm_ms, peaks=dict(f32_flops=PEAK_F32_FLOPS, bytes_per_s=PEAK_BYTES))
+             f64_factor=F64_FACTOR, max_abs_err=errors, err_vs_f64=f64_errors,
+             times_ms={k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in times.items()},
+             library_ms=library, no_product_ms=no_product,
+             bound_ms={k: v[0] for k, v in bounds.items()}, bound_simt_ms={k: v[2] for k, v in bounds.items()},
+             dW_torch_mm_ms=mm_ms, spin_cycles=SPIN_CYCLES,
+             peaks=dict(f32_flops=PEAK_F32_FLOPS, tf32_flops=PEAK_TF32_FLOPS, bytes_per_s=PEAK_BYTES))
     except Exception as err:  # noqa: BLE001
         return fail("kernels_vs_plain", err)
 
@@ -483,12 +528,18 @@ def main() -> int:
             "plain_ms": times[name][1],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
+            "bound_simt_ms": bounds[name][2],
+            "math": "3xtf32" if name in GEMMS else "f32-simt",
             "library_ms": library.get(name),
             "blocks": blocks[name],
             "sms": min(n_sm, blocks[name]),
         })
         if name in no_product:
             kernels[-1]["no_product_ms"] = no_product[name]
+        if name in GEMMS:
+            mine = [v for k, v in f64_errors.items() if k.split(".")[1] == short]
+            kernels[-1]["err_vs_f64"] = max(v["kernel"] for v in mine)
+            kernels[-1]["torch_mm_err_vs_f64"] = max(v["torch_mm"] for v in mine)
         if name == "ln_gru_wgrad":
             # no one call computes dW, dscale and dbias; cuBLAS's dW product
             # alone, on the same inputs, is the library time to beat

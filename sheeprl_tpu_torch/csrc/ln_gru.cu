@@ -15,9 +15,10 @@
 //
 // Design.
 //   * x does not depend on h, so x W_x for all T*B rows (ln_gru_xproj) and,
-//     in the backward, dy_raw W_x^T (ln_gru_dx) are time-parallel SGEMMs over
-//     the whole card, outside the serial loop. They and ln_gru_wgrad share one
-//     double-buffered tiled SGEMM (tile_gemm).
+//     in the backward, dy_raw W_x^T (ln_gru_dx) are time-parallel GEMMs over
+//     the whole card, outside the serial loop: f32 in and out, on the tensor
+//     cores in 3xTF32 (tf32x3_gemm_kernel). ln_gru_wgrad's product is a
+//     double-buffered tiled SGEMM without the tensor cores (tile_gemm).
 //   * The recurrence runs on thread-block clusters of NC = H / HS CTAs (16 at
 //     DreamerV3-S), one cluster for each group of kRows = 4 batch rows (4
 //     clusters, 64 SMs at B = 16). CTA c owns the HS hidden units
@@ -57,12 +58,15 @@
 //
 // Bound. At DreamerV3-S (T=64, B=16, F=H=512) ln_gru_xproj and ln_gru_dx do
 // 2*T*B*F*3H = 1.6 GFLOP each, ln_gru_fwd and ln_gru_bwd 2*T*B*H*3H = 1.6
-// GFLOP each, ln_gru_wgrad 3.2 GFLOP: all are bound by f32 operations outside
-// the tensor cores (67 TFLOP/s), not by bytes. The recurrent kernels occupy
-// NC * ceil(B / kRows) SMs and pay two cluster barriers a step; their time
-// is set by that serial chain, not by the FLOPs.
+// GFLOP each, ln_gru_wgrad 3.2 GFLOP: all are bound by operations, not by
+// bytes. The f32-accurate floor of each is the faster of f32 outside the
+// tensor cores (67 TFLOP/s) and three TF32 products on them (3 x the work at
+// 495 TFLOP/s): 0.0098 ms for the first four, 0.0195 ms for ln_gru_wgrad.
+// The recurrent kernels occupy NC * ceil(B / kRows) SMs and pay two cluster
+// barriers a step; their time is set by that serial chain, not by the FLOPs.
 
 #include <cooperative_groups.h>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -72,75 +76,56 @@ namespace {
 constexpr float kEps = 1e-3f;
 
 // --------------------------------------------------------------------------
-// tile_gemm: C[I, J] = sum_d A(d, i) B(d, j) over d < D. One kTile x kTile
-// output tile per block; each thread owns a 4x4 block of adjacent outputs,
-// so one stage row costs it two 16-byte shared-memory reads for 16 FMAs.
-// Stages of kDepth rows are double-buffered: the global loads of stage s+1
-// are in flight while stage s is multiplied. An operand is either contiguous
-// along its output index (element (d, o) at P[d * ld + o]) or along the sum
-// (element (d, o) at P[o * ld + d]); the stage loads follow the contiguous
-// index so that neighbouring threads read neighbouring addresses.
+// tile_gemm (ln_gru_wgrad's product): C[I, J] = sum_d A[d, i] B[d, j] over
+// d < D, both operands contiguous along their output index (element (d, o)
+// at P[d * ld + o]). One kTile x kTile output tile per block; each thread
+// owns a 4x4 block of adjacent outputs, so one stage row costs it two
+// 16-byte shared-memory reads for 16 FMAs. Stages of kDepth rows are
+// double-buffered: the global loads of stage s+1 are in flight while stage s
+// is multiplied; they follow the contiguous index, so that neighbouring
+// threads read neighbouring addresses.
 // --------------------------------------------------------------------------
 constexpr int kTile = 64;
 constexpr int kDepth = 16;
-// pads the rows of an operand stored along the sum: spreads its stores over
-// the banks and keeps rows 16-byte aligned
-constexpr int kPad = 4;
 constexpr int kGemmThreads = 256;
 constexpr int kPer = kDepth * kTile / kGemmThreads;  // stage elements a thread loads
 
-template <bool kAlongSum>
-__device__ __forceinline__ void stage_index(int e, int& d, int& o) {
-  d = kAlongSum ? e % kDepth : e / kTile;
-  o = kAlongSum ? e / kDepth : e % kTile;
-}
-
-template <bool kAlongSum>
-__device__ __forceinline__ void fetch_stage(const float* __restrict__ P, int ld, int d0, int D, int o0,
-                                            int O, float (&r)[kPer]) {
+__device__ __forceinline__ void fetch_stage(const float* __restrict__ P, int ld, int d0, int D, int o0, int O,
+                                            float (&r)[kPer]) {
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
-    int d, o;
-    stage_index<kAlongSum>(threadIdx.x + kGemmThreads * q, d, o);
-    d += d0;
-    o += o0;
-    r[q] = (d < D && o < O) ? P[kAlongSum ? (size_t)o * ld + d : (size_t)d * ld + o] : 0.f;
+    const int e = threadIdx.x + kGemmThreads * q, d = d0 + e / kTile, o = o0 + e % kTile;
+    r[q] = (d < D && o < O) ? P[(size_t)d * ld + o] : 0.f;
   }
 }
 
-template <bool kAlongSum>
-constexpr int kStageLd = kTile + (kAlongSum ? kPad : 0);  // row stride of a stage in shared memory
-
-template <bool kAlongSum>
-__device__ __forceinline__ void store_stage(float (*S)[kStageLd<kAlongSum>], const float (&r)[kPer]) {
+__device__ __forceinline__ void store_stage(float (*S)[kTile], const float (&r)[kPer]) {
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
-    int d, o;
-    stage_index<kAlongSum>(threadIdx.x + kGemmThreads * q, d, o);
-    S[d][o] = r[q];
+    const int e = threadIdx.x + kGemmThreads * q;
+    S[e / kTile][e % kTile] = r[q];
   }
 }
 
-template <bool kAAlongSum, bool kBAlongSum>
 __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, const float* __restrict__ Bm,
                                           int ldb, float* __restrict__ C, int ldc, int I, int J, int D) {
   const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  __shared__ __align__(16) float As[2][kDepth][kStageLd<kAAlongSum>];
-  __shared__ __align__(16) float Bs[2][kDepth][kStageLd<kBAlongSum>];
+  __shared__ __align__(16) float As[2][kDepth][kTile];
+  __shared__ __align__(16) float Bs[2][kDepth][kTile];
   // thread (tx, ty) owns rows i0 + 4ty .. +3 and columns j0 + 4tx .. +3 of C
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float ra[kPer], rb[kPer];
   float acc[4][4] = {};
-  fetch_stage<kAAlongSum>(A, lda, 0, D, i0, I, ra);
-  fetch_stage<kBAlongSum>(Bm, ldb, 0, D, j0, J, rb);
-  store_stage<kAAlongSum>(As[0], ra);
-  store_stage<kBAlongSum>(Bs[0], rb);
+  fetch_stage(A, lda, 0, D, i0, I, ra);
+  fetch_stage(Bm, ldb, 0, D, j0, J, rb);
+  store_stage(As[0], ra);
+  store_stage(Bs[0], rb);
   __syncthreads();
   for (int d0 = 0, buf = 0; d0 < D; d0 += kDepth, buf ^= 1) {
     const bool next = d0 + kDepth < D;
     if (next) {
-      fetch_stage<kAAlongSum>(A, lda, d0 + kDepth, D, i0, I, ra);
-      fetch_stage<kBAlongSum>(Bm, ldb, d0 + kDepth, D, j0, J, rb);
+      fetch_stage(A, lda, d0 + kDepth, D, i0, I, ra);
+      fetch_stage(Bm, ldb, d0 + kDepth, D, j0, J, rb);
     }
 #pragma unroll
     for (int r = 0; r < kDepth; ++r) {
@@ -154,8 +139,8 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
     }
     // the other buffer was last read before the previous barrier
     if (next) {
-      store_stage<kAAlongSum>(As[buf ^ 1], ra);
-      store_stage<kBAlongSum>(Bs[buf ^ 1], rb);
+      store_stage(As[buf ^ 1], ra);
+      store_stage(Bs[buf ^ 1], rb);
     }
     __syncthreads();
   }
@@ -170,24 +155,264 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
   }
 }
 
-// ln_gru_xproj: Gx[M, N] = X[M, F] W_x[F, N] (the input half of the
-// forward's product, all T*B rows at once). Bound: operations, 2*M*F*N.
-__global__ void __launch_bounds__(kGemmThreads, 4)
-ln_gru_xproj_kernel(const float* __restrict__ x, const float* __restrict__ wx, float* __restrict__ gx,
-                    int M, int F, int N) {
-  tile_gemm<true, false>(x, F, wx, N, gx, N, M, N, F);
+// --------------------------------------------------------------------------
+// The 3xTF32 GEMMs (ln_gru_xproj, ln_gru_dx): C[M, NO] = A[M, K] B[K, NO],
+// f32 in and out, on the tensor cores.
+//   * Split. Each operand element v is split as big = tf32(v) and
+//     small = tf32(v - big), both rounded to nearest with ties away: the bits
+//     cvt.rna.tf32.f32 gives, here from adding half of TF32's last bit to the
+//     magnitude and clearing the 13 dropped bits (integer operations, which
+//     issue faster than the conversion). Per
+//     8-deep step of the sum, mma.sync m16n8k8 forms small*big + big*small +
+//     big*big (small*small lies below f32's last bit and is dropped). The
+//     products of TF32 values are exact; the tensor core rounds its own sums
+//     toward zero, so the products go into a partial accumulator that is
+//     added to the f32 accumulator with an ordinary add (round to nearest)
+//     every kFold steps and cleared: the truncation stays inside one partial
+//     and does not build up along the whole sum.
+//   * Operands. A is row-major [M, K] (lda). B is either row-major [K, NO]
+//     (ldb; ln_gru_xproj's W_x [F, 3H]) or stored along the sum, element
+//     (k, n) at n * ldb + k (kBAlongSum; ln_gru_dx's W_x read as its
+//     transpose). Rows must be 16-byte aligned: K, NO and the leading
+//     dimensions multiples of 4, the pointers 16-byte aligned.
+//   * Pipeline. A block computes a BM x BN tile of C with WM x WN warps, each
+//     a (BM/WM) x (BN/WN) tile of m16n8 MMA tiles, times kSplitK: the k-steps
+//     of a stage are dealt round-robin to kSplitK groups of warps with their
+//     own accumulators, added in group order at the end (more warps to hide
+//     latency, no more registers a warp). The sum runs in stages of BK
+//     through a ring of kStages stages in shared memory, filled by 16-byte
+//     cp.async (zero-filled past M, NO and K), with kStages - 1 stages in
+//     flight while one is multiplied. Every warp splits the fragment
+//     elements it loads (an element of A once for each warp along N, of B
+//     once for each warp along M): splitting each stage once into shared
+//     memory instead doubled the shared-memory traffic and was slower. Rows
+//     are padded (along the sum: BK + 4 floats; a row-major B: BN + 8) so
+//     that each fragment load of a warp hits 32 distinct banks.
+//   * Order. No atomics and no split of the sum over blocks: each output is
+//     one block's, and its sum has a fixed order, so the result is the same
+//     bits from launch to launch.
+// Bound: operations, 3 TF32 products of 2*M*K*NO each at 495 TFLOP/s
+// (0.0098 ms at DreamerV3-S, under f32's 0.024 ms without the tensor
+// cores); the bytes take 0.0034 ms.
+// --------------------------------------------------------------------------
+template <int BM_, int BN_, int BK_, int WM_, int WN_, int kSplitK_, int kStages_, int kFold_>
+struct GemmLayout {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, kSplitK = kSplitK_;
+  static constexpr int kStages = kStages_, kFold = kFold_;
+  static constexpr int kSteps = BK / 8 / kSplitK;  // k-steps of a stage for one group of warps
+  static constexpr int kThreads = 32 * WM * WN * kSplitK;
+  static constexpr int TM = BM / WM / 16, TN = BN / WN / 8;  // MMA tiles of a warp
+  static constexpr int kLdSum = BK + 4;  // row stride of a stage stored along the sum
+  static constexpr int kLdRow = BN + 8;  // row stride of a row-major B stage
+  static_assert(TM * 16 * WM == BM && TN * 8 * WN == BN, "whole MMA tiles");
+  static_assert(kSteps * 8 * kSplitK == BK && kSteps % kFold == 0, "whole k-steps a group, whole folds a stage");
+  static_assert(BN % 32 == 0, "a row-major B stage is bank-conflict free when BN + 8 = 8 mod 32");
+  static_assert((BM * BK / 4) % kThreads == 0 && (BN * BK / 4) % kThreads == 0,
+                "the 16-byte chunks of a stage are whole rounds of the block's threads");
+  template <bool kBAlongSum>
+  __host__ __device__ static constexpr int stage_b() { return kBAlongSum ? BN * kLdSum : BK * kLdRow; }
+  template <bool kBAlongSum>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return 4 * kStages * (BM * kLdSum + stage_b<kBAlongSum>());
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ln_gru_dx: dX[M, F] = dY_raw[M, N] W_x[F, N]^T (the input cotangent, all
-// T*B rows after the reverse sweep). Bound: operations, 2*M*N*F.
-__global__ void __launch_bounds__(kGemmThreads, 4)
-ln_gru_dx_kernel(const float* __restrict__ dyr, const float* __restrict__ wx, float* __restrict__ dx,
-                 int M, int F, int N) {
-  tile_gemm<true, true>(dyr, N, wx, N, dx, F, M, F, N);
+// v -> (tf32(v), tf32(v - tf32(v))), rounded to nearest with ties away.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  small = (__float_as_uint(v - __uint_as_float(big)) + 0x1000u) & 0xFFFFE000u;
 }
+
+// d += a b on one m16n8k8 tile (TF32 in, f32 accumulators).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <class L, bool kBAlongSum>
+__global__ void __launch_bounds__(L::kThreads, 1)
+tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
+                   float* __restrict__ C, int ldc, int M, int NO, int K) {
+  constexpr int BM = L::BM, BN = L::BN, BK = L::BK, TM = L::TM, TN = L::TN, kStages = L::kStages;
+  constexpr int kLdA = L::kLdSum, kLdB = kBAlongSum ? L::kLdSum : L::kLdRow;
+  constexpr int kStageA = BM * kLdA, kStageB = L::template stage_b<kBAlongSum>();
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                      // [kStages][BM][kLdA]
+  float* Bs = smem + kStages * kStageA;  // [kStages][BN][kLdB] along the sum, else [kStages][BK][kLdB]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;  // the fragments' row group and thread in group
+  const int group = warp / (L::WM * L::WN), wt = warp % (L::WM * L::WN);  // k-step group; warp tile
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wm0 = (wt / L::WN) * TM * 16, wn0 = (wt % L::WN) * TN * 8;
+
+  auto load_stage = [&](int slot, int k0) {
+    float* as = As + slot * kStageA;
+#pragma unroll
+    for (int it = 0; it < BM * BK / 4 / L::kThreads; ++it) {  // 16-byte chunks, row by row
+      const int c = tid + it * L::kThreads, r = c / (BK / 4), q = 4 * (c % (BK / 4)), m = m0 + r, k = k0 + q;
+      const bool ok = m < M && k < K;
+      cp_async16(as + r * kLdA + q, ok ? A + (size_t)m * lda + k : A, ok);
+    }
+    float* bs = Bs + slot * kStageB;
+    if constexpr (kBAlongSum) {
+#pragma unroll
+      for (int it = 0; it < BN * BK / 4 / L::kThreads; ++it) {
+        const int c = tid + it * L::kThreads, r = c / (BK / 4), q = 4 * (c % (BK / 4)), n = n0 + r, k = k0 + q;
+        const bool ok = n < NO && k < K;
+        cp_async16(bs + r * kLdB + q, ok ? Bm + (size_t)n * ldb + k : Bm, ok);
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < BK * BN / 4 / L::kThreads; ++it) {
+        const int c = tid + it * L::kThreads, r = c / (BN / 4), q = 4 * (c % (BN / 4)), k = k0 + r, n = n0 + q;
+        const bool ok = k < K && n < NO;
+        cp_async16(bs + r * kLdB + q, ok ? Bm + (size_t)k * ldb + n : Bm, ok);
+      }
+    }
+  };
+
+  float acc[TM][TN][4] = {}, part[TM][TN][4] = {};
+  const int KT = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_stage(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt has landed; every warp is done with the slot of stage kt - 1
+    if (kt + kStages - 1 < KT) load_stage((kt + kStages - 1) % kStages, (kt + kStages - 1) * BK);
+    cp_async_commit();
+    const int slot = kt % kStages;
+#pragma unroll
+    for (int s = 0; s < L::kSteps; ++s) {
+      const int k = 8 * (s * L::kSplitK + group);  // this group's k-step
+      uint32_t a_big[TM][4], a_small[TM][4], b_big[TN][2], b_small[TN][2];
+      const float* as = As + slot * kStageA + (wm0 + gid) * kLdA + tig + k;
+      const float* bs =
+          Bs + slot * kStageB + (kBAlongSum ? (wn0 + gid) * kLdB + tig + k : (tig + k) * kLdB + wn0 + gid);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {  // rows gid, gid + 8; columns tig, tig + 4
+        const float* p = as + i * 16 * kLdA;
+        split_tf32(p[0], a_big[i][0], a_small[i][0]);
+        split_tf32(p[8 * kLdA], a_big[i][1], a_small[i][1]);
+        split_tf32(p[4], a_big[i][2], a_small[i][2]);
+        split_tf32(p[8 * kLdA + 4], a_big[i][3], a_small[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {  // sum index tig, tig + 4; column gid
+        const float* p = kBAlongSum ? bs + j * 8 * kLdB : bs + j * 8;
+        split_tf32(p[0], b_big[j][0], b_small[j][0]);
+        split_tf32(p[kBAlongSum ? 4 : 4 * kLdB], b_big[j][1], b_small[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          mma_tf32(part[i][j], a_small[i], b_big[j]);
+          mma_tf32(part[i][j], a_big[i], b_small[j]);
+          mma_tf32(part[i][j], a_big[i], b_big[j]);
+          if constexpr (L::kFold == 1) {  // fold at once: one tile's partial is live at a time
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r], part[i][j][r] = 0.f;
+          }
+        }
+      if (L::kFold > 1 && (s + 1) % L::kFold == 0) {  // fold the partials into the accumulators, round to nearest
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r], part[i][j][r] = 0.f;
+      }
+    }
+  }
+  if constexpr (L::kSplitK > 1) {  // the groups' sums into group 0's, in group order, through shared memory
+    static_assert((L::kSplitK - 1) * BM * BN <= kStages * (kStageA + kStageB), "the exchange fits the stage ring");
+    cp_async_wait<0>();  // only empty groups are left
+    __syncthreads();     // every warp is done with the ring
+    // [group - 1][warp tile][i][j][r][lane]
+    float* x = smem + (size_t)wt * TM * TN * 4 * 32 + lane;
+    if (group > 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) x[(group - 1) * BM * BN + ((i * TN + j) * 4 + r) * 32] = acc[i][j][r];
+    }
+    __syncthreads();
+    if (group > 0) return;
+#pragma unroll
+    for (int g = 1; g < L::kSplitK; ++g)
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += x[(g - 1) * BM * BN + ((i * TN + j) * 4 + r) * 32];
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {  // rows gid, gid + 8; columns 2 tig, 2 tig + 1
+      const int m = m0 + wm0 + i * 16 + gid, n = n0 + wn0 + j * 8 + 2 * tig;
+      if (n < NO) {  // NO % 4 == 0, so n + 1 < NO too
+        if (m < M) *reinterpret_cast<float2*>(C + (size_t)m * ldc + n) = make_float2(acc[i][j][0], acc[i][j][1]);
+        if (m + 8 < M)
+          *reinterpret_cast<float2*>(C + (size_t)(m + 8) * ldc + n) = make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+}
+
+template <class L, bool kBAlongSum>
+cudaError_t launch_gemm(const float* A, int lda, const float* Bm, int ldb, float* C, int ldc, int M, int NO, int K,
+                        cudaStream_t stream, dim3* grid) {
+  constexpr int smem = L::template smem_bytes<kBAlongSum>();
+  *grid = dim3((NO + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM);
+  if (K % 4 || NO % 4 || lda % 4 || ldb % 4 || ldc % 2 || (((uintptr_t)A | (uintptr_t)Bm | (uintptr_t)C) % 16))
+    return cudaErrorInvalidValue;
+  // set once, at the first launch: the port drives one card a process
+  static const cudaError_t attr = cudaFuncSetAttribute((const void*)tf32x3_gemm_kernel<L, kBAlongSum>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  tf32x3_gemm_kernel<L, kBAlongSum><<<*grid, L::kThreads, smem, stream>>>(A, lda, Bm, ldb, C, ldc, M, NO, K);
+  return cudaSuccess;
+}
+
+// The layouts ln_gru_xproj and ln_gru_dx launch, as GemmLayout's parameters
+// (BM, BN, BK, WM, WN, kSplitK, kStages, kFold). At DreamerV3-S, xproj's
+// [1024, 1536] output in 128 x 96 tiles (sum 512) is 128 blocks of 8 warps,
+// one wave on 132 SMs; dx's [1024, 512] output in 32 x 64 tiles (sum 1536)
+// is 256 blocks of 4 warps, two to an SM, each warp tile's k-steps split
+// between two warps. A source that defines these macros before it includes
+// this file builds another layout: scripts/torch_gemm_layouts.py times the
+// layouts tried that way, and PERF.md has their times.
+#ifndef LN_GRU_XPROJ_LAYOUT
+#define LN_GRU_XPROJ_LAYOUT 128, 96, 64, 4, 2, 1, 3, 4
+#endif
+#ifndef LN_GRU_DX_LAYOUT
+#define LN_GRU_DX_LAYOUT 32, 64, 32, 1, 2, 2, 4, 1
+#endif
+using XprojLayout = GemmLayout<LN_GRU_XPROJ_LAYOUT>;
+using DxLayout = GemmLayout<LN_GRU_DX_LAYOUT>;
 
 // ln_gru_wgrad: replaces the dW/dscale/dbias accumulators of _pallas_backward.
-// Bound: operations, 2*T*B*(F+H)*3H (0.048 ms at DV3-S). dW[K, N] =
+// Bound: operations, 2*T*B*(F+H)*3H (0.048 ms at DV3-S in f32 outside the
+// tensor cores, 0.0195 ms in 3xTF32 on them). dW[K, N] =
 // xh[M, K]^T dy_raw[M, N], one output tile per block, so no two blocks write
 // one output and the sums have a fixed order; the extra row of blocks
 // (blockIdx.y == gridDim.y - 1) computes dscale = sum_m dy*yn and
@@ -219,7 +444,7 @@ ln_gru_wgrad_kernel(const float* __restrict__ xh, const float* __restrict__ dyr,
     }
     return;
   }
-  tile_gemm<false, false>(xh, K, dyr, N, dW, N, K, N, M);
+  tile_gemm(xh, K, dyr, N, dW, N, K, N, M);
 }
 
 // --------------------------------------------------------------------------
@@ -775,9 +1000,9 @@ extern "C" int ln_gru_max_active_clusters(int which, int H, int units, int smem)
 }
 
 extern "C" int ln_gru_xproj(const float* x, const float* wx, float* gx, int M, int F, int N, void* stream) {
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  ln_gru_xproj_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(x, wx, gx, M, F, N);
-  return record(kXproj, grid, cudaSuccess);
+  dim3 grid;
+  const cudaError_t e = launch_gemm<XprojLayout, false>(x, F, wx, N, gx, N, M, N, F, (cudaStream_t)stream, &grid);
+  return record(kXproj, grid, e);
 }
 
 extern "C" int ln_gru_fwd(const float* gx, const float* first, const float* h_first, const float* Wh,
@@ -822,9 +1047,9 @@ extern "C" int ln_gru_bwd_probe(const float* feats, const float* first, const fl
 }
 
 extern "C" int ln_gru_dx(const float* dyraw, const float* wx, float* dx, int M, int F, int N, void* stream) {
-  dim3 grid((F + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  ln_gru_dx_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(dyraw, wx, dx, M, F, N);
-  return record(kDx, grid, cudaSuccess);
+  dim3 grid;
+  const cudaError_t e = launch_gemm<DxLayout, true>(dyraw, N, wx, N, dx, F, M, F, N, (cudaStream_t)stream, &grid);
+  return record(kDx, grid, e);
 }
 
 extern "C" int ln_gru_wgrad(const float* xh, const float* dyraw, const float* dy, const float* yn,

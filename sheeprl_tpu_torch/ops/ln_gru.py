@@ -11,13 +11,15 @@ Port of ``sheeprl_tpu/ops/pallas_gru.py``. Per step (eps 1e-3)::
 Five kernels, written by hand in CUDA C++ (``csrc/ln_gru.cu``, which explains
 their design and bound):
 
-* ``ln_gru_xproj`` — ``Gx = x·W_x`` for all T·B rows, outside the time loop;
+* ``ln_gru_xproj`` — ``Gx = x·W_x`` for all T·B rows, outside the time loop,
+  on the tensor cores in 3xTF32 (f32 accuracy from three TF32 products);
 * ``ln_gru_fwd``   — the recurrence on thread-block clusters, each CTA with
   its slice of ``W_h`` resident in shared memory; saves ``yn`` and ``istd``
   (together with ``ln_gru_xproj`` it replaces ``_pallas_forward``);
 * ``ln_gru_bwd``   — the reverse sweep on the same clusters, from the saved
   ``yn`` (no recompute);
-* ``ln_gru_dx``    — ``dfeats = dy_raw·W_xᵀ`` for all T·B rows after it;
+* ``ln_gru_dx``    — ``dfeats = dy_raw·W_xᵀ`` for all T·B rows after it, in
+  3xTF32 like ``ln_gru_xproj``;
 * ``ln_gru_wgrad`` — ``dW = Σ xhᵀ·dy_raw``, ``dscale``, ``dbias`` over all
   T·B rows (with the two before it, ``_pallas_backward``).
 
@@ -25,17 +27,20 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 kernel's plain version (``xproj_plain``, ``forward_plain``,
 ``backward_plain``, ``dx_plain``, ``wgrad_plain``) for CPU tensors.
 ``forward_cluster_emulated`` and ``backward_cluster_emulated`` replay the
-recurrent kernels' algorithm CTA by CTA in PyTorch, for the CPU tests.
+recurrent kernels' algorithm CTA by CTA in PyTorch, and ``matmul_3xtf32``
+the GEMMs' split arithmetic, for the CPU tests.
 ``gru_sequence`` binds the kernels into a ``torch.autograd.Function``. The
 shared library is built with ``nvcc`` at first use, into ``csrc/build/``
 keyed by a hash of the source.
 
 The recurrent kernels take H when it splits into at most 16 CTAs of 8, 16
 or 32 hidden units each (H <= 512: DreamerV3-XS and S, not M or L) and a
-CTA's shared memory fits (``fits_smem``); F must be a multiple of 4. A
-cluster takes ``ROWS_PER_CLUSTER`` batch rows. This module holds the
-recurrent kernels' layout: ``build`` passes it to nvcc, and the wrappers
-pass each launch its units per CTA and shared-memory bytes.
+CTA's shared memory fits (``fits_smem``); F must be a multiple of 4, and
+the GEMMs copy rows as 16-byte chunks (F and 3H multiples of 4, data
+pointers 16-byte aligned). A cluster takes ``ROWS_PER_CLUSTER`` batch rows.
+This module holds the recurrent kernels' layout: ``build`` passes it to
+nvcc, and the wrappers pass each launch its units per CTA and shared-memory
+bytes.
 """
 from __future__ import annotations
 
@@ -225,6 +230,41 @@ def wgrad_plain(xh, dy_raw, dy, yn):
 
 
 # --------------------------------------------------------------------------
+# the GEMMs' 3xTF32 arithmetic (for the CPU tests)
+# --------------------------------------------------------------------------
+_TF32_STEP = 8  # the depth of one mma.sync m16n8k8 step of the sum
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the last kept bit to
+    the magnitude bits of the int32 view, then clear the 13 dropped bits.
+    Infinities and NaNs pass as they are."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1FFF
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] · b [K, N] in the arithmetic of ``ln_gru_xproj`` and
+    ``ln_gru_dx``. Each operand is split as big = tf32(v), small =
+    tf32(v − big); each 8-deep step of the sum forms small·big + big·small +
+    big·big (the small·small term is dropped) in a fresh partial, which is
+    added to the f32 accumulator. A product of two TF32 values is exact in
+    f32. Not modelled: the kernels add their partials every few steps, and
+    the tensor cores round a partial's sums toward zero; here every sum
+    rounds to nearest."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    acc = a.new_zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], _TF32_STEP):
+        s = slice(k, k + _TF32_STEP)
+        acc = acc + (a_small[:, s] @ b_big[s] + a_big[:, s] @ b_small[s] + a_big[:, s] @ b_big[s])
+    return acc
+
+
+# --------------------------------------------------------------------------
 # the recurrent kernels' algorithm, CTA by CTA (for the CPU tests)
 # --------------------------------------------------------------------------
 def _cta_layout(H: int, n_cta: int) -> Tuple[List[slice], List[torch.Tensor]]:
@@ -239,13 +279,14 @@ def forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta: int):
     """``ln_gru_xproj`` + ``ln_gru_fwd`` as the kernels compute them, with
     ``n_cta`` CTAs a cluster: Gx outside the loop; each CTA's y_raw on its
     gate columns from its W_h slice; per-CTA (mean, M2) combined by Chan's
-    formula in CTA order; the gates of the CTA's units. ``h_first`` is
-    [B, H]; returns (hs, yn, istd) like ``forward_plain``."""
+    formula in CTA order; the gates of the CTA's units; Gx in 3xTF32
+    (``matmul_3xtf32``). ``h_first`` is [B, H]; returns (hs, yn, istd) like
+    ``forward_plain``."""
     T, B, F = feats.shape
     H = w.shape[1] // 3
     ncol = 3 * H // n_cta
     J, cols = _cta_layout(H, n_cta)
-    gx = (feats.reshape(T * B, F) @ w[:F]).reshape(T, B, 3 * H)
+    gx = matmul_3xtf32(feats.reshape(T * B, F), w[:F]).reshape(T, B, 3 * H)
     slices = [w[F:][:, col] for col in cols]
     hs, yns, istds = [], [], []
     h_in = first[0] * h_first
@@ -278,7 +319,7 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
     from the saved yn on its units; the LN-backward row sums added over the
     CTAs in order; each CTA's partial dh_in = dy_raw[:, cols_c]·W_h[:, cols_c]ᵀ
     over all H units; the reduce-scatter that adds the partials of J_d in
-    CTA order; dfeats after the loop. ``h_first`` is [B, H]. Returns
+    CTA order; dfeats after the loop, in 3xTF32. ``h_first`` is [B, H]. Returns
     (dfeats, dh_first [B, H], dW, dscale, dbias)."""
     T, B, F = feats.shape
     H = w.shape[1] // 3
@@ -319,7 +360,7 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
         dh_first = dh_first + f * dh_in
         xh_s[t] = torch.cat([feats[t], h_in], dim=-1)
     M = T * B
-    dfeats = (dyr_s.reshape(M, 3 * H) @ w[:F].t()).reshape(T, B, F)
+    dfeats = matmul_3xtf32(dyr_s.reshape(M, 3 * H), w[:F].t()).reshape(T, B, F)
     dw, dscale, dbias = wgrad_plain(xh_s.reshape(M, -1), dyr_s.reshape(M, -1), dy_s.reshape(M, -1),
                                     yn.reshape(M, -1))
     return dfeats, dh_first, dw, dscale, dbias
@@ -452,6 +493,16 @@ def _require_aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
+def _require_gemm_rows(name: str, **tensors) -> None:
+    """The 3xTF32 GEMMs copy each row of their operands as 16-byte chunks:
+    rows of a multiple of 4 floats, from 16-byte-aligned data."""
+    for arg, t in tensors.items():
+        if t.shape[-1] % 4:
+            raise ValueError(f"{name}: {arg} has rows of {t.shape[-1]} floats, not a shape the kernels take "
+                             "(rows of a multiple of 4 floats)")
+    _require_aligned(name, **tensors)
+
+
 def _launch(name: str, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
@@ -474,6 +525,7 @@ def ln_gru_xproj(x, wx) -> torch.Tensor:
     M, F = x.shape
     N = wx.shape[-1]
     _check("ln_gru_xproj", x.device, x=(x, (M, F)), wx=(wx, (F, N)))
+    _require_gemm_rows("ln_gru_xproj", x=x, wx=wx)
     out = _empty(x.device, M, N)
     _launch("ln_gru_xproj", _lib().ln_gru_xproj, x.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
     ln_gru_xproj.launches += 1
@@ -548,6 +600,9 @@ def ln_gru_dx(dy_raw, wx) -> torch.Tensor:
     M, N = dy_raw.shape
     F = wx.shape[0]
     _check("ln_gru_dx", dy_raw.device, dy_raw=(dy_raw, (M, N)), wx=(wx, (F, N)))
+    if F % 4:
+        raise ValueError(f"ln_gru_dx: F={F} is not a shape the kernels take (a multiple of 4)")
+    _require_gemm_rows("ln_gru_dx", dy_raw=dy_raw, wx=wx)
     out = _empty(dy_raw.device, M, F)
     _launch("ln_gru_dx", _lib().ln_gru_dx, dy_raw.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
     ln_gru_dx.launches += 1
@@ -594,6 +649,7 @@ class _LNGRUSequence(torch.autograd.Function):
     def forward(ctx, feats, first, h_first, w, scale, bias, plain):
         T, B, F = feats.shape
         H = h_first.shape[-1]
+        ctx.h_first_1d = h_first.dim() == 1  # the caller's shape, before the broadcast to [B, H]
         args = [a.contiguous().float() for a in (feats, first, h_first.expand(B, H), w, scale, bias)]
         feats, first, h_first, w, scale, bias = args
         xproj, fwd = (xproj_plain, forward_plain) if plain else (ln_gru_xproj, ln_gru_fwd)
@@ -601,7 +657,6 @@ class _LNGRUSequence(torch.autograd.Function):
         hs, yn, istd = fwd(gx, first, h_first, w[F:], scale, bias)
         ctx.save_for_backward(*args, hs, yn, istd)
         ctx.plain = plain
-        ctx.h_first_1d = h_first.dim() == 1
         return hs
 
     @staticmethod

@@ -211,3 +211,44 @@ def test_cluster_backward_emulation_matches_jax_vjp(n_cta):
     got = ln_gru.backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta)
     for name, a, b in zip(("dfeats", "dh_first", "dW", "dscale", "dbias"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+def test_3xtf32_gemms_through_plain_recurrence_match_jax():
+    """The GEMM kernels' arithmetic (``matmul_3xtf32``: Gx = x·W_x and
+    dfeats = dy_raw·W_xᵀ in 3xTF32) with the plain recurrence, reverse sweep
+    and weight reduction between them gives the JAX package's gru_sequence
+    forward and VJP at the f32 tolerances."""
+    args = _inputs(6, batched_hfirst=True)
+    ja = list(map(jnp.asarray, args))
+    hs_j, vjp = jax.vjp(lambda feats, hf, w, scale, bias: pg.gru_sequence(feats, ja[1], hf, w, scale, bias, True),
+                        ja[0], ja[2], ja[3], ja[4], ja[5])
+    cot = np.random.default_rng(16).standard_normal((T, B, H)).astype(np.float32)
+    want = vjp(jnp.asarray(cot))
+    feats, first, h_first, w, scale, bias = _torch(args)
+    M = T * B
+    gx = ln_gru.matmul_3xtf32(feats.reshape(M, F), w[:F]).reshape(T, B, 3 * H)
+    hs, yn, istd = ln_gru.forward_plain(gx, first, h_first, w[F:], scale, bias)
+    np.testing.assert_allclose(hs.numpy(), np.asarray(hs_j), **FWD_TOL)
+    dh_first, dy, dy_raw, xh = ln_gru.backward_plain(feats, first, hs, h_first, w[F:], scale, bias,
+                                                     torch.from_numpy(cot), yn, istd)
+    dfeats = ln_gru.matmul_3xtf32(dy_raw.reshape(M, -1), w[:F].t()).reshape(T, B, F)
+    dw, dscale, dbias = ln_gru.wgrad_plain(xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1),
+                                           yn.reshape(M, -1))
+    for name, a, b in zip(("dfeats", "dh_first", "dW", "dscale", "dbias"), (dfeats, dh_first, dw, dscale, dbias), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+def test_hfirst_1d_gradient_is_reduced_by_the_backward():
+    """For an [H] h_first the autograd Function's backward itself returns the
+    [H] gradient (the sum over the batch of the [B, H] carry cotangent), and
+    it equals the gradient of the same state given as an expanded [B, H]
+    input within 1e-6."""
+    args = _inputs(7)
+    ta = _torch(args, grad=(2,))
+    out = ln_gru.gru_sequence(*ta)
+    cot = torch.from_numpy(np.random.default_rng(17).standard_normal((T, B, H)).astype(np.float32))
+    raw = out.grad_fn.apply(cot)  # the backward's own outputs, before autograd fits them to the inputs
+    assert raw[2].shape == (H,)
+    tb = _torch(args, grad=(2,))
+    (ln_gru.gru_sequence(tb[0], tb[1], tb[2].expand(B, H), *tb[3:]) * cot).sum().backward()
+    np.testing.assert_allclose(raw[2].detach().numpy(), tb[2].grad.numpy(), rtol=1e-6, atol=1e-6)

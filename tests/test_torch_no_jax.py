@@ -1,5 +1,6 @@
 """The PyTorch port imports neither JAX (jax, flax, optax) nor anything of
-the JAX package, and chip_smoke.py imports nothing of the JAX package: every
+the JAX package, and chip_smoke.py and the port's scripts
+(scripts/torch_*.py, which run on the card too) import nothing of it: every
 port module is imported in a fresh interpreter and the loaded modules are
 checked, and every import statement of the port's sources is scanned."""
 import ast
@@ -48,7 +49,7 @@ def _imports(path: Path):
 
 
 def test_port_and_chip_smoke_sources_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
