@@ -19,11 +19,12 @@ that fails and then prints no result:
                kernels against the plain passes (the forward and all five
                gradients, h_first of shape [H] and [B,H]), and each of the
                five kernels against its plain version on the same inputs,
-               TF32 off, with the tolerances printed; the two 3xTF32 GEMMs
-               (ln_gru_xproj, ln_gru_dx) also against a float64 product on
-               the card (their error at most F64_FACTOR times torch.mm's in
-               f32) and two launches of each bitwise equal; at DreamerV3-S
-               the kernels' and plain versions' medians over timed reps
+               TF32 off, with the tolerances printed; the three 3xTF32
+               GEMMs (ln_gru_xproj, ln_gru_dx, ln_gru_wgrad's dW) also
+               against a float64 product on the card (their error at most
+               F64_FACTOR times torch.mm's in f32) and two launches of each
+               bitwise equal (ln_gru_wgrad's dscale and dbias too); at
+               DreamerV3-S the kernels' and plain versions' medians over timed reps
                (CUDA events, each launch queued behind a spin so that the
                host's launch cost stays out of the device time), the
                recurrent kernels' probe variants without their product (the
@@ -79,7 +80,7 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 # times torch.mm's in f32 (TF32 off); a lost correction term gives plain
 # TF32's, about a hundred times larger
 F64_FACTOR = 4
-GEMMS = ("ln_gru_xproj", "ln_gru_dx")  # the kernels in 3xTF32 on the tensor cores
+GEMMS = ("ln_gru_xproj", "ln_gru_dx", "ln_gru_wgrad")  # the kernels in 3xTF32 on the tensor cores
 SPIN_CYCLES = 1_000_000  # device clock cycles a timed launch is queued behind (about 0.5 ms)
 
 
@@ -217,6 +218,10 @@ def _kernels_vs_plain(torch, ln_gru):
         wg = ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)
         for n, a, b in zip(("dW", "dscale", "dbias"), wg, ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2)):
             check(f"{label}.wgrad.{n}", a, b, GRAD_TOL, errors)
+        check_gemm(torch, f"{label}.wgrad", wg[0], xh2.t(), dyr2, lambda: ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)[0],
+                   f64_errors)
+        if not all(torch.equal(a, b) for a, b in zip(wg[1:], ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)[1:])):
+            raise AssertionError(f"{label}.wgrad: dscale or dbias differ between two launches on the same inputs")
         if label == "S":
             timed = (feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2)
 

@@ -15,10 +15,12 @@
 //
 // Design.
 //   * x does not depend on h, so x W_x for all T*B rows (ln_gru_xproj) and,
-//     in the backward, dy_raw W_x^T (ln_gru_dx) are time-parallel GEMMs over
-//     the whole card, outside the serial loop: f32 in and out, on the tensor
-//     cores in 3xTF32 (tf32x3_gemm_kernel). ln_gru_wgrad's product is a
-//     double-buffered tiled SGEMM without the tensor cores (tile_gemm).
+//     in the backward, dy_raw W_x^T (ln_gru_dx) and the weight gradient
+//     xh^T dy_raw (ln_gru_wgrad) are time-parallel GEMMs over the whole card,
+//     outside the serial loop: f32 in and out, on the tensor cores in 3xTF32
+//     (tf32x3_gemm_kernel, one mainloop for the three operand layouts).
+//     ln_gru_wgrad's blocks also sum dscale and dbias, each over its share of
+//     the rows, in the same launch.
 //   * The recurrence runs on thread-block clusters of NC = H / HS CTAs (16 at
 //     DreamerV3-S), one cluster for each group of kRows = 4 batch rows (4
 //     clusters, 64 SMs at B = 16). CTA c owns the HS hidden units
@@ -76,88 +78,8 @@ namespace {
 constexpr float kEps = 1e-3f;
 
 // --------------------------------------------------------------------------
-// tile_gemm (ln_gru_wgrad's product): C[I, J] = sum_d A[d, i] B[d, j] over
-// d < D, both operands contiguous along their output index (element (d, o)
-// at P[d * ld + o]). One kTile x kTile output tile per block; each thread
-// owns a 4x4 block of adjacent outputs, so one stage row costs it two
-// 16-byte shared-memory reads for 16 FMAs. Stages of kDepth rows are
-// double-buffered: the global loads of stage s+1 are in flight while stage s
-// is multiplied; they follow the contiguous index, so that neighbouring
-// threads read neighbouring addresses.
-// --------------------------------------------------------------------------
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kGemmThreads = 256;
-constexpr int kPer = kDepth * kTile / kGemmThreads;  // stage elements a thread loads
-
-__device__ __forceinline__ void fetch_stage(const float* __restrict__ P, int ld, int d0, int D, int o0, int O,
-                                            float (&r)[kPer]) {
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int e = threadIdx.x + kGemmThreads * q, d = d0 + e / kTile, o = o0 + e % kTile;
-    r[q] = (d < D && o < O) ? P[(size_t)d * ld + o] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_stage(float (*S)[kTile], const float (&r)[kPer]) {
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int e = threadIdx.x + kGemmThreads * q;
-    S[e / kTile][e % kTile] = r[q];
-  }
-}
-
-__device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, const float* __restrict__ Bm,
-                                          int ldb, float* __restrict__ C, int ldc, int I, int J, int D) {
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  __shared__ __align__(16) float As[2][kDepth][kTile];
-  __shared__ __align__(16) float Bs[2][kDepth][kTile];
-  // thread (tx, ty) owns rows i0 + 4ty .. +3 and columns j0 + 4tx .. +3 of C
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float ra[kPer], rb[kPer];
-  float acc[4][4] = {};
-  fetch_stage(A, lda, 0, D, i0, I, ra);
-  fetch_stage(Bm, ldb, 0, D, j0, J, rb);
-  store_stage(As[0], ra);
-  store_stage(Bs[0], rb);
-  __syncthreads();
-  for (int d0 = 0, buf = 0; d0 < D; d0 += kDepth, buf ^= 1) {
-    const bool next = d0 + kDepth < D;
-    if (next) {
-      fetch_stage(A, lda, d0 + kDepth, D, i0, I, ra);
-      fetch_stage(Bm, ldb, d0 + kDepth, D, j0, J, rb);
-    }
-#pragma unroll
-    for (int r = 0; r < kDepth; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[buf][r][4 * ty]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][r][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bq[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bq[q], acc[i][q]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (next) {
-      store_stage(As[buf ^ 1], ra);
-      store_stage(Bs[buf ^ 1], rb);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ii = i0 + 4 * ty + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int jj = j0 + 4 * tx + q;
-      if (ii < I && jj < J) C[(size_t)ii * ldc + jj] = acc[i][q];
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// The 3xTF32 GEMMs (ln_gru_xproj, ln_gru_dx): C[M, NO] = A[M, K] B[K, NO],
-// f32 in and out, on the tensor cores.
+// The 3xTF32 GEMMs (ln_gru_xproj, ln_gru_dx, ln_gru_wgrad):
+// C[M, NO] = A[M, K] B[K, NO], f32 in and out, on the tensor cores.
 //   * Split. Each operand element v is split as big = tf32(v) and
 //     small = tf32(v - big), both rounded to nearest with ties away: the bits
 //     cvt.rna.tf32.f32 gives, here from adding half of TF32's last bit to the
@@ -170,11 +92,14 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
 //     added to the f32 accumulator with an ordinary add (round to nearest)
 //     every kFold steps and cleared: the truncation stays inside one partial
 //     and does not build up along the whole sum.
-//   * Operands. A is row-major [M, K] (lda). B is either row-major [K, NO]
-//     (ldb; ln_gru_xproj's W_x [F, 3H]) or stored along the sum, element
-//     (k, n) at n * ldb + k (kBAlongSum; ln_gru_dx's W_x read as its
-//     transpose). Rows must be 16-byte aligned: K, NO and the leading
-//     dimensions multiples of 4, the pointers 16-byte aligned.
+//   * Operands (Gemm below). A is row-major [M, K] (lda; along the sum) or
+//     stored along the output, element (m, k) at k * lda + m (ln_gru_wgrad's
+//     xh^T: xh [T*B, F+H] read as its transpose). B is row-major [K, NO]
+//     (ldb; W_x [F, 3H] of ln_gru_xproj, dy_raw [T*B, 3H] of ln_gru_wgrad)
+//     or stored along the sum, element (k, n) at n * ldb + k (ln_gru_dx's W_x
+//     read as its transpose). Rows must be 16-byte aligned: the length of
+//     each operand's contiguous rows (K or M for A, NO or K for B), NO and
+//     the leading dimensions multiples of 4, the pointers 16-byte aligned.
 //   * Pipeline. A block computes a BM x BN tile of C with WM x WN warps, each
 //     a (BM/WM) x (BN/WN) tile of m16n8 MMA tiles, times kSplitK: the k-steps
 //     of a stage are dealt round-robin to kSplitK groups of warps with their
@@ -186,15 +111,28 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
 //     elements it loads (an element of A once for each warp along N, of B
 //     once for each warp along M): splitting each stage once into shared
 //     memory instead doubled the shared-memory traffic and was slower. Rows
-//     are padded (along the sum: BK + 4 floats; a row-major B: BN + 8) so
-//     that each fragment load of a warp hits 32 distinct banks.
-//   * Order. No atomics and no split of the sum over blocks: each output is
-//     one block's, and its sum has a fixed order, so the result is the same
-//     bits from launch to launch.
+//     are padded so that each fragment load of a warp hits 32 distinct banks:
+//     a stage stored along the sum by BK + 4 floats (4 mod 32: lanes gid, tig
+//     at 4 gid + tig), one stored along the output (A: BM + 8) or row-major
+//     (B: BN + 8) by 8 mod 32 (lanes at 8 tig + gid).
+//   * Order. No atomics on floats and no split of the sum over blocks: each
+//     output is one block's, and its sum has a fixed order, so the result is
+//     the same bits from launch to launch.
 // Bound: operations, 3 TF32 products of 2*M*K*NO each at 495 TFLOP/s
-// (0.0098 ms at DreamerV3-S, under f32's 0.024 ms without the tensor
-// cores); the bytes take 0.0034 ms.
+// (0.0098 ms for ln_gru_xproj and ln_gru_dx at DreamerV3-S, under f32's
+// 0.024 ms without the tensor cores; their bytes take 0.0034 ms).
 // --------------------------------------------------------------------------
+
+// The GEMM an instance computes, and with it the operand layouts:
+//   kXproj  A along the sum, B row-major;
+//   kDx     A along the sum, B along the sum;
+//   kWgrad  A along the output, B row-major, and the column sums below.
+enum class Gemm { kXproj, kDx, kWgrad };
+template <Gemm G>
+constexpr bool kAAlongOut = G == Gemm::kWgrad;
+template <Gemm G>
+constexpr bool kBAlongSum = G == Gemm::kDx;
+
 template <int BM_, int BN_, int BK_, int WM_, int WN_, int kSplitK_, int kStages_, int kFold_>
 struct GemmLayout {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, kSplitK = kSplitK_;
@@ -204,17 +142,18 @@ struct GemmLayout {
   static constexpr int TM = BM / WM / 16, TN = BN / WN / 8;  // MMA tiles of a warp
   static constexpr int kLdSum = BK + 4;  // row stride of a stage stored along the sum
   static constexpr int kLdRow = BN + 8;  // row stride of a row-major B stage
+  static constexpr int kLdOut = BM + 8;  // row stride of an A stage stored along the output
   static_assert(TM * 16 * WM == BM && TN * 8 * WN == BN, "whole MMA tiles");
   static_assert(kSteps * 8 * kSplitK == BK && kSteps % kFold == 0, "whole k-steps a group, whole folds a stage");
   static_assert(BN % 32 == 0, "a row-major B stage is bank-conflict free when BN + 8 = 8 mod 32");
   static_assert((BM * BK / 4) % kThreads == 0 && (BN * BK / 4) % kThreads == 0,
                 "the 16-byte chunks of a stage are whole rounds of the block's threads");
-  template <bool kBAlongSum>
-  __host__ __device__ static constexpr int stage_b() { return kBAlongSum ? BN * kLdSum : BK * kLdRow; }
-  template <bool kBAlongSum>
-  __host__ __device__ static constexpr int smem_bytes() {
-    return 4 * kStages * (BM * kLdSum + stage_b<kBAlongSum>());
-  }
+  template <Gemm G>
+  __host__ __device__ static constexpr int stage_a() { return kAAlongOut<G> ? BK * kLdOut : BM * kLdSum; }
+  template <Gemm G>
+  __host__ __device__ static constexpr int stage_b() { return kBAlongSum<G> ? BN * kLdSum : BK * kLdRow; }
+  template <Gemm G>
+  __host__ __device__ static constexpr int smem_bytes() { return 4 * kStages * (stage_a<G>() + stage_b<G>()); }
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
@@ -242,15 +181,86 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <class L, bool kBAlongSum>
+// ln_gru_wgrad's column sums, dscale = sum_m dy*yn and dbias = sum_m dy over
+// the K rows of the GEMM's sum (dy, yn [K, NO] row-major), spread over its
+// blocks: the block at (bx, by) sums rows [by K / gy, (by + 1) K / gy) of its
+// BN columns into the partial slot part[by][2][NO], and the last block of
+// column tile bx to arrive adds the gy = gridDim.y partials in slot order.
+// An arrival counter a column tile (reset to 0 by that last block, so zero
+// between launches) and __threadfence() tell it that it is last; no atomic
+// adds a float, so the sums have a fixed order.
+struct ColumnSums {
+  const float* dy;
+  const float* yn;
+  float* part;  // [gridDim.y][2][NO], written before it is read
+  float* dscale;
+  float* dbias;
+};
+constexpr int kMaxColumnTiles = 4096;  // column tiles of one ln_gru_wgrad launch
+__device__ unsigned int g_arrivals[kMaxColumnTiles];
+
+template <class L>
+__device__ void column_sums(const ColumnSums& cs, int K, int NO) {
+  constexpr int Q = L::BN / 4;         // float4 columns of the tile
+  constexpr int P = L::kThreads / Q;   // rows summed side by side, one per group of Q threads
+  static_assert(P >= 1, "a block covers its tile's columns");
+  __shared__ __align__(16) float red[P][2][L::BN];
+  __shared__ bool last;
+  const int tid = threadIdx.x, n0 = blockIdx.x * L::BN, gy = gridDim.y;
+  const int r0 = (int)((long long)blockIdx.y * K / gy), r1 = (int)((long long)(blockIdx.y + 1) * K / gy);
+  if (tid < P * Q) {
+    const int q = tid % Q, p = tid / Q, n = n0 + 4 * q;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f), b = s;
+    if (n < NO) {
+#pragma unroll 4
+      for (int k = r0 + p; k < r1; k += P) {
+        const float4 d = __ldg(reinterpret_cast<const float4*>(cs.dy + (size_t)k * NO + n));
+        const float4 y = __ldg(reinterpret_cast<const float4*>(cs.yn + (size_t)k * NO + n));
+        s.x = fmaf(d.x, y.x, s.x), s.y = fmaf(d.y, y.y, s.y), s.z = fmaf(d.z, y.z, s.z), s.w = fmaf(d.w, y.w, s.w);
+        b.x += d.x, b.y += d.y, b.z += d.z, b.w += d.w;
+      }
+    }
+    *reinterpret_cast<float4*>(&red[p][0][4 * q]) = s;
+    *reinterpret_cast<float4*>(&red[p][1][4 * q]) = b;
+  }
+  __syncthreads();
+  for (int c = tid; c < 2 * L::BN; c += L::kThreads) {  // this block's partial: the P row sums in order
+    const int w = c / L::BN, j = c % L::BN, n = n0 + j;
+    float v = red[0][w][j];
+#pragma unroll
+    for (int p = 1; p < P; ++p) v += red[p][w][j];
+    if (n < NO) cs.part[((size_t)blockIdx.y * 2 + w) * NO + n] = v;
+  }
+  __threadfence();  // the partial is visible to every block before this block counts as arrived
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&g_arrivals[blockIdx.x], 1u) == (unsigned)gy - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int c = tid; c < 2 * L::BN; c += L::kThreads) {  // the gy partials of the column tile, in slot order
+    const int w = c / L::BN, n = n0 + c % L::BN;
+    if (n >= NO) continue;
+    const float* p = cs.part + (size_t)w * NO + n;
+    float v = __ldcg(p);
+    for (int g = 1; g < gy; ++g) v += __ldcg(p + (size_t)g * 2 * NO);
+    (w ? cs.dbias : cs.dscale)[n] = v;
+  }
+  if (tid == 0) g_arrivals[blockIdx.x] = 0;
+}
+
+template <class L, Gemm G>
 __global__ void __launch_bounds__(L::kThreads, 1)
 tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
-                   float* __restrict__ C, int ldc, int M, int NO, int K) {
+                   float* __restrict__ C, int ldc, int M, int NO, int K, ColumnSums cs) {
   constexpr int BM = L::BM, BN = L::BN, BK = L::BK, TM = L::TM, TN = L::TN, kStages = L::kStages;
-  constexpr int kLdA = L::kLdSum, kLdB = kBAlongSum ? L::kLdSum : L::kLdRow;
-  constexpr int kStageA = BM * kLdA, kStageB = L::template stage_b<kBAlongSum>();
+  constexpr bool kAOut = kAAlongOut<G>, kBSum = kBAlongSum<G>;
+  static_assert(!kAOut || BM % 32 == 0, "an A stage along the output is bank-conflict free when BM + 8 = 8 mod 32");
+  constexpr int kLdA = kAOut ? L::kLdOut : L::kLdSum, kLdB = kBSum ? L::kLdSum : L::kLdRow;
+  constexpr int kStageA = L::template stage_a<G>(), kStageB = L::template stage_b<G>();
+  // strides of an A stage between two rows of the output and two steps of the sum
+  constexpr int kARow = kAOut ? 1 : kLdA, kASum = kAOut ? kLdA : 1;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                      // [kStages][BM][kLdA]
+  float* As = smem;                      // [kStages][BK][kLdA] along the output, else [kStages][BM][kLdA]
   float* Bs = smem + kStages * kStageA;  // [kStages][BN][kLdB] along the sum, else [kStages][BK][kLdB]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;  // the fragments' row group and thread in group
@@ -260,14 +270,23 @@ tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict
 
   auto load_stage = [&](int slot, int k0) {
     float* as = As + slot * kStageA;
+    if constexpr (kAOut) {
 #pragma unroll
-    for (int it = 0; it < BM * BK / 4 / L::kThreads; ++it) {  // 16-byte chunks, row by row
-      const int c = tid + it * L::kThreads, r = c / (BK / 4), q = 4 * (c % (BK / 4)), m = m0 + r, k = k0 + q;
-      const bool ok = m < M && k < K;
-      cp_async16(as + r * kLdA + q, ok ? A + (size_t)m * lda + k : A, ok);
+      for (int it = 0; it < BK * BM / 4 / L::kThreads; ++it) {  // 16-byte chunks along the output, a row a k
+        const int c = tid + it * L::kThreads, r = c / (BM / 4), q = 4 * (c % (BM / 4)), k = k0 + r, m = m0 + q;
+        const bool ok = k < K && m < M;
+        cp_async16(as + r * kLdA + q, ok ? A + (size_t)k * lda + m : A, ok);
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < BM * BK / 4 / L::kThreads; ++it) {  // 16-byte chunks, row by row
+        const int c = tid + it * L::kThreads, r = c / (BK / 4), q = 4 * (c % (BK / 4)), m = m0 + r, k = k0 + q;
+        const bool ok = m < M && k < K;
+        cp_async16(as + r * kLdA + q, ok ? A + (size_t)m * lda + k : A, ok);
+      }
     }
     float* bs = Bs + slot * kStageB;
-    if constexpr (kBAlongSum) {
+    if constexpr (kBSum) {
 #pragma unroll
       for (int it = 0; it < BN * BK / 4 / L::kThreads; ++it) {
         const int c = tid + it * L::kThreads, r = c / (BK / 4), q = 4 * (c % (BK / 4)), n = n0 + r, k = k0 + q;
@@ -291,6 +310,7 @@ tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict
     if (s < KT) load_stage(s, s * BK);
     cp_async_commit();
   }
+  if constexpr (G == Gemm::kWgrad) column_sums<L>(cs, K, NO);  // while the first stages are in flight
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage kt has landed; every warp is done with the slot of stage kt - 1
@@ -301,22 +321,21 @@ tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict
     for (int s = 0; s < L::kSteps; ++s) {
       const int k = 8 * (s * L::kSplitK + group);  // this group's k-step
       uint32_t a_big[TM][4], a_small[TM][4], b_big[TN][2], b_small[TN][2];
-      const float* as = As + slot * kStageA + (wm0 + gid) * kLdA + tig + k;
-      const float* bs =
-          Bs + slot * kStageB + (kBAlongSum ? (wn0 + gid) * kLdB + tig + k : (tig + k) * kLdB + wn0 + gid);
+      const float* as = As + slot * kStageA + (wm0 + gid) * kARow + (tig + k) * kASum;
+      const float* bs = Bs + slot * kStageB + (kBSum ? (wn0 + gid) * kLdB + tig + k : (tig + k) * kLdB + wn0 + gid);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {  // rows gid, gid + 8; columns tig, tig + 4
-        const float* p = as + i * 16 * kLdA;
+        const float* p = as + i * 16 * kARow;
         split_tf32(p[0], a_big[i][0], a_small[i][0]);
-        split_tf32(p[8 * kLdA], a_big[i][1], a_small[i][1]);
-        split_tf32(p[4], a_big[i][2], a_small[i][2]);
-        split_tf32(p[8 * kLdA + 4], a_big[i][3], a_small[i][3]);
+        split_tf32(p[8 * kARow], a_big[i][1], a_small[i][1]);
+        split_tf32(p[4 * kASum], a_big[i][2], a_small[i][2]);
+        split_tf32(p[8 * kARow + 4 * kASum], a_big[i][3], a_small[i][3]);
       }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {  // sum index tig, tig + 4; column gid
-        const float* p = kBAlongSum ? bs + j * 8 * kLdB : bs + j * 8;
+        const float* p = kBSum ? bs + j * 8 * kLdB : bs + j * 8;
         split_tf32(p[0], b_big[j][0], b_small[j][0]);
-        split_tf32(p[kBAlongSum ? 4 : 4 * kLdB], b_big[j][1], b_small[j][1]);
+        split_tf32(p[kBSum ? 4 : 4 * kLdB], b_big[j][1], b_small[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -378,74 +397,61 @@ tf32x3_gemm_kernel(const float* __restrict__ A, int lda, const float* __restrict
     }
 }
 
-template <class L, bool kBAlongSum>
+template <class L, Gemm G>
 cudaError_t launch_gemm(const float* A, int lda, const float* Bm, int ldb, float* C, int ldc, int M, int NO, int K,
-                        cudaStream_t stream, dim3* grid) {
-  constexpr int smem = L::template smem_bytes<kBAlongSum>();
+                        const ColumnSums& cs, cudaStream_t stream, dim3* grid) {
+  constexpr int smem = L::template smem_bytes<G>();
   *grid = dim3((NO + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM);
-  if (K % 4 || NO % 4 || lda % 4 || ldb % 4 || ldc % 2 || (((uintptr_t)A | (uintptr_t)Bm | (uintptr_t)C) % 16))
-    return cudaErrorInvalidValue;
+  // the lengths of the operands' contiguous rows, which cp.async copies as 16-byte chunks
+  const int a_row = kAAlongOut<G> ? M : K, b_row = kBAlongSum<G> ? K : NO;
+  uintptr_t ptrs = (uintptr_t)A | (uintptr_t)Bm | (uintptr_t)C;
+  if constexpr (G == Gemm::kWgrad) {
+    ptrs |= (uintptr_t)cs.dy | (uintptr_t)cs.yn;  // read as float4
+    if (grid->x > (unsigned)kMaxColumnTiles) return cudaErrorInvalidValue;
+  }
+  if (a_row % 4 || b_row % 4 || NO % 4 || lda % 4 || ldb % 4 || ldc % 2 || ptrs % 16) return cudaErrorInvalidValue;
   // set once, at the first launch: the port drives one card a process
-  static const cudaError_t attr = cudaFuncSetAttribute((const void*)tf32x3_gemm_kernel<L, kBAlongSum>,
+  static const cudaError_t attr = cudaFuncSetAttribute((const void*)tf32x3_gemm_kernel<L, G>,
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  tf32x3_gemm_kernel<L, kBAlongSum><<<*grid, L::kThreads, smem, stream>>>(A, lda, Bm, ldb, C, ldc, M, NO, K);
+  tf32x3_gemm_kernel<L, G><<<*grid, L::kThreads, smem, stream>>>(A, lda, Bm, ldb, C, ldc, M, NO, K, cs);
   return cudaSuccess;
 }
 
-// The layouts ln_gru_xproj and ln_gru_dx launch, as GemmLayout's parameters
-// (BM, BN, BK, WM, WN, kSplitK, kStages, kFold). At DreamerV3-S, xproj's
-// [1024, 1536] output in 128 x 96 tiles (sum 512) is 128 blocks of 8 warps,
-// one wave on 132 SMs; dx's [1024, 512] output in 32 x 64 tiles (sum 1536)
-// is 256 blocks of 4 warps, two to an SM, each warp tile's k-steps split
-// between two warps. A source that defines these macros before it includes
-// this file builds another layout: scripts/torch_gemm_layouts.py times the
-// layouts tried that way, and PERF.md has their times.
+// The layouts the three GEMMs launch, as GemmLayout's parameters (BM, BN,
+// BK, WM, WN, kSplitK, kStages, kFold). At DreamerV3-S, xproj's [1024, 1536]
+// output in 128 x 96 tiles (sum 512) is 128 blocks of 8 warps, one wave on
+// 132 SMs; dx's [1024, 512] output in 32 x 64 tiles (sum 1536) is 256 blocks
+// of 4 warps, two to an SM, each warp tile's k-steps split between two warps;
+// wgrad's [1024, 1536] output in xproj's tiles, with stages half as deep
+// (sum 1024 in 32 stages of 32), is 128 blocks, one wave, and 8 rows of
+// blocks for the column sums' partials. A source that
+// defines these macros before it includes this file builds another layout:
+// scripts/torch_gemm_layouts.py times the layouts tried that way, and
+// PERF.md has their times.
 #ifndef LN_GRU_XPROJ_LAYOUT
 #define LN_GRU_XPROJ_LAYOUT 128, 96, 64, 4, 2, 1, 3, 4
 #endif
 #ifndef LN_GRU_DX_LAYOUT
 #define LN_GRU_DX_LAYOUT 32, 64, 32, 1, 2, 2, 4, 1
 #endif
+#ifndef LN_GRU_WGRAD_LAYOUT
+#define LN_GRU_WGRAD_LAYOUT 128, 96, 32, 4, 2, 1, 4, 4
+#endif
 using XprojLayout = GemmLayout<LN_GRU_XPROJ_LAYOUT>;
 using DxLayout = GemmLayout<LN_GRU_DX_LAYOUT>;
+using WgradLayout = GemmLayout<LN_GRU_WGRAD_LAYOUT>;
 
-// ln_gru_wgrad: replaces the dW/dscale/dbias accumulators of _pallas_backward.
-// Bound: operations, 2*T*B*(F+H)*3H (0.048 ms at DV3-S in f32 outside the
-// tensor cores, 0.0195 ms in 3xTF32 on them). dW[K, N] =
-// xh[M, K]^T dy_raw[M, N], one output tile per block, so no two blocks write
-// one output and the sums have a fixed order; the extra row of blocks
-// (blockIdx.y == gridDim.y - 1) computes dscale = sum_m dy*yn and
-// dbias = sum_m dy for its kTile columns. Four blocks fit an SM, so at DV3-S
-// the 384 tile blocks and 24 column-sum blocks run in one wave.
-__global__ void __launch_bounds__(kGemmThreads, 4)
-ln_gru_wgrad_kernel(const float* __restrict__ xh, const float* __restrict__ dyr,
-                    const float* __restrict__ dy, const float* __restrict__ yn,
-                    float* __restrict__ dW, float* __restrict__ dscale, float* __restrict__ dbias,
-                    int M, int K, int N) {
-  if (blockIdx.y == gridDim.y - 1) {
-    __shared__ float ps[4][kTile], pb[4][kTile];
-    const int tid = threadIdx.x, c = tid % kTile, p = tid / kTile, j = blockIdx.x * kTile + c;
-    float s1 = 0.f, s2 = 0.f;
-    if (j < N) {
-#pragma unroll 8
-      for (int m = p; m < M; m += 4) {
-        const float d = dy[(size_t)m * N + j];
-        s1 = fmaf(d, yn[(size_t)m * N + j], s1);
-        s2 += d;
-      }
-    }
-    ps[p][c] = s1;
-    pb[p][c] = s2;
-    __syncthreads();
-    if (p == 0 && j < N) {
-      dscale[j] = ((ps[0][c] + ps[1][c]) + ps[2][c]) + ps[3][c];
-      dbias[j] = ((pb[0][c] + pb[1][c]) + pb[2][c]) + pb[3][c];
-    }
-    return;
-  }
-  tile_gemm(xh, K, dyr, N, dW, N, K, N, M);
-}
+// ln_gru_wgrad: replaces the dW/dscale/dbias accumulators of _pallas_backward
+// (sheeprl_tpu/ops/pallas_gru.py:206-207, :217). dW[F+H, 3H] = xh^T dy_raw,
+// a sum over the T*B rows, on tf32x3_gemm_kernel with A = xh read along the
+// output; dscale and dbias by column_sums in the same launch, in the
+// prologue of every block while its first stages are in flight. Bound:
+// operations, 3 TF32 products of 2*T*B*(F+H)*3H at 495 TFLOP/s (0.0195 ms at
+// DV3-S); its bytes (xh, dy_raw, dy and yn read once, dW written) take
+// 0.0088 ms. The column sums' reads are spread over all 128 blocks of the
+// launch (about 100 KB a block at DV3-S) instead of a row of extra blocks
+// that would run after the tiles.
 
 // --------------------------------------------------------------------------
 // The recurrent kernels on thread-block clusters (see the design note).
@@ -1001,7 +1007,8 @@ extern "C" int ln_gru_max_active_clusters(int which, int H, int units, int smem)
 
 extern "C" int ln_gru_xproj(const float* x, const float* wx, float* gx, int M, int F, int N, void* stream) {
   dim3 grid;
-  const cudaError_t e = launch_gemm<XprojLayout, false>(x, F, wx, N, gx, N, M, N, F, (cudaStream_t)stream, &grid);
+  const cudaError_t e =
+      launch_gemm<XprojLayout, Gemm::kXproj>(x, F, wx, N, gx, N, M, N, F, {}, (cudaStream_t)stream, &grid);
   return record(kXproj, grid, e);
 }
 
@@ -1048,14 +1055,21 @@ extern "C" int ln_gru_bwd_probe(const float* feats, const float* first, const fl
 
 extern "C" int ln_gru_dx(const float* dyraw, const float* wx, float* dx, int M, int F, int N, void* stream) {
   dim3 grid;
-  const cudaError_t e = launch_gemm<DxLayout, true>(dyraw, N, wx, N, dx, F, M, F, N, (cudaStream_t)stream, &grid);
+  const cudaError_t e =
+      launch_gemm<DxLayout, Gemm::kDx>(dyraw, N, wx, N, dx, F, M, F, N, {}, (cudaStream_t)stream, &grid);
   return record(kDx, grid, e);
 }
 
-extern "C" int ln_gru_wgrad(const float* xh, const float* dyraw, const float* dy, const float* yn,
+// Partial slots of ln_gru_wgrad's column sums for K = F+H output rows: the
+// rows of blocks of its grid. The caller gives the launch [slots][2][N] floats.
+extern "C" int ln_gru_wgrad_slots(int K) { return (K + WgradLayout::BM - 1) / WgradLayout::BM; }
+
+// part: [ln_gru_wgrad_slots(K)][2][N] floats of scratch.
+extern "C" int ln_gru_wgrad(const float* xh, const float* dyraw, const float* dy, const float* yn, float* part,
                             float* dW, float* dscale, float* dbias, int M, int K, int N, void* stream) {
-  dim3 grid((N + kTile - 1) / kTile, (K + kTile - 1) / kTile + 1);
-  ln_gru_wgrad_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(xh, dyraw, dy, yn, dW, dscale, dbias,
-                                                                      M, K, N);
-  return record(kWgrad, grid, cudaSuccess);
+  dim3 grid;
+  const ColumnSums cs{dy, yn, part, dscale, dbias};
+  const cudaError_t e =
+      launch_gemm<WgradLayout, Gemm::kWgrad>(xh, K, dyraw, N, dW, N, K, N, M, cs, (cudaStream_t)stream, &grid);
+  return record(kWgrad, grid, e);
 }

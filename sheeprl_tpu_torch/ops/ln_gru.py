@@ -20,15 +20,17 @@ their design and bound):
   ``yn`` (no recompute);
 * ``ln_gru_dx``    — ``dfeats = dy_raw·W_xᵀ`` for all T·B rows after it, in
   3xTF32 like ``ln_gru_xproj``;
-* ``ln_gru_wgrad`` — ``dW = Σ xhᵀ·dy_raw``, ``dscale``, ``dbias`` over all
-  T·B rows (with the two before it, ``_pallas_backward``).
+* ``ln_gru_wgrad`` — ``dW = xhᵀ·dy_raw`` over all T·B rows in 3xTF32 like
+  ``ln_gru_xproj``, and ``dscale``, ``dbias`` in the same launch (with the two
+  before it, ``_pallas_backward``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 kernel's plain version (``xproj_plain``, ``forward_plain``,
 ``backward_plain``, ``dx_plain``, ``wgrad_plain``) for CPU tensors.
 ``forward_cluster_emulated`` and ``backward_cluster_emulated`` replay the
-recurrent kernels' algorithm CTA by CTA in PyTorch, and ``matmul_3xtf32``
-the GEMMs' split arithmetic, for the CPU tests.
+recurrent kernels' algorithm CTA by CTA in PyTorch, ``matmul_3xtf32`` the
+GEMMs' split arithmetic and ``wgrad_3xtf32`` the weight gradient's, for the
+CPU tests.
 ``gru_sequence`` binds the kernels into a ``torch.autograd.Function``. The
 shared library is built with ``nvcc`` at first use, into ``csrc/build/``
 keyed by a hash of the source.
@@ -36,7 +38,7 @@ keyed by a hash of the source.
 The recurrent kernels take H when it splits into at most 16 CTAs of 8, 16
 or 32 hidden units each (H <= 512: DreamerV3-XS and S, not M or L) and a
 CTA's shared memory fits (``fits_smem``); F must be a multiple of 4, and
-the GEMMs copy rows as 16-byte chunks (F and 3H multiples of 4, data
+the GEMMs copy rows as 16-byte chunks (F, F+H and 3H multiples of 4, data
 pointers 16-byte aligned). A cluster takes ``ROWS_PER_CLUSTER`` batch rows.
 This module holds the recurrent kernels' layout: ``build`` passes it to
 nvcc, and the wrappers pass each launch its units per CTA and shared-memory
@@ -247,8 +249,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [M, K] · b [K, N] in the arithmetic of ``ln_gru_xproj`` and
-    ``ln_gru_dx``. Each operand is split as big = tf32(v), small =
+    """a [M, K] · b [K, N] in the arithmetic of ``ln_gru_xproj``, ``ln_gru_dx``
+    and the product of ``ln_gru_wgrad``. Each operand is split as big = tf32(v), small =
     tf32(v − big); each 8-deep step of the sum forms small·big + big·small +
     big·big (the small·small term is dropped) in a fresh partial, which is
     added to the f32 accumulator. A product of two TF32 values is exact in
@@ -262,6 +264,22 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         s = slice(k, k + _TF32_STEP)
         acc = acc + (a_small[:, s] @ b_big[s] + a_big[:, s] @ b_small[s] + a_big[:, s] @ b_big[s])
     return acc
+
+
+def wgrad_3xtf32(xh, dy_raw, dy, yn, slots: int):
+    """``ln_gru_wgrad`` in its arithmetic: dW = xhᵀ·dy_raw through
+    ``matmul_3xtf32``; dscale = Σ dy·yn and dbias = Σ dy as ``slots``
+    partial sums over the rows [p·M // slots, (p+1)·M // slots), added in
+    slot order. The kernel has one slot for each row of its blocks
+    (``ln_gru_wgrad_slots``: ceil(K / the tile's rows), 8 at DreamerV3-S);
+    inside a slot it sums in another order than ``torch.sum``."""
+    M, N = dy.shape
+    cuts = [p * M // slots for p in range(slots + 1)]
+    dscale, dbias = dy.new_zeros(N), dy.new_zeros(N)
+    for lo, hi in zip(cuts, cuts[1:]):
+        dscale = dscale + (dy[lo:hi] * yn[lo:hi]).sum(0)
+        dbias = dbias + dy[lo:hi].sum(0)
+    return matmul_3xtf32(xh.t(), dy_raw), dscale, dbias
 
 
 # --------------------------------------------------------------------------
@@ -319,8 +337,10 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
     from the saved yn on its units; the LN-backward row sums added over the
     CTAs in order; each CTA's partial dh_in = dy_raw[:, cols_c]·W_h[:, cols_c]ᵀ
     over all H units; the reduce-scatter that adds the partials of J_d in
-    CTA order; dfeats after the loop, in 3xTF32. ``h_first`` is [B, H]. Returns
-    (dfeats, dh_first [B, H], dW, dscale, dbias)."""
+    CTA order; dfeats and the weight gradient after the loop, in 3xTF32
+    (``wgrad_3xtf32`` with two slots: the kernel has one for each 128 rows
+    of dW). ``h_first`` is [B, H]. Returns (dfeats, dh_first [B, H], dW,
+    dscale, dbias)."""
     T, B, F = feats.shape
     H = w.shape[1] // 3
     J, cols = _cta_layout(H, n_cta)
@@ -361,8 +381,8 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
         xh_s[t] = torch.cat([feats[t], h_in], dim=-1)
     M = T * B
     dfeats = matmul_3xtf32(dyr_s.reshape(M, 3 * H), w[:F].t()).reshape(T, B, F)
-    dw, dscale, dbias = wgrad_plain(xh_s.reshape(M, -1), dyr_s.reshape(M, -1), dy_s.reshape(M, -1),
-                                    yn.reshape(M, -1))
+    dw, dscale, dbias = wgrad_3xtf32(xh_s.reshape(M, -1), dyr_s.reshape(M, -1), dy_s.reshape(M, -1),
+                                     yn.reshape(M, -1), slots=2)
     return dfeats, dh_first, dw, dscale, dbias
 
 
@@ -417,7 +437,9 @@ def _lib() -> ctypes.CDLL:
             lib.ln_gru_fwd.argtypes = lib.ln_gru_fwd_probe.argtypes = [_P] * 9 + [_I] * 5 + [_P]
             lib.ln_gru_bwd.argtypes = lib.ln_gru_bwd_probe.argtypes = [_P] * 14 + [_I] * 6 + [_P]
             lib.ln_gru_dx.argtypes = [_P] * 3 + [_I] * 3 + [_P]
-            lib.ln_gru_wgrad.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+            lib.ln_gru_wgrad.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+            lib.ln_gru_wgrad_slots.argtypes = [_I]
+            lib.ln_gru_wgrad_slots.restype = _I
             for name in ("xproj", "fwd", "fwd_probe", "bwd", "bwd_probe", "dx", "wgrad"):
                 getattr(lib, f"ln_gru_{name}").restype = _I
             lib.ln_gru_max_active_clusters.argtypes = [_I] * 4
@@ -622,10 +644,13 @@ def ln_gru_wgrad(xh, dy_raw, dy, yn):
         "ln_gru_wgrad", xh.device, xh=(xh, (M, K)), dy_raw=(dy_raw, (M, N)), dy=(dy, (M, N)),
         yn=(yn, (M, N)),
     )
+    _require_gemm_rows("ln_gru_wgrad", xh=xh, dy_raw=dy_raw, dy=dy, yn=yn)
+    lib = _lib()
     dW, dscale, dbias = _empty(xh.device, K, N), _empty(xh.device, N), _empty(xh.device, N)
+    part = _empty(xh.device, lib.ln_gru_wgrad_slots(K), 2, N)  # the column sums' partials
     _launch(
-        "ln_gru_wgrad", _lib().ln_gru_wgrad, xh.data_ptr(), dy_raw.data_ptr(), dy.data_ptr(),
-        yn.data_ptr(), dW.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), M, K, N, _stream(),
+        "ln_gru_wgrad", lib.ln_gru_wgrad, xh.data_ptr(), dy_raw.data_ptr(), dy.data_ptr(), yn.data_ptr(),
+        part.data_ptr(), dW.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), M, K, N, _stream(),
     )
     ln_gru_wgrad.launches += 1
     return dW, dscale, dbias

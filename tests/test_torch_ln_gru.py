@@ -215,9 +215,10 @@ def test_cluster_backward_emulation_matches_jax_vjp(n_cta):
 
 def test_3xtf32_gemms_through_plain_recurrence_match_jax():
     """The GEMM kernels' arithmetic (``matmul_3xtf32``: Gx = x·W_x and
-    dfeats = dy_raw·W_xᵀ in 3xTF32) with the plain recurrence, reverse sweep
-    and weight reduction between them gives the JAX package's gru_sequence
-    forward and VJP at the f32 tolerances."""
+    dfeats = dy_raw·W_xᵀ in 3xTF32; ``wgrad_3xtf32``: dW = xhᵀ·dy_raw in
+    3xTF32 and the column sums in partials over row ranges) with the plain
+    recurrence and reverse sweep between them gives the JAX package's
+    gru_sequence forward and VJP at the f32 tolerances."""
     args = _inputs(6, batched_hfirst=True)
     ja = list(map(jnp.asarray, args))
     hs_j, vjp = jax.vjp(lambda feats, hf, w, scale, bias: pg.gru_sequence(feats, ja[1], hf, w, scale, bias, True),
@@ -232,10 +233,36 @@ def test_3xtf32_gemms_through_plain_recurrence_match_jax():
     dh_first, dy, dy_raw, xh = ln_gru.backward_plain(feats, first, hs, h_first, w[F:], scale, bias,
                                                      torch.from_numpy(cot), yn, istd)
     dfeats = ln_gru.matmul_3xtf32(dy_raw.reshape(M, -1), w[:F].t()).reshape(T, B, F)
-    dw, dscale, dbias = ln_gru.wgrad_plain(xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1),
-                                           yn.reshape(M, -1))
+    dw, dscale, dbias = ln_gru.wgrad_3xtf32(xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1),
+                                            yn.reshape(M, -1), slots=5)  # M = 24 rows in 5 uneven slots
     for name, a, b in zip(("dfeats", "dh_first", "dW", "dscale", "dbias"), (dfeats, dh_first, dw, dscale, dbias), want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("slots", [1, 5, 7])
+def test_wgrad_3xtf32_emulation_matches_jax_vjp(slots):
+    """``ln_gru_wgrad``'s arithmetic alone (``wgrad_3xtf32``: dW in 3xTF32,
+    dscale and dbias as partial sums over ``slots`` row ranges added in slot
+    order; M = T·B = 24 rows, which 5 and 7 do not divide) on the plain
+    reverse sweep's xh, dy_raw, dy and yn gives the JAX VJP's dW, dscale and
+    dbias at GRAD_TOL; so does the plain version on the same inputs."""
+    args = _inputs(11, batched_hfirst=True)
+    ja = list(map(jnp.asarray, args))
+    _, vjp = jax.vjp(lambda w, scale, bias: pg.gru_sequence(ja[0], ja[1], ja[2], w, scale, bias, True),
+                     ja[3], ja[4], ja[5])
+    cot = np.random.default_rng(21).standard_normal((T, B, H)).astype(np.float32)
+    want = vjp(jnp.asarray(cot))
+    feats, first, h_first, w, scale, bias = _torch(args)
+    M = T * B
+    gx = ln_gru.xproj_plain(feats.reshape(M, F), w[:F]).reshape(T, B, 3 * H)
+    hs, yn, istd = ln_gru.forward_plain(gx, first, h_first, w[F:], scale, bias)
+    _, dy, dy_raw, xh = ln_gru.backward_plain(feats, first, hs, h_first, w[F:], scale, bias, torch.from_numpy(cot),
+                                              yn, istd)
+    ins = (xh.reshape(M, -1), dy_raw.reshape(M, -1), dy.reshape(M, -1), yn.reshape(M, -1))
+    got = ln_gru.wgrad_3xtf32(*ins, slots=slots)
+    for name, a, b, c in zip(("dW", "dscale", "dbias"), got, ln_gru.wgrad_plain(*ins), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), err_msg=name, **GRAD_TOL)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **GRAD_TOL)
 
 
 def test_hfirst_1d_gradient_is_reduced_by_the_backward():

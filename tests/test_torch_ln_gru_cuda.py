@@ -4,7 +4,8 @@ mode). This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch:  pytest tests/test_torch_ln_gru_cuda.py
 
 Tolerance: rtol = atol = 1e-4 (f32 sums in another order than cuBLAS);
-the 3xTF32 GEMMs also within 4x torch.mm's error against float64."""
+the 3xTF32 GEMMs' products also within 4x torch.mm's error against
+float64."""
 import numpy as np
 import pytest
 import torch
@@ -111,18 +112,28 @@ def test_shape_outside_the_cluster_fit_raises_on_card(H):
     assert ln_gru.ln_gru_fwd.launches == fwd_before
 
 
-# (M, F, N) of the two GEMMs: Gx[M, N] = x[M, F]·W_x[F, N], dfeats[M, F] = dy_raw[M, N]·W_xᵀ
+# (M, F, N) of the GEMMs: Gx[M, N] = x[M, F]·W_x[F, N], dfeats[M, F] = dy_raw[M, N]·W_xᵀ,
+# dW[K, N] = xh[M, K]ᵀ·dy_raw[M, N] with K = WGRAD_K[shape] (F+H where N = 3H)
 GEMM_SHAPES = {
     "S": (1024, 512, 1536),
     "XS": (1024, 256, 768),
     "small_partial_cluster": (30, 24, 96),
     "ragged": (77, 52, 148),  # M, F and N off every tile and stage size
 }
+# ragged: K off the tile's rows, three rows of blocks, so three uneven partials of M = 77 rows
+WGRAD_K = {"S": 1024, "XS": 512, "small_partial_cluster": 56, "ragged": 260}
 
 
-def _gemm_case(kernel, M, F, N, seed):
-    """(wrapper, its inputs, the plain version's output, a, b of the product a·b)."""
+def _gemm_case(kernel, M, F, N, seed, K=None):
+    """(wrapper, its inputs, the plain version's output(s), a, b of the
+    product a·b that is its first output)."""
     rng = np.random.default_rng(seed)
+    if kernel == "wgrad":
+        xh, yn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda() for s in ((M, K), (M, N)))
+        dyr, dy = (torch.from_numpy((rng.standard_normal((M, N)) / np.sqrt(M)).astype(np.float32)).cuda()
+                   for _ in range(2))
+        args = (xh, dyr, dy, yn)
+        return ln_gru.ln_gru_wgrad, args, ln_gru.wgrad_plain(*args), xh.t(), dyr
     wx = torch.from_numpy((rng.standard_normal((F, N)) / np.sqrt(F)).astype(np.float32)).cuda()
     if kernel == "xproj":
         x = torch.from_numpy(rng.standard_normal((M, F)).astype(np.float32)).cuda()
@@ -131,44 +142,51 @@ def _gemm_case(kernel, M, F, N, seed):
     return ln_gru.ln_gru_dx, (dyr, wx), ln_gru.dx_plain(dyr, wx), dyr, wx.t()
 
 
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", list(GEMM_SHAPES.values()), ids=list(GEMM_SHAPES))
-@pytest.mark.parametrize("kernel", ["xproj", "dx"])
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES), ids=list(GEMM_SHAPES))
+@pytest.mark.parametrize("kernel", ["xproj", "dx", "wgrad"])
 def test_3xtf32_gemm_on_card(kernel, shape):
-    """Each 3xTF32 GEMM alone against its plain version (f32, TF32 off),
-    within 4x torch.mm's error against a float64 product, and bitwise the
-    same from launch to launch; one launch counted per call."""
+    """Each 3xTF32 GEMM alone against its plain version (f32, TF32 off; for
+    ln_gru_wgrad dW, dscale and dbias), its product within 4x torch.mm's
+    error against a float64 product, and every output bitwise the same from
+    launch to launch; one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fn, args, plain, a, b = _gemm_case(kernel, *shape, seed=sum(shape))
+    dims = GEMM_SHAPES[shape]
+    fn, args, plain, a, b = _gemm_case(kernel, *dims, seed=sum(dims), K=WGRAD_K[shape])
     before = fn.launches
-    got, again = fn(*args), fn(*args)
+    got, again = _outputs(fn(*args)), _outputs(fn(*args))
     torch.cuda.synchronize()
     assert fn.launches == before + 2
-    torch.testing.assert_close(got, plain, **GRAD_TOL)
-    assert torch.equal(got, again)
+    torch.testing.assert_close(got, _outputs(plain), **GRAD_TOL)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     ref = a.double() @ b.double()
-    err = (got.double() - ref).abs().max().item()
+    err = (got[0].double() - ref).abs().max().item()
     mm_err = ((a @ b).double() - ref).abs().max().item()
     assert err <= 4 * mm_err, (err, mm_err)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["xproj", "dx"])
+@pytest.mark.parametrize("kernel", ["xproj", "dx", "wgrad"])
 @pytest.mark.parametrize("fault", ["misaligned", "F_not_multiple_of_4"])
 def test_3xtf32_gemm_refuses_rows_it_cannot_copy(kernel, fault):
-    """A CUDA operand whose rows are not whole 16-byte chunks (F % 4 != 0)
-    or whose data is not 16-byte aligned raises, and counts no launch."""
+    """A CUDA operand whose rows are not whole 16-byte chunks (F % 4 != 0,
+    so for ln_gru_wgrad K = F+H too) or whose data is not 16-byte aligned
+    raises, and counts no launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     M, F, N = 30, (26 if fault == "F_not_multiple_of_4" else 24), 96
-    fn, args, _, _, _ = _gemm_case(kernel, M, F, N, seed=5)
+    fn, args, _, _, _ = _gemm_case(kernel, M, F, N, seed=5, K=F + N // 3)
     if fault == "misaligned":  # the same values one float into a fresh buffer
         first = args[0]
         shifted = torch.empty(first.numel() + 1, device="cuda")[1:].view(first.shape)
         shifted.copy_(first)
-        args = (shifted, args[1])
+        args = (shifted, *args[1:])
     before = fn.launches
     with pytest.raises(ValueError, match="16-byte aligned|multiple of 4"):
         fn(*args)
