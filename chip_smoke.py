@@ -39,14 +39,30 @@ that fails and then prints no result:
                time over the median unprofiled step), the same three
                steps on the plain passes, and one step of the coupled
                default; ms/step and peak device memory of each;
-5. run       — the serial training loop through the CLI entry point
-               (sheeprl_tpu_torch.cli.run) on the dummy env at DreamerV3-S
-               width on the kernel path; every kernel count is set to 0 just
-               before it and must be > 0 just after; then the blocks of each
-               kernel's last launch on that path, as its CUDA entry recorded
-               the grid it launched;
-6. kernels   — one {"kernels": [...]} line: launches and blocks from phase
-               5 (SMs = the smaller of the blocks and the card's SMs), times
+5. run       — the training loop as users launch it, through the CLI entry
+               points (sheeprl_tpu_torch.cli.run / .evaluation), on the
+               dummy env at DreamerV3-S width on the kernel path, each leg
+               with every kernel count set to 0 just before it and read just
+               after (each must be > 0 where the leg trains):
+               run         the default overlapped loop (player thread on its
+                           own CUDA stream, ParamMirror on the card), one
+                           checkpoint mid-run and the last one;
+               serial      the same arguments with algo.overlap.enabled=False;
+                           its ledger (policy_step, grad steps, Ratio state,
+                           the buffer's pos/full) must equal the run leg's;
+               host_player a short overlapped leg with algo.player.device=host;
+               resume      checkpoint.resume_from=<the run leg's mid-run
+                           checkpoint> with a higher algo.total_steps: the
+                           parameters and counters it starts from must equal
+                           the file's, and it must reach its target;
+               eval        eval checkpoint_path=<the run leg's last
+                           checkpoint>: one greedy episode on the card;
+               every number is read from the legs' printed lines ([dreamer_v3],
+               [overlap], [mirror], [ckpt_async], Test - Reward) and their
+               checkpoints; then the blocks of each kernel's last launch on
+               the run leg, as its CUDA entry recorded the grid it launched;
+6. kernels   — one {"kernels": [...]} line: launches and blocks from the run
+               leg (SMs = the smaller of the blocks and the card's SMs), times
                from phase 3, the bound and the f32-only bound beside it, the
                kernel's arithmetic (3xtf32 or f32-simt), largest error at
                either shape (and, beside ln_gru_wgrad, cuBLAS's dW product
@@ -58,8 +74,11 @@ one run.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -375,7 +394,7 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
     dev = torch.device(dev)
     n_act = 9  # MsPacman
     space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
-    base = ["exp=dreamer_v3", "env=dummy", "algo.overlap.enabled=False", f"algo.per_rank_batch_size={B}",
+    base = ["exp=dreamer_v3", "env=dummy", f"algo.per_rank_batch_size={B}",
             f"algo.per_rank_sequence_length={T}", "algo.horizon=15", *overrides]
     modes = {
         "decoupled_kernel": ["algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True"],
@@ -430,27 +449,189 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
     return out
 
 
-def phase_run(torch, ln_gru, overrides=()):
+# the run legs: DreamerV3-S on the dummy env, two envs, 64 policy steps of
+# random actions, then one gradient step per iteration (replay ratio 0.5)
+LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
+RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
+
+
+class _Tee(io.TextIOBase):
+    """Keeps what a leg prints and echoes it to stderr (stdout stays the
+    script's own JSON lines)."""
+
+    def __init__(self):
+        self.buf = io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        sys.stderr.write(text)
+        return len(text)
+
+    def flush(self):
+        sys.stderr.flush()
+
+
+def parse_leg(text: str) -> dict:
+    """The numbers a leg printed: its log dir, the loop's metric lines, the
+    engine's and the mirror's records, the checkpoint writer's records, the
+    resumed state and the test reward."""
+    out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None}
+    for line in text.splitlines():
+        if line.startswith("[dreamer_v3] log_dir="):
+            out["log_dir"] = line.split("=", 1)[1]
+        elif line.startswith("[dreamer_v3] resumed "):
+            out["resumed"] = json.loads(line[len("[dreamer_v3] resumed "):])
+        elif line.startswith("[dreamer_v3] policy_step="):
+            out["lines"].append({k: float(v) for k, v in (kv.split("=", 1) for kv in line.split()[1:])})
+        elif line.startswith("[overlap] "):
+            out["overlap"].append(json.loads(line[len("[overlap] "):]))
+        elif line.startswith("[mirror] "):
+            out["mirror"].append(json.loads(line[len("[mirror] "):]))
+        elif line.startswith("[ckpt_async] "):
+            out["ckpt"].append(json.loads(line[len("[ckpt_async] "):]))
+        elif line.startswith("Test - Reward: "):
+            out["reward"] = float(line.split(": ", 1)[1])
+    return out
+
+
+def drive(torch, ln_gru, command, argv):
+    """One CLI call in this process, its output kept; returns (parsed,
+    launch counts, seconds, peak device memory)."""
     from sheeprl_tpu_torch import cli
 
-    args = [
-        "exp=dreamer_v3", "env=dummy", "algo.overlap.enabled=False",
-        "algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True",
-        "env.num_envs=2", f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}",
-        "algo.learning_starts=128", "algo.total_steps=136", "algo.replay_ratio=0.5",
-        "buffer.size=1024", "metric.log_every=8", *overrides,
-    ]
+    tee = _Tee()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ln_gru.reset_launch_counts()
     t0 = time.perf_counter()
-    cli.run(args)
+    with contextlib.redirect_stdout(tee):
+        {"run": cli.run, "eval": cli.evaluation}[command](argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
-    if min(counts.values()) < 1:
-        raise AssertionError(f"the CLI run launched {counts}")
-    # the grid of each kernel's last launch on this path, as its entry recorded it
+    return parse_leg(tee.buf.getvalue()), counts, seconds, torch.cuda.max_memory_allocated()
+
+
+def checkpoints(log_dir):
+    d = os.path.join(log_dir, "checkpoint")
+    return sorted((os.path.join(d, f) for f in os.listdir(d) if f.endswith(".ckpt")),
+                  key=lambda p: int(os.path.basename(p)[len("ckpt_"):-len(".ckpt")]))
+
+
+def ledger(torch, path):
+    """What must match between the overlapped and the serial loop."""
+    s = torch.load(path, map_location="cpu", weights_only=False)
+    return {"policy_step": s["policy_step"], "grad_steps": s["opt_states"]["step"], "ratio": s["ratio"],
+            "rb": [(b["pos"], b["full"]) for b in s["rb"]["buffers"]]}
+
+
+def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True):
+    """The numbers of one training leg; fails if it did not train or printed
+    no result."""
+    lines = parsed["lines"]
+    if not lines:
+        raise AssertionError("the leg printed no [dreamer_v3] policy_step line")
+    if trains and min(counts.values()) < 1:
+        raise AssertionError(f"the leg launched {counts}")
+    after = [l for l in lines if l["policy_step"] >= learning_starts]
+    first, last = after[0], after[-1]
+    sps = ((last["policy_step"] - first["policy_step"]) / (last["elapsed_s"] - first["elapsed_s"])
+           if last["elapsed_s"] > first["elapsed_s"] else None)
+    out = {"seconds": seconds, "policy_step": int(last["policy_step"]), "grad_steps": int(last["grad_steps"]),
+           "policy_steps_per_s_after_learning_starts": sps,
+           "sps_window": [first["policy_step"], last["policy_step"]], "peak_device_memory": peak,
+           "launches": counts, "mirror": parsed["mirror"][-1] if parsed["mirror"] else None}
+    ov = parsed["overlap"]
+    if ov:
+        busy, pstall = sum(r["player_busy_s"] for r in ov), sum(r["player_stall_s"] for r in ov)
+        lstall, span = sum(r["learner_stall_s"] for r in ov), sum(r["interval_s"] for r in ov)
+        out["engine"] = {"player_stall_frac": pstall / (busy + pstall) if busy + pstall > 0 else 0.0,
+                         "learner_stall_frac": lstall / span if span > 0 else 0.0,
+                         "staleness_max": max(r["staleness_max"] for r in ov),
+                         "staleness_seen_max": ov[-1].get("staleness_seen_max"),
+                         "bursts": ov[-1]["bursts"], "player_busy_s": busy, "player_stall_s": pstall,
+                         "learner_stall_s": lstall, "records": len(ov)}
+    written = [r for r in parsed["ckpt"] if r["action"] == "written"]
+    if any(r["action"] == "failed" for r in parsed["ckpt"]):
+        raise AssertionError(f"a checkpoint write failed: {parsed['ckpt']}")
+    out["checkpoints"] = [{"step": r["step"], "snapshot_ms": r["snapshot_ms"], "write_ms": r["write_ms"],
+                           "bytes": r["bytes"]} for r in written]
+    return out
+
+
+def phase_run(torch, ln_gru, overrides=()):
+    """The legs of phase 5; returns (the run leg's counts, blocks, report)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import param_sums
+
+    common = [
+        "exp=dreamer_v3", "env=dummy", "algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True",
+        "env.num_envs=2", f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}",
+        f"algo.learning_starts={LEARNING_STARTS}", "algo.replay_ratio=0.5", "buffer.size=1024",
+        "metric.log_every=32", "checkpoint.every=96", "checkpoint.save_last=True", "algo.run_test=False",
+        f"root_dir={RUN_ROOT}", *overrides,
+    ]
+    report = {}
+    # the default overlapped loop
+    run_args = common + [f"algo.total_steps={TOTAL}", "run_name=run"]
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", run_args)
+    # the grid of each kernel's last launch on this leg, as its entry recorded it
     blocks = {k.__name__: int(ln_gru._lib().ln_gru_last_blocks(i)) for i, k in enumerate(ln_gru.KERNELS)}
-    return counts, blocks, seconds, args
+    report["run"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+    report["run"]["args"] = run_args
+    eng = report["run"].get("engine")
+    if not eng:
+        raise AssertionError("the run leg printed no [overlap] record: the overlap engine did not run")
+    if eng["staleness_seen_max"] > 1:
+        raise AssertionError(f"staleness {eng['staleness_seen_max']} > algo.overlap.staleness_bound=1")
+    run_ckpts = checkpoints(parsed["log_dir"])
+    mid = [p for p in run_ckpts if LEARNING_STARTS < int(os.path.basename(p)[5:-5]) < TOTAL]
+    if not mid or int(os.path.basename(run_ckpts[-1])[5:-5]) != TOTAL:
+        raise AssertionError(f"the run leg's checkpoints {run_ckpts} hold no mid-run one or not the last one")
+    run_ledger = ledger(torch, run_ckpts[-1])
+
+    # the serial loop on the same arguments: the same ledger
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+        f"algo.total_steps={TOTAL}", "run_name=serial", "algo.overlap.enabled=False"])
+    report["serial"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+    serial_ledger = ledger(torch, checkpoints(parsed["log_dir"])[-1])
+    if serial_ledger != run_ledger:
+        raise AssertionError(f"ledgers differ: overlapped {run_ledger}, serial {serial_ledger}")
+    report["serial"]["ledger_equal"] = run_ledger
+
+    # the player on the host: pinned device-to-host refreshes
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+        f"algo.total_steps={HOST_TOTAL}", "run_name=host_player", "algo.player.device=host"])
+    report["host_player"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+    if (report["host_player"]["mirror"] or {}).get("device") != "cpu":
+        raise AssertionError(f"the host_player leg's mirror is on {report['host_player']['mirror']}")
+
+    # resume from the run leg's mid-run checkpoint to a later target
+    saved = torch.load(mid[-1], map_location="cpu", weights_only=False)
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+        f"algo.total_steps={RESUME_TOTAL}", "run_name=resume", f"checkpoint.resume_from={mid[-1]}"])
+    started = parsed["resumed"]
+    if started is None:
+        raise AssertionError("the resume leg printed no resumed state")
+    want = {"policy_step": saved["policy_step"], "grad_steps": saved["opt_states"]["step"], "ratio": saved["ratio"]}
+    got = {k: started[k] for k in want}
+    if got != want:
+        raise AssertionError(f"resumed counters {got} != the checkpoint's {want}")
+    file_sums = param_sums({k: saved[k] for k in ("wm", "actor", "critic", "target_critic")})
+    for k, v in file_sums.items():
+        if abs(started["param_sums"][k] - v) > 1e-9 * max(1.0, abs(v)):
+            raise AssertionError(f"resumed {k} parameters sum to {started['param_sums'][k]}, the file's to {v}")
+    report["resume"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+    if report["resume"]["policy_step"] != RESUME_TOTAL:
+        raise AssertionError(f"the resumed run stopped at {report['resume']['policy_step']} < {RESUME_TOTAL}")
+    report["resume"].update(checkpoint=os.path.basename(mid[-1]), started_from=got, param_sums=file_sums)
+
+    # eval: one greedy episode from the run leg's last checkpoint
+    parsed, counts, seconds, _ = drive(torch, ln_gru, "eval", [f"checkpoint_path={run_ckpts[-1]}"])
+    if parsed["reward"] is None:
+        raise AssertionError("eval printed no `Test - Reward:`")
+    report["eval"] = {"seconds": seconds, "reward": parsed["reward"], "checkpoint": os.path.basename(run_ckpts[-1])}
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+    return report["run"]["launches"], blocks, report
 
 
 def main() -> int:
@@ -506,8 +687,9 @@ def main() -> int:
         return fail("train", err)
 
     try:
-        counts, blocks, seconds, args = phase_run(torch, ln_gru)
-        emit("run", ok=True, seconds=round(seconds, 3), launches=counts, last_launch_blocks=blocks, args=args)
+        os.chdir(HERE)  # the legs write logs/runs/chip_smoke/ in the checkout (gitignored)
+        counts, blocks, legs = phase_run(torch, ln_gru)
+        emit("run", ok=True, nvidia_smi=smi, launches=counts, last_launch_blocks=blocks, legs=legs)
     except Exception as err:  # noqa: BLE001
         return fail("run", err)
 

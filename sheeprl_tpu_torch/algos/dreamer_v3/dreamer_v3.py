@@ -10,12 +10,20 @@ the leading axis of the sampled batches. The modules are updated in place.
 Every draw of the step takes pre-drawn noise (``draw_train_noise``), so the
 tests can hand the port the JAX package's exact gumbel draws.
 
-``main`` is the serial loop of the JAX package. The overlap engine, the
-actor fleet, telemetry, the RunGuard, checkpoints, ``test()`` and the model
-manager are not ported yet; metrics print to stdout.
+``main`` is the JAX package's training loop: ``interact(sink)`` steps the
+envs once with the player, either on the overlap engine's player thread
+(``algo.overlap.enabled``, the default) or serially through a
+``BufferOpSink``; the player acts with a ``ParamMirror`` copy of the world
+model and actor. The RunGuard drains on SIGTERM, checkpoints land under the
+run's log dir and ``checkpoint.resume_from`` continues from one;
+``evaluate_dreamer_v3`` is the ``eval`` command's entry point. Metrics,
+the engine's stats and the checkpoint costs print to stdout. The actor
+fleet, telemetry and the model manager are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -25,6 +33,7 @@ import torch
 
 from ...config import Config, instantiate
 from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
 from ...distributions import (
     BernoulliSafeMode,
@@ -37,9 +46,14 @@ from ...ops import lambda_values as lambda_values_op
 from ...ops import ln_gru
 from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
+from ...parallel.placement import make_param_mirror
+from ...resilience.guard import RunGuard
+from ...utils.checkpoint import CheckpointManager
 from ...utils.env import episode_stats, vectorize
-from ...utils.registry import register_algorithm
-from ...utils.utils import Ratio, get_device
+from ...utils.logger import get_log_dir
+from ...utils.metric import MetricAggregator
+from ...utils.registry import register_algorithm, register_evaluation
+from ...utils.utils import Ratio, get_device, save_configs
 from .agent import Actor, WorldModel, actor_dists, build_agent, compute_stochastic_state, sample_actor_actions
 from .loss import reconstruction_loss
 from .utils import (
@@ -50,6 +64,7 @@ from .utils import (
     init_moments,
     normalize_obs,
     prepare_obs,
+    test,
     update_moments,
 )
 
@@ -356,15 +371,18 @@ def make_train_fn(
 
 def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_continuous: bool, num_envs: int):
     """Recurrent player: state = (h, z, a), all [N, ...] on the modules'
-    device. ``step(obs, state, noise=None, generator=None, greedy=False)``
-    takes host observations (``prepare_obs``) and returns (env_actions,
-    actions, state); ``noise`` is ``{"repr": [N,S,D], "act": [per head]}``."""
+    device. ``step(obs, state, noise=None, generator=None, greedy=False,
+    modules=None)`` takes host observations (``prepare_obs``) and returns
+    (env_actions, actions, state); ``noise`` is ``{"repr": [N,S,D], "act":
+    [per head]}``. ``modules`` ({"wm", "actor"}, e.g. ``mirror.current()``)
+    replaces ``wm`` and ``actor`` for that call; ``init_state`` takes it too."""
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     device = next(wm.parameters()).device
 
     @torch.no_grad()
-    def init_state(mask=None, state=None):
-        h0, z0 = wm.rssm.initial_states((num_envs,))
+    def init_state(mask=None, state=None, modules=None):
+        wm_ = wm if modules is None else modules["wm"]
+        h0, z0 = wm_.rssm.initial_states((num_envs,))
         h0 = h0.contiguous()
         a0 = torch.zeros(num_envs, int(sum(actions_dim)), device=device)
         if state is None or mask is None:
@@ -373,14 +391,15 @@ def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_conti
         return tuple(torch.where(m, x0, x) for x0, x in zip((h0, z0, a0), state))
 
     @torch.no_grad()
-    def step(obs: Dict[str, np.ndarray], state, noise=None, generator=None, greedy: bool = False):
+    def step(obs: Dict[str, np.ndarray], state, noise=None, generator=None, greedy: bool = False, modules=None):
+        wm_, actor_ = (wm, actor) if modules is None else (modules["wm"], modules["actor"])
         h, z, a = state
         obs_t = normalize_obs({k: torch.as_tensor(v, device=device) for k, v in obs.items()}, cnn_keys)
-        embedded = wm.embed(obs_t)
-        h = wm.rssm.recurrent_model(torch.cat([z, a], dim=-1), h)
-        z = wm.rssm.representation_step(h, embedded, noise["repr"] if noise else None, generator)
-        pre = actor(torch.cat([z, h], dim=-1))
-        acts, _ = sample_actor_actions(actor, pre, noise["act"] if noise else None, generator, greedy)
+        embedded = wm_.embed(obs_t)
+        h = wm_.rssm.recurrent_model(torch.cat([z, a], dim=-1), h)
+        z = wm_.rssm.representation_step(h, embedded, noise["repr"] if noise else None, generator)
+        pre = actor_(torch.cat([z, h], dim=-1))
+        acts, _ = sample_actor_actions(actor_, pre, noise["act"] if noise else None, generator, greedy)
         a = torch.cat(acts, dim=-1)
         if is_continuous:
             env_actions = a
@@ -399,26 +418,70 @@ def _to_device(batch: Dict[str, np.ndarray], cnn_keys, device) -> Dict[str, torc
     return out
 
 
+def _actions_dim(action_space) -> List[int]:
+    if isinstance(action_space, spaces.Box):
+        return [int(np.prod(action_space.shape))]
+    if isinstance(action_space, spaces.MultiDiscrete):
+        return [int(n) for n in action_space.nvec]
+    return [int(action_space.n)]
+
+
+def _gen_state(gen: torch.Generator) -> Dict[str, Any]:
+    return {"device": gen.device.type, "state": gen.get_state()}
+
+
+def _set_gen_state(gen: torch.Generator, saved: Dict[str, Any], name: str) -> None:
+    """Restore a generator's state. The state of a CUDA generator (Philox
+    seed and offset) does not fit a CPU one (Mersenne twister) or the other
+    way round: across device types the generator is seeded from the saved
+    state's bytes instead, and the run says so."""
+    state = saved["state"].cpu()
+    if saved["device"] == gen.device.type:
+        gen.set_state(state)
+        return
+    seed = int(np.random.SeedSequence(state.numpy().tolist()).generate_state(1, np.uint32)[0])
+    gen.manual_seed(seed)
+    print(f"[dreamer_v3] the {name} generator was saved on {saved['device']} and runs on {gen.device.type}: "
+          f"seeded from the saved state ({seed})", file=sys.stderr, flush=True)
+
+
+def param_sums(modules: Dict[str, Any]) -> Dict[str, float]:
+    """Float64 sum of every parameter and buffer of each module (a state
+    dict or a module): the fingerprint a resumed run prints, to be held
+    against the checkpoint file's."""
+    out = {}
+    for name, m in modules.items():
+        sd = m.state_dict() if hasattr(m, "state_dict") else m
+        out[name] = float(sum(float(t.double().sum()) for t in sd.values()))
+    return out
+
+
 @register_algorithm(name="dreamer_v3")
 def main(cfg: Config) -> None:
-    """The serial DreamerV3 loop: act, store, train G steps per the replay
-    ratio, print metrics every ``metric.log_every`` policy steps."""
-    if bool(cfg.algo.overlap.enabled):
-        raise NotImplementedError(
-            "algo.overlap.enabled=True: the overlap engine is not ported yet — run the serial loop "
-            "with algo.overlap.enabled=False"
-        )
+    """The DreamerV3 training loop: act, store, train G steps per the replay
+    ratio; overlapped (player thread) or serial; checkpoints, the RunGuard's
+    preemption drain and resume; one greedy test episode at the end."""
     if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
         raise NotImplementedError("algo.fleet.workers > 0: the actor fleet is not ported yet")
     if bool(cfg.buffer.select("memmap", False)):
         raise NotImplementedError("buffer.memmap=True: memmap storage is not ported yet")
     check_precision(cfg)
     device = get_device(cfg)
-    torch.manual_seed(int(cfg.seed))
-    generator = torch.Generator(device=device)
-    generator.manual_seed(int(cfg.seed))
+    seed = int(cfg.seed)
+    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
+    save_configs(cfg, log_dir)
+    print(f"[dreamer_v3] log_dir={log_dir}", flush=True)
+    MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
+    log_on = not MetricAggregator.disabled
 
-    envs = vectorize(cfg, int(cfg.seed), 0)
+    state = None
+    if cfg.checkpoint.resume_from:
+        state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
+    torch.manual_seed(seed)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+
+    envs = vectorize(cfg, seed, 0)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -427,34 +490,61 @@ def main(cfg: Config) -> None:
     obs_keys = cnn_keys + mlp_keys
     is_continuous = isinstance(action_space, spaces.Box)
     is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
-    if is_continuous:
-        actions_dim = [int(np.prod(action_space.shape))]
-    elif is_multidiscrete:
-        actions_dim = [int(n) for n in action_space.nvec]
-    else:
-        actions_dim = [int(action_space.n)]
+    actions_dim = _actions_dim(action_space)
     act_total = int(sum(actions_dim))
 
     wm, actor, critic, target_critic = build_agent(cfg, obs_space, actions_dim, is_continuous, device)
     optimizers = build_optimizers(cfg, wm, actor, critic)
     moments = init_moments(device)
+    ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    if state:
+        for name, m in (("wm", wm), ("actor", actor), ("critic", critic), ("target_critic", target_critic)):
+            m.load_state_dict(state[name])
+        for name in ("wm", "actor", "critic"):
+            getattr(optimizers, name).optimizer.load_state_dict(state["opt_states"][name])
+        optimizers.step = int(state["opt_states"]["step"])
+        moments = MomentsState(state["moments"]["low"], state["moments"]["high"])
+        ratio.load_state_dict(state["ratio"])
+        _set_gen_state(generator, state["generators"]["train"], "train")
+
     seq_len = int(cfg.algo.per_rank_sequence_length)
     buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
     rb = EnvIndependentReplayBuffer(
-        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=int(cfg.seed)
+        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed
     )
+    if state and cfg.buffer.checkpoint and "rb" in state:
+        rb.load_state_dict(state["rb"])
     train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
-    player_init, player_step = make_player(wm, actor, cfg, actions_dim, is_continuous, num_envs)
-    ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    # the player acts with its own copy of {wm, actor} (the train step
+    # updates the learner's in place) and its own generator
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed)
+    if state:
+        _set_gen_state(player_gen, state["generators"]["player"], "player")
+    mods0 = mirror.current()
+    player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous, num_envs)
+
+    aggregator = MetricAggregator(AGGREGATOR_KEYS)
+    ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
+    guard = RunGuard.setup(cfg, ckpt, log_dir)
+    ckpt = guard.ckpt
+
     batch_size = int(cfg.algo.per_rank_batch_size)
     total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else 4 * num_envs
     learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
+    policy_step = int(state["policy_step"]) if state else 0
+    last_log = int(state["last_log"]) if state else 0
+    last_checkpoint = int(state["last_checkpoint"]) if state else 0
     clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
     log_every = int(cfg.metric.log_every)
-    log_on = int(cfg.metric.select("log_level", 1) or 0) > 0
+    if state:
+        print("[dreamer_v3] resumed " + json.dumps({
+            "checkpoint": str(cfg.checkpoint.resume_from), "policy_step": policy_step, "grad_steps": optimizers.step,
+            "ratio": ratio.state_dict(), "last_log": last_log, "last_checkpoint": last_checkpoint,
+            "param_sums": param_sums({"wm": wm, "actor": actor, "critic": critic, "target_critic": target_critic}),
+        }), flush=True)
 
-    obs, _ = envs.reset(seed=int(cfg.seed))
-    player_state = player_init()
+    obs, _ = envs.reset(seed=seed)
+    player_state = None  # made by the player, on its own stream
     step_data: Dict[str, np.ndarray] = {k: np.asarray(obs[k])[np.newaxis] for k in obs_keys}
     step_data["actions"] = np.zeros((1, num_envs, act_total), np.float32)
     step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
@@ -463,11 +553,48 @@ def main(cfg: Config) -> None:
     step_data["is_first"] = np.ones((1, num_envs, 1), np.float32)
 
     pending: List[Dict[str, torch.Tensor]] = []
-    episodes: Dict[str, List[float]] = {"Rewards/rew_avg": [], "Game/ep_len_avg": []}
-    policy_step, last_log, grad_steps = 0, 0, 0
+    # the player generator's state after the last transition in the buffer
+    # (under overlap the player runs ahead; its state rides each packet)
+    player_gen_state = _gen_state(player_gen)
+    engine = OverlapEngine.setup(cfg, guard, total_steps=total_steps, initial_step=policy_step)
     t0 = time.perf_counter()
-    while policy_step < total_steps:
-        if policy_step <= learning_starts:
+    p_step = policy_step  # the player's env-step counter (== policy_step serially)
+
+    def _ckpt_state() -> Dict[str, Any]:
+        s: Dict[str, Any] = {
+            "wm": wm.state_dict(),
+            "actor": actor.state_dict(),
+            "critic": critic.state_dict(),
+            "target_critic": target_critic.state_dict(),
+            "opt_states": {
+                "wm": optimizers.wm.optimizer.state_dict(),
+                "actor": optimizers.actor.optimizer.state_dict(),
+                "critic": optimizers.critic.optimizer.state_dict(),
+                "step": optimizers.step,
+            },
+            "moments": {"low": moments.low, "high": moments.high},
+            "ratio": ratio.state_dict(),
+            "policy_step": policy_step,
+            "last_log": last_log,
+            "last_checkpoint": last_checkpoint,
+            "generators": {
+                "train": _gen_state(generator),
+                "player": player_gen_state if engine.enabled else _gen_state(player_gen),
+            },
+        }
+        if cfg.buffer.checkpoint:
+            s["rb"] = rb.checkpoint_state_dict()
+        return s
+
+    def interact(sink) -> None:
+        """ONE vector env step: act with the mirror's copy and record the
+        replay-row mutations into ``sink`` (the buffer itself serially, a
+        ``RecordingSink`` under the overlap engine)."""
+        nonlocal obs, player_state, p_step
+        mods = mirror.current()
+        if player_state is None:
+            player_state = player_init(modules=mods)
+        if p_step <= learning_starts:
             actions_env = np.stack([action_space.sample() for _ in range(num_envs)])
             if is_continuous:
                 actions_np = actions_env.reshape(num_envs, -1).astype(np.float32)
@@ -478,7 +605,9 @@ def main(cfg: Config) -> None:
                 )
         else:
             host_obs = prepare_obs(obs, cnn_keys, mlp_keys, num_envs)
-            env_actions, actions_cat, player_state = player_step(host_obs, player_state, generator=generator)
+            env_actions, actions_cat, player_state = player_step(
+                host_obs, player_state, generator=player_gen, modules=mods
+            )
             actions_np = actions_cat.cpu().numpy()
             actions_env = env_actions.cpu().numpy()
             if is_continuous:
@@ -487,13 +616,13 @@ def main(cfg: Config) -> None:
                 actions_env = actions_env.reshape(num_envs)
 
         step_data["actions"] = actions_np.reshape(1, num_envs, -1)
-        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+        sink.add(step_data, validate_args=cfg.buffer.validate_args)
         next_obs, rewards, terminated, truncated, info = envs.step(actions_env)
-        policy_step += num_envs
+        p_step += num_envs
         dones = np.logical_or(terminated, truncated)
         for ep_rew, ep_len in episode_stats(info):
-            episodes["Rewards/rew_avg"].append(ep_rew)
-            episodes["Game/ep_len_avg"].append(ep_len)
+            sink.stat("Rewards/rew_avg", ep_rew)
+            sink.stat("Game/ep_len_avg", ep_len)
 
         real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
         if "final_obs" in info:
@@ -517,37 +646,146 @@ def main(cfg: Config) -> None:
             reset_data["actions"] = np.zeros((1, len(dones_idxes), act_total), np.float32)
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            sink.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
             step_data["rewards"][:, dones_idxes] = 0
             step_data["terminated"][:, dones_idxes] = 0
             step_data["truncated"][:, dones_idxes] = 0
             step_data["is_first"][:, dones_idxes] = 1
             mask = np.zeros((num_envs,), bool)
             mask[dones_idxes] = True
-            player_state = player_init(mask, player_state)
+            player_state = player_init(mask, player_state, modules=mods)
         obs = next_obs
 
-        if policy_step >= learning_starts:
-            g = ratio(policy_step)
-            if g > 0:
-                sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=g)
-                batches = _to_device(sample, cnn_keys, device)
-                moments, metrics = train(moments, batches, generator=generator)
-                grad_steps += g
-                if log_on:
-                    pending.append(metrics)
+    def burst(g: int) -> None:
+        nonlocal moments
+        sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=g)
+        batches = _to_device(sample, cnn_keys, device)
+        moments, metrics = train(moments, batches, generator=generator)
+        if log_on:
+            pending.append(metrics)  # on the device until the log cadence
 
-        if log_on and (policy_step - last_log >= log_every or cfg.dry_run or policy_step >= total_steps):
-            line = {"policy_step": policy_step, "grad_steps": grad_steps,
-                    "sps": round(policy_step / max(time.perf_counter() - t0, 1e-9), 3)}
-            for k in AGGREGATOR_KEYS:
-                if k in episodes and episodes[k]:
-                    line[k] = float(np.mean(episodes[k]))
-                elif pending and k in pending[0]:
-                    line[k] = float(torch.cat([m[k] for m in pending]).mean())
-            print("[dreamer_v3] " + " ".join(f"{k}={v}" for k, v in line.items()), flush=True)
-            pending.clear()
-            for v in episodes.values():
-                v.clear()
-            last_log = policy_step
-    envs.close()
+    def flush_logs() -> None:
+        nonlocal last_log
+        if not log_on or not (policy_step - last_log >= log_every or cfg.dry_run or policy_step >= total_steps):
+            return
+        for m in pending:  # the host sync, at the log cadence only
+            for k, v in m.items():
+                aggregator.update(k, v.cpu().numpy())
+        pending.clear()
+        elapsed = time.perf_counter() - t0
+        line: Dict[str, Any] = {"policy_step": policy_step, "grad_steps": optimizers.step,
+                                "sps": round(policy_step / max(elapsed, 1e-9), 3), "elapsed_s": round(elapsed, 4)}
+        line.update(aggregator.compute())
+        aggregator.reset()
+        print("[dreamer_v3] " + " ".join(f"{k}={v}" for k, v in line.items()), flush=True)
+        print(f"[mirror] {json.dumps(mirror.stats())}", flush=True)
+        rec = engine.maybe_emit()
+        if rec is not None:
+            print(f"[overlap] {json.dumps(rec)}", flush=True)
+        last_log = policy_step
+
+    def maybe_checkpoint() -> None:
+        nonlocal last_checkpoint
+        every = int(cfg.checkpoint.every)
+        if (every > 0 and policy_step - last_checkpoint >= every) or cfg.dry_run or policy_step >= total_steps:
+            last_checkpoint = policy_step
+            ckpt.save(policy_step, _ckpt_state())
+
+    try:
+        if engine.enabled:
+            # ---- overlapped player/learner loop (engine/overlap.py) ----------
+            player_stream = torch.cuda.Stream(pdev) if pdev.type == "cuda" else None
+
+            def play() -> Packet:
+                rec = RecordingSink()
+                with torch.cuda.stream(player_stream) if player_stream is not None else contextlib.nullcontext():
+                    interact(rec)
+                return Packet((rec, _gen_state(player_gen)), num_envs)
+
+            def absorb(pkt: Packet) -> None:
+                nonlocal player_gen_state
+                rec, player_gen_state = pkt.payload
+                rec.apply(rb, aggregator)
+
+            engine.start(play)
+            stopped = False
+            try:
+                while policy_step < total_steps:
+                    if guard.stop_reached(policy_step, total_steps, None, save=False):
+                        stopped = True
+                        break
+                    packets = engine.take()
+                    if not packets:
+                        break
+                    # ack packets in FIFO order, feeding the Ratio ledger exactly
+                    # as the serial loop would (one call per num_envs env steps)
+                    gs = []
+                    for pkt in packets:
+                        absorb(pkt)
+                        policy_step += pkt.env_steps
+                        if policy_step >= learning_starts:
+                            gs.append(ratio(policy_step))
+                    trained = False
+                    for g in gs:
+                        if g > 0:
+                            burst(g)
+                            trained = True
+                    if trained:
+                        mirror.refresh({"wm": wm, "actor": actor})
+                    engine.published()  # release take()'s claim every iteration
+                    flush_logs()
+                    maybe_checkpoint()
+            finally:
+                # the player joins before anything else (CUDA teardown included);
+                # the queued transitions land in the buffer so the final
+                # checkpoint is consistent
+                policy_step += engine.shutdown(absorb)
+            if stopped and not guard.preempted and cfg.checkpoint.save_last:
+                ckpt.save(policy_step, _ckpt_state())
+            final = {**engine.last_record, "final": True, "staleness_seen_max": engine.staleness_seen_max}
+            print(f"[overlap] {json.dumps(final)}", flush=True)
+        else:
+            # ---- serial loop (the reference's semantics) -----------------------
+            sink = BufferOpSink(rb, aggregator)
+            while policy_step < total_steps:
+                if guard.stop_reached(policy_step, total_steps, _ckpt_state):
+                    break
+                interact(sink)
+                policy_step = p_step
+                if policy_step >= learning_starts:
+                    g = ratio(policy_step)
+                    if g > 0:
+                        burst(g)
+                        mirror.refresh({"wm": wm, "actor": actor})
+                flush_logs()
+                maybe_checkpoint()
+    finally:
+        # signal handlers uninstalled and pending writes flushed, also when the run fails
+        guard.close(policy_step, _ckpt_state)
+        envs.close()
+    if cfg.algo.run_test:
+        test_cfg = Config({**cfg.to_dict(), "env": {**cfg.env.to_dict(), "num_envs": 1}})
+        test_env = vectorize(test_cfg, seed, 0).envs[0]
+        t_init, t_step = make_player(wm, actor, cfg, actions_dim, is_continuous, 1)
+        test(t_init, t_step, test_env, cfg, generator)
+
+
+@register_evaluation("dreamer_v3")
+def evaluate_dreamer_v3(cfg: Config, state: Dict[str, Any]) -> None:
+    """One greedy episode with the checkpoint's world model and actor on the
+    run's device (``eval checkpoint_path=...``)."""
+    check_precision(cfg)
+    device = get_device(cfg)
+    seed = int(cfg.seed)
+    env = vectorize(cfg, seed, 0).envs[0]
+    action_space = env.action_space
+    is_continuous = isinstance(action_space, spaces.Box)
+    actions_dim = _actions_dim(action_space)
+    torch.manual_seed(seed)
+    wm, actor, _, _ = build_agent(cfg, env.observation_space, actions_dim, is_continuous, device)
+    wm.load_state_dict(state["wm"])
+    actor.load_state_dict(state["actor"])
+    t_init, t_step = make_player(wm, actor, cfg, actions_dim, is_continuous, 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    test(t_init, t_step, env, cfg, gen)

@@ -1,5 +1,6 @@
 """DreamerV3 helpers (counterpart of ``sheeprl_tpu/algos/dreamer_v3/utils.py``):
-Moments, observation shaping and the decoder distributions."""
+Moments, observation shaping, the decoder distributions and the greedy test
+episode."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from ...distributions import MSEDistribution, SymlogDistribution
+from ...envs import spaces
 
 AGGREGATOR_KEYS = (
     "Rewards/rew_avg",
@@ -89,3 +91,29 @@ def decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys):
     po = {k: MSEDistribution(recon[k], dims=3) for k in cnn_keys}
     po.update({k: SymlogDistribution(recon[k], dims=1) for k in mlp_keys})
     return po, batch_obs
+
+
+def test(player_init, player_step, env, cfg: Any, generator: torch.Generator, seed=None) -> float:
+    """One greedy episode of ``env`` (a single env) with the recurrent
+    player of ``make_player(..., num_envs=1)``; prints ``Test - Reward: <r>``
+    and returns the episode's reward. ``dry_run`` stops after one step."""
+    done = False
+    cumulative_rew = 0.0
+    obs, _ = env.reset(seed=seed if seed is not None else int(cfg.seed))
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    shaped = isinstance(env.action_space, (spaces.Box, spaces.MultiDiscrete))
+    state = player_init()
+    while not done:
+        host_obs = prepare_obs(obs, cnn_keys, mlp_keys, 1)
+        env_actions, _, state = player_step(host_obs, state, generator=generator, greedy=True)
+        acts = env_actions.cpu().numpy()
+        step_action = acts.reshape(env.action_space.shape) if shaped else acts.reshape(()).item()
+        obs, reward, terminated, truncated, _ = env.step(step_action)
+        done = bool(terminated or truncated)
+        cumulative_rew += float(reward)
+        if cfg.dry_run:
+            done = True
+    print(f"Test - Reward: {cumulative_rew}", flush=True)
+    env.close()
+    return cumulative_rew

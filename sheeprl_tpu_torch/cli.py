@@ -1,41 +1,148 @@
 """Command-line entry point of the PyTorch port:
-``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy algo.overlap.enabled=False ...``.
+``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...`` and
+``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]``.
 
-``run`` composes the config from ``sheeprl_tpu_torch/configs``, looks the
-algorithm up in the registry and calls its ``main(cfg)``. Only ``run`` is
-ported; evaluation, resume and the serving commands wait for later slices.
+``run`` composes the config from ``sheeprl_tpu_torch/configs``, merges the
+saved config of ``checkpoint.resume_from`` when one is given, looks the
+algorithm up in the registry and calls its ``main(cfg)``. ``eval`` rebuilds
+the run's config from the ``config.yaml`` beside the checkpoint and calls the
+algorithm's registered evaluation on one env. The ``resume`` command and the
+serving commands wait for later slices.
 """
 from __future__ import annotations
 
 import importlib
+import pathlib
 import sys
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
-from .config import Config, compose
-from .utils.registry import get_algorithm
+from .config import Config, compose, load_config_file
+from .utils.registry import get_algorithm, get_evaluation
 
-# modules whose import registers an algorithm
+# modules whose import registers an algorithm and its evaluation
 ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
 
 
-def run_algorithm(cfg: Config) -> None:
+def _register() -> None:
     for mod in ALGORITHM_MODULES:
         importlib.import_module(mod)
+
+
+def resume_from_checkpoint(cfg: Config) -> Config:
+    """Merge the old run's saved config under the new one, keeping the keys
+    a resume may change (``algo.total_steps``, ``algo.learning_starts``,
+    ``root_dir``, ``run_name``, ``checkpoint.resume_from``) as given."""
+    ckpt_path = pathlib.Path(cfg.checkpoint.resume_from)
+    old_cfg_path = ckpt_path.parent.parent / "config.yaml"
+    if not old_cfg_path.is_file():
+        raise FileNotFoundError(f"Cannot resume from {ckpt_path}: missing saved config at {old_cfg_path}")
+    old_cfg = load_config_file(old_cfg_path)
+    if old_cfg.select("env.id") != cfg.select("env.id"):
+        raise ValueError(
+            f"Cannot resume: checkpoint was trained on env '{old_cfg.select('env.id')}' "
+            f"but the current config selects '{cfg.select('env.id')}'"
+        )
+    if old_cfg.select("algo.name") != cfg.select("algo.name"):
+        raise ValueError(
+            f"Cannot resume: checkpoint algorithm is '{old_cfg.select('algo.name')}' "
+            f"but the current config selects '{cfg.select('algo.name')}'"
+        )
+    protected = {
+        "algo.total_steps": cfg.select("algo.total_steps"),
+        "algo.learning_starts": cfg.select("algo.learning_starts"),
+        "root_dir": cfg.select("root_dir"),
+        "run_name": cfg.select("run_name"),
+        "checkpoint.resume_from": cfg.select("checkpoint.resume_from"),
+    }
+    merged = Config(cfg.to_dict())
+    merged.merge(old_cfg)
+    for path, value in protected.items():
+        if value is not None:
+            merged.set_path(path, value)
+    return merged
+
+
+def run_algorithm(cfg: Config) -> None:
+    _register()
     if cfg.select("algo.name") is None:
         raise ValueError("Missing `algo.name`: select an experiment with `exp=<name>`")
-    entry = get_algorithm(cfg.algo.name)
-    entry["fn"](cfg)
+    get_algorithm(cfg.algo.name)["fn"](cfg)
 
 
 def run(args: Optional[Sequence[str]] = None) -> None:
     """``run [exp=... key=value ...]``: compose and train."""
     argv = list(args if args is not None else sys.argv[1:])
-    run_algorithm(compose("config", argv))
+    cfg = compose("config", argv)
+    if cfg.select("checkpoint.resume_from"):
+        cfg = resume_from_checkpoint(cfg)
+    run_algorithm(cfg)
+
+
+def _split_checkpoint_arg(argv: Sequence[str], command: str) -> Tuple[pathlib.Path, List[str]]:
+    """Pull ``checkpoint_path=...`` out of an argv, checking it exists."""
+    ckpt: Optional[str] = None
+    rest: List[str] = []
+    for a in argv:
+        if a.startswith("checkpoint_path="):
+            ckpt = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    if ckpt is None:
+        raise ValueError(f"{command} requires `checkpoint_path=<path to .ckpt>`")
+    ckpt_path = pathlib.Path(ckpt)
+    if not ckpt_path.is_file():
+        raise FileNotFoundError(f"Checkpoint not found: {ckpt_path}")
+    return ckpt_path, rest
+
+
+def _load_config_beside(ckpt_path: pathlib.Path) -> Config:
+    cfg_path = ckpt_path.parent.parent / "config.yaml"
+    if not cfg_path.is_file():
+        raise FileNotFoundError(f"Missing saved config beside checkpoint: {cfg_path}")
+    return load_config_file(cfg_path)
+
+
+def _apply_cli_overrides(cfg: Config, overrides: Sequence[str]) -> None:
+    """Apply ``a.b.c=value`` overrides to a loaded config; a malformed
+    override (no '=') is an error."""
+    import yaml
+
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"Malformed override '{ov}' (expected key=value)")
+        k, _, v = ov.partition("=")
+        cfg.set_path(k.strip(), yaml.safe_load(v))
+
+
+def eval_algorithm(cfg: Config) -> None:
+    """One env, one device, the checkpoint's inference state."""
+    _register()
+    from .utils.checkpoint import CheckpointManager
+
+    cfg.set_path("fabric.devices", 1)
+    cfg.set_path("env.num_envs", 1)
+    entry = get_evaluation(cfg.algo.name)
+    state = CheckpointManager.load_for_inference(cfg.checkpoint_path)
+    entry["fn"](cfg, state)
+
+
+def evaluation(args: Optional[Sequence[str]] = None) -> None:
+    """``eval checkpoint_path=... [key=value ...]``: rebuild the run config
+    from the checkpoint's saved config.yaml and evaluate."""
+    argv = list(args if args is not None else sys.argv[1:])
+    ckpt_path, rest = _split_checkpoint_arg(argv, "evaluation")
+    cfg = _load_config_beside(ckpt_path)
+    _apply_cli_overrides(cfg, rest)
+    cfg["checkpoint_path"] = str(ckpt_path)
+    eval_algorithm(cfg)
+
+
+COMMANDS = {"run": run, "eval": evaluation}
 
 
 def main() -> None:
     argv = sys.argv[1:]
     cmd, rest = (argv[0], argv[1:]) if argv and "=" not in argv[0] else ("run", argv)
-    if cmd != "run":
-        raise SystemExit(f"unknown command {cmd!r}: the PyTorch port has `run` only")
-    run(rest)
+    if cmd not in COMMANDS:
+        raise SystemExit(f"unknown command {cmd!r}: the PyTorch port has {' | '.join(COMMANDS)}")
+    COMMANDS[cmd](rest)

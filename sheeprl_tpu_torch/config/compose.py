@@ -337,3 +337,15 @@ def _validate_no_missing(cfg: Config, prefix: str = "") -> None:
                 f"Mandatory config value '{path}' is missing — supply it on the "
                 f"command line (e.g. `{path}=...`) or via an exp file."
             )
+
+
+def load_config_file(path: os.PathLike) -> Config:
+    """Load one resolved YAML file (a run's saved ``config.yaml``)."""
+    return _load_yaml(Path(path))
+
+
+def save_config(cfg: Config, path: os.PathLike) -> None:
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with open(p, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)

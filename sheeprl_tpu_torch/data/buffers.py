@@ -6,6 +6,10 @@ gather, which are not ported yet).
 ``ReplayBuffer`` stores [buffer_size, n_envs, ...] per key; samples come back
 [n_samples, batch, ...]; ``SequentialReplayBuffer.sample`` returns
 [n_samples, seq_len, batch, ...].
+
+``state_dict``/``load_state_dict`` carry the stored rows, the write head and
+the sampling generator's state; ``checkpoint_state_dict`` is the state a
+resumable checkpoint holds (the row at the write head marked truncated).
 """
 from __future__ import annotations
 
@@ -67,6 +71,47 @@ class ReplayBuffer:
             self._full = True
         self._pos = int((self._pos + t) % self._buffer_size)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The stored rows only (``[:pos]`` until the buffer is full: the
+        storage is allocated whole, and a large buffer early in a run is
+        mostly untouched zeros), the write head and the sampling state."""
+        n = self._buffer_size if self._full else self._pos
+        return {
+            "buffer": {k: np.asarray(v[:n]).copy() for k, v in self._buf.items()},
+            "size": self._buffer_size,
+            "pos": self._pos,
+            "full": self._full,
+            "rng": self._rng.bit_generator.state,
+        }
+
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """State for a resumable checkpoint. The envs are not saved, so the
+        row at the current write position is marked truncated: a resumed
+        sequential sample can never join the pre-save tail and the
+        post-resume head into one trajectory. The live buffer keeps its
+        flags (the surgery is on the copy)."""
+        state = self.state_dict()
+        if "truncated" in state["buffer"] and (self._full or self._pos > 0):
+            state["buffer"]["truncated"][(state["pos"] - 1) % self._buffer_size, :] = 1
+        return state
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "ReplayBuffer":
+        if int(state["size"]) != self._buffer_size:
+            raise ValueError(
+                f"the checkpoint's buffer holds {state['size']} rows, this one {self._buffer_size}: resume with "
+                "the same buffer.size"
+            )
+        self._buf = {}
+        for k, v in state["buffer"].items():
+            if v.shape[1] != self._n_envs:
+                raise ValueError(f"the checkpoint's '{k}' has {v.shape[1]} envs, this buffer {self._n_envs}")
+            self._buf[k] = np.zeros((self._buffer_size,) + v.shape[1:], dtype=v.dtype)
+            self._buf[k][: len(v)] = v
+        self._pos = int(state["pos"])
+        self._full = bool(state["full"])
+        if state.get("rng") is not None:
+            self._rng.bit_generator.state = state["rng"]
+        return self
 
 
 class SequentialReplayBuffer(ReplayBuffer):
@@ -134,6 +179,25 @@ class EnvIndependentReplayBuffer:
         indices = list(range(self._n_envs) if indices is None else indices)
         for slot, env_idx in enumerate(indices):
             self._buffers[env_idx].add({k: v[:, slot : slot + 1] for k, v in data.items()}, validate_args)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"buffers": [b.state_dict() for b in self._buffers], "rng": self._rng.bit_generator.state}
+
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """Each sub-buffer's checkpoint state (its own truncation surgery)."""
+        return {"buffers": [b.checkpoint_state_dict() for b in self._buffers], "rng": self._rng.bit_generator.state}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EnvIndependentReplayBuffer":
+        if len(state["buffers"]) != len(self._buffers):
+            raise ValueError(
+                f"the checkpoint's buffer has {len(state['buffers'])} envs, this run {len(self._buffers)}: "
+                "resume with the same env.num_envs"
+            )
+        for b, s in zip(self._buffers, state["buffers"]):
+            b.load_state_dict(s)
+        if state.get("rng") is not None:
+            self._rng.bit_generator.state = state["rng"]
+        return self
 
     def sample(self, batch_size: int, n_samples: int = 1, **kwargs: Any) -> Dict[str, np.ndarray]:
         if batch_size <= 0 or n_samples <= 0:

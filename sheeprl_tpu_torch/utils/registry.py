@@ -1,11 +1,13 @@
-"""Algorithm registry (the ``run`` half of ``sheeprl_tpu/utils/registry.py``):
-``@register_algorithm`` records name → entry point; the CLI resolves
-``cfg.algo.name`` through it."""
+"""Algorithm and evaluation registries (counterpart of
+``sheeprl_tpu/utils/registry.py``): ``@register_algorithm`` records name →
+training entry point, ``@register_evaluation`` name → evaluation entry
+point; the CLI resolves ``cfg.algo.name`` through them."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 algorithm_registry: Dict[str, Dict[str, Any]] = {}
+evaluation_registry: Dict[str, Dict[str, Any]] = {}
 
 
 def register_algorithm(name: Optional[str] = None) -> Callable:
@@ -23,7 +25,26 @@ def register_algorithm(name: Optional[str] = None) -> Callable:
     return wrap
 
 
+def register_evaluation(algorithm: str) -> Callable:
+    """Register an evaluation entry point ``fn(cfg, state) -> None`` for the
+    algorithm named ``algorithm``."""
+
+    def wrap(fn: Callable) -> Callable:
+        if algorithm in evaluation_registry:
+            raise ValueError(f"Evaluation for '{algorithm}' already registered")
+        evaluation_registry[algorithm] = {"name": algorithm, "module": fn.__module__, "entrypoint": fn.__name__, "fn": fn}
+        return fn
+
+    return wrap
+
+
 def get_algorithm(name: str) -> Dict[str, Any]:
     if name not in algorithm_registry:
         raise ValueError(f"Algorithm '{name}' is not registered. Available: {sorted(algorithm_registry)}")
     return algorithm_registry[name]
+
+
+def get_evaluation(name: str) -> Dict[str, Any]:
+    if name not in evaluation_registry:
+        raise ValueError(f"No evaluation registered for '{name}'. Available: {sorted(evaluation_registry)}")
+    return evaluation_registry[name]

@@ -178,10 +178,10 @@ def test_player_step_matches_jax():
 
 def test_cli_dry_run_on_cpu(tmp_path):
     """``python -m sheeprl_tpu_torch run`` trains on the dummy env on the CPU
-    and prints its metrics."""
+    (the default overlapped loop) and prints its metrics."""
     args = [
         sys.executable, "-m", "sheeprl_tpu_torch", "run", *TINY_DV3,
-        "algo.overlap.enabled=False", "fabric.accelerator=cpu", "env.num_envs=2",
+        "fabric.accelerator=cpu", "env.num_envs=2",
         "algo.total_steps=16", "algo.learning_starts=8", "metric.log_every=8",
         "algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True",
     ]
@@ -192,20 +192,27 @@ def test_cli_dry_run_on_cpu(tmp_path):
     assert lines and "Loss/world_model_loss=" in lines[0], proc.stdout[-4000:]
 
 
-def test_cli_refuses_overlap_and_mixed_precision(tmp_path):
+def test_cli_refuses_overlap_and_mixed_precision(tmp_path, monkeypatch):
+    """The CLI refuses what the port does not run yet, before it writes
+    anything: the actor fleet, memmap buffers and bf16-mixed. (The overlap
+    engine, refused here before it was ported, is the default loop now.)"""
     from sheeprl_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="overlap"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu"])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="fleet"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "algo.fleet.workers=2"])
+    with pytest.raises(NotImplementedError, match="memmap"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "buffer.memmap=True"])
     with pytest.raises(NotImplementedError, match="32-true"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "algo.overlap.enabled=False", "fabric.precision=bf16-mixed"])
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "fabric.precision=bf16-mixed"])
+    assert not (tmp_path / "logs").exists()
 
 
 def test_config_refuses_what_the_port_does_not_run():
     """A key the port's configs do not hold fails at composition (it would
     be silently ignored otherwise); conv_impl=einsum raises at build; 32-true
     turns TF32 off for cuBLAS and cuDNN."""
-    for key in ("checkpoint.resume_from=ckpt", "algo.run_test=False", "num_threads=4"):
+    for key in ("model_manager.disabled=True", "resilience.watchdog.stall_s=60", "num_threads=4"):
         with pytest.raises(KeyError, match="does not exist"):
             torch_cfg([key])
     with pytest.raises(NotImplementedError, match="conv_impl=einsum"):
