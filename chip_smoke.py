@@ -38,7 +38,21 @@ that fails and then prints no result:
                (device time by kernel; device busy share = that device
                time over the median unprofiled step), the same three
                steps on the plain passes, and one step of the coupled
-               default; ms/step and peak device memory of each;
+               default (profiled too); ms/step and peak device memory of
+               each; then the coupled step under bf16-mixed: one step held
+               against 32-true from the same weights on the same batch and
+               noise (every loss within BF16_TOL), three timed steps and a
+               profiled one (do the convolutions and GEMMs run on bf16
+               tensor-core kernels?), and decoupled with pallas_gru=True
+               under bf16-mixed: no LN-GRU launch and the UNUSED line;
+4b. feed     — one burst's replay feed at the bench shape from a 404 MB
+               memmap buffer, three ways: the synchronous sample with a
+               pageable copy, the staged prefetcher (pinned buffers, its
+               own copy stream) and the device ring; host ms on this
+               thread, device ms, the copy's GB/s, the ring's sync bytes
+               per burst and its gather against the bound; the three
+               batches bitwise equal for one generator state; the native
+               gather (which must have loaded) against numpy's;
 5. run       — the training loop as users launch it, through the CLI entry
                points (sheeprl_tpu_torch.cli.run / .evaluation), on the
                dummy env at DreamerV3-S width on the kernel path, each leg
@@ -57,6 +71,15 @@ that fails and then prints no result:
                            the file's, and it must reach its target;
                eval        eval checkpoint_path=<the run leg's last
                            checkpoint>: one greedy episode on the card;
+               walker_ring, walker_staged
+                           the DMC walker-walk preset's settings (coupled,
+                           bf16-mixed, memmap, action repeat 2) on the
+                           continuous dummy env, on the device ring and on
+                           the staged prefetcher: equal ledgers;
+               walker_resume
+                           a resume from walker_staged's last checkpoint,
+                           which references its memmap files
+                           (memmap_fast_resume);
                every number is read from the legs' printed lines ([dreamer_v3],
                [overlap], [mirror], [ckpt_async], Test - Reward) and their
                checkpoints; then the blocks of each kernel's last launch on
@@ -431,7 +454,7 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
             raise AssertionError(f"{mode}: kernel launches {counts} < {n_steps} each")
         if mode != "decoupled_kernel" and max(counts.values()) != 0:
             raise AssertionError(f"{mode}: launched kernels {counts}")
-        if mode == "decoupled_kernel" and dev.type == "cuda":
+        if mode in ("decoupled_kernel", "coupled") and dev.type == "cuda":
             profile = profile_step(torch, train, moments, {k: v[:1] for k, v in batches.items()}, gen,
                                    statistics.median(times))
         else:
@@ -446,6 +469,272 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
         }
         del wm, actor, critic, target, opts, train, batches
         torch.cuda.empty_cache()
+    return out
+
+
+# bf16-mixed held against 32-true on the same weights, batch and noise: every
+# loss within BF16_TOL * max(1, |f32|). On the CPU the TINY_DV3 burst under
+# bf16-mixed moves the losses by up to 0.9% from f32 (policy loss; the rest
+# below 0.2%) and agrees with the JAX package's bf16 burst to 1%
+# (tests/test_torch_precision.py); the JAX package's own bf16 test allows 5%
+BF16_TOL = 0.05
+BF16_KEYS = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
+             "Loss/continue_loss", "Loss/policy_loss", "Loss/value_loss", "State/kl")
+
+
+def phase_train_bf16(torch, ln_gru, dev="cuda"):
+    """The coupled DreamerV3-S step under bf16-mixed at the bench shape: one
+    step held against 32-true from the same weights on the same batch and
+    noise, then ms/step, a profiled step and peak memory as for the f32
+    modes; and decoupled with pallas_gru=True under bf16-mixed, where the
+    LN-GRU kernels are not selected: no launch, and the UNUSED line."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+
+    dev = torch.device(dev)
+    n_act = 9
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    base = ["exp=dreamer_v3", "env=dummy", f"algo.per_rank_batch_size={B}",
+            f"algo.per_rank_sequence_length={T}", "algo.horizon=15"]
+
+    def trainer(precision, extra=(), weights=None):
+        cfg = compose("config", base + [f"fabric.precision={precision}", *extra])
+        torch.manual_seed(0)
+        mods = build_agent(cfg, space, [n_act], False, dev)
+        if weights is not None:
+            for m, w in zip(mods, weights):
+                m.load_state_dict(w.state_dict())
+        opts = dv3.build_optimizers(cfg, *mods[:3])
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            train = dv3.make_train_fn(*mods, opts, cfg, False, [n_act])
+        return cfg, mods, train, err.getvalue()
+
+    batches = make_batch(torch, 5, n_act, dev, seed=1)
+    first = {k: v[:1] for k, v in batches.items()}
+    cfg32, m32, train32, _ = trainer("32-true")
+    _, m16, train16, _ = trainer("bf16-mixed", weights=m32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = dv3.draw_train_noise(cfg32, T, B, [n_act], False, gen, dev)
+    _, met32 = train32(init_moments(dev), first, noise=[noise])
+    moments, met16 = train16(init_moments(dev), first, noise=[noise])
+    vs = {k: {"f32": float(met32[k][0]), "bf16_mixed": float(met16[k][0])} for k in BF16_KEYS}
+    for k, v in vs.items():
+        if not np.isfinite(v["bf16_mixed"]) or abs(v["bf16_mixed"] - v["f32"]) > BF16_TOL * max(1.0, abs(v["f32"])):
+            raise AssertionError(f"bf16-mixed {k} = {v['bf16_mixed']} against f32 {v['f32']} (tol {BF16_TOL})")
+    del m32, train32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_gru.reset_launch_counts()
+    times, losses = [], []
+    for i in range(2, 5):
+        t0 = time.perf_counter()
+        moments, metrics = train16(moments, {k: v[i : i + 1] for k, v in batches.items()}, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v[0]) for k, v in metrics.items()})
+    bad = [k for m in losses for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"bf16-mixed: non-finite {sorted(set(bad))}")
+    out = {"coupled_bf16_mixed": {
+        "profile": profile_step(torch, train16, moments, {k: v[1:2] for k, v in batches.items()}, gen,
+                                statistics.median(times)),
+        "ms_per_step": times,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "first_step_vs_f32": vs, "tol": BF16_TOL,
+        "world_model_loss": [m["Loss/world_model_loss"] for m in losses],
+        "policy_loss": [m["Loss/policy_loss"] for m in losses],
+    }}
+    del m16, train16
+    torch.cuda.empty_cache()
+    # decoupled, pallas_gru=True, under bf16-mixed: the kernels stay out
+    _, mods, train, stderr = trainer("bf16-mixed", ["algo.world_model.decoupled_rssm=True",
+                                                    "algo.world_model.pallas_gru=True"])
+    if "UNUSED: mixed precision" not in stderr:
+        raise AssertionError(f"no UNUSED line under bf16-mixed with pallas_gru=True: {stderr!r}")
+    ln_gru.reset_launch_counts()
+    _, metrics = train(init_moments(dev), first, generator=gen)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    if max(counts.values()) != 0:
+        raise AssertionError(f"LN-GRU kernels launched under bf16-mixed: {counts}")
+    out["decoupled_kernel_bf16_mixed"] = {
+        "launches": counts, "unused_line": [l for l in stderr.splitlines() if "UNUSED" in l],
+        "world_model_loss": float(metrics["Loss/world_model_loss"][0])}
+    del mods, train
+    torch.cuda.empty_cache()
+    return out
+
+
+FEED_ENVS, FEED_ROWS = 4, 8192  # 4 x 8192 rows of 64x64x3 uint8 + 9 actions: about 404 MB
+
+
+def phase_feed(torch, dev="cuda", reps=10):
+    """One burst's replay feed at DreamerV3-S's bench shape (G=1, T=64,
+    B=16, 64x64x3 uint8, 9 actions) from a memmap buffer of about 404 MB,
+    three ways: the synchronous sample with a pageable copy, the staged
+    prefetcher (pinned buffers, copy stream) and the device ring. Host ms on
+    this (the learner's) thread and device ms of each; the three batches
+    bitwise equal for the same generator state; the ring's sync bytes per
+    burst and its gather against the bound; the native gather against the
+    numpy one."""
+    import copy as _copy
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer, native
+    from sheeprl_tpu_torch.data.device_ring import DeviceRingPrefetcher, _gather_batch
+    from sheeprl_tpu_torch.data.prefetch import StagedPrefetcher
+
+    status = native.status()
+    if not status["loaded"]:
+        raise AssertionError(f"the native replay gather did not load: {status['reason']}")
+    dev = torch.device(dev)
+    n_act, G = 9, 1
+    mdir = os.path.join(HERE, "logs", "chip_smoke_feed")
+    shutil.rmtree(mdir, ignore_errors=True)
+    rb = EnvIndependentReplayBuffer(FEED_ROWS, n_envs=FEED_ENVS, obs_keys=("rgb",), memmap=True, memmap_dir=mdir,
+                                    seed=0)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(FEED_ROWS // 1024):
+        n = (1024, FEED_ENVS)
+        rb.add({"rgb": rng.integers(0, 256, n + (64, 64, 3), np.uint8),
+                "actions": np.eye(n_act, dtype=np.float32)[rng.integers(0, n_act, n)],
+                "rewards": rng.standard_normal(n + (1,)).astype(np.float32),
+                "terminated": np.zeros(n + (1,), np.float32), "truncated": np.zeros(n + (1,), np.float32),
+                "is_first": (rng.random(n + (1,)) < 0.01).astype(np.float32)})
+    fill_s = time.perf_counter() - t0
+    stored = sum(np.asarray(b._buf[k]).nbytes for b in rb.buffer for k in b.keys())
+
+    def snap():
+        return _copy.deepcopy([rb._rng.bit_generator.state] + [b._rng.bit_generator.state for b in rb.buffer])
+
+    def restore(st):
+        rb._rng.bit_generator.state = st[0]
+        for b, s_ in zip(rb.buffer, st[1:]):
+            b._rng.bit_generator.state = s_
+
+    def host_sample(g, out=None):
+        s_ = rb.sample(B, sequence_length=T, n_samples=g, out=out)
+        return {k: v if k == "rgb" else np.asarray(v, np.float32) for k, v in s_.items()}
+
+    s0 = snap()
+    out = {"buffer_bytes": stored, "fill_s": fill_s, "native": status}
+
+    # 1. the synchronous sample and a pageable copy (the loop before this feed)
+    host, dev_ms, ref = [], [], None
+    for _ in range(reps):
+        restore(s0)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        sample = host_sample(G)
+        a.record()
+        batch = {k: torch.from_numpy(v).to(dev, non_blocking=True) for k, v in sample.items()}
+        b.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+        if ref is None:
+            ref = {k: v.cpu() for k, v in batch.items()}
+    batch_bytes = sum(v.numel() * v.element_size() for v in ref.values())
+    out["sync"] = {"host_ms": statistics.median(host), "copy_device_ms": statistics.median(dev_ms),
+                   "gb_per_s": batch_bytes / statistics.median(dev_ms) / 1e6, "batch_bytes": batch_bytes}
+
+    def same(batch, name):
+        for k, v in ref.items():
+            if not torch.equal(batch[k].cpu(), v):
+                raise AssertionError(f"{name}: '{k}' differs from the synchronous sample")
+
+    # 2. the staged prefetcher: stage (sample into pinned memory, copy on its
+    # stream), then take (the consumer's stream waits on the copy's event)
+    pf = StagedPrefetcher(host_sample, dev)
+    restore(s0)
+    pf.stage(G)
+    same(pf.take(G), "staged")
+    stage_ms, take_ms, copy_ms = [], [], []
+    for _ in range(reps):
+        restore(s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf.stage(G)
+        t1 = time.perf_counter()
+        got = pf.take(G)
+        t2 = time.perf_counter()
+        stage_ms.append((t1 - t0) * 1e3)
+        take_ms.append((t2 - t1) * 1e3)
+        copy_ms.append(pf.last_copy()["ms"])
+    same(got, "staged")
+    out["staged"] = {"host_ms": statistics.median(stage_ms) + statistics.median(take_ms),
+                     "stage_host_ms": statistics.median(stage_ms), "take_host_ms": statistics.median(take_ms),
+                     "copy_device_ms": statistics.median(copy_ms),
+                     "gb_per_s": batch_bytes / statistics.median(copy_ms) / 1e6}
+
+    # 3. the device ring: the whole buffer crosses once, then per burst only
+    # the new rows; the batch is gathered on the card
+    ring = DeviceRingPrefetcher(rb, B, T, cnn_keys=("rgb",), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring.sync()
+    torch.cuda.synchronize()
+    first_sync = {"s": time.perf_counter() - t0, "bytes": ring.synced_bytes}
+    restore(s0)
+    ring.stage(G)
+    same(ring.take(G), "ring")
+    t_idx, env_order = ring._last_idx
+    ti, ei = torch.from_numpy(t_idx).to(dev), torch.from_numpy(env_order).to(dev)
+    gather_ms = time_ms(lambda: _gather_batch(ring.ring, ti, ei, ring._f32_keys()))
+    host = []
+    for _ in range(reps):
+        restore(s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.stage(G)
+        ring.take(G)
+        host.append((time.perf_counter() - t0) * 1e3)
+    # one loop iteration's new rows (one per env), then the next burst's sync
+    before = ring.synced_bytes
+    n = (1, FEED_ENVS)
+    rb.add({"rgb": np.zeros(n + (64, 64, 3), np.uint8), "actions": np.zeros(n + (n_act,), np.float32),
+            "rewards": np.zeros(n + (1,), np.float32), "terminated": np.zeros(n + (1,), np.float32),
+            "truncated": np.zeros(n + (1,), np.float32), "is_first": np.zeros(n + (1,), np.float32)})
+    ring.stage(G)
+    torch.cuda.synchronize()
+    out["ring"] = {"host_ms": statistics.median(host), "gather_device_ms": gather_ms,
+                   "gather_bound_ms": 2 * batch_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                   "sync_bytes_per_burst": ring.synced_bytes - before, "first_sync": first_sync,
+                   "ring_bytes": sum(v.numel() * v.element_size() for v in ring.ring.values())}
+    del ring
+
+    # the native gather against numpy's, on the same draws
+    restore(s0)
+    native_batch = rb.sample(B, sequence_length=T, n_samples=G)
+    nat, npy = [], []
+    gather_rows = native.gather_rows
+    try:
+        for _ in range(reps):  # the two in turn, so neither pays for the other's first touches
+            for use in (True, False):
+                # None is what the gather gives where it is not built: numpy's runs
+                native.gather_rows = gather_rows if use else (lambda *a: None)
+                restore(s0)
+                t0 = time.perf_counter()
+                got = rb.sample(B, sequence_length=T, n_samples=G)
+                (nat if use else npy).append((time.perf_counter() - t0) * 1e3)
+    finally:
+        native.gather_rows = gather_rows
+    for k, v in got.items():
+        if not np.array_equal(v, native_batch[k]):
+            raise AssertionError(f"native gather: '{k}' differs from numpy's")
+    out["sample_host_ms"] = {"native": statistics.median(nat), "numpy": statistics.median(npy)}
+    del rb
+    shutil.rmtree(mdir, ignore_errors=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -630,8 +919,59 @@ def phase_run(torch, ln_gru, overrides=()):
     if parsed["reward"] is None:
         raise AssertionError("eval printed no `Test - Reward:`")
     report["eval"] = {"seconds": seconds, "reward": parsed["reward"], "checkpoint": os.path.basename(run_ckpts[-1])}
+    report.update(walker_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     return report["run"]["launches"], blocks, report
+
+
+def walker_legs(torch, ln_gru):
+    """The DMC walker-walk preset's settings (bf16-mixed, memmap buffer,
+    action repeat 2, coupled DreamerV3-S) on the continuous dummy env, cut
+    to the smoke's scale: on the device ring and on the staged prefetcher
+    (equal ledgers), then a resume from the staged leg's last checkpoint,
+    which references its flushed memmap files (memmap_fast_resume)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import param_sums
+
+    common = [
+        "exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy", "env.num_envs=2",
+        f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}",
+        f"algo.learning_starts={LEARNING_STARTS}", "buffer.size=1024", "metric.log_every=32",
+        "checkpoint.every=96", "checkpoint.save_last=True", "algo.run_test=False", f"root_dir={RUN_ROOT}",
+    ]
+    report, ledgers, logs = {}, {}, {}
+    for leg, extra in (("walker_ring", ["buffer.device_cache=true"]),
+                       ("walker_staged", ["buffer.device_cache=false", "buffer.memmap_fast_resume=True"])):
+        args = common + [f"algo.total_steps={TOTAL}", f"run_name={leg}", *extra]
+        parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args)
+        report[leg] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, trains=False)
+        if report[leg]["grad_steps"] < 1:
+            raise AssertionError(f"the {leg} leg took no gradient step")
+        logs[leg] = parsed["log_dir"]
+        ledgers[leg] = ledger(torch, checkpoints(parsed["log_dir"])[-1])
+        report[leg]["args"] = args
+    if ledgers["walker_ring"] != ledgers["walker_staged"]:
+        raise AssertionError(f"walker ledgers differ: ring {ledgers['walker_ring']}, staged {ledgers['walker_staged']}")
+    report["walker_staged"]["ledger_equal"] = ledgers["walker_ring"]
+    last = checkpoints(logs["walker_staged"])[-1]
+    saved = torch.load(last, map_location="cpu", weights_only=False)
+    if not all(b.get("__memmap_ref__") for b in saved["rb"]["buffers"]):
+        raise AssertionError("the staged leg's checkpoint holds rows, not memmap file references")
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+        f"algo.total_steps={RESUME_TOTAL}", "run_name=walker_resume", "buffer.device_cache=true",
+        f"checkpoint.resume_from={last}"])
+    started = parsed["resumed"]
+    want = {"policy_step": saved["policy_step"], "grad_steps": saved["opt_states"]["step"], "ratio": saved["ratio"]}
+    if started is None or {k: started[k] for k in want} != want:
+        raise AssertionError(f"the walker resume started from {started}, the checkpoint holds {want}")
+    file_sums = param_sums({k: saved[k] for k in ("wm", "actor", "critic", "target_critic")})
+    for k, v in file_sums.items():
+        if abs(started["param_sums"][k] - v) > 1e-9 * max(1.0, abs(v)):
+            raise AssertionError(f"resumed {k} parameters sum to {started['param_sums'][k]}, the file's to {v}")
+    report["walker_resume"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, trains=False)
+    if report["walker_resume"]["policy_step"] != RESUME_TOTAL:
+        raise AssertionError(f"the walker resume stopped at {report['walker_resume']['policy_step']}")
+    report["walker_resume"].update(checkpoint=os.path.basename(last), started_from=want, memmap_fast_resume=True)
+    return report
 
 
 def main() -> int:
@@ -682,9 +1022,15 @@ def main() -> int:
 
     try:
         train = phase_train(torch, ln_gru)
+        train.update(phase_train_bf16(torch, ln_gru))
         emit("train", ok=True, model="DreamerV3-S", T=T, B=B, horizon=15, obs="64x64x3", actions=9, modes=train)
     except Exception as err:  # noqa: BLE001
         return fail("train", err)
+
+    try:
+        emit("feed", ok=True, nvidia_smi=smi, G=1, T=T, B=B, obs="64x64x3 uint8", actions=9, **phase_feed(torch))
+    except Exception as err:  # noqa: BLE001
+        return fail("feed", err)
 
     try:
         os.chdir(HERE)  # the legs write logs/runs/chip_smoke/ in the checkout (gitignored)

@@ -13,9 +13,12 @@ tests can hand the port the JAX package's exact gumbel draws.
 ``main`` is the JAX package's training loop: ``interact(sink)`` steps the
 envs once with the player, either on the overlap engine's player thread
 (``algo.overlap.enabled``, the default) or serially through a
-``BufferOpSink``; the player acts with a ``ParamMirror`` copy of the world
-model and actor. The RunGuard drains on SIGTERM, checkpoints land under the
-run's log dir and ``checkpoint.resume_from`` continues from one;
+``BufferOpSink``; the player acts in f32 with a ``ParamMirror`` copy of the
+world model and actor. Bursts take their batches from the replay feed
+(``data/device_ring.py``: the device ring or the staged prefetcher), staged
+one iteration ahead on the learner thread. The RunGuard drains on SIGTERM,
+checkpoints land under the run's log dir and ``checkpoint.resume_from``
+continues from one;
 ``evaluate_dreamer_v3`` is the ``eval`` command's entry point. Metrics,
 the engine's stats and the checkpoint costs print to stdout. The actor
 fleet, telemetry and the model manager are not ported yet.
@@ -23,7 +26,9 @@ fleet, telemetry and the model manager are not ported yet.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import os
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -33,6 +38,7 @@ import torch
 
 from ...config import Config, instantiate
 from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from ...data.device_ring import estimate_row_bytes, make_sequential_prefetcher
 from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
 from ...distributions import (
@@ -49,7 +55,7 @@ from ...optim import Clipped, clipped
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
 from ...utils.checkpoint import CheckpointManager
-from ...utils.env import episode_stats, vectorize
+from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
 from ...utils.logger import get_log_dir
 from ...utils.metric import MetricAggregator
 from ...utils.registry import register_algorithm, register_evaluation
@@ -62,6 +68,7 @@ from .utils import (
     check_precision,
     decode_obs_dists,
     init_moments,
+    make_precision_applies,
     normalize_obs,
     prepare_obs,
     test,
@@ -155,8 +162,12 @@ def make_train_fn(
     (moments, metrics)``: G gradient steps over ``batches`` [G, T, B, ...]
     (tensors on the modules' device). ``noise`` is a list of G
     ``draw_train_noise`` dicts; without it the draws come from
-    ``generator``. Metrics are [G] tensors, left on the device."""
-    check_precision(cfg)
+    ``generator``. Metrics are [G] tensors, left on the device.
+
+    Under a bf16 ``fabric.precision`` every forward of ``wm``, ``actor`` and
+    ``critic`` crosses the cast boundary (``PrecisionApplies``), which casts
+    each module's parameters once per phase of the step."""
+    apply = make_precision_applies(cfg)
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
@@ -166,13 +177,15 @@ def make_train_fn(
     R = int(wm_cfg.recurrent_model.recurrent_state_size)
     # LN-GRU sequence kernels (ops/ln_gru.py): only the decoupled path
     # qualifies (its GRU inputs are time-parallel); `interpret` runs their
-    # plain versions, which take any shape
+    # plain versions, which take any shape. Under mixed precision they are
+    # not selected (they compute in f32), as in the JAX package
     gru_mode = wm_cfg.select("pallas_gru") or False
     gru_plain = gru_mode == "interpret"
-    use_kernel = decoupled and bool(gru_mode)
-    if gru_mode and not decoupled:
+    use_kernel = decoupled and bool(gru_mode) and not apply.mixed
+    if gru_mode and not use_kernel:
+        reason = "decoupled_rssm=False" if not decoupled else "mixed precision (the kernel computes in f32)"
         print(
-            "[dreamer_v3] algo.world_model.pallas_gru is set but UNUSED: decoupled_rssm=False — the "
+            f"[dreamer_v3] algo.world_model.pallas_gru is set but UNUSED: {reason} — the "
             "step-by-step GRU runs instead",
             file=sys.stderr,
         )
@@ -199,51 +212,58 @@ def make_train_fn(
         is_first[0] = 1.0
         batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0)
 
-        embedded = wm.embed(batch_obs)  # [T, B, E]
-        initial = rssm.initial_states((B,))
-        if decoupled:
-            # posterior of the whole sequence in one time-parallel MLP; the
-            # posterior driving step i is the step i-1 sample (zeros at i=0)
-            post_logits = rssm.representation_logits(embedded)
-            zs = compute_stochastic_state(post_logits, D, noise["post"]).reshape(T, B, stoch_flat)
-            z_prev = torch.cat([torch.zeros_like(zs[:1]), zs[:-1]], dim=0)
-            if use_kernel:
-                h0_row, z0_row = initial
-                z_in = (1 - is_first) * z_prev + is_first * z0_row[None]
-                a_in = (1 - is_first) * batch_actions
-                feats = rssm.recurrent_features(torch.cat([z_in, a_in], dim=-1))
-                gru = rssm.recurrent_model.gru
-                hs = ln_gru.gru_sequence(
-                    feats, is_first, h0_row, gru.fused.weight.t(), gru.LayerNorm_0.weight,
-                    gru.LayerNorm_0.bias, plain=gru_plain,
-                )
-                prior_logits = rssm._transition(hs)
+        with apply.params(wm):
+            embedded = apply(wm.embed, batch_obs)  # [T, B, E]
+            initial = apply(rssm.initial_states, (B,))
+            if decoupled:
+                # posterior of the whole sequence in one time-parallel MLP; the
+                # posterior driving step i is the step i-1 sample (zeros at i=0)
+                post_logits = apply(rssm.representation_logits, embedded)
+                zs = compute_stochastic_state(post_logits, D, noise["post"]).reshape(T, B, stoch_flat)
+                z_prev = torch.cat([torch.zeros_like(zs[:1]), zs[:-1]], dim=0)
+                if use_kernel:
+                    h0_row, z0_row = initial
+                    z_in = (1 - is_first) * z_prev + is_first * z0_row[None]
+                    a_in = (1 - is_first) * batch_actions
+                    feats = rssm.recurrent_features(torch.cat([z_in, a_in], dim=-1))
+                    gru = rssm.recurrent_model.gru
+                    hs = ln_gru.gru_sequence(
+                        feats, is_first, h0_row, gru.fused.weight.t(), gru.LayerNorm_0.weight,
+                        gru.LayerNorm_0.bias, plain=gru_plain,
+                    )
+                    prior_logits = rssm._transition(hs)
+                else:
+                    # the scans run inside the cast boundary: their inputs
+                    # cross once, before the loop, the carries stay in the
+                    # compute dtype, and the outputs cross back once (the
+                    # same values as a crossing per step)
+                    z_c, a_c, f_c, init_c = apply.cast_in((z_prev, batch_actions, is_first, initial))
+                    h = a_c.new_zeros(B, R)
+                    hs_l, prior_l = [], []
+                    for t in range(T):
+                        h, pl = rssm.dynamic_decoupled(z_c[t], h, a_c[t], f_c[t], initial=init_c)
+                        hs_l.append(h)
+                        prior_l.append(pl)
+                    hs, prior_logits = apply.cast_out((torch.stack(hs_l), torch.stack(prior_l)))
             else:
-                h = batch_actions.new_zeros(B, R)
-                hs_l, prior_l = [], []
+                a_c, e_c, f_c, init_c = apply.cast_in((batch_actions, embedded, is_first, initial))
+                h = a_c.new_zeros(B, R)
+                z = a_c.new_zeros(B, stoch_flat)
+                hs_l, zs_l, post_l, prior_l = [], [], [], []
                 for t in range(T):
-                    h, pl = rssm.dynamic_decoupled(z_prev[t], h, batch_actions[t], is_first[t], initial)
+                    h, z, pol, prl = rssm.dynamic(z, h, a_c[t], e_c[t], f_c[t], noise=noise["post"][t], initial=init_c)
+                    zs_l.append(z)  # the posterior sample, f32 (the sampler's dtype)
+                    z = apply.cast_in(z)
                     hs_l.append(h)
-                    prior_l.append(pl)
-                hs, prior_logits = torch.stack(hs_l), torch.stack(prior_l)
-        else:
-            h = batch_actions.new_zeros(B, R)
-            z = batch_actions.new_zeros(B, stoch_flat)
-            hs_l, zs_l, post_l, prior_l = [], [], [], []
-            for t in range(T):
-                h, z, pol, prl = rssm.dynamic(
-                    z, h, batch_actions[t], embedded[t], is_first[t], noise["post"][t], initial=initial
-                )
-                hs_l.append(h)
-                zs_l.append(z)
-                post_l.append(pol)
-                prior_l.append(prl)
-            hs, zs = torch.stack(hs_l), torch.stack(zs_l)
-            post_logits, prior_logits = torch.stack(post_l), torch.stack(prior_l)
-        latents = torch.cat([zs, hs], dim=-1)
-        po, obs_targets = decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys)
-        pr = TwoHotEncodingDistribution(wm.reward(latents), dims=1)
-        pc = Independent(BernoulliSafeMode(logits=wm.cont(latents)), 1)
+                    post_l.append(pol)
+                    prior_l.append(prl)
+                hs, post_logits, prior_logits = apply.cast_out(
+                    (torch.stack(hs_l), torch.stack(post_l), torch.stack(prior_l)))
+                zs = torch.stack(zs_l)
+            latents = torch.cat([zs, hs], dim=-1)
+            po, obs_targets = decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys, apply)
+            pr = TwoHotEncodingDistribution(apply(wm.reward, latents), dims=1)
+            pc = Independent(BernoulliSafeMode(logits=apply(wm.cont, latents)), 1)
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
             po,
             obs_targets,
@@ -280,14 +300,14 @@ def make_train_fn(
         """Imagination from every posterior state: [H+1, TB, L] states and
         actions. Runs with the world model as updated this step."""
         state0 = torch.cat([z0, h0], dim=-1)
-        acts0, _ = sample_actor_actions(actor, actor(state0), noise["act0"])
+        acts0, _ = sample_actor_actions(actor, apply(actor, state0), noise["act0"])
         a0 = torch.cat(acts0, dim=-1)
         z, h, a = z0, h0, a0
         states, actions = [state0], [a0]
         for i in range(horizon):
-            z, h = rssm.imagination(z, h, a, noise["img_z"][i])
+            z, h = apply(rssm.imagination, z, h, a, noise=noise["img_z"][i])
             state = torch.cat([z, h], dim=-1)
-            acts, _ = sample_actor_actions(actor, actor(state.detach()), [n[i] for n in noise["img_a"]])
+            acts, _ = sample_actor_actions(actor, apply(actor, state.detach()), [n[i] for n in noise["img_a"]])
             a = torch.cat(acts, dim=-1)
             states.append(state)
             actions.append(a)
@@ -297,46 +317,52 @@ def make_train_fn(
         T, B = batch["rewards"].shape[:2]
         TB = T * B
         true_continue0 = (1 - batch["terminated"]).reshape(TB, 1)
-        # the discrete objective reaches the actor only through the log-probs
-        # of detached trajectories, so its rollout needs no graph; the
-        # continuous objective differentiates through the dynamics
-        with torch.set_grad_enabled(is_continuous):
-            trajectories, imagined_actions = rollout(zs.reshape(TB, stoch_flat), hs.reshape(TB, R), noise)
-            values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
-            rewards_img = TwoHotEncodingDistribution(wm.reward(trajectories), dims=1).mean
-            continues = Independent(BernoulliSafeMode(logits=wm.cont(trajectories)), 1).mode
-            continues = torch.cat([true_continue0[None], continues[1:]], dim=0)
-            lv = lambda_values_op(rewards_img[1:], values[1:], continues[1:] * gamma, lmbda)
-        discount = (unrolled_cumprod(continues * gamma) / gamma).detach()
-        moments, offset, invscale = update_moments(
-            moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
-            float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
-        )
-        advantage = (lv - offset) / invscale - (values[:-1] - offset) / invscale
-        dists = actor_dists(actor, actor(trajectories.detach()))
-        if is_continuous:
-            objective = advantage
-        else:
-            logprobs, start = [], 0
-            for d, adim in zip(dists, actions_dim):
-                act = imagined_actions[..., start : start + adim].detach()
-                logprobs.append(d.log_prob(act)[..., None][:-1])
-                start += adim
-            objective = sum(logprobs) * advantage.detach()
-        entropy = ent_coef * sum(d.entropy() for d in dists)[..., None]
-        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
-        actor_params = optimizers.actor.params
-        grads = torch.autograd.grad(policy_loss, actor_params, allow_unused=True)
-        _apply_grads(optimizers.actor, grads)
+        # one cast of each module for the whole phase: the world model as
+        # updated this step, the actor before its update, the critics before
+        # the critic's
+        with apply.params(wm, actor, critic, target_critic):
+            # the discrete objective reaches the actor only through the
+            # log-probs of detached trajectories, so its rollout needs no
+            # graph; the continuous objective differentiates through the
+            # dynamics
+            with torch.set_grad_enabled(is_continuous):
+                trajectories, imagined_actions = rollout(zs.reshape(TB, stoch_flat), hs.reshape(TB, R), noise)
+                values = TwoHotEncodingDistribution(apply(critic, trajectories), dims=1).mean
+                rewards_img = TwoHotEncodingDistribution(apply(wm.reward, trajectories), dims=1).mean
+                continues = Independent(BernoulliSafeMode(logits=apply(wm.cont, trajectories)), 1).mode
+                continues = torch.cat([true_continue0[None], continues[1:]], dim=0)
+                lv = lambda_values_op(rewards_img[1:], values[1:], continues[1:] * gamma, lmbda)
+            discount = (unrolled_cumprod(continues * gamma) / gamma).detach()
+            moments, offset, invscale = update_moments(
+                moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
+                float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
+            )
+            advantage = (lv - offset) / invscale - (values[:-1] - offset) / invscale
+            dists = actor_dists(actor, apply(actor, trajectories.detach()))
+            if is_continuous:
+                objective = advantage
+            else:
+                logprobs, start = [], 0
+                for d, adim in zip(dists, actions_dim):
+                    act = imagined_actions[..., start : start + adim].detach()
+                    logprobs.append(d.log_prob(act)[..., None][:-1])
+                    start += adim
+                objective = sum(logprobs) * advantage.detach()
+            entropy = ent_coef * sum(d.entropy() for d in dists)[..., None]
+            policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
+            # the optimizer holds the master parameters, not the cast copies
+            actor_params = optimizers.actor.params
+            grads = torch.autograd.grad(policy_loss, actor_params, allow_unused=True)
+            _apply_grads(optimizers.actor, grads)
 
-        traj_sg, lv_sg = trajectories.detach(), lv.detach()
-        qv = TwoHotEncodingDistribution(critic(traj_sg[:-1]), dims=1)
-        with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(target_critic(traj_sg[:-1]), dims=1).mean
-        value_loss = torch.mean((-qv.log_prob(lv_sg) - qv.log_prob(target_values)) * discount[:-1, ..., 0])
-        optimizers.critic.zero_grad()
-        value_loss.backward()
-        _apply_grads(optimizers.critic)
+            traj_sg, lv_sg = trajectories.detach(), lv.detach()
+            qv = TwoHotEncodingDistribution(apply(critic, traj_sg[:-1]), dims=1)
+            with torch.no_grad():
+                target_values = TwoHotEncodingDistribution(apply(target_critic, traj_sg[:-1]), dims=1).mean
+            value_loss = torch.mean((-qv.log_prob(lv_sg) - qv.log_prob(target_values)) * discount[:-1, ..., 0])
+            optimizers.critic.zero_grad()
+            value_loss.backward()
+            _apply_grads(optimizers.critic)
 
         optimizers.step += 1
         if optimizers.step % target_freq == 0:
@@ -410,14 +436,6 @@ def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_conti
     return init_state, step
 
 
-def _to_device(batch: Dict[str, np.ndarray], cnn_keys, device) -> Dict[str, torch.Tensor]:
-    out = {}
-    for k, v in batch.items():
-        arr = np.asarray(v) if k in cnn_keys else np.asarray(v, np.float32)
-        out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device, non_blocking=True)
-    return out
-
-
 def _actions_dim(action_space) -> List[int]:
     if isinstance(action_space, spaces.Box):
         return [int(np.prod(action_space.shape))]
@@ -463,9 +481,7 @@ def main(cfg: Config) -> None:
     preemption drain and resume; one greedy test episode at the end."""
     if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
         raise NotImplementedError("algo.fleet.workers > 0: the actor fleet is not ported yet")
-    if bool(cfg.buffer.select("memmap", False)):
-        raise NotImplementedError("buffer.memmap=True: memmap storage is not ported yet")
-    check_precision(cfg)
+    precision = check_precision(cfg)
     device = get_device(cfg)
     seed = int(cfg.seed)
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
@@ -481,7 +497,7 @@ def main(cfg: Config) -> None:
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
-    envs = vectorize(cfg, seed, 0)
+    envs = vectorize(cfg, seed, 0, restart_handled_by_loop=True)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -494,6 +510,8 @@ def main(cfg: Config) -> None:
     act_total = int(sum(actions_dim))
 
     wm, actor, critic, target_critic = build_agent(cfg, obs_space, actions_dim, is_continuous, device)
+    for m in (wm, actor, critic, target_critic):
+        m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
     optimizers = build_optimizers(cfg, wm, actor, critic)
     moments = init_moments(device)
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
@@ -509,11 +527,21 @@ def main(cfg: Config) -> None:
 
     seq_len = int(cfg.algo.per_rank_sequence_length)
     buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
+    memmap = bool(cfg.buffer.memmap)
     rb = EnvIndependentReplayBuffer(
-        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed
+        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed,
+        memmap=memmap, memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if memmap else None,
+        memmap_fast_resume=bool(cfg.buffer.memmap_fast_resume),
     )
     if state and cfg.buffer.checkpoint and "rb" in state:
         rb.load_state_dict(state["rb"])
+    # [G, T, B, ...] replay batches: the device ring where the mirrored
+    # buffer fits (buffer.device_cache), else host samples staged one
+    # iteration ahead through pinned memory
+    prefetch = make_sequential_prefetcher(
+        cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len, cnn_keys=cnn_keys,
+        row_bytes_hint=estimate_row_bytes(obs_space, act_total),
+    )
     train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
     # the player acts with its own copy of {wm, actor} (the train step
     # updates the learner's in place) and its own generator
@@ -528,7 +556,6 @@ def main(cfg: Config) -> None:
     guard = RunGuard.setup(cfg, ckpt, log_dir)
     ckpt = guard.ckpt
 
-    batch_size = int(cfg.algo.per_rank_batch_size)
     total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else 4 * num_envs
     learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
     policy_step = int(state["policy_step"]) if state else 0
@@ -637,6 +664,12 @@ def main(cfg: Config) -> None:
         step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
         step_data["rewards"] = clip_rewards_fn(np.asarray(rewards, np.float32).reshape(1, num_envs, 1))
 
+        # an env restarted in flight: its last row becomes a truncation
+        # boundary, and its recurrent state starts anew
+        restarted = patch_restarted_envs(info, dones, sink, step_data)
+        if restarted is not None:
+            player_state = player_init(restarted, player_state, modules=mods)
+
         dones_idxes = np.nonzero(dones)[0].tolist()
         if dones_idxes:
             # closing row for the finished episodes, then an open row
@@ -658,9 +691,7 @@ def main(cfg: Config) -> None:
 
     def burst(g: int) -> None:
         nonlocal moments
-        sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=g)
-        batches = _to_device(sample, cnn_keys, device)
-        moments, metrics = train(moments, batches, generator=generator)
+        moments, metrics = train(moments, prefetch.take(g), generator=generator)
         if log_on:
             pending.append(metrics)  # on the device until the log cadence
 
@@ -725,14 +756,22 @@ def main(cfg: Config) -> None:
                         policy_step += pkt.env_steps
                         if policy_step >= learning_starts:
                             gs.append(ratio(policy_step))
+                    # one train call per owed burst; each launches
+                    # asynchronously, so staging the next burst's batch
+                    # overlaps the card's work on this one
                     trained = False
-                    for g in gs:
+                    for i, g in enumerate(gs):
                         if g > 0:
                             burst(g)
                             trained = True
+                            nxt = next((x for x in gs[i + 1 :] if x > 0), 0)
+                            if nxt > 0:
+                                prefetch.stage(nxt)
                     if trained:
                         mirror.refresh({"wm": wm, "actor": actor})
                     engine.published()  # release take()'s claim every iteration
+                    if learning_starts <= policy_step < total_steps:
+                        prefetch.stage(ratio.peek(policy_step + num_envs))
                     flush_logs()
                     maybe_checkpoint()
             finally:
@@ -757,6 +796,9 @@ def main(cfg: Config) -> None:
                     if g > 0:
                         burst(g)
                         mirror.refresh({"wm": wm, "actor": actor})
+                    if policy_step < total_steps:
+                        # the next burst's batch, while the card computes this one
+                        prefetch.stage(ratio.peek(policy_step + num_envs))
                 flush_logs()
                 maybe_checkpoint()
     finally:
@@ -764,9 +806,11 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
     if cfg.algo.run_test:
-        test_cfg = Config({**cfg.to_dict(), "env": {**cfg.env.to_dict(), "num_envs": 1}})
-        test_env = vectorize(test_cfg, seed, 0).envs[0]
-        t_init, t_step = make_player(wm, actor, cfg, actions_dim, is_continuous, 1)
+        test_env = single_env(cfg, seed)
+        # the player acts in f32 (bf16-true keeps bf16 parameters)
+        t_wm, t_actor = (wm, actor) if precision.param_dtype == torch.float32 else (
+            copy.deepcopy(wm).float(), copy.deepcopy(actor).float())
+        t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, test_env, cfg, generator)
 
 
@@ -777,7 +821,7 @@ def evaluate_dreamer_v3(cfg: Config, state: Dict[str, Any]) -> None:
     check_precision(cfg)
     device = get_device(cfg)
     seed = int(cfg.seed)
-    env = vectorize(cfg, seed, 0).envs[0]
+    env = single_env(cfg, seed)
     action_space = env.action_space
     is_continuous = isinstance(action_space, spaces.Box)
     actions_dim = _actions_dim(action_space)

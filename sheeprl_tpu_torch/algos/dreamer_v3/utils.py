@@ -1,15 +1,17 @@
 """DreamerV3 helpers (counterpart of ``sheeprl_tpu/algos/dreamer_v3/utils.py``):
-Moments, observation shaping, the decoder distributions and the greedy test
-episode."""
+Moments, the precision boundary, observation shaping, the decoder
+distributions and the greedy test episode."""
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ...distributions import MSEDistribution, SymlogDistribution
 from ...envs import spaces
+from ...parallel.precision import Precision, cast_floating, get_precision
 
 AGGREGATOR_KEYS = (
     "Rewards/rew_avg",
@@ -55,18 +57,79 @@ def update_moments(
     return MomentsState(new_low, new_high), new_low, invscale
 
 
-def check_precision(cfg: Any) -> None:
-    """The port runs float32 only: 32-true is full f32 on the card too, so
-    TF32 is turned off for cuBLAS matmuls and cuDNN convolutions (PyTorch
-    enables it for cuDNN by default)."""
-    precision = str(cfg.select("fabric.precision", "32-true"))
-    if precision != "32-true":
-        raise NotImplementedError(
-            f"fabric.precision={precision}: the PyTorch port runs 32-true only; bf16-mixed waits "
-            "for a later slice (ROADMAP.md, Queue 1 item 5: the mixed-precision boundary)"
-        )
+def check_precision(cfg: Any) -> Precision:
+    """``fabric.precision``'s policy (``parallel/precision.py``; an unknown
+    name raises the JAX package's error). The f32 parts of every policy are
+    full f32 on the card too, so TF32 is turned off for cuBLAS matmuls and
+    cuDNN convolutions (PyTorch enables it for cuDNN by default)."""
+    precision = get_precision(str(cfg.select("fabric.precision", "32-true")))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return precision
+
+
+class PrecisionApplies:
+    """The mixed-precision cast boundary of the train step (the port's
+    ``make_precision_applies``): under a bf16 policy the forwards of ``wm``,
+    ``actor`` and ``critic`` run on bf16 copies of their parameters and take
+    bf16 inputs, and their outputs cross back in f32, so losses, Moments,
+    the target EMA, the optimizers and (under ``bf16-mixed``) the master
+    parameters stay f32. Under ``32-true`` both are the identity.
+
+    ``with applies.params(*modules):`` casts each module's floating
+    parameters once (``Tensor.to``, differentiable, so gradients reach the
+    masters) and swaps the copies in until the block ends: one cast per
+    module per phase of the step, however many applies the phase makes.
+    ``applies(fn, *args, **kwargs)`` is one apply: floating tensors in the
+    arguments go in as bf16 (pre-drawn ``noise`` stays f32, as the JAX
+    package draws it in f32), floating outputs come out as f32."""
+
+    _UNCAST = ("noise", "generator")
+
+    def __init__(self, precision: Precision):
+        self.precision = precision
+        self.compute_dtype = precision.compute_dtype
+        self.mixed = self.compute_dtype != torch.float32
+
+    @contextlib.contextmanager
+    def params(self, *modules: torch.nn.Module) -> Iterator[None]:
+        if not self.mixed:
+            yield
+            return
+        swapped = []
+        try:
+            for module in modules:
+                for mod in module.modules():
+                    for name, p in list(mod._parameters.items()):
+                        if p is not None and p.is_floating_point() and p.dtype != self.compute_dtype:
+                            swapped.append((mod, name, p))
+                            mod._parameters[name] = p.to(self.compute_dtype)
+            yield
+        finally:
+            for mod, name, p in reversed(swapped):
+                mod._parameters[name] = p
+
+    def cast_in(self, tree: Any) -> Any:
+        """Floating tensors into the compute dtype (a scan casts its
+        time-parallel inputs once, before its loop)."""
+        return cast_floating(tree, self.compute_dtype) if self.mixed else tree
+
+    def cast_out(self, tree: Any) -> Any:
+        """Floating tensors back to f32."""
+        return cast_floating(tree, torch.float32) if self.mixed else tree
+
+    def __call__(self, fn: Callable, *args: Any, **kwargs: Any) -> Any:
+        if not self.mixed:
+            return fn(*args, **kwargs)
+        args = cast_floating(args, self.compute_dtype)
+        kwargs = {k: v if k in self._UNCAST else cast_floating(v, self.compute_dtype) for k, v in kwargs.items()}
+        return cast_floating(fn(*args, **kwargs), torch.float32)
+
+
+def make_precision_applies(cfg: Any) -> PrecisionApplies:
+    """The cast boundary for ``fabric.precision`` (TF32 off, as
+    ``check_precision``)."""
+    return PrecisionApplies(check_precision(cfg))
 
 
 def prepare_obs(obs: Dict[str, np.ndarray], cnn_keys=(), mlp_keys=(), num_envs: int = 1) -> Dict[str, np.ndarray]:
@@ -84,10 +147,11 @@ def normalize_obs(obs: Dict[str, torch.Tensor], cnn_keys) -> Dict[str, torch.Ten
     return {k: (v.float() / 255.0 - 0.5) if k in cnn_keys else v for k, v in obs.items()}
 
 
-def decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys):
+def decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys, apply=None):
     """Decoder distributions and the matching observation targets (the
-    pixel-space form of the JAX package's ``decode_obs_dists``)."""
-    recon = wm.decode(latents)
+    pixel-space form of the JAX package's ``decode_obs_dists``); ``apply``
+    is the precision boundary the decoder runs through."""
+    recon = wm.decode(latents) if apply is None else apply(wm.decode, latents)
     po = {k: MSEDistribution(recon[k], dims=3) for k in cnn_keys}
     po.update({k: SymlogDistribution(recon[k], dims=1) for k in mlp_keys})
     return po, batch_obs

@@ -1,3 +1,4 @@
 from .buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+from .memmap import MemmapArray
 
-__all__ = ["EnvIndependentReplayBuffer", "ReplayBuffer", "SequentialReplayBuffer"]
+__all__ = ["EnvIndependentReplayBuffer", "MemmapArray", "ReplayBuffer", "SequentialReplayBuffer"]

@@ -1,21 +1,36 @@
-"""Host-side replay buffers in plain numpy (the port's own copy of
-``ReplayBuffer``, ``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``
-from ``sheeprl_tpu/data/buffers.py``, without memmap storage and the native
-gather, which are not ported yet).
+"""Host-side replay buffers in numpy, optionally memory-mapped (the port's own
+copy of ``ReplayBuffer``, ``SequentialReplayBuffer`` and
+``EnvIndependentReplayBuffer`` from ``sheeprl_tpu/data/buffers.py``).
 
-``ReplayBuffer`` stores [buffer_size, n_envs, ...] per key; samples come back
-[n_samples, batch, ...]; ``SequentialReplayBuffer.sample`` returns
-[n_samples, seq_len, batch, ...].
+``ReplayBuffer`` stores [buffer_size, n_envs, ...] per key, in memory or (with
+``memmap``) in one ``<memmap_dir>/<key>.memmap`` file per key; samples come
+back [n_samples, batch, ...]; ``SequentialReplayBuffer.sample`` returns
+[n_samples, seq_len, batch, ...], gathered by the host C++ gather
+(``data/native.py``) where it is built.
 
 ``state_dict``/``load_state_dict`` carry the stored rows, the write head and
 the sampling generator's state; ``checkpoint_state_dict`` is the state a
-resumable checkpoint holds (the row at the write head marked truncated).
+resumable checkpoint holds (the row at the write head marked truncated), or,
+with ``memmap_fast_resume`` on memmap storage, a reference to the flushed
+files.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import os
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from . import native
+from .memmap import MemmapArray
+
+
+def _as_storage(shape: Sequence[int], dtype: Any, memmap: bool, memmap_dir: Optional[Path], key: str):
+    if memmap:
+        filename = None if memmap_dir is None else memmap_dir / f"{key}.memmap"
+        return MemmapArray(shape, dtype=dtype, filename=filename)
+    return np.zeros(shape, dtype=dtype)
 
 
 class ReplayBuffer:
@@ -28,7 +43,10 @@ class ReplayBuffer:
         buffer_size: int,
         n_envs: int = 1,
         obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: Optional[Union[str, os.PathLike]] = None,
         seed: Optional[Any] = None,
+        memmap_fast_resume: bool = False,
         **kwargs: Any,
     ):
         if buffer_size <= 0:
@@ -40,9 +58,45 @@ class ReplayBuffer:
         self._buffer_size = int(buffer_size)
         self._n_envs = int(n_envs)
         self._obs_keys = tuple(obs_keys)
-        self._buf: Dict[str, np.ndarray] = {}
+        self._memmap = bool(memmap)
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        if self._memmap and self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        # checkpoints reference the flushed files instead of copying the rows
+        self.memmap_fast_resume = bool(memmap_fast_resume)
+        self._buf: Dict[str, Any] = {}
         self._pos = 0
         self._full = False
+        # rows ever added: lets the device ring see that more than
+        # buffer_size rows landed between two syncs (the write head aliases)
+        self._added = 0
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def full(self) -> bool:
+        return self._full
+
+    @property
+    def empty(self) -> bool:
+        return len(self._buf) == 0
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._buf
+
+    def keys(self):
+        return self._buf.keys()
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return np.asarray(self._buf[key])
+
+    def _maybe_create(self, key: str, item_shape: Tuple[int, ...], dtype: Any) -> None:
+        if key not in self._buf:
+            self._buf[key] = _as_storage(
+                (self._buffer_size, self._n_envs) + tuple(item_shape), dtype, self._memmap, self._memmap_dir, key
+            )
 
     def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
         """Append [T, n_envs, ...] per key, wrapping around circularly."""
@@ -59,8 +113,7 @@ class ReplayBuffer:
         if t == 0:
             return
         for k, v in data.items():
-            if k not in self._buf:
-                self._buf[k] = np.zeros((self._buffer_size, self._n_envs) + v.shape[2:], dtype=v.dtype)
+            self._maybe_create(k, v.shape[2:], v.dtype)
         idxs = (self._pos + np.arange(t)) % self._buffer_size
         for k, v in data.items():
             if t >= self._buffer_size:
@@ -70,6 +123,7 @@ class ReplayBuffer:
         if self._pos + t >= self._buffer_size:
             self._full = True
         self._pos = int((self._pos + t) % self._buffer_size)
+        self._added += t
 
     def state_dict(self) -> Dict[str, Any]:
         """The stored rows only (``[:pos]`` until the buffer is full: the
@@ -84,16 +138,82 @@ class ReplayBuffer:
             "rng": self._rng.bit_generator.state,
         }
 
+    def _all_memmap(self) -> bool:
+        return bool(self._buf) and all(isinstance(v, MemmapArray) for v in self._buf.values())
+
+    def flush(self) -> None:
+        """Flush memmap storage to its files (no-op in memory)."""
+        for v in self._buf.values():
+            if isinstance(v, MemmapArray):
+                v.flush()
+
     def checkpoint_state_dict(self) -> Dict[str, Any]:
         """State for a resumable checkpoint. The envs are not saved, so the
         row at the current write position is marked truncated: a resumed
         sequential sample can never join the pre-save tail and the
         post-resume head into one trajectory. The live buffer keeps its
-        flags (the surgery is on the copy)."""
+        flags (the surgery is on the copy).
+
+        With ``memmap_fast_resume`` on memmap storage the state references
+        the flushed files instead of copying them (the checkpoint resumes
+        only where the run dir survives), and the surgery waits for
+        ``load_state_dict``, so the live files stay untouched."""
+        if self.memmap_fast_resume and self._memmap and self._all_memmap():
+            self.flush()
+            # the files now belong to the checkpoint: an owned MemmapArray
+            # unlinks its file when it is collected
+            for v in self._buf.values():
+                v.has_ownership = False
+            return {
+                "__memmap_ref__": 1,
+                "keys": {
+                    k: {"filename": str(v.filename), "shape": tuple(int(s) for s in v.shape),
+                        "dtype": str(np.dtype(v.dtype))}
+                    for k, v in self._buf.items()
+                },
+                "size": self._buffer_size,
+                "pos": self._pos,
+                "full": self._full,
+                "rng": self._rng.bit_generator.state,
+                "truncate_last": bool("truncated" in self._buf and (self._full or self._pos > 0)),
+            }
         state = self.state_dict()
         if "truncated" in state["buffer"] and (self._full or self._pos > 0):
             state["buffer"]["truncated"][(state["pos"] - 1) % self._buffer_size, :] = 1
         return state
+
+    def _load_memmap_ref(self, state: Dict[str, Any]) -> "ReplayBuffer":
+        """Rehydrate from a checkpoint that references memmap files: each
+        file is copied into this buffer's own storage (the old run's files
+        stay the old run's)."""
+        for k, spec in state["keys"].items():
+            shape = tuple(spec["shape"])
+            if shape[:2] != (self._buffer_size, self._n_envs):
+                raise ValueError(
+                    f"the checkpoint's '{k}' is {shape}, this buffer ({self._buffer_size}, {self._n_envs}): "
+                    "resume with the same buffer.size and env.num_envs"
+                )
+            if not os.path.exists(spec["filename"]):
+                raise FileNotFoundError(
+                    f"the checkpoint references the buffer file {spec['filename']} "
+                    "(buffer.memmap_fast_resume=True keeps the rows in the run dir's memmap_buffer/): restore "
+                    "the run dir or train with buffer.memmap_fast_resume=False"
+                )
+            src = np.memmap(spec["filename"], dtype=np.dtype(spec["dtype"]), mode="r", shape=shape)
+            try:
+                self._maybe_create(k, shape[2:], np.dtype(spec["dtype"]))
+                self._buf[k][:] = src
+            finally:
+                del src
+        self._pos = int(state["pos"])
+        self._full = bool(state["full"])
+        self._added = self._pos + (self._buffer_size if self._full else 0)
+        if state.get("rng") is not None:
+            self._rng.bit_generator.state = state["rng"]
+        # the deferred surgery, on this buffer's copy
+        if state.get("truncate_last") and "truncated" in self._buf:
+            self._buf["truncated"][(self._pos - 1) % self._buffer_size, :] = 1
+        return self
 
     def load_state_dict(self, state: Dict[str, Any]) -> "ReplayBuffer":
         if int(state["size"]) != self._buffer_size:
@@ -101,14 +221,19 @@ class ReplayBuffer:
                 f"the checkpoint's buffer holds {state['size']} rows, this one {self._buffer_size}: resume with "
                 "the same buffer.size"
             )
-        self._buf = {}
+        if state.get("__memmap_ref__"):
+            return self._load_memmap_ref(state)
         for k, v in state["buffer"].items():
             if v.shape[1] != self._n_envs:
                 raise ValueError(f"the checkpoint's '{k}' has {v.shape[1]} envs, this buffer {self._n_envs}")
-            self._buf[k] = np.zeros((self._buffer_size,) + v.shape[1:], dtype=v.dtype)
+            stale = k in self._buf  # rows of this buffer's own past beyond the checkpoint's
+            self._maybe_create(k, v.shape[2:], v.dtype)
             self._buf[k][: len(v)] = v
+            if stale:
+                self._buf[k][len(v):] = 0
         self._pos = int(state["pos"])
         self._full = bool(state["full"])
+        self._added = self._pos + (self._buffer_size if self._full else 0)
         if state.get("rng") is not None:
             self._rng.bit_generator.state = state["rng"]
         return self
@@ -121,6 +246,8 @@ class SequentialReplayBuffer(ReplayBuffer):
     batch_axis: int = 2
 
     def sample_starts(self, total: int, sequence_length: int) -> np.ndarray:
+        """``total`` valid window starts (shared with the device ring's
+        gather, so host and device batches are the same rows)."""
         L = sequence_length
         if not self._full and self._pos - L + 1 < 1:
             raise ValueError(f"Cannot sample a sequence of length {L}: only {self._pos} steps stored")
@@ -142,36 +269,71 @@ class SequentialReplayBuffer(ReplayBuffer):
         starts = self.sample_starts(total, L)
         env_idxs = self._rng.integers(0, self._n_envs, size=total)
         seq = (starts[:, None] + np.arange(L)[None, :]) % self._buffer_size  # [total, L]
+        # flat (time, env) rows in the final [n_samples, L, batch] order: the
+        # native gather writes the training layout at once
+        flat_rows = np.ascontiguousarray(
+            (seq * self._n_envs + env_idxs[:, None]).reshape(n_samples, batch_size, L).transpose(0, 2, 1),
+            dtype=np.int64,
+        )
         out: Dict[str, np.ndarray] = {}
-        for k, arr in self._buf.items():
-            taken = arr[seq, env_idxs[:, None]].reshape(n_samples, batch_size, L, *arr.shape[2:])
-            out[k] = np.ascontiguousarray(np.swapaxes(taken, 1, 2))
+        for k, v in self._buf.items():
+            arr = np.asarray(v)
+            item = arr.shape[2:]
+            gathered = native.gather_rows(
+                arr.reshape(self._buffer_size * self._n_envs, *item), flat_rows, (n_samples, L, batch_size, *item)
+            )
+            if gathered is None:  # no native gather here: numpy's
+                taken = arr[seq, env_idxs[:, None]].reshape(n_samples, batch_size, L, *item)
+                gathered = np.ascontiguousarray(np.swapaxes(taken, 1, 2))
+            out[k] = gathered
         return out
 
 
 class EnvIndependentReplayBuffer:
     """One sub-buffer per env: per-env ``add(indices)`` (Dreamer's per-env
-    reset rows) and multinomial cross-env sampling."""
+    reset rows) and multinomial cross-env sampling. With ``memmap`` each
+    sub-buffer keeps its files in ``<memmap_dir>/env_<i>``."""
 
     def __init__(
         self,
         buffer_size: int,
         n_envs: int = 1,
         obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: Optional[Union[str, os.PathLike]] = None,
         buffer_cls: type = SequentialReplayBuffer,
         seed: Optional[Any] = None,
         **kwargs: Any,
     ):
+        mdir = Path(memmap_dir) if memmap_dir is not None else None
         # one SeedSequence fans out to the cross-env multinomial (child 0)
         # and each sub-buffer (children 1..n)
         children = np.random.SeedSequence(seed).spawn(n_envs + 1)
         self._rng = np.random.default_rng(children[0])
         self._buffers: List[ReplayBuffer] = [
-            buffer_cls(buffer_size, n_envs=1, obs_keys=obs_keys, seed=children[i + 1], **kwargs)
+            buffer_cls(
+                buffer_size, n_envs=1, obs_keys=obs_keys, memmap=memmap,
+                memmap_dir=None if mdir is None else mdir / f"env_{i}", seed=children[i + 1], **kwargs,
+            )
             for i in range(n_envs)
         ]
         self._n_envs = n_envs
+        self._buffer_size = int(buffer_size)
         self._concat_along_axis = getattr(buffer_cls, "batch_axis", 1)
+        # callables (env_idx, row) told of a row edited in place (the device ring)
+        self.edit_hooks: List[Callable[[int, int], None]] = []
+
+    @property
+    def buffer(self) -> List[ReplayBuffer]:
+        return self._buffers
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
 
     def add(
         self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None, validate_args: bool = False
@@ -179,6 +341,22 @@ class EnvIndependentReplayBuffer:
         indices = list(range(self._n_envs) if indices is None else indices)
         for slot, env_idx in enumerate(indices):
             self._buffers[env_idx].add({k: v[:, slot : slot + 1] for k, v in data.items()}, validate_args)
+
+    def mark_restart(self, env_idx: int) -> None:
+        """After an env restarted in flight (``RestartOnException`` without an
+        episode end), rewrite that env's last row as a truncation boundary:
+        terminated 0, truncated 1, is_first 0."""
+        b = self._buffers[env_idx]
+        idx = (b._pos - 1) % b.buffer_size
+        for key, value in (("terminated", 0), ("truncated", 1), ("is_first", 0)):
+            if key in b:
+                b._buf[key][idx] = value
+        for hook in self.edit_hooks:
+            hook(env_idx, idx)
+
+    def flush(self) -> None:
+        for b in self._buffers:
+            b.flush()
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffers": [b.state_dict() for b in self._buffers], "rng": self._rng.bit_generator.state}
@@ -199,7 +377,12 @@ class EnvIndependentReplayBuffer:
             self._rng.bit_generator.state = state["rng"]
         return self
 
-    def sample(self, batch_size: int, n_samples: int = 1, **kwargs: Any) -> Dict[str, np.ndarray]:
+    def sample(
+        self, batch_size: int, n_samples: int = 1, out: Optional[Dict[str, np.ndarray]] = None, **kwargs: Any
+    ) -> Dict[str, np.ndarray]:
+        """Sample from the envs with data (a multinomial split of the batch);
+        with ``out`` the batch is written into those arrays (the staged
+        prefetcher's pinned buffers) and they are returned."""
         if batch_size <= 0 or n_samples <= 0:
             raise ValueError("batch_size and n_samples must be > 0")
         ready = [b for b in self._buffers if b._full or b._pos > 0]
@@ -208,4 +391,8 @@ class EnvIndependentReplayBuffer:
         split = self._rng.multinomial(batch_size, [1 / len(ready)] * len(ready))
         parts = [b.sample(int(bs), n_samples=n_samples, **kwargs) for b, bs in zip(ready, split) if bs > 0]
         axis = self._concat_along_axis
-        return {k: np.concatenate([p[k] for p in parts], axis=axis) for k in parts[0]}
+        if out is None:
+            return {k: np.concatenate([p[k] for p in parts], axis=axis) for k in parts[0]}
+        for k in parts[0]:
+            np.concatenate([p[k] for p in parts], axis=axis, out=out[k])
+        return out

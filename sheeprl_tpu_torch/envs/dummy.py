@@ -66,3 +66,20 @@ class MultiDiscreteDummyEnv(BaseDummyEnv):
     def __init__(self, action_dims: Optional[List[int]] = None, **kwargs: Any):
         self.action_space = spaces.MultiDiscrete(action_dims or [2, 2])
         super().__init__(**kwargs)
+
+
+class CrashingDummyEnv(DiscreteDummyEnv):
+    """A discrete dummy that raises every ``crash_every`` steps of its
+    lifetime: drives env restarts (``RestartOnException``) and the buffer's
+    restart surgery."""
+
+    def __init__(self, crash_every: int = 3, **kwargs: Any):
+        super().__init__(**kwargs)
+        self._crash_every = int(crash_every)
+        self._lifetime_steps = 0
+
+    def step(self, action: Any):
+        self._lifetime_steps += 1
+        if self._lifetime_steps % self._crash_every == 0:
+            raise RuntimeError(f"scripted crash at lifetime step {self._lifetime_steps}")
+        return super().step(action)

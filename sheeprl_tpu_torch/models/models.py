@@ -80,7 +80,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(normalized_shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        if x.dtype == self.weight.dtype:
+            # one launch: the kernel normalises in f32 (its accumulation
+            # type) and rounds once, also for bf16 inputs and parameters
+            return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+        out = F.layer_norm(x.float(), self.weight.shape, self.weight.float(), self.bias.float(), self.eps)
         return out.to(x.dtype)
 
 

@@ -94,7 +94,9 @@ class ParamMirror:
     def _clone(self, modules: Dict[str, torch.nn.Module], pin: bool) -> Dict[str, torch.nn.Module]:
         out = {}
         for name, m in modules.items():
-            c = copy.deepcopy(m).to(self.device)
+            # f32 whatever the learner's parameter dtype: the player acts in
+            # f32, as the JAX package's does
+            c = copy.deepcopy(m).to(self.device, torch.float32)
             c.requires_grad_(False)
             if pin:  # pinned host memory: the device-to-host refresh runs asynchronously
                 for t in (*c.parameters(), *c.buffers()):

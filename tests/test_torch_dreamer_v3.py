@@ -193,19 +193,20 @@ def test_cli_dry_run_on_cpu(tmp_path):
 
 
 def test_cli_refuses_overlap_and_mixed_precision(tmp_path, monkeypatch):
-    """The CLI refuses what the port does not run yet, before it writes
-    anything: the actor fleet, memmap buffers and bf16-mixed. (The overlap
-    engine, refused here before it was ported, is the default loop now.)"""
+    """The CLI refuses what the port does not run, before it writes
+    anything: the actor fleet, video capture and a precision the policy
+    table does not hold. (The overlap engine, memmap buffers and bf16-mixed,
+    refused here before they were ported, run now.)"""
     from sheeprl_tpu_torch import cli
 
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="fleet"):
         cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "algo.fleet.workers=2"])
-    with pytest.raises(NotImplementedError, match="memmap"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "buffer.memmap=True"])
-    with pytest.raises(NotImplementedError, match="32-true"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "fabric.precision=bf16-mixed"])
+    with pytest.raises(ValueError, match="Unknown precision '16-mixed'"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "fabric.precision=16-mixed"])
     assert not (tmp_path / "logs").exists()
+    with pytest.raises(NotImplementedError, match="capture_video"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "env.capture_video=True"])
 
 
 def test_config_refuses_what_the_port_does_not_run():
