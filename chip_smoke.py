@@ -9,13 +9,17 @@ that fails and then prints no result:
 1. card      — nvidia-smi name and power limit (also printed raw on its own
                line), torch and CUDA versions;
 2. build     — nvcc builds the LN-GRU kernels from csrc/ln_gru.cu (timed;
-               ptxas register / shared-memory / spill lines); for the
-               DreamerV3-S and XS widths, the CTAs of a cluster and each
-               CTA's shared memory (the fit rule of ops/ln_gru.py, which
-               also gives the build its layout) and how many clusters the
-               card holds at once (cudaOccupancyMaxActiveClusters);
+               ptxas register / shared-memory / spill lines); for each
+               preset's GRU width (XS, S, M, L, XL), the instance of the
+               recurrent kernels that takes it (resident or streamed), the
+               CTAs of a cluster, units of a CTA, W_h tile rows and each
+               CTA's shared memory (the fit rule of ops/ln_gru.py, which also
+               gives the build its layout) and how many clusters the card
+               holds at once (cudaOccupancyMaxActiveClusters);
 3. kernels   — at the DreamerV3-S (T=64, B=16, F=H=512) and XS (F=H=256)
-               GRU shapes, resets in mid-sequence: the whole sequence on the
+               GRU shapes (the resident instance) and the M (F=640, H=1024),
+               L (768, 2048) and XL (1024, 4096) shapes (the streamed
+               instance), resets in mid-sequence: the whole sequence on the
                kernels against the plain passes (the forward and all five
                gradients, h_first of shape [H] and [B,H]), and each of the
                five kernels against its plain version on the same inputs,
@@ -24,13 +28,15 @@ that fails and then prints no result:
                against a float64 product on the card (their error at most
                F64_FACTOR times torch.mm's in f32) and two launches of each
                bitwise equal (ln_gru_wgrad's dscale and dbias too); at
-               DreamerV3-S the kernels' and plain versions' medians over timed reps
-               (CUDA events, each launch queued behind a spin so that the
-               host's launch cost stays out of the device time), the
+               every shape the kernels' and plain versions' medians over timed
+               reps (CUDA events, each launch queued behind a spin so that
+               the host's launch cost stays out of the device time), the
                recurrent kernels' probe variants without their product (the
                cost of the barriers and the rest of a step), the one
                PyTorch call that computes the same function where there is
-               one, and the bound computed from the shapes;
+               one, and the bound computed from the shapes, with its
+               operations and bytes bounds apart (and, for the streamed
+               instance, the time its re-reads of W_h take at 3.35 TB/s);
 4. train     — DreamerV3-S gradient steps through make_train_fn, MsPacman-
                shaped (64x64x3, 9 actions), T=64, B=16, horizon 15: three
                decoupled steps on the kernels (losses finite, each kernel's
@@ -44,7 +50,14 @@ that fails and then prints no result:
                noise (every loss within BF16_TOL), three timed steps and a
                profiled one (do the convolutions and GEMMs run on bf16
                tensor-core kernels?), and decoupled with pallas_gru=True
-               under bf16-mixed: no LN-GRU launch and the UNUSED line;
+               under bf16-mixed: no LN-GRU launch and the UNUSED line; then
+               DreamerV3-M decoupled on the kernels (the streamed instance):
+               its first step held against pallas_gru=interpret on the same
+               weights, batch and noise (world-model losses within
+               KERNEL_TOL), three timed steps and a profiled one, launch
+               counts > 0; and one timed and one profiled step each at L
+               and XL; one decoupled S step under the telemetry's cost
+               count (model_cost, as a run's first burst takes it), timed;
 4b. feed     — one burst's replay feed at the bench shape from a 404 MB
                memmap buffer, three ways: the synchronous sample with a
                pageable copy, the staged prefetcher (pinned buffers, its
@@ -61,9 +74,11 @@ that fails and then prints no result:
                run         the default overlapped loop (player thread on its
                            own CUDA stream, ParamMirror on the card), one
                            checkpoint mid-run and the last one;
-               serial      the same arguments with algo.overlap.enabled=False;
-                           its ledger (policy_step, grad steps, Ratio state,
-                           the buffer's pos/full) must equal the run leg's;
+               run_M       the same at DreamerV3-M (the streamed instance);
+               serial      the same arguments as run with
+                           algo.overlap.enabled=False; its ledger
+                           (policy_step, grad steps, Ratio state, the
+                           buffer's pos/full) must equal the run leg's;
                host_player a short overlapped leg with algo.player.device=host;
                resume      checkpoint.resume_from=<the run leg's mid-run
                            checkpoint> with a higher algo.total_steps: the
@@ -80,17 +95,29 @@ that fails and then prints no result:
                            a resume from walker_staged's last checkpoint,
                            which references its memmap files
                            (memmap_fast_resume);
-               every number is read from the legs' printed lines ([dreamer_v3],
-               [overlap], [mirror], [ckpt_async], Test - Reward) and their
-               checkpoints; then the blocks of each kernel's last launch on
-               the run leg, as its CUDA entry recorded the grid it launched;
-6. kernels   — one {"kernels": [...]} line: launches and blocks from the run
-               leg (SMs = the smaller of the blocks and the card's SMs), times
-               from phase 3, the bound and the f32-only bound beside it, the
-               kernel's arithmetic (3xtf32 or f32-simt), largest error at
-               either shape (and, beside ln_gru_wgrad, cuBLAS's dW product
-               alone);
+               every training leg's <log_dir>/telemetry.jsonl must pass the
+               port's validate_jsonl and open with a startup record that
+               names the card; its numbers come from that stream (log
+               records: policy steps, gradient steps, elapsed seconds, MFU,
+               peak device memory, the mirror's statistics; overlap and
+               ckpt_async records) and from the lines the loop prints
+               (log_dir, resumed state, Test - Reward); then the blocks of
+               each kernel's last launch on the run and run_M legs, as its
+               CUDA entry recorded the grid it launched;
+6. kernels   — one {"kernels": [...]} line: a row for each kernel at the
+               width of each instance (resident at S, streamed at M), with
+               launches and blocks from the run leg or the run_M leg, times
+               from phase 3, the bound (the operations and bytes bounds
+               apart are in phase 3's record), the kernel's arithmetic
+               (3xtf32 or f32-simt), largest error at that shape (and,
+               beside ln_gru_wgrad, cuBLAS's dW product alone);
 7. the last line: {"ok": true, "device": {...}}.
+
+Two narrower runs, for comparisons within one call (see USAGE): the
+recurrent kernels alone at chosen shapes (phases 1-2, then each checked and
+timed as in phase 3), and the telemetry's cost (phases 1-2, then phase 5's
+run and serial legs with the stream on, off, and on without its
+per-iteration trace ranges and span timers).
 
 Times and rates are of this run on this card; compare versions only within
 one run.
@@ -114,8 +141,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 T, B, F, H = 64, 16, 512, 512
-# the GRU shapes of the presets the kernels take (the cluster split changes with H)
-SHAPES = {"S": (T, B, 512, 512), "XS": (T, B, 256, 256)}
+# the GRU shapes (T, B, F, H) of the presets: XS and S take the resident
+# instance of the recurrent kernels, M, L and XL the streamed one
+SHAPES = {"S": (T, B, 512, 512), "XS": (T, B, 256, 256), "M": (T, B, 640, 1024), "L": (T, B, 768, 2048),
+          "XL": (T, B, 1024, 4096)}
+# the width of each instance whose kernels the main path's legs launch
+INSTANCE_SHAPES = {"resident": "S", "streamed": "M"}
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)  # |kernel - plain| <= atol + rtol * max|plain|
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 # a 3xTF32 GEMM's largest error against float64 may be at most this many
@@ -137,13 +168,15 @@ def fail(phase: str, err: BaseException) -> int:
 
 def bound_ms(flops: float, nbytes: float):
     """The least time the card could take for ``flops`` f32-accurate
-    operations on ``nbytes`` bytes (ms), what bounds it, and the bound
-    without the tensor cores beside it: operations at the faster of f32
-    outside the tensor cores and three TF32 products on them (3xTF32), or
-    bytes, whichever takes longer."""
+    operations on ``nbytes`` bytes (ms), what bounds it, the bound without
+    the tensor cores, and the operations and bytes bounds apart: operations
+    at the faster of f32 outside the tensor cores and three TF32 products on
+    them (3xTF32), or bytes (each input read once, each output written
+    once), whichever takes longer."""
     t_simt, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     t_ops = min(t_simt, 3 * flops / PEAK_TF32_FLOPS)
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", max(t_simt, t_bytes) * 1e3
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", max(t_simt, t_bytes) * 1e3,
+            t_ops * 1e3, t_bytes * 1e3)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -219,7 +252,7 @@ def gru_inputs(torch, shape, dev, seed=0):
 
 def _kernels_vs_plain(torch, ln_gru):
     dev = torch.device("cuda")
-    errors, f64_errors = {}, {}
+    errors, f64_errors, per_shape = {}, {}, {}
     for label, shape in SHAPES.items():
         T_, B_, F_, H_ = shape
         feats, first, w, scale, bias, cot, g = gru_inputs(torch, shape, dev)
@@ -264,11 +297,18 @@ def _kernels_vs_plain(torch, ln_gru):
                    f64_errors)
         if not all(torch.equal(a, b) for a, b in zip(wg[1:], ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)[1:])):
             raise AssertionError(f"{label}.wgrad: dscale or dbias differ between two launches on the same inputs")
-        if label == "S":
-            timed = (feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2)
+        per_shape[label] = _time_kernels(torch, ln_gru, shape, (feats, first, hf, wx, wh, scale, bias, cot, x2, gx,
+                                                                hs, yn, istd, xh2, dyr2, dy2, yn2))
+    return errors, f64_errors, per_shape
 
-    # times at DreamerV3-S, the plain versions and library calls beside them
-    feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2 = timed
+
+def _time_kernels(torch, ln_gru, shape, inputs):
+    """Each kernel's median time at one GRU shape, its plain version's, the
+    one PyTorch call that computes the same function where there is one,
+    cuBLAS's dW product alone, the recurrent kernels' probes without their
+    product, and the bounds from the shapes."""
+    T_, B_, F_, H_ = shape
+    feats, first, hf, wx, wh, scale, bias, cot, x2, gx, hs, yn, istd, xh2, dyr2, dy2, yn2 = inputs
     fwd_args = (gx, first, hf, wh, scale, bias)
     bwd_args = (feats, first, hs, hf, wh, scale, bias, cot, yn, istd)
     t = {
@@ -281,24 +321,27 @@ def _kernels_vs_plain(torch, ln_gru):
         "ln_gru_wgrad": (time_ms(lambda: ln_gru.ln_gru_wgrad(xh2, dyr2, dy2, yn2)),
                          time_ms(lambda: ln_gru.wgrad_plain(xh2, dyr2, dy2, yn2))),
     }
-    # one PyTorch call computing the same function, where there is one
-    library = {
+    library = {  # one PyTorch call computing the same function, where there is one
         "ln_gru_xproj": time_ms(lambda: torch.mm(x2, wx)),
         "ln_gru_dx": time_ms(lambda: torch.mm(dyr2, wx.t())),
     }
-    mm_ms = time_ms(lambda: torch.mm(xh2.t(), dyr2))
-    no_product = no_product_ms(torch, ln_gru, fwd_args, bwd_args)
     f32 = 4
-    M, K, N = T * B, F + H, 3 * H
+    M, K, N = T_ * B_, F_ + H_, 3 * H_
     bounds = {
-        "ln_gru_xproj": bound_ms(2 * M * F * N, f32 * (M * F + F * N + M * N)),
-        "ln_gru_fwd": bound_ms(2 * M * H * N, f32 * (M * N + M + B * H + H * N + 2 * N + M * H + M * N + M)),
-        "ln_gru_bwd": bound_ms(2 * M * H * N, f32 * (M * F + M + 2 * M * H + B * H + H * N + 2 * N + M * N + M
-                                                     + B * H + 2 * M * N + M * K)),
-        "ln_gru_dx": bound_ms(2 * M * N * F, f32 * (M * N + F * N + M * F)),
+        "ln_gru_xproj": bound_ms(2 * M * F_ * N, f32 * (M * F_ + F_ * N + M * N)),
+        "ln_gru_fwd": bound_ms(2 * M * H_ * N, f32 * (M * N + M + B_ * H_ + H_ * N + 2 * N + M * H_ + M * N + M)),
+        "ln_gru_bwd": bound_ms(2 * M * H_ * N, f32 * (M * F_ + M + 2 * M * H_ + B_ * H_ + H_ * N + 2 * N + M * N + M
+                                                      + B_ * H_ + 2 * M * N + M * K)),
+        "ln_gru_dx": bound_ms(2 * M * N * F_, f32 * (M * N + F_ * N + M * F_)),
         "ln_gru_wgrad": bound_ms(2 * M * K * N + 3 * M * N, f32 * (M * K + 3 * M * N + K * N + 2 * N)),
     }
-    return errors, f64_errors, t, bounds, mm_ms, library, no_product
+    instance = ln_gru.launch_layout(H_)[0]
+    # what the streamed design moves besides: W_h read again each step by each cluster
+    clusters = -(-B_ // ln_gru.ROWS_PER_CLUSTER)
+    restream = T_ * clusters * f32 * H_ * N / PEAK_BYTES * 1e3 if instance == "streamed" else None
+    return {"instance": instance, "times": t, "library": library, "bounds": bounds,
+            "dW_torch_mm_ms": time_ms(lambda: torch.mm(xh2.t(), dyr2)),
+            "no_product_ms": no_product_ms(torch, ln_gru, fwd_args, bwd_args), "w_h_restream_ms": restream}
 
 
 def no_product_ms(torch, ln_gru, fwd_args, bwd_args):
@@ -311,15 +354,14 @@ def no_product_ms(torch, ln_gru, fwd_args, bwd_args):
     feats = bwd_args[0]
     T_, B_, F_ = feats.shape
     H_ = wh.shape[0]
-    units = ln_gru.cluster_split(H_)[1]
-    smem_fwd, smem_bwd = ln_gru.smem_bytes(H_)
+    _, _, units, kt, (smem_fwd, smem_bwd) = ln_gru.launch_layout(H_)
     empty = lambda *shape: torch.empty(*shape, device=feats.device)  # noqa: E731
     fwd_out = (empty(T_, B_, H_), empty(T_, B_, 3 * H_), empty(T_, B_))
     bwd_out = (empty(B_, H_), empty(T_, B_, 3 * H_), empty(T_, B_, 3 * H_), empty(T_, B_, F_ + H_))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(fn, args, dims, smem):
-        rc = fn(*(a.data_ptr() for a in args), *dims, units, smem, stream)
+        rc = fn(*(a.data_ptr() for a in args), *dims, units, kt, smem, stream)
         if rc != 0:
             raise RuntimeError(f"{fn.__name__}: CUDA error {rc}: {lib.ln_gru_error_string(rc).decode()}")
 
@@ -341,8 +383,9 @@ def cluster_report(ln_gru):
         fwd, bwd = ln_gru.cluster_capacity(H_)
         if min(fwd, bwd) < 1:
             raise AssertionError(f"{label}: the card holds no cluster (forward {fwd}, backward {bwd})")
-        out[label] = {"H": H_, "cluster_ctas": ln_gru.cluster_split(H_)[0], "smem_bytes": ln_gru.smem_bytes(H_),
-                      "max_active_clusters": {"fwd": fwd, "bwd": bwd},
+        instance, ctas, units, kt, smem = ln_gru.launch_layout(H_)
+        out[label] = {"H": H_, "instance": instance, "cluster_ctas": ctas, "units_per_cta": units,
+                      "w_h_tile_rows": kt, "smem_bytes": smem, "max_active_clusters": {"fwd": fwd, "bwd": bwd},
                       "clusters_needed": -(-B // ln_gru.ROWS_PER_CLUSTER)}
     return out
 
@@ -413,6 +456,7 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.telemetry.throughput import model_cost
 
     dev = torch.device(dev)
     n_act = 9  # MsPacman
@@ -459,9 +503,20 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
                                    statistics.median(times))
         else:
             profile = None
+        if mode == "decoupled_kernel":
+            # the run's first burst: the same step with its operations and
+            # bytes counted (the telemetry's MFU and roofline), host clock
+            t0 = time.perf_counter()
+            (moments, _), cost = model_cost(lambda: train(moments, {k: v[:1] for k, v in batches.items()},
+                                                          generator=gen))
+            torch.cuda.synchronize()
+            counted = {"ms": (time.perf_counter() - t0) * 1e3, **cost}
+        else:
+            counted = None
         out[mode] = {
             "profile": profile,
             "ms_per_step": times,
+            "cost_counted_step": counted,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "launches": counts,
             "world_model_loss": [m["Loss/world_model_loss"] for m in losses],
@@ -568,6 +623,102 @@ def phase_train_bf16(torch, ln_gru, dev="cuda"):
         "world_model_loss": float(metrics["Loss/world_model_loss"][0])}
     del mods, train
     torch.cuda.empty_cache()
+    return out
+
+
+# the DreamerV3 presets whose GRU takes the streamed instance; decoupled,
+# pallas_gru=True, f32, at bench_dv3.py's shape. M: three timed steps and
+# its losses against pallas_gru=interpret; L and XL one timed step each
+WIDE = {"M": 3, "L": 1, "XL": 1}
+# the world model's losses on the kernels against the plain passes from the
+# same weights, batch and noise: the LN-GRU's outputs differ in their last
+# bits only, so these agree to KERNEL_TOL * max(1, |plain|); the actor's and
+# critic's losses read the two-hot mean of zero-init heads (f32 cancellation
+# noise, ROADMAP Queue 3 item 5) and are held to BF16_TOL instead
+KERNEL_TOL = 1e-4
+WM_KEYS = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
+           "Loss/continue_loss", "State/kl")
+
+
+def phase_train_wide(torch, ln_gru, dev="cuda"):
+    """DreamerV3-M, L and XL decoupled on the LN-GRU kernels (the streamed
+    instance) at the bench shape: ms/step on the host clock, one profiled
+    step (device ms, kernel count), peak device memory and the LN-GRU launch
+    counts (each > 0); at M also the first step held against
+    pallas_gru=interpret on the same weights, batch and noise."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+
+    dev = torch.device(dev)
+    n_act = 9
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    out = {}
+    for preset, n_steps in WIDE.items():
+        base = ["exp=dreamer_v3", f"algo=dreamer_v3_{preset}", "env=dummy", f"algo.per_rank_batch_size={B}",
+                f"algo.per_rank_sequence_length={T}", "algo.horizon=15", "algo.world_model.decoupled_rssm=True"]
+        cfg = compose("config", base + ["algo.world_model.pallas_gru=True"])
+        rm = cfg.algo.world_model.recurrent_model
+        layout = ln_gru.launch_layout(int(rm.recurrent_state_size))
+        torch.manual_seed(0)
+        mods = build_agent(cfg, space, [n_act], False, dev)
+        train = dv3.make_train_fn(*mods, dv3.build_optimizers(cfg, *mods[:3]), cfg, False, [n_act])
+        batches = make_batch(torch, 1 + n_steps, n_act, dev, seed=1)
+        first = {k: v[:1] for k, v in batches.items()}
+        vs = None
+        if preset == "M":  # the same weights, batch and noise through the plain passes
+            pcfg = compose("config", base + ["algo.world_model.pallas_gru=interpret"])
+            pmods = build_agent(pcfg, space, [n_act], False, dev)
+            for m, w in zip(pmods, mods):
+                m.load_state_dict(w.state_dict())
+            ptrain = dv3.make_train_fn(*pmods, dv3.build_optimizers(pcfg, *pmods[:3]), pcfg, False, [n_act])
+            noise = dv3.draw_train_noise(cfg, T, B, [n_act], False, torch.Generator(device=dev).manual_seed(3), dev)
+            ln_gru.reset_launch_counts()
+            _, plain = ptrain(init_moments(dev), first, noise=[noise])
+            if max(k.launches for k in ln_gru.KERNELS) != 0:
+                raise AssertionError("pallas_gru=interpret launched an LN-GRU kernel")
+            _, kern = train(init_moments(dev), first, noise=[noise])
+            vs = {k: {"kernels": float(kern[k][0]), "plain": float(plain[k][0])} for k in BF16_KEYS}
+            for k, v in vs.items():
+                tol = KERNEL_TOL if k in WM_KEYS else BF16_TOL
+                if not abs(v["kernels"] - v["plain"]) <= tol * max(1.0, abs(v["plain"])):
+                    raise AssertionError(f"M: {k} on the kernels {v['kernels']} against the plain passes "
+                                         f"{v['plain']} (tol {tol})")
+            del pmods, ptrain
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        moments, _ = train(init_moments(dev), first, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ln_gru.reset_launch_counts()
+        times, losses = [], []
+        for i in range(1, 1 + n_steps):
+            t0 = time.perf_counter()
+            moments, metrics = train(moments, {k: v[i : i + 1] for k, v in batches.items()}, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v[0]) for k, v in metrics.items()})
+        counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+        if min(counts.values()) < n_steps:
+            raise AssertionError(f"{preset}: kernel launches {counts} < {n_steps} each")
+        bad = [k for m in losses for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{preset}: non-finite {sorted(set(bad))}")
+        out[f"decoupled_kernel_{preset}"] = {
+            "recurrent_state_size": int(rm.recurrent_state_size), "dense_units": int(rm.dense_units),
+            "instance": layout[0], "units_per_cta": layout[2], "w_h_tile_rows": layout[3],
+            "profile": profile_step(torch, train, moments, first, gen, statistics.median(times)),
+            "ms_per_step": times, "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": counts,
+            "world_model_loss": [m["Loss/world_model_loss"] for m in losses],
+            "policy_loss": [m["Loss/policy_loss"] for m in losses],
+            "first_step_vs_plain": vs, "tol": {"world_model": KERNEL_TOL, "actor_critic": BF16_TOL} if vs else None,
+        }
+        del mods, train, batches
+        torch.cuda.empty_cache()
     return out
 
 
@@ -761,25 +912,44 @@ class _Tee(io.TextIOBase):
 
 
 def parse_leg(text: str) -> dict:
-    """The numbers a leg printed: its log dir, the loop's metric lines, the
-    engine's and the mirror's records, the checkpoint writer's records, the
-    resumed state and the test reward."""
-    out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None}
+    """The numbers a leg left: its log dir, resumed state and test reward
+    from the lines it printed; from its telemetry stream (validated by the
+    port's ``validate_jsonl``, events counted by type) the startup record,
+    the log records (policy step, gradient steps, elapsed seconds, MFU,
+    memory, the player mirror's statistics), the engine's overlap records
+    and the checkpoint writer's records."""
+    from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
+
+    out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None,
+           "logs": [], "startup": None, "events": {}}
     for line in text.splitlines():
         if line.startswith("[dreamer_v3] log_dir="):
             out["log_dir"] = line.split("=", 1)[1]
         elif line.startswith("[dreamer_v3] resumed "):
             out["resumed"] = json.loads(line[len("[dreamer_v3] resumed "):])
-        elif line.startswith("[dreamer_v3] policy_step="):
-            out["lines"].append({k: float(v) for k, v in (kv.split("=", 1) for kv in line.split()[1:])})
-        elif line.startswith("[overlap] "):
-            out["overlap"].append(json.loads(line[len("[overlap] "):]))
-        elif line.startswith("[mirror] "):
-            out["mirror"].append(json.loads(line[len("[mirror] "):]))
-        elif line.startswith("[ckpt_async] "):
-            out["ckpt"].append(json.loads(line[len("[ckpt_async] "):]))
         elif line.startswith("Test - Reward: "):
             out["reward"] = float(line.split(": ", 1)[1])
+    if out["log_dir"] is None:
+        return out
+    path = os.path.join(out["log_dir"], "telemetry.jsonl")
+    errors = validate_jsonl(path)
+    if errors:
+        raise AssertionError(f"{path} fails the schema: {errors[:5]}")
+    with open(path) as fh:
+        for rec in map(json.loads, fh):
+            kind = rec["event"]
+            out["events"][kind] = out["events"].get(kind, 0) + 1
+            if kind == "startup":
+                out["startup"] = rec
+            elif kind == "log":
+                out["logs"].append(rec)
+                out["lines"].append({"policy_step": rec["step"], "grad_steps": rec["grad_steps"],
+                                     "elapsed_s": rec["elapsed_s"]})
+                out["mirror"].append(rec["mirror"])
+            elif kind == "overlap":
+                out["overlap"].append(rec)
+            elif kind == "ckpt_async":
+                out["ckpt"].append(rec)
     return out
 
 
@@ -798,7 +968,12 @@ def drive(torch, ln_gru, command, argv):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
-    return parse_leg(tee.buf.getvalue()), counts, seconds, torch.cuda.max_memory_allocated()
+    parsed = parse_leg(tee.buf.getvalue())
+    start = parsed["startup"]
+    if command == "run" and (start is None or start["platform"] != "gpu"
+                             or start["device_kind"] != torch.cuda.get_device_name(0)):
+        raise AssertionError(f"the leg's startup record {start} does not name the card")
+    return parsed, counts, seconds, torch.cuda.max_memory_allocated()
 
 
 def checkpoints(log_dir):
@@ -826,10 +1001,17 @@ def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True):
     first, last = after[0], after[-1]
     sps = ((last["policy_step"] - first["policy_step"]) / (last["elapsed_s"] - first["elapsed_s"])
            if last["elapsed_s"] > first["elapsed_s"] else None)
+    mfu = [l["throughput"]["mfu"] for l in parsed["logs"] if "mfu" in l["throughput"]]
     out = {"seconds": seconds, "policy_step": int(last["policy_step"]), "grad_steps": int(last["grad_steps"]),
            "policy_steps_per_s_after_learning_starts": sps,
            "sps_window": [first["policy_step"], last["policy_step"]], "peak_device_memory": peak,
-           "launches": counts, "mirror": parsed["mirror"][-1] if parsed["mirror"] else None}
+           "launches": counts, "mirror": parsed["mirror"][-1] if parsed["mirror"] else None,
+           "telemetry": {"events": parsed["events"], "mfu": mfu,
+                         "hbm_peak_bytes": max(l["memory"].get("hbm_peak_bytes", 0) for l in parsed["logs"]),
+                         "h2d_bytes": parsed["logs"][-1]["device"].get("h2d_bytes"),
+                         "device_kind": parsed["startup"]["device_kind"]}}
+    if trains and not mfu:
+        raise AssertionError("the leg's log records carry no MFU")
     ov = parsed["overlap"]
     if ov:
         busy, pstall = sum(r["player_busy_s"] for r in ov), sum(r["player_stall_s"] for r in ov)
@@ -848,17 +1030,22 @@ def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True):
     return out
 
 
-def phase_run(torch, ln_gru, overrides=()):
-    """The legs of phase 5; returns (the run leg's counts, blocks, report)."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import param_sums
-
-    common = [
+def run_common(overrides=()):
+    """The arguments every DreamerV3-S leg of phase 5 shares."""
+    return [
         "exp=dreamer_v3", "env=dummy", "algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True",
         "env.num_envs=2", f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}",
         f"algo.learning_starts={LEARNING_STARTS}", "algo.replay_ratio=0.5", "buffer.size=1024",
         "metric.log_every=32", "checkpoint.every=96", "checkpoint.save_last=True", "algo.run_test=False",
         f"root_dir={RUN_ROOT}", *overrides,
     ]
+
+
+def phase_run(torch, ln_gru, overrides=()):
+    """The legs of phase 5; returns (the run leg's counts, blocks, report)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import param_sums
+
+    common = run_common(overrides)
     report = {}
     # the default overlapped loop
     run_args = common + [f"algo.total_steps={TOTAL}", "run_name=run"]
@@ -867,6 +1054,9 @@ def phase_run(torch, ln_gru, overrides=()):
     blocks = {k.__name__: int(ln_gru._lib().ln_gru_last_blocks(i)) for i, k in enumerate(ln_gru.KERNELS)}
     report["run"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
     report["run"]["args"] = run_args
+    m_args = common + ["algo=dreamer_v3_M", f"algo.total_steps={HOST_TOTAL}", "run_name=run_M"]
+    parsed_m, counts_m, seconds_m, peak_m = drive(torch, ln_gru, "run", m_args)
+    blocks_m = {k.__name__: int(ln_gru._lib().ln_gru_last_blocks(i)) for i, k in enumerate(ln_gru.KERNELS)}
     eng = report["run"].get("engine")
     if not eng:
         raise AssertionError("the run leg printed no [overlap] record: the overlap engine did not run")
@@ -919,9 +1109,13 @@ def phase_run(torch, ln_gru, overrides=()):
     if parsed["reward"] is None:
         raise AssertionError("eval printed no `Test - Reward:`")
     report["eval"] = {"seconds": seconds, "reward": parsed["reward"], "checkpoint": os.path.basename(run_ckpts[-1])}
+    # DreamerV3-M decoupled on the kernels: the streamed instance on the main path
+    report["run_M"] = leg_summary(parsed_m, counts_m, seconds_m, peak_m, LEARNING_STARTS)
+    report["run_M"]["args"] = m_args
     report.update(walker_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
-    return report["run"]["launches"], blocks, report
+    launches = {"resident": report["run"]["launches"], "streamed": report["run_M"]["launches"]}
+    return launches, {"resident": blocks, "streamed": blocks_m}, report
 
 
 def walker_legs(torch, ln_gru):
@@ -974,7 +1168,104 @@ def walker_legs(torch, ln_gru):
     return report
 
 
-def main() -> int:
+# the telemetry A/B's arms: the stream on, off, and on without its
+# per-iteration trace ranges and span timers
+TELEMETRY_ARMS = {
+    "on": [],
+    "off": ["metric.telemetry.enabled=False"],
+    "no_ranges": ["metric.telemetry.step_annotation=False", "metric.disable_timer=True"],
+}
+
+
+def telemetry_ab(torch, ln_gru):
+    """What the telemetry costs a user's run: the run and serial legs of
+    phase 5 in each arm of TELEMETRY_ARMS, twice in the order on, off,
+    no_ranges, no_ranges, off, on, after one uncounted warm-up leg (the
+    process's first leg pays for cuDNN's and the allocator's first calls);
+    each leg's seconds on the host clock for the same policy steps (a leg
+    with the stream off leaves no stream to read; its loop takes the same
+    steps, its ledger is checked against the other arms')."""
+    from sheeprl_tpu_torch import cli
+
+    out = {leg: {arm: [] for arm in TELEMETRY_ARMS} for leg in ("run", "serial")}
+    ledgers = {}
+    warmup = None
+    for arm in ("warmup",) + ("on", "off", "no_ranges", "no_ranges", "off", "on") * 2:
+        for leg, extra in (("run", []), ("serial", ["algo.overlap.enabled=False"])):
+            if arm == "warmup" and leg == "serial":
+                continue
+            args = run_common([f"algo.total_steps={TOTAL}", f"run_name=ab_{leg}_{arm}",
+                               *TELEMETRY_ARMS.get(arm, TELEMETRY_ARMS["off"]), *extra])
+            tee = _Tee()
+            torch.cuda.synchronize()
+            ln_gru.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                cli.run(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if arm == "warmup":
+                warmup = seconds
+                continue
+            if min(k.launches for k in ln_gru.KERNELS) < 1:
+                raise AssertionError(f"the {leg} leg ({arm}) launched {[k.launches for k in ln_gru.KERNELS]}")
+            log_dir = next(l.split("=", 1)[1] for l in tee.buf.getvalue().splitlines()
+                           if l.startswith("[dreamer_v3] log_dir="))
+            ledgers.setdefault(leg, set()).add(json.dumps(ledger(torch, checkpoints(log_dir)[-1]), sort_keys=True))
+            streamed = os.path.isfile(os.path.join(log_dir, "telemetry.jsonl"))
+            if streamed != (arm != "off"):
+                raise AssertionError(f"the {leg} leg ({arm}) left a stream: {streamed}")
+            out[leg][arm].append(seconds)
+    for leg, seen in ledgers.items():
+        if len(seen) != 1:
+            raise AssertionError(f"the {leg} legs' ledgers differ between the arms: {seen}")
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+    return {"policy_steps": TOTAL, "learning_starts": LEARNING_STARTS, "warmup_s": warmup, "seconds": out,
+            "median_s": {leg: {arm: statistics.median(s) for arm, s in v.items()} for leg, v in out.items()}}
+
+
+def recurrences(torch, ln_gru, labels):
+    """The recurrent kernels alone at chosen preset shapes: each held against
+    its plain version (largest |kernel - plain| of all their outputs, within
+    FWD_TOL and GRAD_TOL) and timed as in phase 3. For an A/B of two trees:
+    run this in each, old, new, new, old, within one call."""
+    dev = torch.device("cuda")
+    out = {}
+    for label in labels:
+        feats, first, w, scale, bias, cot, g = gru_inputs(torch, SHAPES[label], dev)
+        T_, B_, F_, H_ = SHAPES[label]
+        hf = 0.5 * torch.randn(B_, H_, device=dev, generator=g)
+        gx = (feats.reshape(T_ * B_, F_) @ w[:F_]).reshape(T_, B_, 3 * H_)
+        fwd_args = (gx, first, hf, w[F_:], scale, bias)
+        hs, yn, istd = ln_gru.forward_plain(*fwd_args)
+        bwd_args = (feats, first, hs, hf, w[F_:], scale, bias, cot, yn, istd)
+        errors = {}
+        for name, got, want in (("fwd", ln_gru.ln_gru_fwd(*fwd_args), (hs, yn, istd)),
+                                ("bwd", ln_gru.ln_gru_bwd(*bwd_args), ln_gru.backward_plain(*bwd_args))):
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(f"{label}.{name}.{i}", a, b, FWD_TOL if name == "fwd" else GRAD_TOL, errors)
+        out[label] = {"instance": ln_gru.launch_layout(H_)[0],
+                      "fwd_ms": time_ms(lambda: ln_gru.ln_gru_fwd(*fwd_args), reps=10),
+                      "bwd_ms": time_ms(lambda: ln_gru.ln_gru_bwd(*bwd_args), reps=10),
+                      "max_abs_err": max(errors.values())}
+        del feats, w, gx, hs, yn, istd, fwd_args, bwd_args
+        torch.cuda.empty_cache()
+    return out
+
+
+USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
+       python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
+       python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
+                                                    without its per-iteration ranges and timers"""
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    mode = argv[0] if argv else None
+    if mode not in (None, "--recurrences", "--telemetry-ab") or (mode == "--recurrences"
+                                                                 and not set(argv[1:]) <= set(SHAPES)):
+        print(USAGE, file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError as err:
@@ -1008,14 +1299,37 @@ def main() -> int:
     except Exception as err:  # noqa: BLE001
         return fail("build", err)
 
+    if mode == "--recurrences":
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            emit("recurrences", ok=True, nvidia_smi=smi, T=T, B=B,
+                 by_shape=recurrences(torch, ln_gru, argv[1:] or ["M", "L", "XL"]))
+        except Exception as err:  # noqa: BLE001
+            return fail("recurrences", err)
+        return 0
+    if mode == "--telemetry-ab":
+        try:
+            os.chdir(HERE)
+            emit("telemetry_ab", ok=True, nvidia_smi=smi, **telemetry_ab(torch, ln_gru))
+        except Exception as err:  # noqa: BLE001
+            return fail("telemetry_ab", err)
+        return 0
+
     try:
-        errors, f64_errors, times, bounds, mm_ms, library, no_product = phase_kernels(torch, ln_gru)
-        emit("kernels_vs_plain", ok=True, shapes=SHAPES, timed_shape="S", fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
-             f64_factor=F64_FACTOR, max_abs_err=errors, err_vs_f64=f64_errors,
-             times_ms={k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in times.items()},
-             library_ms=library, no_product_ms=no_product,
-             bound_ms={k: v[0] for k, v in bounds.items()}, bound_simt_ms={k: v[2] for k, v in bounds.items()},
-             dW_torch_mm_ms=mm_ms, spin_cycles=SPIN_CYCLES,
+        errors, f64_errors, per_shape = phase_kernels(torch, ln_gru)
+        timing = {label: {"instance": r["instance"],
+                          "times_ms": {k: {"kernel_ms": v[0], "plain_ms": v[1]} for k, v in r["times"].items()},
+                          "library_ms": r["library"], "dW_torch_mm_ms": r["dW_torch_mm_ms"],
+                          "no_product_ms": r["no_product_ms"], "w_h_restream_ms": r["w_h_restream_ms"],
+                          "bound_ms": {k: v[0] for k, v in r["bounds"].items()},
+                          "bound_by": {k: v[1] for k, v in r["bounds"].items()},
+                          "bound_ops_ms": {k: v[3] for k, v in r["bounds"].items()},
+                          "bound_bytes_ms": {k: v[4] for k, v in r["bounds"].items()},
+                          "bound_simt_ms": {k: v[2] for k, v in r["bounds"].items()}}
+                  for label, r in per_shape.items()}
+        emit("kernels_vs_plain", ok=True, shapes=SHAPES, fwd_tol=FWD_TOL, grad_tol=GRAD_TOL,
+             f64_factor=F64_FACTOR, max_abs_err=errors, err_vs_f64=f64_errors, by_shape=timing,
+             spin_cycles=SPIN_CYCLES,
              peaks=dict(f32_flops=PEAK_F32_FLOPS, tf32_flops=PEAK_TF32_FLOPS, bytes_per_s=PEAK_BYTES))
     except Exception as err:  # noqa: BLE001
         return fail("kernels_vs_plain", err)
@@ -1023,7 +1337,9 @@ def main() -> int:
     try:
         train = phase_train(torch, ln_gru)
         train.update(phase_train_bf16(torch, ln_gru))
-        emit("train", ok=True, model="DreamerV3-S", T=T, B=B, horizon=15, obs="64x64x3", actions=9, modes=train)
+        train.update(phase_train_wide(torch, ln_gru))
+        emit("train", ok=True, model="DreamerV3-S (and M, L, XL decoupled on the kernels)", T=T, B=B, horizon=15,
+             obs="64x64x3", actions=9, modes=train)
     except Exception as err:  # noqa: BLE001
         return fail("train", err)
 
@@ -1046,37 +1362,40 @@ def main() -> int:
         "ln_gru_dx": "sheeprl_tpu/ops/pallas_gru.py:227",
         "ln_gru_wgrad": "sheeprl_tpu/ops/pallas_gru.py:227",
     }
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = []
-    for name, src in replaces.items():
-        short = name[len("ln_gru_"):]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "sheeprl_tpu_torch/csrc/ln_gru.cu",
-            "replaces": src,
-            "launches": counts[name],
-            "max_abs_err": max(v for k, v in errors.items() if k.split(".")[1] == short),
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
-            "bound_simt_ms": bounds[name][2],
-            "math": "3xtf32" if name in GEMMS else "f32-simt",
-            "library_ms": library.get(name),
-            "blocks": blocks[name],
-            "sms": min(n_sm, blocks[name]),
-        })
-        if name in no_product:
-            kernels[-1]["no_product_ms"] = no_product[name]
-        if name in GEMMS:
-            mine = [v for k, v in f64_errors.items() if k.split(".")[1] == short]
-            kernels[-1]["err_vs_f64"] = max(v["kernel"] for v in mine)
-            kernels[-1]["torch_mm_err_vs_f64"] = max(v["torch_mm"] for v in mine)
-        if name == "ln_gru_wgrad":
-            # no one call computes dW, dscale and dbias; cuBLAS's dW product
-            # alone, on the same inputs, is the library time to beat
-            kernels[-1]["torch_mm_dW_ms"] = mm_ms
+    for instance, label in INSTANCE_SHAPES.items():  # each kernel at the width each instance runs on the main path
+        r = per_shape[label]
+        for name, src in replaces.items():
+            short = name[len("ln_gru_"):]
+            row = {
+                "name": name,
+                "route": "cuda",
+                "source": "sheeprl_tpu_torch/csrc/ln_gru.cu",
+                "replaces": src,
+                "instance": instance,
+                "shape": label,
+                "launches": counts[instance][name],
+                "max_abs_err": max(v for k, v in errors.items()
+                                   if k.startswith(f"{label}.") and k.split(".")[1] == short),
+                "ms": r["times"][name][0],
+                "plain_ms": r["times"][name][1],
+                "bound_ms": r["bounds"][name][0],
+                "bound_by": r["bounds"][name][1],
+                "math": "3xtf32" if name in GEMMS else "f32-simt",
+                "library_ms": r["library"].get(name),
+                "blocks": blocks[instance][name],
+            }
+            if name in r["no_product_ms"]:
+                row["no_product_ms"] = r["no_product_ms"][name]
+            if name in GEMMS:
+                mine = [v for k, v in f64_errors.items() if k.startswith(f"{label}.") and k.split(".")[1] == short]
+                row["err_vs_f64"] = max(v["kernel"] for v in mine)
+                row["torch_mm_err_vs_f64"] = max(v["torch_mm"] for v in mine)
+            if name == "ln_gru_wgrad":
+                # no one call computes dW, dscale and dbias; cuBLAS's dW product
+                # alone, on the same inputs, is the library time to beat
+                row["torch_mm_dW_ms"] = r["dW_torch_mm_ms"]
+            kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -19,9 +19,12 @@ world model and actor. Bursts take their batches from the replay feed
 one iteration ahead on the learner thread. The RunGuard drains on SIGTERM,
 checkpoints land under the run's log dir and ``checkpoint.resume_from``
 continues from one;
-``evaluate_dreamer_v3`` is the ``eval`` command's entry point. Metrics,
-the engine's stats and the checkpoint costs print to stdout. The actor
-fleet, telemetry and the model manager are not ported yet.
+``evaluate_dreamer_v3`` is the ``eval`` command's entry point. The loop
+logs through the ``Telemetry`` facade (``telemetry/``) at the places the
+JAX package's does: ``<log_dir>/telemetry.jsonl`` gets the startup, log,
+overlap, ckpt_async, preempt, resume, mem, roofline and shutdown events, and
+the logger (TensorBoard, or its JSONL fallback) the scalars. The actor
+fleet and the model manager are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,9 +57,11 @@ from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
+from ...telemetry.facade import Telemetry
+from ...telemetry.throughput import model_cost
 from ...utils.checkpoint import CheckpointManager
 from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
-from ...utils.logger import get_log_dir
+from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio, get_device, save_configs
@@ -192,9 +197,8 @@ def make_train_fn(
     F_gru = int(wm_cfg.recurrent_model.dense_units)
     if use_kernel and not gru_plain and not ln_gru.fits_smem(F_gru, R):
         raise ValueError(
-            f"algo.world_model.pallas_gru=True: the LN-GRU kernels do not take F={F_gru}, H={R} (H must "
-            "split into at most 16 cluster CTAs of 8, 16 or 32 units whose W_h slice fits shared "
-            "memory, so H <= 512, and F must be a multiple of 4); set pallas_gru=interpret or False"
+            f"algo.world_model.pallas_gru=True: the LN-GRU kernels do not take F={F_gru}, H={R} "
+            f"({ln_gru.FIT_RULE}; F must be a multiple of 4); set pallas_gru=interpret or False"
         )
     horizon = int(cfg.algo.horizon)
     gamma = float(cfg.algo.gamma)
@@ -551,9 +555,11 @@ def main(cfg: Config) -> None:
     mods0 = mirror.current()
     player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous, num_envs)
 
-    aggregator = MetricAggregator(AGGREGATOR_KEYS)
+    logger = get_logger(cfg, log_dir)
+    telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    aggregator = telem.aggregator
     ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
-    guard = RunGuard.setup(cfg, ckpt, log_dir)
+    guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem)
     ckpt = guard.ckpt
 
     total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else 4 * num_envs
@@ -583,7 +589,8 @@ def main(cfg: Config) -> None:
     # the player generator's state after the last transition in the buffer
     # (under overlap the player runs ahead; its state rides each packet)
     player_gen_state = _gen_state(player_gen)
-    engine = OverlapEngine.setup(cfg, guard, total_steps=total_steps, initial_step=policy_step)
+    engine = OverlapEngine.setup(cfg, telem, guard, total_steps=total_steps, initial_step=policy_step)
+    costed = False  # the model FLOPs and bytes of a gradient step, counted on the first burst
     t0 = time.perf_counter()
     p_step = policy_step  # the player's env-step counter (== policy_step serially)
 
@@ -690,8 +697,17 @@ def main(cfg: Config) -> None:
         obs = next_obs
 
     def burst(g: int) -> None:
-        nonlocal moments
-        moments, metrics = train(moments, prefetch.take(g), generator=generator)
+        nonlocal moments, costed
+        with telem.span("Time/train_time"):
+            batch = prefetch.take(g)
+            if costed or not telem.enabled:
+                moments, metrics = train(moments, batch, generator=generator)
+            else:  # once: the step's operations and bytes, for MFU and the roofline record
+                (moments, metrics), cost = model_cost(lambda: train(moments, batch, generator=generator))
+                costed = True
+                per_step = {k: v / g for k, v in cost.items()}
+                telem.set_model_flops(per_step["flops"], str(cfg.fabric.precision))
+                telem.register_roofline("train_step", per_step, track_grad_rate=True)
         if log_on:
             pending.append(metrics)  # on the device until the log cadence
 
@@ -703,16 +719,10 @@ def main(cfg: Config) -> None:
             for k, v in m.items():
                 aggregator.update(k, v.cpu().numpy())
         pending.clear()
-        elapsed = time.perf_counter() - t0
-        line: Dict[str, Any] = {"policy_step": policy_step, "grad_steps": optimizers.step,
-                                "sps": round(policy_step / max(elapsed, 1e-9), 3), "elapsed_s": round(elapsed, 4)}
-        line.update(aggregator.compute())
-        aggregator.reset()
-        print("[dreamer_v3] " + " ".join(f"{k}={v}" for k, v in line.items()), flush=True)
-        print(f"[mirror] {json.dumps(mirror.stats())}", flush=True)
-        rec = engine.maybe_emit()
-        if rec is not None:
-            print(f"[overlap] {json.dumps(rec)}", flush=True)
+        # the run's own counters beside the interval's: what a reader of the
+        # stream needs to line a record up with the loop's ledger
+        telem.log(policy_step, fields={"grad_steps": optimizers.step, "elapsed_s": time.perf_counter() - t0,
+                                       "mirror": mirror.stats()})
         last_log = policy_step
 
     def maybe_checkpoint() -> None:
@@ -730,7 +740,8 @@ def main(cfg: Config) -> None:
             def play() -> Packet:
                 rec = RecordingSink()
                 with torch.cuda.stream(player_stream) if player_stream is not None else contextlib.nullcontext():
-                    interact(rec)
+                    with telem.span("Time/env_interaction_time"):
+                        interact(rec)
                 return Packet((rec, _gen_state(player_gen)), num_envs)
 
             def absorb(pkt: Packet) -> None:
@@ -742,6 +753,7 @@ def main(cfg: Config) -> None:
             stopped = False
             try:
                 while policy_step < total_steps:
+                    telem.tick(policy_step)
                     if guard.stop_reached(policy_step, total_steps, None, save=False):
                         stopped = True
                         break
@@ -756,6 +768,7 @@ def main(cfg: Config) -> None:
                         policy_step += pkt.env_steps
                         if policy_step >= learning_starts:
                             gs.append(ratio(policy_step))
+                            telem.record_grad_steps(gs[-1])
                     # one train call per owed burst; each launches
                     # asynchronously, so staging the next burst's batch
                     # overlaps the card's work on this one
@@ -781,18 +794,19 @@ def main(cfg: Config) -> None:
                 policy_step += engine.shutdown(absorb)
             if stopped and not guard.preempted and cfg.checkpoint.save_last:
                 ckpt.save(policy_step, _ckpt_state())
-            final = {**engine.last_record, "final": True, "staleness_seen_max": engine.staleness_seen_max}
-            print(f"[overlap] {json.dumps(final)}", flush=True)
         else:
             # ---- serial loop (the reference's semantics) -----------------------
             sink = BufferOpSink(rb, aggregator)
             while policy_step < total_steps:
+                telem.tick(policy_step)
                 if guard.stop_reached(policy_step, total_steps, _ckpt_state):
                     break
-                interact(sink)
+                with telem.span("Time/env_interaction_time"):
+                    interact(sink)
                 policy_step = p_step
                 if policy_step >= learning_starts:
                     g = ratio(policy_step)
+                    telem.record_grad_steps(g)
                     if g > 0:
                         burst(g)
                         mirror.refresh({"wm": wm, "actor": actor})
@@ -805,13 +819,16 @@ def main(cfg: Config) -> None:
         # signal handlers uninstalled and pending writes flushed, also when the run fails
         guard.close(policy_step, _ckpt_state)
         envs.close()
+        telem.close(policy_step)
     if cfg.algo.run_test:
         test_env = single_env(cfg, seed)
         # the player acts in f32 (bf16-true keeps bf16 parameters)
         t_wm, t_actor = (wm, actor) if precision.param_dtype == torch.float32 else (
             copy.deepcopy(wm).float(), copy.deepcopy(actor).float())
         t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
-        test(t_init, t_step, test_env, cfg, generator)
+        test(t_init, t_step, test_env, cfg, generator, logger=logger)
+    if logger is not None:
+        logger.close()
 
 
 @register_evaluation("dreamer_v3")

@@ -157,10 +157,11 @@ def decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys, apply=None):
     return po, batch_obs
 
 
-def test(player_init, player_step, env, cfg: Any, generator: torch.Generator, seed=None) -> float:
+def test(player_init, player_step, env, cfg: Any, generator: torch.Generator, seed=None, logger=None) -> float:
     """One greedy episode of ``env`` (a single env) with the recurrent
-    player of ``make_player(..., num_envs=1)``; prints ``Test - Reward: <r>``
-    and returns the episode's reward. ``dry_run`` stops after one step."""
+    player of ``make_player(..., num_envs=1)``; prints ``Test - Reward: <r>``,
+    logs it as ``Test/cumulative_reward`` to ``logger`` if one is given, and
+    returns the episode's reward. ``dry_run`` stops after one step."""
     done = False
     cumulative_rew = 0.0
     obs, _ = env.reset(seed=seed if seed is not None else int(cfg.seed))
@@ -178,6 +179,8 @@ def test(player_init, player_step, env, cfg: Any, generator: torch.Generator, se
         cumulative_rew += float(reward)
         if cfg.dry_run:
             done = True
+    if logger is not None:
+        logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
     print(f"Test - Reward: {cumulative_rew}", flush=True)
     env.close()
     return cumulative_rew

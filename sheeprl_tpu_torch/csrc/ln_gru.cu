@@ -27,7 +27,10 @@
 //     J_c = [c*HS, (c+1)*HS) and their three gate columns {j, H+j, 2H+j}, so
 //     the gate math needs no exchange. It loads its [H, 3*HS] slice of W_h
 //     into shared memory once (192 KiB at DV3-S) and keeps it there for all
-//     T steps: no block reads W in the loop.
+//     T steps: no block reads W in the loop. That is the resident instance,
+//     for H up to 512 (DreamerV3-XS and S); wider H (M, L, XL) takes the
+//     streamed instance, which streams the slice through a ring of k-tiles
+//     each step (see its note below).
 //   * Forward step: y_raw = Gx[t] + h_in W_h on the CTA's columns (FFMA in
 //     registers, the H rows of the sum split over the 8 warps and added in
 //     warp order); per-row partial LN statistics (mean and M2 over the 3*HS
@@ -54,9 +57,10 @@
 //   Every sum has a fixed order (no atomics): results are deterministic.
 //
 // Layout. ops/ln_gru.py holds the recurrent kernels' layout and passes it to
-// nvcc (LN_GRU_ROWS, LN_GRU_THREADS, LN_GRU_MAX_CLUSTER); it also picks the
-// units of a CTA and sums each kernel's shared memory (its fit rule), and the
-// entries take both as arguments.
+// nvcc (LN_GRU_ROWS, LN_GRU_THREADS, LN_GRU_MAX_CLUSTER, LN_GRU_STREAM_STAGES);
+// it also picks the instance, the units of a CTA and the streamed instance's
+// tile rows, and sums each kernel's shared memory (its fit rule), and the
+// entries take them as arguments.
 //
 // Bound. At DreamerV3-S (T=64, B=16, F=H=512) ln_gru_xproj and ln_gru_dx do
 // 2*T*B*F*3H = 1.6 GFLOP each, ln_gru_fwd and ln_gru_bwd 2*T*B*H*3H = 1.6
@@ -186,18 +190,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // blocks: the block at (bx, by) sums rows [by K / gy, (by + 1) K / gy) of its
 // BN columns into the partial slot part[by][2][NO], and the last block of
 // column tile bx to arrive adds the gy = gridDim.y partials in slot order.
-// An arrival counter a column tile (reset to 0 by that last block, so zero
-// between launches) and __threadfence() tell it that it is last; no atomic
-// adds a float, so the sums have a fixed order.
+// An arrival counter a column tile and __threadfence() tell it that it is
+// last; no atomic adds a float, so the sums have a fixed order. The slots and
+// the counters are the launch's own scratch (the wrapper allocates them, the
+// counters zeroed), so launches on two streams at once share nothing.
 struct ColumnSums {
   const float* dy;
   const float* yn;
-  float* part;  // [gridDim.y][2][NO], written before it is read
+  float* part;              // [gridDim.y][2][NO], written before it is read
+  unsigned int* arrivals;   // [gridDim.x], zero at the launch
   float* dscale;
   float* dbias;
 };
-constexpr int kMaxColumnTiles = 4096;  // column tiles of one ln_gru_wgrad launch
-__device__ unsigned int g_arrivals[kMaxColumnTiles];
 
 template <class L>
 __device__ void column_sums(const ColumnSums& cs, int K, int NO) {
@@ -233,7 +237,7 @@ __device__ void column_sums(const ColumnSums& cs, int K, int NO) {
   }
   __threadfence();  // the partial is visible to every block before this block counts as arrived
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&g_arrivals[blockIdx.x], 1u) == (unsigned)gy - 1;
+  if (tid == 0) last = atomicAdd(&cs.arrivals[blockIdx.x], 1u) == (unsigned)gy - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -245,7 +249,6 @@ __device__ void column_sums(const ColumnSums& cs, int K, int NO) {
     for (int g = 1; g < gy; ++g) v += __ldcg(p + (size_t)g * 2 * NO);
     (w ? cs.dbias : cs.dscale)[n] = v;
   }
-  if (tid == 0) g_arrivals[blockIdx.x] = 0;
 }
 
 template <class L, Gemm G>
@@ -405,10 +408,7 @@ cudaError_t launch_gemm(const float* A, int lda, const float* Bm, int ldb, float
   // the lengths of the operands' contiguous rows, which cp.async copies as 16-byte chunks
   const int a_row = kAAlongOut<G> ? M : K, b_row = kBAlongSum<G> ? K : NO;
   uintptr_t ptrs = (uintptr_t)A | (uintptr_t)Bm | (uintptr_t)C;
-  if constexpr (G == Gemm::kWgrad) {
-    ptrs |= (uintptr_t)cs.dy | (uintptr_t)cs.yn;  // read as float4
-    if (grid->x > (unsigned)kMaxColumnTiles) return cudaErrorInvalidValue;
-  }
+  if constexpr (G == Gemm::kWgrad) ptrs |= (uintptr_t)cs.dy | (uintptr_t)cs.yn;  // read as float4
   if (a_row % 4 || b_row % 4 || NO % 4 || lda % 4 || ldb % 4 || ldc % 2 || ptrs % 16) return cudaErrorInvalidValue;
   // set once, at the first launch: the port drives one card a process
   static const cudaError_t attr = cudaFuncSetAttribute((const void*)tf32x3_gemm_kernel<L, G>,
@@ -464,7 +464,8 @@ using WgradLayout = GemmLayout<LN_GRU_WGRAD_LAYOUT>;
 //     the RPE rows (t / HS) * RPE .. +RPE-1; the kRows*HS items fill whole
 //     warps, which may leave the last warps idle.
 // Each kernel carves its dynamic shared memory in the order of the sum that
-// smem_bytes in ops/ln_gru.py makes for it.
+// ops/ln_gru.py makes for it (_resident_smem; _streamed_smem for the
+// streamed instance below).
 // --------------------------------------------------------------------------
 #if !defined(LN_GRU_ROWS) || !defined(LN_GRU_THREADS) || !defined(LN_GRU_MAX_CLUSTER)
 #error "build with sheeprl_tpu_torch.ops.ln_gru.build(), which passes the recurrent kernels' layout"
@@ -868,6 +869,494 @@ ln_gru_bwd_kernel(const float* __restrict__ feats, const float* __restrict__ fir
   }
 }
 
+// --------------------------------------------------------------------------
+// The streamed instance of the recurrent kernels, for widths whose W_h slice
+// does not fit a CTA's shared memory (DreamerV3-M, L and XL: H = 1024, 2048
+// and 4096, where a slice is 786,432 B, 3.1 MB and 12.6 MB). The same
+// cluster of nc = H / HS CTAs (16), the same DSMEM exchanges of the LN
+// statistics, the LN-backward row sums, h and the reduce-scatter, and the
+// same per-unit elementwise work; HS = H / 16 units a CTA (64, 128, 256 at
+// M, L, XL; any multiple of 8 up to kSeqThreads). What changes:
+//   * The CTA does not keep its [H, 3*HS] slice of W_h. Every step streams it
+//     through a ring of kStreamStages k-tiles of KT rows (row stride LD) in
+//     shared memory, filled by 16-byte cp.async kStreamStages - 1 tiles ahead
+//     of the tile being multiplied; the ring runs on from one step to the
+//     next, so the next step's first tiles load during this step's
+//     elementwise work and barriers. KT (32 at M, 16 at L, 8 at XL) keeps a
+//     stage near 24 KB; ops/ln_gru.py picks it and passes it to the launch.
+//   * Forward product: thread t owns unit j = t % HS of the CTA and its three
+//     gate columns for the kRows rows (12 accumulators), and sums the tile
+//     rows kk = g, g + KS, ... of every tile, g = t / HS being its k-group
+//     (KS = kSeqThreads / HS groups); the KS partials are added in group
+//     order.
+//   * Backward product dh_in = dy_raw W_h^T: a tile holds KT units of the
+//     sum's output; thread t owns unit t / CS of the tile (CS = kSeqThreads /
+//     KT lanes a unit) and sums the columns c = s, s + CS, ... (s = t % CS),
+//     whose dy_raw it holds in registers for the whole step (the same
+//     columns in every tile); the CS lanes' sums are added by a butterfly,
+//     and the unit's kRows values go to the CTA that owns the unit, as in the
+//     resident reduce-scatter.
+//   * A row's LN statistics (forward) and LN-backward sums (backward) over
+//     the CTA's 3*HS columns span several warps: each thread's share goes to
+//     shared memory and warp r adds row r's HS shares in unit order (the
+//     forward's mean first, then its M2 about that mean).
+//   * The elementwise layout: thread t owns unit t % HS and rows
+//     (t / HS) * RPE .. +RPE-1, RPE = ceil(kRows / KS).
+// Bound: operations, 2*T*B*H*3H a sweep (0.096 ms at M, 0.38 ms at L, 1.5
+// ms at XL on a 67 TFLOP/s H100), when every input is read once. The design
+// reads W_h again every step and in every one of the ceil(B / kRows)
+// clusters: T reads of W_h alone take 0.24, 0.96 and 3.8 ms at 3.35 TB/s
+// (M's 12.6 MB stay in the 50 MB L2; L's and XL's do not), so at L and XL
+// those reads, not the FLOPs, set the pace.
+// --------------------------------------------------------------------------
+#if !defined(LN_GRU_STREAM_STAGES) || !defined(LN_GRU_STREAM_TILE)
+#error "build with sheeprl_tpu_torch.ops.ln_gru.build(), which passes the streamed kernels' ring layout"
+#endif
+constexpr int kStreamStages = LN_GRU_STREAM_STAGES;  // k-tiles of the W_h ring
+constexpr int kStreamTile = LN_GRU_STREAM_TILE;      // the most rows x units a k-tile holds
+// 16-byte chunks of a tile (3 * rows * units / 4) a thread copies at most
+constexpr int kTileChunks = (3 * kStreamTile / 4 + kSeqThreads - 1) / kSeqThreads;
+// columns of the CTA's 3 * units a thread of the backward's product sums at
+// most: 3 * units / (kSeqThreads / rows) <= 3 * kStreamTile / kSeqThreads
+constexpr int kBwdCols = (3 * kStreamTile + kSeqThreads - 1) / kSeqThreads;
+static_assert(kStreamStages >= 2, "a ring of at least two stages");
+static_assert(kRows <= kSeqWarps, "one warp a row for the row sums");
+
+// Whether the streamed kernels take this layout: HS units a CTA, a multiple
+// of 8 (whole float4 chunks of each gate's columns) and at most one a thread;
+// KT rows a tile, a divisor of kSeqThreads (so a power of two) from 8, so that
+// the CS = kSeqThreads / KT lanes of a unit are whole groups of a warp.
+bool stream_layout_ok(int H, int hs, int kt) {
+  return hs > 0 && hs % 8 == 0 && H % hs == 0 && H / hs <= kMaxCluster && hs <= kSeqThreads && kt >= 8 &&
+         kSeqThreads % kt == 0 && H % kt == 0 && kt * hs <= kStreamTile;
+}
+
+// sum over the aligned group of n lanes (a power of two) holding this lane
+__device__ __forceinline__ float lane_group_sum(float v, int n) {
+  for (int o = n / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The ring of a streamed kernel: tile n of the sweep (T * nt tiles in all)
+// holds rows (n % nt) * kt .. +kt-1 of the CTA's slice of W_h (columns
+// {j, H+j, 2H+j} for j in J_c, row stride 3H in global memory) in slot
+// n % kStreamStages, row stride ld. Every tile splits into the same 16-byte
+// chunks, so a thread works out the offsets of its chunks once (init) and a
+// tile's copies cost it a few adds.
+struct WRing {
+  float* base;
+  int ld, kt, nt, total, issued;
+  const float* Wh;
+  int H;
+  int src[kTileChunks], dst[kTileChunks];  // this thread's chunks: offsets in W_h from the tile's row, in a slot
+
+  __device__ void init(int hs, int c) {
+    const int q4 = hs / 4, per_row = 3 * q4;
+#pragma unroll
+    for (int i = 0; i < kTileChunks; ++i) {
+      const int e = threadIdx.x + i * kSeqThreads;
+      const int r = e / per_row, rem = e - r * per_row, g = rem / q4, v = rem - g * q4;
+      src[i] = e < kt * per_row ? r * 3 * H + g * H + c * hs + 4 * v : -1;
+      dst[i] = r * ld + g * hs + 4 * v;
+    }
+  }
+
+  __device__ float* slot(int n) const { return base + (size_t)(n % kStreamStages) * kt * ld; }
+
+  // the next tile's cp.async copies, one commit group a call (empty past the end)
+  __device__ void issue() {
+    if (issued < total) {
+      float* S = slot(issued);
+      const float* w = Wh + (size_t)(issued % nt) * kt * 3 * H;
+#pragma unroll
+      for (int i = 0; i < kTileChunks; ++i)
+        if (src[i] >= 0) cp_async16(S + dst[i], w + src[i], true);
+    }
+    cp_async_commit();
+    ++issued;
+  }
+
+  // Tile n, landed and visible to the whole block; tile n + kStreamStages - 1
+  // goes in flight into the slot of tile n - 1, which every thread is done
+  // with. Called for n = 0, 1, ... in turn by all threads, after
+  // kStreamStages - 1 issue() calls.
+  __device__ const float* acquire(int n) {
+    cp_async_wait<kStreamStages - 2>();
+    __syncthreads();
+    issue();
+    return slot(n);
+  }
+};
+
+// ln_gru_fwd, streamed instance: the recurrence of _pallas_forward from
+// Gx = x W_x with the CTA's W_h slice streamed each step (see above).
+// kSkipProduct leaves out h_in W_h and the ring (the probe variant).
+template <bool kSkipProduct>
+__global__ void __launch_bounds__(kSeqThreads, 1)
+ln_gru_fwd_streamed_kernel(const float* __restrict__ gx, const float* __restrict__ first,
+                           const float* __restrict__ h_first, const float* __restrict__ Wh,
+                           const float* __restrict__ scale, const float* __restrict__ bias,
+                           float* __restrict__ hs_out, float* __restrict__ yn_out,
+                           float* __restrict__ istd_out, int T, int B, int H, int HS, int KT) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = H / HS, crank = (int)cluster.block_rank(), b0 = blockIdx.y * kRows;
+  const int NCOL = 3 * HS, KS = kSeqThreads / HS, LD = NCOL + kSeqThreads / KT, NT = H / KT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pj = tid % HS, pg = tid / HS, j = crank * HS + pj;  // unit; k-group, and row group
+  const int RPE = (kRows + KS - 1) / KS, r0 = pg * RPE, nrow = max(0, min(RPE, kRows - r0));
+  float* ring = smem;                                    // [kStreamStages][KT][LD]
+  float* hbuf = ring + (size_t)kStreamStages * KT * LD;  // [H][kRows]
+  float* part = hbuf + (size_t)H * kRows;                // [KS][kRows][NCOL]
+  float* stat = part + (size_t)KS * kRows * NCOL;        // [nc][kRows][2]
+  float* hnext = stat + nc * kRows * 2;                  // [HS][kRows]
+  float* red = hnext + HS * kRows;                       // [kRows][HS]
+  float* rowm = red + kRows * HS;                        // [kRows]: the CTA's mean of each row
+
+  for (int e = tid; e < H * kRows; e += kSeqThreads) {  // h_in of step 0: the carry starts at 0
+    const int k = e / kRows, b = b0 + e % kRows;
+    hbuf[e] = b < B ? first[b] * h_first[(size_t)b * H + k] : 0.f;
+  }
+  float sc[3], bi[3], hf[kRows];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) sc[g] = scale[g * H + j], bi[g] = bias[g * H + j];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int b = b0 + r0 + i;
+    hf[i] = i < nrow && b < B ? h_first[(size_t)b * H + j] : 0.f;
+  }
+  auto load_gx = [&](int t, float (&v)[3][kRows], float (&f)[kRows]) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int b = b0 + r0 + i;
+      const bool ok = i < nrow && t < T && b < B;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) v[g][i] = ok ? gx[((size_t)t * B + b) * 3 * H + g * H + j] : 0.f;
+      f[i] = ok ? first[(size_t)t * B + b] : 0.f;
+    }
+  };
+  float gcur[3][kRows], f0[kRows];  // step 0's reset is already in h_in
+  load_gx(0, gcur, f0);
+  WRing wr{ring, LD, KT, NT, kSkipProduct ? 0 : T * NT, 0, Wh, H, {}, {}};
+  wr.init(HS, crank);
+  for (int s = 0; s < kStreamStages - 1; ++s) wr.issue();
+  cluster.sync();  // every CTA has started (DSMEM is safe to use) and holds h_in of step 0
+
+  for (int t = 0; t < T; ++t) {
+    float gnext[3][kRows], fnext[kRows];  // the next step's inputs, in flight during the product
+    load_gx(t + 1, gnext, fnext);
+    {  // this thread's k-group of the sum h_in W_h on its unit's three columns
+      float acc[3][kRows] = {};
+      if (!kSkipProduct) {
+        for (int i = 0; i < NT; ++i) {
+          const float* ws = wr.acquire(t * NT + i);
+          if (pg >= KS) continue;
+          const float* hp = hbuf + (size_t)i * KT * kRows;
+#pragma unroll 4
+          for (int kk = pg; kk < KT; kk += KS) {
+            float hv[kRows];
+            load_rows<kRows>(hp + kk * kRows, hv);
+            const float* w = ws + kk * LD + pj;
+            const float w0 = w[0], w1 = w[HS], w2 = w[2 * HS];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              acc[0][r] = fmaf(w0, hv[r], acc[0][r]);
+              acc[1][r] = fmaf(w1, hv[r], acc[1][r]);
+              acc[2][r] = fmaf(w2, hv[r], acc[2][r]);
+            }
+          }
+        }
+      }
+      if (pg < KS) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) part[((size_t)pg * kRows + r) * NCOL + g * HS + pj] = acc[g][r];
+      }
+    }
+    __syncthreads();
+    // y_raw = Gx + the k-groups' partials in group order; each row's sum over
+    // the CTA's columns, through shared memory
+    float y[3][kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      y[0][i] = y[1][i] = y[2][i] = 0.f;
+      if (i >= nrow) continue;
+      const int row = r0 + i;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float* p = part + (size_t)row * NCOL + g * HS + pj;
+        float s = p[0];
+        for (int q = 1; q < KS; ++q) s += p[(size_t)q * kRows * NCOL];
+        y[g][i] = gcur[g][i] + s;
+      }
+      red[row * HS + pj] = y[0][i] + y[1][i] + y[2][i];
+    }
+    __syncthreads();
+    if (warp < kRows) {  // warp r: row r's mean over the CTA's columns, the HS shares in unit order
+      float s = 0.f;
+      for (int e = lane; e < HS; e += 32) s += red[warp * HS + e];
+      s = group_sum<32>(s);
+      if (lane == 0) rowm[warp] = s / (float)NCOL;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i >= nrow) continue;
+      const int row = r0 + i;
+      const float m = rowm[row], d0 = y[0][i] - m, d1 = y[1][i] - m, d2 = y[2][i] - m;
+      red[row * HS + pj] = d0 * d0 + d1 * d1 + d2 * d2;
+    }
+    __syncthreads();
+    if (warp < kRows) {  // row r's M2; (mean, M2) into slot [crank][r] of every CTA
+      float s = 0.f;
+      for (int e = lane; e < HS; e += 32) s += red[warp * HS + e];
+      s = group_sum<32>(s);
+      if (lane < nc)
+        *reinterpret_cast<float2*>(cluster.map_shared_rank(stat, lane) + (crank * kRows + warp) * 2) =
+            make_float2(rowm[warp], s);
+    }
+    cluster.sync();  // (1) the statistics have arrived; every CTA is done reading h_in
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i >= nrow) continue;
+      const int row = r0 + i, b = b0 + row;
+      float m = 0.f, m2 = 0.f;  // Chan's formula over the nc partials, in CTA order
+      for (int q = 0; q < nc; ++q) {
+        const float2 s = *reinterpret_cast<const float2*>(stat + (q * kRows + row) * 2);
+        const float delta = s.x - m;
+        m += delta / (float)(q + 1);
+        m2 += s.y + delta * delta * ((float)(NCOL * q) / (float)(q + 1));
+      }
+      const float is = rsqrtf(m2 / (float)(nc * NCOL) + kEps);
+      float yn[3], ya[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) yn[g] = (y[g][i] - m) * is, ya[g] = yn[g] * sc[g] + bi[g];
+      const float r = sigmoid_rn(ya[0]);
+      const float c = tanhf(r * ya[1]);
+      const float u = sigmoid_rn(ya[2] - 1.f);
+      const float h_new = u * c + (1.f - u) * hbuf[j * kRows + row];
+      if (b < B) {
+        const size_t o = (size_t)t * B + b;
+        hs_out[o * H + j] = h_new;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) yn_out[o * 3 * H + g * H + j] = yn[g];
+        if (j == 0) istd_out[o] = is;
+      }
+      hnext[pj * kRows + row] = (1.f - fnext[i]) * h_new + fnext[i] * hf[i];  // h_in of step t+1
+    }
+    __syncthreads();
+    if (t + 1 < T) {  // the CTA's block of h_in into every CTA's h buffer, as float4
+      const int V = HS * kRows / 4;
+      for (int e = tid; e < nc * V; e += kSeqThreads) {
+        const int q = e / V, v = e - q * V;
+        reinterpret_cast<float4*>(cluster.map_shared_rank(hbuf, q) + crank * HS * kRows)[v] =
+            reinterpret_cast<const float4*>(hnext)[v];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) gcur[g][i] = gnext[g][i];
+    cluster.sync();  // (2) h_in of step t+1 has arrived in every CTA
+  }
+}
+
+// ln_gru_bwd, streamed instance: the reverse sweep of _pallas_backward from
+// the forward's saved yn and istd, the CTA's W_h slice streamed each step
+// for dy_raw W_h^T (see above). kSkipProduct leaves out that product and the
+// ring (the probe variant).
+template <bool kSkipProduct>
+__global__ void __launch_bounds__(kSeqThreads, 1)
+ln_gru_bwd_streamed_kernel(const float* __restrict__ feats, const float* __restrict__ first,
+                           const float* __restrict__ hs, const float* __restrict__ h_first,
+                           const float* __restrict__ Wh, const float* __restrict__ scale,
+                           const float* __restrict__ bias, const float* __restrict__ g,
+                           const float* __restrict__ yn, const float* __restrict__ istd,
+                           float* __restrict__ dh_first, float* __restrict__ dy_out,
+                           float* __restrict__ dyr_out, float* __restrict__ xh_out,
+                           int T, int B, int F, int H, int HS, int KT) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = H / HS, crank = (int)cluster.block_rank(), b0 = blockIdx.y * kRows;
+  const int NCOL = 3 * HS, KS = kSeqThreads / HS, CS = kSeqThreads / KT, LD = NCOL + CS, NT = H / KT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ej = tid % HS, j = crank * HS + ej;  // elementwise layout
+  const int RPE = (kRows + KS - 1) / KS, r0 = (tid / HS) * RPE, nrow = max(0, min(RPE, kRows - r0));
+  const int pu = tid / CS, ps = tid % CS;  // product layout: unit of the tile, column phase
+  const int N = 3 * H, K = F + H;
+  float* ring = smem;                                    // [kStreamStages][KT][LD]
+  float* recv = ring + (size_t)kStreamStages * KT * LD;  // [nc][HS][kRows]
+  float* dyrs = recv + (size_t)nc * HS * kRows;          // [NCOL][kRows]
+  float* stat = dyrs + (size_t)NCOL * kRows;             // [nc][kRows][2]
+  float* red = stat + nc * kRows * 2;                    // [kRows][HS][2]
+
+  {  // xh[:, :, :F] = feats for the cluster's rows, the columns shared among its CTAs
+    const int rows = min(kRows, B - b0), F4 = F / 4;
+    const size_t n = (size_t)T * rows * F4;
+    for (size_t e = (size_t)crank * kSeqThreads + tid; e < n; e += (size_t)nc * kSeqThreads) {
+      const int c4 = (int)(e % F4);
+      const size_t tr = e / F4;
+      const size_t o = (size_t)(tr / rows) * B + b0 + (int)(tr % rows);
+      *reinterpret_cast<float4*>(xh_out + o * K + 4 * c4) = __ldg(reinterpret_cast<const float4*>(feats + o * F) + c4);
+    }
+  }
+  float sc[3], bi[3], hf[kRows], dh[kRows] = {}, dhf[kRows] = {};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sc[q] = scale[q * H + j], bi[q] = bias[q * H + j];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int b = b0 + r0 + i;
+    hf[i] = i < nrow && b < B ? h_first[(size_t)b * H + j] : 0.f;
+  }
+  // one step's inputs of this thread's rows, loaded a step ahead
+  float ynv[3][kRows], gv[kRows], fv[kRows], hp[kRows], isv[kRows];
+  float ynn[3][kRows], gn[kRows], fn[kRows], hpn[kRows], isn[kRows];
+  auto load_step = [&](int t, float (&y_)[3][kRows], float (&g_)[kRows], float (&f_)[kRows],
+                       float (&h_)[kRows], float (&s_)[kRows]) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int b = b0 + r0 + i;
+      const bool ok = i < nrow && t >= 0 && b < B;
+      const size_t o = (size_t)t * B + b;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) y_[q][i] = ok ? yn[o * N + q * H + j] : 0.f;
+      g_[i] = ok ? g[o * H + j] : 0.f;
+      f_[i] = ok ? first[o] : 0.f;
+      h_[i] = ok && t > 0 ? hs[(o - B) * H + j] : 0.f;
+      s_[i] = ok ? istd[o] : 0.f;
+    }
+  };
+  load_step(T - 1, ynv, gv, fv, hp, isv);
+  WRing wr{ring, LD, KT, NT, kSkipProduct ? 0 : T * NT, 0, Wh, H, {}, {}};
+  wr.init(HS, crank);
+  for (int s = 0; s < kStreamStages - 1; ++s) wr.issue();
+  cluster.sync();  // every CTA has started (DSMEM is safe to use)
+
+  int n = 0;  // tiles consumed
+  for (int t = T - 1; t >= 0; --t) {
+    float dd[kRows], dyn[3][kRows];  // d (1 - u), the direct part of dh_in; dy * scale
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      dd[i] = dyn[0][i] = dyn[1][i] = dyn[2][i] = 0.f;
+      if (i >= nrow) continue;
+      const int row = r0 + i, b = b0 + row;
+      const float h_in = (1.f - fv[i]) * hp[i] + fv[i] * hf[i];
+      float ya[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ya[q] = ynv[q][i] * sc[q] + bi[q];
+      const float r = sigmoid_rn(ya[0]);
+      const float c = tanhf(r * ya[1]);
+      const float u = sigmoid_rn(ya[2] - 1.f);
+      const float d = gv[i] + dh[i];
+      const float du = d * (c - h_in);
+      const float d_rc = d * u * (1.f - c * c);
+      dd[i] = d * (1.f - u);
+      const float dy[3] = {d_rc * ya[1] * r * (1.f - r), d_rc * r, du * u * (1.f - u)};
+      if (b < B) {
+        const size_t o = (size_t)t * B + b;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) dy_out[o * N + q * H + j] = dy[q];
+        xh_out[o * K + F + j] = h_in;
+      }
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        dyn[q][i] = dy[q] * sc[q];
+        s1 += dyn[q][i];
+        s2 += dyn[q][i] * ynv[q][i];
+      }
+      *reinterpret_cast<float2*>(red + (row * HS + ej) * 2) = make_float2(s1, s2);
+    }
+    __syncthreads();
+    if (warp < kRows) {  // warp r: row r's sums over the CTA's columns in unit order, to every CTA
+      float s1 = 0.f, s2 = 0.f;
+      for (int e = lane; e < HS; e += 32) {
+        const float2 v = *reinterpret_cast<const float2*>(red + (warp * HS + e) * 2);
+        s1 += v.x;
+        s2 += v.y;
+      }
+      s1 = group_sum<32>(s1);
+      s2 = group_sum<32>(s2);
+      if (lane < nc)
+        *reinterpret_cast<float2*>(cluster.map_shared_rank(stat, lane) + (crank * kRows + warp) * 2) =
+            make_float2(s1, s2);
+    }
+    cluster.sync();  // (1) the LN-backward row sums have arrived
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i >= nrow) continue;
+      const int row = r0 + i, b = b0 + row;
+      float s1 = 0.f, s2 = 0.f;  // the nc partial sums in CTA order
+      for (int q = 0; q < nc; ++q) {
+        const float2 s = *reinterpret_cast<const float2*>(stat + (q * kRows + row) * 2);
+        s1 += s.x;
+        s2 += s.y;
+      }
+      const float m1 = s1 / (float)N, m2 = s2 / (float)N;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float v = isv[i] * (dyn[q][i] - m1 - ynv[q][i] * m2);
+        if (b < B) dyr_out[((size_t)t * B + b) * N + q * H + j] = v;
+        dyrs[(q * HS + ej) * kRows + row] = v;
+      }
+    }
+    load_step(t - 1, ynn, gn, fn, hpn, isn);  // in flight during the product
+    __syncthreads();
+    if (!kSkipProduct) {  // this CTA's partial of dh_in for every unit, a tile of KT units at a time
+      float dv[kBwdCols][kRows];  // dy_raw of this thread's columns c = ps + i * CS
+#pragma unroll
+      for (int i = 0; i < kBwdCols; ++i) {
+        const int c = ps + i * CS;
+        if (c < NCOL) {
+          load_rows<kRows>(dyrs + c * kRows, dv[i]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) dv[i][r] = 0.f;
+        }
+      }
+      for (int i = 0; i < NT; ++i) {
+        const float* w = wr.acquire(n++) + pu * LD;
+        float acc[kRows] = {};
+#pragma unroll
+        for (int q = 0; q < kBwdCols; ++q) {
+          const int c = ps + q * CS;
+          const float wv = c < NCOL ? w[c] : 0.f;
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) acc[r] = fmaf(wv, dv[q][r], acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r] = lane_group_sum(acc[r], CS);
+        if (ps == 0) {  // reduce-scatter: unit k's partial goes to the CTA that owns k
+          const int k = i * KT + pu, q = k / HS;
+          store_rows<kRows>(cluster.map_shared_rank(recv, q) + (crank * HS + k - q * HS) * kRows, acc);
+        }
+      }
+    }
+    cluster.sync();  // (2) every CTA's partial of J_c has arrived
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i >= nrow) continue;
+      float s = 0.f;
+      for (int q = 0; q < nc; ++q) s += recv[(q * HS + ej) * kRows + r0 + i];
+      const float dh_in = dd[i] + s;
+      dh[i] = (1.f - fv[i]) * dh_in;  // the reset mask routes the carry cotangent
+      dhf[i] += fv[i] * dh_in;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      gv[i] = gn[i], fv[i] = fn[i], hp[i] = hpn[i], isv[i] = isn[i];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ynv[q][i] = ynn[q][i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int b = b0 + r0 + i;
+    if (i < nrow && b < B) dh_first[(size_t)b * H + j] = dhf[i];
+  }
+}
+
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                            const float*, float*, float*, float*, int, int, int);
 using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
@@ -945,18 +1434,28 @@ int record(int kernel, dim3 grid, cudaError_t e) {
   return (int)e;
 }
 
-// units: hidden units of a CTA; smem: its shared-memory bytes (both from the
-// fit rule of ops/ln_gru.py).
+// units: hidden units of a CTA; kt: rows of a W_h tile of the streamed
+// instance, 0 for the resident one; smem: a CTA's shared-memory bytes (all
+// three from the fit rule of ops/ln_gru.py).
 template <bool kSkipProduct>
 cudaError_t launch_fwd(const float* gx, const float* first, const float* h_first, const float* Wh,
                        const float* scale, const float* bias, float* hs, float* yn, float* istd, int T, int B,
-                       int H, int units, int smem, void* stream, dim3* grid) {
-  FwdKernel k = fwd_kernel<kSkipProduct>(H, units);
-  if (!k) return cudaErrorInvalidValue;
+                       int H, int units, int kt, int smem, void* stream, dim3* grid) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
-  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, k, gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H);
+  cudaError_t e;
+  if (kt == 0) {
+    FwdKernel k = fwd_kernel<kSkipProduct>(H, units);
+    if (!k) return cudaErrorInvalidValue;
+    e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+    if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, k, gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H);
+  } else {
+    if (!stream_layout_ok(H, units, kt)) return cudaErrorInvalidValue;
+    auto k = ln_gru_fwd_streamed_kernel<kSkipProduct>;
+    e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, k, gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, kt);
+  }
   *grid = cfg.gridDim;
   return e;
 }
@@ -965,17 +1464,39 @@ template <bool kSkipProduct>
 cudaError_t launch_bwd(const float* feats, const float* first, const float* hs, const float* h_first,
                        const float* Wh, const float* scale, const float* bias, const float* g, const float* yn,
                        const float* istd, float* dh_first, float* dy, float* dyraw, float* xh, int T, int B,
-                       int F, int H, int units, int smem, void* stream, dim3* grid) {
-  BwdKernel k = bwd_kernel<kSkipProduct>(H, units);
-  if (!k || F % 4) return cudaErrorInvalidValue;
+                       int F, int H, int units, int kt, int smem, void* stream, dim3* grid) {
+  if (F % 4) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
-  if (e == cudaSuccess)
-    e = cudaLaunchKernelEx(&cfg, k, feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw,
-                           xh, T, B, F, H);
+  cudaError_t e;
+  if (kt == 0) {
+    BwdKernel k = bwd_kernel<kSkipProduct>(H, units);
+    if (!k) return cudaErrorInvalidValue;
+    e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, k, feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw,
+                             xh, T, B, F, H);
+  } else {
+    if (!stream_layout_ok(H, units, kt)) return cudaErrorInvalidValue;
+    auto k = ln_gru_bwd_streamed_kernel<kSkipProduct>;
+    e = cluster_config(k, H / units, B, smem, (cudaStream_t)stream, &cfg, &attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, k, feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw,
+                             xh, T, B, F, H, units, kt);
+  }
   *grid = cfg.gridDim;
   return e;
+}
+
+// Clusters of kernel k that the card holds at once; minus a CUDA error code.
+template <typename Kern>
+int active_clusters(Kern k, int nc, int smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  cudaError_t e = cluster_config(k, nc, kRows, smem, 0, &cfg, &attr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, (const void*)k, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace
@@ -987,22 +1508,20 @@ extern "C" const char* ln_gru_error_string(int code) { return cudaGetErrorString
 extern "C" int ln_gru_last_blocks(int k) { return k >= 0 && k < kNumKernels ? g_last_blocks[k] : -1; }
 
 // Clusters of the forward (which = 0) or backward (which = 1) kernel that the
-// card can hold at once; minus a CUDA error code if it cannot tell.
-extern "C" int ln_gru_max_active_clusters(int which, int H, int units, int smem) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int n = 0;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (which == 0) {
-    if (FwdKernel k = fwd_kernel<false>(H, units)) {
-      e = cluster_config(k, H / units, kRows, smem, 0, &cfg, &attr);
-      if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, (const void*)k, &cfg);
-    }
-  } else if (BwdKernel k = bwd_kernel<false>(H, units)) {
-    e = cluster_config(k, H / units, kRows, smem, 0, &cfg, &attr);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, (const void*)k, &cfg);
+// card can hold at once (kt as for ln_gru_fwd); minus a CUDA error code if it
+// cannot tell.
+extern "C" int ln_gru_max_active_clusters(int which, int H, int units, int kt, int smem) {
+  if (kt != 0) {
+    if (!stream_layout_ok(H, units, kt)) return -(int)cudaErrorInvalidValue;
+    return which == 0 ? active_clusters(ln_gru_fwd_streamed_kernel<false>, H / units, smem)
+                      : active_clusters(ln_gru_bwd_streamed_kernel<false>, H / units, smem);
   }
-  return e == cudaSuccess ? n : -(int)e;
+  if (which == 0) {
+    if (FwdKernel k = fwd_kernel<false>(H, units)) return active_clusters(k, H / units, smem);
+  } else if (BwdKernel k = bwd_kernel<false>(H, units)) {
+    return active_clusters(k, H / units, smem);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 extern "C" int ln_gru_xproj(const float* x, const float* wx, float* gx, int M, int F, int N, void* stream) {
@@ -1012,12 +1531,13 @@ extern "C" int ln_gru_xproj(const float* x, const float* wx, float* gx, int M, i
   return record(kXproj, grid, e);
 }
 
+// kt: rows of a W_h tile of the streamed instance, 0 for the resident one.
 extern "C" int ln_gru_fwd(const float* gx, const float* first, const float* h_first, const float* Wh,
                           const float* scale, const float* bias, float* hs, float* yn, float* istd, int T,
-                          int B, int H, int units, int smem, void* stream) {
+                          int B, int H, int units, int kt, int smem, void* stream) {
   dim3 grid;
-  cudaError_t e = launch_fwd<false>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, smem, stream,
-                                    &grid);
+  cudaError_t e = launch_fwd<false>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, kt, smem,
+                                    stream, &grid);
   return record(kFwd, grid, e);
 }
 
@@ -1025,20 +1545,20 @@ extern "C" int ln_gru_fwd(const float* gx, const float* first, const float* h_fi
 // step (barriers, DSMEM pushes, gate math, loads and stores).
 extern "C" int ln_gru_fwd_probe(const float* gx, const float* first, const float* h_first, const float* Wh,
                                 const float* scale, const float* bias, float* hs, float* yn, float* istd, int T,
-                                int B, int H, int units, int smem, void* stream) {
+                                int B, int H, int units, int kt, int smem, void* stream) {
   dim3 grid;
-  cudaError_t e = launch_fwd<true>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, smem, stream,
-                                   &grid);
+  cudaError_t e = launch_fwd<true>(gx, first, h_first, Wh, scale, bias, hs, yn, istd, T, B, H, units, kt, smem,
+                                   stream, &grid);
   return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
 extern "C" int ln_gru_bwd(const float* feats, const float* first, const float* hs, const float* h_first,
                           const float* Wh, const float* scale, const float* bias, const float* g,
                           const float* yn, const float* istd, float* dh_first, float* dy, float* dyraw,
-                          float* xh, int T, int B, int F, int H, int units, int smem, void* stream) {
+                          float* xh, int T, int B, int F, int H, int units, int kt, int smem, void* stream) {
   dim3 grid;
   cudaError_t e = launch_bwd<false>(feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw, xh,
-                                    T, B, F, H, units, smem, stream, &grid);
+                                    T, B, F, H, units, kt, smem, stream, &grid);
   return record(kBwd, grid, e);
 }
 
@@ -1046,10 +1566,10 @@ extern "C" int ln_gru_bwd(const float* feats, const float* first, const float* h
 extern "C" int ln_gru_bwd_probe(const float* feats, const float* first, const float* hs, const float* h_first,
                                 const float* Wh, const float* scale, const float* bias, const float* g,
                                 const float* yn, const float* istd, float* dh_first, float* dy, float* dyraw,
-                                float* xh, int T, int B, int F, int H, int units, int smem, void* stream) {
+                                float* xh, int T, int B, int F, int H, int units, int kt, int smem, void* stream) {
   dim3 grid;
   cudaError_t e = launch_bwd<true>(feats, first, hs, h_first, Wh, scale, bias, g, yn, istd, dh_first, dy, dyraw, xh,
-                                   T, B, F, H, units, smem, stream, &grid);
+                                   T, B, F, H, units, kt, smem, stream, &grid);
   return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
@@ -1064,11 +1584,17 @@ extern "C" int ln_gru_dx(const float* dyraw, const float* wx, float* dx, int M, 
 // rows of blocks of its grid. The caller gives the launch [slots][2][N] floats.
 extern "C" int ln_gru_wgrad_slots(int K) { return (K + WgradLayout::BM - 1) / WgradLayout::BM; }
 
-// part: [ln_gru_wgrad_slots(K)][2][N] floats of scratch.
+// Arrival counters of ln_gru_wgrad for N = 3H output columns: the column
+// tiles of its grid. The caller gives the launch that many zeroed uint32.
+extern "C" int ln_gru_wgrad_tiles(int N) { return (N + WgradLayout::BN - 1) / WgradLayout::BN; }
+
+// part: [ln_gru_wgrad_slots(K)][2][N] floats of scratch; arrivals:
+// [ln_gru_wgrad_tiles(N)] uint32, zero.
 extern "C" int ln_gru_wgrad(const float* xh, const float* dyraw, const float* dy, const float* yn, float* part,
-                            float* dW, float* dscale, float* dbias, int M, int K, int N, void* stream) {
+                            unsigned int* arrivals, float* dW, float* dscale, float* dbias, int M, int K, int N,
+                            void* stream) {
   dim3 grid;
-  const ColumnSums cs{dy, yn, part, dscale, dbias};
+  const ColumnSums cs{dy, yn, part, arrivals, dscale, dbias};
   const cudaError_t e =
       launch_gemm<WgradLayout, Gemm::kWgrad>(xh, K, dyraw, N, dW, N, K, N, M, cs, (cudaStream_t)stream, &grid);
   return record(kWgrad, grid, e);

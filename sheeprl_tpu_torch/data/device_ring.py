@@ -31,6 +31,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import device as device_counters
+
 from .buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from .prefetch import StagedPrefetcher
 
@@ -143,7 +145,10 @@ class DeviceRingPrefetcher:
             data[k] = torch.from_numpy(out).to(self.device)
             self.synced_bytes += out.nbytes
         self.synced_rows += n
-        _scatter_rows(self._ring, data, torch.from_numpy(t_np).to(self.device), torch.from_numpy(e_np).to(self.device))
+        t_idx, e_idx = torch.from_numpy(t_np).to(self.device), torch.from_numpy(e_np).to(self.device)
+        if self.device.type == "cuda":
+            device_counters.record_h2d(*data.values(), t_idx, e_idx)
+        _scatter_rows(self._ring, data, t_idx, e_idx)
 
     def _sample_indices(self, g: int) -> Tuple[np.ndarray, np.ndarray]:
         """The host buffer's index draw (``EnvIndependentReplayBuffer.sample``):
@@ -172,8 +177,10 @@ class DeviceRingPrefetcher:
         self.sync()
         t_idx, env_order = self._sample_indices(g)
         self._last_idx = (t_idx, env_order)
-        return _gather_batch(self._ring, torch.from_numpy(t_idx).to(self.device),
-                             torch.from_numpy(env_order).to(self.device), self._f32_keys())
+        t_dev, e_dev = torch.from_numpy(t_idx).to(self.device), torch.from_numpy(env_order).to(self.device)
+        if self.device.type == "cuda":
+            device_counters.record_h2d(t_dev, e_dev)
+        return _gather_batch(self._ring, t_dev, e_dev, self._f32_keys())
 
     def stage(self, g: int) -> None:
         """Launch the next batch's gather now (nothing at the warmup

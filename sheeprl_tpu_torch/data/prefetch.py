@@ -36,6 +36,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..telemetry import device as device_counters
+
 HostBatch = Dict[str, np.ndarray]
 
 
@@ -105,6 +107,7 @@ class StagedPrefetcher:
                 slot.dev[k].copy_(t, non_blocking=True)
             slot.ready = torch.cuda.Event(enable_timing=True)
             slot.ready.record(self._stream)
+        device_counters.record_h2d(*slot.pinned.values())
         self.copies += 1
         self._last = slot
         return slot

@@ -30,10 +30,10 @@ checkpoint sees a buffer that matches the policy-step counter.
 
 Stats: :meth:`OverlapEngine.maybe_emit` builds an ``overlap`` record of
 the interval since the last one (player and learner stall, queue depth,
-staleness) at most every ``stats_every_s``, returns it and keeps it as
-``last_record``; the DreamerV3 loop prints it at its log cadence. (The JAX
-package's engine also hands it to its telemetry stream, which is not
-ported.)
+staleness) at most every ``stats_every_s``, writes it to the telemetry
+stream (``telem.emit``), returns it and keeps it as ``last_record``; ``take``
+calls it after every drain and ``shutdown`` at the end, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -186,6 +186,7 @@ class OverlapEngine:
         total_steps: int = 0,
         initial_step: int = 0,
         guard: Any = None,
+        telem: Any = None,
     ) -> None:
         self.enabled = bool(enabled)
         self.queue_depth = max(1, int(queue_depth))
@@ -196,6 +197,7 @@ class OverlapEngine:
         self.total_steps = int(total_steps)
         self.initial_step = int(initial_step)
         self.guard = guard
+        self.telem = telem
 
         self._ring = SpscRing(self.queue_depth)
         self._stop = threading.Event()
@@ -223,8 +225,10 @@ class OverlapEngine:
         self.last_record: Optional[Dict[str, Any]] = None
 
     @classmethod
-    def setup(cls, cfg: Any, guard: Any = None, *, total_steps: int, initial_step: int = 0) -> "OverlapEngine":
+    def setup(cls, cfg: Any, telem: Any = None, guard: Any = None, *, total_steps: int,
+              initial_step: int = 0) -> "OverlapEngine":
         return cls(
+            telem=telem,
             enabled=bool(cfg.algo.overlap.enabled),
             queue_depth=int(cfg.algo.overlap.queue_depth),
             staleness_bound=int(cfg.algo.overlap.staleness_bound),  # 0 is a legal bound
@@ -333,6 +337,7 @@ class OverlapEngine:
             self._learner_stall_s += stalled
         for pkt in out:
             self.acked_steps += pkt.env_steps
+        self.maybe_emit()
         return out
 
     def _raise_player_exc(self) -> None:
@@ -349,9 +354,10 @@ class OverlapEngine:
         self._pub_seq = self._burst_seq
 
     # -- stats -------------------------------------------------------------
-    def maybe_emit(self, force: bool = False) -> Optional[Dict[str, Any]]:
+    def maybe_emit(self, force: bool = False, final: bool = False) -> Optional[Dict[str, Any]]:
         """The ``overlap`` record of the interval since the last one, once
-        ``stats_every_s`` have passed (at once with ``force``), else None."""
+        ``stats_every_s`` have passed (at once with ``force``), else None;
+        ``final`` marks the run's last record (from ``shutdown``)."""
         if not self.enabled:
             return None
         now = time.perf_counter()
@@ -381,8 +387,13 @@ class OverlapEngine:
             "learner_stall_frac": lstall / elapsed if elapsed > 0 else 0.0,
             "staleness_max": int(stale_max),
             "interval_s": elapsed,
+            "staleness_seen_max": int(self.staleness_seen_max),
         }
+        if final:
+            rec["final"] = True
         self.last_record = rec
+        if self.telem is not None:
+            self.telem.emit(rec)
         return rec
 
     # -- shutdown ----------------------------------------------------------
@@ -410,7 +421,7 @@ class OverlapEngine:
             if absorb is not None:
                 absorb(item)
                 drained += item.env_steps
-        self.maybe_emit(force=True)
+        self.maybe_emit(force=True, final=True)
         if self._player_exc is not None and not self._exc_raised:
             self._raise_player_exc()
         return drained

@@ -14,8 +14,10 @@ their design and bound):
 * ``ln_gru_xproj`` — ``Gx = x·W_x`` for all T·B rows, outside the time loop,
   on the tensor cores in 3xTF32 (f32 accuracy from three TF32 products);
 * ``ln_gru_fwd``   — the recurrence on thread-block clusters, each CTA with
-  its slice of ``W_h`` resident in shared memory; saves ``yn`` and ``istd``
-  (together with ``ln_gru_xproj`` it replaces ``_pallas_forward``);
+  its slice of ``W_h`` resident in shared memory (the resident instance) or
+  streamed through it every step (the streamed instance, for wider H); saves
+  ``yn`` and ``istd`` (together with ``ln_gru_xproj`` it replaces
+  ``_pallas_forward``);
 * ``ln_gru_bwd``   — the reverse sweep on the same clusters, from the saved
   ``yn`` (no recompute);
 * ``ln_gru_dx``    — ``dfeats = dy_raw·W_xᵀ`` for all T·B rows after it, in
@@ -35,14 +37,22 @@ CPU tests.
 shared library is built with ``nvcc`` at first use, into ``csrc/build/``
 keyed by a hash of the source.
 
-The recurrent kernels take H when it splits into at most 16 CTAs of 8, 16
-or 32 hidden units each (H <= 512: DreamerV3-XS and S, not M or L) and a
-CTA's shared memory fits (``fits_smem``); F must be a multiple of 4, and
+The recurrent kernels come in two instances (``launch_layout``):
+
+* resident — H splits into at most 16 CTAs of 4, 8, 16 or 32 hidden units
+  (``cluster_split``) and a CTA's W_h slice fits its shared memory: H <= 512,
+  DreamerV3-XS and S;
+* streamed — otherwise, when H splits into 16 CTAs of a multiple of 8 units,
+  at most 256 (``stream_split``): a CTA streams its W_h slice through a ring
+  of ``STREAM_STAGES`` k-tiles each step. DreamerV3-M, L and XL (H = 1024,
+  2048, 4096) take it.
+
+Any other H is refused (``fits_smem``); so is F not a multiple of 4, and
 the GEMMs copy rows as 16-byte chunks (F, F+H and 3H multiples of 4, data
 pointers 16-byte aligned). A cluster takes ``ROWS_PER_CLUSTER`` batch rows.
 This module holds the recurrent kernels' layout: ``build`` passes it to
-nvcc, and the wrappers pass each launch its units per CTA and shared-memory
-bytes.
+nvcc, and the wrappers pass each launch its units per CTA, tile rows and
+shared-memory bytes.
 """
 from __future__ import annotations
 
@@ -52,8 +62,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -63,6 +74,8 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use (232,
 ROWS_PER_CLUSTER = 4  # batch rows of one cluster (LN_GRU_ROWS)
 _WARPS = 8  # warps of one CTA (LN_GRU_THREADS / 32)
 _MAX_CLUSTER = 16  # CTAs of the largest (non-portable) cluster on Hopper (LN_GRU_MAX_CLUSTER)
+STREAM_STAGES = 4  # k-tiles of the streamed instance's W_h ring (LN_GRU_STREAM_STAGES)
+_STREAM_TILE = 2048  # a streamed k-tile holds at most this many rows x units (a stage near 24 KB)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "ln_gru.cu"
 BUILD_DIR = _CSRC / "build"
@@ -70,6 +83,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DLN_GRU_ROWS={ROWS_PER_CLUSTER}", f"-DLN_GRU_THREADS={32 * _WARPS}", f"-DLN_GRU_MAX_CLUSTER={_MAX_CLUSTER}",
+    f"-DLN_GRU_STREAM_STAGES={STREAM_STAGES}", f"-DLN_GRU_STREAM_TILE={_STREAM_TILE}",
 )
 
 
@@ -91,9 +105,9 @@ def cluster_split(hidden_size: int) -> Optional[Tuple[int, int]]:
     return None
 
 
-def smem_bytes(hidden_size: int) -> Tuple[int, int]:
-    """(forward, backward) shared-memory bytes of one CTA, which each launch
-    requests; (0, 0) when H does not split. The kernels carve their shared
+def _resident_smem(hidden_size: int) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one CTA of the resident
+    instance; (0, 0) when H does not split. The kernels carve their shared
     memory in the order of these sums. Forward: the W_h slice [H, 3·units],
     h_in [H, rows], each warp's partial product [rows, 3·units], every
     CTA's row statistics and the CTA's next h_in [units, rows].
@@ -110,13 +124,76 @@ def smem_bytes(hidden_size: int) -> Tuple[int, int]:
     return 4 * fwd, 4 * bwd
 
 
+def stream_split(hidden_size: int) -> Optional[Tuple[int, int, int]]:
+    """(CTAs of a cluster, hidden units of a CTA, rows of a W_h k-tile) of
+    the streamed instance: 16 CTAs of H / 16 units, a multiple of 8 (whole
+    16-byte chunks of each gate's columns) and at most one a thread of the
+    forward's product (256); tiles of the largest power of two from 8 to 64
+    rows with rows x units <= 2048 — 16 x 64 x 32 at DreamerV3-M, 16 x 128 x
+    16 at L, 16 x 256 x 8 at XL — or None."""
+    H = int(hidden_size)
+    units = H // _MAX_CLUSTER
+    if H % (8 * _MAX_CLUSTER) or not 0 < units <= 32 * _WARPS:
+        return None
+    kt = 64
+    while kt > 8 and kt * units > _STREAM_TILE:
+        kt //= 2
+    return _MAX_CLUSTER, units, kt
+
+
+def _streamed_smem(hidden_size: int) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one CTA of the streamed
+    instance, in the order the kernels carve them; (0, 0) when H does not
+    split. Both: the ring of STREAM_STAGES tiles [kt, 3·units + 256 / kt]
+    (rows padded so that the backward's lanes hit distinct banks). Forward:
+    h_in [H, rows], the k-groups' partial products [256 / units, rows,
+    3·units], every CTA's row statistics, the CTA's next h_in [units, rows],
+    the row sums' shares [rows, units] and the CTA's row means. Backward: the
+    reduce-scatter receive buffer [CTAs, units, rows], dy_raw [3·units,
+    rows], every CTA's row sums and their shares [rows, units, 2]."""
+    split = stream_split(hidden_size)
+    if split is None:
+        return 0, 0
+    nc, units, kt = split
+    H, ncol, R, threads = int(hidden_size), 3 * units, ROWS_PER_CLUSTER, 32 * _WARPS
+    ring = STREAM_STAGES * kt * (ncol + threads // kt)
+    fwd = ring + H * R + (threads // units) * R * ncol + nc * R * 2 + units * R + R * units + R
+    bwd = ring + nc * units * R + ncol * R + nc * R * 2 + 2 * R * units
+    return 4 * fwd, 4 * bwd
+
+
+def launch_layout(hidden_size: int) -> Optional[Tuple[str, int, int, int, Tuple[int, int]]]:
+    """(instance, CTAs of a cluster, units of a CTA, W_h tile rows, (forward,
+    backward) shared-memory bytes) of the recurrent kernels at this H, or
+    None where neither instance takes it. The resident instance takes H when
+    ``cluster_split`` splits it and its slice fits 227 KB (H <= 512,
+    DreamerV3-XS and S; its tile rows are 0: no ring); the streamed instance
+    takes the H the resident one does not, when ``stream_split`` splits it
+    and its ring and buffers fit (DreamerV3-M, L and XL)."""
+    split, smem = cluster_split(hidden_size), _resident_smem(hidden_size)
+    if split is not None and max(smem) <= _SMEM_LIMIT:
+        return "resident", split[0], split[1], 0, smem
+    split, smem = stream_split(hidden_size), _streamed_smem(hidden_size)
+    if split is not None and max(smem) <= _SMEM_LIMIT:
+        return "streamed", split[0], split[1], split[2], smem
+    return None
+
+
+def smem_bytes(hidden_size: int) -> Tuple[int, int]:
+    """(forward, backward) shared-memory bytes of one CTA that each launch
+    requests, for the instance that takes H (``launch_layout``); (0, 0) when
+    neither does."""
+    layout = launch_layout(hidden_size)
+    return layout[4] if layout is not None else (0, 0)
+
+
 def fits_smem(in_features: int, hidden_size: int) -> bool:
-    """Whether the kernels take this shape: H splits into whole CTA slices of
-    a cluster of at most 16 (``cluster_split``), each CTA's W_h slice and
-    buffers fit its shared memory (227 KB), and F is a multiple of 4 (the
+    """Whether the kernels take this shape: one of the two instances takes
+    H (``launch_layout``: the resident one at most 16 CTAs of 4 to 32 units
+    with the W_h slice in shared memory, the streamed one 16 CTAs of a
+    multiple of 8 units, at most 256), and F is a multiple of 4 (the
     backward copies x into the weight-gradient rows as float4)."""
-    fwd, bwd = smem_bytes(hidden_size)
-    return in_features % 4 == 0 and 0 < max(fwd, bwd) <= _SMEM_LIMIT
+    return in_features % 4 == 0 and launch_layout(hidden_size) is not None
 
 
 # --------------------------------------------------------------------------
@@ -293,23 +370,43 @@ def _cta_layout(H: int, n_cta: int) -> Tuple[List[slice], List[torch.Tensor]]:
     return J, cols
 
 
-def forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta: int):
+def _in_order(parts):
+    """The sum of ``parts`` added left to right."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _phases(n: int, stride: int, period: int) -> List[torch.Tensor]:
+    """The indices i < n with i % period % stride == p, for each phase p of
+    ``stride``: a streamed kernel's k-groups (the rows kk = p, p + stride, ...
+    of every tile of ``period`` rows) or its column phases."""
+    i = torch.arange(n)
+    return [i[(i % period) % stride == p] for p in range(min(stride, period))]
+
+
+def forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta: int, kt: int = 0):
     """``ln_gru_xproj`` + ``ln_gru_fwd`` as the kernels compute them, with
     ``n_cta`` CTAs a cluster: Gx outside the loop; each CTA's y_raw on its
     gate columns from its W_h slice; per-CTA (mean, M2) combined by Chan's
     formula in CTA order; the gates of the CTA's units; Gx in 3xTF32
-    (``matmul_3xtf32``). ``h_first`` is [B, H]; returns (hs, yn, istd) like
-    ``forward_plain``."""
+    (``matmul_3xtf32``). ``kt`` > 0 is the streamed instance with W_h tiles
+    of ``kt`` rows: each CTA's product is the sum, in group order, of its
+    k-groups' partials (group g takes the rows kk = g, g + KS, ... of every
+    tile, KS = 256 / units); 0 is the resident instance. ``h_first`` is
+    [B, H]; returns (hs, yn, istd) like ``forward_plain``."""
     T, B, F = feats.shape
     H = w.shape[1] // 3
     ncol = 3 * H // n_cta
     J, cols = _cta_layout(H, n_cta)
     gx = matmul_3xtf32(feats.reshape(T * B, F), w[:F]).reshape(T, B, 3 * H)
     slices = [w[F:][:, col] for col in cols]
+    groups = _phases(H, (32 * _WARPS) // (H // n_cta), kt) if kt else [torch.arange(H)]
     hs, yns, istds = [], [], []
     h_in = first[0] * h_first
     for t in range(T):
-        y = [gx[t][:, col] + h_in @ wc for col, wc in zip(cols, slices)]
+        y = [gx[t][:, col] + _in_order([h_in[:, k] @ wc[k] for k in groups]) for col, wc in zip(cols, slices)]
         m, m2 = y[0].new_zeros(B), y[0].new_zeros(B)
         for q, yc in enumerate(y):  # Chan's formula, CTA order
             mq = yc.mean(-1)
@@ -331,20 +428,25 @@ def forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta: int):
     return torch.stack(hs), torch.stack(yns), torch.stack(istds)
 
 
-def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta: int):
+def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta: int, kt: int = 0):
     """``ln_gru_bwd`` + ``ln_gru_dx`` + ``ln_gru_wgrad`` as the kernels
     compute them, with ``n_cta`` CTAs a cluster: each CTA's cell backward
     from the saved yn on its units; the LN-backward row sums added over the
     CTAs in order; each CTA's partial dh_in = dy_raw[:, cols_c]·W_h[:, cols_c]ᵀ
     over all H units; the reduce-scatter that adds the partials of J_d in
     CTA order; dfeats and the weight gradient after the loop, in 3xTF32
-    (``wgrad_3xtf32`` with two slots: the kernel has one for each 128 rows
-    of dW). ``h_first`` is [B, H]. Returns (dfeats, dh_first [B, H], dW,
+    (``wgrad_3xtf32`` with one slot for each 128 rows of dW, as the kernel
+    has). ``kt`` > 0 is the streamed instance with W_h tiles of ``kt`` rows:
+    a unit's partial is the sum over its CS = 256 / kt lanes, each of which
+    adds the columns c = s, s + CS, ... of the CTA's; 0 is the resident
+    instance. ``h_first`` is [B, H]. Returns (dfeats, dh_first [B, H], dW,
     dscale, dbias)."""
     T, B, F = feats.shape
     H = w.shape[1] // 3
     J, cols = _cta_layout(H, n_cta)
     slices = [w[F:][:, col] for col in cols]
+    ncol = 3 * H // n_cta
+    phases = _phases(ncol, (32 * _WARPS) // kt, ncol) if kt else [torch.arange(ncol)]
     dy_s = feats.new_empty(T, B, 3 * H)
     dyr_s = torch.empty_like(dy_s)
     xh_s = feats.new_empty(T, B, F + H)
@@ -369,7 +471,7 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
         for col, dync, wc in zip(cols, dyn, slices):
             dyr_c = istd[t][:, None] * (dync - m1[:, None] - yn[t][:, col] * m2[:, None])
             dyr_s[t][:, col] = dyr_c
-            partial.append(dyr_c @ wc.t())  # [B, H]: this CTA's share of every unit
+            partial.append(_in_order([dyr_c[:, c] @ wc[:, c].t() for c in phases]))  # [B, H]: this CTA's share
         dh_in = torch.empty_like(dh)
         for j in J:  # reduce-scatter: CTA d adds the partials of J_d in CTA order
             s = partial[0][:, j]
@@ -382,7 +484,7 @@ def backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, 
     M = T * B
     dfeats = matmul_3xtf32(dyr_s.reshape(M, 3 * H), w[:F].t()).reshape(T, B, F)
     dw, dscale, dbias = wgrad_3xtf32(xh_s.reshape(M, -1), dyr_s.reshape(M, -1), dy_s.reshape(M, -1),
-                                     yn.reshape(M, -1), slots=2)
+                                     yn.reshape(M, -1), slots=-(-(F + H) // 128))
     return dfeats, dh_first, dw, dscale, dbias
 
 
@@ -418,13 +520,19 @@ def build(force: bool = False) -> Tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
     log.write_text(text)
     os.replace(tmp, lib)
+    build.builds += 1
+    build.seconds += time.perf_counter() - t0
     return lib, text
+
+
+build.builds, build.seconds = 0, 0.0  # the compiles this process ran, and their seconds
 
 
 def _lib() -> ctypes.CDLL:
@@ -434,15 +542,16 @@ def _lib() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             lib.ln_gru_xproj.argtypes = [_P] * 3 + [_I] * 3 + [_P]
-            lib.ln_gru_fwd.argtypes = lib.ln_gru_fwd_probe.argtypes = [_P] * 9 + [_I] * 5 + [_P]
-            lib.ln_gru_bwd.argtypes = lib.ln_gru_bwd_probe.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+            lib.ln_gru_fwd.argtypes = lib.ln_gru_fwd_probe.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+            lib.ln_gru_bwd.argtypes = lib.ln_gru_bwd_probe.argtypes = [_P] * 14 + [_I] * 7 + [_P]
             lib.ln_gru_dx.argtypes = [_P] * 3 + [_I] * 3 + [_P]
-            lib.ln_gru_wgrad.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-            lib.ln_gru_wgrad_slots.argtypes = [_I]
-            lib.ln_gru_wgrad_slots.restype = _I
+            lib.ln_gru_wgrad.argtypes = [_P] * 9 + [_I] * 3 + [_P]
+            for name in ("wgrad_slots", "wgrad_tiles"):
+                getattr(lib, f"ln_gru_{name}").argtypes = [_I]
+                getattr(lib, f"ln_gru_{name}").restype = _I
             for name in ("xproj", "fwd", "fwd_probe", "bwd", "bwd_probe", "dx", "wgrad"):
                 getattr(lib, f"ln_gru_{name}").restype = _I
-            lib.ln_gru_max_active_clusters.argtypes = [_I] * 4
+            lib.ln_gru_max_active_clusters.argtypes = [_I] * 5
             lib.ln_gru_max_active_clusters.restype = _I
             lib.ln_gru_last_blocks.argtypes = [_I]
             lib.ln_gru_last_blocks.restype = _I
@@ -459,17 +568,16 @@ def _error(code: int) -> str:
 def cluster_capacity(hidden_size: int, device: Optional[torch.device] = None) -> Tuple[int, int]:
     """How many clusters of ``ln_gru_fwd`` and of ``ln_gru_bwd`` the card can
     hold at once at this H (``cudaOccupancyMaxActiveClusters``, with the
-    kernels' shared memory and cluster size); raises if the card cannot
-    tell. The launch needs ceil(B / ROWS_PER_CLUSTER) clusters; fewer than
-    that run in turns, none is refused."""
+    instance's kernels, shared memory and cluster size); raises if the card
+    cannot tell. The launch needs ceil(B / ROWS_PER_CLUSTER) clusters; fewer
+    than that run in turns, none is refused."""
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     key = (dev.index if dev.index is not None else torch.cuda.current_device(), int(hidden_size))
     if key not in _CAPACITY:
         lib = _lib()
-        units = cluster_split(key[1])[1]
+        _, _, units, kt, smem = launch_layout(key[1])
         with torch.cuda.device(key[0]):
-            got = tuple(lib.ln_gru_max_active_clusters(which, key[1], units, smem)
-                        for which, smem in enumerate(smem_bytes(key[1])))
+            got = tuple(lib.ln_gru_max_active_clusters(which, key[1], units, kt, n) for which, n in enumerate(smem))
         for name, n in zip(("ln_gru_fwd", "ln_gru_bwd"), got):
             if n < 0:
                 raise RuntimeError(f"{name}: the cluster occupancy query failed: {_error(-n)}")
@@ -477,23 +585,27 @@ def cluster_capacity(hidden_size: int, device: Optional[torch.device] = None) ->
     return _CAPACITY[key]
 
 
-def _require_clusters(name: str, device: torch.device, hidden_size: int) -> Tuple[int, Tuple[int, int]]:
+FIT_RULE = ("H must split into at most 16 CTAs of 4, 8, 16 or 32 units whose W_h slice fits shared memory "
+            "(H <= 512), or into 16 CTAs of a multiple of 8 units, at most 256, that stream it (H = 128·m <= "
+            "4096)")
+
+
+def _require_clusters(name: str, device: torch.device, hidden_size: int) -> Tuple[int, int, Tuple[int, int]]:
     """Raise unless the kernels take this H and the card holds at least one
     of their clusters: a CUDA tensor never takes the plain path. Returns the
-    launch's units per CTA and (forward, backward) shared-memory bytes."""
-    if not 0 < max(smem_bytes(hidden_size)) <= _SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: H={hidden_size} is not a shape the kernels take (H must split into at most 16 CTAs "
-            "of 8, 16 or 32 units whose W_h slice fits shared memory)"
-        )
+    launch's units per CTA, W_h tile rows (0: resident) and (forward,
+    backward) shared-memory bytes."""
+    layout = launch_layout(hidden_size)
+    if layout is None:
+        raise ValueError(f"{name}: H={hidden_size} is not a shape the kernels take ({FIT_RULE})")
+    instance, nc, units, kt, smem = layout
     fwd, bwd = cluster_capacity(hidden_size, device)
     if min(fwd, bwd) < 1:
-        nc = cluster_split(hidden_size)[0]
         raise RuntimeError(
-            f"{name}: this card cannot hold one cluster of {nc} CTAs with {max(smem_bytes(hidden_size))} "
-            f"bytes of shared memory each (clusters: forward {fwd}, backward {bwd})"
+            f"{name}: this card cannot hold one {instance} cluster of {nc} CTAs with {max(smem)} bytes of "
+            f"shared memory each (clusters: forward {fwd}, backward {bwd})"
         )
-    return cluster_split(hidden_size)[1], smem_bytes(hidden_size)
+    return units, kt, smem
 
 
 def _check(name: str, device: torch.device, **tensors) -> None:
@@ -539,6 +651,27 @@ def _empty(device, *shape) -> torch.Tensor:
     return torch.empty(*shape, device=device, dtype=torch.float32)
 
 
+# Where each launch reports its operations and f32 bytes (each input read
+# once, each output written once) while a cost count is open
+# (``telemetry.throughput.model_cost``): the work of the train step that
+# PyTorch's dispatcher does not see. Process-wide, not per thread: autograd
+# runs a CUDA backward on a thread of its own.
+_work_sink: Optional[Callable[[int, int], None]] = None
+
+
+def set_work_sink(sink: Optional[Callable[[int, int], None]]) -> None:
+    """Send every launch's (operations, bytes) to ``sink`` until it is set
+    back to None."""
+    global _work_sink
+    _work_sink = sink
+
+
+def _count_work(flops: int, floats: int) -> None:
+    sink = _work_sink
+    if sink is not None:
+        sink(flops, 4 * floats)
+
+
 def ln_gru_xproj(x, wx) -> torch.Tensor:
     """x [M, F], wx [F, N] → Gx = x·wx [M, N] (the input half of the
     forward's product, all rows at once)."""
@@ -551,6 +684,7 @@ def ln_gru_xproj(x, wx) -> torch.Tensor:
     out = _empty(x.device, M, N)
     _launch("ln_gru_xproj", _lib().ln_gru_xproj, x.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
     ln_gru_xproj.launches += 1
+    _count_work(2 * M * F * N, M * F + F * N + M * N)
     return out
 
 
@@ -569,14 +703,15 @@ def ln_gru_fwd(gx, first, h_first, w_h, scale, bias):
         w_h=(w_h, (H, 3 * H)), scale=(scale, (3 * H,)), bias=(bias, (3 * H,)),
     )
     _require_aligned("ln_gru_fwd", w_h=w_h)
-    units, (smem, _) = _require_clusters("ln_gru_fwd", gx.device, H)
+    units, kt, (smem, _) = _require_clusters("ln_gru_fwd", gx.device, H)
     hs, yn, istd = _empty(gx.device, T, B, H), _empty(gx.device, T, B, 3 * H), _empty(gx.device, T, B)
     _launch(
         "ln_gru_fwd", _lib().ln_gru_fwd, gx.data_ptr(), first.data_ptr(), h_first.data_ptr(), w_h.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), hs.data_ptr(), yn.data_ptr(), istd.data_ptr(), T, B, H, units, smem,
-        _stream(),
+        scale.data_ptr(), bias.data_ptr(), hs.data_ptr(), yn.data_ptr(), istd.data_ptr(), T, B, H, units, kt,
+        smem, _stream(),
     )
     ln_gru_fwd.launches += 1
+    _count_work(2 * T * B * H * 3 * H, 2 * T * B * 3 * H + 2 * T * B + B * H + 3 * H * H + 6 * H + T * B * H)
     return hs, yn, istd
 
 
@@ -599,16 +734,19 @@ def ln_gru_bwd(feats, first, hs, h_first, w_h, scale, bias, g, yn, istd):
     if F % 4:
         raise ValueError(f"ln_gru_bwd: F={F} is not a shape the kernel takes (F must be a multiple of 4)")
     _require_aligned("ln_gru_bwd", feats=feats, w_h=w_h)
-    units, (_, smem) = _require_clusters("ln_gru_bwd", feats.device, H)
+    units, kt, (_, smem) = _require_clusters("ln_gru_bwd", feats.device, H)
     dev = feats.device
     dh_first, xh = _empty(dev, B, H), _empty(dev, T, B, F + H)
     dy, dy_raw = _empty(dev, T, B, 3 * H), _empty(dev, T, B, 3 * H)
     _launch(
         "ln_gru_bwd", _lib().ln_gru_bwd, feats.data_ptr(), first.data_ptr(), hs.data_ptr(), h_first.data_ptr(),
         w_h.data_ptr(), scale.data_ptr(), bias.data_ptr(), g.data_ptr(), yn.data_ptr(), istd.data_ptr(),
-        dh_first.data_ptr(), dy.data_ptr(), dy_raw.data_ptr(), xh.data_ptr(), T, B, F, H, units, smem, _stream(),
+        dh_first.data_ptr(), dy.data_ptr(), dy_raw.data_ptr(), xh.data_ptr(), T, B, F, H, units, kt, smem,
+        _stream(),
     )
     ln_gru_bwd.launches += 1
+    _count_work(2 * T * B * H * 3 * H, T * B * (F + 2 * H + 2) + 2 * B * H + 3 * H * H + 6 * H
+                + 3 * T * B * 3 * H + T * B * (F + H))
     return dh_first, dy, dy_raw, xh
 
 
@@ -628,6 +766,7 @@ def ln_gru_dx(dy_raw, wx) -> torch.Tensor:
     out = _empty(dy_raw.device, M, F)
     _launch("ln_gru_dx", _lib().ln_gru_dx, dy_raw.data_ptr(), wx.data_ptr(), out.data_ptr(), M, F, N, _stream())
     ln_gru_dx.launches += 1
+    _count_work(2 * M * N * F, M * N + F * N + M * F)
     return out
 
 
@@ -647,12 +786,17 @@ def ln_gru_wgrad(xh, dy_raw, dy, yn):
     _require_gemm_rows("ln_gru_wgrad", xh=xh, dy_raw=dy_raw, dy=dy, yn=yn)
     lib = _lib()
     dW, dscale, dbias = _empty(xh.device, K, N), _empty(xh.device, N), _empty(xh.device, N)
-    part = _empty(xh.device, lib.ln_gru_wgrad_slots(K), 2, N)  # the column sums' partials
+    # the column sums' scratch, this launch's own: the partial slots and the
+    # column tiles' arrival counters (zero)
+    part = _empty(xh.device, lib.ln_gru_wgrad_slots(K), 2, N)
+    arrivals = torch.zeros(lib.ln_gru_wgrad_tiles(N), device=xh.device, dtype=torch.int32)
     _launch(
         "ln_gru_wgrad", lib.ln_gru_wgrad, xh.data_ptr(), dy_raw.data_ptr(), dy.data_ptr(), yn.data_ptr(),
-        part.data_ptr(), dW.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), M, K, N, _stream(),
+        part.data_ptr(), arrivals.data_ptr(), dW.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), M, K, N,
+        _stream(),
     )
     ln_gru_wgrad.launches += 1
+    _count_work(2 * M * K * N + 3 * M * N, M * K + 3 * M * N + K * N + 2 * N)
     return dW, dscale, dbias
 
 

@@ -8,21 +8,19 @@ the atomic tmp → fsync → rename write. In-flight writes are bounded
 (``max_in_flight``): when the writer falls behind, ``save`` blocks for a
 slot instead of queueing unbounded host copies.
 
-Every save makes a ``ckpt_async`` record: ``snapshot_ms`` (the snapshot
+Every save makes a ``ckpt_async`` event on the telemetry stream
+(``telem.emit``, as in the JAX package): ``snapshot_ms`` (the snapshot
 alone) and ``block_ms`` (the learner's whole wait) when it is enqueued,
-``write_ms`` and ``bytes`` when it lands. The records print to stdout as
-``[ckpt_async] {json}`` (the JAX package sends them to its telemetry stream,
-which is not ported).
+``write_ms`` and ``bytes`` when it lands.
 """
 from __future__ import annotations
 
-import json
 import os
 import queue
 import sys
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from ..utils.checkpoint import CheckpointManager
 
@@ -37,8 +35,10 @@ class AsyncCheckpointWriter:
         max_in_flight: int = 1,
         on_write: Optional[Callable[[int, str], None]] = None,
         sync: bool = False,
+        telem: Any = None,
     ):
         self.manager = manager
+        self.telem = telem
         self.on_write = on_write
         self.sync = bool(sync)
         self.last_saved_step: Optional[int] = None  # last step handed to save()
@@ -56,9 +56,9 @@ class AsyncCheckpointWriter:
     def list_checkpoints(self):
         return self.manager.list_checkpoints()
 
-    @staticmethod
-    def _emit(rec: Dict[str, Any]) -> None:
-        print(f"[ckpt_async] {json.dumps(rec)}", flush=True)
+    def _emit(self, rec: Dict[str, Any]) -> None:
+        if self.telem is not None:
+            self.telem.emit(rec)
 
     def save(self, step: int, state: Dict[str, Any]) -> Optional[str]:
         """Snapshot ``state`` to the host and schedule the durable write.

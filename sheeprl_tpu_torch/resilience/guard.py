@@ -8,7 +8,10 @@ It owns, behind ``setup`` / ``stop_reached`` / ``close``:
   the final-checkpoint-within-grace drain,
 * the ``AsyncCheckpointWriter`` over the loop's ``CheckpointManager``
   (``guard.ckpt``, a drop-in for the manager), and
-* the resume manifest refresh after every successful write.
+* the resume manifest refresh after every successful write,
+
+and writes the ``resume`` and ``preempt`` events to the telemetry stream
+(``telem.emit``) where the JAX package's does.
 
 The heartbeat watchdog waits for a later slice: ``resilience.watchdog.enabled=True``
 raises.
@@ -39,15 +42,22 @@ class RunGuard:
         ckpt: AsyncCheckpointWriter,
         wall: WallClockStopper,
         preempt: Optional[PreemptionGuard] = None,
+        telem: Any = None,
     ):
         self.cfg = cfg
         self.ckpt = ckpt
         self.wall = wall
         self.preempt = preempt
+        self.telem = telem
+        self._preempt_logged = False
         self._closed = False
 
+    def _emit(self, rec: Dict[str, Any]) -> None:
+        if self.telem is not None:
+            self.telem.emit(rec)
+
     @classmethod
-    def setup(cls, cfg: Any, ckpt_manager: Any, log_dir: Optional[str] = None) -> "RunGuard":
+    def setup(cls, cfg: Any, ckpt_manager: Any, log_dir: Optional[str] = None, telem: Any = None) -> "RunGuard":
         sel = cfg.select
         if bool(sel("resilience.watchdog.enabled", False)):
             raise NotImplementedError("resilience.watchdog.enabled=True: the heartbeat watchdog is not ported yet")
@@ -61,6 +71,7 @@ class RunGuard:
             max_in_flight=int(sel("resilience.async_checkpoint.max_in_flight", 1) or 1),
             on_write=on_write,
             sync=not bool(sel("resilience.async_checkpoint.enabled", True)),
+            telem=telem,
         )
         preempt: Optional[PreemptionGuard] = None
         if bool(sel("resilience.preemption.enabled", True)):
@@ -79,7 +90,10 @@ class RunGuard:
                 poller=poller,
                 poll_every_s=float(sel("resilience.preemption.poll_every_s", 5.0)),
             ).install()
-        return cls(cfg, writer, WallClockStopper(cfg), preempt)
+        guard = cls(cfg, writer, WallClockStopper(cfg), preempt, telem)
+        if sel("checkpoint.resume_from"):
+            guard._emit({"event": "resume", "step": 0, "checkpoint": str(sel("checkpoint.resume_from"))})
+        return guard
 
     @property
     def preempted(self) -> bool:
@@ -96,6 +110,10 @@ class RunGuard:
         (preemption requested or the wall budget spent), after writing the
         final checkpoint when ``save``."""
         if self.preempt is not None and self.preempt.poll():
+            if not self._preempt_logged:
+                self._preempt_logged = True
+                self._emit({"event": "preempt", "step": int(policy_step), "action": "requested",
+                            "signal": str(self.preempt.signal_name), "grace_s": self.preempt.grace_s})
             if save and state_fn is not None:
                 self._final_save(policy_step, state_fn)
             return True
@@ -116,7 +134,9 @@ class RunGuard:
             print(f"[resilience] final preemption checkpoint failed: {err}", file=sys.stderr)
             return
         deadline = self.preempt.deadline_remaining() if self.preempt else float("inf")
-        self.ckpt.flush(timeout=None if deadline == float("inf") else max(1.0, deadline))
+        landed = self.ckpt.flush(timeout=None if deadline == float("inf") else max(1.0, deadline))
+        self._emit({"event": "preempt", "step": int(policy_step),
+                    "action": "checkpointed" if landed else "flush_timeout"})
 
     def wait(self, q: "queue.Queue", poll_s: float = 0.5) -> Any:
         """``q.get()`` that wakes up on preemption: returns the item, or None

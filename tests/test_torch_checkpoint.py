@@ -157,11 +157,20 @@ def test_snapshot_is_not_changed_by_a_later_burst():
     assert torch.equal(snap["opt"]["state"][0]["exp_avg"], frozen_exp_avg)
 
 
-def test_async_writer_writes_the_state_at_save_time(tmp_path, capsys):
-    import json
+class _Events:
+    """A telemetry stand-in that keeps what it is given."""
 
+    def __init__(self):
+        self.events = []
+
+    def emit(self, rec):
+        self.events.append(rec)
+
+
+def test_async_writer_writes_the_state_at_save_time(tmp_path):
     w = torch.zeros(64, 64)
-    writer = AsyncCheckpointWriter(CheckpointManager(str(tmp_path)))
+    telem = _Events()
+    writer = AsyncCheckpointWriter(CheckpointManager(str(tmp_path)), telem=telem)
     writer.save(3, {"w": w, "moments": (w[0], w[1]), "groups": [{"betas": (0.9, 0.999)}]})
     w.add_(1.0)  # the next burst starts at once
     assert writer.flush(timeout=30)
@@ -169,8 +178,8 @@ def test_async_writer_writes_the_state_at_save_time(tmp_path, capsys):
     loaded = CheckpointManager.load(tmp_path / "checkpoint" / "ckpt_3.ckpt")
     assert float(loaded["w"].abs().max()) == 0.0 and float(loaded["moments"][1].abs().max()) == 0.0
     assert loaded["groups"] == [{"betas": (0.9, 0.999)}]
-    lines = [json.loads(l[len("[ckpt_async] "):]) for l in capsys.readouterr().out.splitlines()]
-    assert [r["action"] for r in lines] == ["enqueued", "written"]
+    lines = telem.events
+    assert [(r["event"], r["action"]) for r in lines] == [("ckpt_async", "enqueued"), ("ckpt_async", "written")]
     assert lines[1]["bytes"] > 64 * 64 * 4 and lines[1]["write_ms"] >= 0 and lines[0]["snapshot_ms"] >= 0
 
 

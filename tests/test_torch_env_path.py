@@ -263,7 +263,8 @@ def test_cli_dry_run_of_the_presets(tmp_path, exp):
     assert sorted(p.name for p in (run_dir / "memmap_buffer" / "rank_0").iterdir()) == ["env_0", "env_1"]
     if exp == "dreamer_v3_dmc_walker_walk":
         assert cfg["fabric"]["precision"] == "bf16-mixed" and cfg["env"]["action_repeat"] == 2
-        assert "[dreamer_v3] policy_step=8" in proc.stdout
+        stream = (run_dir / "telemetry.jsonl").read_text().splitlines()
+        assert any(r["event"] == "log" and r["step"] == 8 for r in map(json.loads, stream))
 
 
 def test_cli_trains_through_env_crashes_on_the_ring(tmp_path):

@@ -81,22 +81,37 @@ def test_gradient_parity_with_jax_kernel():
 
 
 def test_fits_smem_guard():
-    """The cluster rule: H splits into at most 16 CTAs of 8, 16 or 32 units,
-    each CTA's W_h slice and buffers fit 227 KB of shared memory, and F is a
-    multiple of 4."""
+    """The fit rule of the two instances: the resident one takes H that
+    splits into at most 16 CTAs of 4, 8, 16 or 32 units whose W_h slice and
+    buffers fit 227 KB (DreamerV3-XS and S, the presets the JAX kernel
+    takes); the streamed one takes H that splits into 16 CTAs of a multiple
+    of 8 units, at most 256 (DreamerV3-M, L and XL, which the JAX kernel's
+    VMEM budget refuses); F is a multiple of 4. Any other H is refused."""
     assert ln_gru.cluster_split(512) == (16, 32)  # DreamerV3-S: 16 CTAs x 32 units
     assert ln_gru.cluster_split(256) == (16, 16)  # XS
     assert ln_gru.cluster_split(8) == (1, 8)  # a warp covers 8 units x 4 rows
     assert ln_gru.smem_bytes(512) == (218112, 208896)  # what a DreamerV3-S launch requests
     assert f"-DLN_GRU_ROWS={ln_gru.ROWS_PER_CLUSTER}" in ln_gru.NVCC_FLAGS  # the build takes this layout
+    assert f"-DLN_GRU_STREAM_STAGES={ln_gru.STREAM_STAGES}" in ln_gru.NVCC_FLAGS
     for F, H in ((256, 256), (512, 512)):  # the presets the JAX kernel takes
         assert pg.fits_vmem(F, H) and ln_gru.fits_smem(F, H)
-    assert not ln_gru.fits_smem(640, 1024)  # M: 32 units a CTA would need 32 CTAs
-    assert not ln_gru.fits_smem(768, 2048)  # L
-    assert not ln_gru.fits_smem(1024, 4096)  # XL
+        assert ln_gru.launch_layout(H)[0] == "resident"
+    # M, L, XL: 16 CTAs of H/16 units, W_h tiles of 32, 16, 8 rows; what each launch requests
+    streamed = {(640, 1024): (64, 32, (133648, 124416)), (768, 2048): (128, 16, (152080, 145920)),
+                (1024, 4096): (256, 8, (188944, 188928))}
+    for (F, H), (units, kt, smem) in streamed.items():
+        assert not pg.fits_vmem(F, H)  # the JAX package prints UNUSED and runs its scan there
+        assert ln_gru.fits_smem(F, H)
+        assert ln_gru.launch_layout(H) == ("streamed", 16, units, kt, smem)
+        assert ln_gru.smem_bytes(H) == smem and max(smem) <= 227 * 1024
+    assert ln_gru.launch_layout(640) == ("streamed", 16, 40, 32, (89104, 79488))  # 40 units: uneven k-groups
+    assert not ln_gru.fits_smem(640, 520)  # 16 slices of 32.5 units
+    assert not ln_gru.fits_smem(640, 1040)  # 16 slices of 65 units, not a multiple of 8
+    assert not ln_gru.fits_smem(640, 8192)  # 512 units a CTA: more than one a thread
     assert not ln_gru.fits_smem(512, 510)  # no whole slices
     assert not ln_gru.fits_smem(12, 12)
     assert not ln_gru.fits_smem(510, 512)  # x is copied as float4
+    assert not ln_gru.fits_smem(642, 1024)
 
 
 def test_transposed_weight_view_matches_contiguous():
@@ -279,3 +294,71 @@ def test_hfirst_1d_gradient_is_reduced_by_the_backward():
     tb = _torch(args, grad=(2,))
     (ln_gru.gru_sequence(tb[0], tb[1], tb[2].expand(B, H), *tb[3:]) * cot).sum().backward()
     np.testing.assert_allclose(raw[2].detach().numpy(), tb[2].grad.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# the streamed instance at the DreamerV3-M widths (F=640, H=1024: 16 CTAs of
+# 64 units, W_h tiles of 32 rows, 4 k-groups) and at H=640 (40 units: 6
+# k-groups that do not split a tile evenly); T and B cut to 3 and 2.
+# Tolerance: 2e-5 for hidden states and 1e-4 for gradients, rtol and atol
+# (f32 sums over F+H = 1664 terms in other orders than XLA's)
+STREAMED = {"M": (3, 2, 640, 1024), "units_40": (3, 2, 64, 640)}
+STREAMED_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _streamed_inputs(shape, seed):
+    T_, B_, F_, H_ = shape
+    rng = np.random.default_rng(seed)
+    first = np.zeros((T_, B_, 1), np.float32)
+    first[0] = 1.0
+    first[1, 1] = 1.0
+    return (
+        rng.standard_normal((T_, B_, F_)).astype(np.float32),
+        first,
+        (0.5 * rng.standard_normal((B_, H_))).astype(np.float32),
+        (rng.standard_normal((F_ + H_, 3 * H_)) / np.sqrt(F_ + H_)).astype(np.float32),
+        (1.0 + 0.1 * rng.standard_normal(3 * H_)).astype(np.float32),
+        (0.1 * rng.standard_normal(3 * H_)).astype(np.float32),
+        rng.standard_normal((T_, B_, H_)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("width", list(STREAMED), ids=list(STREAMED))
+def test_streamed_emulation_matches_jax(width):
+    """The streamed instance's algorithm (``launch_layout``'s CTAs, units and
+    tile rows; the forward's k-groups added in group order, the backward's
+    column phases, Chan-combined statistics, the reduce-scatter) against the
+    JAX package's ``reference_sequence``: hidden states, and the five
+    gradients of sum(hs · g) through ``jax.grad``."""
+    shape = STREAMED[width]
+    instance, n_cta, _, kt, _ = ln_gru.launch_layout(shape[3])
+    assert instance == "streamed"
+    args = _streamed_inputs(shape, 12)
+    ja = list(map(jnp.asarray, args))
+    ref = np.asarray(pg.reference_sequence(*ja[:6]))
+
+    def loss(feats, hf, w, scale, bias):
+        return jnp.sum(pg.reference_sequence(feats, ja[1], hf, w, scale, bias) * ja[6])
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(ja[0], ja[2], ja[3], ja[4], ja[5])
+    feats, first, h_first, w, scale, bias, g = _torch(args)
+    hs, yn, istd = ln_gru.forward_cluster_emulated(feats, first, h_first, w, scale, bias, n_cta, kt)
+    np.testing.assert_allclose(hs.numpy(), ref, **STREAMED_FWD_TOL)
+    got = ln_gru.backward_cluster_emulated(feats, first, hs, h_first, w, scale, bias, g, yn, istd, n_cta, kt)
+    for name, a, b in zip(("dfeats", "dh_first", "dW", "dscale", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+def test_presets_above_the_resident_limit_take_the_streamed_kernels():
+    """``decoupled_rssm=True pallas_gru=True`` at the M, L and XL presets:
+    the GRU shape the train step checks (recurrent dense units, recurrent
+    state size) is one the kernels take, by the streamed instance, where
+    the JAX package's VMEM rule refuses it."""
+    from sheeprl_tpu_torch.config import compose
+
+    for preset, (F, H) in {"M": (640, 1024), "L": (768, 2048), "XL": (1024, 4096)}.items():
+        cfg = compose("config", ["exp=dreamer_v3", f"algo=dreamer_v3_{preset}", "env=dummy",
+                                 "algo.world_model.decoupled_rssm=True", "algo.world_model.pallas_gru=True"])
+        rm = cfg.algo.world_model.recurrent_model
+        assert (int(rm.dense_units), int(rm.recurrent_state_size)) == (F, H), preset
+        assert ln_gru.fits_smem(F, H) and ln_gru.launch_layout(H)[0] == "streamed", preset
+        assert not pg.fits_vmem(F, H), preset

@@ -50,13 +50,17 @@ def _card_inputs(shape, seed, batched_hfirst):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "shape", [(8, 16, 512, 512), (8, 16, 256, 256), (5, 6, 24, 32)], ids=["S", "XS", "small_partial_cluster"]
+    "shape", [(8, 16, 512, 512), (8, 16, 256, 256), (5, 6, 24, 32), (4, 16, 640, 1024), (3, 6, 64, 640)],
+    ids=["S", "XS", "small_partial_cluster", "M", "streamed_40_units"],
 )
 @pytest.mark.parametrize("batched", [False, True], ids=["hfirst_H", "hfirst_BH"])
 def test_kernels_match_plain_on_card(batched, shape):
-    """All five kernels at the DreamerV3-S and XS GRU widths (the cluster
-    split changes with H: 16 CTAs of 32 or of 16 units), T cut to 8; and at
-    4 CTAs of 8 units with a last cluster that holds 2 of its 4 rows."""
+    """All five kernels at the DreamerV3-S and XS GRU widths (the resident
+    instance; the cluster split changes with H: 16 CTAs of 32 or of 16
+    units), T cut to 8; at 4 CTAs of 8 units with a last cluster that holds
+    2 of its 4 rows; and through the streamed instance at DreamerV3-M (16
+    CTAs of 64 units, T cut to 4) and at 16 CTAs of 40 units (uneven
+    k-groups, a last cluster of 2 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -91,11 +95,12 @@ def test_cuda_tensor_never_takes_the_plain_path():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [1024, 510], ids=["M_width", "no_whole_slices"])
+@pytest.mark.parametrize("H", [1040, 510], ids=["units_not_multiple_of_8", "no_whole_slices"])
 def test_shape_outside_the_cluster_fit_raises_on_card(H):
-    """An H the clusters do not take (more than 16 CTAs of 32 units, or no
-    whole slices) raises on a CUDA tensor, in the wrapper and through
-    gru_sequence; nothing falls back to the plain passes."""
+    """An H neither instance takes (16 CTAs of 65 units, not a multiple of 8,
+    and too wide for the resident one; or no whole slices) raises on a CUDA
+    tensor, in the wrapper and through gru_sequence; nothing falls back to
+    the plain passes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     Tn, Bn, Fn = 2, 8, 64
@@ -110,6 +115,67 @@ def test_shape_outside_the_cluster_fit_raises_on_card(H):
     with pytest.raises(ValueError, match="not a shape the kernels take"):
         ln_gru.gru_sequence(feats, first, hf, w, scale, bias)
     assert ln_gru.ln_gru_fwd.launches == fwd_before
+
+
+# the streamed instance at the DreamerV3-M, L and XL GRU widths, T cut to 3
+STREAMED_SHAPES = {"M": (3, 16, 640, 1024), "L": (3, 16, 768, 2048), "XL": (3, 16, 1024, 4096)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(STREAMED_SHAPES), ids=list(STREAMED_SHAPES))
+def test_streamed_recurrences_match_plain_on_card(width):
+    """``ln_gru_fwd`` and ``ln_gru_bwd`` through the streamed instance (16
+    CTAs of H/16 units, W_h streamed through shared memory) against
+    ``forward_plain`` and ``backward_plain`` on the same inputs, resets in
+    mid-sequence and a [B, H] h_first; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T_, B_, F_, H_ = STREAMED_SHAPES[width]
+    assert ln_gru.launch_layout(H_)[0] == "streamed"
+    inputs = _card_inputs(STREAMED_SHAPES[width], 4, True)
+    feats, first, h_first, w, scale, bias = (torch.from_numpy(a).cuda() for a in inputs)
+    rng = np.random.default_rng(5)
+    cot = torch.from_numpy(rng.standard_normal((T_, B_, H_)).astype(np.float32)).cuda()
+    gx = (feats.reshape(T_ * B_, F_) @ w[:F_]).reshape(T_, B_, 3 * H_)
+    wh = w[F_:]
+    before = ln_gru.ln_gru_fwd.launches, ln_gru.ln_gru_bwd.launches
+    fw = ln_gru.ln_gru_fwd(gx, first, h_first, wh, scale, bias)
+    fw_plain = ln_gru.forward_plain(gx, first, h_first, wh, scale, bias)
+    for a, b in zip(fw, fw_plain):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    hs, yn, istd = fw_plain
+    bw = ln_gru.ln_gru_bwd(feats, first, hs, h_first, wh, scale, bias, cot, yn, istd)
+    bw_plain = ln_gru.backward_plain(feats, first, hs, h_first, wh, scale, bias, cot, yn, istd)
+    torch.cuda.synchronize()
+    for a, b in zip(bw, bw_plain):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    assert (ln_gru.ln_gru_fwd.launches, ln_gru.ln_gru_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_wgrad_launches_on_two_streams_share_no_scratch():
+    """Two ``ln_gru_wgrad`` launches at once on two streams (different
+    inputs, the same shape): each equals ``wgrad_plain`` on its own inputs.
+    Their arrival counters and partial slots are each launch's own scratch.
+    Checked on the second pass, after each stream has allocated once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, F, N = GEMM_SHAPES["S"]
+    cases = [_gemm_case("wgrad", M, F, N, seed=s, K=WGRAD_K["S"]) for s in (31, 32)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(2):
+        outs = []
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)  # both launches queue behind the spin, then run together
+        for (fn, args, _, _, _), st in zip(cases, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(fn(*args))
+        torch.cuda.synchronize()
+    for (_, _, plain, _, _), got in zip(cases, outs):
+        torch.testing.assert_close(got, plain, **GRAD_TOL)
 
 
 # (M, F, N) of the GEMMs: Gx[M, N] = x[M, F]·W_x[F, N], dfeats[M, F] = dy_raw[M, N]·W_xᵀ,
@@ -226,3 +292,31 @@ def test_train_step_refuses_a_shape_the_kernels_do_not_take(device):
         _decoupled_train_fn(device, 6, True)
     assert callable(_decoupled_train_fn(device, 6, "interpret"))
     assert callable(_decoupled_train_fn(device, 8, True))
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_train_step_takes_a_width_above_the_resident_limit(device):
+    """pallas_gru=True with H = 1024 (DreamerV3-M's GRU width, the streamed
+    instance) builds the train step and takes a step: through the plain
+    passes on the host, through all five kernels on the card."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+
+    train = _decoupled_train_fn(device, 1024, True)
+    rng = np.random.default_rng(3)
+    T_, B_ = 4, 2
+    batch = {
+        "rgb": torch.from_numpy(rng.integers(0, 255, (1, T_, B_, 64, 64, 3), np.uint8)),
+        "actions": torch.from_numpy(np.eye(4, dtype=np.float32)[rng.integers(0, 4, (1, T_, B_))]),
+        "rewards": torch.from_numpy(rng.standard_normal((1, T_, B_, 1)).astype(np.float32)),
+        "terminated": torch.zeros(1, T_, B_, 1),
+        "truncated": torch.zeros(1, T_, B_, 1),
+        "is_first": torch.zeros(1, T_, B_, 1),
+    }
+    batch = {k: v.to(device) for k, v in batch.items()}
+    ln_gru.reset_launch_counts()
+    _, metrics = train(init_moments(torch.device(device)), batch, generator=torch.Generator(device).manual_seed(0))
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    counts = [k.launches for k in ln_gru.KERNELS]
+    assert (min(counts) >= 1) if device == "cuda" else (max(counts) == 0), counts

@@ -55,7 +55,9 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
     assert "sheeprl_tpu_torch.ops.ln_gru" in out["imported"]
     assert "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3" in out["imported"]
     for mod in ("engine.overlap", "parallel.placement", "resilience.guard", "resilience.ckpt_async",
-                "resilience.preemption", "resilience.resume", "utils.checkpoint", "utils.metric", "utils.logger"):
+                "resilience.preemption", "resilience.resume", "utils.checkpoint", "utils.metric", "utils.logger",
+                "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
+                "telemetry.device", "telemetry.facade"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked
@@ -89,6 +91,7 @@ def test_port_and_chip_smoke_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 30
     assert PORT / "engine" / "overlap.py" in files and PORT / "resilience" / "guard.py" in files
+    assert PORT / "telemetry" / "facade.py" in files and PORT / "telemetry" / "schema.py" in files
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
 

@@ -20,6 +20,7 @@ overlapped DreamerV3 loop, held against the JAX package.
 Every join and wait has a timeout: a stuck player fails its test.
 """
 import json
+import os
 import threading
 import time
 
@@ -359,7 +360,10 @@ def _ledger(path):
 
 
 def _overlap_records(out):
-    return [json.loads(l[len("[overlap] "):]) for l in out.splitlines() if l.startswith("[overlap] ")]
+    """The run's ``overlap`` events, from its telemetry stream."""
+    _, log_dir = _ckpt(out)
+    with open(os.path.join(log_dir, "telemetry.jsonl")) as fh:
+        return [r for r in map(json.loads, fh) if r["event"] == "overlap"]
 
 
 def test_cli_overlapped_and_serial_ledgers_match(tmp_path, monkeypatch, capsys):

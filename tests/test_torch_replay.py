@@ -3,7 +3,8 @@ sample, checkpoint and resume, ``memmap_fast_resume`` included), the host
 C++ gather, the staged prefetcher and the device ring (on the CPU here), all
 fed from numpy seeds. Batches are compared bit for bit."""
 import copy
-import re
+import json
+import os
 
 import numpy as np
 import pytest
@@ -265,6 +266,8 @@ def test_cli_ring_and_staged_feeds_train_on_the_same_batches(tmp_path, monkeypat
         cli.run(args + [f"buffer.device_cache={feed}", f"run_name=feed_{feed}"])
         out = capsys.readouterr()
         assert ("DeviceRingPrefetcher" if feed == "true" else "StagedPrefetcher") in out.err
-        lines[feed] = [re.sub(r" (sps|elapsed_s)=\S+", "", l)  # the clock's fields differ
-                       for l in out.out.splitlines() if l.startswith("[dreamer_v3] policy_step=")]
-    assert lines["true"] == lines["false"] and "Loss/world_model_loss" in lines["true"][-1]
+        log_dir = next(l.split("=", 1)[1] for l in out.out.splitlines() if l.startswith("[dreamer_v3] log_dir="))
+        with open(os.path.join(log_dir, "telemetry.jsonl")) as fh:  # the log records without the clock's fields
+            lines[feed] = [(r["step"], r["grad_steps"], r["metrics"])
+                           for r in map(json.loads, fh) if r["event"] == "log"]
+    assert lines["true"] == lines["false"] and "Loss/world_model_loss" in lines["true"][-1][2]
