@@ -95,6 +95,32 @@ that fails and then prints no result:
                            a resume from walker_staged's last checkpoint,
                            which references its memmap files
                            (memmap_fast_resume);
+               ppo         exp=ppo on the discrete dummy env (4 envs, the
+                           preset's algorithm settings), the default
+                           overlapped loop in strict on-policy mode, a
+                           mid-run checkpoint and the last one (4,096
+                           policy steps): policy steps/s, update ms, peak
+                           device memory;
+               ppo_serial  the same with algo.overlap.enabled=False: the
+                           same counters and bitwise-equal parameters;
+               ppo_pixels  algo.cnn_keys.encoder=[rgb]: NatureCNN at
+                           64x64x3;
+               ppo_continuous
+                           the continuous dummy env (the Normal heads);
+               a2c, ppo_recurrent
+                           the presets' algorithm settings on the discrete
+                           dummy env (ppo_recurrent at 8 envs: one update
+                           of its 512-step rollout);
+               ppo_resume_cmd
+                           `resume run_dir=<the ppo leg's run>` to a higher
+                           algo.total_steps: it starts from the file's
+                           counters and parameters and reaches its target;
+               ppo_eval    eval checkpoint_path=<the ppo leg's last
+                           checkpoint>: one greedy episode on the card;
+               ppo_watchdog
+                           the ppo leg with the watchdog on (stall_s 600):
+                           no watchdog event, and the ppo leg's end;
+               no on-policy leg launches an LN-GRU kernel;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -125,6 +151,7 @@ one run.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -893,6 +920,10 @@ def phase_feed(torch, dev="cuda", reps=10):
 # random actions, then one gradient step per iteration (replay ratio 0.5)
 LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
 RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
+ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent")  # the `[<algo>] log_dir=` lines the legs print
+# the on-policy legs: the presets' algorithm settings on the dummy envs, 4 envs
+# (PPO: 128-step rollouts, 8 updates of 10 epochs x 8 minibatches of 64)
+PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
 
 
 class _Tee(io.TextIOBase):
@@ -923,10 +954,11 @@ def parse_leg(text: str) -> dict:
     out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None,
            "logs": [], "startup": None, "events": {}}
     for line in text.splitlines():
-        if line.startswith("[dreamer_v3] log_dir="):
+        algo = line[1:line.index("]")] if line.startswith("[") and "]" in line else None
+        if algo in ALGOS and line.startswith(f"[{algo}] log_dir="):
             out["log_dir"] = line.split("=", 1)[1]
-        elif line.startswith("[dreamer_v3] resumed "):
-            out["resumed"] = json.loads(line[len("[dreamer_v3] resumed "):])
+        elif algo in ALGOS and line.startswith(f"[{algo}] resumed "):
+            out["resumed"] = json.loads(line[len(f"[{algo}] resumed "):])
         elif line.startswith("Test - Reward: "):
             out["reward"] = float(line.split(": ", 1)[1])
     if out["log_dir"] is None:
@@ -945,7 +977,8 @@ def parse_leg(text: str) -> dict:
                 out["logs"].append(rec)
                 out["lines"].append({"policy_step": rec["step"], "grad_steps": rec["grad_steps"],
                                      "elapsed_s": rec["elapsed_s"]})
-                out["mirror"].append(rec["mirror"])
+                if "mirror" in rec:
+                    out["mirror"].append(rec["mirror"])
             elif kind == "overlap":
                 out["overlap"].append(rec)
             elif kind == "ckpt_async":
@@ -959,18 +992,19 @@ def drive(torch, ln_gru, command, argv):
     from sheeprl_tpu_torch import cli
 
     tee = _Tee()
+    gc.collect()  # an earlier leg's reference cycles (closures over its loop's tensors) still hold device memory
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ln_gru.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        {"run": cli.run, "eval": cli.evaluation}[command](argv)
+        {"run": cli.run, "eval": cli.evaluation, "resume": cli.resume}[command](argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
     parsed = parse_leg(tee.buf.getvalue())
     start = parsed["startup"]
-    if command == "run" and (start is None or start["platform"] != "gpu"
+    if command != "eval" and (start is None or start["platform"] != "gpu"
                              or start["device_kind"] != torch.cuda.get_device_name(0)):
         raise AssertionError(f"the leg's startup record {start} does not name the card")
     return parsed, counts, seconds, torch.cuda.max_memory_allocated()
@@ -1113,9 +1147,134 @@ def phase_run(torch, ln_gru, overrides=()):
     report["run_M"] = leg_summary(parsed_m, counts_m, seconds_m, peak_m, LEARNING_STARTS)
     report["run_M"]["args"] = m_args
     report.update(walker_legs(torch, ln_gru))
+    report.update(ppo_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     launches = {"resident": report["run"]["launches"], "streamed": report["run_M"]["launches"]}
     return launches, {"resident": blocks, "streamed": blocks_m}, report
+
+
+def onpolicy_summary(parsed, seconds, peak):
+    """The numbers of one on-policy leg, from its telemetry stream: policy
+    steps/s between its first and last log records (from the start where it
+    logged once), the mean update wall ms, and the allocator's peak over the
+    leg (``device_memory_at_start`` beside it is what earlier legs still
+    hold; the leg's own is the difference)."""
+    logs = parsed["logs"]
+    if not logs:
+        raise AssertionError("the leg wrote no log record")
+    first, last = logs[0], logs[-1]
+    if last["elapsed_s"] > first["elapsed_s"]:
+        sps = (last["step"] - first["step"]) / (last["elapsed_s"] - first["elapsed_s"])
+    else:
+        sps = last["step"] / last["elapsed_s"]
+    update_ms = [r["update_ms"] for r in logs if r.get("update_ms") is not None]
+    written = [r for r in parsed["ckpt"] if r["action"] == "written"]
+    if any(r["action"] == "failed" for r in parsed["ckpt"]):
+        raise AssertionError(f"a checkpoint write failed: {parsed['ckpt']}")
+    return {"seconds": seconds, "policy_step": int(last["step"]), "updates": int(last["updates"]),
+            "grad_steps": int(last["grad_steps"]), "policy_steps_per_s": sps,
+            "update_ms": statistics.mean(update_ms) if update_ms else None, "peak_device_memory": peak,
+            "telemetry": {"events": parsed["events"], "device_kind": parsed["startup"]["device_kind"],
+                          "hbm_peak_bytes": max(r["memory"].get("hbm_peak_bytes", 0) for r in logs)},
+            "checkpoints": [r["step"] for r in written]}
+
+
+def agent_ledger(torch, path):
+    """What must match between two PPO legs: the counters of the checkpoint
+    and the agent's parameters."""
+    s = torch.load(path, map_location="cpu", weights_only=False)
+    return {k: s[k] for k in ("policy_step", "update", "last_log", "last_checkpoint")}, s["agent"]
+
+
+def same_agent(torch, a, b):
+    """(bitwise equal, largest difference) of two agents' parameters."""
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    return all(torch.equal(a[k], b[k]) for k in a), diff
+
+
+def ppo_legs(torch, ln_gru):
+    """The on-policy family on the card (phase 5): PPO overlapped (strict
+    on-policy) with a mid-run checkpoint, serial (equal ledger and
+    parameters), on pixels (NatureCNN at 64x64x3), continuous (Normal
+    heads), A2C and PPO-recurrent at their presets' algorithm settings, the
+    resume command and eval from the PPO leg, and the PPO leg again with the
+    watchdog on (no event, the same end)."""
+    from sheeprl_tpu_torch.utils.checkpoint import param_sums
+
+    common = ["env=dummy", "metric.log_every=1024", "algo.run_test=False", f"root_dir={RUN_ROOT}"]
+    ppo = ["exp=ppo", *common, f"algo.total_steps={PPO_TOTAL}", "checkpoint.every=2048"]
+    report, logs = {}, {}
+
+    def leg(name, args, command="run"):
+        gc.collect()
+        before = torch.cuda.memory_allocated()  # what earlier legs still hold: not this leg's
+        parsed, counts, seconds, peak = drive(torch, ln_gru, command,
+                                              args + ([f"run_name={name}"] if command == "run" else []))
+        if command != "eval":
+            report[name] = onpolicy_summary(parsed, seconds, peak)
+            report[name]["device_memory_at_start"] = before
+            report[name]["args"] = args
+            logs[name] = parsed["log_dir"]
+        if any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        return parsed
+
+    leg("ppo", ppo)
+    ckpts = checkpoints(logs["ppo"])
+    if [int(os.path.basename(p)[5:-5]) for p in ckpts] != [2048, PPO_TOTAL]:
+        raise AssertionError(f"the ppo leg's checkpoints {ckpts}: not a mid-run one and the last one")
+    eng = [r for r in (json.loads(l) for l in open(os.path.join(logs["ppo"], "telemetry.jsonl")))
+           if r["event"] == "overlap"]
+    if not eng or eng[-1].get("staleness_seen_max", 1) != 0:
+        raise AssertionError(f"the ppo leg's overlap records {eng[-1:] or None}: not strict on-policy")
+    report["ppo"]["engine"] = {"records": len(eng), "staleness_seen_max": eng[-1]["staleness_seen_max"],
+                               "player_stall_frac": eng[-1]["player_stall_frac"]}
+    ppo_ledger, ppo_agent = agent_ledger(torch, ckpts[-1])
+    if ppo_ledger["policy_step"] != PPO_TOTAL or ppo_ledger["update"] != PPO_TOTAL // 512:
+        raise AssertionError(f"the ppo leg ended at {ppo_ledger}")
+    for name, extra in (("ppo_serial", ["algo.overlap.enabled=False"]),
+                        ("ppo_watchdog", ["resilience.watchdog.enabled=True", "resilience.watchdog.stall_s=600"])):
+        leg(name, ppo + extra)
+        got, agent = agent_ledger(torch, checkpoints(logs[name])[-1])
+        bitwise, diff = same_agent(torch, ppo_agent, agent)
+        if got != ppo_ledger or not bitwise:
+            raise AssertionError(f"the {name} leg ended at {got} (max parameter difference {diff}), the ppo leg at "
+                                 f"{ppo_ledger}")
+        report[name]["ledger_equal"] = ppo_ledger
+        report[name]["parameters_bitwise_equal"] = bitwise
+    if report["ppo_watchdog"]["telemetry"]["events"].get("watchdog"):
+        raise AssertionError("the watchdog fired on the ppo_watchdog leg")
+    leg("ppo_pixels", ["exp=ppo", *common, f"algo.total_steps={PPO_SHORT}", "algo.cnn_keys.encoder=[rgb]",
+                       "algo.mlp_keys.encoder=[]"])
+    leg("ppo_continuous", ["exp=ppo", *common, "env.id=continuous_dummy", f"algo.total_steps={PPO_SHORT}"])
+    leg("a2c", ["exp=a2c", *common, f"algo.total_steps={A2C_TOTAL}", "metric.log_every=400"])
+    # the preset's rollout of 512 steps at 8 envs: one update of 4096 policy steps
+    leg("ppo_recurrent", ["exp=ppo_recurrent", *common, f"algo.total_steps={PPO_TOTAL}", "env.num_envs=8"])
+    for name, want in (("ppo_pixels", PPO_SHORT), ("ppo_continuous", PPO_SHORT), ("a2c", A2C_TOTAL),
+                       ("ppo_recurrent", PPO_TOTAL)):
+        if report[name]["policy_step"] != want or report[name]["grad_steps"] < 1:
+            raise AssertionError(f"the {name} leg stopped at {report[name]['policy_step']} of {want}")
+
+    saved = torch.load(ckpts[-1], map_location="cpu", weights_only=False)
+    parsed = leg("ppo_resume_cmd", [f"run_dir={os.path.dirname(logs['ppo'])}",
+                                    f"algo.total_steps={PPO_RESUME_TOTAL}"], command="resume")
+    started, want = parsed["resumed"], {"policy_step": saved["policy_step"], "update": saved["update"]}
+    if started is None or {k: started[k] for k in want} != want:
+        raise AssertionError(f"the resume command started from {started}, the checkpoint holds {want}")
+    file_sums = param_sums({"agent": saved["agent"]})
+    if abs(started["param_sums"]["agent"] - file_sums["agent"]) > 1e-9 * max(1.0, abs(file_sums["agent"])):
+        raise AssertionError(f"resumed parameters sum to {started['param_sums']}, the file's to {file_sums}")
+    if report["ppo_resume_cmd"]["policy_step"] != PPO_RESUME_TOTAL:
+        raise AssertionError(f"the resume command stopped at {report['ppo_resume_cmd']['policy_step']}")
+    report["ppo_resume_cmd"].update(started_from=want, param_sums=file_sums)
+
+    t0 = time.perf_counter()
+    parsed = leg("ppo_eval", [f"checkpoint_path={ckpts[-1]}"], command="eval")
+    if parsed["reward"] is None:
+        raise AssertionError("eval printed no `Test - Reward:`")
+    report["ppo_eval"] = {"seconds": time.perf_counter() - t0, "reward": parsed["reward"],
+                          "checkpoint": os.path.basename(ckpts[-1])}
+    return report
 
 
 def walker_legs(torch, ln_gru):

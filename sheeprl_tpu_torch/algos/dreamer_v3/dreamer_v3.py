@@ -59,7 +59,8 @@ from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
 from ...telemetry.throughput import model_cost
-from ...utils.checkpoint import CheckpointManager
+from ...utils.checkpoint import CheckpointManager, param_sums, set_gen_state
+from ...utils.checkpoint import gen_state as _gen_state
 from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
@@ -448,34 +449,8 @@ def _actions_dim(action_space) -> List[int]:
     return [int(action_space.n)]
 
 
-def _gen_state(gen: torch.Generator) -> Dict[str, Any]:
-    return {"device": gen.device.type, "state": gen.get_state()}
-
-
 def _set_gen_state(gen: torch.Generator, saved: Dict[str, Any], name: str) -> None:
-    """Restore a generator's state. The state of a CUDA generator (Philox
-    seed and offset) does not fit a CPU one (Mersenne twister) or the other
-    way round: across device types the generator is seeded from the saved
-    state's bytes instead, and the run says so."""
-    state = saved["state"].cpu()
-    if saved["device"] == gen.device.type:
-        gen.set_state(state)
-        return
-    seed = int(np.random.SeedSequence(state.numpy().tolist()).generate_state(1, np.uint32)[0])
-    gen.manual_seed(seed)
-    print(f"[dreamer_v3] the {name} generator was saved on {saved['device']} and runs on {gen.device.type}: "
-          f"seeded from the saved state ({seed})", file=sys.stderr, flush=True)
-
-
-def param_sums(modules: Dict[str, Any]) -> Dict[str, float]:
-    """Float64 sum of every parameter and buffer of each module (a state
-    dict or a module): the fingerprint a resumed run prints, to be held
-    against the checkpoint file's."""
-    out = {}
-    for name, m in modules.items():
-        sd = m.state_dict() if hasattr(m, "state_dict") else m
-        out[name] = float(sum(float(t.double().sum()) for t in sd.values()))
-    return out
+    set_gen_state(gen, saved, name, tag="dreamer_v3")
 
 
 @register_algorithm(name="dreamer_v3")

@@ -11,7 +11,7 @@ import torch
 
 from ...distributions import MSEDistribution, SymlogDistribution
 from ...envs import spaces
-from ...parallel.precision import Precision, cast_floating, get_precision
+from ...parallel.precision import Precision, cast_floating, disable_tf32, get_precision
 
 AGGREGATOR_KEYS = (
     "Rewards/rew_avg",
@@ -63,8 +63,7 @@ def check_precision(cfg: Any) -> Precision:
     full f32 on the card too, so TF32 is turned off for cuBLAS matmuls and
     cuDNN convolutions (PyTorch enables it for cuDNN by default)."""
     precision = get_precision(str(cfg.select("fabric.precision", "32-true")))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     return precision
 
 

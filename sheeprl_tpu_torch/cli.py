@@ -1,13 +1,18 @@
 """Command-line entry point of the PyTorch port:
-``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...`` and
-``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]``.
+``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...``,
+``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]`` and
+``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]``.
 
 ``run`` composes the config from ``sheeprl_tpu_torch/configs``, merges the
-saved config of ``checkpoint.resume_from`` when one is given, looks the
-algorithm up in the registry and calls its ``main(cfg)``. ``eval`` rebuilds
-the run's config from the ``config.yaml`` beside the checkpoint and calls the
-algorithm's registered evaluation on one env. The ``resume`` command and the
-serving commands wait for later slices.
+saved config of ``checkpoint.resume_from`` when one is given, checks it
+(``check_configs``), looks the algorithm up in the registry and calls its
+``main(cfg)``; with ``resilience.supervisor.attempts > 1`` a crashed run is
+restarted from its newest checkpoint (``resilience/supervisor.py``).
+``eval`` rebuilds the run's config from the ``config.yaml`` beside the
+checkpoint and calls the algorithm's registered evaluation on one env.
+``resume`` relaunches a run from its newest checkpoint behind the manifest's
+fingerprint check (``resilience/resume.py``). The serving commands wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -17,10 +22,15 @@ import sys
 from typing import List, Optional, Sequence, Tuple
 
 from .config import Config, compose, load_config_file
-from .utils.registry import get_algorithm, get_evaluation
+from .utils.registry import algorithm_registry, get_algorithm, get_evaluation
 
 # modules whose import registers an algorithm and its evaluation
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
+ALGORITHM_MODULES = (
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+)
 
 
 def _register() -> None:
@@ -62,11 +72,33 @@ def resume_from_checkpoint(cfg: Config) -> Config:
     return merged
 
 
-def run_algorithm(cfg: Config) -> None:
+def check_configs(cfg: Config) -> None:
+    """The config checks before a run: an algorithm is selected and
+    registered, and a decoupled one has the two devices it needs."""
     _register()
-    if cfg.select("algo.name") is None:
+    algo_name = cfg.select("algo.name")
+    if algo_name is None:
         raise ValueError("Missing `algo.name`: select an experiment with `exp=<name>`")
-    get_algorithm(cfg.algo.name)["fn"](cfg)
+    if algo_name not in algorithm_registry:
+        raise ValueError(f"Algorithm '{algo_name}' is not registered. Available: {sorted(algorithm_registry)}")
+    if algorithm_registry[algo_name]["decoupled"] and int(cfg.select("fabric.devices", 1) or 1) < 2:
+        raise RuntimeError(f"'{algo_name}' is a decoupled algorithm: it needs at least one player and one trainer "
+                           "device (fabric.devices >= 2)")
+
+
+def run_algorithm(cfg: Config) -> None:
+    """The algorithm's entry point; with ``resilience.supervisor.attempts >
+    1``, under ``supervise`` (a crash restarts from the newest checkpoint)."""
+    check_configs(cfg)
+    fn = get_algorithm(cfg.algo.name)["fn"]
+    attempts = int(cfg.select("resilience.supervisor.attempts", 1) or 1)
+    if attempts > 1:
+        from .resilience.supervisor import supervise
+
+        supervise(fn, cfg, attempts=attempts, backoff_s=float(cfg.select("resilience.supervisor.backoff_s", 5.0)),
+                  max_backoff_s=float(cfg.select("resilience.supervisor.max_backoff_s", 120.0)))
+    else:
+        fn(cfg)
 
 
 def run(args: Optional[Sequence[str]] = None) -> None:
@@ -75,6 +107,7 @@ def run(args: Optional[Sequence[str]] = None) -> None:
     cfg = compose("config", argv)
     if cfg.select("checkpoint.resume_from"):
         cfg = resume_from_checkpoint(cfg)
+    check_configs(cfg)
     run_algorithm(cfg)
 
 
@@ -137,7 +170,17 @@ def evaluation(args: Optional[Sequence[str]] = None) -> None:
     eval_algorithm(cfg)
 
 
-COMMANDS = {"run": run, "eval": evaluation}
+def resume(args: Optional[Sequence[str]] = None) -> None:
+    """``resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]``:
+    continue a preempted or crashed run from its newest complete checkpoint."""
+    from .resilience.resume import parse_resume_argv, resume_run
+
+    argv = list(args if args is not None else sys.argv[1:])
+    run_dir, rest, force = parse_resume_argv(argv)
+    resume_run(run_dir, rest, force=force)
+
+
+COMMANDS = {"run": run, "eval": evaluation, "resume": resume}
 
 
 def main() -> None:

@@ -14,11 +14,18 @@ flax path becomes a state-dict key by a rewrite:
   (kh, kw, out, in) as the HWIO kernel of the convolution it transposes, →
   ``weight`` [in, out, kh, kw]: an axis swap and no spatial flip
   (tests/test_torch_convert.py pins this against flax);
-* ``initial_recurrent_state`` keeps its name.
+* ``initial_recurrent_state`` keeps its name;
+* a flax ``OptimizedLSTMCell`` (input kernels ``ii, if, ig, io`` without
+  bias, hidden kernels ``hi, hf, hg, ho`` with bias) → an ``nn.LSTMCell``:
+  ``weight_ih`` [4H, in] and ``weight_hh`` [4H, H] stack the transposed
+  kernels in the order i, f, g, o, ``bias_hh`` the hidden biases, and
+  ``bias_ih`` is zero (the port keeps it frozen).
 
 The module type at each path decides the kernel layout. ``load_dreamer_v3``
 loads ``{wm, actor, critic, target_critic}`` and, optionally, the optax adam
-states (``mu``/``nu``/``count``) and the target-EMA step counter.
+states (``mu``/``nu``/``count``) and the target-EMA step counter;
+``load_ppo``, ``load_a2c`` and ``load_ppo_recurrent`` load the on-policy
+agents and their Adam or RMSprop (``nu``) states.
 """
 from __future__ import annotations
 
@@ -60,11 +67,31 @@ def kernel_to_torch(kernel: np.ndarray, module: nn.Module) -> np.ndarray:
     raise TypeError(f"no kernel layout for {type(module).__name__}")
 
 
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def fold_lstm(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Every flax ``OptimizedLSTMCell`` of a flattened tree as ``nn.LSTMCell``
+    entries (``weight_ih``, ``weight_hh``, ``bias_ih`` = 0, ``bias_hh``)."""
+    out: Dict[str, np.ndarray] = {}
+    folded = set()
+    for pre in sorted({p[: -len("/ii/kernel")] for p in flat if p.endswith("/ii/kernel")}):
+        names = [f"{pre}/i{g}/kernel" for g in _LSTM_GATES] + [f"{pre}/h{g}/{leaf}" for g in _LSTM_GATES
+                                                               for leaf in ("kernel", "bias")]
+        out[f"{pre}/weight_ih"] = np.concatenate([flat[f"{pre}/i{g}/kernel"].T for g in _LSTM_GATES], 0)
+        out[f"{pre}/weight_hh"] = np.concatenate([flat[f"{pre}/h{g}/kernel"].T for g in _LSTM_GATES], 0)
+        out[f"{pre}/bias_hh"] = np.concatenate([flat[f"{pre}/h{g}/bias"] for g in _LSTM_GATES], 0)
+        out[f"{pre}/bias_ih"] = np.zeros_like(out[f"{pre}/bias_hh"])
+        folded.update(names)
+    out.update({k: v for k, v in flat.items() if k not in folded})
+    return out
+
+
 def params_to_state_dict(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (or any tree of the same structure, e.g. adam's
     ``mu``) as a state dict of ``module``."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, arr in flatten(params).items():
+    for path, arr in fold_lstm(flatten(params)).items():
         key = torch_key(path)
         mod_path, _, leaf = key.rpartition(".")
         if leaf == "kernel":
@@ -83,13 +110,14 @@ def load_params(params: Mapping[str, Any], module: nn.Module) -> None:
     module.load_state_dict(params_to_state_dict(params, module), strict=True)
 
 
-def find_adam_state(opt_state: Any) -> Any:
-    """The ``ScaleByAdamState`` inside an optax chain state."""
-    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+def find_state(opt_state: Any, fields=("mu", "nu", "count")) -> Any:
+    """The optax state inside a chain state that has all of ``fields``
+    (``ScaleByAdamState`` by default)."""
+    if all(hasattr(opt_state, a) for a in fields):
         return opt_state
     if isinstance(opt_state, (tuple, list)):
         for s in opt_state:
-            found = find_adam_state(s)
+            found = find_state(s, fields)
             if found is not None:
                 return found
     return None
@@ -98,13 +126,15 @@ def find_adam_state(opt_state: Any) -> Any:
 def load_adam_state(optimizer: torch.optim.Optimizer, module: nn.Module, opt_state: Any) -> None:
     """optax adam moments → ``torch.optim.Adam`` state of ``module``'s
     parameters (the optimizer must own exactly those parameters)."""
-    adam = find_adam_state(opt_state)
+    adam = find_state(opt_state)
     if adam is None:
         raise ValueError("no adam state (mu, nu, count) in the optax state")
     mu = params_to_state_dict(adam.mu, module)
     nu = params_to_state_dict(adam.nu, module)
     step = float(np.asarray(adam.count))
     for name, p in module.named_parameters():
+        if not p.requires_grad:  # a frozen parameter (an LSTM's bias_ih) has no optimizer state
+            continue
         optimizer.state[p] = {
             "step": torch.tensor(step),
             "exp_avg": mu[name].to(p.device).clone(),
@@ -130,3 +160,37 @@ def load_dreamer_v3(
         load_adam_state(optimizers.actor.optimizer, actor, opt_states["actor"])
         load_adam_state(optimizers.critic.optimizer, critic, opt_states["critic"])
         optimizers.step = int(np.asarray(opt_states["step"]))
+
+
+def load_rmsprop_state(optimizer: torch.optim.Optimizer, module: nn.Module, opt_state: Any) -> None:
+    """optax rmsprop's ``ν`` → the port's ``RMSprop`` state of ``module``'s
+    parameters (optax keeps no step count there; ``step`` starts at 0)."""
+    rms = find_state(opt_state, ("nu",))
+    if rms is None:
+        raise ValueError("no rmsprop state (nu) in the optax state")
+    nu = params_to_state_dict(rms.nu, module)
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {"step": torch.zeros((), dtype=torch.float32), "nu": nu[name].to(p.device).clone()}
+
+
+def load_ppo(params: Mapping[str, Any], agent: nn.Module, opt_state: Any = None, optimizer: Any = None) -> None:
+    """The JAX PPO agent's ``params`` (and, with ``optimizer``, the Adam
+    state of ``opt_state``) into the port's ``PPOAgent`` and optimizer (a
+    ``Clipped`` or a torch optimizer)."""
+    load_params(params, agent)
+    if opt_state is not None and optimizer is not None:
+        load_adam_state(getattr(optimizer, "optimizer", optimizer), agent, opt_state)
+
+
+def load_a2c(params: Mapping[str, Any], agent: nn.Module, opt_state: Any = None, optimizer: Any = None) -> None:
+    """The JAX A2C agent's ``params`` (and its RMSprop ``ν``) into the port's."""
+    load_params(params, agent)
+    if opt_state is not None and optimizer is not None:
+        load_rmsprop_state(getattr(optimizer, "optimizer", optimizer), agent, opt_state)
+
+
+def load_ppo_recurrent(params: Mapping[str, Any], agent: nn.Module, opt_state: Any = None,
+                       optimizer: Any = None) -> None:
+    """The JAX recurrent PPO agent's ``params`` (the LSTM folded into
+    ``nn.LSTMCell`` form) and its Adam state into the port's."""
+    load_ppo(params, agent, opt_state, optimizer)

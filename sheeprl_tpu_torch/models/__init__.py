@@ -2,6 +2,9 @@ from .models import (
     MLP,
     LayerNorm,
     LayerNormGRUCell,
+    NatureCNN,
+    get_activation,
+    lecun_normal_,
     uniform_init_,
     variance_scaling_,
     xavier_normal_,
@@ -11,6 +14,9 @@ __all__ = [
     "MLP",
     "LayerNorm",
     "LayerNormGRUCell",
+    "NatureCNN",
+    "get_activation",
+    "lecun_normal_",
     "uniform_init_",
     "variance_scaling_",
     "xavier_normal_",

@@ -1,5 +1,6 @@
-"""Core NN building blocks (PyTorch), the DreamerV3 subset of
-``sheeprl_tpu/models/models.py``.
+"""Core NN building blocks (PyTorch), the subset of
+``sheeprl_tpu/models/models.py`` that DreamerV3 and the on-policy family use
+(``MLP``, ``NatureCNN``, ``LayerNormGRUCell``).
 
 Module and attribute names follow the JAX package's parameter tree (``dense_0``,
 ``LayerNorm_0``, ``fused`` ...), so ``convert.py`` maps a flax tree onto a
@@ -13,11 +14,36 @@ Inits follow the JAX package: ``xavier_normal_`` is JAX's ``glorot_normal``
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "silu": F.silu,
+    "swish": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's nn.gelu is the tanh form
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+    "none": lambda x: x,
+}
+
+
+def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The activation named as in the JAX package's configs (``tanh``,
+    ``relu``, ... or a class path such as ``torch.nn.SiLU``)."""
+    if name is None:
+        return _ACTIVATIONS["identity"]
+    key = str(name).rsplit(".", 1)[-1].lower()
+    if key not in _ACTIVATIONS:
+        raise ValueError(f"Unknown activation '{name}'")
+    return _ACTIVATIONS[key]
+
 
 def _fans(t: torch.Tensor, transposed: bool = False):
     """(fan_in, fan_out) of a Linear [out, in], Conv2d [out, in, kh, kw] or,
@@ -89,8 +115,10 @@ class LayerNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """Linear → Norm → SiLU stack (the JAX package's ``MLP`` with the DV3
-    options: SiLU, no dropout, no output head)."""
+    """Linear → Norm → activation stack with an optional linear ``out`` head
+    (the JAX package's ``MLP`` without dropout). The defaults are DreamerV3's
+    (SiLU, Hafner init); the on-policy agents pass ``activation`` and
+    flax's ``lecun_normal_``."""
 
     def __init__(
         self,
@@ -99,16 +127,23 @@ class MLP(nn.Module):
         bias: bool = True,
         norm_eps: Optional[float] = None,
         init=xavier_normal_,
+        activation: str = "silu",
+        output_dim: Optional[int] = None,
     ):
         super().__init__()
         self.n_layers = len(hidden_sizes)
         self.layer_norm = norm_eps is not None
+        self.act = get_activation(activation)
         prev = input_dim
         for i, h in enumerate(hidden_sizes):
             setattr(self, f"dense_{i}", dense(prev, h, bias, init))
             if self.layer_norm:
                 setattr(self, f"LayerNorm_{i}", LayerNorm(h, eps=norm_eps))
             prev = h
+        self.has_out = output_dim is not None
+        if self.has_out:
+            self.out = dense(prev, int(output_dim), bias, init)
+            prev = int(output_dim)
         self.output_dim = prev
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +151,47 @@ class MLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x)
             if self.layer_norm:
                 x = getattr(self, f"LayerNorm_{i}")(x)
-            x = F.silu(x)
-        return x
+            x = self.act(x)
+        return self.out(x) if self.has_out else x
+
+
+def _valid_out(size: int, kernel: int, stride: int) -> int:
+    return (size - kernel) // stride + 1
+
+
+class NatureCNN(nn.Module):
+    """The DQN-Nature encoder (the JAX package's ``NatureCNN``): three VALID
+    convolutions (32x8/4, 64x4/2, 64x3/1) with ReLU and a ReLU dense layer to
+    ``features_dim``. Takes uint8 or float images ``[..., H, W, C]`` scaled
+    by 1/255. The convolutions run on NCHW; the flatten before ``Dense_0``
+    keeps the JAX package's NHWC order, so a converted dense kernel lines up
+    with it."""
+
+    def __init__(self, in_channels: int, image_hw: Tuple[int, int], features_dim: int = 512):
+        super().__init__()
+        self.features_dim = int(features_dim)
+        self.Conv_0 = nn.Conv2d(in_channels, 32, 8, 4)
+        self.Conv_1 = nn.Conv2d(32, 64, 4, 2)
+        self.Conv_2 = nn.Conv2d(64, 64, 3, 1)
+        h, w = image_hw
+        for k, s in ((8, 4), (4, 2), (3, 1)):
+            h, w = _valid_out(h, k, s), _valid_out(w, k, s)
+        if h < 1 or w < 1:
+            raise ValueError(f"NatureCNN needs images of at least 36x36, got {tuple(image_hw)}")
+        self.Dense_0 = dense(64 * h * w, self.features_dim, init=lecun_normal_)
+        for conv in (self.Conv_0, self.Conv_1, self.Conv_2):
+            lecun_normal_(conv.weight)
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).float() / 255.0
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        x = F.relu(self.Conv_2(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order
+        x = F.relu(self.Dense_0(x))
+        return x.reshape(*lead, self.features_dim)
 
 
 class LayerNormGRUCell(nn.Module):

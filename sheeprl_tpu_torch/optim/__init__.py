@@ -1,5 +1,5 @@
-"""Optimizers (counterpart of ``sheeprl_tpu/optim/__init__.py``, the DreamerV3
-subset: ``adam`` and ``clipped``).
+"""Optimizers (counterpart of ``sheeprl_tpu/optim/__init__.py``: ``adam``,
+``rmsprop`` and ``clipped``).
 
 ``adam`` is ``torch.optim.Adam`` — the same update as optax adam, with eps
 outside the square root: ``lr · m̂ / (sqrt(v̂) + eps)`` — or ``AdamW`` when
@@ -8,6 +8,11 @@ global-norm clipping in front of an optimizer exactly as
 ``optax.clip_by_global_norm`` does: the gradients are scaled by
 ``max_norm / ‖g‖`` only when ``‖g‖ >= max_norm`` (no epsilon, unlike
 ``torch.nn.utils.clip_grad_norm_``).
+
+``rmsprop`` is the JAX package's ``optax.rmsprop``, not
+``torch.optim.RMSprop``: optax (``eps_in_sqrt=True``, its default) scales a
+gradient by ``1 / sqrt(ν + eps)``, torch by ``1 / (sqrt(ν) + eps)``; with
+A2C's eps of 1e-4 the two differ from the first step.
 """
 from __future__ import annotations
 
@@ -28,6 +33,67 @@ def adam(
     if weight_decay:
         return torch.optim.AdamW(params, lr=float(lr), betas=betas, eps=float(eps), weight_decay=float(weight_decay))
     return torch.optim.Adam(params, lr=float(lr), betas=betas, eps=float(eps))
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay=alpha, eps, momentum, centered)`` with
+    optax's defaults (``initial_scale=0``, ``eps_in_sqrt=True``, no bias
+    correction, no Nesterov), as one chain:
+
+    * ``ν ← α·ν + (1-α)·g²`` (centered: also ``μ ← α·μ + (1-α)·g``,
+      ``ν̃ = ν - μ²``), ``u = g · rsqrt(ν̃ + eps)``;
+    * ``u ← -lr · u``, then with momentum ``m ← u + momentum·m``, ``u = m``;
+    * ``p ← p + u``.
+
+    State per parameter: ``nu`` (optax's ``ν``), ``mu`` when centered,
+    ``momentum_buffer`` with momentum, and ``step``."""
+
+    def __init__(self, params, lr: float = 1e-2, alpha: float = 0.99, eps: float = 1e-8, momentum: float = 0.0,
+                 centered: bool = False):
+        super().__init__(params, dict(lr=float(lr), alpha=float(alpha), eps=float(eps), momentum=float(momentum or 0.0),
+                                      centered=bool(centered)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, alpha, eps, momentum = group["lr"], group["alpha"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["nu"] = torch.zeros_like(p)
+                    if group["centered"]:
+                        st["mu"] = torch.zeros_like(p)
+                    if momentum:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                st["step"] += 1
+                nu = st["nu"]
+                nu.mul_(alpha).add_((1.0 - alpha) * g.square())
+                var = nu
+                if group["centered"]:
+                    st["mu"].mul_(alpha).add_((1.0 - alpha) * g)
+                    var = nu - st["mu"].square()
+                u = g * torch.rsqrt(var + eps) * -lr
+                if momentum:
+                    buf = st["momentum_buffer"]
+                    buf.mul_(momentum).add_(u)
+                    u = buf
+                p.add_(u)
+
+
+def rmsprop(
+    params: Iterable[torch.nn.Parameter],
+    lr: float = 1e-2,
+    alpha: float = 0.99,
+    eps: float = 1e-8,
+    momentum: float = 0.0,
+    centered: bool = False,
+    **_: Any,
+) -> torch.optim.Optimizer:
+    return RMSprop(params, lr=lr, alpha=alpha, eps=eps, momentum=momentum, centered=centered)
 
 
 @torch.no_grad()

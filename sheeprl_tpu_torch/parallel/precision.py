@@ -46,3 +46,10 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
         out = [cast_floating(v, dtype) for v in tree]
         return type(tree)(out) if isinstance(tree, list) else tuple(out)
     return tree
+
+
+def disable_tf32() -> None:
+    """f32 matmuls and convolutions in full f32 on the card: TF32 off for
+    cuBLAS and cuDNN (PyTorch enables it for cuDNN by default)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -6,15 +6,15 @@ It owns, behind ``setup`` / ``stop_reached`` / ``close``:
 * the wall-clock stopper (``algo.max_wall_time_s``),
 * the ``PreemptionGuard`` (SIGTERM/SIGINT and the maintenance poller) with
   the final-checkpoint-within-grace drain,
+* the optional ``HeartbeatWatchdog`` (``resilience.watchdog``), beaten at
+  every ``stop_reached`` and stopped in ``close``; its incident traces go
+  under ``<log_dir>/watchdog_trace/``,
 * the ``AsyncCheckpointWriter`` over the loop's ``CheckpointManager``
   (``guard.ckpt``, a drop-in for the manager), and
 * the resume manifest refresh after every successful write,
 
-and writes the ``resume`` and ``preempt`` events to the telemetry stream
-(``telem.emit``) where the JAX package's does.
-
-The heartbeat watchdog waits for a later slice: ``resilience.watchdog.enabled=True``
-raises.
+and writes the ``resume``, ``preempt`` and ``watchdog`` events to the
+telemetry stream (``telem.emit``) where the JAX package's does.
 
 The overlapped loop integrates through two surfaces: the player thread
 polls ``guard.preempted`` from the engine's waits, so it stops feeding as
@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Optional
 from ..utils.utils import WallClockStopper, wall_cap_reached
 from .ckpt_async import AsyncCheckpointWriter
 from .preemption import PreemptionGuard, clear_preemption
+from .supervisor import HeartbeatWatchdog
 
 
 class RunGuard:
@@ -43,12 +44,14 @@ class RunGuard:
         wall: WallClockStopper,
         preempt: Optional[PreemptionGuard] = None,
         telem: Any = None,
+        watchdog: Optional[HeartbeatWatchdog] = None,
     ):
         self.cfg = cfg
         self.ckpt = ckpt
         self.wall = wall
         self.preempt = preempt
         self.telem = telem
+        self.watchdog = watchdog
         self._preempt_logged = False
         self._closed = False
 
@@ -59,8 +62,6 @@ class RunGuard:
     @classmethod
     def setup(cls, cfg: Any, ckpt_manager: Any, log_dir: Optional[str] = None, telem: Any = None) -> "RunGuard":
         sel = cfg.select
-        if bool(sel("resilience.watchdog.enabled", False)):
-            raise NotImplementedError("resilience.watchdog.enabled=True: the heartbeat watchdog is not ported yet")
         on_write = None
         if log_dir:
             from .resume import write_manifest
@@ -90,7 +91,16 @@ class RunGuard:
                 poller=poller,
                 poll_every_s=float(sel("resilience.preemption.poll_every_s", 5.0)),
             ).install()
-        guard = cls(cfg, writer, WallClockStopper(cfg), preempt, telem)
+        watchdog: Optional[HeartbeatWatchdog] = None
+        if bool(sel("resilience.watchdog.enabled", False)):
+            watchdog = HeartbeatWatchdog(
+                stall_s=float(sel("resilience.watchdog.stall_s", 300.0)),
+                action=str(sel("resilience.watchdog.action", "none")),
+                telem=telem,
+                trace_dir=f"{log_dir}/watchdog_trace" if log_dir else None,
+                trace_s=float(sel("resilience.watchdog.trace_s", 3.0)),
+            ).start()
+        guard = cls(cfg, writer, WallClockStopper(cfg), preempt, telem, watchdog)
         if sel("checkpoint.resume_from"):
             guard._emit({"event": "resume", "step": 0, "checkpoint": str(sel("checkpoint.resume_from"))})
         return guard
@@ -108,7 +118,9 @@ class RunGuard:
     ) -> bool:
         """Call once per loop iteration. True when the loop must break
         (preemption requested or the wall budget spent), after writing the
-        final checkpoint when ``save``."""
+        final checkpoint when ``save``. Beats the watchdog."""
+        if self.watchdog is not None:
+            self.watchdog.beat(policy_step)
         if self.preempt is not None and self.preempt.poll():
             if not self._preempt_logged:
                 self._preempt_logged = True
@@ -150,8 +162,8 @@ class RunGuard:
 
     def close(self, policy_step: int = 0, state_fn: Optional[Callable[[], Dict[str, Any]]] = None) -> None:
         """Call after the loop: writes the final preemption checkpoint if the
-        loop broke out without one, flushes the async writer, and uninstalls
-        the signal handlers."""
+        loop broke out without one, flushes the async writer, stops the
+        watchdog and uninstalls the signal handlers."""
         if self._closed:
             return
         self._closed = True
@@ -161,6 +173,8 @@ class RunGuard:
         finally:
             deadline = self.preempt.deadline_remaining() if self.preempted and self.preempt else float("inf")
             self.ckpt.close(timeout=None if deadline == float("inf") else max(1.0, deadline))
+            if self.watchdog is not None:
+                self.watchdog.stop()
             if self.preempt is not None:
                 if self.preempt.requested:
                     # this run drained the request: consume the process-wide

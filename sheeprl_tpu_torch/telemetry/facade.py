@@ -38,7 +38,7 @@ from . import device as device_counters
 from .memory import MemorySampler, host_rss_bytes, memory_snapshot
 from .schema import SCHEMA_VERSION
 from .sinks import DEFAULT_JSONL_MAX_BYTES, ConsoleHeartbeat, JsonlSink
-from .spans import GLOBAL_TRACKER, Span, SpanTracker, TraceRange
+from .spans import GLOBAL_TRACKER, PROFILER_LOCK, Span, SpanTracker, TraceRange
 from .throughput import ThroughputTracker, peak_record, roofline_record
 
 MEM_INTERVAL_S = 5.0  # the memory sampler's cadence (the reference's diag.mem.interval_s default)
@@ -152,11 +152,18 @@ class Telemetry:
 
     def _windowed_trace(self, policy_step: int) -> None:
         if self._profiler is None and policy_step - self._last_trace_step >= self.trace_every:
+            if not PROFILER_LOCK.acquire(blocking=False):
+                return  # another capture (the watchdog's) is running: this window waits
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._profiler = torch.profiler.profile(activities=acts)
-            self._profiler.start()
+            prof = torch.profiler.profile(activities=acts)
+            try:
+                prof.start()
+            except BaseException:
+                PROFILER_LOCK.release()
+                raise
+            self._profiler = prof
             self._trace_start_step = policy_step
             self._emit({"event": "trace", "step": policy_step, "action": "started", "trace_dir": self.trace_dir})
         elif self._profiler is not None and policy_step - self._trace_start_step >= self.trace_window:
@@ -167,7 +174,10 @@ class Telemetry:
 
     def _stop_trace(self) -> None:
         prof, self._profiler = self._profiler, None
-        prof.stop()
+        try:
+            prof.stop()
+        finally:
+            PROFILER_LOCK.release()
         os.makedirs(self.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(self.trace_dir, f"trace_step{self._trace_start_step}.json"))
 

@@ -117,6 +117,23 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "run_dir": (False, _STR),
         "fingerprint": (False, _STR),
     },
+    # a jittered-backoff retry of a transient operation (resilience/supervisor.py)
+    "retry": {
+        "op": (True, _STR),
+        "attempt": (True, _NUM),
+        "error": (False, _STR),
+        "sleep_s": (False, _NUM),
+    },
+    # the stalled-progress watchdog (resilience/supervisor.py): `incident` is
+    # the run's incident counter, `trace_dir` the incident's own torch.profiler
+    # capture (where there is none, an undeclared `trace_error` says why)
+    "watchdog": {
+        "action": (True, _STR),  # stall | preempt
+        "step": (False, _NUM),
+        "stalled_s": (False, _NUM),
+        "trace_dir": (False, _STR),
+        "incident": (False, _NUM),
+    },
     # host RSS always, device memory where there is a device
     "mem": {
         "role": (True, _STR),

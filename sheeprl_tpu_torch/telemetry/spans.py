@@ -13,6 +13,10 @@ also shows on the device timeline.
   log interval never counts a span of the previous one.
 * Nesting: each thread keeps a stack of open spans; a nested span records
   under its own name.
+
+``PROFILER_LOCK`` is held by whoever runs a ``torch.profiler`` session in
+this process (the facade's windowed capture, the watchdog's incident dump):
+Kineto's session is process-wide, and starting a second one ends the first.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+PROFILER_LOCK = threading.Lock()
 
 
 class TraceRange:

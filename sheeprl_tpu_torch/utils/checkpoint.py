@@ -16,6 +16,7 @@ synchronised once at the end (a stream sync, not a device-wide one).
 from __future__ import annotations
 
 import os
+import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -137,3 +138,34 @@ class CheckpointManager:
         if isinstance(payload, dict):
             payload = {k: v for k, v in payload.items() if k not in cls.TRAIN_ONLY_KEYS}
         return payload
+
+
+def gen_state(gen: torch.Generator) -> Dict[str, Any]:
+    """A generator's state as a checkpoint holds it: its device type and bytes."""
+    return {"device": gen.device.type, "state": gen.get_state()}
+
+
+def set_gen_state(gen: torch.Generator, saved: Dict[str, Any], name: str, tag: str = "checkpoint") -> None:
+    """Restore a generator's state. The state of a CUDA generator (Philox
+    seed and offset) does not fit a CPU one (Mersenne twister) or the other
+    way round: across device types the generator is seeded from the saved
+    state's bytes instead, and the run says so on stderr, under ``[tag]``."""
+    state = saved["state"].cpu()
+    if saved["device"] == gen.device.type:
+        gen.set_state(state)
+        return
+    seed = int(np.random.SeedSequence(state.numpy().tolist()).generate_state(1, np.uint32)[0])
+    gen.manual_seed(seed)
+    print(f"[{tag}] the {name} generator was saved on {saved['device']} and runs on {gen.device.type}: "
+          f"seeded from the saved state ({seed})", file=sys.stderr, flush=True)
+
+
+def param_sums(modules: Dict[str, Any]) -> Dict[str, float]:
+    """Float64 sum of every parameter and buffer of each module (a state
+    dict or a module): the fingerprint a resumed run prints, to be held
+    against the checkpoint file's."""
+    out = {}
+    for name, m in modules.items():
+        sd = m.state_dict() if hasattr(m, "state_dict") else m
+        out[name] = float(sum(float(t.double().sum()) for t in sd.values()))
+    return out

@@ -385,7 +385,11 @@ def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool =
     are wrapped in ``RestartOnException`` (``env.restart_window``,
     ``restart_maxfails``, ``restart_wait``). The crash step is reported as a
     truncation, unless the loop patches its buffer itself
-    (``restart_handled_by_loop``, DreamerV3's ``patch_restarted_envs``)."""
+    (``restart_handled_by_loop``, DreamerV3's ``patch_restarted_envs``).
+
+    A transient failure while the vector env is built (an ``OSError`` and
+    the like, not a configuration error) is retried with jittered backoff
+    (``resilience.retries``, ``resilience/supervisor.py``)."""
     thunks = [make_env(cfg, seed + rank * cfg.env.num_envs + i, rank, i) for i in range(cfg.env.num_envs)]
     target = str(cfg.select("env.wrapper._target_") or "").lower()
     crash_prone = any(s in target for s in ("minerl", "diambra", "minedojo"))
@@ -397,9 +401,13 @@ def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool =
                     report_truncated=not restart_handled_by_loop)
             for thunk in thunks
         ]
-    if cfg.env.get("sync_env", True):
-        return SyncVectorEnv(thunks)
-    return AsyncVectorEnv(thunks)
+    def build() -> Any:
+        return SyncVectorEnv(thunks) if cfg.env.get("sync_env", True) else AsyncVectorEnv(thunks)
+
+    from ..resilience.supervisor import make_retrying
+
+    retrying = make_retrying(cfg)
+    return retrying(build, op="env_construction") if retrying is not None else build()
 
 
 def single_env(cfg: Config, seed: int) -> Any:

@@ -10,16 +10,18 @@ algorithm_registry: Dict[str, Dict[str, Any]] = {}
 evaluation_registry: Dict[str, Dict[str, Any]] = {}
 
 
-def register_algorithm(name: Optional[str] = None) -> Callable:
+def register_algorithm(name: Optional[str] = None, decoupled: bool = False) -> Callable:
     """Register a training entry point ``main(cfg) -> None`` under ``name``
     (default: the name of the function's module's package, e.g.
-    ``sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3`` → ``dreamer_v3``)."""
+    ``sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3`` → ``dreamer_v3``);
+    ``decoupled`` algorithms need a player and a trainer device."""
 
     def wrap(fn: Callable) -> Callable:
         key = name or fn.__module__.rsplit(".", 2)[-1]
         if key in algorithm_registry:
             raise ValueError(f"Algorithm '{key}' already registered")
-        algorithm_registry[key] = {"name": key, "module": fn.__module__, "entrypoint": fn.__name__, "fn": fn}
+        algorithm_registry[key] = {"name": key, "module": fn.__module__, "entrypoint": fn.__name__, "fn": fn,
+                                   "decoupled": bool(decoupled)}
         return fn
 
     return wrap

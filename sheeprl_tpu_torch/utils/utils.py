@@ -1,6 +1,6 @@
 """Shared helpers (the port's own copies from ``sheeprl_tpu/utils/utils.py``):
-the replay-ratio controller, the wall-clock stopper, config saving, and
-device selection."""
+the replay-ratio controller, linear annealing, the wall-clock stopper, config
+saving, and device selection."""
 from __future__ import annotations
 
 import sys
@@ -55,6 +55,13 @@ class Ratio:
         self._prev = state["_prev"]
         self._pretrain_steps = int(state["_pretrain_steps"])
         return self
+
+
+def linear_annealing(initial: float, step: int, total_steps: int, final: float = 0.0) -> float:
+    """The on-policy loops' clip-coefficient and entropy annealing: from
+    ``initial`` at step 0 to ``final`` at ``total_steps``."""
+    frac = min(max(step / max(total_steps, 1), 0.0), 1.0)
+    return initial + frac * (final - initial)
 
 
 class WallClockStopper:

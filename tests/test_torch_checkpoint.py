@@ -271,8 +271,10 @@ def test_runguard_wall_cap_and_watchdog_refusal(tmp_path):
     assert guard.stop_reached(8, 100, lambda: {"w": torch.ones(2)})
     guard.close()
     assert [p.name for p in guard.ckpt.list_checkpoints()] == ["ckpt_8.ckpt"]
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        RunGuard.setup(_guard_cfg(watchdog={"enabled": True}), CheckpointManager(str(tmp_path)))
+    # the watchdog is ported: enabled, the guard builds it (tests/test_torch_resilience.py drives it)
+    guard = RunGuard.setup(_guard_cfg(watchdog={"enabled": True}), CheckpointManager(str(tmp_path)), str(tmp_path))
+    assert guard.watchdog is not None and guard.watchdog.trace_dir == f"{tmp_path}/watchdog_trace"
+    guard.close()
 
 
 def test_preemption_poller_trips_the_flag():

@@ -221,7 +221,7 @@ def test_config_refuses_what_the_port_does_not_run():
     """A key the port's configs do not hold fails at composition (it would
     be silently ignored otherwise); conv_impl=einsum raises at build; 32-true
     turns TF32 off for cuBLAS and cuDNN."""
-    for key in ("model_manager.disabled=True", "resilience.watchdog.stall_s=60", "num_threads=4"):
+    for key in ("model_manager.disabled=True", "resilience.chaos.enabled=True", "num_threads=4"):
         with pytest.raises(KeyError, match="does not exist"):
             torch_cfg([key])
     with pytest.raises(NotImplementedError, match="conv_impl=einsum"):

@@ -1,8 +1,9 @@
 """The PyTorch port imports neither JAX (jax, flax, optax) nor anything of
 the JAX package, and chip_smoke.py and the port's scripts
 (scripts/torch_*.py, which run on the card too) import nothing of it: every
-port module is imported in a fresh interpreter, a dry run of the dummy env
-path runs there, and the loaded modules are checked; every import statement
+port module is imported in a fresh interpreter, dry runs of the dummy env
+path (DreamerV3, and PPO on pixels with the watchdog on) run there, and the
+loaded modules are checked; every import statement
 of the port's sources is scanned.
 
 The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
@@ -44,6 +45,9 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "         'env.num_envs=2', 'algo.per_rank_sequence_length=2', 'algo.per_rank_batch_size=2',\n"
         "         'algo.dense_units=8', 'algo.world_model.recurrent_model.recurrent_state_size=8',\n"
         "         'algo.world_model.encoder.cnn_channels_multiplier=2', 'algo.run_test=False'])\n"
+        "cli.run(['exp=ppo', 'env=dummy', 'fabric.accelerator=cpu', 'dry_run=True', 'env.num_envs=2',\n"
+        "         'algo.rollout_steps=8', 'algo.per_rank_batch_size=8', 'algo.cnn_keys.encoder=[rgb]',\n"
+        "         'resilience.watchdog.enabled=True'])\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules)}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -55,7 +59,10 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
     assert "sheeprl_tpu_torch.ops.ln_gru" in out["imported"]
     assert "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3" in out["imported"]
     for mod in ("engine.overlap", "parallel.placement", "resilience.guard", "resilience.ckpt_async",
-                "resilience.preemption", "resilience.resume", "utils.checkpoint", "utils.metric", "utils.logger",
+                "resilience.preemption", "resilience.resume", "resilience.supervisor", "algos.ppo.agent",
+                "algos.ppo.loss", "algos.ppo.utils", "algos.ppo.ppo", "algos.a2c.agent", "algos.a2c.loss",
+                "algos.a2c.a2c", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.utils",
+                "algos.ppo_recurrent.ppo_recurrent", "optim", "utils.checkpoint", "utils.metric", "utils.logger",
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
                 "telemetry.device", "telemetry.facade"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod

@@ -40,7 +40,7 @@ def test_schema_fields_are_the_references():
     for event, fields in schema.EVENT_SCHEMAS.items():
         assert jax_schema.EVENT_SCHEMAS[event] == fields, event
     for event in ("startup", "log", "shutdown", "metrics", "overlap", "ckpt_async", "preempt", "resume", "mem",
-                  "roofline"):
+                  "roofline", "retry", "watchdog"):
         assert event in schema.EVENT_SCHEMAS, event
     assert schema.validate_event({"event": "log"}) == jax_schema.validate_event({"event": "log"})
     assert schema.validate_event({"event": "mem", "role": "learner", "rss_bytes": True}) == [
