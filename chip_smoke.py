@@ -121,6 +121,34 @@ that fails and then prints no result:
                            the ppo leg with the watchdog on (stall_s 600):
                            no watchdog event, and the ppo leg's end;
                no on-policy leg launches an LN-GRU kernel;
+               sac         exp=sac on the continuous dummy env (4 envs, the
+                           preset's widths and settings: hidden 256, two
+                           critics, batch 256, replay ratio 1), the default
+                           overlapped loop (staleness bound 1), to 1,024
+                           policy steps, a mid-run checkpoint and the last;
+               sac_serial  the same, serial, fed by the device ring (which
+                           device_cache: auto takes at this buffer size):
+                           the same Ratio ledger as sac;
+               sac_staged  sac_serial on the staged host feed
+                           (buffer.device_cache=false): its batches are the
+                           ring's, so its parameters end bitwise equal;
+               droq        exp=droq, serial, to 256 policy steps (replay
+                           ratio 20: about 3,000 critic steps);
+               sac_ae      exp=sac_ae at full width (multiplier 16, hidden
+                           1024, batch 128, 64x64x3 pixels), serial,
+                           learning_starts cut to 64, 64 gradient steps;
+               sac_resume  checkpoint.resume_from=<the sac leg's mid-run
+                           checkpoint, which holds the buffer>: its
+                           counters and parameters, and on to 1,536;
+               sac_eval, droq_eval, sac_ae_eval
+                           eval checkpoint_path=<each leg's last one>;
+               sac_ae_step one SAC-AE gradient step at the preset's width
+                           through make_train_fn, timed and profiled as in
+                           phase 4, with its model FLOPs and MFU;
+               each off-policy leg records policy steps/s after
+               learning_starts, update ms (a burst's wall time), gradient
+               steps and its own peak device memory; none launches an
+               LN-GRU kernel;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -920,10 +948,14 @@ def phase_feed(torch, dev="cuda", reps=10):
 # random actions, then one gradient step per iteration (replay ratio 0.5)
 LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
 RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
-ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent")  # the `[<algo>] log_dir=` lines the legs print
+ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae")  # the `[<algo>] log_dir=` lines
 # the on-policy legs: the presets' algorithm settings on the dummy envs, 4 envs
 # (PPO: 128-step rollouts, 8 updates of 10 epochs x 8 minibatches of 64)
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
+# the off-policy legs: the presets' algorithm settings and widths on the
+# continuous dummy env, 4 envs, cut in length and buffer size only
+SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL = 1024, 1536, 1024, 256
+AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 128, 256
 
 
 class _Tee(io.TextIOBase):
@@ -1148,6 +1180,7 @@ def phase_run(torch, ln_gru, overrides=()):
     report["run_M"]["args"] = m_args
     report.update(walker_legs(torch, ln_gru))
     report.update(ppo_legs(torch, ln_gru))
+    report.update(offpolicy_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     launches = {"resident": report["run"]["launches"], "streamed": report["run_M"]["launches"]}
     return launches, {"resident": blocks, "streamed": blocks_m}, report
@@ -1274,6 +1307,203 @@ def ppo_legs(torch, ln_gru):
         raise AssertionError("eval printed no `Test - Reward:`")
     report["ppo_eval"] = {"seconds": time.perf_counter() - t0, "reward": parsed["reward"],
                           "checkpoint": os.path.basename(ckpts[-1])}
+    return report
+
+
+def offpolicy_summary(parsed, seconds, peak, before, learning_starts):
+    """The numbers of one off-policy leg, from its telemetry stream: policy
+    steps/s between its first log record at or after ``learning_starts`` and
+    its last, the mean burst wall ms (``update_ms``: a burst's G gradient
+    steps up to its losses on the host), gradient steps, and the
+    allocator's peak less what earlier legs still held (``before``)."""
+    logs = parsed["logs"]
+    if not logs:
+        raise AssertionError("the leg wrote no log record")
+    after = [r for r in logs if r["step"] >= learning_starts] or logs
+    first, last = after[0], logs[-1]
+    sps = ((last["step"] - first["step"]) / (last["elapsed_s"] - first["elapsed_s"])
+           if last["elapsed_s"] > first["elapsed_s"] else None)
+    update_ms = [r["update_ms"] for r in logs if r.get("update_ms") is not None]
+    if any(r["action"] == "failed" for r in parsed["ckpt"]):
+        raise AssertionError(f"a checkpoint write failed: {parsed['ckpt']}")
+    mfu = [r["throughput"]["mfu"] for r in logs if "mfu" in r.get("throughput", {})]
+    return {"seconds": seconds, "policy_step": int(last["step"]), "grad_steps": int(last["grad_steps"]),
+            "policy_steps_per_s_after_learning_starts": sps, "sps_window": [first["step"], last["step"]],
+            "update_ms": statistics.mean(update_ms) if update_ms else None, "mfu": mfu[-1] if mfu else None,
+            "peak_device_memory": peak, "device_memory_at_start": before, "own_peak_device_memory": peak - before,
+            "telemetry": {"events": parsed["events"], "device_kind": parsed["startup"]["device_kind"]},
+            "checkpoints": [r["step"] for r in parsed["ckpt"] if r["action"] == "written"]}
+
+
+def offpolicy_ledger(torch, path):
+    """What must match between two SAC legs: the Ratio ledger and counters,
+    the buffer's fill, and (for a bitwise comparison) the agent."""
+    s = torch.load(path, map_location="cpu", weights_only=False)
+    return {"policy_step": s["policy_step"], "grad_steps": s["grad_steps"], "ratio": s["ratio"],
+            "opt_step": s["opt_states"]["step"], "rb": (s["rb"]["pos"], s["rb"]["full"])}, s["agent"]
+
+
+def sac_ae_step(torch, ln_gru, dev="cuda", reps=3):
+    """One SAC-AE gradient step at the preset's full width (multiplier 16:
+    512 channels, features 64, hidden 1024, batch 128, 64x64x3 frames,
+    32-true, TF32 off) through make_train_fn, in the form of phase train:
+    host ms of timed steps, one step under torch.profiler (device ms, kernel
+    count, busy share, top kernels), the step's model FLOPs counted once
+    (model_cost) and MFU against the f32 peak, and peak device memory."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import build_optimizers, make_train_fn
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+    from sheeprl_tpu_torch.parallel.precision import disable_tf32
+    from sheeprl_tpu_torch.telemetry.throughput import model_cost
+
+    disable_tf32()
+    cfg = compose("config", ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy"])
+    env = ContinuousDummyEnv()
+    torch.manual_seed(0)
+    agent = build_agent(cfg, env.observation_space, env.action_space, dev)
+    train = make_train_fn(agent, build_optimizers(cfg, agent), cfg, -2.0, ("rgb",), ())
+    b = int(cfg.algo.per_rank_batch_size)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.randint(0, 256, (1, b, 64, 64, 3), dtype=torch.uint8, device=dev, generator=g)
+             for k in ("rgb", "next_rgb")}
+    batch.update(actions=torch.rand((1, b, 2), device=dev, generator=g) * 2 - 1,
+                 rewards=torch.randn((1, b, 1), device=dev, generator=g),
+                 terminated=torch.zeros((1, b, 1), device=dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    train(batch, generator=gen)  # warm-up: cuDNN's algorithm choice, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_gru.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        m = train(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    if not all(np.isfinite(v) for l in losses for v in l.values()):
+        raise AssertionError(f"sac_ae step: non-finite losses {losses}")
+    if any(k.launches for k in ln_gru.KERNELS):
+        raise AssertionError("the SAC-AE step launched LN-GRU kernels")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    profile = profile_step(torch, lambda _m, bt, generator=None: train(bt, generator=generator), None, batch, gen,
+                           step_ms)
+    _, cost = model_cost(lambda: train(batch, generator=gen))
+    device_ms = profile.get("device_ms")
+    return {"model": "SAC-AE preset (multiplier 16, features 64, hidden 1024), batch 128, 64x64x3, 32-true",
+            "ms_per_step": times, "profile": profile, "model_flops_per_step": cost["flops"],
+            "bytes_per_step": cost["bytes_accessed"],
+            "mfu_f32": cost["flops"] / (step_ms / 1e3) / PEAK_F32_FLOPS,
+            "mfu_f32_device_time": (cost["flops"] / (device_ms / 1e3) / PEAK_F32_FLOPS
+                                    if isinstance(device_ms, float) else "not measured"),
+            "max_memory_allocated": peak, "losses": losses}
+
+
+def offpolicy_legs(torch, ln_gru):
+    """The off-policy family on the card (phase 5), on the continuous dummy
+    env at 4 envs with the presets' algorithm settings and widths, cut in
+    length and buffer size: SAC overlapped and serial (equal ledgers), the
+    serial leg again on the staged host feed (bitwise-equal parameters: the
+    ring's batches are the staged feed's), DroQ, SAC-AE at full width, a
+    resume from the SAC leg's mid-run checkpoint (which holds the buffer),
+    eval of each, and one profiled SAC-AE gradient step. No leg launches an
+    LN-GRU kernel."""
+    from sheeprl_tpu_torch.utils.checkpoint import param_sums
+
+    common = ["env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
+              f"root_dir={RUN_ROOT}"]
+    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}", "checkpoint.every=512",
+           "metric.log_every=256"]
+    report, logs, feeds = {}, {}, {}
+
+    def leg(name, args, learning_starts, command="run"):
+        gc.collect()
+        before = torch.cuda.memory_allocated()  # what earlier legs still hold: not this leg's
+        err = io.StringIO()
+
+        class _Err(io.TextIOBase):  # the [prefetch] line says which feed the leg took
+            def write(self, text):
+                err.write(text)
+                return sys.__stderr__.write(text)
+
+        with contextlib.redirect_stderr(_Err()):
+            parsed, counts, seconds, peak = drive(torch, ln_gru, command,
+                                                  args + ([f"run_name={name}"] if command == "run" else []))
+        if any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        if command == "eval":
+            if parsed["reward"] is None:
+                raise AssertionError(f"{name} printed no `Test - Reward:`")
+            report[name] = {"seconds": seconds, "reward": parsed["reward"]}
+            return parsed
+        report[name] = offpolicy_summary(parsed, seconds, peak, before, learning_starts)
+        report[name]["args"] = args
+        feeds[name] = [l.split()[1] for l in err.getvalue().splitlines() if l.startswith("[prefetch] ")]
+        report[name]["feed"] = feeds[name]
+        logs[name] = parsed["log_dir"]
+        return parsed
+
+    leg("sac", sac, 100)
+    ckpts = checkpoints(logs["sac"])
+    steps = [int(os.path.basename(p)[5:-5]) for p in ckpts]  # overlapped: a mid-run one where a take crossed 512
+    if len(steps) != 2 or not 100 < steps[0] < SAC_TOTAL or steps[-1] != SAC_TOTAL:
+        raise AssertionError(f"the sac leg's checkpoints {ckpts}: not a mid-run one and the last one")
+    eng = [r for r in (json.loads(l) for l in open(os.path.join(logs["sac"], "telemetry.jsonl")))
+           if r["event"] == "overlap"]
+    if not eng or eng[-1].get("staleness_seen_max", 0) > 1:
+        raise AssertionError(f"the sac leg's overlap records {eng[-1:] or None}: no engine, or staleness above 1")
+    report["sac"]["engine"] = {"records": len(eng), "staleness_seen_max": eng[-1]["staleness_seen_max"],
+                               "player_stall_frac": eng[-1]["player_stall_frac"]}
+    sac_ledger, _ = offpolicy_ledger(torch, ckpts[-1])
+    leg("sac_serial", sac + ["algo.overlap.enabled=False"], 100)
+    serial_ledger, serial_agent = offpolicy_ledger(torch, checkpoints(logs["sac_serial"])[-1])
+    if serial_ledger != sac_ledger or sac_ledger["policy_step"] != SAC_TOTAL:
+        raise AssertionError(f"ledgers differ: overlapped {sac_ledger}, serial {serial_ledger}")
+    report["sac_serial"]["ledger_equal"] = sac_ledger
+    leg("sac_staged", sac + ["algo.overlap.enabled=False", "buffer.device_cache=false"], 100)
+    if feeds["sac_serial"] != ["DeviceUniformRingPrefetcher"] or feeds["sac_staged"] != ["StagedPrefetcher"]:
+        raise AssertionError(f"feeds: sac_serial {feeds['sac_serial']}, sac_staged {feeds['sac_staged']}")
+    staged_ledger, staged_agent = offpolicy_ledger(torch, checkpoints(logs["sac_staged"])[-1])
+    bitwise, diff = same_agent(torch, serial_agent, staged_agent)
+    if staged_ledger != serial_ledger or not bitwise:
+        raise AssertionError(f"sac_staged ended at {staged_ledger} (max parameter difference {diff}), sac_serial "
+                             f"at {serial_ledger}")
+    report["sac_staged"].update(ledger_equal=serial_ledger, parameters_bitwise_equal=bitwise)
+
+    leg("droq", ["exp=droq", *common, f"algo.total_steps={DROQ_TOTAL}", "buffer.size=256", "checkpoint.every=0",
+                 "metric.log_every=64"], 100)
+    leg("sac_ae", ["exp=sac_ae", *common, f"algo.total_steps={AE_TOTAL}",
+                   f"algo.learning_starts={AE_LEARNING_STARTS}", f"buffer.size={AE_BUFFER}", "checkpoint.every=0",
+                   "metric.log_every=32"], AE_LEARNING_STARTS)
+    for name, total in (("droq", DROQ_TOTAL), ("sac_ae", AE_TOTAL)):
+        if report[name]["policy_step"] != total or report[name]["grad_steps"] < 1:
+            raise AssertionError(f"the {name} leg stopped at {report[name]['policy_step']} of {total}")
+    if report["sac_ae"]["grad_steps"] != AE_TOTAL - AE_LEARNING_STARTS:
+        raise AssertionError(f"the sac_ae leg took {report['sac_ae']['grad_steps']} gradient steps")
+
+    saved = torch.load(ckpts[0], map_location="cpu", weights_only=False)
+    parsed = leg("sac_resume", [a for a in sac if not a.startswith("algo.total_steps=")] + [
+        f"algo.total_steps={SAC_RESUME_TOTAL}", f"checkpoint.resume_from={ckpts[0]}"], 100)
+    started = parsed["resumed"]
+    want = {"policy_step": saved["policy_step"], "grad_steps": saved["grad_steps"], "ratio": saved["ratio"]}
+    if started is None or {k: started[k] for k in want} != want:
+        raise AssertionError(f"sac_resume started from {started}, the checkpoint holds {want}")
+    file_sums = param_sums({"agent": saved["agent"]})
+    if abs(started["param_sums"]["agent"] - file_sums["agent"]) > 1e-9 * max(1.0, abs(file_sums["agent"])):
+        raise AssertionError(f"resumed parameters sum to {started['param_sums']}, the file's to {file_sums}")
+    if report["sac_resume"]["policy_step"] != SAC_RESUME_TOTAL or "rb" not in saved:
+        raise AssertionError(f"sac_resume stopped at {report['sac_resume']['policy_step']}")
+    report["sac_resume"].update(started_from=want, param_sums=file_sums, checkpoint=os.path.basename(ckpts[0]))
+
+    for name in ("sac", "droq", "sac_ae"):
+        leg(f"{name}_eval", [f"checkpoint_path={checkpoints(logs[name])[-1]}"], 0, command="eval")
+    t0 = time.perf_counter()
+    report["sac_ae_step"] = sac_ae_step(torch, ln_gru)
+    report["sac_ae_step"]["seconds"] = time.perf_counter() - t0
     return report
 
 
@@ -1509,8 +1739,10 @@ def main(argv=None) -> int:
 
     try:
         os.chdir(HERE)  # the legs write logs/runs/chip_smoke/ in the checkout (gitignored)
+        t0 = time.perf_counter()
         counts, blocks, legs = phase_run(torch, ln_gru)
-        emit("run", ok=True, nvidia_smi=smi, launches=counts, last_launch_blocks=blocks, legs=legs)
+        emit("run", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, launches=counts,
+             last_launch_blocks=blocks, legs=legs)
     except Exception as err:  # noqa: BLE001
         return fail("run", err)
 

@@ -30,6 +30,10 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
 )
 
 

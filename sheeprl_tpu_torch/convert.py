@@ -14,6 +14,13 @@ flax path becomes a state-dict key by a rewrite:
   (kh, kw, out, in) as the HWIO kernel of the convolution it transposes, →
   ``weight`` [in, out, kh, kw]: an axis swap and no spatial flip
   (tests/test_torch_convert.py pins this against flax);
+* a ConvTranspose ``kernel`` with ``transpose_kernel=False`` (SAC-AE's
+  decoder; the module carries ``flax_transpose_kernel = False``), laid out
+  (kh, kw, in, out) and applied unflipped to the dilated input, →
+  ``weight`` [in, out, kh, kw] flipped in space
+  (tests/test_torch_sac_ae.py pins this against flax);
+* a Dense kernel under ``nn.vmap`` ([n, in, out], an ``EnsembleLinear``)
+  keeps its layout;
 * ``initial_recurrent_state`` keeps its name;
 * a flax ``OptimizedLSTMCell`` (input kernels ``ii, if, ig, io`` without
   bias, hidden kernels ``hi, hf, hg, ho`` with bias) → an ``nn.LSTMCell``:
@@ -25,7 +32,10 @@ The module type at each path decides the kernel layout. ``load_dreamer_v3``
 loads ``{wm, actor, critic, target_critic}`` and, optionally, the optax adam
 states (``mu``/``nu``/``count``) and the target-EMA step counter;
 ``load_ppo``, ``load_a2c`` and ``load_ppo_recurrent`` load the on-policy
-agents and their Adam or RMSprop (``nu``) states.
+agents and their Adam or RMSprop (``nu``) states; ``load_sac``,
+``load_droq`` and ``load_sac_ae`` the off-policy agents (``log_alpha``
+included) with the Adam states of each of their optimizers and the
+gradient-step counter.
 """
 from __future__ import annotations
 
@@ -58,9 +68,15 @@ def torch_key(path: str) -> str:
 
 
 def kernel_to_torch(kernel: np.ndarray, module: nn.Module) -> np.ndarray:
+    from .models import EnsembleLinear
+
     if isinstance(module, nn.Linear):
         return kernel.T
+    if isinstance(module, EnsembleLinear):
+        return kernel
     if isinstance(module, nn.ConvTranspose2d):
+        if not getattr(module, "flax_transpose_kernel", True):
+            return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
         return kernel.transpose(3, 2, 0, 1)
     if isinstance(module, nn.Conv2d):
         return kernel.transpose(3, 2, 0, 1)
@@ -194,3 +210,63 @@ def load_ppo_recurrent(params: Mapping[str, Any], agent: nn.Module, opt_state: A
     """The JAX recurrent PPO agent's ``params`` (the LSTM folded into
     ``nn.LSTMCell`` form) and its Adam state into the port's."""
     load_ppo(params, agent, opt_state, optimizer)
+
+
+def load_scalar_adam_state(optimizer: torch.optim.Optimizer, param: torch.Tensor, opt_state: Any) -> None:
+    """optax adam's state of one array leaf (``log_alpha``) → the
+    ``torch.optim.Adam`` state of ``param``."""
+    adam = find_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (mu, nu, count) in the optax state")
+    optimizer.state[param] = {
+        "step": torch.tensor(float(np.asarray(adam.count))),
+        "exp_avg": torch.as_tensor(np.array(adam.mu, np.float32)).to(param.device),
+        "exp_avg_sq": torch.as_tensor(np.array(adam.nu, np.float32)).to(param.device),
+    }
+
+
+def _load_log_alpha(params: Mapping[str, Any], agent: nn.Module) -> None:
+    with torch.no_grad():
+        agent.log_alpha.copy_(torch.as_tensor(np.array(params["log_alpha"], np.float32)))
+
+
+def load_sac(params: Mapping[str, Any], agent: nn.Module, opt_states: Optional[Mapping[str, Any]] = None,
+             optimizers: Any = None) -> None:
+    """The JAX SAC (or DroQ) ``params`` ``{actor, critic, target_critic,
+    log_alpha}`` into the port's ``SACAgent`` (the critics' leading ``n``
+    axis kept) and, with ``optimizers`` (``sac.Optimizers``), the Adam
+    states of ``opt_states`` and its target-EMA ``step`` (DroQ's has none:
+    its EMA runs every step)."""
+    for key in ("actor", "critic", "target_critic"):
+        load_params(params[key], getattr(agent, key))
+    _load_log_alpha(params, agent)
+    if opt_states is not None and optimizers is not None:
+        load_adam_state(optimizers["actor"], agent.actor, opt_states["actor"])
+        load_adam_state(optimizers["critic"], agent.critic, opt_states["critic"])
+        load_scalar_adam_state(optimizers["alpha"], agent.log_alpha, opt_states["alpha"])
+        optimizers.step = int(np.asarray(opt_states.get("step", 0)))
+
+
+def load_droq(params: Mapping[str, Any], agent: nn.Module, opt_states: Optional[Mapping[str, Any]] = None,
+              optimizers: Any = None) -> None:
+    """DroQ's tree is SAC's (its critic has LayerNorms between the layers)."""
+    load_sac(params, agent, opt_states, optimizers)
+
+
+def load_sac_ae(params: Mapping[str, Any], agent: nn.Module, opt_states: Optional[Mapping[str, Any]] = None,
+                optimizers: Any = None) -> None:
+    """The JAX SAC-AE ``params`` ``{encoder, qs, actor, decoder, log_alpha,
+    target_encoder, target_qs}`` into the port's ``SACAEAgent`` and, with
+    ``optimizers``, the Adam states of ``qf`` (over ``{encoder, qs}``),
+    ``actor``, ``alpha``, ``encoder`` and ``decoder`` (AdamW) and ``step``."""
+    for key in ("encoder", "qs", "actor", "decoder", "target_encoder", "target_qs"):
+        load_params(params[key], getattr(agent, key))
+    _load_log_alpha(params, agent)
+    if opt_states is not None and optimizers is not None:
+        qf = nn.ModuleDict({"encoder": agent.encoder, "qs": agent.qs})
+        load_adam_state(optimizers["qf"], qf, opt_states["qf"])
+        load_adam_state(optimizers["actor"], agent.actor, opt_states["actor"])
+        load_scalar_adam_state(optimizers["alpha"], agent.log_alpha, opt_states["alpha"])
+        load_adam_state(optimizers["encoder"], agent.encoder, opt_states["encoder"])
+        load_adam_state(optimizers["decoder"], agent.decoder, opt_states["decoder"])
+        optimizers.step = int(np.asarray(opt_states["step"]))

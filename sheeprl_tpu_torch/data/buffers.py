@@ -125,6 +125,41 @@ class ReplayBuffer:
         self._pos = int((self._pos + t) % self._buffer_size)
         self._added += t
 
+    def sample_indices(self, total: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``total`` uniform (row, env) index pairs over the stored rows, the
+        JAX package's draw (shared with the device ring's gather, so host and
+        device batches are the same rows)."""
+        if not self._full and self._pos == 0:
+            raise ValueError("No data in the buffer, cannot sample")
+        idxs = self._rng.integers(0, self._buffer_size if self._full else self._pos, size=total)
+        env_idxs = self._rng.integers(0, self._n_envs, size=total)
+        return idxs, env_idxs
+
+    def sample(self, batch_size: int, n_samples: int = 1, out: Optional[Dict[str, np.ndarray]] = None,
+               **kwargs: Any) -> Dict[str, np.ndarray]:
+        """A uniform sample, ``[n_samples, batch_size, ...]`` per key; the keys
+        ``out`` holds are gathered into its arrays (cast to their dtype),
+        which are returned."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError("batch_size and n_samples must be > 0")
+        idxs, env_idxs = self.sample_indices(batch_size * n_samples)
+        rows = idxs * self._n_envs + env_idxs
+        result: Dict[str, np.ndarray] = {}
+        for k, v in self._buf.items():
+            arr = np.asarray(v)
+            flat = arr.reshape(self._buffer_size * self._n_envs, *arr.shape[2:])
+            dst = out.get(k) if out is not None else None
+            if dst is None:
+                result[k] = np.take(flat, rows, axis=0).reshape(n_samples, batch_size, *arr.shape[2:])
+                continue
+            view = dst.reshape(len(rows), *arr.shape[2:])
+            if dst.dtype == flat.dtype:
+                np.take(flat, rows, axis=0, out=view)
+            else:
+                view[...] = np.take(flat, rows, axis=0)
+            result[k] = dst
+        return result
+
     def state_dict(self) -> Dict[str, Any]:
         """The stored rows only (``[:pos]`` until the buffer is full: the
         storage is allocated whole, and a large buffer early in a run is

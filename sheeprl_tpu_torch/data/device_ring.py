@@ -1,5 +1,7 @@
 """A replay ring in device memory: rows cross to the card once, batches are
-gathered there (the single-device part of ``sheeprl_tpu/data/device_ring.py``).
+gathered there (the single-device part of ``sheeprl_tpu/data/device_ring.py``),
+for the sequential replay of the Dreamer loop (``DeviceRingPrefetcher``) and
+the uniform replay of the SAC family (``DeviceUniformRingPrefetcher``).
 
 The staged prefetcher copies every sampled batch to the card, a DreamerV3-S
 burst batch being 16 windows of 64 steps of 64×64×3 uint8 frames, about
@@ -18,6 +20,10 @@ row crosses once, when it is added:
   the card: for the same generator state a ring batch equals the host
   batch bit for bit.
 
+The uniform ring mirrors a plain ``ReplayBuffer`` the same way, shipping whole
+time steps (the buffer adds all envs in lockstep), and gathers ``[G, B, ...]``
+batches with the host buffer's own index draw (``ReplayBuffer.sample_indices``).
+
 The host buffer stays the source of truth for checkpoints and restarts: an
 in-place edit (``mark_restart`` rewrites a row's flags) reaches the ring
 through ``mark_dirty``, and ``resync()`` rebuilds it after a checkpoint load.
@@ -33,7 +39,7 @@ import torch
 
 from ..telemetry import device as device_counters
 
-from .buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from .buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
 from .prefetch import StagedPrefetcher
 
 
@@ -209,6 +215,108 @@ class DeviceRingPrefetcher:
         self._dirty_rows.clear()
 
 
+def _scatter_steps(ring: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor], t_idx: torch.Tensor) -> None:
+    # one scatter row covers all envs of a time step
+    for k, r in ring.items():
+        r.index_copy_(0, t_idx, rows[k])
+
+
+def _gather_uniform(ring: Dict[str, torch.Tensor], t_idx: torch.Tensor, e_idx: torch.Tensor, g: int, batch: int,
+                    f32_keys: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    out = {k: r[t_idx, e_idx].reshape(g, batch, *r.shape[2:]) for k, r in ring.items()}
+    return {k: v.float() if k in f32_keys else v for k, v in out.items()}
+
+
+class DeviceUniformRingPrefetcher:
+    """``stage``/``take`` prefetcher serving uniform ``[G, B, ...]`` batches
+    (the SAC family's) from a device mirror of a plain ``ReplayBuffer``.
+    ``cnn_keys`` stay at their stored dtype (uint8 images; SAC-AE lists the
+    ``next_`` frames it stores too), the other keys come as f32."""
+
+    def __init__(self, rb: ReplayBuffer, batch_size: int, cnn_keys: Sequence[str] = (), device: Any = "cuda",
+                 bucket: int = 8):
+        self._rb = rb
+        self._batch = int(batch_size)
+        self._cnn_keys = tuple(cnn_keys)
+        self.device = torch.device(device)
+        self._bucket = int(bucket)
+        self._ring: Optional[Dict[str, torch.Tensor]] = None
+        self._synced_added = 0  # rows ever added at the last sync
+        self._staged: Optional[tuple] = None
+        self.synced_rows = 0  # time steps shipped (padding excluded)
+
+    @property
+    def ring(self) -> Optional[Dict[str, torch.Tensor]]:
+        return self._ring
+
+    def _ensure_ring(self) -> None:
+        if self._ring is not None:
+            return
+        b = self._rb
+        self._ring = {k: torch.zeros((b.buffer_size, b._n_envs) + b[k].shape[2:],
+                                     dtype=torch.from_numpy(b[k][:0]).dtype, device=self.device) for k in b.keys()}
+
+    def sync(self) -> None:
+        """Ship the time steps added since the last sync into the ring (all
+        that is stored when more landed than the ring holds)."""
+        b = self._rb
+        if b.empty:
+            return
+        self._ensure_ring()
+        size = b.buffer_size
+        delta = b._added - self._synced_added
+        if delta <= 0:
+            return
+        if delta >= size:
+            steps = [(b._pos + i) % size for i in range(size)] if b.full else list(range(b._pos))
+        else:
+            steps = [(b._pos - delta + i) % size for i in range(delta)]
+        self._synced_added = b._added
+        n = len(steps)
+        pad = -(-n // self._bucket) * self._bucket - n
+        # the padding repeats the first step, so its writes are no-ops
+        t_np = np.asarray(steps + [steps[0]] * pad, np.int64)
+        data: Dict[str, torch.Tensor] = {}
+        for k in self._ring:
+            data[k] = torch.from_numpy(np.ascontiguousarray(b[k][t_np])).to(self.device)
+        self.synced_rows += n
+        t_idx = torch.from_numpy(t_np).to(self.device)
+        if self.device.type == "cuda":
+            device_counters.record_h2d(*data.values(), t_idx)
+        _scatter_steps(self._ring, data, t_idx)
+
+    def _f32_keys(self) -> Tuple[str, ...]:
+        return tuple(k for k, r in self._ring.items() if k not in self._cnn_keys and r.dtype != torch.float32)
+
+    def _gather(self, g: int) -> Dict[str, torch.Tensor]:
+        self.sync()
+        if self._ring is None:
+            raise ValueError("No data in the buffer, cannot sample")
+        idxs, env_idxs = self._rb.sample_indices(self._batch * g)
+        t_dev, e_dev = torch.from_numpy(idxs).to(self.device), torch.from_numpy(env_idxs).to(self.device)
+        if self.device.type == "cuda":
+            device_counters.record_h2d(t_dev, e_dev)
+        return _gather_uniform(self._ring, t_dev, e_dev, g, self._batch, self._f32_keys())
+
+    def stage(self, g: int) -> None:
+        """Launch the next batch's gather now (nothing at the warmup
+        boundary, where the buffer cannot serve it yet)."""
+        if g <= 0:
+            self._staged = None
+            return
+        try:
+            self._staged = (g, self._gather(g))
+        except ValueError:
+            self._staged = None
+
+    def take(self, g: int) -> Dict[str, torch.Tensor]:
+        """The staged batch if it was staged for ``g``, else a fresh gather."""
+        staged, self._staged = self._staged, None
+        if staged is not None and staged[0] == g:
+            return staged[1]
+        return self._gather(g)
+
+
 def _ring_mode(cfg: Any) -> str:
     """``buffer.device_cache``: YAML booleans arrive as bools, so ``false``
     must turn the ring off, not fall through to ``auto``."""
@@ -255,6 +363,33 @@ def make_sequential_prefetcher(cfg: Any, device: torch.device, rb: EnvIndependen
 
     if _use_ring(cfg, device, row_bytes_hint, rows):
         pf = DeviceRingPrefetcher(rb, batch_size, sequence_length, cnn_keys=cnn_keys, device=device)
+    else:
+        pf = StagedPrefetcher(host_sample, device)
+    print(f"[prefetch] {type(pf).__name__} (buffer.device_cache={_ring_mode(cfg)}, "
+          f"mirror {(row_bytes_hint or 0) * rows} bytes)", file=sys.stderr, flush=True)
+    return pf
+
+
+def make_uniform_prefetcher(cfg: Any, device: torch.device, rb: ReplayBuffer, batch_size: int,
+                            cnn_keys: Sequence[str] = (), row_bytes_hint: Optional[int] = None):
+    """The prefetcher for the uniform-replay (SAC family) loops: the device
+    ring under the same ``buffer.device_cache`` policy as the sequential
+    path, else host samples staged one burst ahead through pinned memory.
+    Both serve ``[G, B, ...]`` batches, ``cnn_keys`` uint8 and the rest f32,
+    and for one generator state the same batch bit for bit. Prints which, with
+    the mirror's size, to stderr."""
+    cnn_keys = tuple(cnn_keys)
+    rows = rb.buffer_size * rb._n_envs
+
+    def host_sample(g: int, out: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
+        s = rb.sample(batch_size * g, out=out)
+        if out is not None:  # a pinned slot's [g, B, ...] arrays, of the dtypes below
+            return s
+        return {k: (v if k in cnn_keys else np.asarray(v, np.float32)).reshape(g, batch_size, *v.shape[2:])
+                for k, v in s.items()}
+
+    if _use_ring(cfg, device, row_bytes_hint, rows):
+        pf = DeviceUniformRingPrefetcher(rb, batch_size, cnn_keys=cnn_keys, device=device)
     else:
         pf = StagedPrefetcher(host_sample, device)
     print(f"[prefetch] {type(pf).__name__} (buffer.device_cache={_ring_mode(cfg)}, "

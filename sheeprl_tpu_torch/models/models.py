@@ -1,6 +1,9 @@
 """Core NN building blocks (PyTorch), the subset of
-``sheeprl_tpu/models/models.py`` that DreamerV3 and the on-policy family use
-(``MLP``, ``NatureCNN``, ``LayerNormGRUCell``).
+``sheeprl_tpu/models/models.py`` that DreamerV3, the on-policy and the
+off-policy families use (``MLP`` with dropout, ``NatureCNN``,
+``LayerNormGRUCell``), and the ensemble layers that stand for the JAX
+package's ``nn.vmap``-lifted critics (``EnsembleLinear``,
+``EnsembleLayerNorm``, ``EnsembleMLP``).
 
 Module and attribute names follow the JAX package's parameter tree (``dense_0``,
 ``LayerNorm_0``, ``fused`` ...), so ``convert.py`` maps a flax tree onto a
@@ -14,7 +17,7 @@ Inits follow the JAX package: ``xavier_normal_`` is JAX's ``glorot_normal``
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,11 +117,26 @@ class LayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` with a given keep ``mask``: kept entries scaled by
+    ``1 / (1 - rate)``, the others zero."""
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def draw_masks(shapes: Sequence[Tuple[int, ...]], rate: float, generator: Optional[torch.Generator],
+               device: Any) -> List[torch.Tensor]:
+    """One keep mask (``True`` with probability ``1 - rate``) per shape, from
+    ``generator``."""
+    return [torch.rand(s, generator=generator, device=device) < 1.0 - rate for s in shapes]
+
+
 class MLP(nn.Module):
-    """Linear → Norm → activation stack with an optional linear ``out`` head
-    (the JAX package's ``MLP`` without dropout). The defaults are DreamerV3's
-    (SiLU, Hafner init); the on-policy agents pass ``activation`` and
-    flax's ``lecun_normal_``."""
+    """Linear → Dropout → Norm → activation stack with an optional linear
+    ``out`` head (the JAX package's ``MLP``). The defaults are DreamerV3's
+    (SiLU, Hafner init); the other agents pass ``activation`` and flax's
+    ``lecun_normal_``. Dropout (``dropout`` > 0) runs where ``forward`` is
+    given keep ``masks``, one per hidden layer (``draw_masks``); without
+    them the stack is deterministic, as flax's with ``deterministic=True``."""
 
     def __init__(
         self,
@@ -129,11 +147,14 @@ class MLP(nn.Module):
         init=xavier_normal_,
         activation: str = "silu",
         output_dim: Optional[int] = None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.n_layers = len(hidden_sizes)
+        self.hidden_sizes = tuple(int(h) for h in hidden_sizes)
         self.layer_norm = norm_eps is not None
         self.act = get_activation(activation)
+        self.dropout = float(dropout)
         prev = input_dim
         for i, h in enumerate(hidden_sizes):
             setattr(self, f"dense_{i}", dense(prev, h, bias, init))
@@ -146,9 +167,85 @@ class MLP(nn.Module):
             prev = int(output_dim)
         self.output_dim = prev
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"dense_{i}")(x)
+            if masks is not None and self.dropout > 0:
+                x = dropout(x, masks[i], self.dropout)
+            if self.layer_norm:
+                x = getattr(self, f"LayerNorm_{i}")(x)
+            x = self.act(x)
+        return self.out(x) if self.has_out else x
+
+
+class EnsembleLinear(nn.Module):
+    """``n`` independent linear layers run as one batched product: ``weight``
+    ``[n, in, out]`` (the layout of a flax ``Dense`` kernel under ``nn.vmap``)
+    and ``bias`` ``[n, out]``. Takes ``[B, in]`` (shared by the members) or
+    ``[n, B, in]``; returns ``[n, B, out]``. Each member's kernel has flax's
+    lecun-normal init."""
+
+    def __init__(self, n: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+        std = math.sqrt(1.0 / max(1, in_features)) / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.expand(self.weight.shape[0], *x.shape)
+        return torch.baddbmm(self.bias.unsqueeze(1), x, self.weight)
+
+
+class EnsembleLayerNorm(nn.Module):
+    """``n`` LayerNorms over the last axis of ``[n, B, h]``, each with its own
+    ``weight`` and ``bias`` (``[n, h]``)."""
+
+    def __init__(self, n: int, h: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(n, h))
+        self.bias = nn.Parameter(torch.zeros(n, h))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x, x.shape[-1:], eps=self.eps)
+        return torch.addcmul(self.bias.unsqueeze(1), y, self.weight.unsqueeze(1))
+
+
+class EnsembleMLP(nn.Module):
+    """``MLP`` for ``n`` members at once (the JAX package's ``MLP`` under
+    ``nn.vmap`` with ``variable_axes={"params": 0}``): the same submodule
+    names, every weight with a leading ``n`` axis. Dropout masks are
+    ``[n, B, h]``, so each member draws its own."""
+
+    def __init__(self, n: int, input_dim: int, hidden_sizes: Sequence[int], output_dim: Optional[int] = None,
+                 activation: str = "relu", norm_eps: Optional[float] = None, dropout: float = 0.0):
+        super().__init__()
+        self.n = int(n)
+        self.n_layers = len(hidden_sizes)
+        self.hidden_sizes = tuple(int(h) for h in hidden_sizes)
+        self.layer_norm = norm_eps is not None
+        self.act = get_activation(activation)
+        self.dropout = float(dropout)
+        prev = input_dim
+        for i, h in enumerate(hidden_sizes):
+            setattr(self, f"dense_{i}", EnsembleLinear(n, prev, h))
+            if self.layer_norm:
+                setattr(self, f"LayerNorm_{i}", EnsembleLayerNorm(n, h, eps=norm_eps))
+            prev = h
+        self.has_out = output_dim is not None
+        if self.has_out:
+            self.out = EnsembleLinear(n, prev, int(output_dim))
+
+    def mask_shapes(self, batch: int) -> List[Tuple[int, int, int]]:
+        return [(self.n, batch, h) for h in self.hidden_sizes]
+
+    def forward(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if masks is not None and self.dropout > 0:
+                x = dropout(x, masks[i], self.dropout)
             if self.layer_norm:
                 x = getattr(self, f"LayerNorm_{i}")(x)
             x = self.act(x)

@@ -2,9 +2,9 @@
 the JAX package, and chip_smoke.py and the port's scripts
 (scripts/torch_*.py, which run on the card too) import nothing of it: every
 port module is imported in a fresh interpreter, dry runs of the dummy env
-path (DreamerV3, and PPO on pixels with the watchdog on) run there, and the
-loaded modules are checked; every import statement
-of the port's sources is scanned.
+path (DreamerV3, PPO on pixels with the watchdog on, SAC, and SAC-AE at cut
+widths) run there, and the loaded modules are checked; every import
+statement of the port's sources is scanned.
 
 The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
 imported by their adapters only, inside the functions that make an env or
@@ -48,6 +48,11 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "cli.run(['exp=ppo', 'env=dummy', 'fabric.accelerator=cpu', 'dry_run=True', 'env.num_envs=2',\n"
         "         'algo.rollout_steps=8', 'algo.per_rank_batch_size=8', 'algo.cnn_keys.encoder=[rgb]',\n"
         "         'resilience.watchdog.enabled=True'])\n"
+        "cli.run(['exp=sac', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
+        "         'env.num_envs=2', 'algo.hidden_size=16'])\n"
+        "cli.run(['exp=sac_ae', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
+        "         'env.num_envs=2', 'algo.cnn_channels_multiplier=1', 'algo.hidden_size=32',\n"
+        "         'algo.per_rank_batch_size=8'])\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules)}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -62,7 +67,10 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "resilience.preemption", "resilience.resume", "resilience.supervisor", "algos.ppo.agent",
                 "algos.ppo.loss", "algos.ppo.utils", "algos.ppo.ppo", "algos.a2c.agent", "algos.a2c.loss",
                 "algos.a2c.a2c", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.utils",
-                "algos.ppo_recurrent.ppo_recurrent", "optim", "utils.checkpoint", "utils.metric", "utils.logger",
+                "algos.ppo_recurrent.ppo_recurrent", "algos.sac.agent", "algos.sac.loss", "algos.sac.utils",
+                "algos.sac.sac", "algos.sac.sac_decoupled", "algos.droq.agent", "algos.droq.droq",
+                "algos.sac_ae.agent", "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "data.device_ring", "optim",
+                "utils.checkpoint", "utils.metric", "utils.logger",
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
                 "telemetry.device", "telemetry.facade"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
