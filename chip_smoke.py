@@ -149,6 +149,40 @@ that fails and then prints no result:
                learning_starts, update ms (a burst's wall time), gradient
                steps and its own peak device memory; none launches an
                LN-GRU kernel;
+               dreamer_v2  exp=dreamer_v2 at the preset's widths
+                           (multiplier 48, recurrent 600, 32x32, batch 16,
+                           sequence 50, horizon 15, 32-true) on the discrete
+                           dummy env (one env), the sequential buffer on the
+                           device ring, learning_starts 64, to 256 policy
+                           steps (its 20 pretrain steps, then ratio 0.2), a
+                           mid-run checkpoint and the last;
+               dreamer_v2_episode
+                           buffer.type=episode, prioritize_ends, memmap, on
+                           the staged feed, on the multidiscrete dummy env
+                           (129-step episodes: the discrete dummy's 5-step
+                           ones are shorter than a sequence, which the
+                           episode buffer's minimum length asks), to 320;
+               dreamer_v2_resume
+                           checkpoint.resume_from=<dreamer_v2's mid-run
+                           checkpoint, which holds the buffer>: its
+                           counters and parameters, the target-copy step
+                           counter carried on, to 320;
+               dreamer_v1  exp=dreamer_v1 at the preset's widths
+                           (multiplier 32, recurrent 200, stochastic 30,
+                           batch 50, sequence 50) on the continuous dummy
+                           env: the truncated-normal actor, exploration
+                           noise 0.3, learning_starts 128, to 512;
+               dreamer_v2_eval, dreamer_v1_eval
+                           eval checkpoint_path=<each leg's last one>;
+               dv2_step, dv1_step
+                           one gradient step of each at the preset's
+                           width through make_train_fn, timed and profiled
+                           as in phase 4, with its model FLOPs, f32 bound
+                           and MFU; dv2_step also under bf16-mixed from the
+                           same weights, batch and noise, its losses within
+                           BF16_TOL of f32's;
+               each DreamerV1/V2 leg records what an off-policy leg does;
+               none launches an LN-GRU kernel;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -179,6 +213,7 @@ one run.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -948,7 +983,8 @@ def phase_feed(torch, dev="cuda", reps=10):
 # random actions, then one gradient step per iteration (replay ratio 0.5)
 LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
 RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
-ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae")  # the `[<algo>] log_dir=` lines
+ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae", "dreamer_v2",
+         "dreamer_v1")  # the `[<algo>] log_dir=` lines
 # the on-policy legs: the presets' algorithm settings on the dummy envs, 4 envs
 # (PPO: 128-step rollouts, 8 updates of 10 epochs x 8 minibatches of 64)
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
@@ -1181,6 +1217,7 @@ def phase_run(torch, ln_gru, overrides=()):
     report.update(walker_legs(torch, ln_gru))
     report.update(ppo_legs(torch, ln_gru))
     report.update(offpolicy_legs(torch, ln_gru))
+    report.update(dreamer_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     launches = {"resident": report["run"]["launches"], "streamed": report["run_M"]["launches"]}
     return launches, {"resident": blocks, "streamed": blocks_m}, report
@@ -1335,6 +1372,44 @@ def offpolicy_summary(parsed, seconds, peak, before, learning_starts):
             "checkpoints": [r["step"] for r in parsed["ckpt"] if r["action"] == "written"]}
 
 
+def make_leg(torch, ln_gru, report, logs, feeds):
+    """``leg(name, args, learning_starts, command="run")``: one CLI call
+    (``drive``) that must launch no LN-GRU kernel; its summary
+    (``offpolicy_summary``; an eval's reward) lands in ``report[name]``, its
+    log dir in ``logs`` and the replay feed it took (its ``[prefetch]``
+    line) in ``feeds``. Returns the parsed leg."""
+
+    def leg(name, args, learning_starts, command="run"):
+        gc.collect()
+        before = torch.cuda.memory_allocated()  # what earlier legs still hold: not this leg's
+        err = io.StringIO()
+
+        class _Err(io.TextIOBase):  # the [prefetch] line says which feed the leg took
+            def write(self, text):
+                err.write(text)
+                return sys.__stderr__.write(text)
+
+        with contextlib.redirect_stderr(_Err()):
+            parsed, counts, seconds, peak = drive(torch, ln_gru, command,
+                                                  args + ([f"run_name={name}"] if command == "run" else []))
+        if any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        if command == "eval":
+            if parsed["reward"] is None:
+                raise AssertionError(f"{name} printed no `Test - Reward:`")
+            report[name] = {"seconds": seconds, "reward": parsed["reward"]}
+            return parsed
+        report[name] = offpolicy_summary(parsed, seconds, peak, before, learning_starts)
+        report[name]["args"] = args
+        feeds[name] = [l.split()[1] for l in err.getvalue().splitlines() if l.startswith("[prefetch] ")]
+        report[name]["feed"] = feeds[name]
+        report[name]["launches"] = counts
+        logs[name] = parsed["log_dir"]
+        return parsed
+
+    return leg
+
+
 def offpolicy_ledger(torch, path):
     """What must match between two SAC legs: the Ratio ledger and counters,
     the buffer's fill, and (for a bitwise comparison) the agent."""
@@ -1419,33 +1494,7 @@ def offpolicy_legs(torch, ln_gru):
     sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}", "checkpoint.every=512",
            "metric.log_every=256"]
     report, logs, feeds = {}, {}, {}
-
-    def leg(name, args, learning_starts, command="run"):
-        gc.collect()
-        before = torch.cuda.memory_allocated()  # what earlier legs still hold: not this leg's
-        err = io.StringIO()
-
-        class _Err(io.TextIOBase):  # the [prefetch] line says which feed the leg took
-            def write(self, text):
-                err.write(text)
-                return sys.__stderr__.write(text)
-
-        with contextlib.redirect_stderr(_Err()):
-            parsed, counts, seconds, peak = drive(torch, ln_gru, command,
-                                                  args + ([f"run_name={name}"] if command == "run" else []))
-        if any(counts.values()):
-            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
-        if command == "eval":
-            if parsed["reward"] is None:
-                raise AssertionError(f"{name} printed no `Test - Reward:`")
-            report[name] = {"seconds": seconds, "reward": parsed["reward"]}
-            return parsed
-        report[name] = offpolicy_summary(parsed, seconds, peak, before, learning_starts)
-        report[name]["args"] = args
-        feeds[name] = [l.split()[1] for l in err.getvalue().splitlines() if l.startswith("[prefetch] ")]
-        report[name]["feed"] = feeds[name]
-        logs[name] = parsed["log_dir"]
-        return parsed
+    leg = make_leg(torch, ln_gru, report, logs, feeds)
 
     leg("sac", sac, 100)
     ckpts = checkpoints(logs["sac"])
@@ -1504,6 +1553,190 @@ def offpolicy_legs(torch, ln_gru):
     t0 = time.perf_counter()
     report["sac_ae_step"] = sac_ae_step(torch, ln_gru)
     report["sac_ae_step"]["seconds"] = time.perf_counter() - t0
+    return report
+
+
+# the DreamerV1/V2 legs: the presets' widths and algorithm settings on the
+# dummy envs with 64x64x3 frames, one env (the presets'), cut in length and
+# buffer size only. DV2's first burst takes its 20 pretrain steps (100 at
+# ratio 0.2); the multidiscrete dummy's 129-step episodes outlast the episode
+# buffer's minimum length (the sequence, 50), the discrete dummy's 5 do not
+DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 256, 320, 512
+DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 320
+DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 512, 1024
+
+
+def dreamer_step(torch, ln_gru, algo, env_id, n_act, continuous, dev="cuda", reps=3):
+    """One DreamerV2 or V1 gradient step at the preset's full width on
+    64x64x3 frames, TF32 off, through make_train_fn, in the form of phase
+    train: host ms of timed steps, one step under torch.profiler (device ms,
+    kernel count, busy share, top kernels), the step's model FLOPs counted
+    once (model_cost) and MFU against the f32 peak, peak device memory; and
+    (DV2) the first step under bf16-mixed from the same weights, batch and
+    noise, its losses held against f32's (BF16_TOL), with its own timed
+    steps and profile."""
+    import importlib
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.telemetry.throughput import model_cost
+
+    mod = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.{algo}")
+    agent = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.agent")
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers
+
+    dev = torch.device(dev)
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    adim = [n_act]
+
+    def trainer(precision, weights=None):
+        cfg = compose("config", [f"exp={algo}", "env=dummy", f"env.id={env_id}", f"fabric.precision={precision}"])
+        torch.manual_seed(0)
+        mods = [m for m in agent.build_agent(cfg, space, adim, continuous, dev) if m is not None]
+        if weights is not None:
+            for m, w in zip(mods, weights):
+                m.load_state_dict(w.state_dict())
+        opts = build_optimizers(cfg, *mods[:3])
+        return cfg, mods, mod.make_train_fn(*mods, opts, cfg, continuous, adim)
+
+    cfg, mods, train = trainer("32-true")
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"rgb": torch.randint(0, 256, (1, T, B, 64, 64, 3), device=dev, dtype=torch.uint8, generator=g),
+             "rewards": torch.randn(1, T, B, 1, device=dev, generator=g),
+             "terminated": torch.zeros(1, T, B, 1, device=dev), "truncated": torch.zeros(1, T, B, 1, device=dev),
+             "is_first": torch.zeros(1, T, B, 1, device=dev)}
+    batch["is_first"][:, T // 2, ::4] = 1.0
+    batch["terminated"][:, T // 2 - 1, ::4] = 1.0
+    if continuous:
+        batch["actions"] = torch.rand(1, T, B, n_act, device=dev, generator=g) * 2 - 1
+    else:
+        batch["actions"] = torch.nn.functional.one_hot(torch.randint(0, n_act, (1, T, B), device=dev, generator=g),
+                                                       n_act).float()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = mod.draw_train_noise(cfg, T, B, mods[1], gen, dev)
+    out = {"model": f"{algo} preset: T={T}, B={B}, horizon {cfg.algo.horizon}, 64x64x3, "
+                    f"{'continuous' if continuous else 'discrete'} ({n_act}), 32-true"}
+    # the f32 weights before any step, for DV2's bf16 comparison
+    weights = [copy.deepcopy(m) for m in mods] if algo == "dreamer_v2" else None
+    met32 = train(batch, noise=[noise])  # also the warm-up: cuDNN's algorithm choice, the allocator
+
+    def timed(train_fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ln_gru.reset_launch_counts()
+        times, losses = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            m = train_fn(batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v[0]) for k, v in m.items()})
+        if not all(np.isfinite(v) for l in losses for v in l.values()):
+            raise AssertionError(f"{algo} step: non-finite losses {losses}")
+        if any(k.launches for k in ln_gru.KERNELS):
+            raise AssertionError(f"the {algo} step launched LN-GRU kernels")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = statistics.median(times)
+        profile = profile_step(torch, lambda _m, bt, generator=None: train_fn(bt, generator=generator), None, batch,
+                               gen, step_ms)
+        return {"ms_per_step": times, "profile": profile, "max_memory_allocated": peak, "losses": losses}
+
+    out.update(timed(train))
+    _, cost = model_cost(lambda: train(batch, generator=gen))
+    device_ms = out["profile"].get("device_ms")
+    step_ms = statistics.median(out["ms_per_step"])
+    out.update(model_flops_per_step=cost["flops"], bytes_per_step=cost["bytes_accessed"],
+               f32_bound_ms=bound_ms(cost["flops"], cost["bytes_accessed"])[2],  # f32 outside the tensor cores
+               f32_bound_ops_ms=cost["flops"] / PEAK_F32_FLOPS * 1e3,
+               f32_bound_bytes_ms=cost["bytes_accessed"] / PEAK_BYTES * 1e3,
+               mfu_f32=cost["flops"] / (step_ms / 1e3) / PEAK_F32_FLOPS,
+               mfu_f32_device_time=(cost["flops"] / (device_ms / 1e3) / PEAK_F32_FLOPS
+                                    if isinstance(device_ms, float) else "not measured"))
+    if weights is not None:
+        del mods, train
+        torch.cuda.empty_cache()
+        _, m16, train16 = trainer("bf16-mixed", weights=weights)
+        met16 = train16(batch, noise=[noise])
+        vs = {k: {"f32": float(met32[k][0]), "bf16_mixed": float(met16[k][0])} for k in met32}
+        for k, v in vs.items():
+            if not np.isfinite(v["bf16_mixed"]) or abs(v["bf16_mixed"] - v["f32"]) > BF16_TOL * max(1.0,
+                                                                                                    abs(v["f32"])):
+                raise AssertionError(f"{algo} bf16-mixed {k} = {v['bf16_mixed']} against f32 {v['f32']}")
+        out["bf16_mixed"] = {"first_step_vs_f32": vs, "tol": BF16_TOL, **timed(train16)}
+    return out
+
+
+def dreamer_legs(torch, ln_gru):
+    """DreamerV2 and V1 on the card (phase 5), through the CLI at the
+    presets' widths on the dummy envs with 64x64x3 frames, one env, cut in
+    length and buffer size only: DV2 on the sequential buffer (the device
+    ring, as buffer.device_cache=auto takes it), DV2 on the episode buffer
+    with prioritize_ends and memmap (the staged feed), a DV2 resume from the
+    first leg's mid-run checkpoint (which holds the buffer; the target-copy
+    counter carries on), DV1 on a continuous action (the truncated-normal
+    actor, exploration noise 0.3), eval of both, and one profiled gradient
+    step of each (DV2's also under bf16-mixed). No leg launches an LN-GRU
+    kernel."""
+    from sheeprl_tpu_torch.utils.checkpoint import param_sums
+
+    report, logs, feeds = {}, {}, {}
+    leg = make_leg(torch, ln_gru, report, logs, feeds)
+    t_legs = time.perf_counter()
+    base = ["env=dummy", "algo.run_test=False", f"root_dir={RUN_ROOT}"]
+    dv2 = ["exp=dreamer_v2", *base, "env.id=discrete_dummy", f"algo.learning_starts={DV2_LEARNING_STARTS}",
+           f"buffer.size={DV2_BUFFER}", "checkpoint.every=128", "metric.log_every=64"]
+    leg("dreamer_v2", dv2 + [f"algo.total_steps={DV2_TOTAL}"], DV2_LEARNING_STARTS)
+    leg("dreamer_v2_episode", ["exp=dreamer_v2", *base, "env.id=multidiscrete_dummy", "buffer.type=episode",
+                               "buffer.prioritize_ends=True", "buffer.memmap=True", "buffer.size=1024",
+                               f"algo.learning_starts={DV2_EP_LEARNING_STARTS}", f"algo.total_steps={DV2_EP_TOTAL}",
+                               "checkpoint.every=0", "metric.log_every=64"], DV2_EP_LEARNING_STARTS)
+    if feeds["dreamer_v2"] != ["DeviceRingPrefetcher"] or feeds["dreamer_v2_episode"] != ["StagedPrefetcher"]:
+        raise AssertionError(f"feeds: dreamer_v2 {feeds['dreamer_v2']}, episode {feeds['dreamer_v2_episode']}")
+    for name, total in (("dreamer_v2", DV2_TOTAL), ("dreamer_v2_episode", DV2_EP_TOTAL)):
+        if report[name]["policy_step"] != total or report[name]["grad_steps"] < 24:
+            raise AssertionError(f"the {name} leg: {report[name]['policy_step']} of {total} policy steps, "
+                                 f"{report[name]['grad_steps']} gradient steps")
+
+    ckpts = checkpoints(logs["dreamer_v2"])
+    saved = torch.load(ckpts[0], map_location="cpu", weights_only=False)
+    if not DV2_LEARNING_STARTS < saved["policy_step"] < DV2_TOTAL or "rb" not in saved:
+        raise AssertionError(f"the dreamer_v2 leg's first checkpoint {ckpts[0]}: not a mid-run one with the buffer")
+    parsed = leg("dreamer_v2_resume", dv2 + [f"algo.total_steps={DV2_RESUME_TOTAL}",
+                                             f"checkpoint.resume_from={ckpts[0]}"], DV2_LEARNING_STARTS)
+    started = parsed["resumed"]
+    want = {"policy_step": saved["policy_step"], "grad_steps": saved["grad_steps"], "ratio": saved["ratio"]}
+    if started is None or {k: started[k] for k in want} != want:
+        raise AssertionError(f"dreamer_v2_resume started from {started}, the checkpoint holds {want}")
+    file_sums = param_sums({k: saved[k] for k in ("wm", "actor", "critic", "target_critic")})
+    for k, v in file_sums.items():
+        if abs(started["param_sums"][k] - v) > 1e-9 * max(1.0, abs(v)):
+            raise AssertionError(f"resumed {k} parameters sum to {started['param_sums'][k]}, the file's to {v}")
+    last = torch.load(checkpoints(logs["dreamer_v2_resume"])[-1], map_location="cpu", weights_only=False)
+    if last["policy_step"] != DV2_RESUME_TOTAL or last["opt_states"]["step"] != last["grad_steps"] \
+            or last["grad_steps"] <= saved["opt_states"]["step"]:
+        raise AssertionError(f"dreamer_v2_resume ended at {last['policy_step']} with the step counter "
+                             f"{last['opt_states']['step']} (started from {saved['opt_states']['step']})")
+    report["dreamer_v2_resume"].update(started_from=want, param_sums=file_sums,
+                                       target_copy_counter={"start": saved["opt_states"]["step"],
+                                                            "end": last["opt_states"]["step"]},
+                                       checkpoint=os.path.basename(ckpts[0]))
+
+    leg("dreamer_v1", ["exp=dreamer_v1", *base, "env.id=continuous_dummy", f"algo.total_steps={DV1_TOTAL}",
+                       f"algo.learning_starts={DV1_LEARNING_STARTS}", f"buffer.size={DV1_BUFFER}",
+                       "checkpoint.every=0", "metric.log_every=128"], DV1_LEARNING_STARTS)
+    if report["dreamer_v1"]["policy_step"] != DV1_TOTAL or report["dreamer_v1"]["grad_steps"] < 24:
+        raise AssertionError(f"the dreamer_v1 leg: {report['dreamer_v1']}")
+    for name in ("dreamer_v2", "dreamer_v1"):
+        leg(f"{name}_eval", [f"checkpoint_path={checkpoints(logs[name])[-1]}"], 0, command="eval")
+    report["legs_seconds"] = time.perf_counter() - t_legs
+    for key, name, env_id, continuous in (("dv2_step", "dreamer_v2", "discrete_dummy", False),
+                                          ("dv1_step", "dreamer_v1", "continuous_dummy", True)):
+        t0 = time.perf_counter()
+        report[key] = step = dreamer_step(torch, ln_gru, name, env_id, 2, continuous)
+        step["seconds"] = time.perf_counter() - t0
     return report
 
 
@@ -1643,6 +1876,7 @@ def recurrences(torch, ln_gru, labels):
 
 
 USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
+       python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
                                                     without its per-iteration ranges and timers"""
@@ -1651,7 +1885,7 @@ USAGE = """usage: python3 chip_smoke.py                      every phase (what t
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab") or (mode == "--recurrences"
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer") or (mode == "--recurrences"
                                                                  and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -1695,6 +1929,16 @@ def main(argv=None) -> int:
                  by_shape=recurrences(torch, ln_gru, argv[1:] or ["M", "L", "XL"]))
         except Exception as err:  # noqa: BLE001
             return fail("recurrences", err)
+        return 0
+    if mode == "--dreamer":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            legs = dreamer_legs(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("dreamer", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, legs=legs)
+        except Exception as err:  # noqa: BLE001
+            return fail("dreamer", err)
         return 0
     if mode == "--telemetry-ab":
         try:

@@ -201,21 +201,24 @@ class OffPolicyLoop:
     or (``overlap`` and ``algo.overlap.enabled``) on the overlap engine's
     player thread: the Ratio ledger is fed one call per ``num_envs`` env steps
     either way. Counters live on the loop (``policy_step``, ``grad_steps``,
-    ``last_log``, ``last_checkpoint``)."""
+    ``last_log``, ``last_checkpoint``). DreamerV1 and V2 run their serial
+    loops on it too (``aggregator_keys``: the metrics the algorithm logs;
+    ``dry_run_steps``: the vector-env steps of a dry run)."""
 
     def __init__(self, cfg: Config, algo: str, *, device: torch.device, log_dir: str, state: Optional[Dict[str, Any]],
                  envs: Any, mirror: Any, player_gen: torch.Generator, train_gen: torch.Generator, logger: Any,
-                 params: Dict[str, torch.nn.Module]):
+                 params: Dict[str, torch.nn.Module], aggregator_keys: Any = None, dry_run_steps: int = 1):
         self.cfg, self.algo, self.device, self.envs = cfg, algo, device, envs
         self.mirror, self.player_gen, self.train_gen, self.params = mirror, player_gen, train_gen, params
         self.num_envs = int(cfg.env.num_envs)
-        self.telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS_ALL, device=device)
+        keys = AGGREGATOR_KEYS_ALL if aggregator_keys is None else aggregator_keys
+        self.telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=keys, device=device)
         self.aggregator = self.telem.aggregator
         ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
         self.guard = RunGuard.setup(cfg, ckpt, log_dir, telem=self.telem)
         self.ckpt = self.guard.ckpt
         self.ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
-        self.total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else self.num_envs
+        self.total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else dry_run_steps * self.num_envs
         self.learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
         self.policy_step = self.last_log = self.last_checkpoint = self.grad_steps = 0
         if state:

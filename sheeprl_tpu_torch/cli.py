@@ -34,6 +34,8 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac.sac_decoupled",
     "sheeprl_tpu_torch.algos.droq.droq",
     "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
 )
 
 

@@ -26,7 +26,11 @@ flax path becomes a state-dict key by a rewrite:
   bias, hidden kernels ``hi, hf, hg, ho`` with bias) → an ``nn.LSTMCell``:
   ``weight_ih`` [4H, in] and ``weight_hh`` [4H, H] stack the transposed
   kernels in the order i, f, g, o, ``bias_hh`` the hidden biases, and
-  ``bias_ih`` is zero (the port keeps it frozen).
+  ``bias_ih`` is zero (the port keeps it frozen);
+* a flax ``GRUCell`` (``ir, iz, in`` with bias, ``hr, hz`` without, ``hn``
+  with) → the port's ``models.GRUCell``: ``weight_i`` [3H, in] and
+  ``weight_h`` [3H, H] stack the transposed kernels in the order r, z, n,
+  ``bias_i`` the input biases, ``bias_hn`` stays.
 
 The module type at each path decides the kernel layout. ``load_dreamer_v3``
 loads ``{wm, actor, critic, target_critic}`` and, optionally, the optax adam
@@ -35,7 +39,10 @@ states (``mu``/``nu``/``count``) and the target-EMA step counter;
 agents and their Adam or RMSprop (``nu``) states; ``load_sac``,
 ``load_droq`` and ``load_sac_ae`` the off-policy agents (``log_alpha``
 included) with the Adam states of each of their optimizers and the
-gradient-step counter.
+gradient-step counter; ``load_dreamer_v2`` and ``load_dreamer_v1`` the
+DreamerV2 and V1 agents with the states of their optimizers (Adam, AdamW,
+``rmsprop`` or ``rmsprop_tf``, as each optimizer is) and DreamerV2's step
+counter, the one that paces its target-critic copy.
 """
 from __future__ import annotations
 
@@ -103,11 +110,31 @@ def fold_lstm(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+_GRU_GATES = ("r", "z", "n")
+
+
+def fold_gru(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Every flax ``GRUCell`` of a flattened tree as ``models.GRUCell``
+    entries (``weight_i``, ``bias_i``, ``weight_h``, ``bias_hn``)."""
+    out: Dict[str, np.ndarray] = {}
+    folded = set()
+    for pre in sorted({p[: -len("ir/kernel")] for p in flat if p == "ir/kernel" or p.endswith("/ir/kernel")}):
+        names = [f"{pre}i{g}/{leaf}" for g in _GRU_GATES for leaf in ("kernel", "bias")]
+        names += [f"{pre}h{g}/kernel" for g in _GRU_GATES] + [f"{pre}hn/bias"]
+        out[f"{pre}weight_i"] = np.concatenate([flat[f"{pre}i{g}/kernel"].T for g in _GRU_GATES], 0)
+        out[f"{pre}bias_i"] = np.concatenate([flat[f"{pre}i{g}/bias"] for g in _GRU_GATES], 0)
+        out[f"{pre}weight_h"] = np.concatenate([flat[f"{pre}h{g}/kernel"].T for g in _GRU_GATES], 0)
+        out[f"{pre}bias_hn"] = flat[f"{pre}hn/bias"]
+        folded.update(names)
+    out.update({k: v for k, v in flat.items() if k not in folded})
+    return out
+
+
 def params_to_state_dict(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (or any tree of the same structure, e.g. adam's
     ``mu``) as a state dict of ``module``."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, arr in fold_lstm(flatten(params)).items():
+    for path, arr in fold_gru(fold_lstm(flatten(params))).items():
         key = torch_key(path)
         mod_path, _, leaf = key.rpartition(".")
         if leaf == "kernel":
@@ -270,3 +297,63 @@ def load_sac_ae(params: Mapping[str, Any], agent: nn.Module, opt_states: Optiona
         load_adam_state(optimizers["encoder"], agent.encoder, opt_states["encoder"])
         load_adam_state(optimizers["decoder"], agent.decoder, opt_states["decoder"])
         optimizers.step = int(np.asarray(opt_states["step"]))
+
+
+def load_rmsprop_tf_state(optimizer: torch.optim.Optimizer, module: nn.Module, opt_state: Any) -> None:
+    """The JAX package's ``RMSpropTFState`` (``square_avg``,
+    ``momentum_buf``, ``grad_avg``) → the port's ``RMSpropTF`` state of
+    ``module``'s parameters (no step count there; ``step`` starts at 0)."""
+    rms = find_state(opt_state, ("square_avg", "momentum_buf", "grad_avg"))
+    if rms is None:
+        raise ValueError("no rmsprop_tf state (square_avg, momentum_buf, grad_avg) in the optax state")
+    trees = {"square_avg": rms.square_avg, "momentum_buffer": rms.momentum_buf, "grad_avg": rms.grad_avg}
+    sds = {k: params_to_state_dict(v, module) for k, v in trees.items() if v is not None}
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {"step": torch.zeros((), dtype=torch.float32),
+                              **{k: sd[name].to(p.device).clone() for k, sd in sds.items()}}
+
+
+def load_optimizer_state(optimizer: Any, module: nn.Module, opt_state: Any) -> None:
+    """The optax state of ``module``'s optimizer into the port's
+    ``optimizer`` (a ``Clipped`` or a torch optimizer): Adam and AdamW take
+    the adam moments, ``RMSprop`` optax rmsprop's ``ν``, ``RMSpropTF`` the
+    ``RMSpropTFState``."""
+    from .optim import RMSprop, RMSpropTF
+
+    optimizer = getattr(optimizer, "optimizer", optimizer)
+    if isinstance(optimizer, RMSpropTF):
+        load_rmsprop_tf_state(optimizer, module, opt_state)
+    elif isinstance(optimizer, RMSprop):
+        load_rmsprop_state(optimizer, module, opt_state)
+    else:
+        load_adam_state(optimizer, module, opt_state)
+
+
+def load_dreamer_v2(params: Mapping[str, Any], wm: nn.Module, actor: nn.Module, critic: nn.Module,
+                    target_critic: nn.Module, opt_states: Optional[Mapping[str, Any]] = None,
+                    optimizers: Any = None) -> None:
+    """The JAX DreamerV2 ``params`` ``{wm, actor, critic, target_critic}``
+    and, with ``optimizers`` (``DV3Optimizers``), the states of
+    ``opt_states`` and its ``step`` (the target-copy counter)."""
+    for key, module in (("wm", wm), ("actor", actor), ("critic", critic), ("target_critic", target_critic)):
+        load_params(params[key], module)
+    if opt_states is not None and optimizers is not None:
+        for key, module in (("wm", wm), ("actor", actor), ("critic", critic)):
+            load_optimizer_state(getattr(optimizers, key), module, opt_states[key])
+        optimizers.step = int(np.asarray(opt_states["step"]))
+
+
+def load_dreamer_v1(params: Mapping[str, Any], wm: nn.Module, actor: nn.Module, critic: nn.Module,
+                    opt_states: Optional[Mapping[str, Any]] = None, optimizers: Any = None) -> None:
+    """The JAX DreamerV1 ``params`` ``{wm, actor, critic}`` (the GRU folded
+    into ``models.GRUCell`` form) and, with ``optimizers``, the states of
+    ``opt_states``; DreamerV1's JAX state has no step counter, so
+    ``optimizers.step`` takes the world model's Adam count where there is
+    one."""
+    for key, module in (("wm", wm), ("actor", actor), ("critic", critic)):
+        load_params(params[key], module)
+    if opt_states is not None and optimizers is not None:
+        for key, module in (("wm", wm), ("actor", actor), ("critic", critic)):
+            load_optimizer_state(getattr(optimizers, key), module, opt_states[key])
+        adam = find_state(opt_states["wm"])
+        optimizers.step = int(np.asarray(adam.count)) if adam is not None else 0

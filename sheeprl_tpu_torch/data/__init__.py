@@ -1,4 +1,4 @@
-from .buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+from .buffers import EnvIndependentReplayBuffer, EpisodeBuffer, ReplayBuffer, SequentialReplayBuffer
 from .memmap import MemmapArray
 
-__all__ = ["EnvIndependentReplayBuffer", "MemmapArray", "ReplayBuffer", "SequentialReplayBuffer"]
+__all__ = ["EnvIndependentReplayBuffer", "EpisodeBuffer", "MemmapArray", "ReplayBuffer", "SequentialReplayBuffer"]

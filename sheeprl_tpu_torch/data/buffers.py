@@ -1,6 +1,7 @@
 """Host-side replay buffers in numpy, optionally memory-mapped (the port's own
-copy of ``ReplayBuffer``, ``SequentialReplayBuffer`` and
-``EnvIndependentReplayBuffer`` from ``sheeprl_tpu/data/buffers.py``).
+copy of ``ReplayBuffer``, ``SequentialReplayBuffer``,
+``EnvIndependentReplayBuffer`` and ``EpisodeBuffer`` from
+``sheeprl_tpu/data/buffers.py``).
 
 ``ReplayBuffer`` stores [buffer_size, n_envs, ...] per key, in memory or (with
 ``memmap``) in one ``<memmap_dir>/<key>.memmap`` file per key; samples come
@@ -16,7 +17,9 @@ files.
 """
 from __future__ import annotations
 
+import logging
 import os
+import shutil
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -431,3 +434,199 @@ class EnvIndependentReplayBuffer:
         for k in parts[0]:
             np.concatenate([p[k] for p in parts], axis=axis, out=out[k])
         return out
+
+
+class EpisodeBuffer:
+    """Whole episodes: ``add`` appends [T, n_envs, ...] rows to each env's open
+    episode and commits it at ``terminated | truncated`` (an episode shorter
+    than ``minimum_episode_length`` is dropped); the oldest episodes are
+    evicted while more than ``buffer_size`` rows are stored. ``sample``
+    draws [n_samples, seq_len, batch, ...] windows: an episode with
+    probability proportional to its length among those at least
+    ``sequence_length`` long, then a start, uniform or (``prioritize_ends``)
+    ``min(uniform over the episode, last valid start)`` so that episode ends
+    are drawn more often. The draws are the JAX package's, from the same
+    numpy generator, so one seed samples the same windows.
+
+    With ``memmap`` each committed episode moves to
+    ``<memmap_dir>/episode_<n>/<key>.memmap``, and an evicted episode's
+    directory is removed. ``checkpoint_state_dict`` holds the committed
+    episodes and the generator (the open ones are dropped: their envs are
+    not checkpointed). Not sampling from anything yet raises ``ValueError``,
+    which the staged prefetcher takes as "nothing to stage"."""
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int = 1,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: Optional[Union[str, os.PathLike]] = None,
+        seed: Optional[Any] = None,
+        **kwargs: Any,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be > 0, got {buffer_size}")
+        if minimum_episode_length <= 0 or minimum_episode_length > buffer_size:
+            raise ValueError(f"minimum_episode_length must be in [1, {buffer_size}], got {minimum_episode_length}")
+        self._buffer_size = int(buffer_size)
+        self._min_len = int(minimum_episode_length)
+        self._n_envs = int(n_envs)
+        self._obs_keys = tuple(obs_keys)
+        self._prioritize_ends = bool(prioritize_ends)
+        self._memmap = bool(memmap)
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        self._rng = np.random.default_rng(seed)
+        self._episodes: List[Dict[str, Any]] = []
+        self._open: List[Optional[Dict[str, List[np.ndarray]]]] = [None] * self._n_envs
+        self._cum_len = 0
+        self._episode_counter = 0  # a distinct memmap dir per committed episode
+
+    @property
+    def buffer(self) -> List[Dict[str, Any]]:
+        return self._episodes
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    def __len__(self) -> int:
+        return self._cum_len
+
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None,
+            validate_args: bool = False) -> None:
+        """Append [T, len(indices), ...] rows to the envs ``indices`` (all
+        envs by default); ``data`` must hold ``terminated`` and ``truncated``."""
+        if "terminated" not in data or "truncated" not in data:
+            raise RuntimeError("EpisodeBuffer.add requires 'terminated' and 'truncated' keys")
+        t = next(iter(data.values())).shape[0]
+        for slot, env_idx in enumerate(range(self._n_envs) if indices is None else indices):
+            if self._open[env_idx] is None:
+                self._open[env_idx] = {k: [] for k in data}
+            open_ep = self._open[env_idx]
+            for k in data:
+                open_ep.setdefault(k, [])
+            done = (np.asarray(data["terminated"][:, slot]) + np.asarray(data["truncated"][:, slot])).reshape(t) > 0
+            for step in range(t):
+                for k, v in data.items():
+                    open_ep[k].append(np.asarray(v[step, slot]))
+                if done[step]:
+                    self._commit(env_idx)
+                    self._open[env_idx] = open_ep = {k: [] for k in data}
+
+    def _commit(self, env_idx: int) -> None:
+        open_ep = self._open[env_idx]
+        length = len(next(iter(open_ep.values()), []))
+        if length < self._min_len:
+            return
+        if length > self._buffer_size:
+            raise RuntimeError(f"Episode of length {length} exceeds buffer_size {self._buffer_size}")
+        ep = {k: np.stack(v, axis=0) for k, v in open_ep.items() if v}
+        if self._memmap:
+            ep = self._memmap_episode(ep)
+        self._episodes.append(ep)
+        self._cum_len += length
+        while self._cum_len > self._buffer_size and self._episodes:
+            old = self._episodes.pop(0)
+            self._cum_len -= len(next(iter(old.values())))
+            self._drop_episode_dir(old)
+
+    def _memmap_episode(self, ep: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        ep_dir = None if self._memmap_dir is None else self._memmap_dir / f"episode_{self._episode_counter}"
+        self._episode_counter += 1
+        return {k: MemmapArray.from_array(v, filename=None if ep_dir is None else ep_dir / f"{k}.memmap")
+                for k, v in ep.items()}
+
+    def _drop_episode_dir(self, old: Dict[str, Any]) -> None:
+        """Remove an evicted episode's directory (a resumed buffer re-opens
+        files it does not own, so ownership alone would leak them)."""
+        if not self._memmap or self._memmap_dir is None:
+            return
+        first = next(iter(old.values()), None)
+        ep_dir = Path(first.filename).parent if isinstance(first, MemmapArray) else None
+        old.clear()
+        del first
+        if ep_dir is not None and ep_dir != self._memmap_dir:
+            try:
+                shutil.rmtree(ep_dir)
+            except OSError as err:
+                logging.getLogger(__name__).warning("could not remove evicted episode dir %s: %s", ep_dir, err)
+
+    def sample(self, batch_size: int, n_samples: int = 1, sequence_length: int = 1,
+               prioritize_ends: Optional[bool] = None, out: Optional[Dict[str, np.ndarray]] = None,
+               **kwargs: Any) -> Dict[str, np.ndarray]:
+        """[n_samples, sequence_length, batch_size, ...] windows of stored
+        episodes; with ``out`` they are written into those arrays (the staged
+        prefetcher's pinned buffers), which are returned."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError("batch_size and n_samples must be > 0")
+        if prioritize_ends is None:
+            prioritize_ends = self._prioritize_ends
+        valid = [ep for ep in self._episodes if len(next(iter(ep.values()))) >= sequence_length]
+        if not valid:
+            raise ValueError(f"No episodes of length >= {sequence_length} to sample")
+        lengths = np.array([len(next(iter(ep.values()))) for ep in valid])
+        ep_idx = self._rng.choice(len(valid), size=batch_size * n_samples, p=lengths / lengths.sum())
+        samples: Dict[str, List[np.ndarray]] = {}
+        for i in ep_idx:
+            ep, ep_len = valid[i], lengths[i]
+            upper = ep_len - sequence_length + 1
+            if prioritize_ends:
+                start = min(int(self._rng.integers(0, ep_len)), upper - 1)
+            else:
+                start = int(self._rng.integers(0, upper))
+            for k, v in ep.items():
+                samples.setdefault(k, []).append(v[start : start + sequence_length])
+        result: Dict[str, np.ndarray] = {}
+        for k, vs in samples.items():
+            arr = np.stack(vs, axis=0)  # [total, L, ...]
+            arr = np.swapaxes(arr.reshape(n_samples, batch_size, sequence_length, *arr.shape[2:]), 1, 2)
+            if out is not None:
+                np.copyto(out[k], arr, casting="unsafe")
+                result[k] = out[k]
+            else:
+                result[k] = np.ascontiguousarray(arr)
+        return result
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            # np.array() also materialises memmap-backed episodes
+            "episodes": [{k: np.array(v) for k, v in ep.items()} for ep in self._episodes],
+            "open": [None if o is None else {k: [x.copy() for x in v] for k, v in o.items()} for o in self._open],
+            "cum_len": self._cum_len,
+            "rng": self._rng.bit_generator.state,
+        }
+
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """The committed episodes and the generator; the open episodes are
+        dropped (their envs are not in the checkpoint)."""
+        state = self.state_dict()
+        state["open"] = [None for _ in state["open"]]
+        return state
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EpisodeBuffer":
+        if len(state["open"]) != self._n_envs:
+            raise ValueError(
+                f"the checkpoint's buffer has {len(state['open'])} envs, this run {self._n_envs}: "
+                "resume with the same env.num_envs"
+            )
+        episodes = state["episodes"]
+        if self._memmap:
+            # a memmap buffer stays on disk across a resume; re-opened files
+            # are reclaimed on eviction
+            episodes = [self._memmap_episode({k: np.asarray(v) for k, v in ep.items()}) for ep in episodes]
+            for ep in episodes:
+                for arr in ep.values():
+                    arr.has_ownership = True
+        self._episodes = episodes
+        self._open = list(state["open"])
+        self._cum_len = int(state["cum_len"])
+        if state.get("rng") is not None:
+            self._rng.bit_generator.state = state["rng"]
+        return self

@@ -39,7 +39,7 @@ import torch
 
 from ..telemetry import device as device_counters
 
-from .buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+from .buffers import EnvIndependentReplayBuffer, EpisodeBuffer, ReplayBuffer, SequentialReplayBuffer
 from .prefetch import StagedPrefetcher
 
 
@@ -351,17 +351,20 @@ def estimate_row_bytes(obs_space: Any, act_dim: int) -> int:
 def make_sequential_prefetcher(cfg: Any, device: torch.device, rb: EnvIndependentReplayBuffer, batch_size: int,
                                sequence_length: int, cnn_keys: Sequence[str] = (),
                                row_bytes_hint: Optional[int] = None):
-    """The prefetcher for the sequential-replay (DreamerV3) loop: the device
-    ring where ``_use_ring`` takes it, else the staged prefetcher. Prints
-    which, with the mirror's size, to stderr."""
+    """The prefetcher for the sequential-replay (Dreamer) loops: the device
+    ring where ``_use_ring`` takes it, else the staged prefetcher. An
+    ``EpisodeBuffer`` always takes the staged prefetcher (the ring mirrors
+    the sequential buffer's rows; the JAX package refuses it the same way).
+    Prints which, with the mirror's size, to stderr."""
     cnn_keys = tuple(cnn_keys)
-    rows = rb.buffer_size * rb.n_envs
+    episodic = isinstance(rb, EpisodeBuffer)
+    rows = rb.buffer_size if episodic else rb.buffer_size * rb.n_envs
 
     def host_sample(g: int, out: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
         s = rb.sample(batch_size, sequence_length=sequence_length, n_samples=g, out=out)
         return {k: v if k in cnn_keys else np.asarray(v, np.float32) for k, v in s.items()}
 
-    if _use_ring(cfg, device, row_bytes_hint, rows):
+    if not episodic and _use_ring(cfg, device, row_bytes_hint, rows):
         pf = DeviceRingPrefetcher(rb, batch_size, sequence_length, cnn_keys=cnn_keys, device=device)
     else:
         pf = StagedPrefetcher(host_sample, device)

@@ -1,13 +1,15 @@
-"""Probability distributions for the DreamerV3 losses (the DV3 subset of
-``sheeprl_tpu/distributions/distributions.py``).
+"""Probability distributions for the Dreamer losses and actors (the port's
+copy of ``sheeprl_tpu/distributions/distributions.py``).
 
 Sampling takes its noise explicitly: a categorical draw is
 ``argmax(log_softmax(logits) + gumbel)`` (exactly what
-``jax.random.categorical`` computes), and a normal draw is
-``loc + scale * eps``. A caller passes pre-drawn ``noise`` of the
-distribution's shape, or a ``torch.Generator`` that draws it. The tests hand
-the port JAX's own gumbel/normal draws this way, so both packages sample the
-same actions and latents.
+``jax.random.categorical`` computes), a normal draw is
+``loc + scale * eps``, and a truncated-normal draw is the inverse CDF of a
+uniform in ``[eps, 1 - eps]`` (``eps`` the float32 machine epsilon). A
+caller passes pre-drawn ``noise`` of the distribution's shape (gumbel,
+standard normal or that uniform), or a ``torch.Generator`` that draws it.
+The tests hand the port JAX's own draws this way, so both packages sample
+the same actions and latents.
 """
 from __future__ import annotations
 
@@ -53,9 +55,12 @@ class Distribution:
 
 
 class Normal(Distribution):
-    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+    """``scale`` a tensor or a number (a 0-d tensor on ``loc``'s device)."""
+
+    def __init__(self, loc: torch.Tensor, scale):
         self.loc = loc.float()
-        self.scale = scale.float()
+        self.scale = scale.float() if isinstance(scale, torch.Tensor) else torch.full((), float(scale),
+                                                                                      device=self.loc.device)
 
     def sample(self, noise=None, generator=None):
         shape = torch.broadcast_shapes(self.loc.shape, self.scale.shape)
@@ -318,8 +323,157 @@ class TwoHotEncodingDistribution(Distribution):
         return self.mean
 
 
+CONST_SQRT_2 = math.sqrt(2)
+CONST_INV_SQRT_2PI = 1 / math.sqrt(2 * math.pi)
+CONST_INV_SQRT_2 = 1 / math.sqrt(2)
+CONST_LOG_INV_SQRT_2PI = math.log(CONST_INV_SQRT_2PI)
+CONST_LOG_SQRT_2PI_E = 0.5 * math.log(2 * math.pi * math.e)
+F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def truncnorm_uniform(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """The uniform a truncated-normal draw inverts: ``[eps, 1 - eps)`` in
+    float32, as the JAX package draws it (``jax.random.uniform`` with
+    ``minval=eps, maxval=1-eps``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return torch.clamp_min(u * (1 - 2 * F32_EPS) + F32_EPS, F32_EPS)
+
+
+class TruncatedStandardNormal(Distribution):
+    """The standard normal truncated to ``[a, b]``; ``rsample`` is the
+    inverse CDF of a uniform in ``[eps, 1 - eps]`` clipped to ``[a, b]``
+    (differentiable in ``a`` and ``b``). ``_Z``, the mass inside, is clipped
+    at 1e-8."""
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor):
+        self.a = torch.as_tensor(a).float()
+        self.b = torch.as_tensor(b).float()
+        self._little_phi_a = self._little_phi(self.a)
+        self._little_phi_b = self._little_phi(self.b)
+        self._big_phi_a = self._big_phi(self.a)
+        self._big_phi_b = self._big_phi(self.b)
+        self._Z = torch.clamp_min(self._big_phi_b - self._big_phi_a, 1e-8)
+        self._log_Z = torch.log(self._Z)
+        self._lpbb_m_lpaa_d_Z = (self._little_phi_b * self.b - self._little_phi_a * self.a) / self._Z
+
+    @staticmethod
+    def _little_phi(x):
+        return torch.exp(-0.5 * x * x) * CONST_INV_SQRT_2PI
+
+    @staticmethod
+    def _big_phi(x):
+        return 0.5 * (1 + torch.erf(x * CONST_INV_SQRT_2))
+
+    @staticmethod
+    def _inv_big_phi(x):
+        return CONST_SQRT_2 * torch.erfinv(2 * x - 1)
+
+    @property
+    def mean(self):
+        return -(self._little_phi_b - self._little_phi_a) / self._Z
+
+    @property
+    def mode(self):
+        return torch.clamp(torch.zeros_like(self.a), self.a, self.b)
+
+    @property
+    def variance(self):
+        return 1 - self._lpbb_m_lpaa_d_Z - ((self._little_phi_b - self._little_phi_a) / self._Z) ** 2
+
+    def entropy(self):
+        return CONST_LOG_SQRT_2PI_E + self._log_Z - 0.5 * self._lpbb_m_lpaa_d_Z
+
+    def cdf(self, value):
+        return torch.clamp((self._big_phi(value) - self._big_phi_a) / self._Z, 0, 1)
+
+    def _std_icdf(self, value):
+        return self._inv_big_phi(self._big_phi_a + value * self._Z)
+
+    def icdf(self, value):
+        return self._std_icdf(value)
+
+    def log_prob(self, value):
+        return CONST_LOG_INV_SQRT_2PI - self._log_Z - 0.5 * value**2
+
+    def sample(self, noise=None, generator=None):
+        if noise is None:
+            noise = truncnorm_uniform(torch.broadcast_shapes(self.a.shape, self.b.shape), generator, self.a.device)
+        return torch.clamp(self._std_icdf(noise), self.a, self.b)
+
+
+class TruncatedNormal(TruncatedStandardNormal):
+    """``loc + scale · TruncatedStandardNormal((a-loc)/scale, (b-loc)/scale)``:
+    the DreamerV1/V2 continuous actor's default (``trunc_normal``)."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, a: float = -1.0, b: float = 1.0):
+        self.loc = loc.float()
+        self.scale = scale.float()
+        super().__init__((a - self.loc) / self.scale, (b - self.loc) / self.scale)
+        self._raw_a, self._raw_b = a, b
+
+    def _to_std(self, value):
+        return (value - self.loc) / self.scale
+
+    def _from_std(self, value):
+        return value * self.scale + self.loc
+
+    @property
+    def mean(self):
+        return self._from_std(super().mean)
+
+    @property
+    def mode(self):
+        return torch.clamp(self.loc, self._raw_a, self._raw_b)
+
+    @property
+    def variance(self):
+        return super().variance * self.scale**2
+
+    def entropy(self):
+        return super().entropy() + torch.log(self.scale) * torch.ones_like(self.loc)
+
+    def log_prob(self, value):
+        return super().log_prob(self._to_std(value)) - torch.log(self.scale)
+
+    def sample(self, noise=None, generator=None):
+        return self._from_std(super().sample(noise, generator))
+
+    def cdf(self, value):
+        return super().cdf(self._to_std(value))
+
+    def icdf(self, value):
+        return self._from_std(super().icdf(value))
+
+
+class TanhNormal(Distribution):
+    """``tanh`` of a Normal (the DreamerV1/V2 ``tanh_normal`` actor):
+    ``log_prob`` clips to ±(1 - 1e-6) before ``atanh``; the entropy has no
+    closed form and raises ``NotImplementedError`` (the actor loss then
+    takes zeros, as the JAX package does)."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
+        self.base = Normal(loc, scale)
+
+    def sample(self, noise=None, generator=None):
+        return torch.tanh(self.base.sample(noise, generator))
+
+    def log_prob(self, value):
+        eps = 1e-6
+        clipped = torch.clamp(value, -1 + eps, 1 - eps)
+        return self.base.log_prob(torch.atanh(clipped)) - torch.log1p(-clipped**2)
+
+    @property
+    def mode(self):
+        return torch.tanh(self.base.loc)
+
+    @property
+    def mean(self):
+        return torch.tanh(self.base.loc)
+
+
 def kl_divergence(p: Distribution, q: Distribution) -> torch.Tensor:
-    """KL(p || q) for the pairs the DreamerV3 losses need."""
+    """KL(p || q) for the pairs the Dreamer losses need: categorical pairs
+    and (DreamerV1's Gaussian state) normal pairs, under ``Independent``."""
     if isinstance(p, Independent) and isinstance(q, Independent):
         return p._reduce(kl_divergence(p.base, q.base))
     if isinstance(p, Independent):

@@ -5,6 +5,8 @@ off-policy families use (``MLP`` with dropout, ``NatureCNN``,
 package's ``nn.vmap``-lifted critics (``EnsembleLinear``,
 ``EnsembleLayerNorm``, ``EnsembleMLP``).
 
+``GRUCell`` is flax's ``nn.GRUCell`` (DreamerV1's recurrent cell).
+
 Module and attribute names follow the JAX package's parameter tree (``dense_0``,
 ``LayerNorm_0``, ``fused`` ...), so ``convert.py`` maps a flax tree onto a
 state dict by a path rewrite. The JAX package's ``LayerNorm`` wraps a flax
@@ -293,19 +295,62 @@ class NatureCNN(nn.Module):
 
 class LayerNormGRUCell(nn.Module):
     """Hafner-style LN-GRU cell: one fused matmul of concat([x, h]) against a
-    [3H, F+H] weight → LN (eps 1e-3) → split(reset, cand, update), with the
-    ``update = σ(u - 1)`` bias trick. ``forward(h, x)`` returns the new h."""
+    [3H, F+H] weight → LN (eps 1e-3; none with ``layer_norm=False``) →
+    split(reset, cand, update), with the ``update = σ(u - 1)`` bias trick.
+    ``forward(h, x)`` returns the new h."""
 
-    def __init__(self, input_size: int, hidden_size: int, use_bias: bool = False):
+    def __init__(self, input_size: int, hidden_size: int, use_bias: bool = False, layer_norm: bool = True):
         super().__init__()
         self.hidden_size = hidden_size
+        self.layer_norm = layer_norm
         self.fused = dense(input_size + hidden_size, 3 * hidden_size, bias=use_bias, init=lecun_normal_)
-        self.LayerNorm_0 = LayerNorm(3 * hidden_size, eps=1e-3)
+        if layer_norm:
+            self.LayerNorm_0 = LayerNorm(3 * hidden_size, eps=1e-3)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        y = self.LayerNorm_0(self.fused(torch.cat([x, h], dim=-1)))
+        y = self.fused(torch.cat([x, h], dim=-1))
+        if self.layer_norm:
+            y = self.LayerNorm_0(y)
         reset, cand, update = torch.split(y, self.hidden_size, dim=-1)
         reset = torch.sigmoid(reset)
         cand = torch.tanh(reset * cand)
         update = torch.sigmoid(update - 1.0)
         return update * cand + (1.0 - update) * h
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell``, with its parameters: the input projections
+    ``ir``, ``iz``, ``in`` carry a bias, the hidden ones ``hr`` and ``hz``
+    none, and ``hn`` its own bias inside the reset product:
+
+        r = σ(W_ir x + b_ir + W_hr h),  z = σ(W_iz x + b_iz + W_hz h),
+        n = tanh(W_in x + b_in + r ⊙ (W_hn h + b_hn)),  h' = (1 - z) ⊙ n + z ⊙ h.
+
+    The three input and the three hidden kernels are stacked (``weight_i``
+    [3H, in], ``bias_i`` [3H], ``weight_h`` [3H, H] in the order r, z, n,
+    and ``bias_hn`` [H]), so a step is two matmuls; ``convert.py`` stacks a
+    flax tree's six kernels the same way. torch's ``nn.GRUCell`` would train
+    separate hidden r/z biases, which receive the same gradient as the input
+    ones and make Adam move the gate bias twice per step. Inits follow flax:
+    lecun-normal input kernels, orthogonal hidden kernels, zero biases.
+    ``forward(h, x)``, flax's ``(carry, inputs)`` order, returns the new h."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.weight_i = nn.Parameter(torch.empty(3 * hidden_size, input_size))
+        self.bias_i = nn.Parameter(torch.zeros(3 * hidden_size))
+        self.weight_h = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden_size))
+        for i in range(3):
+            lecun_normal_(self.weight_i.data[i * hidden_size:(i + 1) * hidden_size])
+            nn.init.orthogonal_(self.weight_h.data[i * hidden_size:(i + 1) * hidden_size])
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        H = self.hidden_size
+        gi = F.linear(x, self.weight_i, self.bias_i)
+        gh = F.linear(h, self.weight_h)
+        r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+        n = torch.tanh(gi[..., 2 * H:] + r * (gh[..., 2 * H:] + self.bias_hn))
+        return (1.0 - z) * n + z * h

@@ -1,5 +1,5 @@
 """Optimizers (counterpart of ``sheeprl_tpu/optim/__init__.py``: ``adam``,
-``rmsprop`` and ``clipped``).
+``rmsprop``, ``rmsprop_tf`` and ``clipped``).
 
 ``adam`` is ``torch.optim.Adam`` — the same update as optax adam, with eps
 outside the square root: ``lr · m̂ / (sqrt(v̂) + eps)`` — or ``AdamW`` when
@@ -13,6 +13,11 @@ global-norm clipping in front of an optimizer exactly as
 ``torch.optim.RMSprop``: optax (``eps_in_sqrt=True``, its default) scales a
 gradient by ``1 / sqrt(ν + eps)``, torch by ``1 / (sqrt(ν) + eps)``; with
 A2C's eps of 1e-4 the two differ from the first step.
+
+``rmsprop_tf`` is the TF-style RMSprop that DreamerV1 and V2 use (the JAX
+package's ``rmsprop_tf``): like ``rmsprop``, eps inside the square root,
+but the squared average starts at ones and the learning rate multiplies the
+update before it enters the momentum buffer.
 """
 from __future__ import annotations
 
@@ -94,6 +99,69 @@ def rmsprop(
     **_: Any,
 ) -> torch.optim.Optimizer:
     return RMSprop(params, lr=lr, alpha=alpha, eps=eps, momentum=momentum, centered=centered)
+
+
+class RMSpropTF(torch.optim.Optimizer):
+    """The JAX package's ``rmsprop_tf(lr, alpha, eps, momentum, centered)``
+    (its ``RMSpropTFState``: ``square_avg``, ``momentum_buf``, ``grad_avg``):
+
+    * ``s ← α·s + (1-α)·g²`` from ``s = 1`` (centered: also
+      ``a ← α·a + (1-α)·g`` from 0, and ``d = sqrt(s - a² + eps)``, else
+      ``d = sqrt(s + eps)``);
+    * ``u = lr · g / d``; with momentum ``m ← momentum·m + u``, ``u = m``;
+    * ``p ← p - u``.
+
+    State per parameter: ``square_avg``, ``grad_avg`` when centered,
+    ``momentum_buffer`` with momentum, and ``step``."""
+
+    def __init__(self, params, lr: float = 1e-2, alpha: float = 0.99, eps: float = 1e-8, momentum: float = 0.0,
+                 centered: bool = False):
+        super().__init__(params, dict(lr=float(lr), alpha=float(alpha), eps=float(eps), momentum=float(momentum or 0.0),
+                                      centered=bool(centered)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, alpha, eps, momentum = group["lr"], group["alpha"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["square_avg"] = torch.ones_like(p)
+                    if group["centered"]:
+                        st["grad_avg"] = torch.zeros_like(p)
+                    if momentum:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                st["step"] += 1
+                sq = st["square_avg"]
+                sq.mul_(alpha).add_((1.0 - alpha) * g.square())
+                if group["centered"]:
+                    ga = st["grad_avg"]
+                    ga.mul_(alpha).add_((1.0 - alpha) * g)
+                    denom = torch.sqrt(sq - ga.square() + eps)
+                else:
+                    denom = torch.sqrt(sq + eps)
+                u = lr * g / denom
+                if momentum:
+                    buf = st["momentum_buffer"]
+                    buf.mul_(momentum).add_(u)
+                    u = buf
+                p.sub_(u)
+
+
+def rmsprop_tf(
+    params: Iterable[torch.nn.Parameter],
+    lr: float = 1e-2,
+    alpha: float = 0.99,
+    eps: float = 1e-8,
+    momentum: float = 0.0,
+    centered: bool = False,
+    **_: Any,
+) -> torch.optim.Optimizer:
+    return RMSpropTF(params, lr=lr, alpha=alpha, eps=eps, momentum=momentum, centered=centered)
 
 
 @torch.no_grad()

@@ -2,8 +2,9 @@
 the JAX package, and chip_smoke.py and the port's scripts
 (scripts/torch_*.py, which run on the card too) import nothing of it: every
 port module is imported in a fresh interpreter, dry runs of the dummy env
-path (DreamerV3, PPO on pixels with the watchdog on, SAC, and SAC-AE at cut
-widths) run there, and the loaded modules are checked; every import
+path (DreamerV3, PPO on pixels with the watchdog on, SAC, SAC-AE, DreamerV2
+on the episode buffer and DreamerV1 on a continuous action, at cut widths)
+run there, and the loaded modules are checked; every import
 statement of the port's sources is scanned.
 
 The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
@@ -53,6 +54,12 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "cli.run(['exp=sac_ae', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
         "         'env.num_envs=2', 'algo.cnn_channels_multiplier=1', 'algo.hidden_size=32',\n"
         "         'algo.per_rank_batch_size=8'])\n"
+        "tiny = ['env=dummy', 'fabric.accelerator=cpu', 'dry_run=True', 'algo.dense_units=8', 'algo.mlp_layers=1',\n"
+        "        'algo.world_model.encoder.cnn_channels_multiplier=2', 'algo.per_rank_sequence_length=2',\n"
+        "        'algo.world_model.recurrent_model.recurrent_state_size=8', 'algo.per_rank_batch_size=2',\n"
+        "        'algo.world_model.stochastic_size=4', 'algo.horizon=3', 'algo.run_test=False']\n"
+        "cli.run(['exp=dreamer_v2', 'algo.world_model.discrete_size=4', 'buffer.type=episode', *tiny])\n"
+        "cli.run(['exp=dreamer_v1', 'env.id=continuous_dummy', *tiny])\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules)}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -69,7 +76,10 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "algos.a2c.a2c", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.utils",
                 "algos.ppo_recurrent.ppo_recurrent", "algos.sac.agent", "algos.sac.loss", "algos.sac.utils",
                 "algos.sac.sac", "algos.sac.sac_decoupled", "algos.droq.agent", "algos.droq.droq",
-                "algos.sac_ae.agent", "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "data.device_ring", "optim",
+                "algos.sac_ae.agent", "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.dreamer_v2.agent",
+                "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.dreamer_v2.dreamer_v2",
+                "algos.dreamer_v1.agent", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils",
+                "algos.dreamer_v1.dreamer_v1", "data.device_ring", "optim",
                 "utils.checkpoint", "utils.metric", "utils.logger",
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
                 "telemetry.device", "telemetry.facade"):

@@ -221,9 +221,10 @@ REPORT_MODULES = ("test_torch_sac", "test_torch_droq", "test_torch_sac_ae")
 REPORT_SKIP = ("cli", "loops", "fleet", "refused", "compose", "lunar", "repeat", "jax_packages_vmapped")
 
 
-def report() -> None:
-    """Print, for each parity test case of tests/test_torch_sac.py,
-    test_torch_droq.py and test_torch_sac_ae.py (not the CLI runs), the
+def report(modules=REPORT_MODULES, skip=REPORT_SKIP) -> None:
+    """Print, for each parity test case of ``modules`` (by default
+    tests/test_torch_sac.py, test_torch_droq.py and test_torch_sac_ae.py;
+    not the CLI runs, nor a test whose name holds one of ``skip``), the
     largest absolute and relative difference its ``np.testing.assert_allclose``
     calls compared, the largest parameter difference and share of elements
     beyond tolerance, and the largest relative difference of the Adam
@@ -276,11 +277,11 @@ def report() -> None:
     np.testing.assert_allclose = recording
     helper._check = recording_check
     cwd = os.getcwd()
-    for name in REPORT_MODULES:
+    for name in modules:
         mod = importlib.import_module(name)
         mod.adam_diff = recording_adam
         for fname, fn in inspect.getmembers(mod, inspect.isfunction):
-            if not fname.startswith("test_") or fn.__module__ != name or any(s in fname for s in REPORT_SKIP):
+            if not fname.startswith("test_") or fn.__module__ != name or any(s in fname for s in skip):
                 continue
             combos = [()]
             for mark in getattr(fn, "pytestmark", []):
