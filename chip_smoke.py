@@ -183,6 +183,55 @@ that fails and then prints no result:
                            BF16_TOL of f32's;
                each DreamerV1/V2 leg records what an off-policy leg does;
                none launches an LN-GRU kernel;
+               p2e_dv3_exploration
+                           exp=p2e_dv3_exploration as composed (coupled,
+                           XL: dense 1024 x 5, recurrent 4096, multiplier
+                           96, 32x32, B 16, T 64, 8 ensemble members, 4
+                           envs) on the discrete dummy env (64x64x3),
+                           learning_starts cut to 256, to 264 policy steps
+                           (8 gradient steps), a checkpoint at 260;
+               p2e_dv3_exploration_decoupled
+                           the same with decoupled_rssm=True
+                           pallas_gru=True, to 260: the JAX step's coupled
+                           scan all the same, so no LN-GRU launch;
+               p2e_dv3_finetuning
+                           checkpoint.exploration_ckpt_path=<the decoupled
+                           leg's last checkpoint>: it inherits decoupled and
+                           pallas_gru=True, so every one of the five LN-GRU
+                           kernels launches at XL (F=1024, H=4096, the
+                           streamed instance; counts zeroed before the leg,
+                           launches and blocks kept); it must start from
+                           the checkpoint's wm, actor_task and
+                           actor_exploration (its `from exploration`
+                           line) and switch from the exploration actor to
+                           the task actor at learning_starts (256), a
+                           checkpoint at 260, the last at 264;
+               p2e_dv3_finetuning_resume
+                           checkpoint.resume_from=<its checkpoint at 260>:
+                           the file's counters and parameters, the task
+                           actor from the first step, on to 272;
+               p2e_dv2_exploration, p2e_dv2_finetuning
+                           the presets' widths (multiplier 48, recurrent
+                           400, 32x32, 10 members, B 16, T 50; one env) on
+                           the discrete dummy env, learning_starts 64, to
+                           128 and 96; the finetuning leg from the
+                           exploration leg's checkpoint (its parameters,
+                           the actor switch at 64);
+               p2e_dv1_exploration, p2e_dv1_finetuning
+                           the same at the presets' widths (multiplier 32,
+                           recurrent 400, stochastic 60, 10 members, B 50,
+                           T 50) on the continuous dummy env, to 224 and
+                           176;
+               p2e_dv3_eval, p2e_dv2_eval, p2e_dv1_eval
+                           eval checkpoint_path=<each exploration leg's
+                           last one>: the task actor's greedy episode;
+               p2e_dv3_step
+                           one P2E-DV3 exploration gradient step at the XL
+                           preset through make_train_fn, timed and profiled
+                           as dv2_step, its counted FLOPs holding the
+                           ensembles' intrinsic-reward forward;
+               no P2E leg but the two finetuning DV3 legs launches an
+               LN-GRU kernel;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -192,9 +241,12 @@ that fails and then prints no result:
                (log_dir, resumed state, Test - Reward); then the blocks of
                each kernel's last launch on the run and run_M legs, as its
                CUDA entry recorded the grid it launched;
-6. kernels   — one {"kernels": [...]} line: a row for each kernel at the
-               width of each instance (resident at S, streamed at M), with
-               launches and blocks from the run leg or the run_M leg, times
+6. time and kernels
+             — the script's whole time in seconds (one JSON line), then
+               one {"kernels": [...]} line: a row for each kernel at each
+               width a training leg runs it (resident at S, streamed at M
+               and XL), with launches and blocks from the run leg, the
+               run_M leg or the p2e_dv3_finetuning leg, times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -235,8 +287,9 @@ T, B, F, H = 64, 16, 512, 512
 # instance of the recurrent kernels, M, L and XL the streamed one
 SHAPES = {"S": (T, B, 512, 512), "XS": (T, B, 256, 256), "M": (T, B, 640, 1024), "L": (T, B, 768, 2048),
           "XL": (T, B, 1024, 4096)}
-# the width of each instance whose kernels the main path's legs launch
-INSTANCE_SHAPES = {"resident": "S", "streamed": "M"}
+# the widths whose kernels the main path's legs launch, and their instance:
+# S on the run leg, M on run_M, XL on p2e_dv3_finetuning
+INSTANCE_SHAPES = {"S": "resident", "M": "streamed", "XL": "streamed"}
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)  # |kernel - plain| <= atol + rtol * max|plain|
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 # a 3xTF32 GEMM's largest error against float64 may be at most this many
@@ -984,7 +1037,8 @@ def phase_feed(torch, dev="cuda", reps=10):
 LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
 RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
 ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae", "dreamer_v2",
-         "dreamer_v1")  # the `[<algo>] log_dir=` lines
+         "dreamer_v1", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning",
+         "p2e_dv1_exploration", "p2e_dv1_finetuning")  # the `[<algo>] log_dir=` lines
 # the on-policy legs: the presets' algorithm settings on the dummy envs, 4 envs
 # (PPO: 128-step rollouts, 8 updates of 10 epochs x 8 minibatches of 64)
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
@@ -1020,13 +1074,18 @@ def parse_leg(text: str) -> dict:
     from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
 
     out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None,
-           "logs": [], "startup": None, "events": {}}
+           "logs": [], "startup": None, "events": {}, "from_exploration": None, "acting": []}
     for line in text.splitlines():
         algo = line[1:line.index("]")] if line.startswith("[") and "]" in line else None
         if algo in ALGOS and line.startswith(f"[{algo}] log_dir="):
             out["log_dir"] = line.split("=", 1)[1]
         elif algo in ALGOS and line.startswith(f"[{algo}] resumed "):
             out["resumed"] = json.loads(line[len(f"[{algo}] resumed "):])
+        elif algo in ALGOS and line.startswith(f"[{algo}] from exploration "):
+            out["from_exploration"] = json.loads(line[len(f"[{algo}] from exploration "):])
+        elif algo in ALGOS and line.startswith(f"[{algo}] the player acts with the "):
+            words = line.split()  # [<algo>] the player acts with the <kind> actor from policy step <n>
+            out["acting"].append((words[6], int(words[-1])))
         elif line.startswith("Test - Reward: "):
             out["reward"] = float(line.split(": ", 1)[1])
     if out["log_dir"] is None:
@@ -1218,9 +1277,11 @@ def phase_run(torch, ln_gru, overrides=()):
     report.update(ppo_legs(torch, ln_gru))
     report.update(offpolicy_legs(torch, ln_gru))
     report.update(dreamer_legs(torch, ln_gru))
+    p2e, counts_xl, blocks_xl = p2e_legs(torch, ln_gru)
+    report.update(p2e)
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
-    launches = {"resident": report["run"]["launches"], "streamed": report["run_M"]["launches"]}
-    return launches, {"resident": blocks, "streamed": blocks_m}, report
+    launches = {"S": report["run"]["launches"], "M": report["run_M"]["launches"], "XL": counts_xl}
+    return launches, {"S": blocks, "M": blocks_m, "XL": blocks_xl}, report
 
 
 def onpolicy_summary(parsed, seconds, peak):
@@ -1373,13 +1434,14 @@ def offpolicy_summary(parsed, seconds, peak, before, learning_starts):
 
 
 def make_leg(torch, ln_gru, report, logs, feeds):
-    """``leg(name, args, learning_starts, command="run")``: one CLI call
-    (``drive``) that must launch no LN-GRU kernel; its summary
+    """``leg(name, args, learning_starts, command="run", kernels=False)``:
+    one CLI call (``drive``) that must launch no LN-GRU kernel (with
+    ``kernels``: every one of the five at least once); its summary
     (``offpolicy_summary``; an eval's reward) lands in ``report[name]``, its
     log dir in ``logs`` and the replay feed it took (its ``[prefetch]``
     line) in ``feeds``. Returns the parsed leg."""
 
-    def leg(name, args, learning_starts, command="run"):
+    def leg(name, args, learning_starts, command="run", kernels=False):
         gc.collect()
         before = torch.cuda.memory_allocated()  # what earlier legs still hold: not this leg's
         err = io.StringIO()
@@ -1392,8 +1454,9 @@ def make_leg(torch, ln_gru, report, logs, feeds):
         with contextlib.redirect_stderr(_Err()):
             parsed, counts, seconds, peak = drive(torch, ln_gru, command,
                                                   args + ([f"run_name={name}"] if command == "run" else []))
-        if any(counts.values()):
-            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        if (min(counts.values()) < 1) if kernels else any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels {counts}, "
+                                 f"{'each >= 1' if kernels else 'none'} expected")
         if command == "eval":
             if parsed["reward"] is None:
                 raise AssertionError(f"{name} printed no `Test - Reward:`")
@@ -1740,6 +1803,179 @@ def dreamer_legs(torch, ln_gru):
     return report
 
 
+# the Plan2Explore legs: DV3 at the presets' XL widths on 4 envs (64-row
+# sequences: a sequence in each env's buffer from policy step 256), DV2 and
+# DV1 at theirs on one env; cut in length, buffer size and learning_starts
+P2E_LEARNING_STARTS, P2E_TOTAL, P2E_DEC_TOTAL, P2E_FT_MID, P2E_FT_TOTAL, P2E_RESUME_TOTAL = 256, 264, 260, 260, 264, 272
+P2E_DREAMER = {"dv2": ("discrete_dummy", 64, 128, 96), "dv1": ("continuous_dummy", 64, 224, 176)}
+
+
+def p2e_legs(torch, ln_gru):
+    """Plan2Explore on the card (phase 5), through the CLI on the dummy
+    envs: P2E-DV3's exploration at the preset (coupled, XL, 8 members; a
+    mid-run checkpoint), again with decoupled_rssm=True pallas_gru=True
+    (the JAX step's coupled scan all the same: no LN-GRU launch), the
+    finetuning from that run's last checkpoint (it inherits decoupled and
+    pallas_gru=True: every LN-GRU kernel at XL, the streamed instance; it
+    starts from the checkpoint's parameters and switches from the
+    exploration actor to the task actor at learning_starts) and its resume
+    past learning_starts (the task actor from the first step); P2E-DV2's
+    and DV1's exploration and finetuning at the presets' widths; eval of
+    each exploration checkpoint; one profiled P2E-DV3 exploration step
+    (``p2e_dv3_step``). Returns (report, the finetuning leg's launch counts
+    and blocks of each kernel's last launch)."""
+    from sheeprl_tpu_torch.utils.checkpoint import param_sums
+
+    report, logs, feeds = {}, {}, {}
+    leg = make_leg(torch, ln_gru, report, logs, feeds)
+    t_legs = time.perf_counter()
+    base = ["env=dummy", "algo.run_test=False", f"root_dir={RUN_ROOT}"]
+    dv3 = ["exp=p2e_dv3_exploration", *base, f"algo.learning_starts={P2E_LEARNING_STARTS}", "buffer.size=1024",
+           "metric.log_every=4"]
+    leg("p2e_dv3_exploration", dv3 + [f"algo.total_steps={P2E_TOTAL}", f"checkpoint.every={P2E_FT_MID}"],
+        P2E_LEARNING_STARTS)
+    leg("p2e_dv3_exploration_decoupled", dv3 + [f"algo.total_steps={P2E_DEC_TOTAL}", "checkpoint.every=0",
+                                                "algo.world_model.decoupled_rssm=True",
+                                                "algo.world_model.pallas_gru=True"], P2E_LEARNING_STARTS)
+    for name, total, steps in (("p2e_dv3_exploration", P2E_TOTAL, 8), ("p2e_dv3_exploration_decoupled", P2E_DEC_TOTAL, 4)):
+        ckpts = checkpoints(logs[name])
+        if report[name]["policy_step"] != total or report[name]["grad_steps"] < steps:
+            raise AssertionError(f"the {name} leg: {report[name]['policy_step']} of {total} policy steps, "
+                                 f"{report[name]['grad_steps']} gradient steps")
+        if name == "p2e_dv3_exploration" and len(ckpts) < 2:
+            raise AssertionError(f"the {name} leg wrote {ckpts}: no mid-run checkpoint")
+    explored = checkpoints(logs["p2e_dv3_exploration_decoupled"])[-1]
+    saved = torch.load(explored, map_location="cpu", weights_only=False)
+    want = param_sums({"wm": saved["wm"], "actor": saved["actor_task"], "actor_exploration": saved["actor_exploration"]})
+    ft = ["exp=p2e_dv3_finetuning", *base, f"checkpoint.exploration_ckpt_path={explored}",
+          f"algo.learning_starts={P2E_LEARNING_STARTS}", "buffer.size=1024", "metric.log_every=4"]
+    parsed = leg("p2e_dv3_finetuning", ft + [f"algo.total_steps={P2E_FT_TOTAL}", f"checkpoint.every={P2E_FT_MID}"],
+                 P2E_LEARNING_STARTS, kernels=True)
+    # the grid of each kernel's last launch on this leg, as its entry recorded it
+    blocks = {k.__name__: int(ln_gru._lib().ln_gru_last_blocks(i)) for i, k in enumerate(ln_gru.KERNELS)}
+    counts = report["p2e_dv3_finetuning"]["launches"]
+    started = (parsed["from_exploration"] or {}).get("param_sums", {})
+    if any(abs(started.get(k, float("nan")) - v) > 1e-9 * max(1.0, abs(v)) for k, v in want.items()):
+        raise AssertionError(f"the finetuning leg started from {started}, the exploration checkpoint holds {want}")
+    if parsed["acting"] != [("exploration", 0), ("task", P2E_LEARNING_STARTS)]:
+        raise AssertionError(f"the finetuning leg's player: {parsed['acting']}")
+    report["p2e_dv3_finetuning"].update(started_from=want, acting=parsed["acting"], blocks=blocks,
+                                        shape={"F": 1024, "H": 4096, "instance": ln_gru.launch_layout(4096)[0]})
+    mid = [p for p in checkpoints(logs["p2e_dv3_finetuning"]) if os.path.basename(p) == f"ckpt_{P2E_FT_MID}.ckpt"]
+    if not mid:
+        raise AssertionError(f"the finetuning leg wrote no ckpt_{P2E_FT_MID}.ckpt")
+    state = torch.load(mid[0], map_location="cpu", weights_only=False)
+    parsed = leg("p2e_dv3_finetuning_resume", ft + [f"algo.total_steps={P2E_RESUME_TOTAL}",
+                                                    f"checkpoint.resume_from={mid[0]}", "checkpoint.every=0"],
+                 P2E_LEARNING_STARTS, kernels=True)
+    got = parsed["resumed"] or {}
+    file_sums = param_sums({k: state[k] for k in ("wm", "actor", "critic", "target_critic", "actor_exploration")})
+    if {k: got.get(k) for k in ("policy_step", "grad_steps")} != {"policy_step": P2E_FT_MID,
+                                                                   "grad_steps": state["grad_steps"]} \
+            or any(abs(got["param_sums"][k] - v) > 1e-9 * max(1.0, abs(v)) for k, v in file_sums.items()):
+        raise AssertionError(f"the resume leg started from {got}, the checkpoint holds {file_sums}")
+    if parsed["acting"] != [("task", P2E_FT_MID)] or report["p2e_dv3_finetuning_resume"]["policy_step"] != \
+            P2E_RESUME_TOTAL:
+        raise AssertionError(f"the resume leg: player {parsed['acting']}, "
+                             f"{report['p2e_dv3_finetuning_resume']['policy_step']} of {P2E_RESUME_TOTAL}")
+    report["p2e_dv3_finetuning_resume"].update(started_from={"policy_step": P2E_FT_MID, "param_sums": file_sums},
+                                               acting=parsed["acting"])
+    for v, (env_id, ls, total, ft_total) in P2E_DREAMER.items():
+        args = [*base, f"env.id={env_id}", f"algo.learning_starts={ls}", "buffer.size=512", "checkpoint.every=0",
+                "metric.log_every=32"]
+        leg(f"p2e_{v}_exploration", [f"exp=p2e_{v}_exploration", *args, f"algo.total_steps={total}"], ls)
+        explored = checkpoints(logs[f"p2e_{v}_exploration"])[-1]
+        saved = torch.load(explored, map_location="cpu", weights_only=False)
+        parsed = leg(f"p2e_{v}_finetuning", [f"exp=p2e_{v}_finetuning", *args, f"algo.total_steps={ft_total}",
+                                             f"checkpoint.exploration_ckpt_path={explored}"], ls)
+        started = (parsed["from_exploration"] or {}).get("param_sums", {})
+        want = param_sums({"wm": saved["wm"], "actor": saved["actor_task"]})
+        if any(abs(started.get(k, float("nan")) - x) > 1e-9 * max(1.0, abs(x)) for k, x in want.items()) \
+                or parsed["acting"] != [("exploration", 0), ("task", ls)]:
+            raise AssertionError(f"p2e_{v}_finetuning started from {started} (the checkpoint: {want}), "
+                                 f"player {parsed['acting']}")
+        for name, steps in ((f"p2e_{v}_exploration", total), (f"p2e_{v}_finetuning", ft_total)):
+            if report[name]["policy_step"] != steps or report[name]["grad_steps"] < 8:
+                raise AssertionError(f"the {name} leg: {report[name]}")
+        report[f"p2e_{v}_finetuning"].update(started_from=want, acting=parsed["acting"])
+    for v in ("dv3", "dv2", "dv1"):
+        leg(f"p2e_{v}_eval", [f"checkpoint_path={checkpoints(logs[f'p2e_{v}_exploration'])[-1]}"], 0, command="eval")
+    report["legs_seconds"] = time.perf_counter() - t_legs
+    t0 = time.perf_counter()
+    report["p2e_dv3_step"] = step = p2e_dv3_step(torch, ln_gru)
+    step["seconds"] = time.perf_counter() - t0
+    return report, counts, blocks
+
+
+def p2e_dv3_step(torch, ln_gru, dev="cuda", reps=3):
+    """One P2E-DV3 exploration gradient step at the preset's width (XL,
+    8 ensemble members) on 64x64x3 frames, T=64, B=16, 9 actions, f32 with
+    TF32 off, through make_train_fn, timed and profiled as phase train
+    times a step: host ms, device ms, kernels, busy share, the step's model
+    FLOPs counted once (model_cost), the f32 bound and MFU, peak device
+    memory; and the ensembles' intrinsic-reward forward counted from their
+    shapes (n x (horizon+1) x T·B rows x 2 x the members' in·out sums), which
+    the counted FLOPs must hold."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.models import EnsembleLinear
+    from sheeprl_tpu_torch.telemetry.throughput import model_cost
+
+    dev = torch.device(dev)
+    n_act = 9
+    cfg = compose("config", ["exp=p2e_dv3_exploration", "env=dummy"])
+    torch.manual_seed(0)
+    mods = build_agent(cfg, spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)}), [n_act], False, dev)
+    train = p2e.make_train_fn(mods, p2e.build_optimizers(cfg, mods), cfg, False, [n_act])
+    batch = make_batch(torch, 1, n_act, dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    moments = p2e.init_p2e_moments(cfg, dev)
+    moments, _ = train(moments, batch, generator=gen)  # the warm-up: cuDNN's algorithm choice, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_gru.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        moments, m = train(moments, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v[0]) for k, v in m.items()})
+    if not all(np.isfinite(v) for l in losses for v in l.values()):
+        raise AssertionError(f"p2e_dv3 step: non-finite losses {losses}")
+    if any(k.launches for k in ln_gru.KERNELS):
+        raise AssertionError("the P2E-DV3 exploration step launched LN-GRU kernels")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    profile = profile_step(torch, lambda mo, bt, generator=None: train(mo, bt, generator=generator), moments, batch,
+                           gen, step_ms)
+    _, cost = model_cost(lambda: train(moments, batch, generator=gen))
+    rows = (int(cfg.algo.horizon) + 1) * T * B
+    ens = mods["ensembles"]
+    ens_flops = ens.n * rows * 2 * sum(l.weight.shape[1] * l.weight.shape[2] for l in ens.modules()
+                                       if isinstance(l, EnsembleLinear))
+    if cost["flops"] < ens_flops:
+        raise AssertionError(f"the counted step ({cost['flops']} FLOP) holds less than the ensembles' "
+                             f"intrinsic-reward forward ({ens_flops})")
+    device_ms = profile.get("device_ms")
+    return {"model": f"p2e_dv3_exploration preset (XL, {ens.n} members): T={T}, B={B}, horizon {cfg.algo.horizon}, "
+                     f"64x64x3, {n_act} actions, 32-true",
+            "ms_per_step": times, "profile": profile, "max_memory_allocated": peak, "losses": losses,
+            "model_flops_per_step": cost["flops"], "bytes_per_step": cost["bytes_accessed"],
+            "ensemble_intrinsic_flops": ens_flops, "ensemble_intrinsic_rows": rows,
+            "ensemble_intrinsic_f32_ms": ens_flops / PEAK_F32_FLOPS * 1e3,
+            "f32_bound_ms": bound_ms(cost["flops"], cost["bytes_accessed"])[2],
+            "f32_bound_ops_ms": cost["flops"] / PEAK_F32_FLOPS * 1e3,
+            "f32_bound_bytes_ms": cost["bytes_accessed"] / PEAK_BYTES * 1e3,
+            "mfu_f32": cost["flops"] / (step_ms / 1e3) / PEAK_F32_FLOPS,
+            "mfu_f32_device_time": (cost["flops"] / (device_ms / 1e3) / PEAK_F32_FLOPS
+                                    if isinstance(device_ms, float) else "not measured")}
+
+
 def walker_legs(torch, ln_gru):
     """The DMC walker-walk preset's settings (bf16-mixed, memmap buffer,
     action repeat 2, coupled DreamerV3-S) on the continuous dummy env, cut
@@ -1877,15 +2113,17 @@ def recurrences(torch, ln_gru, labels):
 
 USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
        python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
+       python3 chip_smoke.py --p2e                  phase 5's Plan2Explore legs and step alone
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
                                                     without its per-iteration ranges and timers"""
 
 
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer") or (mode == "--recurrences"
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e") or (mode == "--recurrences"
                                                                  and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -1939,6 +2177,17 @@ def main(argv=None) -> int:
             emit("dreamer", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, legs=legs)
         except Exception as err:  # noqa: BLE001
             return fail("dreamer", err)
+        return 0
+    if mode == "--p2e":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            legs, counts, blocks = p2e_legs(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("p2e", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, launches=counts, blocks=blocks,
+                 legs=legs)
+        except Exception as err:  # noqa: BLE001
+            return fail("p2e", err)
         return 0
     if mode == "--telemetry-ab":
         try:
@@ -1998,7 +2247,7 @@ def main(argv=None) -> int:
         "ln_gru_wgrad": "sheeprl_tpu/ops/pallas_gru.py:227",
     }
     kernels = []
-    for instance, label in INSTANCE_SHAPES.items():  # each kernel at the width each instance runs on the main path
+    for label, instance in INSTANCE_SHAPES.items():  # each kernel at each width a leg of the main path runs
         r = per_shape[label]
         for name, src in replaces.items():
             short = name[len("ln_gru_"):]
@@ -2009,7 +2258,7 @@ def main(argv=None) -> int:
                 "replaces": src,
                 "instance": instance,
                 "shape": label,
-                "launches": counts[instance][name],
+                "launches": counts[label][name],
                 "max_abs_err": max(v for k, v in errors.items()
                                    if k.startswith(f"{label}.") and k.split(".")[1] == short),
                 "ms": r["times"][name][0],
@@ -2018,7 +2267,7 @@ def main(argv=None) -> int:
                 "bound_by": r["bounds"][name][1],
                 "math": "3xtf32" if name in GEMMS else "f32-simt",
                 "library_ms": r["library"].get(name),
-                "blocks": blocks[instance][name],
+                "blocks": blocks[label][name],
             }
             if name in r["no_product_ms"]:
                 row["no_product_ms"] = r["no_product_ms"][name]
@@ -2031,6 +2280,7 @@ def main(argv=None) -> int:
                 # alone, on the same inputs, is the library time to beat
                 row["torch_mm_dW_ms"] = r["dW_torch_mm_ms"]
             kernels.append(row)
+    emit("time", ok=True, seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -41,32 +41,37 @@ from .loss import actor_loss, critic_loss, reconstruction_loss
 from .utils import AGGREGATOR_KEYS, compute_lambda_values, normalize_obs
 
 
+def draw_rollout_noise(cfg: Config, TB: int, actor: DV2Actor, generator, device) -> Dict[str, Any]:
+    """The draws of one imagination rollout from TB states: ``img_a`` per
+    action head [horizon, TB, A_i] (``agent.action_noise``) and ``img_z``
+    [horizon, TB, S]."""
+    S = int(cfg.algo.world_model.stochastic_size)
+    horizon = int(cfg.algo.horizon)
+    return {"img_a": action_noise(actor, (horizon, TB), generator, device),
+            "img_z": torch.randn(horizon, TB, S, generator=generator, device=device)}
+
+
 def draw_train_noise(cfg: Config, T: int, B: int, actor: DV2Actor, generator, device) -> Dict[str, Any]:
     """Every random draw of one gradient step: ``post`` [T, B, S] (posterior
-    standard normals), ``img_a`` per action head [horizon, TB, A_i]
-    (``agent.action_noise``) and ``img_z`` [horizon, TB, S]."""
+    standard normals), then one rollout's (``draw_rollout_noise``)."""
     S = int(cfg.algo.world_model.stochastic_size)
-    horizon, TB = int(cfg.algo.horizon), T * B
-    return {
-        "post": torch.randn(T, B, S, generator=generator, device=device),
-        "img_a": action_noise(actor, (horizon, TB), generator, device),
-        "img_z": torch.randn(horizon, TB, S, generator=generator, device=device),
-    }
+    post = torch.randn(T, B, S, generator=generator, device=device)
+    return {"post": post, **draw_rollout_noise(cfg, T * B, actor, generator, device)}
 
 
-def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, optimizers: DV3Optimizers,
-                  cfg: Config, is_continuous: bool, actions_dim: Sequence[int]):
-    """Returns ``train(batches, noise=None, generator=None) -> metrics`` (as
-    DreamerV2's; ``optimizers.step`` counts the gradient steps)."""
-    apply = make_precision_applies(cfg)
+def make_world_model_step(wm: DV2WorldModel, optimizer, cfg: Config, apply, detach_heads: bool = False):
+    """Returns ``world_model_step(batch, noise) -> (zs, hs, embedded,
+    metrics)``: one world-model update on ``batch`` [T, B, ...] (the
+    Gaussian dynamic scan, Normal(·, 1) decoders, the KL with free nats, the
+    optional continue head); states and the encoder's output (before the
+    update) come back detached. ``detach_heads``: the reward and continue
+    heads read detached latents (Plan2Explore's)."""
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + tuple(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
     S = int(wm_cfg.stochastic_size)
     R = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
     gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
     use_continues = bool(wm_cfg.use_continues)
     rssm = wm.rssm
 
@@ -89,9 +94,10 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, o
             post_mean, post_std, prior_mean, prior_std = apply.cast_out(
                 tuple(torch.stack([ms[i] for ms in lst]) for lst in (post_l, prior_l) for i in (0, 1)))
             latents = torch.cat([zs, hs], dim=-1)
+            head_in = latents.detach() if detach_heads else latents
             qo = observation_dists(apply(wm.decode, latents), cnn_keys)
-            qr = Independent(Normal(apply(wm.reward, latents), 1.0), 1)
-            qc = Independent(Bernoulli(logits=apply(wm.cont, latents)), 1) if use_continues else None
+            qr = Independent(Normal(apply(wm.reward, head_in), 1.0), 1)
+            qc = Independent(Bernoulli(logits=apply(wm.cont, head_in)), 1) if use_continues else None
         posteriors = Independent(Normal(post_mean, post_std), 1)
         priors = Independent(Normal(prior_mean, prior_std), 1)
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
@@ -99,9 +105,9 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, o
             float(wm_cfg.kl_regularizer), qc, (1 - batch["terminated"]) * gamma if use_continues else None,
             float(wm_cfg.continue_scale_factor),
         )
-        optimizers.wm.zero_grad()
+        optimizer.zero_grad()
         rec_loss.backward()
-        _apply_grads(optimizers.wm)
+        _apply_grads(optimizer)
         metrics = {
             "Loss/world_model_loss": rec_loss,
             "Loss/observation_loss": observation_loss,
@@ -112,26 +118,50 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, o
             "State/post_entropy": posteriors.entropy().mean(),
             "State/prior_entropy": priors.entropy().mean(),
         }
-        return zs.detach(), hs.detach(), {k: v.detach() for k, v in metrics.items()}
+        return zs.detach(), hs.detach(), embedded.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def rollout(z, h, noise):
+    return world_model_step
+
+
+def make_behaviour_step(wm: DV2WorldModel, cfg: Config, apply):
+    """Returns ``behaviour_step(actor, critic, actor_opt, critic_opt, zs, hs,
+    noise, reward=None) -> (policy_loss, value_loss, aux)``: the actor
+    learns by backpropagating the λ-values through the imagination rollout
+    on the world model as updated this step (the world model's and the
+    critic's parameters get no gradient from it), then the critic.
+    ``reward(trajectories, actions)`` gives the imagined rewards (default:
+    the world model's reward head); ``aux`` holds the detached rewards,
+    values and λ-values."""
+    wm_cfg = cfg.algo.world_model
+    S = int(wm_cfg.stochastic_size)
+    R = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    gamma = float(cfg.algo.gamma)
+    lmbda = float(cfg.algo.lmbda)
+    use_continues = bool(wm_cfg.use_continues)
+    rssm = wm.rssm
+
+    def rollout(actor, z, h, noise):
         """Imagination: act on the current latent, step the prior, keep the
-        latent after the step; [H, TB, S+R], differentiable in the actor."""
-        latents = []
+        latent after the step and the action that led there; [H, TB, S+R]
+        and [H, TB, A], differentiable in the actor."""
+        latents, actions = [], []
         for i in range(horizon):
             latent = torch.cat([z, h], dim=-1)
             acts, _ = dv2_sample_actions(actor, apply(actor, latent.detach()), [n[i] for n in noise["img_a"]])
-            z, h = apply(rssm.imagination, z, h, torch.cat(acts, dim=-1), noise=noise["img_z"][i])
+            a = torch.cat(acts, dim=-1)
+            z, h = apply(rssm.imagination, z, h, a, noise=noise["img_z"][i])
             latents.append(torch.cat([z, h], dim=-1))
-        return torch.stack(latents)
+            actions.append(a)
+        return torch.stack(latents), torch.stack(actions)
 
-    def behaviour_step(batch, zs, hs, noise):
-        T, B = batch["rewards"].shape[:2]
-        TB = T * B
+    def behaviour_step(actor, critic, actor_opt, critic_opt, zs, hs, noise, reward=None):
+        TB = zs.shape[0] * zs.shape[1]
         with apply.params(wm, actor, critic):
-            trajectories = rollout(zs.reshape(TB, S), hs.reshape(TB, R), noise)
+            trajectories, imagined_actions = rollout(actor, zs.reshape(TB, S), hs.reshape(TB, R), noise)
             predicted_values = apply(critic, trajectories)
-            predicted_rewards = apply(wm.reward, trajectories)
+            predicted_rewards = (apply(wm.reward, trajectories) if reward is None
+                                 else reward(trajectories, imagined_actions))
             if use_continues:
                 continues = torch.sigmoid(apply(wm.cont, trajectories))
             else:
@@ -142,19 +172,32 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, o
             policy_loss = actor_loss(discount * lv)
             # only the actor's parameters: the world model's and the critic's
             # .grad (and their optimizer states) stay untouched
-            grads = torch.autograd.grad(policy_loss, optimizers.actor.params, allow_unused=True)
-            _apply_grads(optimizers.actor, grads)
+            grads = torch.autograd.grad(policy_loss, actor_opt.params, allow_unused=True)
+            _apply_grads(actor_opt, grads)
 
             qv = Independent(Normal(apply(critic, trajectories.detach()[:-1]), 1.0), 1)
             value_loss = critic_loss(qv, lv.detach(), discount[..., 0])
-            optimizers.critic.zero_grad()
+            critic_opt.zero_grad()
             value_loss.backward()
-            _apply_grads(optimizers.critic)
-        return policy_loss.detach(), value_loss.detach()
+            _apply_grads(critic_opt)
+        aux = {"rewards": predicted_rewards.detach(), "values": predicted_values.detach(), "lambda_values": lv.detach()}
+        return policy_loss.detach(), value_loss.detach(), aux
+
+    return behaviour_step
+
+
+def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, optimizers: DV3Optimizers,
+                  cfg: Config, is_continuous: bool, actions_dim: Sequence[int]):
+    """Returns ``train(batches, noise=None, generator=None) -> metrics`` (as
+    DreamerV2's; ``optimizers.step`` counts the gradient steps)."""
+    apply = make_precision_applies(cfg)
+    world_model_step = make_world_model_step(wm, optimizers.wm, cfg, apply)
+    behaviour_step = make_behaviour_step(wm, cfg, apply)
 
     def one_step(batch, noise):
-        zs, hs, metrics = world_model_step(batch, noise)
-        metrics["Loss/policy_loss"], metrics["Loss/value_loss"] = behaviour_step(batch, zs, hs, noise)
+        zs, hs, _, metrics = world_model_step(batch, noise)
+        metrics["Loss/policy_loss"], metrics["Loss/value_loss"], _ = behaviour_step(
+            actor, critic, optimizers.actor, optimizers.critic, zs, hs, noise)
         optimizers.step += 1
         return metrics
 

@@ -45,7 +45,7 @@ from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import get_device, save_configs
-from ..dreamer_v3.dreamer_v3 import DV3Optimizers, _actions_dim, _apply_grads, build_optimizers
+from ..dreamer_v3.dreamer_v3 import DV3Optimizers, LoopParts, _actions_dim, _apply_grads, build_optimizers
 from ..dreamer_v3.utils import check_precision, make_precision_applies
 from ..sac.sac import OffPolicyLoop
 from .agent import (
@@ -75,18 +75,26 @@ METRIC_KEYS = (
 )
 
 
-def draw_train_noise(cfg: Config, T: int, B: int, actor: DV2Actor, generator, device) -> Dict[str, Any]:
-    """Every random draw of one gradient step: ``post`` [T, B, S, D]
-    (posterior gumbel), ``img_a`` per action head [horizon, TB, A_i]
-    (``agent.action_noise``) and ``img_z`` [horizon, TB, S, D]."""
+def draw_rollout_noise(cfg: Config, TB: int, actor: DV2Actor, generator, device) -> Dict[str, Any]:
+    """The draws of one imagination rollout from TB states: ``img_a`` per
+    action head [horizon, TB, A_i] (``agent.action_noise``) and ``img_z``
+    [horizon, TB, S, D]."""
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
-    horizon, TB = int(cfg.algo.horizon), T * B
+    horizon = int(cfg.algo.horizon)
     return {
-        "post": gumbel_noise((T, B, S, D), generator, device),
         "img_a": action_noise(actor, (horizon, TB), generator, device),
         "img_z": gumbel_noise((horizon, TB, S, D), generator, device),
     }
+
+
+def draw_train_noise(cfg: Config, T: int, B: int, actor: DV2Actor, generator, device) -> Dict[str, Any]:
+    """Every random draw of one gradient step: ``post`` [T, B, S, D]
+    (posterior gumbel), then one rollout's (``draw_rollout_noise``)."""
+    wm_cfg = cfg.algo.world_model
+    S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    post = gumbel_noise((T, B, S, D), generator, device)
+    return {"post": post, **draw_rollout_noise(cfg, T * B, actor, generator, device)}
 
 
 def observation_dists(recon: Dict[str, torch.Tensor], cnn_keys: Sequence[str]) -> Dict[str, Independent]:
@@ -95,29 +103,20 @@ def observation_dists(recon: Dict[str, torch.Tensor], cnn_keys: Sequence[str]) -
     return {k: Independent(Normal(v, 1.0), 3 if k in cnn_keys else 1) for k, v in recon.items()}
 
 
-def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, target_critic: torch.nn.Module,
-                  optimizers: DV3Optimizers, cfg: Config, is_continuous: bool, actions_dim: Sequence[int]):
-    """Returns ``train(batches, noise=None, generator=None) -> metrics``: G
-    gradient steps over ``batches`` [G, T, B, ...] (tensors on the modules'
-    device); ``noise`` is a list of G ``draw_train_noise`` dicts, else the
-    draws come from ``generator``. Metrics are [G] tensors, on the device.
-    Under a bf16 ``fabric.precision`` the forwards cross the cast boundary
-    (``PrecisionApplies``) as in DreamerV3's step."""
-    apply = make_precision_applies(cfg)
+def make_world_model_step(wm: DV2WorldModel, optimizer, cfg: Config, apply, detach_heads: bool = False):
+    """Returns ``world_model_step(batch, noise) -> (zs, hs, metrics)``: one
+    world-model update on ``batch`` [T, B, ...] (the dynamic scan with
+    ``is_first[0] = 1``); the posterior samples and recurrent states come
+    back detached. ``detach_heads``: the reward and continue heads read
+    detached latents (Plan2Explore's)."""
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + tuple(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     stoch = S * D
     R = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
     gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
-    ent_coef = float(cfg.algo.actor.ent_coef)
-    objective_mix = float(cfg.algo.actor.objective_mix)
     use_continues = bool(wm_cfg.use_continues)
-    target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
-    act_width = int(sum(actions_dim))
     rssm = wm.rssm
 
     def world_model_step(batch, noise):
@@ -142,9 +141,10 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, t
                                                             torch.stack(prior_l)))
             zs = torch.stack(zs_l)
             latents = torch.cat([zs, hs], dim=-1)
+            head_in = latents.detach() if detach_heads else latents
             po = observation_dists(apply(wm.decode, latents), cnn_keys)
-            pr = Independent(Normal(apply(wm.reward, latents), 1.0), 1)
-            pc = Independent(Bernoulli(logits=apply(wm.cont, latents)), 1) if use_continues else None
+            pr = Independent(Normal(apply(wm.reward, head_in), 1.0), 1)
+            pc = Independent(Bernoulli(logits=apply(wm.cont, head_in)), 1) if use_continues else None
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
             po, batch_obs, pr, batch["rewards"],
             prior_logits.reshape(T, B, S, D), post_logits.reshape(T, B, S, D),
@@ -152,9 +152,9 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, t
             float(wm_cfg.kl_regularizer), pc, (1 - batch["terminated"]) * gamma if use_continues else None,
             float(wm_cfg.discount_scale_factor),
         )
-        optimizers.wm.zero_grad()
+        optimizer.zero_grad()
         rec_loss.backward()
-        _apply_grads(optimizers.wm)
+        _apply_grads(optimizer)
         post_ent = Independent(OneHotCategoricalStraightThrough(logits=post_logits.reshape(T, B, S, D)), 1).entropy()
         prior_ent = Independent(OneHotCategoricalStraightThrough(logits=prior_logits.reshape(T, B, S, D)), 1).entropy()
         metrics = {
@@ -169,7 +169,32 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, t
         }
         return zs.detach(), hs.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def rollout(z0, h0, noise):
+    return world_model_step
+
+
+def make_behaviour_step(wm: DV2WorldModel, cfg: Config, apply, actions_dim: Sequence[int]):
+    """Returns ``behaviour_step(actor, critic, target_critic, actor_opt,
+    critic_opt, terminated, zs, hs, noise, reward=None) -> (policy_loss,
+    value_loss, aux)``: the actor on the world model as updated this step,
+    through the imagination rollout (``objective_mix``: reinforce against
+    dynamics backpropagation; the world model's and the critics' parameters
+    get no gradient from it), then the critic. ``reward(trajectories,
+    actions)`` gives the imagined rewards (default: the world model's reward
+    head); ``aux`` holds the detached rewards, target values and
+    λ-values."""
+    wm_cfg = cfg.algo.world_model
+    stoch = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
+    R = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    gamma = float(cfg.algo.gamma)
+    lmbda = float(cfg.algo.lmbda)
+    ent_coef = float(cfg.algo.actor.ent_coef)
+    objective_mix = float(cfg.algo.actor.objective_mix)
+    use_continues = bool(wm_cfg.use_continues)
+    act_width = int(sum(actions_dim))
+    rssm = wm.rssm
+
+    def rollout(actor, z0, h0, noise):
         """Imagination from every posterior state, on the world model as
         updated this step: [H+1, TB, L] latents (the posterior first) and
         [H+1, TB, A] actions (zeros first)."""
@@ -185,19 +210,19 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, t
             actions.append(a)
         return torch.stack(latents), torch.stack(actions)
 
-    def behaviour_step(batch, zs, hs, noise):
-        T, B = batch["rewards"].shape[:2]
-        TB = T * B
+    def behaviour_step(actor, critic, target_critic, actor_opt, critic_opt, terminated, zs, hs, noise, reward=None):
+        TB = terminated.numel()
         with apply.params(wm, actor, critic, target_critic):
             # with objective_mix == 1 the actor learns through the log-probs of
             # detached trajectories only, so the rollout needs no graph
             with torch.set_grad_enabled(objective_mix != 1.0):
-                trajectories, imagined_actions = rollout(zs.reshape(TB, stoch), hs.reshape(TB, R), noise)
+                trajectories, imagined_actions = rollout(actor, zs.reshape(TB, stoch), hs.reshape(TB, R), noise)
                 target_values = apply(target_critic, trajectories)
-                rewards_img = apply(wm.reward, trajectories)
+                rewards_img = (apply(wm.reward, trajectories) if reward is None
+                               else reward(trajectories, imagined_actions))
                 if use_continues:
                     continues = torch.sigmoid(apply(wm.cont, trajectories))
-                    true_cont = (1 - batch["terminated"]).reshape(1, TB, 1) * gamma
+                    true_cont = (1 - terminated).reshape(1, TB, 1) * gamma
                     continues = torch.cat([true_cont, continues[1:]], dim=0)
                 else:
                     continues = torch.ones_like(rewards_img) * gamma
@@ -219,25 +244,47 @@ def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, t
             policy_loss = -torch.mean(discount[:-2] * (objective + entropy))
             # the optimizer holds the master parameters, not the cast copies;
             # autograd.grad leaves every other parameter's .grad alone
-            grads = torch.autograd.grad(policy_loss, optimizers.actor.params, allow_unused=True)
-            _apply_grads(optimizers.actor, grads)
+            grads = torch.autograd.grad(policy_loss, actor_opt.params, allow_unused=True)
+            _apply_grads(actor_opt, grads)
 
             traj_sg, lv_sg = trajectories.detach(), lv.detach()
             qv = Independent(Normal(apply(critic, traj_sg[:-1]), 1.0), 1)
             value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lv_sg))
-            optimizers.critic.zero_grad()
+            critic_opt.zero_grad()
             value_loss.backward()
-            _apply_grads(optimizers.critic)
-        return policy_loss.detach(), value_loss.detach()
+            _apply_grads(critic_opt)
+        aux = {"rewards": rewards_img.detach(), "values": target_values.detach(), "lambda_values": lv_sg}
+        return policy_loss.detach(), value_loss.detach(), aux
+
+    return behaviour_step
+
+
+def hard_copy_(target: torch.nn.Module, source: torch.nn.Module) -> None:
+    with torch.no_grad():
+        for t, s in zip(target.parameters(), source.parameters()):
+            t.copy_(s)
+
+
+def make_train_fn(wm: DV2WorldModel, actor: DV2Actor, critic: torch.nn.Module, target_critic: torch.nn.Module,
+                  optimizers: DV3Optimizers, cfg: Config, is_continuous: bool, actions_dim: Sequence[int]):
+    """Returns ``train(batches, noise=None, generator=None) -> metrics``: G
+    gradient steps over ``batches`` [G, T, B, ...] (tensors on the modules'
+    device); ``noise`` is a list of G ``draw_train_noise`` dicts, else the
+    draws come from ``generator``. Metrics are [G] tensors, on the device.
+    Under a bf16 ``fabric.precision`` the forwards cross the cast boundary
+    (``PrecisionApplies``) as in DreamerV3's step."""
+    apply = make_precision_applies(cfg)
+    target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
+    world_model_step = make_world_model_step(wm, optimizers.wm, cfg, apply)
+    behaviour_step = make_behaviour_step(wm, cfg, apply, actions_dim)
 
     def one_step(batch, noise):
         # the hard target copy, decided on the step counter before the step
         if optimizers.step % target_freq == 0:
-            with torch.no_grad():
-                for t, s in zip(target_critic.parameters(), critic.parameters()):
-                    t.copy_(s)
+            hard_copy_(target_critic, critic)
         zs, hs, metrics = world_model_step(batch, noise)
-        metrics["Loss/policy_loss"], metrics["Loss/value_loss"] = behaviour_step(batch, zs, hs, noise)
+        metrics["Loss/policy_loss"], metrics["Loss/value_loss"], _ = behaviour_step(
+            actor, critic, target_critic, optimizers.actor, optimizers.critic, batch["terminated"], zs, hs, noise)
         optimizers.step += 1
         return metrics
 
@@ -343,16 +390,60 @@ def build_buffer(cfg: Config, num_envs: int, obs_keys, log_dir: str, seed: int, 
 def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, player_fn: Callable,
                 aggregator_keys: Any, is_first: bool, buffer_fn: Callable = build_buffer,
                 log_expl: bool = False) -> None:
-    """The serial training loop of DreamerV1 and V2: ``build(cfg, obs_space,
-    actions_dim, is_continuous, device)`` gives the modules (a target
-    critic or None last), ``train_fn(*modules, optimizers, cfg,
-    is_continuous, actions_dim)`` the burst, ``player_fn(wm, actor, cfg,
-    actions_dim, is_continuous, num_envs)`` the player. Rows hold each
-    observation after a step with its action, reward, ``terminated`` and
-    ``truncated``, and (``is_first``) whether the previous row ended an
-    episode; the first row is the reset observation with zeros.
-    ``log_expl`` logs the exploration amount (DreamerV1's
-    ``Params/exploration_amount``)."""
+    """The serial training loop of DreamerV1 and V2 (``run_serial``):
+    ``build(cfg, obs_space, actions_dim, is_continuous, device)`` gives the
+    modules (a target critic or None last), ``train_fn(*modules, optimizers,
+    cfg, is_continuous, actions_dim)`` the burst, ``player_fn(wm, actor, cfg,
+    actions_dim, is_continuous, num_envs)`` the player. ``log_expl`` logs
+    the exploration amount (DreamerV1's ``Params/exploration_amount``)."""
+
+    def setup(cfg, device, precision, obs_space, actions_dim, is_continuous, state) -> LoopParts:
+        *modules, target_critic = build(cfg, obs_space, actions_dim, is_continuous, device)
+        wm, actor, critic = modules
+        named = {"wm": wm, "actor": actor, "critic": critic}
+        if target_critic is not None:
+            named["target_critic"] = target_critic
+        for m in named.values():
+            m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
+        optimizers = build_optimizers(cfg, wm, actor, critic)
+        if state:
+            for name, m in named.items():
+                m.load_state_dict(state[name])
+            for name in ("wm", "actor", "critic"):
+                getattr(optimizers, name).optimizer.load_state_dict(state["opt_states"][name])
+            optimizers.step = int(state["opt_states"]["step"])
+        train = train_fn(wm, actor, critic, *([target_critic] if target_critic is not None else []), optimizers, cfg,
+                         is_continuous, actions_dim)
+
+        def algo_state() -> Dict[str, Any]:
+            s: Dict[str, Any] = {name: m.state_dict() for name, m in named.items()}
+            s["opt_states"] = {name: getattr(optimizers, name).optimizer.state_dict()
+                               for name in ("wm", "actor", "critic")}
+            s["opt_states"]["step"] = optimizers.step
+            return s
+
+        return LoopParts(named, lambda batches, gen: train(batches, generator=gen), lambda task_phase: actor,
+                         algo_state, actor, aggregator_keys)
+
+    run_serial(cfg, algo, setup, player_fn, is_first, buffer_fn,
+               expl_stat=(lambda task_phase: "Params/exploration_amount") if log_expl else None)
+
+
+def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_fn: Callable, is_first: bool,
+               buffer_fn: Callable = build_buffer, expl_stat: Optional[Callable[[bool], str]] = None) -> None:
+    """The serial training loop of DreamerV1 and V2 and of their
+    Plan2Explore phases, on the SAC family's ``OffPolicyLoop``: ``setup(cfg,
+    device, precision, obs_space, actions_dim, is_continuous, state)`` builds
+    the phase's ``LoopParts`` (``state``: the checkpoint of
+    ``checkpoint.resume_from``, or None); ``player_fn(wm, actor, cfg,
+    actions_dim, is_continuous, num_envs)`` makes the player, which acts on
+    a ``ParamMirror`` of the world model and ``parts.player_actor`` with the
+    exploration schedule ``expl_amount_at`` (``expl_stat(task_phase)``
+    names the stat it is logged as, if any). Rows hold each observation
+    after a step with its action, reward, ``terminated`` and ``truncated``,
+    and (``is_first``) whether the previous row ended an episode; the first
+    row is the reset observation with zeros. One greedy test episode with
+    ``parts.task_actor`` at the end."""
     if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
         raise NotImplementedError(f"algo.fleet.workers > 0: the actor fleet is not ported yet for {algo}")
     precision = check_precision(cfg)
@@ -370,8 +461,6 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     rb = buffer_fn(cfg, num_envs, obs_keys, log_dir, seed)
-    if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
     episodic = isinstance(rb, EpisodeBuffer)
     # only the sequential buffer can mark an in-flight env restart; with the
     # episode buffer the env reports it as a truncation
@@ -381,33 +470,28 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
     is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
     actions_dim = _actions_dim(action_space)
     act_total = int(sum(actions_dim))
+    parts = setup(cfg, device, precision, obs_space, actions_dim, is_continuous, state)
+    if state and cfg.buffer.checkpoint and "rb" in state:
+        rb.load_state_dict(state["rb"])
+    elif state is None and parts.rb_state is not None:
+        rb.load_state_dict(parts.rb_state)
 
-    *modules, target_critic = build(cfg, obs_space, actions_dim, is_continuous, device)
-    wm, actor, critic = modules
-    named = {"wm": wm, "actor": actor, "critic": critic}
-    if target_critic is not None:
-        named["target_critic"] = target_critic
-    for m in named.values():
-        m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-    optimizers = build_optimizers(cfg, wm, actor, critic)
-    if state:
-        for name, m in named.items():
-            m.load_state_dict(state[name])
-        for name in ("wm", "actor", "critic"):
-            getattr(optimizers, name).optimizer.load_state_dict(state["opt_states"][name])
-        optimizers.step = int(state["opt_states"]["step"])
+    learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
+    wm = parts.named["wm"]
+    acting = [parts.player_actor((int(state["policy_step"]) if state else 0) >= learning_starts)]
     train_gen = torch.Generator(device=device)
     train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed)
     logger = get_logger(cfg, log_dir)
     loop = OffPolicyLoop(cfg, algo, device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
-                         player_gen=player_gen, train_gen=train_gen, logger=logger, params=named,
-                         aggregator_keys=aggregator_keys, dry_run_steps=4)
+                         player_gen=player_gen, train_gen=train_gen, logger=logger, params=parts.named,
+                         aggregator_keys=parts.aggregator_keys, dry_run_steps=4)
     prefetch = make_sequential_prefetcher(cfg, device, rb, int(cfg.algo.per_rank_batch_size),
                                           int(cfg.algo.per_rank_sequence_length), cnn_keys=cnn_keys,
                                           row_bytes_hint=estimate_row_bytes(obs_space, act_total))
-    train = train_fn(wm, actor, critic, *([target_critic] if target_critic is not None else []), optimizers, cfg,
-                     is_continuous, actions_dim)
+    if parts.player_actor(False) is not parts.player_actor(True):  # a phase that switches actors
+        kind = "task" if acting[0] is parts.task_actor else "exploration"
+        print(f"[{algo}] the player acts with the {kind} actor from policy step {loop.p_step}", flush=True)
     mods0 = mirror.current()
     player_init, player_step, expl_amount_at = player_fn(mods0["wm"], mods0["actor"], cfg, actions_dim,
                                                          is_continuous, num_envs)
@@ -426,12 +510,19 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
     current: Dict[str, Any] = {"obs": obs, "state": None}
 
     def interact(sink) -> None:
-        """ONE vector-env step: random actions up to ``learning_starts``,
-        then the mirror's player with exploration; the row into ``sink``."""
+        """ONE vector-env step: random actions up to ``learning_starts``
+        (with ``parts.random_warmup``), then the mirror's player with
+        exploration; the row into ``sink``."""
+        task_phase = loop.p_step >= loop.learning_starts
+        actor = parts.player_actor(task_phase)
+        if actor is not acting[0]:  # the switch to the task actor, before the step that uses it
+            acting[0] = actor
+            mirror.refresh({"wm": wm, "actor": actor})
+            print(f"[{algo}] the player acts with the task actor from policy step {loop.p_step}", flush=True)
         mods = mirror.current()
         if current["state"] is None:
             current["state"] = player_init(modules=mods)
-        if loop.random_phase():
+        if parts.random_warmup and loop.random_phase():
             actions_env = np.stack([action_space.sample() for _ in range(num_envs)])
             if is_continuous:
                 actions_np = actions_env.reshape(num_envs, -1).astype(np.float32)
@@ -441,8 +532,8 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
                     [np.eye(adim, dtype=np.float32)[acts2d[:, j]] for j, adim in enumerate(actions_dim)], axis=-1)
         else:
             expl = expl_amount_at(loop.p_step)
-            if log_expl:
-                sink.stat("Params/exploration_amount", expl)
+            if expl_stat is not None:
+                sink.stat(expl_stat(task_phase), expl)
             env_actions, actions_cat, current["state"] = player_step(
                 prepare_obs(current["obs"], cnn_keys, mlp_keys, num_envs), current["state"], generator=player_gen,
                 expl_amount=expl, modules=mods)
@@ -487,22 +578,20 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
         current["obs"] = next_obs
 
     def burst(g: int) -> Dict[str, torch.Tensor]:
-        return {k: v.mean() for k, v in train(prefetch.take(g), generator=train_gen).items()}
+        return {k: v.mean() for k, v in parts.train(prefetch.take(g), train_gen).items()}
 
     def algo_state() -> Dict[str, Any]:
-        s: Dict[str, Any] = {name: m.state_dict() for name, m in named.items()}
-        s["opt_states"] = {name: getattr(optimizers, name).optimizer.state_dict() for name in ("wm", "actor", "critic")}
-        s["opt_states"]["step"] = optimizers.step
+        s = parts.algo_state()
         if cfg.buffer.checkpoint:
             s["rb"] = rb.checkpoint_state_dict()
         return s
 
-    loop.run(rb, interact, burst, lambda: mirror.refresh({"wm": wm, "actor": actor}), prefetch.stage, algo_state,
-             overlap=False)
+    loop.run(rb, interact, burst, lambda: mirror.refresh({"wm": wm, "actor": acting[0]}), prefetch.stage,
+             algo_state, overlap=False)
     if cfg.algo.run_test:
         # the player acts in f32 (bf16-true keeps bf16 parameters)
-        t_wm, t_actor = (wm, actor) if precision.param_dtype == torch.float32 else (
-            copy.deepcopy(wm).float(), copy.deepcopy(actor).float())
+        t_wm, t_actor = (wm, parts.task_actor) if precision.param_dtype == torch.float32 else (
+            copy.deepcopy(wm).float(), copy.deepcopy(parts.task_actor).float())
         t_init, t_step, _ = player_fn(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, single_env(cfg, seed), cfg, train_gen, logger=logger)
     if logger is not None:

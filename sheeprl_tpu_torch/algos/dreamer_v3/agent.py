@@ -448,6 +448,30 @@ def sample_actor_actions(
     return actions, dists
 
 
+def build_actor_critic(cfg: Any, latent_size: int, actions_dim: Sequence[int], is_continuous: bool):
+    """An actor (checked against ``algo.actor.cls``) and a critic head,
+    freshly initialised from the torch global RNG."""
+    actor_path = str(cfg.algo.actor.select("cls") or f"{__name__}.Actor")
+    actor_cls = locate(actor_path)
+    if actor_cls is not Actor:
+        raise NotImplementedError(f"algo.actor.cls={actor_path}: only the DreamerV3 Actor is ported")
+    actor = actor_cls(
+        latent_size,
+        actions_dim=tuple(actions_dim),
+        is_continuous=is_continuous,
+        mlp_layers=int(cfg.algo.actor.mlp_layers),
+        dense_units=int(cfg.algo.actor.dense_units),
+        unimix=float(cfg.algo.actor.unimix),
+        init_std=float(cfg.algo.actor.init_std),
+        min_std=float(cfg.algo.actor.min_std),
+        max_std=float(cfg.algo.actor.max_std),
+        action_clip=float(cfg.algo.actor.action_clip),
+    )
+    critic = DV3Head(latent_size, int(cfg.algo.critic.bins), int(cfg.algo.critic.mlp_layers),
+                     int(cfg.algo.critic.dense_units), out_scale=0.0)
+    return actor, critic
+
+
 def build_agent(
     cfg: Any,
     observation_space: Any,
@@ -509,24 +533,7 @@ def build_agent(
     cont = DV3Head(latent_size, 1, int(wm_cfg.discount_model.mlp_layers),
                    int(wm_cfg.discount_model.dense_units), out_scale=1.0)
     world_model = WorldModel(encoder, rssm, decoder, reward, cont)
-    actor_path = str(cfg.algo.actor.select("cls") or f"{__name__}.Actor")
-    actor_cls = locate(actor_path)
-    if actor_cls is not Actor:
-        raise NotImplementedError(f"algo.actor.cls={actor_path}: only the DreamerV3 Actor is ported")
-    actor = actor_cls(
-        latent_size,
-        actions_dim=tuple(actions_dim),
-        is_continuous=is_continuous,
-        mlp_layers=int(cfg.algo.actor.mlp_layers),
-        dense_units=int(cfg.algo.actor.dense_units),
-        unimix=float(cfg.algo.actor.unimix),
-        init_std=float(cfg.algo.actor.init_std),
-        min_std=float(cfg.algo.actor.min_std),
-        max_std=float(cfg.algo.actor.max_std),
-        action_clip=float(cfg.algo.actor.action_clip),
-    )
-    critic = DV3Head(latent_size, int(cfg.algo.critic.bins), int(cfg.algo.critic.mlp_layers),
-                     int(cfg.algo.critic.dense_units), out_scale=0.0)
+    actor, critic = build_actor_critic(cfg, latent_size, actions_dim, is_continuous)
     target_critic = copy.deepcopy(critic)
     target_critic.requires_grad_(False)
     return world_model.to(device), actor.to(device), critic.to(device), target_critic.to(device)

@@ -34,7 +34,7 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -118,14 +118,14 @@ def _action_noise_shapes(lead, actions_dim, is_continuous):
     return [(*lead, int(a)) for a in actions_dim]
 
 
-def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bool, generator, device) -> Dict[str, Any]:
-    """Every random draw of one gradient step, in the shapes the step takes:
-    ``post`` [T,B,S,D] (posterior samples), ``act0`` and ``img_a`` per action
-    head ([TB, A_i] and [horizon, TB, A_i]), ``img_z`` [horizon, TB, S, D].
-    Gumbel for categorical heads, standard normal for a continuous one."""
+def draw_rollout_noise(cfg: Config, TB: int, actions_dim, is_continuous: bool, generator, device) -> Dict[str, Any]:
+    """The draws of one imagination rollout from TB states: ``act0`` and
+    ``img_a`` per action head ([TB, A_i] and [horizon, TB, A_i]), ``img_z``
+    [horizon, TB, S, D]. Gumbel for categorical heads, standard normal for a
+    continuous one."""
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
-    horizon, TB = int(cfg.algo.horizon), T * B
+    horizon = int(cfg.algo.horizon)
 
     def act(lead):
         draw = (lambda s: torch.randn(s, generator=generator, device=device)) if is_continuous else (
@@ -133,12 +133,18 @@ def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bo
         )
         return [draw(s) for s in _action_noise_shapes(lead, actions_dim, is_continuous)]
 
-    return {
-        "post": gumbel_noise((T, B, S, D), generator, device),
-        "act0": act((TB,)),
-        "img_z": gumbel_noise((horizon, TB, S, D), generator, device),
-        "img_a": act((horizon, TB)),
-    }
+    return {"act0": act((TB,)), "img_z": gumbel_noise((horizon, TB, S, D), generator, device),
+            "img_a": act((horizon, TB))}
+
+
+def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bool, generator, device) -> Dict[str, Any]:
+    """Every random draw of one gradient step, in the shapes the step takes:
+    ``post`` [T,B,S,D] (posterior samples), then one rollout's
+    (``draw_rollout_noise``)."""
+    wm_cfg = cfg.algo.world_model
+    S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    post = gumbel_noise((T, B, S, D), generator, device)
+    return {"post": post, **draw_rollout_noise(cfg, T * B, actions_dim, is_continuous, generator, device)}
 
 
 def _apply_grads(opt: Clipped, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
@@ -154,38 +160,28 @@ def _apply_grads(opt: Clipped, grads: Optional[Sequence[Optional[torch.Tensor]]]
     opt.step()
 
 
-def make_train_fn(
-    wm: WorldModel,
-    actor: Actor,
-    critic: torch.nn.Module,
-    target_critic: torch.nn.Module,
-    optimizers: DV3Optimizers,
-    cfg: Config,
-    is_continuous: bool,
-    actions_dim: Sequence[int],
-):
-    """Returns ``train(moments, batches, noise=None, generator=None) ->
-    (moments, metrics)``: G gradient steps over ``batches`` [G, T, B, ...]
-    (tensors on the modules' device). ``noise`` is a list of G
-    ``draw_train_noise`` dicts; without it the draws come from
-    ``generator``. Metrics are [G] tensors, left on the device.
-
-    Under a bf16 ``fabric.precision`` every forward of ``wm``, ``actor`` and
-    ``critic`` crosses the cast boundary (``PrecisionApplies``), which casts
-    each module's parameters once per phase of the step."""
-    apply = make_precision_applies(cfg)
+def make_world_model_step(wm: WorldModel, optimizer: Clipped, cfg: Config, apply, force_coupled: bool = False,
+                          detach_heads: bool = False):
+    """Returns ``world_model_step(batch, noise) -> (zs, hs, metrics)``: one
+    world-model update on ``batch`` [T, B, ...] (the posterior samples and
+    recurrent states come back detached, the metrics as detached scalars).
+    The RSSM runs the coupled scan, the decoupled scan, or the decoupled
+    path on the LN-GRU sequence kernels, as ``decoupled_rssm`` and
+    ``pallas_gru`` say; ``force_coupled`` runs the coupled scan whatever
+    they say and reads neither (Plan2Explore's exploration step).
+    ``detach_heads``: the reward and continue heads read detached latents."""
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     stoch_flat = S * D
-    decoupled = bool(wm_cfg.select("decoupled_rssm") or False)
+    decoupled = bool(wm_cfg.select("decoupled_rssm") or False) and not force_coupled
     R = int(wm_cfg.recurrent_model.recurrent_state_size)
     # LN-GRU sequence kernels (ops/ln_gru.py): only the decoupled path
     # qualifies (its GRU inputs are time-parallel); `interpret` runs their
     # plain versions, which take any shape. Under mixed precision they are
     # not selected (they compute in f32), as in the JAX package
-    gru_mode = wm_cfg.select("pallas_gru") or False
+    gru_mode = False if force_coupled else (wm_cfg.select("pallas_gru") or False)
     gru_plain = gru_mode == "interpret"
     use_kernel = decoupled and bool(gru_mode) and not apply.mixed
     if gru_mode and not use_kernel:
@@ -201,13 +197,6 @@ def make_train_fn(
             f"algo.world_model.pallas_gru=True: the LN-GRU kernels do not take F={F_gru}, H={R} "
             f"({ln_gru.FIT_RULE}; F must be a multiple of 4); set pallas_gru=interpret or False"
         )
-    horizon = int(cfg.algo.horizon)
-    gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
-    ent_coef = float(cfg.algo.actor.ent_coef)
-    tau = float(cfg.algo.critic.tau)
-    target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
-    moments_cfg = cfg.algo.actor.moments
     rssm = wm.rssm
 
     def world_model_step(batch, noise):
@@ -267,8 +256,9 @@ def make_train_fn(
                 zs = torch.stack(zs_l)
             latents = torch.cat([zs, hs], dim=-1)
             po, obs_targets = decode_obs_dists(wm, latents, batch_obs, cnn_keys, mlp_keys, apply)
-            pr = TwoHotEncodingDistribution(apply(wm.reward, latents), dims=1)
-            pc = Independent(BernoulliSafeMode(logits=apply(wm.cont, latents)), 1)
+            head_in = latents.detach() if detach_heads else latents
+            pr = TwoHotEncodingDistribution(apply(wm.reward, head_in), dims=1)
+            pc = Independent(BernoulliSafeMode(logits=apply(wm.cont, head_in)), 1)
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
             po,
             obs_targets,
@@ -284,9 +274,9 @@ def make_train_fn(
             1 - batch["terminated"],
             float(wm_cfg.continue_scale_factor),
         )
-        optimizers.wm.zero_grad()
+        optimizer.zero_grad()
         rec_loss.backward()
-        _apply_grads(optimizers.wm)
+        _apply_grads(optimizer)
         metrics = {
             "Loss/world_model_loss": rec_loss,
             "Loss/observation_loss": observation_loss,
@@ -301,48 +291,93 @@ def make_train_fn(
         metrics["State/prior_entropy"] = prior_ent.mean()
         return zs.detach(), hs.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def rollout(z0, h0, noise):
-        """Imagination from every posterior state: [H+1, TB, L] states and
-        actions. Runs with the world model as updated this step."""
-        state0 = torch.cat([z0, h0], dim=-1)
-        acts0, _ = sample_actor_actions(actor, apply(actor, state0), noise["act0"])
-        a0 = torch.cat(acts0, dim=-1)
-        z, h, a = z0, h0, a0
-        states, actions = [state0], [a0]
-        for i in range(horizon):
-            z, h = apply(rssm.imagination, z, h, a, noise=noise["img_z"][i])
-            state = torch.cat([z, h], dim=-1)
-            acts, _ = sample_actor_actions(actor, apply(actor, state.detach()), [n[i] for n in noise["img_a"]])
-            a = torch.cat(acts, dim=-1)
-            states.append(state)
-            actions.append(a)
-        return torch.stack(states), torch.stack(actions)
+    return world_model_step
 
-    def behaviour_step(batch, zs, hs, moments: MomentsState, noise):
-        T, B = batch["rewards"].shape[:2]
-        TB = T * B
-        true_continue0 = (1 - batch["terminated"]).reshape(TB, 1)
+
+def imagine(apply, rssm, actor: Actor, z0: torch.Tensor, h0: torch.Tensor, noise: Dict[str, Any], horizon: int):
+    """Imagination from every posterior state: [H+1, TB, L] states and
+    actions (``noise``: ``act0``, ``img_z``, ``img_a`` of
+    ``draw_train_noise``). Runs with the world model as it stands."""
+    state0 = torch.cat([z0, h0], dim=-1)
+    acts0, _ = sample_actor_actions(actor, apply(actor, state0), noise["act0"])
+    a0 = torch.cat(acts0, dim=-1)
+    z, h, a = z0, h0, a0
+    states, actions = [state0], [a0]
+    for i in range(horizon):
+        z, h = apply(rssm.imagination, z, h, a, noise=noise["img_z"][i])
+        state = torch.cat([z, h], dim=-1)
+        acts, _ = sample_actor_actions(actor, apply(actor, state.detach()), [n[i] for n in noise["img_a"]])
+        a = torch.cat(acts, dim=-1)
+        states.append(state)
+        actions.append(a)
+    return torch.stack(states), torch.stack(actions)
+
+
+class CriticStream(NamedTuple):
+    """One value stream of ``behaviour_step``: a critic with its target and
+    optimizer, its Moments, its weight in the actor's advantage and its
+    reward (``reward(trajectories, actions) -> [H+1, TB, 1]``; None: the
+    world model's reward head)."""
+
+    critic: torch.nn.Module
+    target: torch.nn.Module
+    optimizer: Clipped
+    moments: MomentsState
+    weight: float = 1.0
+    reward: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
+
+
+def make_behaviour_step(wm: WorldModel, cfg: Config, apply, is_continuous: bool, actions_dim: Sequence[int]):
+    """Returns ``behaviour_step(actor, actor_opt, streams, terminated, zs, hs,
+    noise) -> (policy_loss, value_losses, moments)``: one actor update
+    through imagination on the world model as updated this step, against
+    the weighted sum of each ``CriticStream``'s normalised advantage
+    (``weight / Σ weights``), then each stream's critic update; Moments
+    and value losses come back per stream. DreamerV3's step is one stream
+    of weight 1 on the world model's reward."""
+    wm_cfg = cfg.algo.world_model
+    stoch_flat = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
+    R = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    gamma = float(cfg.algo.gamma)
+    lmbda = float(cfg.algo.lmbda)
+    ent_coef = float(cfg.algo.actor.ent_coef)
+    moments_cfg = cfg.algo.actor.moments
+
+    def behaviour_step(actor: Actor, actor_opt: Clipped, streams: Sequence[CriticStream], terminated, zs, hs, noise):
+        TB = terminated.numel()
+        true_continue0 = (1 - terminated).reshape(TB, 1)
+        weights_sum = sum(s.weight for s in streams)
+        modules = [m for s in streams for m in (s.critic, s.target)]
         # one cast of each module for the whole phase: the world model as
         # updated this step, the actor before its update, the critics before
-        # the critic's
-        with apply.params(wm, actor, critic, target_critic):
+        # theirs
+        with apply.params(wm, actor, *modules):
             # the discrete objective reaches the actor only through the
             # log-probs of detached trajectories, so its rollout needs no
             # graph; the continuous objective differentiates through the
             # dynamics
             with torch.set_grad_enabled(is_continuous):
-                trajectories, imagined_actions = rollout(zs.reshape(TB, stoch_flat), hs.reshape(TB, R), noise)
-                values = TwoHotEncodingDistribution(apply(critic, trajectories), dims=1).mean
-                rewards_img = TwoHotEncodingDistribution(apply(wm.reward, trajectories), dims=1).mean
+                trajectories, imagined_actions = imagine(apply, wm.rssm, actor, zs.reshape(TB, stoch_flat),
+                                                         hs.reshape(TB, R), noise, horizon)
                 continues = Independent(BernoulliSafeMode(logits=apply(wm.cont, trajectories)), 1).mode
                 continues = torch.cat([true_continue0[None], continues[1:]], dim=0)
-                lv = lambda_values_op(rewards_img[1:], values[1:], continues[1:] * gamma, lmbda)
+                values, lvs = [], []
+                for s in streams:
+                    values.append(TwoHotEncodingDistribution(apply(s.critic, trajectories), dims=1).mean)
+                    reward = (TwoHotEncodingDistribution(apply(wm.reward, trajectories), dims=1).mean
+                              if s.reward is None else s.reward(trajectories, imagined_actions))
+                    lvs.append(lambda_values_op(reward[1:], values[-1][1:], continues[1:] * gamma, lmbda))
             discount = (unrolled_cumprod(continues * gamma) / gamma).detach()
-            moments, offset, invscale = update_moments(
-                moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
-                float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
-            )
-            advantage = (lv - offset) / invscale - (values[:-1] - offset) / invscale
+            advantage, moments = 0.0, []
+            for s, v, lv in zip(streams, values, lvs):
+                m, offset, invscale = update_moments(
+                    s.moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
+                    float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
+                )
+                moments.append(m)
+                advantage = advantage + ((lv - offset) / invscale - (v[:-1] - offset) / invscale) * (
+                    s.weight / weights_sum)
             dists = actor_dists(actor, apply(actor, trajectories.detach()))
             if is_continuous:
                 objective = advantage
@@ -356,29 +391,65 @@ def make_train_fn(
             entropy = ent_coef * sum(d.entropy() for d in dists)[..., None]
             policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
             # the optimizer holds the master parameters, not the cast copies
-            actor_params = optimizers.actor.params
-            grads = torch.autograd.grad(policy_loss, actor_params, allow_unused=True)
-            _apply_grads(optimizers.actor, grads)
+            grads = torch.autograd.grad(policy_loss, actor_opt.params, allow_unused=True)
+            _apply_grads(actor_opt, grads)
 
-            traj_sg, lv_sg = trajectories.detach(), lv.detach()
-            qv = TwoHotEncodingDistribution(apply(critic, traj_sg[:-1]), dims=1)
-            with torch.no_grad():
-                target_values = TwoHotEncodingDistribution(apply(target_critic, traj_sg[:-1]), dims=1).mean
-            value_loss = torch.mean((-qv.log_prob(lv_sg) - qv.log_prob(target_values)) * discount[:-1, ..., 0])
-            optimizers.critic.zero_grad()
-            value_loss.backward()
-            _apply_grads(optimizers.critic)
+            traj_sg = trajectories.detach()
+            value_losses = []
+            for s, lv in zip(streams, lvs):
+                qv = TwoHotEncodingDistribution(apply(s.critic, traj_sg[:-1]), dims=1)
+                with torch.no_grad():
+                    target_values = TwoHotEncodingDistribution(apply(s.target, traj_sg[:-1]), dims=1).mean
+                value_loss = torch.mean((-qv.log_prob(lv.detach()) - qv.log_prob(target_values)) * discount[:-1, ..., 0])
+                s.optimizer.zero_grad()
+                value_loss.backward()
+                _apply_grads(s.optimizer)
+                value_losses.append(value_loss.detach())
+        return policy_loss.detach(), value_losses, moments
 
-        optimizers.step += 1
-        if optimizers.step % target_freq == 0:
-            with torch.no_grad():
-                for t, s in zip(target_critic.parameters(), critic.parameters()):
-                    t.copy_((1 - tau) * t + tau * s)
-        return moments, policy_loss.detach(), value_loss.detach()
+    return behaviour_step
+
+
+def ema_(target: torch.nn.Module, source: torch.nn.Module, tau: float) -> None:
+    """``target ← (1 - tau) · target + tau · source``, parameter by parameter."""
+    with torch.no_grad():
+        for t, s in zip(target.parameters(), source.parameters()):
+            t.copy_((1 - tau) * t + tau * s)
+
+
+def make_train_fn(
+    wm: WorldModel,
+    actor: Actor,
+    critic: torch.nn.Module,
+    target_critic: torch.nn.Module,
+    optimizers: DV3Optimizers,
+    cfg: Config,
+    is_continuous: bool,
+    actions_dim: Sequence[int],
+):
+    """Returns ``train(moments, batches, noise=None, generator=None) ->
+    (moments, metrics)``: G gradient steps over ``batches`` [G, T, B, ...]
+    (tensors on the modules' device). ``noise`` is a list of G
+    ``draw_train_noise`` dicts; without it the draws come from
+    ``generator``. Metrics are [G] tensors, left on the device.
+
+    Under a bf16 ``fabric.precision`` every forward of ``wm``, ``actor`` and
+    ``critic`` crosses the cast boundary (``PrecisionApplies``), which casts
+    each module's parameters once per phase of the step."""
+    apply = make_precision_applies(cfg)
+    tau = float(cfg.algo.critic.tau)
+    target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
+    world_model_step = make_world_model_step(wm, optimizers.wm, cfg, apply)
+    behaviour_step = make_behaviour_step(wm, cfg, apply, is_continuous, actions_dim)
 
     def one_step(batch, moments, noise):
         zs, hs, metrics = world_model_step(batch, noise)
-        moments, policy_loss, value_loss = behaviour_step(batch, zs, hs, moments, noise)
+        stream = CriticStream(critic, target_critic, optimizers.critic, moments)
+        policy_loss, (value_loss,), (moments,) = behaviour_step(actor, optimizers.actor, [stream],
+                                                                batch["terminated"], zs, hs, noise)
+        optimizers.step += 1
+        if optimizers.step % target_freq == 0:
+            ema_(target_critic, critic, tau)
         metrics["Loss/policy_loss"] = policy_loss
         metrics["Loss/value_loss"] = value_loss
         return moments, metrics
@@ -453,6 +524,130 @@ def _set_gen_state(gen: torch.Generator, saved: Dict[str, Any], name: str) -> No
     set_gen_state(gen, saved, name, tag="dreamer_v3")
 
 
+class LoopParts(NamedTuple):
+    """What ``run_serial`` needs of a phase: the modules a checkpoint and a
+    resumed run's fingerprint hold (``named``), a burst (``train(batches,
+    generator) -> metrics`` of [G] tensors), the actor the player acts with
+    (``player_actor(task_phase)``: the task phase begins at
+    ``learning_starts``), the phase's part of a checkpoint, the task actor
+    for the test episode, the metrics it logs, whether it acts at random
+    before ``learning_starts``, and a buffer state to start from."""
+
+    named: Dict[str, nn.Module]
+    train: Callable[[Dict[str, torch.Tensor], torch.Generator], Dict[str, torch.Tensor]]
+    player_actor: Callable[[bool], nn.Module]
+    algo_state: Callable[[], Dict[str, Any]]
+    task_actor: nn.Module
+    aggregator_keys: Any
+    random_warmup: bool = True
+    rb_state: Optional[Dict[str, Any]] = None
+
+
+class DV3Stepper:
+    """``stepper(sink)``: ONE vector-env step of the DreamerV3 family (the
+    JAX package's row layout: each row holds an observation with the action
+    taken from it; a finished episode adds a closing row with its final
+    observation, and the next row opens with ``is_first``). Acts at random
+    up to ``learning_starts`` when ``random_warmup``, else with the player
+    on ``mirror.current()``; the rows and the finished episodes' stats go
+    into ``sink`` (the buffer itself serially, a ``RecordingSink`` under the
+    overlap engine). ``p_step`` counts the env steps taken."""
+
+    def __init__(self, cfg: Config, envs, actions_dim: Sequence[int], is_continuous: bool, player_init, player_step,
+                 player_gen: torch.Generator, mirror, p_step: int, learning_starts: int, random_warmup: bool = True):
+        self.cfg, self.envs, self.actions_dim, self.is_continuous = cfg, envs, list(actions_dim), is_continuous
+        self.player_init, self.player_step, self.player_gen, self.mirror = player_init, player_step, player_gen, mirror
+        self.p_step, self.learning_starts, self.random_warmup = p_step, learning_starts, random_warmup
+        self.num_envs = int(cfg.env.num_envs)
+        self.cnn_keys, self.mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
+        self.obs_keys = self.cnn_keys + self.mlp_keys
+        self.is_multidiscrete = isinstance(envs.single_action_space, spaces.MultiDiscrete)
+        self.clip_rewards = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
+        self.obs, _ = envs.reset(seed=int(cfg.seed))
+        n, act_total = self.num_envs, int(sum(actions_dim))
+        self.step_data: Dict[str, np.ndarray] = {k: np.asarray(self.obs[k])[np.newaxis] for k in self.obs_keys}
+        self.step_data["actions"] = np.zeros((1, n, act_total), np.float32)
+        self.step_data["rewards"] = np.zeros((1, n, 1), np.float32)
+        self.step_data["terminated"] = np.zeros((1, n, 1), np.float32)
+        self.step_data["truncated"] = np.zeros((1, n, 1), np.float32)
+        self.step_data["is_first"] = np.ones((1, n, 1), np.float32)
+        self.player_state = None  # made by the player, on its own stream
+
+    def __call__(self, sink) -> None:
+        cfg, n, step_data, obs_keys = self.cfg, self.num_envs, self.step_data, self.obs_keys
+        action_space = self.envs.single_action_space
+        mods = self.mirror.current()
+        if self.player_state is None:
+            self.player_state = self.player_init(modules=mods)
+        if self.random_warmup and self.p_step <= self.learning_starts:
+            actions_env = np.stack([action_space.sample() for _ in range(n)])
+            if self.is_continuous:
+                actions_np = actions_env.reshape(n, -1).astype(np.float32)
+            else:
+                acts2d = actions_env.reshape(n, -1)
+                actions_np = np.concatenate(
+                    [np.eye(adim, dtype=np.float32)[acts2d[:, j]] for j, adim in enumerate(self.actions_dim)], axis=-1
+                )
+        else:
+            host_obs = prepare_obs(self.obs, self.cnn_keys, self.mlp_keys, n)
+            env_actions, actions_cat, self.player_state = self.player_step(
+                host_obs, self.player_state, generator=self.player_gen, modules=mods
+            )
+            actions_np = actions_cat.cpu().numpy()
+            actions_env = env_actions.cpu().numpy()
+            if self.is_continuous:
+                actions_env = actions_env.reshape(n, -1)
+            elif not self.is_multidiscrete:
+                actions_env = actions_env.reshape(n)
+
+        step_data["actions"] = actions_np.reshape(1, n, -1)
+        sink.add(step_data, validate_args=cfg.buffer.validate_args)
+        next_obs, rewards, terminated, truncated, info = self.envs.step(actions_env)
+        self.p_step += n
+        dones = np.logical_or(terminated, truncated)
+        for ep_rew, ep_len in episode_stats(info):
+            sink.stat("Rewards/rew_avg", ep_rew)
+            sink.stat("Game/ep_len_avg", ep_len)
+
+        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+        if "final_obs" in info:
+            for i, fo in enumerate(info["final_obs"]):
+                if fo is not None:
+                    for k in obs_keys:
+                        real_next_obs[k][i] = np.asarray(fo[k])
+        for k in obs_keys:
+            step_data[k] = np.asarray(next_obs[k])[np.newaxis]
+        step_data["is_first"] = np.zeros((1, n, 1), np.float32)
+        step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, n, 1)
+        step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, n, 1)
+        step_data["rewards"] = self.clip_rewards(np.asarray(rewards, np.float32).reshape(1, n, 1))
+
+        # an env restarted in flight: its last row becomes a truncation
+        # boundary, and its recurrent state starts anew
+        restarted = patch_restarted_envs(info, dones, sink, step_data)
+        if restarted is not None:
+            self.player_state = self.player_init(restarted, self.player_state, modules=mods)
+
+        dones_idxes = np.nonzero(dones)[0].tolist()
+        if dones_idxes:
+            # closing row for the finished episodes, then an open row
+            reset_data: Dict[str, np.ndarray] = {k: real_next_obs[k][dones_idxes][np.newaxis] for k in obs_keys}
+            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(self.actions_dim))), np.float32)
+            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            sink.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            step_data["rewards"][:, dones_idxes] = 0
+            step_data["terminated"][:, dones_idxes] = 0
+            step_data["truncated"][:, dones_idxes] = 0
+            step_data["is_first"][:, dones_idxes] = 1
+            mask = np.zeros((n,), bool)
+            mask[dones_idxes] = True
+            self.player_state = self.player_init(mask, self.player_state, modules=mods)
+        self.obs = next_obs
+
+
 @register_algorithm(name="dreamer_v3")
 def main(cfg: Config) -> None:
     """The DreamerV3 training loop: act, store, train G steps per the replay
@@ -484,7 +679,6 @@ def main(cfg: Config) -> None:
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     is_continuous = isinstance(action_space, spaces.Box)
-    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
     actions_dim = _actions_dim(action_space)
     act_total = int(sum(actions_dim))
 
@@ -542,7 +736,6 @@ def main(cfg: Config) -> None:
     policy_step = int(state["policy_step"]) if state else 0
     last_log = int(state["last_log"]) if state else 0
     last_checkpoint = int(state["last_checkpoint"]) if state else 0
-    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
     log_every = int(cfg.metric.log_every)
     if state:
         print("[dreamer_v3] resumed " + json.dumps({
@@ -551,15 +744,6 @@ def main(cfg: Config) -> None:
             "param_sums": param_sums({"wm": wm, "actor": actor, "critic": critic, "target_critic": target_critic}),
         }), flush=True)
 
-    obs, _ = envs.reset(seed=seed)
-    player_state = None  # made by the player, on its own stream
-    step_data: Dict[str, np.ndarray] = {k: np.asarray(obs[k])[np.newaxis] for k in obs_keys}
-    step_data["actions"] = np.zeros((1, num_envs, act_total), np.float32)
-    step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
-    step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
-    step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
-    step_data["is_first"] = np.ones((1, num_envs, 1), np.float32)
-
     pending: List[Dict[str, torch.Tensor]] = []
     # the player generator's state after the last transition in the buffer
     # (under overlap the player runs ahead; its state rides each packet)
@@ -567,7 +751,9 @@ def main(cfg: Config) -> None:
     engine = OverlapEngine.setup(cfg, telem, guard, total_steps=total_steps, initial_step=policy_step)
     costed = False  # the model FLOPs and bytes of a gradient step, counted on the first burst
     t0 = time.perf_counter()
-    p_step = policy_step  # the player's env-step counter (== policy_step serially)
+    # the player's env steps (== policy_step serially)
+    interact = DV3Stepper(cfg, envs, actions_dim, is_continuous, player_init, player_step, player_gen, mirror,
+                          policy_step, learning_starts)
 
     def _ckpt_state() -> Dict[str, Any]:
         s: Dict[str, Any] = {
@@ -594,82 +780,6 @@ def main(cfg: Config) -> None:
         if cfg.buffer.checkpoint:
             s["rb"] = rb.checkpoint_state_dict()
         return s
-
-    def interact(sink) -> None:
-        """ONE vector env step: act with the mirror's copy and record the
-        replay-row mutations into ``sink`` (the buffer itself serially, a
-        ``RecordingSink`` under the overlap engine)."""
-        nonlocal obs, player_state, p_step
-        mods = mirror.current()
-        if player_state is None:
-            player_state = player_init(modules=mods)
-        if p_step <= learning_starts:
-            actions_env = np.stack([action_space.sample() for _ in range(num_envs)])
-            if is_continuous:
-                actions_np = actions_env.reshape(num_envs, -1).astype(np.float32)
-            else:
-                acts2d = actions_env.reshape(num_envs, -1)
-                actions_np = np.concatenate(
-                    [np.eye(adim, dtype=np.float32)[acts2d[:, j]] for j, adim in enumerate(actions_dim)], axis=-1
-                )
-        else:
-            host_obs = prepare_obs(obs, cnn_keys, mlp_keys, num_envs)
-            env_actions, actions_cat, player_state = player_step(
-                host_obs, player_state, generator=player_gen, modules=mods
-            )
-            actions_np = actions_cat.cpu().numpy()
-            actions_env = env_actions.cpu().numpy()
-            if is_continuous:
-                actions_env = actions_env.reshape(num_envs, -1)
-            elif not is_multidiscrete:
-                actions_env = actions_env.reshape(num_envs)
-
-        step_data["actions"] = actions_np.reshape(1, num_envs, -1)
-        sink.add(step_data, validate_args=cfg.buffer.validate_args)
-        next_obs, rewards, terminated, truncated, info = envs.step(actions_env)
-        p_step += num_envs
-        dones = np.logical_or(terminated, truncated)
-        for ep_rew, ep_len in episode_stats(info):
-            sink.stat("Rewards/rew_avg", ep_rew)
-            sink.stat("Game/ep_len_avg", ep_len)
-
-        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
-        if "final_obs" in info:
-            for i, fo in enumerate(info["final_obs"]):
-                if fo is not None:
-                    for k in obs_keys:
-                        real_next_obs[k][i] = np.asarray(fo[k])
-        for k in obs_keys:
-            step_data[k] = np.asarray(next_obs[k])[np.newaxis]
-        step_data["is_first"] = np.zeros((1, num_envs, 1), np.float32)
-        step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
-        step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
-        step_data["rewards"] = clip_rewards_fn(np.asarray(rewards, np.float32).reshape(1, num_envs, 1))
-
-        # an env restarted in flight: its last row becomes a truncation
-        # boundary, and its recurrent state starts anew
-        restarted = patch_restarted_envs(info, dones, sink, step_data)
-        if restarted is not None:
-            player_state = player_init(restarted, player_state, modules=mods)
-
-        dones_idxes = np.nonzero(dones)[0].tolist()
-        if dones_idxes:
-            # closing row for the finished episodes, then an open row
-            reset_data: Dict[str, np.ndarray] = {k: real_next_obs[k][dones_idxes][np.newaxis] for k in obs_keys}
-            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
-            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
-            reset_data["actions"] = np.zeros((1, len(dones_idxes), act_total), np.float32)
-            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
-            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            sink.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
-            step_data["rewards"][:, dones_idxes] = 0
-            step_data["terminated"][:, dones_idxes] = 0
-            step_data["truncated"][:, dones_idxes] = 0
-            step_data["is_first"][:, dones_idxes] = 1
-            mask = np.zeros((num_envs,), bool)
-            mask[dones_idxes] = True
-            player_state = player_init(mask, player_state, modules=mods)
-        obs = next_obs
 
     def burst(g: int) -> None:
         nonlocal moments, costed
@@ -778,7 +888,7 @@ def main(cfg: Config) -> None:
                     break
                 with telem.span("Time/env_interaction_time"):
                     interact(sink)
-                policy_step = p_step
+                policy_step = interact.p_step
                 if policy_step >= learning_starts:
                     g = ratio(policy_step)
                     telem.record_grad_steps(g)

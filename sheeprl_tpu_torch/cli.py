@@ -16,6 +16,7 @@ later slices.
 """
 from __future__ import annotations
 
+import functools
 import importlib
 import pathlib
 import sys
@@ -36,7 +37,16 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
     "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
     "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
 )
+# the env settings a finetuning run takes from its exploration run
+EXPLORATION_ENV_KEYS = ("frame_stack", "screen_size", "action_repeat", "grayscale", "clip_rewards",
+                        "frame_stack_dilation", "max_episode_steps", "reward_as_observation")
 
 
 def _register() -> None:
@@ -92,11 +102,42 @@ def check_configs(cfg: Config) -> None:
                            "device (fabric.devices >= 2)")
 
 
+def exploration_surgery(cfg: Config) -> Config:
+    """The exploration→finetuning surgery: load the ``config.yaml`` two
+    levels above ``checkpoint.exploration_ckpt_path`` (the exploration
+    run's log dir), refuse a different ``env.id``, copy the exploration
+    run's ``env`` settings (``EXPLORATION_ENV_KEYS``) into ``cfg`` and
+    return the exploration config (the entry point inherits its ``algo``
+    settings)."""
+    path = cfg.select("checkpoint.exploration_ckpt_path")
+    if not path or path == "???":
+        raise ValueError(f"{cfg.algo.name} finetunes an exploration run: set "
+                         "checkpoint.exploration_ckpt_path=<its ckpt_<step>.ckpt>")
+    cfg_path = pathlib.Path(path).parent.parent / "config.yaml"
+    if not cfg_path.is_file():
+        raise FileNotFoundError(f"Missing the exploration run's saved config at {cfg_path}")
+    exploration_cfg = load_config_file(cfg_path)
+    if exploration_cfg.select("env.id") != cfg.select("env.id"):
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the exploration you want to "
+            f"finetune. Got '{cfg.select('env.id')}', but the exploration used {exploration_cfg.select('env.id')}.")
+    for k in EXPLORATION_ENV_KEYS:
+        if exploration_cfg.select(f"env.{k}") is not None:
+            cfg.set_path(f"env.{k}", exploration_cfg.select(f"env.{k}"))
+    return exploration_cfg
+
+
 def run_algorithm(cfg: Config) -> None:
     """The algorithm's entry point; with ``resilience.supervisor.attempts >
-    1``, under ``supervise`` (a crash restarts from the newest checkpoint)."""
+    1``, under ``supervise`` (a crash restarts from the newest checkpoint).
+    A finetuning entry point (``requires_exploration_cfg``) gets the
+    exploration run's config (``exploration_surgery``), also when the run
+    is resumed or restarted."""
     check_configs(cfg)
-    fn = get_algorithm(cfg.algo.name)["fn"]
+    entry = get_algorithm(cfg.algo.name)
+    fn = entry["fn"]
+    if entry.get("requires_exploration_cfg"):
+        fn = functools.partial(fn, exploration_cfg=exploration_surgery(cfg))
     attempts = int(cfg.select("resilience.supervisor.attempts", 1) or 1)
     if attempts > 1:
         from .resilience.supervisor import supervise

@@ -42,7 +42,13 @@ included) with the Adam states of each of their optimizers and the
 gradient-step counter; ``load_dreamer_v2`` and ``load_dreamer_v1`` the
 DreamerV2 and V1 agents with the states of their optimizers (Adam, AdamW,
 ``rmsprop`` or ``rmsprop_tf``, as each optimizer is) and DreamerV2's step
-counter, the one that paces its target-critic copy.
+counter, the one that paces its target-critic copy. ``load_p2e_dv3``,
+``load_p2e_dv2`` and ``load_p2e_dv1`` load the Plan2Explore agents (the
+ensembles' stacked ``[n, in, out]`` kernels into ``EnsembleLinear``'s
+weights of the same layout, P2E-DV3's dict of exploration critics with
+their targets) with the states of every optimizer (one per exploration
+critic) and the step counter; ``load_moments`` turns the JAX package's
+Moments (a ``MomentsState`` or a tree of them) into the port's.
 """
 from __future__ import annotations
 
@@ -357,3 +363,41 @@ def load_dreamer_v1(params: Mapping[str, Any], wm: nn.Module, actor: nn.Module, 
             load_optimizer_state(getattr(optimizers, key), module, opt_states[key])
         adam = find_state(opt_states["wm"])
         optimizers.step = int(np.asarray(adam.count)) if adam is not None else 0
+
+
+def load_moments(moments: Any) -> Any:
+    """The JAX package's ``MomentsState(low, high)`` (or a dict tree of them,
+    as P2E-DV3's ``{task, exploration: {name: ...}}``) as the port's."""
+    from .algos.dreamer_v3.utils import MomentsState
+
+    if isinstance(moments, Mapping):
+        return {k: load_moments(v) for k, v in moments.items()}
+    return MomentsState(torch.as_tensor(np.array(moments[0], np.float32)),
+                        torch.as_tensor(np.array(moments[1], np.float32)))
+
+
+def load_p2e(params: Mapping[str, Any], mods: Mapping[str, nn.Module], opt_states: Optional[Mapping[str, Any]] = None,
+             optimizers: Any = None) -> None:
+    """A JAX Plan2Explore agent's ``params`` into the port's modules (the
+    dict of the variant's ``build_agent``, whose keys are the JAX tree's:
+    P2E-DV3's ``critics_exploration: {name: {critic, target}}``, P2E-DV2's
+    task and exploration target critics, P2E-DV1's GRU folded into
+    ``models.GRUCell`` form) and, with ``optimizers`` (a ``P2EOptimizers``),
+    each optimizer's state from ``opt_states`` (P2E-DV3's dict of
+    exploration-critic optimizers takes the states of its critics) and the
+    ``step`` counter (P2E-DV1's JAX state has none: 0)."""
+    for name, module in mods.items():
+        load_params(params[name], module)
+    if opt_states is None or optimizers is None:
+        return
+    for name in optimizers.names:
+        opt = getattr(optimizers, name)
+        if isinstance(opt, dict):
+            for k, o in opt.items():
+                load_optimizer_state(o, mods[name][k]["critic"], opt_states[name][k])
+        else:
+            load_optimizer_state(opt, mods[name], opt_states[name])
+    optimizers.step = int(np.asarray(opt_states.get("step", 0)))
+
+
+load_p2e_dv3 = load_p2e_dv2 = load_p2e_dv1 = load_p2e

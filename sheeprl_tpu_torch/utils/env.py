@@ -464,3 +464,10 @@ def get_dummy_env(id: str, **suite_kwargs: Any) -> Any:
     if "discrete" in id:
         return DiscreteDummyEnv()
     raise ValueError(f"Unrecognized dummy environment: {id}")
+
+
+def get_diambra_env(id: str, **wrapper_kwargs: Any) -> Any:
+    """DIAMBRA Arena's environments (``env=diambra``) are not ported: the
+    presets that name them compose, and a run raises here."""
+    raise NotImplementedError(f"env.id={id}: the DIAMBRA environments are not ported; the presets that name them "
+                              "only compose (run them with env=dummy)")

@@ -3,9 +3,11 @@ the JAX package, and chip_smoke.py and the port's scripts
 (scripts/torch_*.py, which run on the card too) import nothing of it: every
 port module is imported in a fresh interpreter, dry runs of the dummy env
 path (DreamerV3, PPO on pixels with the watchdog on, SAC, SAC-AE, DreamerV2
-on the episode buffer and DreamerV1 on a continuous action, at cut widths)
-run there, and the loaded modules are checked; every import
-statement of the port's sources is scanned.
+on the episode buffer, DreamerV1 on a continuous action, P2E-DV3's
+exploration→finetuning chain and P2E-DV2's exploration, at cut widths) run
+there, and the loaded modules are checked; every import statement of the
+port's sources is scanned, and no config of the port names a class of the
+JAX package.
 
 The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
 imported by their adapters only, inside the functions that make an env or
@@ -60,6 +62,15 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "        'algo.world_model.stochastic_size=4', 'algo.horizon=3', 'algo.run_test=False']\n"
         "cli.run(['exp=dreamer_v2', 'algo.world_model.discrete_size=4', 'buffer.type=episode', *tiny])\n"
         "cli.run(['exp=dreamer_v1', 'env.id=continuous_dummy', *tiny])\n"
+        "v3 = ['env.num_envs=2', 'algo.world_model.discrete_size=4', 'algo.world_model.recurrent_model.dense_units=8',\n"
+        "      'algo.cnn_keys.encoder=[rgb]', 'algo.ensembles.n=2', 'buffer.memmap=False']\n"
+        "v3 += ['metric.log_level=0']\n"
+        "cli.run(['exp=p2e_dv3_exploration', *tiny, *v3, 'algo.world_model.decoupled_rssm=True', 'run_name=ex'])\n"
+        "import glob\n"
+        "ckpt = sorted(glob.glob('logs/runs/p2e_dv3_exploration/*/ex/*/checkpoint/*.ckpt'))[-1]\n"
+        "cli.run(['exp=p2e_dv3_finetuning', *tiny, *v3, f'checkpoint.exploration_ckpt_path={ckpt}'])\n"
+        "cli.run(['exp=p2e_dv2_exploration', 'algo.world_model.discrete_size=4', 'algo.ensembles.n=2',\n"
+        "         'algo.per_rank_pretrain_steps=1', 'metric.log_level=0', *tiny])\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules)}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -79,7 +90,10 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "algos.sac_ae.agent", "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.dreamer_v2.agent",
                 "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.dreamer_v2.dreamer_v2",
                 "algos.dreamer_v1.agent", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils",
-                "algos.dreamer_v1.dreamer_v1", "data.device_ring", "optim",
+                "algos.dreamer_v1.dreamer_v1", "algos.p2e_dv3.agent", "algos.p2e_dv3.p2e_dv3_exploration",
+                "algos.p2e_dv3.p2e_dv3_finetuning", "algos.p2e_dv2.agent", "algos.p2e_dv2.p2e_dv2_exploration",
+                "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv1.agent", "algos.p2e_dv1.p2e_dv1_exploration",
+                "algos.p2e_dv1.p2e_dv1_finetuning", "models.ensembles", "data.device_ring", "optim",
                 "utils.checkpoint", "utils.metric", "utils.logger",
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
                 "telemetry.device", "telemetry.facade"):
@@ -131,3 +145,18 @@ def test_env_suites_are_imported_by_their_adapters_only_and_lazily():
         assert not eager, (str(f.relative_to(REPO)), eager)
     for f, names in ADAPTERS.items():
         assert any(_forbidden(n, names) for n in _imports(f)), f
+
+
+def test_no_port_config_names_a_class_of_the_jax_package():
+    """Every dotted path in the port's YAML configs (``_target_``,
+    ``actor.cls``, ...) names the port, never ``sheeprl_tpu.``: the P2E
+    presets' ``actor.cls`` entries are the first that could."""
+    import re
+
+    configs = sorted((PORT / "configs").rglob("*.yaml"))
+    assert len(configs) > 40 and PORT / "configs" / "algo" / "p2e_dv2.yaml" in configs
+    bad = [(str(f.relative_to(REPO)), m) for f in configs
+           for m in re.findall(r"\bsheeprl_tpu\.[\w.]+", f.read_text())]
+    assert not bad, bad
+    named = [m for f in configs for m in re.findall(r"\bsheeprl_tpu_torch\.[\w.]+", f.read_text())]
+    assert "sheeprl_tpu_torch.algos.p2e_dv2.agent.Actor" in named and "sheeprl_tpu_torch.algos.p2e_dv1.agent.Actor" in named
