@@ -232,6 +232,42 @@ that fails and then prints no result:
                            ensembles' intrinsic-reward forward;
                no P2E leg but the two finetuning DV3 legs launches an
                LN-GRU kernel;
+               then the actor fleet's legs (algo.fleet.workers=2: worker
+               processes that step their env slices and act on the host
+               CPU, the learner on the card):
+               fleet_dv3_serial, fleet_dv3
+                           DreamerV3-S decoupled on the kernels at 4 envs,
+                           serially and with 2 workers: equal ledgers, each
+                           of the five LN-GRU kernels launched on the
+                           learner, and no worker holding a CUDA context
+                           (the card's compute apps, sampled during the leg,
+                           list one process at a time and no worker pid;
+                           each worker's exit record says it never
+                           initialised CUDA);
+               fleet_dv3_chaos
+                           fleet_dv3 with worker 0 crashing at a lifetime
+                           step and worker 1 hanging past fleet.hang_s=1:
+                           the serial Ratio ledger still (policy steps,
+                           gradient steps, the Ratio's state; each column
+                           holds exactly one step row per env step, and a
+                           respawn restarts its worker's episodes, so a
+                           column closes the serial loop's episodes less at
+                           most one per respawn of its worker), crash, hang
+                           and respawn for each, no quarantine;
+               fleet_sac, fleet_sac_socket
+                           the sac leg with 2 workers on the mp queues and
+                           on loopback sockets: sac_serial's ledger (and a
+                           net accept for both workers on the socket leg);
+               fleet_ppo   the ppo leg with 2 workers, strict rounds:
+                           ppo_serial's counters, one rollout per
+                           publication;
+               each with policy steps/s after learning_starts beside its
+               serial twin's, the learner's env-interaction (waiting for
+               rounds) and train seconds, publications with their bytes
+               and ms, respawns, the largest queue depth, its own peak
+               device memory and the workers' span totals (program steps,
+               queue waits, publication lags); every stream (the
+               learner's and each worker's) passes validate_jsonl;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -246,7 +282,9 @@ that fails and then prints no result:
                one {"kernels": [...]} line: a row for each kernel at each
                width a training leg runs it (resident at S, streamed at M
                and XL), with launches and blocks from the run leg, the
-               run_M leg or the p2e_dv3_finetuning leg, times
+               run_M leg or the p2e_dv3_finetuning leg (and, in
+               launches_by_path, each leg's own count: at S the run leg's
+               and fleet_dv3's learner's apart), times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -1074,7 +1112,7 @@ def parse_leg(text: str) -> dict:
     from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
 
     out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None,
-           "logs": [], "startup": None, "events": {}, "from_exploration": None, "acting": []}
+           "logs": [], "startup": None, "events": {}, "from_exploration": None, "acting": [], "fleet": [], "net": []}
     for line in text.splitlines():
         algo = line[1:line.index("]")] if line.startswith("[") and "]" in line else None
         if algo in ALGOS and line.startswith(f"[{algo}] log_dir="):
@@ -1110,6 +1148,8 @@ def parse_leg(text: str) -> dict:
                 out["overlap"].append(rec)
             elif kind == "ckpt_async":
                 out["ckpt"].append(rec)
+            elif kind in ("fleet", "net"):
+                out[kind].append(rec)
     return out
 
 
@@ -1148,6 +1188,18 @@ def ledger(torch, path):
     s = torch.load(path, map_location="cpu", weights_only=False)
     return {"policy_step": s["policy_step"], "grad_steps": s["opt_states"]["step"], "ratio": s["ratio"],
             "rb": [(b["pos"], b["full"]) for b in s["rb"]["buffers"]]}
+
+
+def column_rows(torch, path):
+    """Each env column's rows in a DreamerV3 checkpoint's buffer, as (step
+    rows, closing rows): a step row holds the action taken (one-hot on the
+    discrete dummy env), an episode's closing row a zero action."""
+    s = torch.load(path, map_location="cpu", weights_only=False)
+    out = []
+    for b in s["rb"]["buffers"]:
+        acted = (b["buffer"]["actions"][: b["pos"]] != 0).any(axis=-1).reshape(-1)
+        out.append((int(acted.sum()), int((~acted).sum())))
+    return out
 
 
 def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True):
@@ -1279,9 +1331,13 @@ def phase_run(torch, ln_gru, overrides=()):
     report.update(dreamer_legs(torch, ln_gru))
     p2e, counts_xl, blocks_xl = p2e_legs(torch, ln_gru)
     report.update(p2e)
+    report.update(fleet_legs(torch, ln_gru, report))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
-    launches = {"S": report["run"]["launches"], "M": report["run_M"]["launches"], "XL": counts_xl}
-    return launches, {"S": blocks, "M": blocks_m, "XL": blocks_xl}, report
+    # each width's launches, path by path: each leg's counts were zeroed just
+    # before it and read just after (at S the run leg's and fleet_dv3's apart)
+    paths = {"S": {"run": report["run"]["launches"], "fleet_dv3": report["fleet_dv3"]["launches"]},
+             "M": {"run_M": report["run_M"]["launches"]}, "XL": {"p2e_dv3_finetuning": counts_xl}}
+    return paths, {"S": blocks, "M": blocks_m, "XL": blocks_xl}, report
 
 
 def onpolicy_summary(parsed, seconds, peak):
@@ -2026,6 +2082,229 @@ def walker_legs(torch, ln_gru):
     return report
 
 
+# the actor fleet's DreamerV3 legs: the run legs' DV3-S at 4 envs (a 64-row
+# sequence in each env's buffer from policy step 256), 2 workers of 2 envs
+FLEET_LEARNING_STARTS, FLEET_TOTAL = 256, 320
+FLEET_KNOBS = ["fleet.backoff_s=0.05", "fleet.stats_every_s=1.0"]
+
+
+class ComputeApps:
+    """Samples the card's compute processes (``nvidia-smi
+    --query-compute-apps``) on a thread while a leg runs: the pids seen and
+    the most processes one sample listed (the sandbox's pid namespace may
+    show the card's processes under other pids than ``os.getpid()``)."""
+
+    def __init__(self, every_s=0.5):
+        import threading
+
+        self.pids, self.samples, self.max_rows, self.error = set(), 0, 0, None
+        self._stop = threading.Event()
+        self._every = every_s
+        self._thread = threading.Thread(target=self._run, name="smoke-compute-apps", daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self._every):
+            try:
+                out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                                     capture_output=True, text=True, timeout=30).stdout
+                rows = [int(x) for x in out.split() if x.strip().isdigit()]
+                self.pids.update(rows)
+                self.max_rows = max(self.max_rows, len(rows))
+                self.samples += 1
+            except Exception as err:  # noqa: BLE001 - reported with the leg
+                self.error = repr(err)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def fleet_summary(parsed, seconds, peak, before, learning_starts, twin):
+    """The fleet numbers of one leg beside its serial twin's steps/s: the
+    learner's span seconds (env interaction is its wait for rounds), the
+    last fleet interval record (publications with bytes and ms, respawns,
+    the largest queue depth) and the leg's own peak device memory."""
+    logs = parsed["logs"]
+    if not logs or not parsed["fleet"]:
+        raise AssertionError(f"the leg wrote {len(logs)} log and {len(parsed['fleet'])} fleet records")
+    after = [r for r in logs if r["step"] >= learning_starts] or logs
+    first, last = after[0], logs[-1]
+    sps = ((last["step"] - first["step"]) / (last["elapsed_s"] - first["elapsed_s"])
+           if last["elapsed_s"] > first["elapsed_s"] else None)
+    spans = {}
+    for r in logs:
+        for k, v in (r.get("spans") or {}).items():
+            spans[k] = spans.get(k, 0.0) + v
+    interval = [r for r in parsed["fleet"] if r["action"] == "interval"][-1]
+    pubs = max(1, interval["publications"])
+    return {"seconds": seconds, "policy_step": int(last["step"]), "grad_steps": int(last.get("grad_steps") or 0),
+            "policy_steps_per_s_after_learning_starts": sps, "serial_twin_policy_steps_per_s": twin,
+            "env_interaction_s": spans.get("Time/env_interaction_time"), "train_s": spans.get("Time/train_time"),
+            "publications": interval["publications"], "publish_bytes_per_publication": interval["publish_bytes"] / pubs,
+            "publish_ms_per_publication": interval["publish_ms"] / pubs, "respawns": interval["respawns"],
+            "queue_depth_max": max(r.get("queue_depth_max", 0) for r in parsed["fleet"] if r["action"] == "interval"),
+            "rounds": interval["rounds"], "relayed_events": interval.get("relayed_events"),
+            "own_peak_device_memory": peak - before,
+            "incidents": [(r["action"], r.get("worker")) for r in parsed["fleet"]
+                          if r["action"] not in ("interval", "spawn", "drain")]}
+
+
+def worker_streams(log_dir):
+    """Every worker stream of a fleet leg, validated; returns the paths, the
+    exit records (each worker incarnation that ended cleanly writes one) and
+    where the workers' time went: each span name's count and total ms over
+    both workers (``env_step``: a program step, acting and the env;
+    ``queue_wait``: parked on the full data queue; ``param_apply``: a
+    publication's wall time from the learner's send to its load in the
+    worker)."""
+    from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
+
+    root = os.path.join(log_dir, "workers")
+    paths = sorted(os.path.join(root, d, "telemetry.jsonl") for d in os.listdir(root))
+    exits, spans = [], {}
+    for path in paths:
+        errors = validate_jsonl(path)
+        if errors:
+            raise AssertionError(f"{path} fails the schema: {errors[:5]}")
+        with open(path) as fh:
+            for r in map(json.loads, fh):
+                if r["event"] == "fleet" and r["action"] == "worker_exit":
+                    exits.append(r)
+                elif r["event"] == "trace_span":
+                    agg = spans.setdefault(r["name"], {"count": 0, "total_ms": 0.0})
+                    agg["count"] += 1
+                    agg["total_ms"] += r["dur_ms"]
+    return paths, exits, spans
+
+
+def fleet_twins(torch, ln_gru):
+    """The sac_serial and ppo_serial legs alone (the fleet legs' twins),
+    for ``--fleet``; phase 5 takes them from its off- and on-policy legs."""
+    report, logs, feeds = {}, {}, {}
+    common = ["env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
+              f"root_dir={RUN_ROOT}"]
+    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}", "checkpoint.every=512",
+           "metric.log_every=256", "algo.overlap.enabled=False"]
+    make_leg(torch, ln_gru, report, logs, feeds)("sac_serial", sac, 100)
+    report["sac_serial"]["ledger_equal"], _ = offpolicy_ledger(torch, checkpoints(logs["sac_serial"])[-1])
+    ppo = ["exp=ppo", "env=dummy", "metric.log_every=1024", "algo.run_test=False", f"root_dir={RUN_ROOT}",
+           f"algo.total_steps={PPO_TOTAL}", "checkpoint.every=2048", "algo.overlap.enabled=False"]
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", ppo + ["run_name=ppo_serial"])
+    report["ppo_serial"] = onpolicy_summary(parsed, seconds, peak)
+    report["ppo_serial"]["args"] = ppo
+    report["ppo_serial"]["ledger_equal"], _ = agent_ledger(torch, checkpoints(parsed["log_dir"])[-1])
+    return report
+
+
+def fleet_legs(torch, ln_gru, done):
+    """The actor fleet (phase 5), after the legs whose serial twins it is
+    held to (``done``: sac_serial's and ppo_serial's ledgers)."""
+    report = {}
+
+    def leg(name, args, learning_starts, twin, kernels=False):
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        with ComputeApps() as apps:
+            parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args + [f"run_name={name}"])
+        if (min(counts.values()) < 1) if kernels else any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels {counts}")
+        out = fleet_summary(parsed, seconds, peak, before, learning_starts, twin)
+        spawned = {r["pid"] for r in parsed["fleet"] if r["action"] in ("spawn", "respawn") and "pid" in r}
+        paths, exits, spans = worker_streams(parsed["log_dir"])
+        if len(paths) != 2 or not exits or any(r["cuda_initialized"] for r in exits):
+            raise AssertionError(f"the {name} leg's workers: streams {paths}, exit records {exits}")
+        # the learner is the one process on the card: no sample lists a second
+        if spawned & apps.pids or apps.max_rows > 1 or not apps.samples:
+            raise AssertionError(f"the {name} leg's compute apps: pids {sorted(apps.pids)} (workers "
+                                 f"{sorted(spawned)}), at most {apps.max_rows} a sample, {apps.samples} samples, "
+                                 f"{apps.error}")
+        out.update(launches=counts, args=args, worker_pids=sorted(spawned), compute_app_pids=sorted(apps.pids),
+                   compute_apps_per_sample_max=apps.max_rows, compute_app_samples=apps.samples,
+                   compute_apps_error=apps.error, learner_pid=os.getpid(),
+                   workers_cuda_initialized=[r["cuda_initialized"] for r in exits], worker_spans=spans)
+        report[name] = out
+        return parsed
+
+    # DreamerV3-S on the kernels: serial twin, fleet, fleet under chaos
+    dv3 = run_common([f"algo.total_steps={FLEET_TOTAL}", f"algo.learning_starts={FLEET_LEARNING_STARTS}",
+                      "env.num_envs=4", "checkpoint.every=0", *FLEET_KNOBS])
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", dv3 + ["run_name=fleet_dv3_serial",
+                                                                       "algo.overlap.enabled=False"])
+    report["fleet_dv3_serial"] = leg_summary(parsed, counts, seconds, peak, FLEET_LEARNING_STARTS)
+    serial = ledger(torch, checkpoints(parsed["log_dir"])[-1])
+    serial_rows = column_rows(torch, checkpoints(parsed["log_dir"])[-1])
+    twin = report["fleet_dv3_serial"]["policy_steps_per_s_after_learning_starts"]
+    for name, extra in (("fleet_dv3", []),
+                        ("fleet_dv3_chaos", ["fleet.hang_s=1.0", "resilience.chaos.enabled=True",
+                                             # lifetime steps: a worker takes FLEET_TOTAL / 2
+                                             f"resilience.chaos.crash_at_step={FLEET_TOTAL // 4}",
+                                             "resilience.chaos.crash_workers=[0]",
+                                             f"resilience.chaos.hang_at_step={3 * FLEET_TOTAL // 8}",
+                                             "resilience.chaos.hang_workers=[1]",
+                                             "resilience.chaos.hang_s=60.0"])):
+        parsed = leg(name, dv3 + ["algo.fleet.workers=2", *extra], FLEET_LEARNING_STARTS, twin, kernels=True)
+        got = ledger(torch, checkpoints(parsed["log_dir"])[-1])
+        if name == "fleet_dv3":
+            if got != serial:
+                raise AssertionError(f"the {name} leg's ledger {got} != fleet_dv3_serial's {serial}")
+            report[name]["ledger_equal"] = serial
+            continue
+        # a respawn restarts its worker's episodes mid-way, so that worker's
+        # columns may close one episode fewer (one closing row) per respawn
+        # than the serial loop's: the Ratio ledger is the serial one, every
+        # column holds exactly one step row per env step and the serial
+        # loop's closing rows less at most its worker's respawns
+        ratio_ledger = {k: got[k] for k in ("policy_step", "grad_steps", "ratio")}
+        rows = column_rows(torch, checkpoints(parsed["log_dir"])[-1])
+        respawns = [report[name]["incidents"].count(("respawn", w)) for w in range(2)]
+        epw = len(rows) // 2
+        steps = got["policy_step"] // len(rows)
+        if ratio_ledger != {k: serial[k] for k in ratio_ledger} or any(full for _, full in got["rb"]) or any(
+                (step, step + closing) != (steps, pos) or not serial_closing - respawns[c // epw] <= closing
+                <= serial_closing for c, ((step, closing), (_, serial_closing), (pos, _))
+                in enumerate(zip(rows, serial_rows, got["rb"]))):
+            raise AssertionError(f"the {name} leg's ledger {got}, rows {rows} (respawns {respawns}); "
+                                 f"fleet_dv3_serial's {serial}, rows {serial_rows}")
+        report[name].update(ratio_ledger_equal=ratio_ledger, rb=got["rb"], serial_rb=serial["rb"], rows=rows,
+                            serial_rows=serial_rows, respawns_by_worker=respawns)
+    incidents = report["fleet_dv3_chaos"]["incidents"]
+    for want in (("crash", 0), ("respawn", 0), ("hang", 1), ("respawn", 1)):
+        if want not in incidents:
+            raise AssertionError(f"fleet_dv3_chaos: no {want} in {incidents}")
+    if any(a == "quarantine" for a, _ in incidents) or report["fleet_dv3"]["incidents"]:
+        raise AssertionError(f"fleet incidents: {report['fleet_dv3']['incidents']}, chaos {incidents}")
+
+    # SAC at the sac leg's preset widths, 4 envs: sac_serial's ledger
+    sac = [a for a in done["sac_serial"]["args"] if a != "algo.overlap.enabled=False"]
+    for name, extra in (("fleet_sac", []), ("fleet_sac_socket", ["fleet.transport=socket"])):
+        parsed = leg(name, sac + ["algo.fleet.workers=2", *FLEET_KNOBS, *extra], 100,
+                     done["sac_serial"]["policy_steps_per_s_after_learning_starts"])
+        got, _ = offpolicy_ledger(torch, checkpoints(parsed["log_dir"])[-1])
+        if got != done["sac_serial"]["ledger_equal"]:
+            raise AssertionError(f"the {name} leg's ledger {got} != sac_serial's {done['sac_serial']['ledger_equal']}")
+        report[name]["ledger_equal"] = got
+    accepts = sorted(r["worker"] for r in parsed["net"] if r["action"] == "accept")
+    if accepts != [0, 1]:
+        raise AssertionError(f"fleet_sac_socket: net accepts {accepts}")
+    report["fleet_sac_socket"]["net_accepts"] = accepts
+
+    # PPO at the ppo leg's settings, strict rounds: ppo_serial's counters
+    ppo = [a for a in done["ppo_serial"]["args"] if a != "algo.overlap.enabled=False"]
+    parsed = leg("fleet_ppo", ppo + ["algo.fleet.workers=2", *FLEET_KNOBS], 0,
+                 done["ppo_serial"]["policy_steps_per_s"])
+    got, _ = agent_ledger(torch, checkpoints(parsed["log_dir"])[-1])
+    if got != done["ppo_serial"]["ledger_equal"]:
+        raise AssertionError(f"fleet_ppo's counters {got} != ppo_serial's {done['ppo_serial']['ledger_equal']}")
+    if report["fleet_ppo"]["publications"] != got["update"] + 1:  # the first, then one after each update
+        raise AssertionError(f"fleet_ppo: {report['fleet_ppo']['publications']} publications, {got['update']} updates")
+    report["fleet_ppo"]["ledger_equal"] = got
+    return report
+
+
 # the telemetry A/B's arms: the stream on, off, and on without its
 # per-iteration trace ranges and span timers
 TELEMETRY_ARMS = {
@@ -2114,6 +2393,7 @@ def recurrences(torch, ln_gru, labels):
 USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
        python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
        python3 chip_smoke.py --p2e                  phase 5's Plan2Explore legs and step alone
+       python3 chip_smoke.py --fleet                phase 5's actor-fleet legs alone, with the serial twins
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
                                                     without its per-iteration ranges and timers"""
@@ -2123,8 +2403,8 @@ def main(argv=None) -> int:
     t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e") or (mode == "--recurrences"
-                                                                 and not set(argv[1:]) <= set(SHAPES)):
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet") or (
+            mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
     try:
@@ -2188,6 +2468,17 @@ def main(argv=None) -> int:
                  legs=legs)
         except Exception as err:  # noqa: BLE001
             return fail("p2e", err)
+        return 0
+    if mode == "--fleet":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            twins = fleet_twins(torch, ln_gru)
+            legs = fleet_legs(torch, ln_gru, twins)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("fleet", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, twins=twins, legs=legs)
+        except Exception as err:  # noqa: BLE001
+            return fail("fleet", err)
         return 0
     if mode == "--telemetry-ab":
         try:
@@ -2258,7 +2549,10 @@ def main(argv=None) -> int:
                 "replaces": src,
                 "instance": instance,
                 "shape": label,
-                "launches": counts[label][name],
+                # the first path's count (the width's main leg), then every
+                # path that runs the kernel at this width with its own count
+                "launches": next(iter(counts[label].values()))[name],
+                "launches_by_path": {path: c[name] for path, c in counts[label].items()},
                 "max_abs_err": max(v for k, v in errors.items()
                                    if k.startswith(f"{label}.") and k.split(".")[1] == short),
                 "ms": r["times"][name][0],

@@ -37,6 +37,7 @@ from ...data import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayB
 from ...data.device_ring import estimate_row_bytes, make_sequential_prefetcher
 from ...distributions import Bernoulli, Independent, Normal, OneHotCategoricalStraightThrough, gumbel_noise
 from ...envs import spaces
+from ...fleet.engine import refuse_fleet
 from ...ops.transforms import unrolled_cumprod
 from ...parallel.placement import make_param_mirror
 from ...utils.checkpoint import CheckpointManager
@@ -444,8 +445,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     and (``is_first``) whether the previous row ended an episode; the first
     row is the reset observation with zeros. One greedy test episode with
     ``parts.task_actor`` at the end."""
-    if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
-        raise NotImplementedError(f"algo.fleet.workers > 0: the actor fleet is not ported yet for {algo}")
+    refuse_fleet(cfg, algo)
     precision = check_precision(cfg)
     device = get_device(cfg)
     seed = int(cfg.seed)

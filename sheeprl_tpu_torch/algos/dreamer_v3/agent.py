@@ -423,18 +423,73 @@ def actor_dists(actor: Actor, pre_dist: List[torch.Tensor]):
     ]
 
 
+# A finite stand-in for the reference's ``-inf`` logit masking: exp(MASK_LOGIT -
+# lse) underflows to exactly 0.0, so a masked action has zero probability
+# while entropy and log-prob stay free of NaN (the JAX package's value).
+MASK_LOGIT = -1e9
+
+
+class MinedojoActor(Actor):
+    """The DreamerV3 actor with MineDojo's action masks. The parameters and
+    the forward pass are ``Actor``'s; the masks apply at sampling time in
+    ``sample_actor_actions``: head 0 (action type) by ``mask_action_type``,
+    head 1 (craft/smelt argument) by ``mask_craft_smelt`` where the sampled
+    type is 15 (craft), head 2 (item argument) by ``mask_equip_place`` where
+    it is 16 or 17 (equip, place) and by ``mask_destroy`` where it is 18
+    (destroy)."""
+
+    masked_heads = True
+
+
+def apply_minedojo_masks(pre_dist: List[torch.Tensor], mask: Dict[str, Any],
+                         functional_action: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """Each head's (unimixed) logits with its mask applied. With no
+    ``functional_action`` (head 0 not sampled yet) only head 0 is masked;
+    the caller masks heads 1 and 2 once head 0's index is known."""
+    out = list(pre_dist)
+
+    def m(name: str, like: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(mask[name]), dtype=torch.bool, device=like.device).expand_as(like)
+
+    if "mask_action_type" in mask:
+        out[0] = torch.where(m("mask_action_type", out[0]), out[0], torch.full_like(out[0], MASK_LOGIT))
+    if functional_action is None:
+        return out
+    fa = functional_action[..., None]
+    if len(out) > 1 and "mask_craft_smelt" in mask:
+        out[1] = torch.where((fa == 15) & ~m("mask_craft_smelt", out[1]), torch.full_like(out[1], MASK_LOGIT), out[1])
+    if len(out) > 2:
+        if "mask_equip_place" in mask:
+            off = ((fa == 16) | (fa == 17)) & ~m("mask_equip_place", out[2])
+            out[2] = torch.where(off, torch.full_like(out[2], MASK_LOGIT), out[2])
+        if "mask_destroy" in mask:
+            out[2] = torch.where((fa == 18) & ~m("mask_destroy", out[2]), torch.full_like(out[2], MASK_LOGIT), out[2])
+    return out
+
+
 def sample_actor_actions(
     actor: Actor,
     pre_dist: List[torch.Tensor],
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
     greedy: bool = False,
+    mask: Optional[Dict[str, Any]] = None,
 ):
     """Sample (or take the mode of) each action head. ``noise`` holds one
     tensor per head: gumbel [*, A_i] for a discrete head, standard normal
-    [*, A] for the continuous one. Returns (actions, dists)."""
+    [*, A] for the continuous one. With a ``mask`` dict and a masking actor
+    (``MinedojoActor``) the heads are sampled in order, head 0's index
+    gating the masks of heads 1 and 2. Returns (actions, dists)."""
+    noise = list(noise) if noise is not None else [None] * len(pre_dist)
+    if mask and getattr(actor, "masked_heads", False) and not actor.is_continuous:
+        mixed = apply_minedojo_masks([_uniform_mix(l, actor.unimix, l.shape[-1]) for l in pre_dist], mask)
+        d0 = OneHotCategoricalStraightThrough(logits=mixed[0])
+        a0 = d0.mode if greedy else d0.rsample(noise[0], generator)
+        mixed = apply_minedojo_masks(mixed, mask, torch.argmax(a0, dim=-1))
+        dists = [OneHotCategoricalStraightThrough(logits=l) for l in mixed]
+        actions = [a0] + [d.mode if greedy else d.rsample(n, generator) for d, n in zip(dists[1:], noise[1:])]
+        return actions, dists
     dists = actor_dists(actor, pre_dist)
-    noise = list(noise) if noise is not None else [None] * len(dists)
     actions: List[torch.Tensor] = []
     if actor.is_continuous:
         act = dists[0].mode if greedy else dists[0].rsample(noise[0], generator)
@@ -449,12 +504,12 @@ def sample_actor_actions(
 
 
 def build_actor_critic(cfg: Any, latent_size: int, actions_dim: Sequence[int], is_continuous: bool):
-    """An actor (checked against ``algo.actor.cls``) and a critic head,
+    """An actor (``algo.actor.cls``: ``Actor`` or ``MinedojoActor``) and a critic head,
     freshly initialised from the torch global RNG."""
     actor_path = str(cfg.algo.actor.select("cls") or f"{__name__}.Actor")
     actor_cls = locate(actor_path)
-    if actor_cls is not Actor:
-        raise NotImplementedError(f"algo.actor.cls={actor_path}: only the DreamerV3 Actor is ported")
+    if actor_cls not in (Actor, MinedojoActor):
+        raise NotImplementedError(f"algo.actor.cls={actor_path}: the DreamerV3 Actor and MinedojoActor are ported")
     actor = actor_cls(
         latent_size,
         actions_dim=tuple(actions_dim),

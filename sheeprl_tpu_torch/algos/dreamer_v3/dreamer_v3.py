@@ -23,8 +23,12 @@ continues from one;
 logs through the ``Telemetry`` facade (``telemetry/``) at the places the
 JAX package's does: ``<log_dir>/telemetry.jsonl`` gets the startup, log,
 overlap, ckpt_async, preempt, resume, mem, roofline and shutdown events, and
-the logger (TensorBoard, or its JSONL fallback) the scalars. The actor
-fleet and the model manager are not ported yet.
+the logger (TensorBoard, or its JSONL fallback) the scalars. With
+``algo.fleet.workers > 0`` the actor fleet (``fleet/``) steps the envs in
+worker processes that act with CPU copies of the world model and actor: the
+learner only probes the spaces, applies each round to the per-env buffers
+(``apply_sliced``) and publishes ``{wm, actor}`` through a host
+``ParamMirror`` after every burst. The model manager is not ported yet.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from ...data.device_ring import estimate_row_bytes, make_sequential_prefetcher
 from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
+from ...fleet import FleetEngine
+from ...fleet.engine import PROGRAMS
 from ...distributions import (
     BernoulliSafeMode,
     Independent,
@@ -61,7 +67,7 @@ from ...telemetry.facade import Telemetry
 from ...telemetry.throughput import model_cost
 from ...utils.checkpoint import CheckpointManager, param_sums, set_gen_state
 from ...utils.checkpoint import gen_state as _gen_state
-from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
+from ...utils.env import episode_stats, patch_restarted_envs, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.registry import register_algorithm, register_evaluation
@@ -73,6 +79,7 @@ from .utils import (
     MomentsState,
     check_precision,
     decode_obs_dists,
+    extract_masks,
     init_moments,
     make_precision_applies,
     normalize_obs,
@@ -476,8 +483,10 @@ def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_conti
     device. ``step(obs, state, noise=None, generator=None, greedy=False,
     modules=None)`` takes host observations (``prepare_obs``) and returns
     (env_actions, actions, state); ``noise`` is ``{"repr": [N,S,D], "act":
-    [per head]}``. ``modules`` ({"wm", "actor"}, e.g. ``mirror.current()``)
-    replaces ``wm`` and ``actor`` for that call; ``init_state`` takes it too."""
+    [per head]}``, ``mask`` the env's action masks (``extract_masks``, read
+    by ``MinedojoActor``). ``modules`` ({"wm", "actor"}, e.g.
+    ``mirror.current()``) replaces ``wm`` and ``actor`` for that call;
+    ``init_state`` takes it too."""
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     device = next(wm.parameters()).device
 
@@ -493,7 +502,8 @@ def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_conti
         return tuple(torch.where(m, x0, x) for x0, x in zip((h0, z0, a0), state))
 
     @torch.no_grad()
-    def step(obs: Dict[str, np.ndarray], state, noise=None, generator=None, greedy: bool = False, modules=None):
+    def step(obs: Dict[str, np.ndarray], state, noise=None, generator=None, greedy: bool = False, modules=None,
+             mask=None):
         wm_, actor_ = (wm, actor) if modules is None else (modules["wm"], modules["actor"])
         h, z, a = state
         obs_t = normalize_obs({k: torch.as_tensor(v, device=device) for k, v in obs.items()}, cnn_keys)
@@ -501,7 +511,7 @@ def make_player(wm: WorldModel, actor: Actor, cfg: Config, actions_dim, is_conti
         h = wm_.rssm.recurrent_model(torch.cat([z, a], dim=-1), h)
         z = wm_.rssm.representation_step(h, embedded, noise["repr"] if noise else None, generator)
         pre = actor_(torch.cat([z, h], dim=-1))
-        acts, _ = sample_actor_actions(actor_, pre, noise["act"] if noise else None, generator, greedy)
+        acts, _ = sample_actor_actions(actor_, pre, noise["act"] if noise else None, generator, greedy, mask)
         a = torch.cat(acts, dim=-1)
         if is_continuous:
             env_actions = a
@@ -591,7 +601,8 @@ class DV3Stepper:
         else:
             host_obs = prepare_obs(self.obs, self.cnn_keys, self.mlp_keys, n)
             env_actions, actions_cat, self.player_state = self.player_step(
-                host_obs, self.player_state, generator=self.player_gen, modules=mods
+                host_obs, self.player_state, generator=self.player_gen, modules=mods,
+                mask=extract_masks(self.obs, n)
             )
             actions_np = actions_cat.cpu().numpy()
             actions_env = env_actions.cpu().numpy()
@@ -653,8 +664,7 @@ def main(cfg: Config) -> None:
     """The DreamerV3 training loop: act, store, train G steps per the replay
     ratio; overlapped (player thread) or serial; checkpoints, the RunGuard's
     preemption drain and resume; one greedy test episode at the end."""
-    if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
-        raise NotImplementedError("algo.fleet.workers > 0: the actor fleet is not ported yet")
+    fleet_on = FleetEngine.configured(cfg)
     precision = check_precision(cfg)
     device = get_device(cfg)
     seed = int(cfg.seed)
@@ -671,7 +681,8 @@ def main(cfg: Config) -> None:
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 
-    envs = vectorize(cfg, seed, 0, restart_handled_by_loop=True)
+    # under the fleet the worker processes own the envs: the spaces alone here
+    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(cfg, seed, 0, restart_handled_by_loop=True)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -718,7 +729,7 @@ def main(cfg: Config) -> None:
     train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
     # the player acts with its own copy of {wm, actor} (the train step
     # updates the learner's in place) and its own generator
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed)
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed, host=fleet_on)
     if state:
         _set_gen_state(player_gen, state["generators"]["player"], "player")
     mods0 = mirror.current()
@@ -748,12 +759,14 @@ def main(cfg: Config) -> None:
     # the player generator's state after the last transition in the buffer
     # (under overlap the player runs ahead; its state rides each packet)
     player_gen_state = _gen_state(player_gen)
+    fleet = FleetEngine.setup(cfg, telem, guard, total_steps=total_steps, initial_step=policy_step)
     engine = OverlapEngine.setup(cfg, telem, guard, total_steps=total_steps, initial_step=policy_step)
+    engine.enabled = engine.enabled and not fleet.enabled
     costed = False  # the model FLOPs and bytes of a gradient step, counted on the first burst
     t0 = time.perf_counter()
     # the player's env steps (== policy_step serially)
-    interact = DV3Stepper(cfg, envs, actions_dim, is_continuous, player_init, player_step, player_gen, mirror,
-                          policy_step, learning_starts)
+    interact = None if fleet.enabled else DV3Stepper(cfg, envs, actions_dim, is_continuous, player_init,
+                                                     player_step, player_gen, mirror, policy_step, learning_starts)
 
     def _ckpt_state() -> Dict[str, Any]:
         s: Dict[str, Any] = {
@@ -818,7 +831,45 @@ def main(cfg: Config) -> None:
             ckpt.save(policy_step, _ckpt_state())
 
     try:
-        if engine.enabled:
+        if fleet.enabled:
+            # ---- actor fleet (fleet/): worker processes run the recurrent
+            # player on published {wm, actor} snapshots; each worker's ops
+            # replay against its own global env columns of the per-env
+            # buffers, so a quarantined slice simply stops growing. One round
+            # per num_envs quantum keeps the Ratio ledger the serial loop's.
+            fleet.start(PROGRAMS["dreamer_v3"], num_envs, cfg)
+            fleet.publish(mirror.current())
+            stopped = False
+            try:
+                while policy_step < total_steps:
+                    telem.tick(policy_step)
+                    if guard.stop_reached(policy_step, total_steps, None, save=False):
+                        stopped = True
+                        break
+                    with telem.span("Time/env_interaction_time"):
+                        rnd = fleet.take_round(policy_step)
+                    if rnd is None:
+                        break
+                    fleet.apply_sliced(rnd, rb, aggregator)
+                    policy_step += rnd.env_steps
+                    if policy_step >= learning_starts:
+                        g = ratio(policy_step)
+                        telem.record_grad_steps(g)
+                        if g > 0:
+                            burst(g)
+                            mirror.refresh({"wm": wm, "actor": actor})
+                            fleet.publish(mirror.current())
+                        if policy_step < total_steps:
+                            prefetch.stage(ratio.peek(policy_step + num_envs))
+                    flush_logs()
+                    maybe_checkpoint()
+            finally:
+                # every complete queued round lands in the buffer, so a
+                # preemption's final checkpoint is consistent
+                policy_step += fleet.shutdown(lambda r: fleet.apply_sliced(r, rb, aggregator))
+            if (stopped or policy_step < total_steps) and not guard.preempted and cfg.checkpoint.save_last:
+                ckpt.save(policy_step, _ckpt_state())
+        elif engine.enabled:
             # ---- overlapped player/learner loop (engine/overlap.py) ----------
             player_stream = torch.cuda.Stream(pdev) if pdev.type == "cuda" else None
 

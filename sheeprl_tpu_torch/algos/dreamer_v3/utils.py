@@ -4,7 +4,7 @@ distributions and the greedy test episode."""
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +142,14 @@ def prepare_obs(obs: Dict[str, np.ndarray], cnn_keys=(), mlp_keys=(), num_envs: 
     return out
 
 
+def extract_masks(obs: Dict[str, Any], num_envs: int = 1) -> Optional[Dict[str, np.ndarray]]:
+    """The action-mask observation keys (every ``mask*`` key gates a head of
+    ``MinedojoActor``) as ``[num_envs, -1]`` bools, or None when the env
+    emits none."""
+    masks = {k: np.asarray(v, bool).reshape(num_envs, -1) for k, v in obs.items() if k.startswith("mask")}
+    return masks or None
+
+
 def normalize_obs(obs: Dict[str, torch.Tensor], cnn_keys) -> Dict[str, torch.Tensor]:
     return {k: (v.float() / 255.0 - 0.5) if k in cnn_keys else v for k, v in obs.items()}
 
@@ -170,7 +178,9 @@ def test(player_init, player_step, env, cfg: Any, generator: torch.Generator, se
     state = player_init()
     while not done:
         host_obs = prepare_obs(obs, cnn_keys, mlp_keys, 1)
-        env_actions, _, state = player_step(host_obs, state, generator=generator, greedy=True)
+        mask = extract_masks(obs, 1)  # only MinedojoActor's player reads one
+        env_actions, _, state = player_step(host_obs, state, generator=generator, greedy=True,
+                                            **({"mask": mask} if mask is not None else {}))
         acts = env_actions.cpu().numpy()
         step_action = acts.reshape(env.action_space.shape) if shaped else acts.reshape(()).item()
         obs, reward, terminated, truncated, _ = env.step(step_action)

@@ -45,6 +45,7 @@ from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from ...data.device_ring import estimate_row_bytes, make_sequential_prefetcher
 from ...distributions import MSEDistribution
 from ...envs import spaces
+from ...fleet.engine import refuse_fleet
 from ...models import apply_ensembles
 from ...optim import Clipped, clipped
 from ...parallel.placement import make_param_mirror
@@ -249,8 +250,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     state)`` builds the phase's ``LoopParts`` (``state``: the checkpoint of
     ``checkpoint.resume_from``, or None). One greedy test episode with the
     task actor at the end."""
-    if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
-        raise NotImplementedError(f"algo.fleet.workers > 0: the actor fleet is not ported yet for {algo}")
+    refuse_fleet(cfg, algo)
     precision = check_precision(cfg)
     device = get_device(cfg)
     seed = int(cfg.seed)

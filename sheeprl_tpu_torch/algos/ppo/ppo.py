@@ -20,7 +20,10 @@
   command). The JAX package routes its evaluation through its serving
   subsystem, which the port does not have yet.
 
-PPO's actor fleet (``algo.fleet.workers > 0``) is not ported yet and raises.
+* the actor fleet (``algo.fleet.workers > 0``, ``fleet/``): supervised
+  worker processes collect one rollout slice each per publication (strict
+  rounds), merged full width by ``merge_ppo_round``; the learner publishes
+  the agent through a host ``ParamMirror`` after every update.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ from ...config import Config, instantiate
 from ...data import ReplayBuffer
 from ...engine import OverlapEngine, Packet
 from ...envs import spaces
+from ...fleet import FleetEngine
+from ...fleet.engine import PROGRAMS, refuse_fleet
+from ...fleet.programs import merge_ppo_round
 from ...ops import gae
 from ...optim import Clipped, clipped
 from ...parallel.placement import make_param_mirror
@@ -44,7 +50,7 @@ from ...parallel.precision import disable_tf32
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
 from ...utils.checkpoint import CheckpointManager, gen_state, param_sums, set_gen_state
-from ...utils.env import episode_stats, single_env, vectorize
+from ...utils.env import episode_stats, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.registry import register_algorithm, register_evaluation
@@ -57,13 +63,14 @@ LOSS_KEYS = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
 
 
 def start_run(cfg: Config, algo: str):
-    """The start every on-policy loop shares: refuse the fleet, pick the
-    device (f32, TF32 off), make the run's log dir with its config and print
-    ``[<algo>] log_dir=...``, load ``checkpoint.resume_from``, seed and build
-    the vector env. Returns ``(device, seed, log_dir, state, envs)``."""
-    if int(cfg.algo.select("fleet.workers", 0) or 0) > 0:
-        raise NotImplementedError(f"algo.fleet.workers > 0: the actor fleet (sheeprl_tpu/fleet/) is not ported yet "
-                                  f"for {algo}")
+    """The start every on-policy and off-policy loop shares: refuse the fleet
+    where ``algo`` has no fleet program, pick the device (f32, TF32 off),
+    make the run's log dir with its config and print ``[<algo>]
+    log_dir=...``, load ``checkpoint.resume_from``, seed and build the vector
+    env (under the fleet, ``probe_env_spaces``: the workers own the envs).
+    Returns ``(device, seed, log_dir, state, envs)``."""
+    refuse_fleet(cfg, algo)
+    fleet = FleetEngine.configured(cfg)
     device = get_device(cfg)
     disable_tf32()
     seed = int(cfg.seed)
@@ -75,7 +82,7 @@ def start_run(cfg: Config, algo: str):
     if cfg.checkpoint.resume_from:
         state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
     torch.manual_seed(seed)
-    envs = vectorize(cfg, seed, 0)
+    envs = probe_env_spaces(cfg, seed) if fleet else vectorize(cfg, seed, 0)
     if not isinstance(envs.single_observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {envs.single_observation_space}")
     return device, seed, log_dir, state, envs
@@ -328,8 +335,10 @@ def main(cfg: Config) -> None:
     update_epochs = int(cfg.algo.update_epochs)
     update = make_update_fn(agent, optimizer, cfg, num_minibatches, mb_size)
     # the player acts with its own copy of the agent and its own generator;
-    # a blocking refresh after every update keeps PPO on-policy
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed)
+    # a blocking refresh after every update keeps PPO on-policy (the fleet
+    # publishes from a host copy)
+    fleet_on = FleetEngine.configured(cfg)
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed, host=fleet_on)
     if state:
         set_gen_state(player_gen, state["generators"]["player"], "player", tag="ppo")
 
@@ -346,7 +355,8 @@ def main(cfg: Config) -> None:
     grad_steps = (start_iter - 1) * num_minibatches * update_epochs
 
     rollout = Rollout(cfg, envs, mirror, pdev, player_gen, agent.is_continuous, make_act_fn(), make_value_fn())
-    rollout.reset(seed)
+    if not fleet_on:
+        rollout.reset(seed)
     player_gen_state = gen_state(player_gen)  # after the last rollout the learner consumed
     completed_update = start_iter - 1
     update_s: List[float] = []  # wall seconds of each update since the last log
@@ -403,8 +413,48 @@ def main(cfg: Config) -> None:
 
     engine = OverlapEngine.setup(cfg, telem, guard, total_steps=num_updates * policy_steps_per_iter,
                                  initial_step=policy_step)
+    fleet = FleetEngine.setup(cfg, telem, guard, total_steps=num_updates * policy_steps_per_iter,
+                              initial_step=policy_step)
     try:
-        if engine.enabled:
+        if fleet.enabled:
+            # ---- actor fleet, strict rounds: each worker collects ONE rollout
+            # slice per publication; only rollouts acted with the newest
+            # publication merge (a post-crash duplicate for an older one is
+            # dropped), full width; a quarantined worker's columns are
+            # backfilled from the survivors, so the update's shapes never change
+            fleet.start(PROGRAMS["ppo"], num_envs, cfg)
+            fleet.publish(mirror.current())  # v1 releases the first rollouts
+            stopped = False
+            update_iter = start_iter
+            try:
+                while update_iter <= num_updates:
+                    telem.tick(policy_step)
+                    if guard.stop_reached(policy_step, int(cfg.algo.total_steps), None, save=False):
+                        stopped = True
+                        break
+                    with telem.span("Time/env_interaction_time"):
+                        rnd = fleet.take_round(policy_step, min_version=fleet.pub_version)
+                    if rnd is None:
+                        break
+                    t_merge0 = time.time()
+                    local, next_value, ep_stats = merge_ppo_round(rnd, fleet.workers)
+                    fleet.mark_applied(rnd, t_merge0)
+                    policy_step += rnd.env_steps
+                    record_ep_stats(ep_stats)
+                    with telem.span("Time/train_time"):
+                        update_from(local, next_value, update_iter)
+                        fleet.publish(mirror.current())  # releases the parked workers
+                    completed_update = update_iter
+                    flush_logs()
+                    maybe_checkpoint(update_iter)
+                    update_iter += 1
+            finally:
+                # queued rollouts (for parameters that will never act again)
+                # are dropped: PPO keeps no buffer across updates
+                fleet.shutdown()
+            if (stopped or update_iter <= num_updates) and not guard.preempted and cfg.checkpoint.save_last:
+                ckpt.save(policy_step, _ckpt_state())
+        elif engine.enabled:
             # ---- overlapped loop, strict on-policy (staleness_bound 0): the
             # player collects rollout k+1 once the update on rollout k is
             # published; queue_depth + 1 rollout buffers cycle round-robin, so

@@ -21,8 +21,12 @@
   JAX package routes its evaluation through its serving subsystem, which the
   port does not have yet.
 
-The actor fleet (``algo.fleet.workers > 0``) and the model manager are not
-ported yet; the fleet raises.
+* the actor fleet (``algo.fleet.workers > 0``, ``exp=sac`` alone, as in the
+  JAX package): ``OffPolicyLoop.run``'s fleet branch applies each round of
+  the workers' packets full width (``apply_concat``) and publishes the
+  actor through a host ``ParamMirror`` after every burst.
+
+The model manager is not ported yet.
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ from ...data import ReplayBuffer
 from ...data.device_ring import estimate_row_bytes, make_uniform_prefetcher
 from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
+from ...fleet import FleetEngine
+from ...fleet.engine import PROGRAMS
 from ...parallel.placement import make_param_mirror
 from ...parallel.precision import disable_tf32
 from ...resilience.guard import RunGuard
@@ -168,12 +174,13 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
 
 
 def start_run(cfg: Config, algo: str):
-    """The start the family shares: refuse the fleet, pick the device (TF32
-    off), make the run's log dir with its config and print ``[<algo>]
-    log_dir=...``, load ``checkpoint.resume_from``, seed and build the vector
-    env (whose first env's action space, seeded by the env factory, gives the
-    random warm-up actions). Returns ``(device, seed, log_dir, state,
-    envs)``."""
+    """The start the family shares: refuse the fleet where ``algo`` has no
+    fleet program, pick the device (TF32 off), make the run's log dir with
+    its config and print ``[<algo>] log_dir=...``, load
+    ``checkpoint.resume_from``, seed and build the vector env (whose first
+    env's action space, seeded by the env factory, gives the random warm-up
+    actions; under the fleet only its spaces). Returns ``(device, seed,
+    log_dir, state, envs)``."""
     from ..ppo.ppo import start_run as onpolicy_start
 
     device, seed, log_dir, state, envs = onpolicy_start(cfg, algo)
@@ -197,10 +204,13 @@ class OffPolicyLoop:
       optimizers, the buffer); the loop adds its counters, the Ratio and
       the generators.
 
-    ``run(rb, ...)`` drives them, filling the replay buffer ``rb``, serially
-    or (``overlap`` and ``algo.overlap.enabled``) on the overlap engine's
-    player thread: the Ratio ledger is fed one call per ``num_envs`` env steps
-    either way. Counters live on the loop (``policy_step``, ``grad_steps``,
+    ``run(rb, ...)`` drives them, filling the replay buffer ``rb``, serially,
+    (``overlap`` and ``algo.overlap.enabled``) on the overlap engine's
+    player thread, or (``fleet``, a program path, and ``algo.fleet.workers >
+    0``) from the actor fleet's worker processes, one full-width round per
+    iteration, after each burst publishing ``mirror.current()`` (a host
+    mirror): the Ratio ledger is fed one call per ``num_envs`` env steps
+    every way. Counters live on the loop (``policy_step``, ``grad_steps``,
     ``last_log``, ``last_checkpoint``). DreamerV1 and V2 run their serial
     loops on it too (``aggregator_keys``: the metrics the algorithm logs;
     ``dry_run_steps``: the vector-env steps of a dry run)."""
@@ -254,10 +264,13 @@ class OffPolicyLoop:
 
     def run(self, rb: ReplayBuffer, interact: Callable[[Any], None],
             burst: Callable[[int], Dict[str, torch.Tensor]], refresh: Callable[[], None], stage: Callable[[int], None],
-            state: Callable[[], Dict[str, Any]], overlap: bool = True) -> None:
+            state: Callable[[], Dict[str, Any]], overlap: bool = True, fleet: Optional[str] = None) -> None:
         cfg, telem, guard, ratio = self.cfg, self.telem, self.guard, self.ratio
+        fleet_engine = FleetEngine.setup(cfg, telem, guard, total_steps=self.total_steps,
+                                         initial_step=self.policy_step)
+        fleet_engine.enabled = fleet_engine.enabled and fleet is not None
         engine = OverlapEngine.setup(cfg, telem, guard, total_steps=self.total_steps, initial_step=self.policy_step)
-        engine.enabled = engine.enabled and overlap
+        engine.enabled = engine.enabled and overlap and not fleet_engine.enabled
 
         def ckpt_state() -> Dict[str, Any]:
             return self.checkpoint_state(state(), engine.enabled)
@@ -303,7 +316,10 @@ class OffPolicyLoop:
                 self.ckpt.save(self.policy_step, ckpt_state())
 
         try:
-            if engine.enabled:
+            if fleet_engine.enabled:
+                self.run_fleet(fleet_engine, fleet, rb, train, refresh, stage, flush_logs, maybe_checkpoint,
+                               ckpt_state)
+            elif engine.enabled:
                 pdev = self.mirror.device
                 player_stream = torch.cuda.Stream(pdev) if pdev.type == "cuda" else None
 
@@ -381,6 +397,50 @@ class OffPolicyLoop:
             guard.close(self.policy_step, ckpt_state)
             self.envs.close()
             telem.close(self.policy_step)
+
+
+    def run_fleet(self, fleet: Any, program: str, rb: ReplayBuffer, train: Callable[[int], None],
+                  refresh: Callable[[], None], stage: Callable[[int], None], flush_logs: Callable[[], None],
+                  maybe_checkpoint: Callable[[], None], ckpt_state: Callable[[], Dict[str, Any]]) -> None:
+        """The fleet branch of ``run``: N worker processes step the env slices
+        and stream packets; one round (one packet per active worker, in
+        worker order) is the serial loop's ``num_envs`` quantum, applied full
+        width (``apply_concat``), so the Ratio ledger sees the serial call
+        sequence. The drain lands every complete queued round in the buffer."""
+        cfg, telem, guard, ratio = self.cfg, self.telem, self.guard, self.ratio
+        validate = bool(cfg.buffer.validate_args)
+        fleet.start(program, self.num_envs, cfg)
+        fleet.publish(self.mirror.current())  # version 1: the workers act with these
+        stopped = False
+        try:
+            while self.policy_step < self.total_steps:
+                telem.tick(self.policy_step)
+                if guard.stop_reached(self.policy_step, self.total_steps, None, save=False):
+                    stopped = True
+                    break
+                with telem.span("Time/env_interaction_time"):
+                    rnd = fleet.take_round(self.policy_step)
+                if rnd is None:
+                    break
+                fleet.apply_concat(rnd, rb, self.aggregator, validate=validate)
+                self.policy_step = self.p_step = self.policy_step + rnd.env_steps
+                if self.policy_step >= self.learning_starts:
+                    g = ratio(self.policy_step)
+                    telem.record_grad_steps(g)
+                    if g > 0:
+                        train(g)
+                        refresh()
+                        fleet.publish(self.mirror.current())
+                    if self.policy_step < self.total_steps:
+                        stage(ratio.peek(self.policy_step + self.num_envs))
+                flush_logs()
+                maybe_checkpoint()
+        finally:
+            self.policy_step += fleet.shutdown(lambda r: fleet.apply_concat(r, rb, self.aggregator, validate=validate))
+        # an early exit (the wall cap, a fleet that is all quarantined) still
+        # leaves a resumable checkpoint; preemption saves through the guard
+        if (stopped or self.policy_step < self.total_steps) and not guard.preempted and cfg.checkpoint.save_last:
+            self.ckpt.save(self.policy_step, ckpt_state())
 
 
 # every loss key of the family (SAC-AE adds its reconstruction loss)
@@ -461,7 +521,8 @@ def main(cfg: Config) -> None:
         optimizers.load_state_dict(state["opt_states"])
     train_gen = torch.Generator(device=device)
     train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed)
+    fleet = FleetEngine.configured(cfg)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed, host=fleet)
     logger = get_logger(cfg, log_dir)
     loop = OffPolicyLoop(cfg, "sac", device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params={"agent": agent})
@@ -472,7 +533,7 @@ def main(cfg: Config) -> None:
     prefetch = make_uniform_prefetcher(cfg, device, rb, batch_size,
                                        row_bytes_hint=estimate_row_bytes(obs_space, act_dim))
     train = make_train_fn(agent, optimizers, cfg, -act_dim)
-    interact = make_vector_interact(loop, lambda: mirror.current()["actor"], mlp_keys)
+    interact = None if fleet else make_vector_interact(loop, lambda: mirror.current()["actor"], mlp_keys)
 
     def algo_state() -> Dict[str, Any]:
         s = {"agent": agent.state_dict(), "opt_states": optimizers.state_dict()}
@@ -481,7 +542,8 @@ def main(cfg: Config) -> None:
         return s
 
     loop.run(rb, interact, lambda g: train(prefetch.take(g), generator=train_gen),
-             lambda: mirror.refresh({"actor": agent.actor}), prefetch.stage, algo_state)
+             lambda: mirror.refresh({"actor": agent.actor}), prefetch.stage, algo_state,
+             fleet=PROGRAMS["sac"] if fleet else None)
     if cfg.algo.run_test:
         test(agent.actor, single_env(cfg, seed), cfg, device, logger)
     if logger is not None:

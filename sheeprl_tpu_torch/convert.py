@@ -47,7 +47,8 @@ counter, the one that paces its target-critic copy. ``load_p2e_dv3``,
 ensembles' stacked ``[n, in, out]`` kernels into ``EnsembleLinear``'s
 weights of the same layout, P2E-DV3's dict of exploration critics with
 their targets) with the states of every optimizer (one per exploration
-critic) and the step counter; ``load_moments`` turns the JAX package's
+critic) and the step counter; ``load_multi`` a ``MultiEncoder`` or
+``MultiDecoder`` of those parts; ``load_moments`` turns the JAX package's
 Moments (a ``MomentsState`` or a tree of them) into the port's.
 """
 from __future__ import annotations
@@ -157,6 +158,14 @@ def load_params(params: Mapping[str, Any], module: nn.Module) -> None:
     """Load a flax parameter tree into ``module`` (strict: every parameter
     of both sides must match)."""
     module.load_state_dict(params_to_state_dict(params, module), strict=True)
+
+
+def load_multi(params: Mapping[str, Any], module: nn.Module) -> None:
+    """Load a flax ``MultiEncoder`` or ``MultiDecoder`` tree
+    (``cnn_encoder``/``mlp_encoder``, ``cnn_decoder``/``mlp_decoder``) into
+    the port's module of the same parts: dense kernels ``[in,out]`` →
+    ``[out,in]``, conv kernels HWIO → OIHW, by path."""
+    load_params(params, module)
 
 
 def find_state(opt_state: Any, fields=("mu", "nu", "count")) -> Any:

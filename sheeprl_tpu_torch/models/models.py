@@ -1,7 +1,8 @@
 """Core NN building blocks (PyTorch), the subset of
 ``sheeprl_tpu/models/models.py`` that DreamerV3, the on-policy and the
 off-policy families use (``MLP`` with dropout, ``NatureCNN``,
-``LayerNormGRUCell``), and the ensemble layers that stand for the JAX
+``LayerNormGRUCell``), the dict-observation ``MultiEncoder`` and
+``MultiDecoder``, and the ensemble layers that stand for the JAX
 package's ``nn.vmap``-lifted critics (``EnsembleLinear``,
 ``EnsembleLayerNorm``, ``EnsembleMLP``).
 
@@ -354,3 +355,37 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
         n = torch.tanh(gi[..., 2 * H:] + r * (gh[..., 2 * H:] + self.bias_hn))
         return (1.0 - z) * n + z * h
+
+
+class MultiEncoder(nn.Module):
+    """Dict-observation fusion encoder: ``cnn_encoder`` takes the image keys,
+    ``mlp_encoder`` the vector keys (either may be None), and their features
+    are concatenated on the last axis. The attribute names are the flax
+    module's, so ``convert.load_multi`` maps its tree by path."""
+
+    def __init__(self, cnn_encoder: Optional[nn.Module], mlp_encoder: Optional[nn.Module]):
+        super().__init__()
+        if cnn_encoder is None and mlp_encoder is None:
+            raise ValueError("MultiEncoder needs a cnn_encoder or an mlp_encoder")
+        self.cnn_encoder, self.mlp_encoder = cnn_encoder, mlp_encoder
+
+    def forward(self, obs) -> torch.Tensor:
+        return torch.cat([e(obs) for e in (self.cnn_encoder, self.mlp_encoder) if e is not None], dim=-1)
+
+
+class MultiDecoder(nn.Module):
+    """Dict-observation decoder: the union of the ``cnn_decoder``'s and the
+    ``mlp_decoder``'s reconstruction dicts (either may be None)."""
+
+    def __init__(self, cnn_decoder: Optional[nn.Module], mlp_decoder: Optional[nn.Module]):
+        super().__init__()
+        if cnn_decoder is None and mlp_decoder is None:
+            raise ValueError("MultiDecoder needs a cnn_decoder or an mlp_decoder")
+        self.cnn_decoder, self.mlp_decoder = cnn_decoder, mlp_decoder
+
+    def forward(self, features: torch.Tensor):
+        out = {}
+        for d in (self.cnn_decoder, self.mlp_decoder):
+            if d is not None:
+                out.update(d(features))
+        return out

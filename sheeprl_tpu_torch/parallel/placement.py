@@ -180,12 +180,15 @@ class ParamMirror:
         }
 
 
-def make_param_mirror(cfg: Any, learner: torch.device, modules: Dict[str, torch.nn.Module], seed: int):
+def make_param_mirror(cfg: Any, learner: torch.device, modules: Dict[str, torch.nn.Module], seed: int,
+                      host: bool = False):
     """The player's setup in one place: its device, the mirror of its
     modules there, and its own random generator (``torch.Generator`` is not
     thread-safe, so the player never shares the train step's), seeded from
-    the run's seed. Returns ``(mirror, device, generator)``."""
-    pdev = player_device(cfg, learner)
+    the run's seed. ``host`` puts the mirror on the CPU whatever
+    ``algo.player.device`` says (the actor fleet publishes host arrays).
+    Returns ``(mirror, device, generator)``."""
+    pdev = torch.device("cpu") if host else player_device(cfg, learner)
     mirror = ParamMirror(modules, pdev, async_refresh=bool(cfg.select("algo.player.async_refresh", False)))
     gen = torch.Generator(device=pdev)
     # the second child of the run seed's SeedSequence (the train step's

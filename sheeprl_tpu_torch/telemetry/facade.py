@@ -76,12 +76,8 @@ class Telemetry:
 
         metrics_cfg = sel("metric.aggregator.metrics") or {}
         metrics_cfg = metrics_cfg.to_dict() if hasattr(metrics_cfg, "to_dict") else dict(metrics_cfg)
-        names = [k for k in metrics_cfg if aggregator_keys is None or k in aggregator_keys]
-        for k in names:
-            kind = (metrics_cfg[k] or {}).get("kind", "mean")
-            if kind != "mean":
-                raise NotImplementedError(f"metric.aggregator.metrics.{k}.kind={kind}: the port aggregates means")
-        self.aggregator = MetricAggregator(names)
+        self.aggregator = MetricAggregator({k: (metrics_cfg[k] or {}).get("kind", "mean") for k in metrics_cfg
+                                            if aggregator_keys is None or k in aggregator_keys})
 
         self._info = device_info(self.device)
         self._info.update(rank=self.rank, world_size=int(sel("fabric.devices", 1) or 1),

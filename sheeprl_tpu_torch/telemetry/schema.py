@@ -3,7 +3,8 @@
 The port's own copy of ``sheeprl_tpu/telemetry/schema.py`` for the event
 types the port emits (``startup``, ``log``, ``shutdown``, ``metrics``,
 ``trace``, ``rotate``, ``overlap``, ``ckpt_async``, ``preempt``,
-``resume``, ``mem``, ``roofline``). Field names and types are the
+``resume``, ``mem``, ``roofline``, and the actor fleet's ``fleet``,
+``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``). Field names and types are the
 reference's, letter for letter, so the JAX package's ``validate_jsonl``
 accepts a port run's ``telemetry.jsonl``. Every record is
 ``{"event": <type>, ...}``; required keys and types are checked per event
@@ -78,6 +79,111 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "segment": (True, _NUM),
         "path": (False, _STR),
         "bytes": (False, _NUM),
+    },
+    # one distributed-tracing span (telemetry/tracing.py span_record): a
+    # named stage of a training round's path (worker env step, queue wait,
+    # learner apply) or of a param publication (publish, param_apply)
+    "trace_span": {
+        "name": (True, _STR),
+        "role": (True, _STR),  # worker | learner
+        "trace_id": (True, _STR),
+        "span_id": (True, _STR),
+        "t_start": (True, _NUM),
+        "t_end": (True, _NUM),
+        "dur_ms": (True, _NUM),
+        "parent_id": (False, _STR),
+        "step": (False, _NUM),
+        "seq": (False, _NUM),
+        "version": (False, _NUM),
+        "worker": (False, _NUM),
+        "replica": (False, _NUM),
+        "session_id": (False, _STR),
+        "detail": (False, _STR),
+    },
+    # clock-offset handshake (telemetry/tracing.py clock_record): the
+    # learner's probe send time against this process's receive time
+    "clock": {
+        "role": (True, _STR),
+        "t_send": (True, _NUM),
+        "t_recv": (True, _NUM),
+        "offset_s": (True, _NUM),
+        "worker": (False, _NUM),
+        "replica": (False, _NUM),
+    },
+    # actor-fleet supervision (fleet/): `action` is a discrete incident
+    # (spawn | respawn | crash | hang | torn_packet | stale_packet |
+    # disconnect | quarantine | republish | profile | await_attach | drain)
+    # with per-worker fields, or "interval", the periodic liveness snapshot.
+    # `dropped_steps` counts env steps that never landed learner-side.
+    "fleet": {
+        "action": (True, _STR),
+        "step": (True, _NUM),
+        "worker": (False, _NUM),
+        "incarnation": (False, _NUM),
+        "pid": (False, _NUM),
+        "exitcode": (False, _NUM),
+        "fails_in_window": (False, _NUM),
+        "detail": (False, _STR),
+        "workers": (False, _NUM),
+        "alive": (False, _NUM),
+        "quarantined": (False, _NUM),
+        "respawns": (False, _NUM),
+        "crashes": (False, _NUM),
+        "hangs": (False, _NUM),
+        "torn_packets": (False, _NUM),
+        "rounds": (False, _NUM),
+        "queue_depth_max": (False, _NUM),
+        "env_steps": (False, _NUM),
+        "drain_dropped": (False, _NUM),
+        "dropped_steps": (False, _NUM),
+        "round_wait_s": (False, _NUM),
+        "interval_s": (False, _NUM),
+        "reconnects": (False, _NUM),
+        "dup_frames": (False, _NUM),
+        "disconnects": (False, _NUM),
+        "relay_dropped": (False, _NUM),
+        "act_mode": (False, _STR),
+        "act_requests": (False, _NUM),
+        "act_batches": (False, _NUM),
+        "act_occupancy": (False, _NUM),
+        "act_pad_waste": (False, _NUM),
+        "act_sessions": (False, _NUM),
+        "act_version": (False, _NUM),
+    },
+    # socket-transport link lifecycle (fleet/net.py): learner events (listen
+    # | accept | reconnect | refuse | disconnect | resync | dup_frame |
+    # gap_resend | write_timeout | pull) on the run stream, worker events
+    # (connect | connect_backoff | disconnect | resend | partition |
+    # chaos_reset | refused) on the worker's own stream
+    "net": {
+        "action": (True, _STR),
+        "worker": (False, _NUM),
+        "incarnation": (False, _NUM),
+        "seq": (False, _NUM),
+        "version": (False, _NUM),
+        "count": (False, _NUM),
+        "bytes": (False, _NUM),
+        "detail": (False, _STR),
+    },
+    # faults the fleet supervisor injects (resilience/chaos.py); the
+    # worker-side ones surface as `fleet` incidents
+    "chaos": {
+        "fault": (True, _STR),  # dropped_publication | armed
+        "worker": (False, _NUM),
+        "seq": (False, _NUM),
+        "detail": (False, _STR),
+    },
+    # relay flush accounting (telemetry/relay.py) on the emitting process's
+    # own stream; `sent` and `dropped` are cumulative
+    "relay": {
+        "role": (True, _STR),
+        "sent": (True, _NUM),
+        "dropped": (True, _NUM),
+        "batches": (True, _NUM),
+        "worker": (False, _NUM),
+        "replica": (False, _NUM),
+        "index": (False, _NUM),
+        "detail": (False, _STR),
     },
     "preempt": {
         "step": (True, _NUM),

@@ -22,7 +22,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import warnings
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -408,6 +408,30 @@ def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool =
 
     retrying = make_retrying(cfg)
     return retrying(build, op="env_construction") if retrying is not None else build()
+
+
+class ProbedSpaces(NamedTuple):
+    """The spaces of the vector env an actor fleet's workers build, without
+    the envs: what the fleet learner reads where a loop reads its vector
+    env (``close`` is a no-op)."""
+
+    single_observation_space: Any
+    single_action_space: Any
+
+    def close(self) -> None:
+        pass
+
+
+def probe_env_spaces(cfg: Config, seed: int) -> ProbedSpaces:
+    """Build ONE fully wrapped env to read its spaces, then close it. The
+    fleet learner never steps envs (its worker processes own them) but needs
+    the spaces ``vectorize(...).single_*_space`` would report to build the
+    agent."""
+    env = make_env(cfg, seed, 0, 0)()
+    try:
+        return ProbedSpaces(env.observation_space, env.action_space)
+    finally:
+        env.close()
 
 
 def single_env(cfg: Config, seed: int) -> Any:

@@ -379,5 +379,5 @@ def test_cli_resume_carries_the_step_counter(capsys):
 
 
 def test_fleet_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="fleet"):
+    with pytest.raises(NotImplementedError, match="dreamer_v2 has no fleet program"):
         cli.run(RUN + ["run_name=fleet", "algo.fleet.workers=1"])

@@ -4,8 +4,10 @@ the JAX package, and chip_smoke.py and the port's scripts
 port module is imported in a fresh interpreter, dry runs of the dummy env
 path (DreamerV3, PPO on pixels with the watchdog on, SAC, SAC-AE, DreamerV2
 on the episode buffer, DreamerV1 on a continuous action, P2E-DV3's
-exploration→finetuning chain and P2E-DV2's exploration, at cut widths) run
-there, and the loaded modules are checked; every import statement of the
+exploration→finetuning chain and P2E-DV2's exploration, at cut widths, and
+a 2-worker SAC actor fleet) run there, and the loaded modules are checked,
+those of the fleet's spawned worker processes too (each worker's last
+stream record names the top-level packages it loaded); every import statement of the
 port's sources is scanned, and no config of the port names a class of the
 JAX package.
 
@@ -71,7 +73,12 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "cli.run(['exp=p2e_dv3_finetuning', *tiny, *v3, f'checkpoint.exploration_ckpt_path={ckpt}'])\n"
         "cli.run(['exp=p2e_dv2_exploration', 'algo.world_model.discrete_size=4', 'algo.ensembles.n=2',\n"
         "         'algo.per_rank_pretrain_steps=1', 'metric.log_level=0', *tiny])\n"
-        "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules)}))\n"
+        "cli.run(['exp=sac', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
+        "         'env.num_envs=2', 'algo.hidden_size=16', 'algo.fleet.workers=2', 'run_name=fleet'])\n"
+        "workers = [[json.loads(l) for l in open(p)][-2:] for p in\n"
+        "           sorted(glob.glob('logs/runs/sac/*/fleet/version_0/workers/*/telemetry.jsonl'))]\n"
+        "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules),\n"
+        "                  'workers': workers}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -96,12 +103,22 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "algos.p2e_dv1.p2e_dv1_finetuning", "models.ensembles", "data.device_ring", "optim",
                 "utils.checkpoint", "utils.metric", "utils.logger",
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
-                "telemetry.device", "telemetry.facade"):
+                "telemetry.device", "telemetry.facade", "telemetry.tracing", "telemetry.relay", "resilience.chaos",
+                "fleet.protocol", "fleet.net", "fleet.supervisor", "fleet.worker", "fleet.act_core",
+                "fleet.programs", "fleet.engine", "fleet.remote"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked
     leaked = [m for m in out["after_run"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, f"the dummy env path loaded {leaked}"
+    # each spawned fleet worker's last records: its exit record (the
+    # packages it loaded, whether it initialised CUDA) before the relay's
+    assert len(out["workers"]) == 2
+    for records in out["workers"]:
+        exit_rec = next(r for r in records if r.get("action") == "worker_exit")
+        assert "torch" in exit_rec["packages"] and not exit_rec["cuda_initialized"]
+        leaked = [m for m in exit_rec["packages"] if _forbidden(m, FORBIDDEN + SUITES)]
+        assert not leaked, f"a fleet worker loaded {leaked}"
 
 
 def _imports(path: Path, top_level: bool = False):

@@ -234,5 +234,9 @@ def test_truncation_bootstrap_adds_the_discounted_final_value():
 
 
 def test_fleet_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="fleet"):
-        cli.run(RUN_ARGS + ["run_name=fleet", "algo.fleet.workers=1"])
+    """PPO runs the actor fleet in worker mode (tests/test_torch_fleet.py);
+    the batched act service waits and raises, and A2C has no fleet program."""
+    with pytest.raises(NotImplementedError, match="fleet.act_mode=inference.*ROADMAP Queue 1 item 4.2"):
+        cli.run(RUN_ARGS + ["run_name=fleet", "algo.fleet.workers=1", "fleet.act_mode=inference"])
+    with pytest.raises(NotImplementedError, match="a2c has no fleet program"):
+        cli.run(["exp=a2c", "env=dummy", "fabric.accelerator=cpu", "run_name=fleet", "algo.fleet.workers=1"])

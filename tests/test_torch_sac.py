@@ -318,5 +318,11 @@ def test_sac_decoupled_is_refused_on_one_device():
 
 
 def test_fleet_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="fleet"):
-        cli.run(RUN_ARGS + ["algo.total_steps=32", "run_name=fleet", "algo.fleet.workers=1"])
+    """SAC runs the actor fleet (tests/test_torch_fleet.py); the Anakin
+    program waits and raises, and DroQ has no fleet program."""
+    with pytest.raises(NotImplementedError, match="Anakin program.*ROADMAP Queue 1 item 4.2"):
+        cli.run(RUN_ARGS + ["algo.total_steps=32", "run_name=fleet", "algo.fleet.workers=1",
+                            "fleet.program=sheeprl_tpu_torch.fleet.anakin:anakin_program"])
+    with pytest.raises(NotImplementedError, match="droq has no fleet program"):
+        cli.run(["exp=droq", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "run_name=fleet",
+                 "algo.fleet.workers=1"])
