@@ -244,6 +244,14 @@ that fails and then prints no result:
                            list one process at a time and no worker pid;
                            each worker's exit record says it never
                            initialised CUDA);
+               fleet_dv3_inference
+                           fleet_dv3 with fleet.act_mode=inference: the
+                           workers ship obs and noise rows to the learner's
+                           batched act service on the card (Sebulba), which
+                           keeps the latents; fleet_dv3's ledger, each
+                           LN-GRU kernel launched as often as on fleet_dv3,
+                           no worker holding a CUDA context, the service's
+                           requests, batches, occupancy and pad waste;
                fleet_dv3_chaos
                            fleet_dv3 with worker 0 crashing at a lifetime
                            step and worker 1 hanging past fleet.hang_s=1:
@@ -258,6 +266,10 @@ that fails and then prints no result:
                            the sac leg with 2 workers on the mp queues and
                            on loopback sockets: sac_serial's ledger (and a
                            net accept for both workers on the socket leg);
+               fleet_sac_inference, fleet_sac_inference_socket
+                           the same with fleet.act_mode=inference:
+                           sac_serial's ledger, the act service's numbers,
+                           steps/s beside the worker-mode leg's;
                fleet_ppo   the ppo leg with 2 workers, strict rounds:
                            ppo_serial's counters, one rollout per
                            publication;
@@ -268,6 +280,36 @@ that fails and then prints no result:
                device memory and the workers' span totals (program steps,
                queue waits, publication lags); every stream (the
                learner's and each worker's) passes validate_jsonl;
+               then serving on the card:
+               serve_ppo, serve_sac
+                           serve_from_checkpoint(block=False), HTTP on an
+                           ephemeral port, from the ppo and sac legs'
+                           mid-run checkpoints, every bucket (1-16) warmed
+                           for both greedy variants; 32 HTTP clients x 50
+                           POST /v1/act (half deterministic); the leg's
+                           last checkpoint is put beside the served one
+                           once traffic runs and the reloader must swap it
+                           in before the traffic ends: completed, errors
+                           (0), rejected, retraces (0), reloads (>= 1),
+                           batch occupancy, pad waste, p50/p95/p99 (the
+                           server's histogram and the clients' exact
+                           ones), the device memory the server holds;
+               serve_dv3   the same from the run leg's checkpoints (64x64x3
+                           pixels): 16 sessions x 64 steps, one session
+                           exporting its state and going on under a fresh
+                           id that imports it; two deterministic sessions
+                           replayed alone at bucket 1 within the builder's
+                           tolerance (actions and latents); then the reload
+                           under traffic;
+               serve_cmd   `python -m sheeprl_tpu_torch serve` on the ppo
+                           leg's last checkpoint in a process of its own:
+                           it says it serves on cuda:0 and the card's name,
+                           and answers one request;
+               anakin      run_anakin on the card (1024 lanes, chunks of
+                           256, seed 5) for 10 s: env steps/s, operations
+                           and CUDA kernels per chunk;
+               no serving leg launches an LN-GRU kernel, and ppo_eval and
+               sac_eval say they went through serve/evaluate.py;
                every training leg's <log_dir>/telemetry.jsonl must pass the
                port's validate_jsonl and open with a startup record that
                names the card; its numbers come from that stream (log
@@ -283,8 +325,8 @@ that fails and then prints no result:
                width a training leg runs it (resident at S, streamed at M
                and XL), with launches and blocks from the run leg, the
                run_M leg or the p2e_dv3_finetuning leg (and, in
-               launches_by_path, each leg's own count: at S the run leg's
-               and fleet_dv3's learner's apart), times
+               launches_by_path, each leg's own count: at S the run leg's,
+               fleet_dv3's and fleet_dv3_inference's learners' apart), times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -1112,7 +1154,8 @@ def parse_leg(text: str) -> dict:
     from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
 
     out = {"log_dir": None, "lines": [], "overlap": [], "mirror": [], "ckpt": [], "resumed": None, "reward": None,
-           "logs": [], "startup": None, "events": {}, "from_exploration": None, "acting": [], "fleet": [], "net": []}
+           "logs": [], "startup": None, "events": {}, "from_exploration": None, "acting": [], "fleet": [], "net": [],
+           "route": None}
     for line in text.splitlines():
         algo = line[1:line.index("]")] if line.startswith("[") and "]" in line else None
         if algo in ALGOS and line.startswith(f"[{algo}] log_dir="):
@@ -1126,6 +1169,8 @@ def parse_leg(text: str) -> dict:
             out["acting"].append((words[6], int(words[-1])))
         elif line.startswith("Test - Reward: "):
             out["reward"] = float(line.split(": ", 1)[1])
+        elif line.startswith("[eval] "):
+            out["route"] = line[len("[eval] "):]
     if out["log_dir"] is None:
         return out
     path = os.path.join(out["log_dir"], "telemetry.jsonl")
@@ -1332,10 +1377,13 @@ def phase_run(torch, ln_gru, overrides=()):
     p2e, counts_xl, blocks_xl = p2e_legs(torch, ln_gru)
     report.update(p2e)
     report.update(fleet_legs(torch, ln_gru, report))
+    report.update(serving_legs(torch, ln_gru))
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     # each width's launches, path by path: each leg's counts were zeroed just
-    # before it and read just after (at S the run leg's and fleet_dv3's apart)
-    paths = {"S": {"run": report["run"]["launches"], "fleet_dv3": report["fleet_dv3"]["launches"]},
+    # before it and read just after (at S the run leg's, fleet_dv3's and
+    # fleet_dv3_inference's apart)
+    paths = {"S": {"run": report["run"]["launches"], "fleet_dv3": report["fleet_dv3"]["launches"],
+                   "fleet_dv3_inference": report["fleet_dv3_inference"]["launches"]},
              "M": {"run_M": report["run_M"]["launches"]}, "XL": {"p2e_dv3_finetuning": counts_xl}}
     return paths, {"S": blocks, "M": blocks_m, "XL": blocks_xl}, report
 
@@ -1459,8 +1507,10 @@ def ppo_legs(torch, ln_gru):
     parsed = leg("ppo_eval", [f"checkpoint_path={ckpts[-1]}"], command="eval")
     if parsed["reward"] is None:
         raise AssertionError("eval printed no `Test - Reward:`")
+    if "serve/evaluate.py" not in (parsed["route"] or "") or "cuda" not in parsed["route"]:
+        raise AssertionError(f"ppo_eval's route: {parsed['route']}")
     report["ppo_eval"] = {"seconds": time.perf_counter() - t0, "reward": parsed["reward"],
-                          "checkpoint": os.path.basename(ckpts[-1])}
+                          "checkpoint": os.path.basename(ckpts[-1]), "route": parsed["route"]}
     return report
 
 
@@ -1516,7 +1566,7 @@ def make_leg(torch, ln_gru, report, logs, feeds):
         if command == "eval":
             if parsed["reward"] is None:
                 raise AssertionError(f"{name} printed no `Test - Reward:`")
-            report[name] = {"seconds": seconds, "reward": parsed["reward"]}
+            report[name] = {"seconds": seconds, "reward": parsed["reward"], "route": parsed["route"]}
             return parsed
         report[name] = offpolicy_summary(parsed, seconds, peak, before, learning_starts)
         report[name]["args"] = args
@@ -1669,6 +1719,9 @@ def offpolicy_legs(torch, ln_gru):
 
     for name in ("sac", "droq", "sac_ae"):
         leg(f"{name}_eval", [f"checkpoint_path={checkpoints(logs[name])[-1]}"], 0, command="eval")
+    route = report["sac_eval"]["route"] or ""
+    if "serve/evaluate.py" not in route or "cuda" not in route or report["droq_eval"]["route"]:
+        raise AssertionError(f"eval routes: sac {route}, droq {report['droq_eval']['route']}")
     t0 = time.perf_counter()
     report["sac_ae_step"] = sac_ae_step(torch, ln_gru)
     report["sac_ae_step"]["seconds"] = time.perf_counter() - t0
@@ -2150,7 +2203,9 @@ def fleet_summary(parsed, seconds, peak, before, learning_starts, twin):
             "rounds": interval["rounds"], "relayed_events": interval.get("relayed_events"),
             "own_peak_device_memory": peak - before,
             "incidents": [(r["action"], r.get("worker")) for r in parsed["fleet"]
-                          if r["action"] not in ("interval", "spawn", "drain")]}
+                          if r["action"] not in ("interval", "spawn", "drain")],
+            "act": {k: interval[k] for k in ("act_mode", "act_requests", "act_batches", "act_occupancy",
+                                             "act_pad_waste", "act_sessions", "act_version") if k in interval}}
 
 
 def worker_streams(log_dir):
@@ -2239,6 +2294,8 @@ def fleet_legs(torch, ln_gru, done):
     serial_rows = column_rows(torch, checkpoints(parsed["log_dir"])[-1])
     twin = report["fleet_dv3_serial"]["policy_steps_per_s_after_learning_starts"]
     for name, extra in (("fleet_dv3", []),
+                        # the batched act service on the card (Sebulba): the workers ship obs and noise rows
+                        ("fleet_dv3_inference", ["fleet.act_mode=inference"]),
                         ("fleet_dv3_chaos", ["fleet.hang_s=1.0", "resilience.chaos.enabled=True",
                                              # lifetime steps: a worker takes FLEET_TOTAL / 2
                                              f"resilience.chaos.crash_at_step={FLEET_TOTAL // 4}",
@@ -2248,10 +2305,17 @@ def fleet_legs(torch, ln_gru, done):
                                              "resilience.chaos.hang_s=60.0"])):
         parsed = leg(name, dv3 + ["algo.fleet.workers=2", *extra], FLEET_LEARNING_STARTS, twin, kernels=True)
         got = ledger(torch, checkpoints(parsed["log_dir"])[-1])
-        if name == "fleet_dv3":
+        if name in ("fleet_dv3", "fleet_dv3_inference"):
             if got != serial:
                 raise AssertionError(f"the {name} leg's ledger {got} != fleet_dv3_serial's {serial}")
             report[name]["ledger_equal"] = serial
+            if name == "fleet_dv3_inference":
+                act = report[name]["act"]
+                if report[name]["launches"] != report["fleet_dv3"]["launches"] or not act.get("act_requests"):
+                    raise AssertionError(f"fleet_dv3_inference launched {report[name]['launches']} (fleet_dv3: "
+                                         f"{report['fleet_dv3']['launches']}); act service {act}")
+                report[name]["worker_mode_policy_steps_per_s"] = \
+                    report["fleet_dv3"]["policy_steps_per_s_after_learning_starts"]
             continue
         # a respawn restarts its worker's episodes mid-way, so that worker's
         # columns may close one episode fewer (one closing row) per respawn
@@ -2275,22 +2339,33 @@ def fleet_legs(torch, ln_gru, done):
     for want in (("crash", 0), ("respawn", 0), ("hang", 1), ("respawn", 1)):
         if want not in incidents:
             raise AssertionError(f"fleet_dv3_chaos: no {want} in {incidents}")
-    if any(a == "quarantine" for a, _ in incidents) or report["fleet_dv3"]["incidents"]:
-        raise AssertionError(f"fleet incidents: {report['fleet_dv3']['incidents']}, chaos {incidents}")
+    if any(a == "quarantine" for a, _ in incidents) or report["fleet_dv3"]["incidents"] or \
+            report["fleet_dv3_inference"]["incidents"]:
+        raise AssertionError(f"fleet incidents: {report['fleet_dv3']['incidents']}, "
+                             f"{report['fleet_dv3_inference']['incidents']}, chaos {incidents}")
 
     # SAC at the sac leg's preset widths, 4 envs: sac_serial's ledger
     sac = [a for a in done["sac_serial"]["args"] if a != "algo.overlap.enabled=False"]
-    for name, extra in (("fleet_sac", []), ("fleet_sac_socket", ["fleet.transport=socket"])):
+    for name, extra in (("fleet_sac", []), ("fleet_sac_socket", ["fleet.transport=socket"]),
+                        ("fleet_sac_inference", ["fleet.act_mode=inference"]),
+                        ("fleet_sac_inference_socket", ["fleet.act_mode=inference", "fleet.transport=socket"])):
         parsed = leg(name, sac + ["algo.fleet.workers=2", *FLEET_KNOBS, *extra], 100,
                      done["sac_serial"]["policy_steps_per_s_after_learning_starts"])
         got, _ = offpolicy_ledger(torch, checkpoints(parsed["log_dir"])[-1])
         if got != done["sac_serial"]["ledger_equal"]:
             raise AssertionError(f"the {name} leg's ledger {got} != sac_serial's {done['sac_serial']['ledger_equal']}")
         report[name]["ledger_equal"] = got
-    accepts = sorted(r["worker"] for r in parsed["net"] if r["action"] == "accept")
-    if accepts != [0, 1]:
-        raise AssertionError(f"fleet_sac_socket: net accepts {accepts}")
-    report["fleet_sac_socket"]["net_accepts"] = accepts
+        if "socket" in name:
+            accepts = sorted(r["worker"] for r in parsed["net"] if r["action"] == "accept")
+            if accepts != [0, 1]:
+                raise AssertionError(f"{name}: net accepts {accepts}")
+            report[name]["net_accepts"] = accepts
+        if "inference" in name:
+            act = report[name]["act"]
+            if act.get("act_mode") != "inference" or not act.get("act_requests") or report[name]["incidents"]:
+                raise AssertionError(f"{name}: act service {act}, incidents {report[name]['incidents']}")
+            report[name]["worker_mode_policy_steps_per_s"] = \
+                report[name.replace("_inference", "")]["policy_steps_per_s_after_learning_starts"]
 
     # PPO at the ppo leg's settings, strict rounds: ppo_serial's counters
     ppo = [a for a in done["ppo_serial"]["args"] if a != "algo.overlap.enabled=False"]
@@ -2302,6 +2377,443 @@ def fleet_legs(torch, ln_gru, done):
     if report["fleet_ppo"]["publications"] != got["update"] + 1:  # the first, then one after each update
         raise AssertionError(f"fleet_ppo: {report['fleet_ppo']['publications']} publications, {got['update']} updates")
     report["fleet_ppo"]["ledger_equal"] = got
+    return report
+
+
+# the serving legs: 32 HTTP clients x 50 act requests (PPO, SAC), 16
+# DreamerV3-S sessions x 64 steps; the reloader polls every 0.2 s
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SESSIONS, SERVE_STEPS = 32, 50, 16, 64
+SERVE_POLL_S, SERVE_DEADLINE_S = 0.2, 120.0
+# Anakin at bench.py's settings: 1024 lanes, chunks of 256 steps, seed 5, 10 s
+ANAKIN_SLOTS, ANAKIN_CHUNK, ANAKIN_SEED, ANAKIN_SECONDS = 1024, 256, 5, 10.0
+
+
+def serve_copy(name, src_log_dir, ckpt):
+    """A fresh run dir for a serving leg: the source run's config.yaml and
+    one of its checkpoints, so the reloader sees only what the leg puts
+    there. Returns the checkpoint's path in it."""
+    d = os.path.join(HERE, "logs", "runs", RUN_ROOT, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(d, "checkpoint"))
+    shutil.copy(os.path.join(src_log_dir, "config.yaml"), d)
+    dst = os.path.join(d, "checkpoint", os.path.basename(ckpt))
+    shutil.copy(ckpt, dst)
+    return dst
+
+
+def serve_publish(ckpt, serve_ckpt):
+    """Put a newer checkpoint beside the served one the way a run writes it
+    (a temporary name, then one rename): the reloader never sees half a
+    file."""
+    d = os.path.dirname(serve_ckpt)
+    tmp = os.path.join(d, os.path.basename(ckpt) + ".part")
+    shutil.copy(ckpt, tmp)
+    os.replace(tmp, os.path.join(d, os.path.basename(ckpt)))
+
+
+def serve_start(torch, ckpt):
+    """``serve_from_checkpoint(block=False)`` on the checkpoint's saved
+    config with the serve defaults, HTTP on an ephemeral port, every bucket
+    warmed for both greedy variants. Returns (server, its start line, the
+    device memory before it, the env's observation spec for the clients)."""
+    from sheeprl_tpu_torch.config import CONFIG_ROOT, load_config_file
+    from sheeprl_tpu_torch.serve import serve_from_checkpoint
+    from sheeprl_tpu_torch.utils.env import probe_env_spaces
+
+    cfg = load_config_file(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "config.yaml"))
+    cfg["serve"] = load_config_file(os.path.join(CONFIG_ROOT, "serve", "default.yaml"))
+    cfg.set_path("serve.http.port", 0)
+    cfg.set_path("serve.hot_reload.poll_interval_s", SERVE_POLL_S)
+    cfg.set_path("serve.telemetry.log_every_s", 1.0)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        server = serve_from_checkpoint(ckpt, cfg, block=False)
+    sys.stderr.write(err.getvalue())
+    line = [l for l in err.getvalue().splitlines() if l.startswith("[serve] policy ")]
+    policy = server.policy
+    if policy.device.type != "cuda" or not line or torch.cuda.get_device_name(0) not in line[0]:
+        server.stop()
+        raise AssertionError(f"the policy serves on {policy.device}: {line}")
+    space = probe_env_spaces(cfg, int(cfg.seed)).single_observation_space
+    keys = tuple(cfg.algo.cnn_keys.encoder) + tuple(cfg.algo.mlp_keys.encoder)
+    obs = {k: [list(space[k].shape), str(space[k].dtype)] for k in keys}
+    return server, line[0], before, obs
+
+
+def serve_clients(spec):
+    """The load generator, run in a process of its own (the server keeps its
+    GIL): one HTTP/1.1 keep-alive connection a client, each POSTing /v1/act
+    in turn. ``spec``: ``port``, ``obs`` (key → [shape, dtype]),
+    ``deadline_s``, ``until_reload`` (a client past its quota goes on while
+    ``GET /healthz`` shows no reload) and ``clients``, each ``{seed, n,
+    det (a bool, or "alternate"), session?, export_at?, record?}``: with
+    ``export_at`` the client asks for its session's state at that step and
+    goes on under ``<session>_imported``, importing it. Returns ``{results:
+    [(client, i, status, latency_s, response, body if record)], seconds}``."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    port, t_end = spec["port"], time.monotonic() + spec["deadline_s"]
+    out, lock = [], threading.Lock()
+
+    def obs(rng):
+        return {k: (rng.integers(0, 256, shape, dtype="uint8") if dtype == "uint8"
+                    else rng.standard_normal(shape).astype("float32")).tolist()
+                for k, (shape, dtype) in spec["obs"].items()}
+
+    def client(c, cs):
+        rng = np.random.default_rng(cs["seed"])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        i, prev, sid = 0, None, cs.get("session")
+        try:
+            while time.monotonic() < t_end:
+                if i >= cs["n"]:
+                    if not spec["until_reload"]:
+                        break
+                    conn.request("GET", "/healthz")
+                    if json.loads(conn.getresponse().read().decode())["reloads"] >= 1:
+                        break
+                det = cs["det"] if isinstance(cs["det"], bool) else (i + c) % 2 == 0
+                body = {"obs": obs(rng), "deterministic": det}
+                if cs.get("export_at") == i:
+                    body["return_state"] = True
+                if cs.get("export_at") is not None and i == cs["export_at"] + 1:
+                    sid = f"{sid}_imported"
+                    body["session_state"] = prev["session_state"]
+                if sid is not None:
+                    body["session_id"] = sid
+                t0 = time.perf_counter()
+                # bytes: headers and body leave in one send (no Nagle wait between them)
+                conn.request("POST", "/v1/act", json.dumps(body).encode(), {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                prev = json.loads(r.read().decode())
+                dt = time.perf_counter() - t0
+                with lock:
+                    out.append((c, i, r.status, dt, prev, body if cs.get("record") else None))
+                i += 1
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c, cs)) for c, cs in enumerate(spec["clients"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"results": out, "seconds": time.perf_counter() - t0}
+
+
+def _serve_clients_main(spec, conn):
+    conn.send(serve_clients(spec))
+    conn.close()
+
+
+def serve_traffic(spec, during=None):
+    """``serve_clients(spec)`` in a spawned process; ``during()`` runs here
+    meanwhile (e.g. publishing a newer checkpoint). Returns its result."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_serve_clients_main, args=(spec, send), name="smoke-serve-clients", daemon=True)
+    proc.start()
+    send.close()
+    try:
+        if during is not None:
+            during()
+        if not recv.poll(spec["deadline_s"] + 60):
+            raise AssertionError("the serving clients gave no result")
+        return recv.recv()
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+
+
+def serve_report(torch, server, line, before, traffic):
+    """The leg's numbers: the server's own `serve` record (its counts,
+    occupancy, pad waste and histogram p50/p95/p99), the clients' exact
+    latency percentiles and requests/s, retraces and reloads, the device
+    memory the server holds, and its stream validated by the port's schema.
+    Fails on an error, a shape warmup did not run, or no reload."""
+    from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
+
+    results = [r for t in traffic for r in t["results"]]
+    seconds = sum(t["seconds"] for t in traffic)
+    stats = server.stats()
+    lat = sorted(r[3] * 1e3 for r in results)
+    bad = [(r[2], r[4]) for r in results if r[2] != 200]
+    q = (lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]) if lat else (lambda p: None)
+    rep = {"start": line, "device": str(server.policy.device), "requests": len(results),
+           "http_non_200": len(bad), "completed": stats["completed"], "errors": stats["errors"],
+           "rejected": stats["rejected"], "retraces": stats["retraces"], "reloads": stats["reloads"],
+           "params_version": stats["params_version"], "batches": stats["batches"],
+           "batch_occupancy": stats["batch_occupancy"], "pad_waste": stats["pad_waste"],
+           "avg_batch_size": stats["avg_batch_size"], "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
+           "p99_ms": stats["p99_ms"], "client_p50_ms": q(0.50), "client_p95_ms": q(0.95), "client_p99_ms": q(0.99),
+           "traffic_s": seconds, "requests_per_s": len(results) / seconds if seconds > 0 else None,
+           "device_memory_held_bytes": torch.cuda.memory_allocated() - before,
+           "device_memory_peak_bytes": torch.cuda.max_memory_allocated() - before,
+           "buckets": list(server.policy.buckets)}
+    server.stop()
+    stream = os.path.join(os.path.dirname(str(server.reloader.ckpt_dir)), "serve", "telemetry.jsonl")
+    errors = validate_jsonl(stream)
+    if errors:
+        raise AssertionError(f"{stream} fails the schema: {errors[:5]}")
+    with open(stream) as fh:
+        recs = [json.loads(l) for l in fh]
+    rep["reload_events"] = [{k: r.get(k) for k in ("action", "step", "params_version", "error")}
+                            for r in recs if r["event"] == "reload"]
+    if bad or rep["errors"] or rep["retraces"] or rep["reloads"] < 1 or rep["completed"] != len(results) or any(
+            r["action"] != "swapped" for r in rep["reload_events"]):
+        raise AssertionError(f"serving: {len(bad)} failed requests {bad[:3]}, {rep}")
+    return rep
+
+
+def serve_flat_leg(torch, ln_gru, name, src_log_dir, mid, last):
+    """serve_ppo / serve_sac: the mid-run checkpoint served, 32 clients x 50
+    requests (every other one deterministic), the last checkpoint put beside
+    it once an eighth of the requests are answered: the reloader must swap
+    it in before the traffic ends (clients go on past their quota until
+    it has)."""
+    ckpt = serve_copy(name, src_log_dir, mid)
+    ln_gru.reset_launch_counts()
+    server, line, before, obs = serve_start(torch, ckpt)
+
+    def publish():
+        deadline = time.monotonic() + SERVE_DEADLINE_S
+        while (server.batcher.stats.snapshot()["completed"] < SERVE_CLIENTS * SERVE_REQUESTS // 8
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        serve_publish(last, ckpt)
+
+    spec = {"port": server.port, "obs": obs, "deadline_s": SERVE_DEADLINE_S, "until_reload": True,
+            "clients": [{"seed": 1000 + c, "n": SERVE_REQUESTS, "det": "alternate"} for c in range(SERVE_CLIENTS)]}
+    traffic = serve_traffic(spec, during=publish)
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    rep = serve_report(torch, server, line, before, [traffic])
+    if any(counts.values()):
+        raise AssertionError(f"{name} launched LN-GRU kernels {counts}")
+    rep.update(checkpoints=[os.path.basename(mid), os.path.basename(last)], clients=SERVE_CLIENTS,
+               requests_per_client=SERVE_REQUESTS, extra_requests=rep["requests"] - SERVE_CLIENTS * SERVE_REQUESTS)
+    return rep
+
+
+def serve_dv3_leg(torch, ln_gru, src_log_dir, mid, last):
+    """serve_dv3: the DreamerV3-S run leg's mid-run checkpoint (64x64x3
+    pixels), 16 sessions x 64 steps, sessions 0-7 deterministic and the rest
+    sampled; session 1 exports its state at step 31 and goes on under a
+    fresh id whose first request imports it. Sessions 0 and 1 replayed alone
+    at bucket 1 afterwards, on the representation noise their rows drew in
+    the mixed batches, give the same actions and latents within the
+    builder's tolerance. Then the last checkpoint is put beside the served
+    one and 14 sessions go on stepping until the reloader has swapped it in."""
+    import threading
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.serve.policy import tree_map
+    from sheeprl_tpu_torch.serve.session_codec import decode_state
+
+    ckpt = serve_copy("serve_dv3", src_log_dir, mid)
+    ln_gru.reset_launch_counts()
+    server, line, before, obs = serve_start(torch, ckpt)
+    policy = server.policy
+    tol = policy.core.tol
+    # the representation samples its state in greedy serving too (as the
+    # reference's player does): record the noise rows sessions 0 and 1 get
+    # in their mixed batches, to replay them alone on the same draws
+    watch, noise_rows, batch_sessions = ("s0", "s1", "s1_imported"), {}, threading.local()
+    served_act_batch, served_apply = policy.act_batch, policy.core.apply
+
+    def act_batch(obs, n, deterministic=False, sessions=None, expired_out=None):
+        batch_sessions.ids = list(sessions or [])
+        return served_act_batch(obs, n, deterministic, sessions, expired_out)
+
+    def apply(params, obs, state, noise, greedy):
+        for i, sid in enumerate(getattr(batch_sessions, "ids", [])):
+            if sid in watch:
+                noise_rows.setdefault(sid, []).append(tree_map(lambda t: t[i:i + 1].clone(), noise))
+        return served_apply(params, obs, state, noise, greedy)
+
+    policy.act_batch, policy.core.apply = act_batch, apply
+    clients = [{"seed": 2000 + c, "n": SERVE_STEPS, "det": c < SERVE_SESSIONS // 2, "session": f"s{c}",
+                "record": c < 2} for c in range(SERVE_SESSIONS)]
+    clients[1]["export_at"] = 31
+    phase_a = serve_traffic({"port": server.port, "obs": obs, "deadline_s": SERVE_DEADLINE_S,
+                             "until_reload": False, "clients": clients})
+    got = phase_a["results"]
+    policy.act_batch, policy.core.apply = served_act_batch, served_apply
+    if len(got) != SERVE_SESSIONS * SERVE_STEPS or any(r[2] != 200 for r in got):
+        bad = [(r[0], r[1], r[2], r[4]) for r in got if r[2] != 200][:3]
+        raise AssertionError(f"serve_dv3: {len(got)} answers, failures {bad}")
+    stats_a = server.stats()
+    blob = next(r[4]["session_state"] for r in got if r[0] == 1 and r[1] == 31)
+    # sessions 0 and 1 alone at bucket 1, on their own observations and draws
+    compare, draw = {}, policy.core.draw_noise
+    for c in (0, 1):
+        mine = sorted((r for r in got if r[0] == c), key=lambda r: r[1])
+        rows = iter(noise_rows["s0"] if c == 0 else noise_rows["s1"] + noise_rows["s1_imported"])
+        policy.core.draw_noise = lambda g, n, rows=rows: next(rows)
+        served = np.concatenate([np.asarray(r[4]["actions"], np.float64) for r in mine])
+        alone = np.concatenate([policy.act({k: np.asarray(v) for k, v in r[5]["obs"].items()}, True,
+                                           session=f"alone_{c}").astype(np.float64) for r in mine])
+        policy.core.draw_noise = draw
+        final = policy.export_session("s0" if c == 0 else "s1_imported")
+        ref = policy.export_session(f"alone_{c}")
+        latent = max(float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+                     for x, y in zip(final, ref))
+        compare[f"s{c}"] = {"steps": len(mine), "max_abs_action_diff": float(np.abs(served - alone).max()),
+                            "max_abs_latent_diff": latent}
+        if compare[f"s{c}"]["max_abs_action_diff"] > tol or latent > tol:
+            raise AssertionError(f"serve_dv3 session {c}: mixed buckets vs alone {compare[f's{c}']} > {tol}")
+
+    # phase B: the last checkpoint published; sessions go on until it is swapped in
+    serve_publish(last, ckpt)
+    phase_b = serve_traffic({"port": server.port, "obs": obs, "deadline_s": SERVE_DEADLINE_S, "until_reload": True,
+                             "clients": [{"seed": 3000 + c, "n": 8, "det": c % 2 == 0, "session": f"s{c}"}
+                                         for c in range(2, SERVE_SESSIONS)]})
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    rep = serve_report(torch, server, line, before, [phase_a, phase_b])
+    if any(counts.values()):
+        raise AssertionError(f"serve_dv3 launched LN-GRU kernels {counts}")
+    lat_a = sorted(r[3] * 1e3 for r in got)
+    rep.update(checkpoints=[os.path.basename(mid), os.path.basename(last)], sessions=SERVE_SESSIONS,
+               steps=SERVE_STEPS, serve_tol=tol, alone_vs_mixed=compare,
+               exported_state_shapes=[list(np.asarray(x).shape) for x in decode_state(blob)],
+               phase_a={"seconds": phase_a["seconds"], "requests": len(got), "batches": stats_a["batches"],
+                        "occupancy": stats_a["batch_occupancy"], "pad_waste": stats_a["pad_waste"],
+                        "p50_ms": stats_a["p50_ms"], "p99_ms": stats_a["p99_ms"],
+                        "client_p50_ms": lat_a[len(lat_a) // 2], "client_p99_ms": lat_a[int(0.99 * len(lat_a))]},
+               phase_b={"seconds": phase_b["seconds"], "requests": len(phase_b["results"])})
+    return rep
+
+
+def anakin_leg(torch, ln_gru):
+    """anakin: ``run_anakin`` on the card at bench.py's settings (1024 lanes,
+    chunks of 256 steps, seed 5) for 10 s: env steps/s, the operations one
+    chunk dispatches, and the CUDA kernels one chunk launches as
+    torch.profiler records them (None with the reason where it records
+    none); the state and mean reward finite."""
+    from sheeprl_tpu_torch.config import Config
+    from sheeprl_tpu_torch.fleet.anakin import build_anakin, run_anakin
+
+    cfg = Config({"seed": ANAKIN_SEED, "fleet": {"anakin": {"slots": ANAKIN_SLOTS, "chunk": ANAKIN_CHUNK}}})
+    ln_gru.reset_launch_counts()
+    res = run_anakin(cfg, min_seconds=ANAKIN_SECONDS, device="cuda")
+    params, carry, chunk_fn, _, _ = build_anakin(cfg, device="cuda")
+    carry, r = chunk_fn(params, carry)
+    torch.cuda.synchronize()
+    kernels, why = None, None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            carry, r = chunk_fn(params, carry)
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not kernels:
+            kernels, why = None, "the profiler recorded no device event"
+    except Exception as err:  # noqa: BLE001 - reported with the leg
+        why = repr(err)
+    if not (torch.isfinite(carry[0]).all() and torch.isfinite(r)):
+        raise AssertionError("anakin: a non-finite state or reward")
+    if any(k.launches for k in ln_gru.KERNELS):
+        raise AssertionError("anakin launched LN-GRU kernels")
+    res.update(kernels_per_chunk=kernels, kernels_per_chunk_note=why, mean_reward=float(r), seed=ANAKIN_SEED)
+    return res
+
+
+def serve_command(torch, ckpt):
+    """serve_cmd: ``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt>
+    serve.http.port=0`` as users start it, in a process of its own: it must
+    say it serves on the card (device and name on stderr), answer one
+    ``POST /v1/act`` and report it in ``GET /stats``; then it is stopped."""
+    import http.client
+
+    proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch", "serve", f"checkpoint_path={ckpt}",
+                             "serve.http.port=0", "serve.hot_reload.enabled=False", "serve.telemetry.jsonl=False"],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    try:
+        line = proc.stdout.readline().strip()
+        started = time.perf_counter() - t0
+        port = int(line.rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/act", json.dumps({"obs": {"state": [0.5] * 10}, "deterministic": True}).encode(),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        act = json.loads(r.read().decode())
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read().decode())
+        conn.close()
+    finally:
+        proc.kill()
+        _, err = proc.communicate(timeout=60)
+    start = [l for l in err.splitlines() if l.startswith("[serve] policy ")]
+    name = torch.cuda.get_device_name(0)
+    if r.status != 200 or stats["completed"] != 1 or not start or f"on cuda:0 ({name})" not in start[0]:
+        raise AssertionError(f"the serve command: {r.status} {act}, stats {stats}, start {start}, {err[-2000:]}")
+    return {"start": start[0], "listening": line, "ready_s": started, "actions": act["actions"],
+            "completed": stats["completed"]}
+
+
+def run_dir(name):
+    """A phase-5 leg's run dir (``logs/runs/chip_smoke/<leg>/version_0``)."""
+    return os.path.join(HERE, "logs", "runs", RUN_ROOT, name, "version_0")
+
+
+def serving_legs(torch, ln_gru):
+    """serve_ppo, serve_sac, the serve command (serve_cmd) and serve_dv3
+    from the ppo, sac and run legs' mid-run and last checkpoints, then
+    anakin; each leg's seconds."""
+    report = {}
+    for name, src in (("serve_ppo", "ppo"), ("serve_sac", "sac")):
+        t0 = time.perf_counter()
+        ck = checkpoints(run_dir(src))
+        report[name] = serve_flat_leg(torch, ln_gru, name, run_dir(src), ck[0], ck[-1])
+        report[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["serve_cmd"] = serve_command(torch, checkpoints(run_dir("ppo"))[-1])
+    report["serve_cmd"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = checkpoints(run_dir("run"))
+    mid = [p for p in ck if LEARNING_STARTS < int(os.path.basename(p)[5:-5]) < TOTAL]
+    report["serve_dv3"] = serve_dv3_leg(torch, ln_gru, run_dir("run"), mid[-1], ck[-1])
+    report["serve_dv3"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["anakin"] = anakin_leg(torch, ln_gru)
+    report["anakin"]["leg_seconds"] = time.perf_counter() - t0
+    return report
+
+
+def serve_alone(torch, ln_gru):
+    """``--serve``: the three training legs whose checkpoints the serving
+    legs serve (ppo, sac and the DreamerV3-S run leg, as phase 5 runs them),
+    the ppo and sac evals (through serve/evaluate.py), then serving_legs."""
+    report = {}
+    ppo = ["exp=ppo", "env=dummy", "metric.log_every=1024", "algo.run_test=False", f"root_dir={RUN_ROOT}",
+           f"algo.total_steps={PPO_TOTAL}", "checkpoint.every=2048", "run_name=ppo"]
+    sac = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
+           f"root_dir={RUN_ROOT}", f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
+           "checkpoint.every=512", "metric.log_every=256", "run_name=sac"]
+    dv3 = run_common() + [f"algo.total_steps={TOTAL}", "run_name=run"]
+    for name, args in (("ppo", ppo), ("sac", sac), ("run", dv3)):
+        _, counts, seconds, _ = drive(torch, ln_gru, "run", args)
+        report[name] = {"seconds": seconds, "launches": counts, "checkpoints": [
+            os.path.basename(p) for p in checkpoints(run_dir(name))]}
+    for name, src in (("ppo_eval", "ppo"), ("sac_eval", "sac")):
+        parsed, _, seconds, _ = drive(torch, ln_gru, "eval", [f"checkpoint_path={checkpoints(run_dir(src))[-1]}"])
+        if parsed["reward"] is None or "serve/evaluate.py" not in (parsed["route"] or ""):
+            raise AssertionError(f"{name}: reward {parsed['reward']}, route {parsed['route']}")
+        report[name] = {"seconds": seconds, "reward": parsed["reward"], "route": parsed["route"]}
+    report.update(serving_legs(torch, ln_gru))
     return report
 
 
@@ -2394,6 +2906,8 @@ USAGE = """usage: python3 chip_smoke.py                      every phase (what t
        python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
        python3 chip_smoke.py --p2e                  phase 5's Plan2Explore legs and step alone
        python3 chip_smoke.py --fleet                phase 5's actor-fleet legs alone, with the serial twins
+       python3 chip_smoke.py --serve                phase 5's serving legs, evals and Anakin leg alone, with the
+                                                    training legs whose checkpoints they serve
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
                                                     without its per-iteration ranges and timers"""
@@ -2403,7 +2917,7 @@ def main(argv=None) -> int:
     t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet") or (
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve") or (
             mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -2479,6 +2993,16 @@ def main(argv=None) -> int:
             emit("fleet", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, twins=twins, legs=legs)
         except Exception as err:  # noqa: BLE001
             return fail("fleet", err)
+        return 0
+    if mode == "--serve":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            legs = serve_alone(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("serve", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, legs=legs)
+        except Exception as err:  # noqa: BLE001
+            return fail("serve", err)
         return 0
     if mode == "--telemetry-ab":
         try:

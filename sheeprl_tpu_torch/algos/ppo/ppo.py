@@ -529,9 +529,12 @@ def main(cfg: Config) -> None:
 
 @register_evaluation("ppo")
 def evaluate_ppo(cfg: Config, state: Dict[str, Any]) -> None:
-    """One greedy episode with the checkpoint's agent on the run's device
-    (``eval checkpoint_path=...``)."""
-    evaluate_agent(cfg, state, build_agent)
+    """One greedy episode (``eval checkpoint_path=...``) through the serving
+    stack's ``InferencePolicy`` (``serve/evaluate.py``), so evaluation and
+    ``serve`` share one checkpoint→policy path."""
+    from ...serve.evaluate import evaluate_with_policy
+
+    evaluate_with_policy(cfg, state)
 
 
 def evaluate_agent(cfg: Config, state: Dict[str, Any], builder: Callable, tester: Callable = test) -> None:

@@ -565,6 +565,9 @@ def evaluate_agent(cfg: Config, state: Dict[str, Any], builder: Callable, tester
 
 @register_evaluation("sac")
 def evaluate_sac(cfg: Config, state: Dict[str, Any]) -> None:
-    """One greedy episode with the checkpoint's actor (``eval
-    checkpoint_path=...``)."""
-    evaluate_agent(cfg, state, build_agent, lambda agent, env, c, dev: test(agent.actor, env, c, dev))
+    """One greedy episode (``eval checkpoint_path=...``) through the serving
+    stack's ``InferencePolicy`` (``serve/evaluate.py``), so evaluation and
+    ``serve`` share one checkpoint→policy path."""
+    from ...serve.evaluate import evaluate_with_policy
+
+    evaluate_with_policy(cfg, state)

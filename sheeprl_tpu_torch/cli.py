@@ -1,7 +1,8 @@
 """Command-line entry point of the PyTorch port:
 ``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...``,
-``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]`` and
-``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]``.
+``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]``,
+``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]`` and
+``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> [serve.http.port=... ...]``.
 
 ``run`` composes the config from ``sheeprl_tpu_torch/configs``, merges the
 saved config of ``checkpoint.resume_from`` when one is given, checks it
@@ -11,8 +12,9 @@ restarted from its newest checkpoint (``resilience/supervisor.py``).
 ``eval`` rebuilds the run's config from the ``config.yaml`` beside the
 checkpoint and calls the algorithm's registered evaluation on one env.
 ``resume`` relaunches a run from its newest checkpoint behind the manifest's
-fingerprint check (``resilience/resume.py``). The serving commands wait for
-later slices.
+fingerprint check (``resilience/resume.py``). ``serve`` serves the
+checkpoint behind the micro-batching policy server (``serve/server.py``)
+on the run's player device.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import pathlib
 import sys
 from typing import List, Optional, Sequence, Tuple
 
-from .config import Config, compose, load_config_file
+from .config import CONFIG_ROOT, Config, compose, load_config_file
 from .utils.registry import algorithm_registry, get_algorithm, get_evaluation
 
 # modules whose import registers an algorithm and its evaluation
@@ -227,7 +229,25 @@ def resume(args: Optional[Sequence[str]] = None) -> None:
     resume_run(run_dir, rest, force=force)
 
 
-COMMANDS = {"run": run, "eval": evaluation, "resume": resume}
+def serve(args: Optional[Sequence[str]] = None) -> None:
+    """``serve checkpoint_path=... [serve.http.port=... ...]``: serve a
+    trained checkpoint behind the micro-batching policy server
+    (``serve/server.py``): bucketed apply on the card, deadline-coalesced
+    batches, checkpoint hot reload and a stdlib-HTTP JSON endpoint."""
+    argv = list(args if args is not None else sys.argv[1:])
+    ckpt_path, rest = _split_checkpoint_arg(argv, "serve")
+    cfg = _load_config_beside(ckpt_path)
+    # a saved run config has no serve group: compose its defaults in
+    if cfg.select("serve") is None:
+        cfg["serve"] = load_config_file(CONFIG_ROOT / "serve" / "default.yaml")
+    _apply_cli_overrides(cfg, rest)
+    cfg["checkpoint_path"] = str(ckpt_path)
+    from .serve.server import serve_from_checkpoint
+
+    serve_from_checkpoint(ckpt_path, cfg)
+
+
+COMMANDS = {"run": run, "eval": evaluation, "resume": resume, "serve": serve}
 
 
 def main() -> None:

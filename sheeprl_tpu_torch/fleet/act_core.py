@@ -12,11 +12,15 @@ noise from its slot's generator alone. The JAX package gets the same
 property from per-row keys (``fold_in(key, slot)``); threefry and Philox
 never agree, so the parity tests hand both the noise the JAX keys draw.
 
+A core's modules live on its ``device``: the CPU in a worker, the learner's
+device in the batched act service (``fleet/act_service.py``), which runs the
+same core through ``torch.func.functional_call`` on its own parameters.
 A core exposes:
 
+* ``modules`` — its modules by publication name;
 * ``extract_params(params_np)`` — the acting subtree of a publication (a
   dict of module name → state dict of numpy arrays) loaded into the core's
-  CPU modules, which it returns;
+  modules, which it returns;
 * ``draw_noise(generators)`` — one row of noise per slot generator;
 * ``act(params, obs, noise, state=None, mask=None)`` →
   ``(env_actions, actions_cat, new_state)`` (stateless cores return ``None``
@@ -79,13 +83,15 @@ class _SacActCore(ActCore):
     name = "sac"
     stateful = False
 
-    def __init__(self, cfg: Any, obs_space: Any, action_space: Any) -> None:
+    def __init__(self, cfg: Any, obs_space: Any, action_space: Any, device: Any = "cpu") -> None:
         from ..algos.sac.agent import build_actor
 
+        self.device = torch.device(device)
         self.act_dim = int(np.prod(action_space.shape))
         obs_dim = int(sum(np.prod(obs_space[k].shape) for k in cfg.algo.mlp_keys.encoder))
-        self.actor = build_actor(cfg, obs_dim, action_space, int(cfg.algo.actor.hidden_size)).float()
+        self.actor = build_actor(cfg, obs_dim, action_space, int(cfg.algo.actor.hidden_size)).float().to(self.device)
         self.actor.requires_grad_(False)
+        self.modules = {"actor": self.actor}
 
     def extract_params(self, params_np: Any) -> Any:
         load_modules({"actor": self.actor}, params_np)
@@ -98,20 +104,20 @@ class _SacActCore(ActCore):
     def act(self, params: Any, obs: Any, noise: Any, state: Any = None, mask: Any = None) -> Tuple[Any, Any, Any]:
         from ..algos.sac.agent import sample_actions
 
-        mean, log_std = params(torch.as_tensor(np.asarray(obs, np.float32)))
+        mean, log_std = params(torch.as_tensor(np.asarray(obs, np.float32), device=self.device))
         actions, _ = sample_actions(params, mean, log_std, noise)
         return actions, None, None
 
 
 class _DreamerActCore(ActCore):
     """The recurrent DreamerV3 player (``dreamer_v3.make_player``'s step) on
-    the core's CPU copy of the world model and actor; each row's
-    representation and action draws come from its own slot's noise."""
+    the core's copy of the world model and actor; each row's representation
+    and action draws come from its own slot's noise."""
 
     name = "dreamer_v3"
     stateful = True
 
-    def __init__(self, cfg: Any, obs_space: Any, action_space: Any) -> None:
+    def __init__(self, cfg: Any, obs_space: Any, action_space: Any, device: Any = "cpu") -> None:
         from ..algos.dreamer_v3.agent import build_agent
         from ..algos.dreamer_v3.dreamer_v3 import _actions_dim, make_player
         from ..envs import spaces
@@ -122,7 +128,8 @@ class _DreamerActCore(ActCore):
         wm_cfg = cfg.algo.world_model
         self.stoch = (int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size))
         # module definitions only: the parameters arrive with every publication
-        wm, actor, _, _ = build_agent(cfg, obs_space, self.actions_dim, self.is_continuous, torch.device("cpu"))
+        self.device = torch.device(device)
+        wm, actor, _, _ = build_agent(cfg, obs_space, self.actions_dim, self.is_continuous, self.device)
         self.modules = {"wm": wm.float(), "actor": actor.float()}
         for m in self.modules.values():
             m.requires_grad_(False)
@@ -151,10 +158,10 @@ class _DreamerActCore(ActCore):
     @torch.no_grad()
     def init_state(self, params: Any, n: int) -> Any:
         h0, z0 = params["wm"].rssm.initial_states((int(n),))
-        return (h0.contiguous(), z0, torch.zeros(int(n), self.act_total))
+        return (h0.contiguous(), z0, torch.zeros(int(n), self.act_total, device=self.device))
 
     def reset_state(self, params: Any, mask: Any, state: Any) -> Any:
-        m = torch.as_tensor(np.asarray(mask, bool))[:, None]
+        m = torch.as_tensor(np.asarray(mask, bool), device=self.device)[:, None]
         fresh = self.init_state(params, m.shape[0])
         return tuple(torch.where(m, x0, x) for x0, x in zip(fresh, state))
 
@@ -165,9 +172,10 @@ _BUILDERS: Dict[str, Callable[..., ActCore]] = {
 }
 
 
-def build_act_core(name: str, cfg: Any, obs_space: Any, action_space: Any) -> ActCore:
-    """The act core of a fleet program (``sac`` / ``dreamer_v3``). PPO's
-    strict on-policy rollouts act with the whole agent and have none."""
+def build_act_core(name: str, cfg: Any, obs_space: Any, action_space: Any, device: Any = "cpu") -> ActCore:
+    """The act core of a fleet program (``sac`` / ``dreamer_v3``) with its
+    modules on ``device`` (the workers' CPU, or the act service's device).
+    PPO's strict on-policy rollouts act with the whole agent and have none."""
     if name not in _BUILDERS:
-        raise ValueError(f"no act core for program '{name}' (act cores: {sorted(_BUILDERS)})")
-    return _BUILDERS[name](cfg, obs_space, action_space)
+        raise ValueError(f"no act core for program '{name}' (batched acting supports: {sorted(_BUILDERS)})")
+    return _BUILDERS[name](cfg, obs_space, action_space, device)

@@ -34,8 +34,12 @@ Publications are host arrays: :meth:`FleetEngine.publish` takes the
 modules of a host ``ParamMirror`` (refreshed device-to-host into pinned
 memory after the burst) and sends their state dicts as numpy arrays,
 pickled once for the whole fleet — a worker never needs CUDA to load one.
-``fleet.act_mode=inference`` (the learner-side batched act service) and the
-Anakin program wait for ROADMAP Queue 1 item 4.2 and raise.
+
+``fleet.act_mode=inference`` (Sebulba) starts one learner-hosted batched
+act service (:class:`~sheeprl_tpu_torch.fleet.act_service.ActService`) on
+the learner's device; every publication reaches it before the broadcast.
+``fleet.program=sheeprl_tpu_torch.fleet.anakin:anakin_program`` runs the
+Anakin program in the workers.
 """
 from __future__ import annotations
 
@@ -51,7 +55,6 @@ from .supervisor import FleetSupervisor
 
 __all__ = ["PROGRAMS", "FleetEngine", "FleetRound", "host_arrays", "refuse_fleet"]
 
-WAITS = "ROADMAP Queue 1 item 4.2"
 # the algorithms with a fleet program, as in the JAX package
 PROGRAMS = {
     "dreamer_v3": "sheeprl_tpu_torch.fleet.programs:dreamer_v3_program",
@@ -117,6 +120,7 @@ class FleetEngine:
         guard: Any = None,
         trace_spans: bool = True,
         relay: Any = None,
+        act_mode: str = "worker",
     ) -> None:
         self.enabled = bool(enabled) and int(workers) > 0
         self.workers = int(workers)
@@ -141,6 +145,8 @@ class FleetEngine:
         self.seed = int(seed)
         self.trace_spans = bool(trace_spans)
         self.relay_cfg: Dict[str, Any] = dict(relay or {})
+        self.act_mode = str(act_mode)
+        self.act: Optional[Any] = None  # ActService under act_mode=inference
 
         self.sup: Optional[FleetSupervisor] = None
         self.num_envs = 0
@@ -163,20 +169,23 @@ class FleetEngine:
         """True when this run will use the fleet (``algo.fleet.workers > 0``;
         the port runs one process, so it is always the single controller) —
         the early check the algo mains use to skip building their own envs.
-        Raises, before the run writes anything, for what waits for ROADMAP
-        Queue 1 item 4.2: ``fleet.act_mode=inference`` and the Anakin
-        program."""
+        Raises, before the run writes anything, for an unknown
+        ``fleet.act_mode`` and for ``fleet.act_mode=inference`` on a program
+        without an act core (PPO's strict on-policy rollouts act in the
+        workers)."""
         sel = cfg.select if hasattr(cfg, "select") else (lambda p, d=None: d)
         if int(sel("algo.fleet.workers", 0) or 0) <= 0:
             return False
         act_mode = str(sel("fleet.act_mode", "worker") or "worker")
-        if act_mode != "worker":
-            raise NotImplementedError(f"fleet.act_mode={act_mode}: the batched act service (fleet/act_service.py) "
-                                      f"waits for {WAITS}; the port's fleet acts in worker mode")
-        program = str(sel("fleet.program", "") or "")
-        if "anakin" in program:
-            raise NotImplementedError(f"fleet.program={program}: the Anakin program (fleet/anakin.py) waits for "
-                                      f"{WAITS}")
+        if act_mode not in ("worker", "inference"):
+            raise ValueError(f"fleet.act_mode must be worker | inference, got {act_mode!r}")
+        if act_mode == "inference":
+            from .act_core import _BUILDERS
+
+            program = str(sel("fleet.program", None) or PROGRAMS.get(str(sel("algo.name", "")), ""))
+            name = _core_name(program)
+            if name not in _BUILDERS:
+                raise ValueError(f"no act core for program '{name}' (batched acting supports: {sorted(_BUILDERS)})")
         return True
 
     @classmethod
@@ -230,6 +239,7 @@ class FleetEngine:
                 "max_batch_kb": int(opt("fleet.relay.max_batch_kb", 64)),
                 "max_buffer": int(opt("fleet.relay.max_buffer", 512)),
             },
+            act_mode=str(opt("fleet.act_mode", "worker")),
         )
 
     # -- lifecycle ---------------------------------------------------------
@@ -281,6 +291,17 @@ class FleetEngine:
         self.sup.progress_step = self.acked_steps  # resume: seed lifetimes
         self.sup.start()
         self._pending = {h.worker_id: deque() for h in self.sup.handles}
+        if self.act_mode == "inference":
+            # Sebulba: one learner-hosted batched act service for the whole
+            # fleet on the learner's device; the workers read
+            # fleet.act_mode=inference from the spawned cfg and ship obs here
+            from .act_service import ActService
+
+            self.act = ActService(cfg, _core_name(program), telem=self.telem, trace=self.trace_spans).start()
+            if self.sup.listener is not None:
+                self.sup.listener.set_act_handler(self.act.wire_handler)
+            else:
+                self.act.attach_mp(self.sup)
         return self
 
     def publish(self, modules: Dict[str, Any]) -> int:
@@ -293,6 +314,11 @@ class FleetEngine:
             return 0
         t0 = time.perf_counter()
         params_np = host_arrays(modules)
+        if self.act is not None:
+            # swap the service BEFORE the broadcast that versions the ledger:
+            # by the time any worker learns of publication N the service
+            # already acts with N
+            self.act.swap_params(params_np, self.sup.pub_seq + 1)
         version = self.sup.publish(params_np)
         self.publications += 1
         self.publish_bytes += sum(a.nbytes for sd in params_np.values() for a in sd.values())
@@ -596,6 +622,9 @@ class FleetEngine:
         rec["publications"] = int(self.publications)
         rec["publish_bytes"] = int(self.publish_bytes)
         rec["publish_ms"] = round(self.publish_s * 1e3, 6)
+        if self.act is not None:
+            rec["act_mode"] = "inference"
+            rec.update(self.act.snapshot())
         try:
             self.telem.emit(rec)
         except Exception:
@@ -614,6 +643,8 @@ class FleetEngine:
         self._stopped = True
         active = self.sup.active_ids()
         leftovers = self.sup.shutdown(timeout=self.shutdown_drain_s)
+        if self.act is not None:
+            self.act.stop()
         for wid, frames in leftovers.items():
             for frame in frames:
                 try:
@@ -659,6 +690,12 @@ class FleetEngine:
                 pass
         self.maybe_emit(force=True)
         return drained
+
+
+def _core_name(program: str) -> str:
+    """The act core of a program path: ``...:sac_program`` → ``sac``."""
+    name = str(program).rsplit(":", 1)[-1]
+    return name[: -len("_program")] if name.endswith("_program") else name
 
 
 def host_arrays(modules: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:

@@ -39,6 +39,10 @@ stall half-open, replay — so robustness IS the spec:
   worker: the learner announces ``(version)``, workers PULL the newest
   snapshot on connect or on lag. The ``CTRL_CLOCK`` handshake and
   ``CTRL_PROFILE`` ops ride the same connection as opaque ctrl frames.
+* **batched acting** — under ``fleet.act_mode=inference`` a worker's act
+  requests ride ``T_ACT`` frames to the learner's ActService and come back
+  as ``T_ACT_RESP`` on the same link (re-sent while unanswered; the service
+  answers a re-send from its idempotency cache).
 
 Every link transition emits a schema'd ``net`` telemetry event (learner
 events on the run stream, worker events on the worker's own stream).
@@ -89,9 +93,8 @@ T_PUB = 9
 T_PULL = 10
 T_PARAMS = 11
 T_TELEM = 12  # worker→learner relayed telemetry batch (best-effort, unacked)
-# 13 and 14 carry the batched act service's requests and responses in the
-# JAX package (fleet.act_mode=inference), which the port does not have: a
-# learner here ignores them
+T_ACT = 13  # worker→learner batched-inference act request (pickled dict)
+T_ACT_RESP = 14  # learner→worker act response (pickled dict)
 
 # learner-side cap on buffered (not-yet-drained) relay batches per link
 _TELEM_BUFFER_BATCHES = 64
@@ -459,6 +462,9 @@ class LearnerChannel:
         # advisory, a slow aggregator drops the oldest batch, never the link
         self._telem: deque = deque()
         self.telem_dropped = 0
+        # set by FleetListener.set_act_handler: callable(chan, req) that
+        # routes T_ACT requests into the learner's ActService
+        self.act_handler: Optional[Callable[["LearnerChannel", Dict[str, Any]], None]] = None
 
     # -- link state --------------------------------------------------------
     def attach(self, conn: socket.socket) -> int:
@@ -587,6 +593,23 @@ class LearnerChannel:
                         "version": int(pub[0]),
                     },
                 )
+        elif ftype == T_ACT:
+            # pickled only AFTER the token handshake fenced this connection
+            # (same trust boundary as T_TELEM/T_CTRL)
+            try:
+                req = pickle.loads(payload)
+            except Exception:
+                self.stats.bump("corrupt_frames")
+                return
+            handler = self.act_handler
+            if handler is None:
+                self.send_act_resp({"req_id": int(req.get("req_id", 0)) if isinstance(req, dict) else 0,
+                                    "error": "no act service attached (fleet.act_mode=worker?)"})
+                return
+            try:
+                handler(self, req)
+            except Exception as err:
+                self.send_act_resp({"req_id": int(req.get("req_id", 0)), "error": repr(err)})
 
     def _on_data(self, payload: bytes) -> None:
         try:
@@ -744,6 +767,14 @@ class LearnerChannel:
         self.stopped = True
         self._send(T_CTRL, pickle.dumps((CTRL_STOP,), protocol=pickle.HIGHEST_PROTOCOL))
 
+    def send_act_resp(self, resp: Dict[str, Any]) -> bool:
+        """Answer one act request (called from the ActService's flush thread;
+        ``_wlock`` inside ``_send`` serializes it against CREDIT/PUB writes).
+        A response lost to a dead link is recovered by the worker's re-send
+        hitting the service's idempotency cache — never stepped twice."""
+        return self._send(T_ACT_RESP, pickle.dumps(resp, protocol=pickle.HIGHEST_PROTOCOL),
+                          deadline_s=self.net.write_timeout_s)
+
     def pending(self) -> int:
         return len(self._recv)
 
@@ -802,6 +833,7 @@ class FleetListener:
         self.emit = emit
         self._lock = threading.Lock()
         self._channels: Dict[int, LearnerChannel] = {}
+        self._act_handler: Optional[Callable[[LearnerChannel, Dict[str, Any]], None]] = None
         self._closed = threading.Event()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -831,11 +863,21 @@ class FleetListener:
             worker_id, incarnation, queue_depth, self.net, self.stats, self.emit, spec
         )
         with self._lock:
+            chan.act_handler = self._act_handler
             old = self._channels.get(int(worker_id))
             self._channels[int(worker_id)] = chan
         if old is not None:
             old.close()
         return chan
+
+    def set_act_handler(self, fn: Optional[Callable[[LearnerChannel, Dict[str, Any]], None]]) -> None:
+        """Install the ActService's wire handler on every current channel and
+        on every channel a later (re)register creates."""
+        with self._lock:
+            self._act_handler = fn
+            channels = list(self._channels.values())
+        for chan in channels:
+            chan.act_handler = fn
 
     def unregister(self, worker_id: int) -> None:
         with self._lock:
@@ -1070,6 +1112,9 @@ class WorkerSocketChannel:
         self._half_open_until = 0.0
         self._pulled = 0  # newest version already requested
         self._announced = 0
+        # req_id -> response for in-flight act requests (guarded by _cond);
+        # bounded by the one-request-at-a-time act protocol
+        self._act_resps: Dict[int, Dict[str, Any]] = {}
         self._closed = False
         self._attempt = 0
         self._park_since: Optional[float] = None
@@ -1273,6 +1318,18 @@ class WorkerSocketChannel:
         elif ftype == T_PUB:
             (version,) = _PUB_T.unpack(payload)
             self._maybe_pull(int(version))
+        elif ftype == T_ACT_RESP:
+            try:
+                resp = pickle.loads(payload)
+            except Exception:
+                return
+            with self._cond:
+                self._act_resps[int(resp.get("req_id", 0))] = resp
+                # keep only the newest few: an abandoned request's late
+                # response must not pin memory forever
+                while len(self._act_resps) > 4:
+                    self._act_resps.pop(next(iter(self._act_resps)))
+                self._cond.notify_all()
         elif ftype == T_PARAMS:
             pub = pickle.loads(payload)  # (version, blob, t_pub, trace)
             self._ctrl_q.append((CTRL_PARAMS,) + tuple(pub))
@@ -1341,6 +1398,42 @@ class WorkerSocketChannel:
         self._send(T_HB, _HB_T.pack(int(self.heartbeat.value), int(version)))
 
     # -- WorkerChannel surface (worker loop thread) ------------------------
+    def act_request(self, req: Dict[str, Any], timeout_s: float = 30.0, beat: Optional[Any] = None) -> Dict[str, Any]:
+        """Ship one act request (T_ACT) and block for its T_ACT_RESP,
+        pulsing ``beat`` every poll slice so the wait never reads as a hang.
+        Re-sent once a second while unanswered — across a reconnect the
+        replayed request hits the service's idempotency cache, recovering a
+        response the dead link swallowed without stepping latents twice."""
+        rid = int(req.get("req_id", 0))
+        deadline = time.monotonic() + float(timeout_s)
+        resend_at = 0.0
+        while True:
+            now = time.monotonic()
+            if now >= deadline:
+                with self._cond:
+                    self._act_resps.pop(rid, None)
+                raise TimeoutError(f"act request {rid} not answered within {timeout_s}s")
+            if self.stop.is_set() or self._closed:
+                from .protocol import ChannelStopped
+
+                raise ChannelStopped(f"act request {rid}: channel stopped")
+            if now >= resend_at:
+                resend_at = now + 1.0
+                with self._cond:
+                    # the incarnation may have been corrected by HELLO_ACK
+                    # (remote attach): stamp it at send time
+                    req["incarnation"] = int(self.incarnation)
+                self._send(T_ACT, pickle.dumps(req, protocol=pickle.HIGHEST_PROTOCOL))
+            if beat is not None:
+                beat()
+            with self._cond:
+                resp = self._act_resps.pop(rid, None)
+                if resp is None:
+                    self._cond.wait(timeout=min(0.1, max(0.0, deadline - now)))
+                    resp = self._act_resps.pop(rid, None)
+            if resp is not None:
+                return resp
+
     def ctrl_get_nowait(self) -> Tuple[Any, ...]:
         try:
             return self._ctrl_q.popleft()

@@ -15,6 +15,12 @@ columns, so the env streams are identical modulo action divergence. Its
 policy draws come from its own generators, seeded from ``seed + 977·(w+1)``
 (one per env slot for the step programs, ``act_core.slot_generators``).
 
+Under ``fleet.act_mode=inference`` the SAC and DreamerV3 programs still
+draw every slot's noise from the slot's generator, but ship ``(obs, noise,
+reset)`` to the learner's batched act service (``fleet/act_service.py``,
+through the channel's ``act_request``) and take back ``actions`` and
+``actions_cat``; the DreamerV3 latents then live in the service.
+
 Programs expose:
 
 * ``sync_params`` — False for the off-policy step programs (act with the
@@ -26,6 +32,7 @@ Programs expose:
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -56,6 +63,58 @@ def _random_actions(action_space: Any, n: int) -> np.ndarray:
     return np.stack([action_space.sample() for _ in range(n)])
 
 
+def _act_mode(cfg: Any) -> str:
+    mode = str(cfg.select("fleet.act_mode", "worker") or "worker")
+    if mode not in ("worker", "inference"):
+        raise ValueError(f"fleet.act_mode must be worker | inference, got {mode!r}")
+    return mode
+
+
+def _act_timeout(cfg: Any) -> float:
+    v = cfg.select("fleet.act.timeout_s", None)
+    return float(30.0 if v is None else v)
+
+
+def _host_noise(noise: Any) -> Any:
+    """A core's noise draw (tensors, or a dict / list of them) as numpy."""
+    from ..serve.policy import tree_map
+
+    return tree_map(lambda t: t.numpy(), noise)
+
+
+def _remote_act(program: Any, req: Dict[str, Any]) -> Dict[str, Any]:
+    """Ship one act request through the worker's channel (Sebulba mode) and
+    block for the batched response, emitting the `act_submit` span the
+    service's `act_infer` joins. The channel is injected by the worker loop
+    (``act_transport`` / ``act_identity``); request ids are a
+    per-incarnation counter, so the service's idempotency cache tells a
+    retry from a new request."""
+    from ..telemetry import tracing
+
+    transport = getattr(program, "act_transport", None)
+    identity = getattr(program, "act_identity", None)
+    if transport is None or identity is None:
+        raise RuntimeError("fleet.act_mode=inference requires the worker loop's act transport "
+                           "(program ran outside fleet_worker_loop?)")
+    program._act_seq = int(getattr(program, "_act_seq", 0)) + 1
+    ctx = tracing.TraceContext(tracing.new_trace_id(), tracing.new_span_id())
+    req = dict(req)
+    req["worker_id"] = int(identity[0])
+    req["incarnation"] = int(identity[1])
+    req["req_id"] = int(program._act_seq)
+    req["trace"] = (ctx.trace_id, ctx.span_id)
+    t0 = time.time()
+    resp = transport.act_request(req, timeout_s=float(getattr(program, "act_timeout_s", 30.0)),
+                                 beat=getattr(program, "beat", None))
+    emit = getattr(program, "trace_emit", None)
+    if emit is not None:
+        emit(tracing.span_record("act_submit", "worker", ctx, t0, time.time(), worker=req["worker_id"],
+                                 seq=req["req_id"], version=int(resp.get("version", 0) or 0)))
+    if resp.get("error"):
+        raise RuntimeError(f"act service error: {resp['error']}")
+    return resp
+
+
 # ---------------------------------------------------------------------------
 # SAC — one vector step per packet (uniform fixed-width replay; concat merge)
 # ---------------------------------------------------------------------------
@@ -79,13 +138,17 @@ def sac_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
             self.learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
             self.core = build_act_core("sac", cfg, self.envs.single_observation_space, self.action_space)
             self.gens = slot_generators(worker_seed(cfg, worker_id), self.epw)
+            self.act_mode = _act_mode(cfg)
+            self.act_timeout_s = _act_timeout(cfg)
             self.params: Any = None
             obs, _ = self.envs.reset(seed=_slice_seed(cfg, worker_id, self.epw))
             self.obs_vec = flatten_obs(obs, self.mlp_keys, self.epw)
             self.lifetime = 0
 
         def set_params(self, params_np: Any, version: int) -> None:
-            self.params = self.core.extract_params(params_np)
+            # inference mode acts through the learner's service: the
+            # publication only opens the warm-up gate here
+            self.params = params_np if self.act_mode == "inference" else self.core.extract_params(params_np)
 
         def step(self, sink: Any) -> Tuple[int, None]:
             epw = self.epw
@@ -93,6 +156,10 @@ def sac_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
             # the same per-slice count when rounds are full-strength
             if self.params is None or self.lifetime * self.num_workers <= self.learning_starts:
                 actions = _random_actions(self.action_space, epw)
+            elif self.act_mode == "inference":
+                resp = _remote_act(self, {"n": epw, "obs": self.obs_vec,
+                                          "noise": _host_noise(self.core.draw_noise(self.gens))})
+                actions = np.asarray(resp["actions"]).reshape(epw, self.act_dim)
             else:
                 acts, _, _ = self.core.act(self.params, self.obs_vec, self.core.draw_noise(self.gens))
                 actions = acts.numpy().reshape(epw, self.act_dim)
@@ -114,6 +181,8 @@ def sac_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
 # merge: each worker's ops replay against its own global env columns)
 # ---------------------------------------------------------------------------
 def dreamer_v3_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
+    import torch
+
     from ..algos.dreamer_v3.dreamer_v3 import DV3Stepper, _actions_dim
     from ..envs import spaces
     from ..utils.env import vectorize
@@ -139,6 +208,36 @@ def dreamer_v3_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
         def step(self, obs, state, generator=None, modules=None, mask=None):
             return self.core.act(modules, obs, self.core.draw_noise(self.gens), state, mask)
 
+    class _RemotePlayer(_Player):
+        """The stepper's player under ``fleet.act_mode=inference``: the
+        latents live in the learner's act service, keyed by (worker, slot).
+        Its state here is the mask of slots whose latent starts anew on the
+        next request (all at first, then dones and restarts), cleared only
+        after a round trip succeeds: a failed act crashes this incarnation,
+        and its respawn starts from a full mask."""
+
+        def __init__(self, core: Any, gens: Any, program: Any) -> None:
+            super().__init__(core, gens)
+            self.program = program
+
+        def init(self, mask=None, state=None, modules=None):
+            if modules is None:
+                return None
+            if state is None or mask is None:
+                return np.ones((len(self.gens),), bool)
+            return state | np.asarray(mask, bool).reshape(-1)
+
+        def step(self, obs, state, generator=None, modules=None, mask=None):
+            n = len(self.gens)
+            req: Dict[str, Any] = {"n": n, "obs": obs, "noise": _host_noise(self.core.draw_noise(self.gens))}
+            if mask is not None:
+                req["mask"] = mask
+            if state.any():
+                req["reset"] = state.copy()
+            resp = _remote_act(self.program, req)
+            return (torch.from_numpy(np.asarray(resp["actions"])), torch.from_numpy(np.asarray(resp["actions_cat"])),
+                    np.zeros((n,), bool))
+
     class _DreamerProgram:
         sync_params = False
 
@@ -150,7 +249,11 @@ def dreamer_v3_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
             envs = vectorize(wcfg, seed, 0, restart_handled_by_loop=True)
             action_space = envs.single_action_space
             self.core = build_act_core("dreamer_v3", cfg, envs.single_observation_space, action_space)
-            self.player = _Player(self.core, slot_generators(worker_seed(cfg, worker_id), self.epw))
+            gens = slot_generators(worker_seed(cfg, worker_id), self.epw)
+            self.act_mode = _act_mode(cfg)
+            self.act_timeout_s = _act_timeout(cfg)
+            self.player = _RemotePlayer(self.core, gens, self) if self.act_mode == "inference" else _Player(
+                self.core, gens)
             learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
             # the serial loop's stepper on this slice (it resets the envs with
             # the slice's seed); its warm-up gate reads the global-step
@@ -162,7 +265,9 @@ def dreamer_v3_program(cfg: Any, worker_id: int, num_workers: int) -> Any:
             self.lifetime = 0
 
         def set_params(self, params_np: Any, version: int) -> None:
-            self.player.params = self.core.extract_params(params_np)
+            # inference mode acts through the learner's service: the
+            # publication only opens the warm-up gate here
+            self.player.params = params_np if self.act_mode == "inference" else self.core.extract_params(params_np)
 
         def step(self, sink: Any) -> Tuple[int, None]:
             p_step = self.stepper.p_step = self.lifetime * self.num_workers

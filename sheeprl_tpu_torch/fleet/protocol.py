@@ -12,6 +12,10 @@ One :class:`WorkerChannel` per worker:
   publications and the stop message. Publications are versioned and the
   worker always drains to the NEWEST one (skipping versions is the whole
   point of a parameter-server actor: stale-but-bounded params, no sync).
+* ``act_req`` / ``act_resp`` — the bounded queue pair of
+  ``fleet.act_mode=inference``: a worker ships one act request and blocks
+  on its response (``act_request``), served by the learner's
+  :class:`~sheeprl_tpu_torch.fleet.act_service.ActService`.
 * ``heartbeat`` — a shared ``mp.Value`` counter the worker bumps every
   loop, even while blocked on a full data queue. The supervisor feeds it
   into a per-worker :class:`~sheeprl_tpu_torch.resilience.supervisor.HeartbeatWatchdog`.
@@ -41,8 +45,9 @@ CRC check whether the frame crossed a queue or a network.
 from __future__ import annotations
 
 import pickle
+import time
 import zlib
-from typing import Any, List, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 __all__ = [
     "CTRL_CLOCK",
@@ -154,11 +159,52 @@ class WorkerChannel:
         # bounded — the relay is advisory, a full queue means the batch is
         # dropped worker-side (counted there), never backpressure
         self.telem = ctx.Queue(maxsize=64)
+        # batched-inference acting (fleet.act_mode=inference): the worker
+        # ships obs-batch requests on act_req and blocks on act_resp for its
+        # actions. Bounded at 2: a worker has at most one request in flight
+        # plus one idempotent re-send — anything deeper is a protocol bug,
+        # and backpressure here must surface, not buffer
+        self.act_req = ctx.Queue(maxsize=2)
+        self.act_resp = ctx.Queue(maxsize=4)
         self.heartbeat = ctx.Value("q", 0, lock=False)
         self.param_version = ctx.Value("q", 0, lock=False)
         self.stop = ctx.Event()
 
     # -- worker side -------------------------------------------------------
+    def act_request(self, req: Any, timeout_s: float = 30.0, beat: Optional[Any] = None) -> Any:
+        """Ship one act request and block for its response, pulsing ``beat``
+        every poll slice so the wait never reads as a worker hang. The
+        request is re-sent once a second while unanswered (the service
+        dedups by ``(worker_id, incarnation, req_id)`` — a re-send recovers
+        a response lost to a restarted learner-side pump, it never steps
+        latents twice). Raises ``TimeoutError`` past ``timeout_s``."""
+        import queue as _q
+
+        rid = int(req.get("req_id", 0))
+        deadline = time.monotonic() + float(timeout_s)
+        resend_at = 0.0
+        while True:
+            now = time.monotonic()
+            if now >= deadline:
+                raise TimeoutError(f"act request {rid} not answered within {timeout_s}s")
+            if self.stop.is_set():
+                raise ChannelStopped(f"act request {rid}: channel stopped")
+            if now >= resend_at:
+                resend_at = now + 1.0
+                try:
+                    self.act_req.put_nowait(req)
+                except _q.Full:
+                    pass  # previous send still queued: the service will get it
+            if beat is not None:
+                beat()
+            try:
+                resp = self.act_resp.get(timeout=min(0.1, max(0.0, deadline - now)))
+            except _q.Empty:
+                continue
+            if int(resp.get("req_id", -1)) == rid:
+                return resp
+            # a stale response (an abandoned earlier request): drop and wait
+
     def telem_put(self, batch: Any) -> bool:
         """Non-blocking relay of one telemetry batch; False == dropped."""
         try:
@@ -175,7 +221,7 @@ class WorkerChannel:
         behind its partial message, which ends the sweep (see
         :meth:`drain_data`), instead of a read that waits forever for the
         rest of a message no one will write."""
-        for q in (self.data, self.telem):
+        for q in (self.data, self.telem, self.act_req):
             try:
                 q._writer.close()
             except Exception:
@@ -216,7 +262,7 @@ class WorkerChannel:
         return out
 
     def close(self) -> None:
-        for q in (self.data, self.ctrl, self.telem):
+        for q in (self.data, self.ctrl, self.telem, self.act_req, self.act_resp):
             try:
                 q.close()
                 # do NOT join_thread(): a feeder mid-pickle on a dead queue

@@ -140,7 +140,13 @@ def fleet_worker_loop(
                 pass
 
     program.beat = _beat
+    # batched-inference acting (fleet.act_mode=inference): the program ships
+    # obs batches through the channel's act_request and tags requests with
+    # its identity so the learner-side service can key latents and dedup
+    # retries per (worker_id, incarnation)
     program.trace_emit = _trace_emit
+    program.act_transport = channel
+    program.act_identity = (worker_id, incarnation)
     while not channel.stop.is_set():
         # ---- control: drain to the newest publication --------------------
         latest: Optional[tuple] = None

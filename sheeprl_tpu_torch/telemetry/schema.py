@@ -4,7 +4,8 @@ The port's own copy of ``sheeprl_tpu/telemetry/schema.py`` for the event
 types the port emits (``startup``, ``log``, ``shutdown``, ``metrics``,
 ``trace``, ``rotate``, ``overlap``, ``ckpt_async``, ``preempt``,
 ``resume``, ``mem``, ``roofline``, and the actor fleet's ``fleet``,
-``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``). Field names and types are the
+``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``, and the
+serving stack's ``serve``, ``reload`` and ``session``). Field names and types are the
 reference's, letter for letter, so the JAX package's ``validate_jsonl``
 accepts a port run's ``telemetry.jsonl``. Every record is
 ``{"event": <type>, ...}``; required keys and types are checked per event
@@ -183,6 +184,43 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "worker": (False, _NUM),
         "replica": (False, _NUM),
         "index": (False, _NUM),
+        "detail": (False, _STR),
+    },
+    # policy-serving stat snapshot (serve/batcher.py): queue depth, batch
+    # occupancy, latency percentiles, retrace/reload counters
+    "serve": {
+        "requests": (True, _NUM),
+        "completed": (False, _NUM),
+        "rejected": (False, _NUM),
+        "errors": (False, _NUM),
+        "evictions": (False, _NUM),
+        "expired": (False, _NUM),
+        "batches": (False, _NUM),
+        "queue_depth": (False, _NUM),
+        "batch_occupancy": (False, _NUM),
+        "avg_batch_size": (False, _NUM),
+        "p50_ms": (False, _NUM),
+        "p95_ms": (False, _NUM),
+        "p99_ms": (False, _NUM),
+        "retraces": (False, _NUM),
+        "reloads": (False, _NUM),
+        "params_version": (False, _NUM),
+        "sessions": (False, _NUM),
+        # padded-row fraction of dispatched buckets (mean over batches)
+        "pad_waste": (False, _NUM),
+    },
+    # checkpoint hot-reload attempts (serve/reload.py)
+    "reload": {
+        "action": (True, _STR),  # swapped | failed
+        "path": (False, _STR),
+        "step": (False, _NUM),
+        "params_version": (False, _NUM),
+        "error": (False, _STR),
+    },
+    # per-session serving lifecycle (serve/batcher.py): an LRU eviction
+    "session": {
+        "action": (True, _STR),  # evicted
+        "session_id": (False, _STR),
         "detail": (False, _STR),
     },
     "preempt": {

@@ -202,15 +202,20 @@ def test_cli_dry_run_on_cpu(tmp_path):
 
 def test_cli_refuses_overlap_and_mixed_precision(tmp_path, monkeypatch):
     """The CLI refuses what the port does not run, before it writes
-    anything: the actor fleet's batched act service, video capture and a
-    precision the policy table does not hold. (The overlap engine, memmap
-    buffers, bf16-mixed and the fleet's worker mode, refused here before
-    they were ported, run now.)"""
+    anything: an unknown fleet act mode, video capture and a precision the
+    policy table does not hold. (The overlap engine, memmap buffers,
+    bf16-mixed, the fleet's worker mode and its batched act service,
+    refused here before they were ported, run now: the act service's runs
+    are in tests/test_torch_act_service.py.)"""
     from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.fleet.engine import FleetEngine
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="fleet.act_mode=inference.*ROADMAP Queue 1 item 4.2"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "algo.fleet.workers=2", "fleet.act_mode=inference"])
+    assert FleetEngine.configured(compose("config", TINY_DV3 + ["fabric.accelerator=cpu", "algo.fleet.workers=2",
+                                                                "fleet.act_mode=inference"]))
+    with pytest.raises(ValueError, match=r"fleet.act_mode must be worker \| inference"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "algo.fleet.workers=2", "fleet.act_mode=learner"])
     with pytest.raises(ValueError, match="Unknown precision '16-mixed'"):
         cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "fabric.precision=16-mixed"])
     assert not (tmp_path / "logs").exists()
@@ -222,7 +227,7 @@ def test_config_refuses_what_the_port_does_not_run():
     """A key the port's configs do not hold fails at composition (it would
     be silently ignored otherwise); conv_impl=einsum raises at build; 32-true
     turns TF32 off for cuBLAS and cuDNN."""
-    for key in ("model_manager.disabled=True", "fleet.act.max_wait_ms=5.0", "num_threads=4"):
+    for key in ("model_manager.disabled=True", "gateway.replicas=2", "num_threads=4"):
         with pytest.raises(KeyError, match="does not exist"):
             torch_cfg([key])
     with pytest.raises(NotImplementedError, match="conv_impl=einsum"):

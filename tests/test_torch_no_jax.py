@@ -5,7 +5,8 @@ port module is imported in a fresh interpreter, dry runs of the dummy env
 path (DreamerV3, PPO on pixels with the watchdog on, SAC, SAC-AE, DreamerV2
 on the episode buffer, DreamerV1 on a continuous action, P2E-DV3's
 exploration→finetuning chain and P2E-DV2's exploration, at cut widths, and
-a 2-worker SAC actor fleet) run there, and the loaded modules are checked,
+a 2-worker SAC actor fleet, whose checkpoint is then served in process
+through the serving stack) run there, and the loaded modules are checked,
 those of the fleet's spawned worker processes too (each worker's last
 stream record names the top-level packages it loaded); every import statement of the
 port's sources is scanned, and no config of the port names a class of the
@@ -75,6 +76,15 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "         'algo.per_rank_pretrain_steps=1', 'metric.log_level=0', *tiny])\n"
         "cli.run(['exp=sac', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
         "         'env.num_envs=2', 'algo.hidden_size=16', 'algo.fleet.workers=2', 'run_name=fleet'])\n"
+        "from sheeprl_tpu_torch.config import load_config_file\n"
+        "from sheeprl_tpu_torch.serve import serve_from_checkpoint\n"
+        "sckpt = sorted(glob.glob('logs/runs/sac/*/fleet/version_0/checkpoint/*.ckpt'))[-1]\n"
+        "scfg = load_config_file(sckpt.rsplit('/', 2)[0] + '/config.yaml')\n"
+        "scfg['serve'] = load_config_file('%s/sheeprl_tpu_torch/configs/serve/default.yaml')\n"
+        "scfg.set_path('serve.http.enabled', False)\n"
+        "server = serve_from_checkpoint(sckpt, scfg, block=False)\n"
+        "assert server.act({'state': [0.0] * 10}, deterministic=True).shape == (1, 2)\n"
+        "server.stop()\n"
         "workers = [[json.loads(l) for l in open(p)][-2:] for p in\n"
         "           sorted(glob.glob('logs/runs/sac/*/fleet/version_0/workers/*/telemetry.jsonl'))]\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules),\n"
@@ -82,6 +92,7 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    code = code.replace("%s", str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -105,7 +116,9 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "telemetry.schema", "telemetry.sinks", "telemetry.spans", "telemetry.memory", "telemetry.throughput",
                 "telemetry.device", "telemetry.facade", "telemetry.tracing", "telemetry.relay", "resilience.chaos",
                 "fleet.protocol", "fleet.net", "fleet.supervisor", "fleet.worker", "fleet.act_core",
-                "fleet.programs", "fleet.engine", "fleet.remote"):
+                "fleet.programs", "fleet.engine", "fleet.remote", "fleet.act_service", "fleet.anakin",
+                "serve.policy", "serve.builders", "serve.batcher", "serve.reload", "serve.server", "serve.evaluate",
+                "serve.session_codec", "diag.prometheus"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked
@@ -148,6 +161,7 @@ def test_port_and_chip_smoke_sources_import_no_jax():
     assert len(files) > 30
     assert PORT / "engine" / "overlap.py" in files and PORT / "resilience" / "guard.py" in files
     assert PORT / "telemetry" / "facade.py" in files and PORT / "telemetry" / "schema.py" in files
+    assert PORT / "serve" / "server.py" in files and PORT / "diag" / "prometheus.py" in files
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
 

@@ -318,11 +318,19 @@ def test_sac_decoupled_is_refused_on_one_device():
 
 
 def test_fleet_mode_is_refused():
-    """SAC runs the actor fleet (tests/test_torch_fleet.py); the Anakin
-    program waits and raises, and DroQ has no fleet program."""
-    with pytest.raises(NotImplementedError, match="Anakin program.*ROADMAP Queue 1 item 4.2"):
-        cli.run(RUN_ARGS + ["algo.total_steps=32", "run_name=fleet", "algo.fleet.workers=1",
-                            "fleet.program=sheeprl_tpu_torch.fleet.anakin:anakin_program"])
+    """SAC runs the actor fleet (tests/test_torch_fleet.py, and in inference
+    mode tests/test_torch_act_service.py); the Anakin program is accepted as
+    a fleet program and steps a chunk, and DroQ has no fleet program."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.engine import RecordingSink
+    from sheeprl_tpu_torch.fleet.anakin import anakin_program
+    from sheeprl_tpu_torch.fleet.engine import FleetEngine
+
+    cfg = compose("config", RUN_ARGS + ["algo.fleet.workers=1", "fleet.anakin.slots=4", "fleet.anakin.chunk=3",
+                                        "fleet.program=sheeprl_tpu_torch.fleet.anakin:anakin_program"])
+    assert FleetEngine.configured(cfg)
+    sink = RecordingSink()
+    assert anakin_program(cfg, 0, 1).step(sink) == (12, None) and len(sink.stats) == 1
     with pytest.raises(NotImplementedError, match="droq has no fleet program"):
         cli.run(["exp=droq", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "run_name=fleet",
                  "algo.fleet.workers=1"])
