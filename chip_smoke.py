@@ -42,7 +42,10 @@ that fails and then prints no result:
                decoupled steps on the kernels (losses finite, each kernel's
                launch count up by >= 3) plus one step under torch.profiler
                (device time by kernel; device busy share = that device
-               time over the median unprofiled step), the same three
+               time over the median unprofiled step; the profile's Chrome
+               trace read by the port's prof.capture must give each LN-GRU
+               kernel's launches as key_averages() does and its device ms,
+               and the step's total, within PROF_MS_TOL), the same three
                steps on the plain passes, and one step of the coupled
                default (profiled too); ms/step and peak device memory of
                each; then the coupled step under bf16-mixed: one step held
@@ -319,6 +322,24 @@ that fails and then prints no result:
                (log_dir, resumed state, Test - Reward); then the blocks of
                each kernel's last launch on the run and run_M legs, as its
                CUDA entry recorded the grid it launched;
+5b. diag     — run diagnostics and the model registry over phase 5's legs:
+               the diag leg (DreamerV3-S on the kernels through cli.run,
+               16 bursts after learning_starts, one torch.profiler window
+               over bursts, metric.telemetry.prometheus_port on a free port,
+               model_manager.disabled=False), whose GET /metrics (the log
+               and overlap events' families, counts above 0) and GET /live
+               (a snapshot with its window) are scraped mid-run and which
+               registers its five groups at its end; then, through the CLI,
+               prof on its run dir (a capture with a device lane on the
+               card, the five LN-GRU kernels launched under the training
+               scope, the idle fraction), doctor on it (no critical
+               finding) and on fleet_dv3_chaos's (worker_flap), trace on
+               fleet_dv3's (learner and worker stages, completeness > 0),
+               top once offline, and registration of the run leg's last
+               checkpoint (one new version of each MODELS_TO_REGISTER
+               group; the registered world model and actor, loaded into
+               fresh modules on the card, act bitwise as the checkpoint's
+               on the same observations and noise); the phase's seconds;
 6. time and kernels
              — the script's whole time in seconds (one JSON line), then
                one {"kernels": [...]} line: a row for each kernel at each
@@ -326,7 +347,8 @@ that fails and then prints no result:
                and XL), with launches and blocks from the run leg, the
                run_M leg or the p2e_dv3_finetuning leg (and, in
                launches_by_path, each leg's own count: at S the run leg's,
-               fleet_dv3's and fleet_dv3_inference's learners' apart), times
+               fleet_dv3's and fleet_dv3_inference's learners' and the diag
+               leg's apart), times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -336,8 +358,8 @@ that fails and then prints no result:
 Two narrower runs, for comparisons within one call (see USAGE): the
 recurrent kernels alone at chosen shapes (phases 1-2, then each checked and
 timed as in phase 3), and the telemetry's cost (phases 1-2, then phase 5's
-run and serial legs with the stream on, off, and on without its
-per-iteration trace ranges and span timers).
+run and serial legs with the stream on, off, on without its per-iteration
+trace ranges and span timers, and on without the live aggregator).
 
 Times and rates are of this run on this card; compare versions only within
 one run.
@@ -631,12 +653,73 @@ def make_batch(torch, G, n_act, dev, seed):
     }
 
 
-def profile_step(torch, train, moments, batch, gen, step_ms):
+PROF_MS_TOL = 0.01  # prof's per-kernel and total device ms against key_averages()', relative
+
+
+def prof_vs_key_averages(torch, ln_gru, prof, launched):
+    """The port's ``prof`` reading of a profile against ``key_averages()`` of
+    the same profile: the profile's Chrome trace is exported and summarized
+    by ``sheeprl_tpu_torch.prof.capture``; for each LN-GRU kernel (device
+    symbols mapped by ``ln_gru.kernel_of``) the launch counts must be equal
+    and the device ms within PROF_MS_TOL, and so must the total device ms of
+    the step. With ``launched`` the step ran every LN-GRU kernel, and both
+    readings must count each at least once (a symbol map that lost the
+    kernels would give two equal zeros); without it, neither may count one.
+    Fails on a gap."""
+    from torch.autograd import DeviceType
+
+    from sheeprl_tpu_torch.prof.capture import summarize_capture
+
+    ka = {k.__name__: [0, 0.0] for k in ln_gru.KERNELS}
+    ka_total_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        ka_total_us += dev_us
+        name = ln_gru.kernel_of(evt.key)
+        if name is not None:
+            ka[name][0] += evt.count
+            ka[name][1] += dev_us
+    out_dir = os.path.join(HERE, "logs", "prof_check")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace_profile_step.json")
+    try:
+        prof.export_chrome_trace(path)
+        summary = summarize_capture(path, top_k=1 << 30)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    pr = {k.__name__: [0, 0.0] for k in ln_gru.KERNELS}
+    for row in summary["ops"]:
+        name = ln_gru.kernel_of(row["op"])
+        if name is not None:
+            pr[name][0] += row["count"]
+            pr[name][1] += row["total_us"]
+    pr_total_us = sum(row["total_us"] for row in summary["ops"])
+    rows = {name: {"count": ka[name][0], "prof_count": pr[name][0], "ms": ka[name][1] / 1e3,
+                   "prof_ms": pr[name][1] / 1e3} for name in ka}
+    rows["total"] = {"ms": ka_total_us / 1e3, "prof_ms": pr_total_us / 1e3}
+    for name, r in rows.items():
+        if r.get("count") != r.get("prof_count") or abs(r["prof_ms"] - r["ms"]) > PROF_MS_TOL * r["ms"]:
+            raise AssertionError(f"prof and key_averages() disagree on {name}: {r}")
+        if name != "total" and (r["count"] >= 1) != launched:
+            raise AssertionError(f"{name}: {r['count']} launches in a step that "
+                                 f"{'runs' if launched else 'runs no'} LN-GRU kernel")
+    return {"tol": PROF_MS_TOL, "kernels": rows, "device_idle_frac": summary["device_idle_frac"],
+            "platform": summary["windows"][0]["platform"]}
+
+
+def profile_step(torch, train, moments, batch, gen, step_ms, ln_gru=None, launched=False):
     """One gradient step under torch.profiler: device time summed over the
     kernels that ran and the kernels that took the most of it. The busy
     share is that device time over ``step_ms``, the median time of the same
     step without the profiler (whose host overhead would make the step look
-    host-bound); the profiled step's own wall time is reported beside it."""
+    host-bound); the profiled step's own wall time is reported beside it.
+    With ``ln_gru``, ``prof`` reads the same profile and is held to
+    ``key_averages()`` (``prof_vs_key_averages``; ``launched``: the step
+    runs the LN-GRU kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -661,7 +744,10 @@ def profile_step(torch, train, moments, batch, gen, step_ms):
     device_ms = sum(r[0] for r in rows)
     if device_ms == 0:
         return {"device_ms": "not measured (the profiler recorded no device time)", "wall_ms": wall_ms}
+    extra = ({"prof_vs_key_averages": prof_vs_key_averages(torch, ln_gru, prof, launched)}
+             if ln_gru is not None else {})
     return {
+        **extra,
         "profiled_wall_ms": wall_ms,
         "unprofiled_step_ms": step_ms,
         "device_ms": device_ms,
@@ -723,7 +809,7 @@ def phase_train(torch, ln_gru, dev="cuda", overrides=()):
             raise AssertionError(f"{mode}: launched kernels {counts}")
         if mode in ("decoupled_kernel", "coupled") and dev.type == "cuda":
             profile = profile_step(torch, train, moments, {k: v[:1] for k, v in batches.items()}, gen,
-                                   statistics.median(times))
+                                   statistics.median(times), ln_gru=ln_gru, launched=mode == "decoupled_kernel")
         else:
             profile = None
         if mode == "decoupled_kernel":
@@ -1378,7 +1464,7 @@ def phase_run(torch, ln_gru, overrides=()):
     report.update(p2e)
     report.update(fleet_legs(torch, ln_gru, report))
     report.update(serving_legs(torch, ln_gru))
-    shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+    # the legs' run dirs stay for phase diag, which removes them
     # each width's launches, path by path: each leg's counts were zeroed just
     # before it and read just after (at S the run leg's, fleet_dv3's and
     # fleet_dv3_inference's apart)
@@ -2255,6 +2341,25 @@ def fleet_twins(torch, ln_gru):
     return report
 
 
+def fleet_dv3_args():
+    """The DreamerV3-S fleet legs' arguments: those they share with their
+    serial twin, and each fleet leg's own (before ``algo.fleet.workers=2``)."""
+    dv3 = run_common([f"algo.total_steps={FLEET_TOTAL}", f"algo.learning_starts={FLEET_LEARNING_STARTS}",
+                      "env.num_envs=4", "checkpoint.every=0", *FLEET_KNOBS])
+    return dv3, {
+        "fleet_dv3": [],
+        # the batched act service on the card (Sebulba): the workers ship obs and noise rows
+        "fleet_dv3_inference": ["fleet.act_mode=inference"],
+        "fleet_dv3_chaos": ["fleet.hang_s=1.0", "resilience.chaos.enabled=True",
+                            # lifetime steps: a worker takes FLEET_TOTAL / 2
+                            f"resilience.chaos.crash_at_step={FLEET_TOTAL // 4}",
+                            "resilience.chaos.crash_workers=[0]",
+                            f"resilience.chaos.hang_at_step={3 * FLEET_TOTAL // 8}",
+                            "resilience.chaos.hang_workers=[1]",
+                            "resilience.chaos.hang_s=60.0"],
+    }
+
+
 def fleet_legs(torch, ln_gru, done):
     """The actor fleet (phase 5), after the legs whose serial twins it is
     held to (``done``: sac_serial's and ppo_serial's ledgers)."""
@@ -2285,24 +2390,14 @@ def fleet_legs(torch, ln_gru, done):
         return parsed
 
     # DreamerV3-S on the kernels: serial twin, fleet, fleet under chaos
-    dv3 = run_common([f"algo.total_steps={FLEET_TOTAL}", f"algo.learning_starts={FLEET_LEARNING_STARTS}",
-                      "env.num_envs=4", "checkpoint.every=0", *FLEET_KNOBS])
+    dv3, dv3_legs = fleet_dv3_args()
     parsed, counts, seconds, peak = drive(torch, ln_gru, "run", dv3 + ["run_name=fleet_dv3_serial",
                                                                        "algo.overlap.enabled=False"])
     report["fleet_dv3_serial"] = leg_summary(parsed, counts, seconds, peak, FLEET_LEARNING_STARTS)
     serial = ledger(torch, checkpoints(parsed["log_dir"])[-1])
     serial_rows = column_rows(torch, checkpoints(parsed["log_dir"])[-1])
     twin = report["fleet_dv3_serial"]["policy_steps_per_s_after_learning_starts"]
-    for name, extra in (("fleet_dv3", []),
-                        # the batched act service on the card (Sebulba): the workers ship obs and noise rows
-                        ("fleet_dv3_inference", ["fleet.act_mode=inference"]),
-                        ("fleet_dv3_chaos", ["fleet.hang_s=1.0", "resilience.chaos.enabled=True",
-                                             # lifetime steps: a worker takes FLEET_TOTAL / 2
-                                             f"resilience.chaos.crash_at_step={FLEET_TOTAL // 4}",
-                                             "resilience.chaos.crash_workers=[0]",
-                                             f"resilience.chaos.hang_at_step={3 * FLEET_TOTAL // 8}",
-                                             "resilience.chaos.hang_workers=[1]",
-                                             "resilience.chaos.hang_s=60.0"])):
+    for name, extra in dv3_legs.items():
         parsed = leg(name, dv3 + ["algo.fleet.workers=2", *extra], FLEET_LEARNING_STARTS, twin, kernels=True)
         got = ledger(torch, checkpoints(parsed["log_dir"])[-1])
         if name in ("fleet_dv3", "fleet_dv3_inference"):
@@ -2817,29 +2912,323 @@ def serve_alone(torch, ln_gru):
     return report
 
 
-# the telemetry A/B's arms: the stream on, off, and on without its
-# per-iteration trace ranges and span timers
+# the diag leg: DreamerV3-S on the kernels with the live plane's endpoint up,
+# one torch.profiler window over bursts after learning_starts (two envs: a
+# window of 8 policy steps holds 4 iterations, each with one burst), and the
+# model manager on; 16 bursts in all
+DIAG_TOTAL, DIAG_TRACE_AT, DIAG_TRACE_WINDOW = LEARNING_STARTS + 32, LEARNING_STARTS + 8, 8
+# the scopes a training step's launches fall in: the facade's step range, and
+# the train-time span that encloses the burst on the learner's thread
+TRAIN_SCOPES = ("train", "Time/train_time")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def prom_values(text):
+    """A Prometheus text exposition as {family sample (labels dropped): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        out[name.split("{", 1)[0]] = float(value)
+    return out
+
+
+class LiveScraper:
+    """Polls a running leg's ``GET /metrics`` and ``GET /live`` on a thread
+    until one scrape shows the families the ``log`` and ``overlap`` events
+    feed with counts above 0 and a ``/live`` snapshot with its window; keeps
+    that scrape (the endpoint is up only while the run is)."""
+
+    FAMILIES = ("sheeprl_step", "sheeprl_step_time_seconds_hist_count", "sheeprl_overlap_queue_cap",
+                "sheeprl_overlap_player_stall_frac_hist_count")
+
+    def __init__(self, port, every_s=0.2):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.metrics, self.live, self.scrapes, self.error = None, None, 0, None
+        self._stop = threading.Event()
+        self._every = every_s
+        self._thread = threading.Thread(target=self._run, name="smoke-live-scraper", daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        while self.live is None and not self._stop.wait(self._every):
+            try:
+                with urllib.request.urlopen(self.base + "/metrics", timeout=5) as resp:
+                    values = prom_values(resp.read().decode())
+                with urllib.request.urlopen(self.base + "/live", timeout=5) as resp:
+                    live = json.loads(resp.read().decode())
+                self.scrapes += 1
+            except Exception as err:  # noqa: BLE001 - the endpoint is not up (yet, or any more)
+                self.error = repr(err)
+                continue
+            if all(values.get(f, 0) > 0 for f in self.FAMILIES) and live.get("window_s") and \
+                    live.get("events_in_window", 0) > 0:
+                self.metrics = {f: values[f] for f in self.FAMILIES}
+                self.live = {k: live.get(k) for k in ("window_s", "events_in_window", "streams", "sps",
+                                                      "binding_stage", "ingested")}
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def diag_cli(command, argv):
+    """One diagnostics command of the port's CLI in this process; returns
+    its JSON report (its stdout)."""
+    from sheeprl_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.COMMANDS[command](argv)
+    return json.loads(buf.getvalue()) if "json=true" in argv else buf.getvalue()
+
+
+def registry_versions(name_prefix):
+    """{group: [versions]} of the local model registry (``models_registry/``
+    in the working dir) for one ``<algo>_<env>_`` prefix."""
+    root = os.path.join(HERE, "models_registry")
+    out = {}
+    for d in sorted(os.listdir(root)) if os.path.isdir(root) else []:
+        if d.startswith(name_prefix):
+            out[d[len(name_prefix):]] = sorted(int(v[1:]) for v in os.listdir(os.path.join(root, d)))
+    return out
+
+
+def registered_actions(torch, ckpt, prefix, steps=8):
+    """The registered world model and actor, loaded into fresh modules on
+    the card, against the checkpoint's own on the same observations and
+    noise: their env actions and recurrent states must be bitwise equal."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _actions_dim, make_player
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+    from sheeprl_tpu_torch.config import load_config_file
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.utils.env import single_env
+    from sheeprl_tpu_torch.utils.model_manager import ModelManager
+
+    cfg = load_config_file(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "config.yaml"))
+    dev = torch.device("cuda")
+    env = single_env(cfg, int(cfg.seed))
+    is_continuous = isinstance(env.action_space, spaces.Box)
+    actions_dim = _actions_dim(env.action_space)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    manager = ModelManager(os.path.join(HERE, "models_registry"))
+    sources = {"checkpoint": (1234, saved["wm"], saved["actor"]),
+               "registry": (4321, manager.download_model(prefix + "world_model"),
+                            manager.download_model(prefix + "actor"))}
+    players = {}
+    for name, (seed, wm_sd, actor_sd) in sources.items():
+        torch.manual_seed(seed)  # other weights each: only the loaded state may make them agree
+        wm, actor, _, _ = build_agent(cfg, env.observation_space, actions_dim, is_continuous, dev)
+        wm.load_state_dict(wm_sd)
+        actor.load_state_dict(actor_sd)
+        players[name] = (wm, actor, *make_player(wm, actor, cfg, actions_dim, is_continuous, 1))
+    obs, _ = env.reset(seed=int(cfg.seed))
+    gens = {name: torch.Generator(device=dev).manual_seed(7) for name in players}
+    states = {name: p[2]() for name, p in players.items()}
+    cnn, mlp = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
+    actions = []
+    for _ in range(steps):
+        host = prepare_obs(obs, cnn, mlp, 1)
+        got = {}
+        for name, (_, _, _, step) in players.items():
+            got[name], _, states[name] = step(host, states[name], generator=gens[name])
+        if not torch.equal(got["checkpoint"], got["registry"]) or not all(
+                torch.equal(a, b) for a, b in zip(states["checkpoint"], states["registry"])):
+            raise AssertionError(f"the registered actor acts {got['registry'].tolist()}, the checkpoint's "
+                                 f"{got['checkpoint'].tolist()}")
+        actions.append(got["checkpoint"].reshape(-1).tolist())
+        act = got["checkpoint"].cpu().numpy()
+        shaped = isinstance(env.action_space, (spaces.Box, spaces.MultiDiscrete))
+        obs, _, term, trunc, _ = env.step(act.reshape(env.action_space.shape) if shaped else act.reshape(()).item())
+        if term or trunc:
+            obs, _ = env.reset()
+    env.close()
+    return actions
+
+
+def diag_inputs(torch, ln_gru):
+    """``--diag``: the legs phase 5 leaves for phase diag (the run leg's
+    checkpoints, fleet_dv3 and fleet_dv3_chaos), as phase 5 runs them."""
+    parsed, counts, _, _ = drive(torch, ln_gru, "run", run_common([f"algo.total_steps={TOTAL}", "run_name=run"]))
+    if min(counts.values()) < 1:
+        raise AssertionError(f"the run leg launched {counts}")
+    dv3, legs = fleet_dv3_args()
+    for name in ("fleet_dv3", "fleet_dv3_chaos"):
+        drive(torch, ln_gru, "run", dv3 + ["algo.fleet.workers=2", *legs[name], f"run_name={name}"])
+
+
+def phase_diag(torch, ln_gru):
+    """Phase diag, after phase 5 (whose legs' run dirs it reads): the diag
+    leg through ``cli.run`` with ``/metrics`` and ``/live`` scraped mid-run,
+    then ``prof``, ``doctor``, ``trace`` and ``top`` through the CLI on the
+    legs' run dirs, and ``registration`` of the run leg's last checkpoint."""
+    port = free_port()
+    args = run_common([f"algo.total_steps={DIAG_TOTAL}", "run_name=diag",
+                       f"metric.telemetry.trace_every={DIAG_TRACE_AT}",
+                       f"metric.telemetry.trace_window={DIAG_TRACE_WINDOW}",
+                       f"metric.telemetry.prometheus_port={port}", "model_manager.disabled=False",
+                       # overlap records every half second: the scrape sees them mid-run
+                       "algo.overlap.stats_every_s=0.5"])
+    report = {"args": args}
+    shutil.rmtree(os.path.join(HERE, "models_registry"), ignore_errors=True)
+    prefix = "dreamer_v3_discrete_dummy_"
+    with LiveScraper(port) as scraper, live_plane_timer() as spent:
+        parsed, counts, seconds, _ = drive(torch, ln_gru, "run", args)
+    if scraper.metrics is None:
+        raise AssertionError(f"no mid-run scrape of :{port} showed {LiveScraper.FAMILIES} and a /live window "
+                             f"({scraper.scrapes} scrapes, last error {scraper.error})")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"the diag leg launched {counts}")
+    end_of_run = registry_versions(prefix)
+    if sorted(end_of_run) != sorted(["world_model", "actor", "critic", "target_critic", "moments"]):
+        raise AssertionError(f"the diag leg registered {end_of_run} at its end")
+    report.update(leg_seconds=seconds, live_plane=live_plane_cost(spent, seconds), launches=counts,
+                  metrics=scraper.metrics, live=scraper.live,
+                  scrapes=scraper.scrapes, end_of_run_registered=end_of_run)
+
+    # prof over the leg's own capture: the five kernels on the card under a train scope
+    prof = diag_cli("prof", [f"run_dir={parsed['log_dir']}", "json=true", "top_k=100000"])
+    caps = prof["captures"]
+    windows = [w for c in caps for w in c["windows"]]
+    if not caps or not any(w["platform"] == "gpu" and w["device_lanes"] >= 1 for w in windows):
+        raise AssertionError(f"prof found captures {[c['capture_dir'] for c in caps]}, windows {windows}")
+    found = {}
+    for c in caps:
+        for row in c["ops"]:
+            name = ln_gru.kernel_of(row["op"])
+            if name is not None:
+                agg = found.setdefault(name, {"count": 0, "ms": 0.0, "scopes": set()})
+                agg["count"] += row["count"]
+                agg["ms"] += row["total_us"] / 1e3
+                agg["scopes"].add(row["scope"])
+    want = {k.__name__ for k in ln_gru.KERNELS}
+    if set(found) != want or any(f["count"] < 1 or not f["scopes"] <= set(TRAIN_SCOPES) for f in found.values()):
+        raise AssertionError(f"prof's LN-GRU rows {found}: want {sorted(want)} launched under {TRAIN_SCOPES}")
+    top = caps[0]["ops"][:5]
+    report["prof"] = {"captures": len(caps), "device_idle_frac": [c["device_idle_frac"] for c in caps],
+                      "windows": windows, "ln_gru": {k: {**v, "scopes": sorted(v["scopes"])} for k, v in found.items()},
+                      "top_ops": [{k: r[k] for k in ("op", "count", "total_us", "frac", "scope")} for r in top],
+                      "scopes": caps[0]["scopes"], "rooflines": len(prof["rooflines"])}
+    print(f"[diag] prof: device idle fraction {report['prof']['device_idle_frac']}", file=sys.stderr, flush=True)
+
+    # doctor on this run and on the chaos leg's; trace on fleet_dv3's; top offline
+    mine = diag_cli("doctor", [f"run_dir={parsed['log_dir']}", "json=true"])
+    critical = [f["code"] for f in mine["findings"] if f["severity"] == "critical"]
+    chaos = diag_cli("doctor", [f"run_dir={run_dir('fleet_dv3_chaos')}", "json=true"])
+    codes = [f["code"] for f in chaos["findings"]]
+    if critical or "worker_flap" not in codes:
+        raise AssertionError(f"doctor: the diag leg's critical findings {critical}; fleet_dv3_chaos's {codes}")
+    report["doctor"] = {"diag_findings": [(f["code"], f["severity"]) for f in mine["findings"]],
+                        "chaos_findings": [(f["code"], f["severity"]) for f in chaos["findings"]]}
+    tr = diag_cli("trace", [f"run_dir={run_dir('fleet_dv3')}", "json=true"])
+    roles = {k.split("/", 1)[0] for k in tr["stages"]}
+    if not {"learner", "worker"} <= roles or not (tr["completeness"].get("round") or 0) > 0:
+        raise AssertionError(f"trace on fleet_dv3: stages {sorted(tr['stages'])}, completeness {tr['completeness']}")
+    report["trace"] = {"completeness": tr["completeness"], "stages": {k: {m: v[m] for m in ("count", "p50_ms",
+                                                                                           "p95_ms") if m in v}
+                                                                       for k, v in tr["stages"].items()}}
+    live = diag_cli("top", [f"run_dir={parsed['log_dir']}", "once=true", "json=true"])
+    if live.get("source") == "live" or not live.get("ingested"):
+        raise AssertionError(f"top once=true after the run: source {live.get('source')}, "
+                             f"{live.get('ingested')} events aggregated")
+    report["top"] = {k: live.get(k) for k in ("source", "window_s", "events_in_window", "ingested", "sps")}
+
+    # registration of the run leg's last checkpoint: one version per group
+    ckpt = checkpoints(run_dir("run"))[-1]
+    diag_cli("registration", [f"checkpoint_path={ckpt}"])
+    after = registry_versions(prefix)
+    added = {g: [v for v in after.get(g, []) if v not in end_of_run.get(g, [])] for g in after}
+    if sorted(added) != sorted(["world_model", "actor", "critic", "target_critic", "moments"]) or any(
+            len(v) != 1 for v in added.values()):
+        raise AssertionError(f"registration of {ckpt} added versions {added}")
+    report["registration"] = {"checkpoint": os.path.basename(ckpt), "added": added,
+                              "actions_bitwise_equal": registered_actions(torch, ckpt, prefix)}
+    shutil.rmtree(os.path.join(HERE, "models_registry"), ignore_errors=True)
+    return report
+
+
+@contextlib.contextmanager
+def live_plane_timer():
+    """The host time the live plane takes inside the facade's ``_emit``
+    while the block runs: calls and seconds of ``LiveAggregator.ingest``
+    (every run, rank 0) and ``Registry.observe_event`` (with a Prometheus
+    port), each method wrapped by a perf_counter pair for the block."""
+    import threading
+
+    from sheeprl_tpu_torch.diag.aggregator import LiveAggregator
+    from sheeprl_tpu_torch.diag.prometheus import Registry
+
+    spent = {"ingest": [0, 0.0], "observe_event": [0, 0.0]}
+    lock = threading.Lock()
+    saved = []
+    for cls, name in ((LiveAggregator, "ingest"), (Registry, "observe_event")):
+        def timed(self, *a, _orig=getattr(cls, name), _cell=spent[name], **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, *a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    _cell[0] += 1
+                    _cell[1] += dt
+
+        saved.append((cls, name, cls.__dict__[name]))
+        setattr(cls, name, timed)
+    try:
+        yield spent
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
+def live_plane_cost(spent, seconds):
+    return {name: {"calls": n, "host_s": t, "share_of_leg": t / seconds} for name, (n, t) in spent.items()}
+
+
+# the telemetry A/B's arms: the stream on, off, on without its
+# per-iteration trace ranges and span timers, and on without the live
+# aggregator
 TELEMETRY_ARMS = {
     "on": [],
     "off": ["metric.telemetry.enabled=False"],
     "no_ranges": ["metric.telemetry.step_annotation=False", "metric.disable_timer=True"],
+    "no_live": ["diag.live.enabled=False"],
 }
 
 
 def telemetry_ab(torch, ln_gru):
     """What the telemetry costs a user's run: the run and serial legs of
     phase 5 in each arm of TELEMETRY_ARMS, twice in the order on, off,
-    no_ranges, no_ranges, off, on, after one uncounted warm-up leg (the
+    no_ranges, no_live, no_live, no_ranges, off, on, after one uncounted
+    warm-up leg (the
     process's first leg pays for cuDNN's and the allocator's first calls);
     each leg's seconds on the host clock for the same policy steps (a leg
     with the stream off leaves no stream to read; its loop takes the same
-    steps, its ledger is checked against the other arms')."""
+    steps, its ledger is checked against the other arms'), and in each leg
+    the host time of the live plane itself (``live_plane_timer``)."""
     from sheeprl_tpu_torch import cli
 
     out = {leg: {arm: [] for arm in TELEMETRY_ARMS} for leg in ("run", "serial")}
+    live = {leg: {arm: [] for arm in TELEMETRY_ARMS} for leg in ("run", "serial")}
     ledgers = {}
     warmup = None
-    for arm in ("warmup",) + ("on", "off", "no_ranges", "no_ranges", "off", "on") * 2:
+    for arm in ("warmup",) + ("on", "off", "no_ranges", "no_live", "no_live", "no_ranges", "off", "on") * 2:
         for leg, extra in (("run", []), ("serial", ["algo.overlap.enabled=False"])):
             if arm == "warmup" and leg == "serial":
                 continue
@@ -2849,7 +3238,7 @@ def telemetry_ab(torch, ln_gru):
             torch.cuda.synchronize()
             ln_gru.reset_launch_counts()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(tee):
+            with contextlib.redirect_stdout(tee), live_plane_timer() as spent:
                 cli.run(args)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -2865,12 +3254,16 @@ def telemetry_ab(torch, ln_gru):
             if streamed != (arm != "off"):
                 raise AssertionError(f"the {leg} leg ({arm}) left a stream: {streamed}")
             out[leg][arm].append(seconds)
+            live[leg][arm].append(live_plane_cost(spent, seconds))
+            if (spent["ingest"][0] > 0) != (arm in ("on", "no_ranges")):
+                raise AssertionError(f"the {leg} leg ({arm}): {spent['ingest'][0]} events into the live aggregator")
     for leg, seen in ledgers.items():
         if len(seen) != 1:
             raise AssertionError(f"the {leg} legs' ledgers differ between the arms: {seen}")
     shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
     return {"policy_steps": TOTAL, "learning_starts": LEARNING_STARTS, "warmup_s": warmup, "seconds": out,
-            "median_s": {leg: {arm: statistics.median(s) for arm, s in v.items()} for leg, v in out.items()}}
+            "median_s": {leg: {arm: statistics.median(s) for arm, s in v.items()} for leg, v in out.items()},
+            "live_plane": live}
 
 
 def recurrences(torch, ln_gru, labels):
@@ -2908,16 +3301,20 @@ USAGE = """usage: python3 chip_smoke.py                      every phase (what t
        python3 chip_smoke.py --fleet                phase 5's actor-fleet legs alone, with the serial twins
        python3 chip_smoke.py --serve                phase 5's serving legs, evals and Anakin leg alone, with the
                                                     training legs whose checkpoints they serve
+       python3 chip_smoke.py --diag                 phase diag alone, after the legs it reads (the run leg,
+                                                    fleet_dv3 and fleet_dv3_chaos)
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
-       python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, and on
-                                                    without its per-iteration ranges and timers"""
+       python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, on
+                                                    without its per-iteration ranges and timers, and on
+                                                    without the live aggregator"""
 
 
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve") or (
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve",
+                    "--diag") or (
             mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -3004,6 +3401,19 @@ def main(argv=None) -> int:
         except Exception as err:  # noqa: BLE001
             return fail("serve", err)
         return 0
+    if mode == "--diag":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            diag_inputs(torch, ln_gru)
+            inputs_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            diag = phase_diag(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("diag", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, inputs_seconds=inputs_s, **diag)
+        except Exception as err:  # noqa: BLE001
+            return fail("diag", err)
+        return 0
     if mode == "--telemetry-ab":
         try:
             os.chdir(HERE)
@@ -3053,6 +3463,15 @@ def main(argv=None) -> int:
              last_launch_blocks=blocks, legs=legs)
     except Exception as err:  # noqa: BLE001
         return fail("run", err)
+
+    try:
+        t0 = time.perf_counter()
+        diag = phase_diag(torch, ln_gru)
+        shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+        counts["S"]["diag"] = diag["launches"]  # a path of its own: zeroed before the leg, read after
+        emit("diag", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **diag)
+    except Exception as err:  # noqa: BLE001
+        return fail("diag", err)
 
     replaces = {  # the pallas_call each kernel's work comes from
         "ln_gru_xproj": "sheeprl_tpu/ops/pallas_gru.py:127",

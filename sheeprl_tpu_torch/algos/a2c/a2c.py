@@ -22,6 +22,7 @@ from ...telemetry.facade import Telemetry
 from ...utils.checkpoint import CheckpointManager, gen_state, set_gen_state
 from ...utils.env import single_env
 from ...utils.logger import get_logger
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..ppo.agent import PPOAgent, actions_and_log_probs
 from ..ppo.ppo import (Rollout, evaluate_agent, make_act_fn, make_value_fn, optimizer_step, resume_counters,
@@ -127,6 +128,7 @@ def main(cfg: Config) -> None:
         telem.close(policy_step)
     if cfg.algo.run_test:
         test(agent, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 

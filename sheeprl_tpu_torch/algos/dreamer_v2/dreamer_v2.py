@@ -44,6 +44,7 @@ from ...utils.checkpoint import CheckpointManager
 from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
+from ...utils.model_manager import register_model, registry_names
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import get_device, save_configs
 from ..dreamer_v3.dreamer_v3 import DV3Optimizers, LoopParts, _actions_dim, _apply_grads, build_optimizers
@@ -424,7 +425,7 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
             return s
 
         return LoopParts(named, lambda batches, gen: train(batches, generator=gen), lambda task_phase: actor,
-                         algo_state, actor, aggregator_keys)
+                         algo_state, actor, aggregator_keys, lambda: registry_names(named))
 
     run_serial(cfg, algo, setup, player_fn, is_first, buffer_fn,
                expl_stat=(lambda task_phase: "Params/exploration_amount") if log_expl else None)
@@ -594,6 +595,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
             copy.deepcopy(wm).float(), copy.deepcopy(parts.task_actor).float())
         t_init, t_step, _ = player_fn(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, single_env(cfg, seed), cfg, train_gen, logger=logger)
+    register_model(cfg, parts.registered(), log_dir)
     if logger is not None:
         logger.close()
 

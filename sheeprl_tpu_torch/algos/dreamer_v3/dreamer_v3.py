@@ -70,6 +70,7 @@ from ...utils.checkpoint import gen_state as _gen_state
 from ...utils.env import episode_stats, patch_restarted_envs, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio, get_device, save_configs
 from .agent import Actor, WorldModel, actor_dists, build_agent, compute_stochastic_state, sample_actor_actions
@@ -540,7 +541,9 @@ class LoopParts(NamedTuple):
     generator) -> metrics`` of [G] tensors), the actor the player acts with
     (``player_actor(task_phase)``: the task phase begins at
     ``learning_starts``), the phase's part of a checkpoint, the task actor
-    for the test episode, the metrics it logs, whether it acts at random
+    for the test episode, the metrics it logs, the groups the end of the run
+    registers (``registered()``: the model registry's name → module or
+    state, ``model_manager.disabled=False``), whether it acts at random
     before ``learning_starts``, and a buffer state to start from."""
 
     named: Dict[str, nn.Module]
@@ -549,6 +552,7 @@ class LoopParts(NamedTuple):
     algo_state: Callable[[], Dict[str, Any]]
     task_actor: nn.Module
     aggregator_keys: Any
+    registered: Callable[[], Dict[str, Any]]
     random_warmup: bool = True
     rb_state: Optional[Dict[str, Any]] = None
 
@@ -963,6 +967,8 @@ def main(cfg: Config) -> None:
             copy.deepcopy(wm).float(), copy.deepcopy(actor).float())
         t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, test_env, cfg, generator, logger=logger)
+    register_model(cfg, {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target_critic,
+                         "moments": {"low": moments.low, "high": moments.high}}, log_dir)
     if logger is not None:
         logger.close()
 

@@ -27,6 +27,7 @@ AGGREGATOR_KEYS = (
     "State/post_entropy",
     "State/prior_entropy",
 )
+MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic", "moments"}
 
 
 class MomentsState(NamedTuple):

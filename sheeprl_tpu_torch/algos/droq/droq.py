@@ -25,6 +25,7 @@ from ...config import Config
 from ...parallel.placement import make_param_mirror
 from ...utils.env import single_env
 from ...utils.logger import get_logger
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..sac.agent import SACAgent, sample_actions
 from ..sac.loss import critic_loss, entropy_loss, policy_loss
@@ -142,6 +143,7 @@ def main(cfg: Config) -> None:
              lambda: mirror.refresh({"actor": agent.actor}), lambda g: None, algo_state, overlap=False)
     if cfg.algo.run_test:
         test(agent.actor, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
     if logger is not None:
         logger.close()
 

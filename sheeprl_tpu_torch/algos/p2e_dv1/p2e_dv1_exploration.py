@@ -45,6 +45,10 @@ from ..p2e_dv3.p2e_dv3_exploration import P2EOptimizers
 from .agent import build_agent
 
 
+MODELS_TO_REGISTER = {"world_model", "ensembles", "actor_task", "critic_task", "actor_exploration",
+                      "critic_exploration"}
+
+
 def draw_train_noise(cfg: Config, T: int, B: int, actor, generator, device) -> Dict[str, Any]:
     """``post`` [T, B, S] (standard normals), then the exploration and task
     rollouts' draws (``dreamer_v1.draw_rollout_noise``)."""

@@ -19,6 +19,8 @@ INHERITED = ("gamma", "lmbda", "horizon", "dense_units", "mlp_layers", "dense_ac
              "actor", "critic", "cnn_keys", "mlp_keys")
 AGGREGATOR_KEYS = DV1_AGGREGATOR_KEYS | {"Params/exploration_amount_task", "Params/exploration_amount_exploration"}
 
+MODELS_TO_REGISTER = {"world_model", "actor", "critic"}
+
 
 @register_algorithm(name="p2e_dv1_finetuning", requires_exploration_cfg=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:

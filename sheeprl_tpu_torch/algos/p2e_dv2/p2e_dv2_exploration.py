@@ -29,6 +29,7 @@ from torch import nn
 from ...config import Config
 from ...distributions import Independent, Normal, gumbel_noise
 from ...models import apply_ensembles
+from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm, register_evaluation
 from ..dreamer_v2.dreamer_v2 import (
     build_buffer,
@@ -51,6 +52,10 @@ METRIC_KEYS = WM_KEYS + ("Loss/ensemble_loss", "Loss/policy_loss_exploration", "
                          "Values_exploration/predicted_values", "Values_exploration/lambda_values")
 AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Params/exploration_amount_task",
                    "Params/exploration_amount_exploration", *METRIC_KEYS}
+
+
+MODELS_TO_REGISTER = {"world_model", "ensembles", "actor_task", "critic_task", "target_critic_task",
+                      "actor_exploration", "critic_exploration", "target_critic_exploration"}
 
 
 def build_optimizers(cfg: Config, mods: Dict[str, nn.Module]) -> P2EOptimizers:
@@ -176,7 +181,7 @@ def exploration_setup(build: Callable, train_fn: Callable, optimizers_fn: Callab
                          lambda task_phase: mods[f"actor_{actor_type}"],
                          lambda: {**{k: m.state_dict() for k, m in mods.items()},
                                   "opt_states": optimizers.state_dict()},
-                         mods["actor_task"], aggregator_keys)
+                         mods["actor_task"], aggregator_keys, lambda: registry_names(mods))
 
     return setup
 

@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Sequence
 
 from ...config import Config
 from ...utils.checkpoint import CheckpointManager, param_sums
+from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm
 from ..dreamer_v2.agent import build_agent as dv2_build_agent
 from ..dreamer_v2.dreamer_v2 import build_buffer, make_player, make_train_fn, run_serial
@@ -30,6 +31,7 @@ from ..p2e_dv3.p2e_dv3_finetuning import inherit_exploration_algo
 INHERITED = ("gamma", "lmbda", "horizon", "layer_norm", "dense_units", "mlp_layers", "dense_act", "cnn_act",
              "world_model", "actor", "critic", "cnn_keys", "mlp_keys")
 AGGREGATOR_KEYS = DV2_AGGREGATOR_KEYS | {"Params/exploration_amount_task", "Params/exploration_amount_exploration"}
+MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic"}
 # the exploration checkpoint's modules a finetuning run starts from
 FROM_EXPLORATION = {"wm": "wm", "actor": "actor_task", "critic": "critic_task",
                     "target_critic": "target_critic_task", "actor_exploration": "actor_exploration"}
@@ -79,7 +81,9 @@ def finetune(cfg: Config, exploration_cfg: Config, algo: str, build: Callable, t
         actor_type = str(cfg.algo.player.actor_type)
         return LoopParts(named, lambda batches, gen: train(batches, generator=gen),
                          lambda task_phase: actor if task_phase or actor_type == "task" else actor_exploration,
-                         algo_state, actor, aggregator_keys, random_warmup=False, rb_state=rb_state)
+                         algo_state, actor, aggregator_keys,
+                         lambda: registry_names({k: m for k, m in named.items() if k != "actor_exploration"}),
+                         random_warmup=False, rb_state=rb_state)
 
     actor_type = str(cfg.algo.player.actor_type)
     run_serial(cfg, algo, setup, player_fn, is_first, buffer_fn,

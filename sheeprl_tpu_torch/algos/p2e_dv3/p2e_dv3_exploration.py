@@ -53,6 +53,7 @@ from ...utils.checkpoint import CheckpointManager
 from ...utils.env import single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
+from ...utils.model_manager import register_model, registry_names
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import get_device, save_configs
 from ..dreamer_v3.agent import build_agent as dv3_build_agent
@@ -85,6 +86,10 @@ WM_KEYS = (
 )
 METRIC_KEYS = WM_KEYS + ("Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/policy_loss_task",
                          "Loss/value_loss_task")
+
+
+MODELS_TO_REGISTER = {"world_model", "ensembles", "actor_task", "critic_task", "target_critic_task",
+                      "actor_exploration", "critics_exploration", "moments_task", "moments_exploration"}
 
 
 def metric_keys(cfg: Config) -> tuple:
@@ -331,6 +336,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
             copy.deepcopy(wm).float(), copy.deepcopy(parts.task_actor).float())
         t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, single_env(cfg, seed), cfg, train_gen, logger=logger)
+    register_model(cfg, parts.registered(), log_dir)
     if logger is not None:
         logger.close()
 
@@ -360,7 +366,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
     if actor_type not in ("exploration", "task"):
         raise ValueError(f"algo.player.actor_type must be exploration | task, got {actor_type!r}")
     return LoopParts(mods, train, lambda task_phase: mods[f"actor_{actor_type}"], algo_state, mods["actor_task"],
-                     aggregator_keys(cfg))
+                     aggregator_keys(cfg), lambda: registry_names(mods))
 
 
 @register_algorithm(name="p2e_dv3_exploration")

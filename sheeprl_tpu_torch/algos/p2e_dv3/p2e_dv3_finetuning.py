@@ -25,6 +25,7 @@ from typing import Any, Dict
 
 from ...config import Config
 from ...utils.checkpoint import CheckpointManager, param_sums
+from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm
 from ..dreamer_v3.agent import build_agent as dv3_build_agent
 from ..dreamer_v3.dreamer_v3 import build_optimizers, make_train_fn
@@ -34,6 +35,9 @@ from .p2e_dv3_exploration import LoopParts, run_serial
 # the exploration run's algo settings a finetuning run takes
 INHERITED = ("gamma", "lmbda", "horizon", "layer_norm", "dense_units", "mlp_layers", "dense_act", "cnn_act",
              "unimix", "hafner_initialization", "world_model", "actor", "critic", "cnn_keys", "mlp_keys")
+
+
+MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic", "moments"}
 
 
 def inherit_exploration_algo(cfg: Config, exploration_cfg: Config, keys=INHERITED) -> None:
@@ -86,10 +90,15 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                                "step": optimizers.step},
                 "moments": {"low": m.low, "high": m.high}}
 
+    def registered() -> Dict[str, Any]:
+        m = current["moments"]
+        return {**registry_names({k: v for k, v in named.items() if k != "actor_exploration"}),
+                "moments": {"low": m.low, "high": m.high}}
+
     actor_type = str(cfg.algo.player.actor_type)
     return LoopParts(named, train,
                      lambda task_phase: actor if task_phase or actor_type == "task" else actor_exploration,
-                     algo_state, actor, AGGREGATOR_KEYS, random_warmup=False, rb_state=rb_state)
+                     algo_state, actor, AGGREGATOR_KEYS, registered, random_warmup=False, rb_state=rb_state)
 
 
 @register_algorithm(name="p2e_dv3_finetuning", requires_exploration_cfg=True)

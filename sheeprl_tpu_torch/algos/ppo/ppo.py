@@ -53,6 +53,7 @@ from ...utils.checkpoint import CheckpointManager, gen_state, param_sums, set_ge
 from ...utils.env import episode_stats, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_log_dir, get_logger
 from ...utils.metric import MetricAggregator
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import get_device, linear_annealing, save_configs
 from .agent import PPOAgent, actions_and_log_probs, build_agent
@@ -523,6 +524,7 @@ def main(cfg: Config) -> None:
         telem.close(policy_step)
     if cfg.algo.run_test:
         test(agent, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 

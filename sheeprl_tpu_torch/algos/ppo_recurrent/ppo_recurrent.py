@@ -31,6 +31,7 @@ from ...telemetry.facade import Telemetry
 from ...utils.checkpoint import CheckpointManager, gen_state, set_gen_state
 from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..ppo.loss import entropy_loss, policy_loss, value_loss
 from ..ppo.ppo import (LOSS_KEYS, bootstrap_truncated, draw_perms, evaluate_agent, make_coefs, optimizer_step,
@@ -293,6 +294,7 @@ def main(cfg: Config) -> None:
         telem.close(policy_step)
     if cfg.algo.run_test:
         test(agent, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 

@@ -55,6 +55,7 @@ from ...utils.checkpoint import CheckpointManager, gen_state, param_sums, set_ge
 from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio, get_device
 from .agent import SACAgent, build_agent, sample_actions
@@ -546,6 +547,7 @@ def main(cfg: Config) -> None:
              fleet=PROGRAMS["sac"] if fleet else None)
     if cfg.algo.run_test:
         test(agent.actor, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
     if logger is not None:
         logger.close()
 

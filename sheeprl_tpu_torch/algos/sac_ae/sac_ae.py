@@ -38,6 +38,7 @@ from ...data.device_ring import estimate_row_bytes, make_uniform_prefetcher
 from ...parallel.placement import make_param_mirror
 from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
+from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..sac.agent import sample_actions
 from ..sac.loss import critic_loss, entropy_loss, policy_loss
@@ -241,6 +242,7 @@ def main(cfg: Config) -> None:
              prefetch.stage, algo_state, overlap=False)
     if cfg.algo.run_test:
         test(agent, single_env(cfg, seed), cfg, device, logger)
+    register_model(cfg, {"encoder": agent.encoder, "decoder": agent.decoder, "actor": agent.actor}, log_dir)
     if logger is not None:
         logger.close()
 

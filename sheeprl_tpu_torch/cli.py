@@ -1,8 +1,10 @@
 """Command-line entry point of the PyTorch port:
 ``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...``,
 ``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]``,
-``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]`` and
-``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> [serve.http.port=... ...]``.
+``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]``,
+``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> [serve.http.port=... ...]``, the run
+diagnostics ``doctor``, ``trace``, ``top`` and ``prof`` (``run_dir=...``), ``registration
+checkpoint_path=<ckpt>`` and ``agents``.
 
 ``run`` composes the config from ``sheeprl_tpu_torch/configs``, merges the
 saved config of ``checkpoint.resume_from`` when one is given, checks it
@@ -14,7 +16,10 @@ checkpoint and calls the algorithm's registered evaluation on one env.
 ``resume`` relaunches a run from its newest checkpoint behind the manifest's
 fingerprint check (``resilience/resume.py``). ``serve`` serves the
 checkpoint behind the micro-batching policy server (``serve/server.py``)
-on the run's player device.
+on the run's player device. ``doctor``, ``trace``, ``top`` and ``prof``
+read what a run leaves behind (``diag/``, ``prof/``); ``registration``
+splits a checkpoint into its algorithm's ``MODELS_TO_REGISTER`` groups in
+the local model registry (``utils/model_manager.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import functools
 import importlib
 import pathlib
 import sys
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from .config import CONFIG_ROOT, Config, compose, load_config_file
 from .utils.registry import algorithm_registry, get_algorithm, get_evaluation
@@ -247,7 +252,95 @@ def serve(args: Optional[Sequence[str]] = None) -> None:
     serve_from_checkpoint(ckpt_path, cfg)
 
 
-COMMANDS = {"run": run, "eval": evaluation, "resume": resume, "serve": serve}
+def _diag_command(module: str) -> Callable[[Optional[Sequence[str]]], None]:
+    """A diagnostics command: the module's ``main(argv)``, a non-zero return
+    being the process's exit code."""
+
+    def command(args: Optional[Sequence[str]] = None) -> None:
+        rc = importlib.import_module(module).main(list(args if args is not None else sys.argv[1:]))
+        if rc:
+            raise SystemExit(rc)
+
+    return command
+
+
+# ``doctor run_dir=... [json=true] [strict=true]``: triage a slow or dead run
+# from its telemetry stream, resume manifest and checkpoints (diag/doctor.py)
+doctor = _diag_command("sheeprl_tpu_torch.diag.doctor")
+# ``trace run_dir=... [trace_id=...] [top_k=10] [json=true]``: the run's
+# per-process streams merged into cross-process critical paths (diag/trace.py)
+trace = _diag_command("sheeprl_tpu_torch.diag.trace")
+# ``top run_dir=... [refresh_s=2] [once=true] [json=true]``: watch a run
+# live through its GET /live, or offline from its streams (diag/live.py)
+top = _diag_command("sheeprl_tpu_torch.diag.live")
+# ``prof run_dir=... [capture=<dir>] [top_k=15] [json=true]``: where the
+# card's time went in the run's torch.profiler captures (prof/cli.py)
+prof = _diag_command("sheeprl_tpu_torch.prof.cli")
+
+
+def registration(args: Optional[Sequence[str]] = None) -> None:
+    """``registration checkpoint_path=... [backend=local]``: register a
+    trained checkpoint, split per the algorithm's ``MODELS_TO_REGISTER``,
+    in the local file registry (``utils/model_manager.py``).
+    ``backend=mlflow`` needs the ``mlflow`` package, which the port does not
+    ship a registry for: it is refused."""
+    argv = list(args if args is not None else sys.argv[1:])
+    _register()
+    from .utils.model_manager import register_models_from_checkpoint
+
+    ckpt: Optional[str] = None
+    backend = "local"
+    rest: List[str] = []
+    for a in argv:
+        if a.startswith("checkpoint_path="):
+            ckpt = a.split("=", 1)[1]
+        elif a.startswith("backend="):
+            backend = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    if ckpt is None:
+        raise ValueError("registration requires `checkpoint_path=<path to .ckpt>`")
+    if backend == "mlflow":
+        raise ValueError("registration backend=mlflow needs the mlflow package and a remote registry, which the "
+                         "PyTorch port does not have: use backend=local")
+    if backend != "local":
+        raise ValueError(f"Unknown registration backend '{backend}' (local | mlflow)")
+    register_models_from_checkpoint(pathlib.Path(ckpt), rest)
+
+
+def available_agents(args: Optional[Sequence[str]] = None) -> None:
+    """``agents``: the registered algorithms, their entry points and whether
+    they are decoupled."""
+    _register()
+    try:
+        from rich.console import Console
+        from rich.table import Table
+
+        table = Table(title="SheepRL-TPU agents (PyTorch port)")
+        table.add_column("Algorithm")
+        table.add_column("Entrypoint")
+        table.add_column("Decoupled")
+        for name, info in sorted(algorithm_registry.items()):
+            table.add_row(name, f"{info['module']}.{info['entrypoint']}", str(info["decoupled"]))
+        Console().print(table)
+    except ImportError:
+        for name, info in sorted(algorithm_registry.items()):
+            print(f"{name}: {info['module']}.{info['entrypoint']} decoupled={info['decoupled']}")
+
+
+def _not_ported(name: str, waits_for: str) -> Callable[[Optional[Sequence[str]]], None]:
+    def command(args: Optional[Sequence[str]] = None) -> None:
+        raise SystemExit(f"`{name}` is not in the PyTorch port yet: it waits for {waits_for}")
+
+    return command
+
+
+COMMANDS = {"run": run, "eval": evaluation, "resume": resume, "serve": serve, "doctor": doctor, "trace": trace,
+            "top": top, "prof": prof, "registration": registration, "agents": available_agents,
+            "lint": _not_ported("lint", "the port of sheeprl_tpu/analysis/"),
+            "gateway": _not_ported("gateway", "the port of sheeprl_tpu/gateway/"),
+            "brokerd": _not_ported("brokerd", "the port of sheeprl_tpu/gateway/ (the session broker)"),
+            "flywheel": _not_ported("flywheel", "the port of sheeprl_tpu/flywheel/")}
 
 
 def main() -> None:

@@ -59,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -808,6 +809,27 @@ KERNELS = (ln_gru_xproj, ln_gru_fwd, ln_gru_bwd, ln_gru_dx, ln_gru_wgrad)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+# the device symbols of csrc/ln_gru.cu's kernels, as a profiler names them
+# (demangled, or mangled): the recurrences by name, the three GEMMs by the
+# Gemm template argument of their one kernel template (kXproj, kDx, kWgrad)
+_GEMM_INDEX = re.compile(r"Gemm(?:\)|E)(\d)")
+_GEMMS = ("ln_gru_xproj", "ln_gru_dx", "ln_gru_wgrad")
+
+
+def kernel_of(symbol: str) -> Optional[str]:
+    """The wrapper (``ln_gru_xproj`` ... ``ln_gru_wgrad``) whose kernel a
+    device symbol is, or None for a symbol of no LN-GRU kernel."""
+    if "ln_gru_fwd" in symbol:
+        return "ln_gru_fwd"
+    if "ln_gru_bwd" in symbol:
+        return "ln_gru_bwd"
+    if "tf32x3_gemm_kernel" in symbol:
+        m = _GEMM_INDEX.search(symbol)
+        if m is not None and int(m.group(1)) < len(_GEMMS):
+            return _GEMMS[int(m.group(1))]
+    return None
 
 
 # --------------------------------------------------------------------------

@@ -19,15 +19,20 @@ Loops use these calls::
 ``telem.aggregator`` is the loop's ``MetricAggregator``. The windowed
 capture (``metric.telemetry.trace_every`` / ``trace_window`` /
 ``trace_dir``) runs ``torch.profiler`` and writes Chrome-trace JSON
-(``trace_step<N>.json``) into ``trace_dir``. Not ported: the live
-aggregator and Prometheus export (``diag/``), so
-``metric.telemetry.prometheus_port > 0`` raises; the memory sampler runs
-with the reference's default cadence (5 s) rather than ``diag.mem.*``.
+(``trace_step<N>.json``) into ``trace_dir``; ``prof run_dir=...`` reads
+them. On rank 0 the live plane runs beside the stream: the
+``LiveAggregator`` (``diag/aggregator.py``, ``diag.live.enabled``) sees
+every event and relayed fleet batch (``ingest_relayed``) and emits its SLO
+``alert`` events on the stream, and with ``metric.telemetry.prometheus_port
+> 0`` a ``Registry`` mirrors the events behind ``GET /metrics`` and ``GET
+/live`` (``diag/prometheus.py``), announced in ``<log_dir>/live.json``.
 """
 from __future__ import annotations
 
+import json
 import os
 import platform
+import sys
 import time
 from typing import Any, Dict, Optional
 
@@ -41,7 +46,7 @@ from .sinks import DEFAULT_JSONL_MAX_BYTES, ConsoleHeartbeat, JsonlSink
 from .spans import GLOBAL_TRACKER, PROFILER_LOCK, Span, SpanTracker, TraceRange
 from .throughput import ThroughputTracker, peak_record, roofline_record
 
-MEM_INTERVAL_S = 5.0  # the memory sampler's cadence (the reference's diag.mem.interval_s default)
+MEM_INTERVAL_S = 5.0  # the memory sampler's cadence without a diag config (diag.mem.interval_s)
 
 
 def device_info(device: Optional[torch.device] = None) -> Dict[str, Any]:
@@ -61,9 +66,6 @@ class Telemetry:
                  aggregator_keys: Any = None, tracker: Optional[SpanTracker] = None,
                  device: Optional[torch.device] = None) -> None:
         sel = (lambda p, d=None: cfg.select(p, d)) if cfg is not None else (lambda p, d=None: d)
-        if int(sel("metric.telemetry.prometheus_port", 0) or 0) > 0:
-            raise NotImplementedError("metric.telemetry.prometheus_port > 0: the Prometheus export (diag/) is not "
-                                      "ported yet")
         self.rank = int(rank)
         self.log_dir = log_dir
         self.logger = logger
@@ -86,16 +88,27 @@ class Telemetry:
         self.jsonl: Optional[JsonlSink] = None
         if self.enabled and self.rank == 0 and log_dir and bool(sel("metric.telemetry.jsonl", True)):
             max_bytes = sel("metric.telemetry.jsonl_max_bytes")
+            # the rotation marker is written inside the sink, so the registry gets it by callback
             self.jsonl = JsonlSink(os.path.join(log_dir, "telemetry.jsonl"),
-                                   max_bytes=DEFAULT_JSONL_MAX_BYTES if max_bytes is None else int(max_bytes))
+                                   max_bytes=DEFAULT_JSONL_MAX_BYTES if max_bytes is None else int(max_bytes),
+                                   on_rotate=lambda marker: self.prom.observe_event(marker)
+                                   if self.prom is not None else None)
+        self.live: Any = None
+        self.prom: Any = None
+        self._prom_server: Any = None
+        self._live_path: Optional[str] = None
+        self._diag_cfg: Any = None
+        if self.enabled and self.rank == 0:
+            self._setup_live_plane(cfg, sel, log_dir)
         # the startup line is independent of log_level: a run on the host is never silent about it
         self.heartbeat = ConsoleHeartbeat(rank=self.rank, enabled=bool(sel("metric.telemetry.heartbeat", True)))
         self._dev0 = device_counters.counters()
         self._mem_sampler: Optional[MemorySampler] = None
         self._last_step = 0
-        if self.enabled and self.rank == 0:
-            self._mem_sampler = MemorySampler(self._emit, role="learner", interval_s=MEM_INTERVAL_S,
-                                              step_fn=lambda: self._last_step).start()
+        if self.enabled and self.rank == 0 and bool(self._dsel("diag.mem.enabled", True)):
+            self._mem_sampler = MemorySampler(
+                self._emit, role="learner", interval_s=float(self._dsel("diag.mem.interval_s", MEM_INTERVAL_S)),
+                step_fn=lambda: self._last_step).start()
         self._rooflines: Dict[str, Dict[str, Any]] = {}
         self._peaks: Optional[Dict[str, Any]] = None
         self._precision = "32-true"
@@ -119,10 +132,88 @@ class Telemetry:
               aggregator_keys: Any = None, device: Optional[torch.device] = None) -> "Telemetry":
         return cls(cfg, log_dir, rank, logger=logger, aggregator_keys=aggregator_keys, device=device)
 
+    # -- the live plane ------------------------------------------------------
+    def _dsel(self, path: str, default: Any = None) -> Any:
+        c = self._diag_cfg
+        val = c.select(path, default) if c is not None and hasattr(c, "select") else default
+        return default if val is None else val
+
+    def _setup_live_plane(self, cfg: Any, sel: Any, log_dir: Optional[str]) -> None:
+        """The diag config (the run's ``diag`` group, else the packaged
+        ``configs/diag/default.yaml``), the ``LiveAggregator`` and, with a
+        ``prometheus_port``, the ``/metrics`` + ``/live`` endpoint. A bind
+        failure prints and the run carries on without the endpoint."""
+        from ..diag.doctor import _load_diag_cfg
+
+        self._diag_cfg = _load_diag_cfg(cfg)
+        if bool(self._dsel("diag.live.enabled", True)):
+            try:
+                from ..diag.aggregator import LiveAggregator
+
+                self.live = LiveAggregator(self._diag_cfg, emit=None, registry=None)
+            except Exception as err:
+                print(f"[telemetry] live aggregator disabled: {err}", file=sys.stderr)
+                self.live = None
+        port = int(sel("metric.telemetry.prometheus_port", 0) or 0)
+        if port > 0:
+            try:
+                from ..diag.prometheus import Registry, start_http_server
+
+                self.prom = Registry()
+                buckets = self._dsel("diag.prometheus.buckets")
+                if buckets:
+                    bd = buckets.to_dict() if hasattr(buckets, "to_dict") else buckets
+                    if isinstance(bd, dict):
+                        self.prom.set_bucket_overrides(bd)
+                host = str(sel("metric.telemetry.prometheus_host", "127.0.0.1") or "127.0.0.1")
+                self._prom_server = start_http_server(self.prom, port, host=host, aggregator=self.live)
+                if log_dir:
+                    self._live_path = os.path.join(log_dir, "live.json")
+                    self._write_live_discovery(host, port)
+            except Exception as err:
+                print(f"[telemetry] prometheus export disabled: {err}", file=sys.stderr)
+                self.prom = None
+                self._prom_server = None
+        if self.live is not None:
+            # wired after the registry exists: alerts land on the main stream
+            # and relayed events federate into /metrics
+            self.live.emit = self._emit
+            self.live.registry = self.prom
+
+    def _write_live_discovery(self, host: str, port: int) -> None:
+        """``<log_dir>/live.json``: where ``top`` finds the run's ``/live``."""
+        try:
+            actual = int(getattr(self._prom_server, "port", port) or port)
+            with open(self._live_path, "w") as fh:
+                json.dump({"url": f"http://{host}:{actual}/live", "metrics_url": f"http://{host}:{actual}/metrics",
+                           "pid": os.getpid(), "t": time.time()}, fh)
+        except Exception:
+            self._live_path = None
+
+    def ingest_relayed(self, batch: Dict[str, Any]) -> None:
+        """One relayed telemetry batch (a fleet worker's) for the live
+        aggregator. Relayed events are validated there and never written to
+        this process's stream: the worker's own file is the durable copy."""
+        if self.live is not None:
+            try:
+                self.live.ingest_batch(batch)
+            except Exception:
+                pass
+
     # -- sinks -------------------------------------------------------------
     def _emit(self, rec: Dict[str, Any]) -> None:
         if self.jsonl is not None:
             self.jsonl.write(rec)
+        if self.prom is not None:
+            try:  # the scrape surface never takes the emitter down
+                self.prom.observe_event(rec)
+            except Exception:
+                pass
+        if self.live is not None:
+            try:
+                self.live.ingest(rec)
+            except Exception:
+                pass
 
     def emit(self, rec: Dict[str, Any]) -> None:
         """Write one schema-checked event to the JSONL stream: the hook the
@@ -310,3 +401,14 @@ class Telemetry:
         if self.jsonl is not None:
             self.jsonl.close()
             self.jsonl = None
+        if self._prom_server is not None:
+            self._prom_server.stop()
+            self._prom_server = None
+            self.prom = None
+        if self._live_path is not None:
+            try:
+                os.remove(self._live_path)  # the endpoint just went away
+            except OSError:
+                pass
+            self._live_path = None
+        self.live = None

@@ -4,8 +4,9 @@ The port's own copy of ``sheeprl_tpu/telemetry/schema.py`` for the event
 types the port emits (``startup``, ``log``, ``shutdown``, ``metrics``,
 ``trace``, ``rotate``, ``overlap``, ``ckpt_async``, ``preempt``,
 ``resume``, ``mem``, ``roofline``, and the actor fleet's ``fleet``,
-``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``, and the
-serving stack's ``serve``, ``reload`` and ``session``). Field names and types are the
+``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``, the
+serving stack's ``serve``, ``reload`` and ``session``, and the live
+aggregator's ``alert``). Field names and types are the
 reference's, letter for letter, so the JAX package's ``validate_jsonl``
 accepts a port run's ``telemetry.jsonl``. Every record is
 ``{"event": <type>, ...}``; required keys and types are checked per event
@@ -312,6 +313,18 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "role": (False, _STR),
         "step": (False, _NUM),
         "t": (False, _NUM),
+    },
+    # an SLO burn rule's transition (diag/aggregator.py), on the main stream
+    "alert": {
+        "rule": (True, _STR),
+        "state": (True, _STR),  # firing | resolved
+        "metric": (True, _STR),
+        "value": (False, _NUM),
+        "threshold": (False, _NUM),
+        "burn_frac": (False, _NUM),
+        "window_s": (False, _NUM),
+        "severity": (False, _STR),  # critical | warning
+        "detail": (False, _STR),
     },
 }
 

@@ -227,7 +227,8 @@ def test_config_refuses_what_the_port_does_not_run():
     """A key the port's configs do not hold fails at composition (it would
     be silently ignored otherwise); conv_impl=einsum raises at build; 32-true
     turns TF32 off for cuBLAS and cuDNN."""
-    for key in ("model_manager.disabled=True", "gateway.replicas=2", "num_threads=4"):
+    for key in ("metric.telemetry.transfer_counter=False", "gateway.replicas=2", "num_threads=4",
+                "diag.mem.census_every=0", "diag.bench.threshold=0.1"):
         with pytest.raises(KeyError, match="does not exist"):
             torch_cfg([key])
     with pytest.raises(NotImplementedError, match="conv_impl=einsum"):

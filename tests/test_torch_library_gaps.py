@@ -28,10 +28,13 @@ UPDATES = [1.5, np.array([2.0, -3.0, 0.25]), np.zeros((0,)), np.array([[4.0], [0
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_aggregator_kinds_match_running_metric(kind):
+def test_aggregator_kinds_match_running_metric(kind, monkeypatch):
     from sheeprl_tpu.utils.metric import MetricAggregator as JaxAggregator
     from sheeprl_tpu.utils.metric import RunningMetric as JaxMetric
 
+    # the JAX CLI sets this class-wide switch from a run's metric.log_level,
+    # and an earlier test in the same process may have left it on
+    monkeypatch.setattr(JaxAggregator, "disabled", False)
     port, ref = RunningMetric(kind), JaxMetric(kind)
     assert port.compute() == ref.compute()  # nothing yet
     for value in UPDATES:

@@ -118,7 +118,8 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "fleet.protocol", "fleet.net", "fleet.supervisor", "fleet.worker", "fleet.act_core",
                 "fleet.programs", "fleet.engine", "fleet.remote", "fleet.act_service", "fleet.anakin",
                 "serve.policy", "serve.builders", "serve.batcher", "serve.reload", "serve.server", "serve.evaluate",
-                "serve.session_codec", "diag.prometheus"):
+                "serve.session_codec", "diag.prometheus", "diag.timeline", "diag.findings", "diag.trace",
+                "diag.doctor", "diag.aggregator", "diag.live", "prof.capture", "prof.cli", "utils.model_manager"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked
@@ -162,6 +163,8 @@ def test_port_and_chip_smoke_sources_import_no_jax():
     assert PORT / "engine" / "overlap.py" in files and PORT / "resilience" / "guard.py" in files
     assert PORT / "telemetry" / "facade.py" in files and PORT / "telemetry" / "schema.py" in files
     assert PORT / "serve" / "server.py" in files and PORT / "diag" / "prometheus.py" in files
+    assert PORT / "diag" / "doctor.py" in files and PORT / "prof" / "capture.py" in files
+    assert PORT / "utils" / "model_manager.py" in files
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
 

@@ -206,8 +206,24 @@ def test_logger_and_facade_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="mlflow"):
         get_logger(compose("config", ["exp=dreamer_v3", "metric.logger=mlflow"]), str(tmp_path))
     assert get_logger(compose("config", ["exp=dreamer_v3", "metric.log_level=0"]), str(tmp_path)) is None
-    with pytest.raises(NotImplementedError, match="prometheus"):
-        Telemetry(compose("config", ["exp=dreamer_v3", "metric.telemetry.prometheus_port=9100"]), str(tmp_path))
+    # the Prometheus export is ported: the facade serves /metrics and /live
+    # beside its stream; a port that is taken prints and the run carries on
+    import socket
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cfg = compose("config", ["exp=dreamer_v3", f"metric.telemetry.prometheus_port={port}"])
+    telem = Telemetry(cfg, str(tmp_path))
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
+        assert "sheeprl_up 1" in resp.read().decode()
+    assert json.loads((tmp_path / "live.json").read_text())["url"] == f"http://127.0.0.1:{port}/live"
+    second = Telemetry(cfg, str(tmp_path / "second"))
+    assert second.prom is None and second.live is not None
+    second.close()
+    telem.close()
+    assert not (tmp_path / "live.json").exists()
 
 
 def test_span_tracker_drains_and_nests():
