@@ -340,6 +340,22 @@ that fails and then prints no result:
                group; the registered world model and actor, loaded into
                fresh modules on the card, act bitwise as the checkpoint's
                on the same observations and noise); the phase's seconds;
+5c. mesh     — the data-parallel mesh (parallel/mesh.py) at world size 1,
+               the one GPU the card's machine shows: mesh_dv3 (the run
+               leg's arguments, serial, fabric.strategy=ddp: a world-size-1
+               NCCL group, one flattened all-reduce per optimizer step and
+               one Moments all-gather per gradient step, counted with their
+               bytes, the five LN-GRU kernels launched) against its twin
+               under fabric.strategy=auto (no group), in turns (auto, ddp,
+               ddp, auto), every leg on deterministic kernels: the same
+               ledger and bitwise the same parameters, optimizer states and
+               Moments, each leg's policy steps/s; then ppo_decoupled and
+               sac_decoupled at fabric.devices=1 algo.player.device=host:
+               the trainer rank 0 on the card under NCCL, the player thread
+               on the host, the ledger of the JAX package's formula, eval of
+               the last checkpoint through serve/evaluate.py, policy
+               steps/s; the phase's seconds (--mesh runs it alone after
+               phases 1-2);
 6. time and kernels
              — the script's whole time in seconds (one JSON line), then
                one {"kernels": [...]} line: a row for each kernel at each
@@ -347,8 +363,8 @@ that fails and then prints no result:
                and XL), with launches and blocks from the run leg, the
                run_M leg or the p2e_dv3_finetuning leg (and, in
                launches_by_path, each leg's own count: at S the run leg's,
-               fleet_dv3's and fleet_dv3_inference's learners' and the diag
-               leg's apart), times
+               fleet_dv3's and fleet_dv3_inference's learners', the diag
+               leg's and mesh_dv3's apart), times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -943,7 +959,7 @@ WIDE = {"M": 3, "L": 1, "XL": 1}
 # same weights, batch and noise: the LN-GRU's outputs differ in their last
 # bits only, so these agree to KERNEL_TOL * max(1, |plain|); the actor's and
 # critic's losses read the two-hot mean of zero-init heads (f32 cancellation
-# noise, ROADMAP Queue 3 item 5) and are held to BF16_TOL instead
+# noise, ROADMAP Queue 3 item 8) and are held to BF16_TOL instead
 KERNEL_TOL = 1e-4
 WM_KEYS = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
            "Loss/continue_loss", "State/kl")
@@ -1202,7 +1218,8 @@ def phase_feed(torch, dev="cuda", reps=10):
 # random actions, then one gradient step per iteration (replay ratio 0.5)
 LEARNING_STARTS, TOTAL, RESUME_TOTAL, HOST_TOTAL = 128, 256, 320, 192
 RUN_ROOT = "chip_smoke"  # logs/runs/chip_smoke/<leg>/version_N, removed at the end
-ALGOS = ("dreamer_v3", "ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae", "dreamer_v2",
+ALGOS = ("dreamer_v3", "ppo", "ppo_decoupled", "a2c", "ppo_recurrent", "sac", "sac_decoupled", "droq", "sac_ae",
+         "dreamer_v2",
          "dreamer_v1", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning",
          "p2e_dv1_exploration", "p2e_dv1_finetuning")  # the `[<algo>] log_dir=` lines
 # the on-policy legs: the presets' algorithm settings on the dummy envs, 4 envs
@@ -2171,6 +2188,11 @@ def p2e_dv3_step(torch, ln_gru, dev="cuda", reps=3):
                                     if isinstance(device_ms, float) else "not measured")}
 
 
+# the walker legs train 64 policy steps after learning_starts (PR 16 cut them
+# from 128, the resume's from 64 more to 64, to keep the script under 900 s)
+WALKER_TOTAL, WALKER_RESUME_TOTAL = 192, 256
+
+
 def walker_legs(torch, ln_gru):
     """The DMC walker-walk preset's settings (bf16-mixed, memmap buffer,
     action repeat 2, coupled DreamerV3-S) on the continuous dummy env, cut
@@ -2188,7 +2210,7 @@ def walker_legs(torch, ln_gru):
     report, ledgers, logs = {}, {}, {}
     for leg, extra in (("walker_ring", ["buffer.device_cache=true"]),
                        ("walker_staged", ["buffer.device_cache=false", "buffer.memmap_fast_resume=True"])):
-        args = common + [f"algo.total_steps={TOTAL}", f"run_name={leg}", *extra]
+        args = common + [f"algo.total_steps={WALKER_TOTAL}", f"run_name={leg}", *extra]
         parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args)
         report[leg] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, trains=False)
         if report[leg]["grad_steps"] < 1:
@@ -2204,7 +2226,7 @@ def walker_legs(torch, ln_gru):
     if not all(b.get("__memmap_ref__") for b in saved["rb"]["buffers"]):
         raise AssertionError("the staged leg's checkpoint holds rows, not memmap file references")
     parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
-        f"algo.total_steps={RESUME_TOTAL}", "run_name=walker_resume", "buffer.device_cache=true",
+        f"algo.total_steps={WALKER_RESUME_TOTAL}", "run_name=walker_resume", "buffer.device_cache=true",
         f"checkpoint.resume_from={last}"])
     started = parsed["resumed"]
     want = {"policy_step": saved["policy_step"], "grad_steps": saved["opt_states"]["step"], "ratio": saved["ratio"]}
@@ -2215,7 +2237,7 @@ def walker_legs(torch, ln_gru):
         if abs(started["param_sums"][k] - v) > 1e-9 * max(1.0, abs(v)):
             raise AssertionError(f"resumed {k} parameters sum to {started['param_sums'][k]}, the file's to {v}")
     report["walker_resume"] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, trains=False)
-    if report["walker_resume"]["policy_step"] != RESUME_TOTAL:
+    if report["walker_resume"]["policy_step"] != WALKER_RESUME_TOTAL:
         raise AssertionError(f"the walker resume stopped at {report['walker_resume']['policy_step']}")
     report["walker_resume"].update(checkpoint=os.path.basename(last), started_from=want, memmap_fast_resume=True)
     return report
@@ -3204,6 +3226,169 @@ def live_plane_cost(spent, seconds):
 # the telemetry A/B's arms: the stream on, off, on without its
 # per-iteration trace ranges and span timers, and on without the live
 # aggregator
+# phase mesh: the DV3-S legs' length, and the decoupled legs' (PPO: two
+# updates of 4 envs x 128 steps; SAC: the off-policy legs' settings)
+MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 192, 1024, 512, 100
+
+
+def state_diff(torch, a, b):
+    """The largest |a - b| over two checkpoints' parameters and optimizer
+    states (0.0: bitwise equal) and the names that differ."""
+    worst, names = 0.0, []
+
+    def walk(x, y, name):
+        nonlocal worst
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{name}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{name}[{i}]")
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                names.append(name)
+                worst = max(worst, float((x.double() - y.double()).abs().max()))
+        elif x != y:
+            names.append(name)
+
+    for key in ("wm", "actor", "critic", "target_critic", "opt_states", "moments"):
+        walk(a[key], b[key], key)
+    return worst, names
+
+
+@contextlib.contextmanager
+def deterministic_kernels(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations inside the block (warnings where an op has none), as
+    they were after it: two runs of the same work can only be bitwise equal
+    where every kernel is deterministic (cuDNN's default convolution
+    gradients accumulate in no fixed order)."""
+    prior = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prior[:2]
+        torch.use_deterministic_algorithms(prior[2], warn_only=prior[3])
+
+
+def phase_mesh(torch, ln_gru):
+    """The data-parallel mesh on the card (``parallel/mesh.py``), world size 1
+    (the card's machine shows one GPU):
+
+    * ``mesh_dv3``: the DV3-S run leg's arguments, serial, with
+      ``fabric.strategy=ddp``: a world-size-1 NCCL group, one flattened
+      all-reduce per optimizer step (three a gradient step, counted with
+      their bytes in the log records), Moments' all-gather, the five LN-GRU
+      kernels launched; its twin ``mesh_dv3_auto`` under
+      ``fabric.strategy=auto`` (no group) from the same seed ends with the
+      same ledger and bitwise the same parameters, optimizer states and
+      Moments (the legs on deterministic kernels: ``deterministic_kernels``);
+      the legs run in turns (auto, ddp, ddp, auto: ``mesh_dv3_2`` and
+      ``mesh_dv3_auto_2`` are the repeats, all four bitwise equal), with
+      each one's policy steps/s after ``learning_starts``;
+    * ``mesh_ppo_decoupled``, ``mesh_sac_decoupled``: the decoupled pair at
+      ``fabric.devices=1 algo.player.device=host`` (and ``fabric.strategy=ddp``):
+      the trainer is rank 0 on the card under NCCL, the player thread acts
+      on the host; the ledger of
+      the JAX package's formula, a checkpoint, and ``eval`` of it through
+      ``serve/evaluate.py``; policy steps/s.
+    Returns the report; its ``launches`` are mesh_dv3's."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    report = {}
+    common = run_common(["algo.overlap.enabled=False", f"algo.total_steps={MESH_TOTAL}"])
+    ends = {}
+    # in turns (auto, ddp, ddp, auto): the first leg pays the phase's one-time
+    # costs, so each strategy's steps/s is read from one early and one late leg
+    for name, strategy in (("mesh_dv3_auto", "auto"), ("mesh_dv3", "ddp"), ("mesh_dv3_2", "ddp"),
+                           ("mesh_dv3_auto_2", "auto")):
+        with deterministic_kernels(torch):
+            parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+                f"run_name={name}", f"fabric.strategy={strategy}", "fabric.devices=1"])
+        report[name] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+        start, last = parsed["startup"], parsed["logs"][-1]
+        want_backend = "nccl" if strategy == "ddp" else "none"
+        if start.get("backend") != want_backend or start.get("world_size") != 1:
+            raise AssertionError(f"{name}: startup names backend {start.get('backend')} at world size "
+                                 f"{start.get('world_size')}, not {want_backend} at 1")
+        coll = last.get("collectives")
+        if strategy == "ddp":
+            grads = int(last["grad_steps"])
+            if not coll or coll["all_reduce"] != 3 * grads or coll["all_gather"] != grads:
+                raise AssertionError(f"{name}: {grads} gradient steps but collectives {coll}: one all-reduce per "
+                                     "optimizer step and one Moments all-gather per step expected")
+            report[name]["collectives"] = coll
+            report[name]["collectives_per_grad_step"] = {
+                k: coll[k] / grads for k in ("all_reduce", "all_reduce_bytes", "all_gather", "all_gather_bytes")}
+        elif coll:
+            raise AssertionError(f"{name}: collectives ran without a group: {coll}")
+        ends[name] = torch.load(checkpoints(parsed["log_dir"])[-1], map_location="cpu", weights_only=False)
+    a = ends["mesh_dv3"]
+    la = {k: a[k] for k in ("policy_step", "ratio", "last_checkpoint")} | {"grad_steps": a["opt_states"]["step"]}
+    for other in ("mesh_dv3_auto", "mesh_dv3_2", "mesh_dv3_auto_2"):
+        b = ends[other]
+        lb = {k: b[k] for k in ("policy_step", "ratio", "last_checkpoint")} | {"grad_steps": b["opt_states"]["step"]}
+        worst, names = state_diff(torch, a, b)
+        if la != lb or names:
+            raise AssertionError(f"mesh_dv3 and {other} differ: ledgers {la} / {lb}, state {names[:8]} "
+                                 f"(max |diff| {worst})")
+    report["mesh_dv3"]["twin"] = {"ledger": la, "bitwise_equal": True}
+    report["mesh_dv3"]["sps_in_turns"] = {n: report[n]["policy_steps_per_s_after_learning_starts"]
+                                          for n in ("mesh_dv3_auto", "mesh_dv3", "mesh_dv3_2", "mesh_dv3_auto_2")}
+
+    # the decoupled pair: trainer rank 0 on the card (NCCL), player on the host
+    decoupled = ["fabric.devices=1", "fabric.strategy=ddp", "algo.player.device=host", "env=dummy",
+                 "algo.run_test=False", f"root_dir={RUN_ROOT}", "env.num_envs=4"]
+    legs = {
+        "mesh_ppo_decoupled": ["exp=ppo_decoupled", *decoupled, f"algo.total_steps={MESH_PPO_TOTAL}",
+                               "checkpoint.every=512", "metric.log_every=512"],
+        "mesh_sac_decoupled": ["exp=sac_decoupled", *decoupled, "env.id=continuous_dummy",
+                               f"algo.total_steps={MESH_SAC_TOTAL}", f"algo.learning_starts={MESH_SAC_LEARNING_STARTS}",
+                               f"buffer.size={SAC_BUFFER}", "checkpoint.every=256", "metric.log_every=128"],
+    }
+    for name, args in legs.items():
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args + [f"run_name={name}"])
+        if any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        if parsed["startup"].get("backend") != "nccl" or not parsed["startup"]["device_kind"].startswith("NVIDIA"):
+            raise AssertionError(f"{name}: the trainer's startup record {parsed['startup']}")
+        mirror = parsed["mirror"][-1] if parsed["mirror"] else {}
+        if mirror.get("device") != "cpu":
+            raise AssertionError(f"{name}: the player acted on {mirror.get('device')}, not the host")
+        ckpts = checkpoints(parsed["log_dir"])
+        s = torch.load(ckpts[-1], map_location="cpu", weights_only=False)
+        if name == "mesh_ppo_decoupled":
+            report[name] = onpolicy_summary(parsed, seconds, peak)
+            per_update = (4 * 128 // 64) * 10  # 8 minibatches of 64, 10 epochs
+            want = {"policy_step": MESH_PPO_TOTAL, "update": MESH_PPO_TOTAL // (4 * 128),
+                    "adam_steps": per_update * (MESH_PPO_TOTAL // (4 * 128))}
+            got = {"policy_step": s["policy_step"], "update": s["update"],
+                   "adam_steps": int(s["opt_state"]["state"][0]["step"])}
+        else:
+            report[name] = offpolicy_summary(parsed, seconds, peak, before, MESH_SAC_LEARNING_STARTS)
+            ratio, grads = Ratio(1.0), 0
+            for step in range(4, MESH_SAC_TOTAL + 1, 4):  # the JAX loop's ratio(policy_step / world_size)
+                if step >= MESH_SAC_LEARNING_STARTS:
+                    grads += ratio(step / 1)
+            want = {"policy_step": MESH_SAC_TOTAL, "grad_steps": grads, "opt_step": grads}
+            got = {"policy_step": s["policy_step"], "grad_steps": s["grad_steps"], "opt_step": s["opt_states"]["step"]}
+        if got != want:
+            raise AssertionError(f"{name}: ledger {got}, the JAX package's formula gives {want}")
+        report[name]["ledger"] = got
+        report[name]["player"] = mirror
+        ev, _, ev_s, _ = drive(torch, ln_gru, "eval", [f"checkpoint_path={ckpts[-1]}"])
+        if ev["reward"] is None or not (ev["route"] or "").startswith(f"{name[5:]} through serve/evaluate.py"):
+            raise AssertionError(f"{name}: eval printed reward {ev['reward']} by route {ev['route']}")
+        report[name]["eval"] = {"seconds": ev_s, "reward": ev["reward"], "route": ev["route"]}
+    report["launches"] = report["mesh_dv3"]["launches"]
+    return report
+
+
 TELEMETRY_ARMS = {
     "on": [],
     "off": ["metric.telemetry.enabled=False"],
@@ -3303,6 +3488,8 @@ USAGE = """usage: python3 chip_smoke.py                      every phase (what t
                                                     training legs whose checkpoints they serve
        python3 chip_smoke.py --diag                 phase diag alone, after the legs it reads (the run leg,
                                                     fleet_dv3 and fleet_dv3_chaos)
+       python3 chip_smoke.py --mesh                 phase mesh alone: mesh_dv3 on a world-size-1 NCCL group with
+                                                    its auto twin, and the decoupled pair on one card
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, on
                                                     without its per-iteration ranges and timers, and on
@@ -3314,7 +3501,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
     if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve",
-                    "--diag") or (
+                    "--diag", "--mesh") or (
             mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -3414,6 +3601,16 @@ def main(argv=None) -> int:
         except Exception as err:  # noqa: BLE001
             return fail("diag", err)
         return 0
+    if mode == "--mesh":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            mesh = phase_mesh(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("mesh", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **mesh)
+        except Exception as err:  # noqa: BLE001
+            return fail("mesh", err)
+        return 0
     if mode == "--telemetry-ab":
         try:
             os.chdir(HERE)
@@ -3472,6 +3669,15 @@ def main(argv=None) -> int:
         emit("diag", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **diag)
     except Exception as err:  # noqa: BLE001
         return fail("diag", err)
+
+    try:
+        t0 = time.perf_counter()
+        mesh = phase_mesh(torch, ln_gru)
+        shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+        counts["S"]["mesh_dv3"] = mesh["launches"]  # a path of its own: zeroed before the leg, read after
+        emit("mesh", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **mesh)
+    except Exception as err:  # noqa: BLE001
+        return fail("mesh", err)
 
     replaces = {  # the pallas_call each kernel's work comes from
         "ln_gru_xproj": "sheeprl_tpu/ops/pallas_gru.py:127",

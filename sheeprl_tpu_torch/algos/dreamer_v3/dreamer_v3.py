@@ -45,6 +45,7 @@ import torch
 
 from ...config import Config, instantiate
 from ...data import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from ...data.buffers import env_block, gather_env_blocks
 from ...data.device_ring import estimate_row_bytes, make_sequential_prefetcher
 from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
@@ -61,6 +62,8 @@ from ...ops import lambda_values as lambda_values_op
 from ...ops import ln_gru
 from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
+from ...parallel.mesh import WAITS_FOR_ALGOS, collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
@@ -68,11 +71,11 @@ from ...telemetry.throughput import model_cost
 from ...utils.checkpoint import CheckpointManager, param_sums, set_gen_state
 from ...utils.checkpoint import gen_state as _gen_state
 from ...utils.env import episode_stats, patch_restarted_envs, probe_env_spaces, single_env, vectorize
-from ...utils.logger import get_log_dir, get_logger
+from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
-from ...utils.utils import Ratio, get_device, save_configs
+from ...utils.utils import Ratio, get_device
 from .agent import Actor, WorldModel, actor_dists, build_agent, compute_stochastic_state, sample_actor_actions
 from .loss import reconstruction_loss
 from .utils import (
@@ -112,11 +115,16 @@ class DV3Optimizers:
         self.step = 0
 
 
-def build_optimizers(cfg: Config, wm: torch.nn.Module, actor: torch.nn.Module, critic: torch.nn.Module) -> DV3Optimizers:
+def build_optimizers(cfg: Config, wm: torch.nn.Module, actor: torch.nn.Module, critic: torch.nn.Module,
+                     dist: Any = None) -> DV3Optimizers:
+    """The three clipped optimizers; with a ``Distributed`` each step
+    averages its gradients over the ranks first (``optim.Clipped``)."""
     return DV3Optimizers(
-        clipped(instantiate(cfg.algo.world_model.optimizer, list(wm.parameters())), cfg.algo.world_model.clip_gradients),
-        clipped(instantiate(cfg.algo.actor.optimizer, list(actor.parameters())), cfg.algo.actor.clip_gradients),
-        clipped(instantiate(cfg.algo.critic.optimizer, list(critic.parameters())), cfg.algo.critic.clip_gradients),
+        clipped(instantiate(cfg.algo.world_model.optimizer, list(wm.parameters())), cfg.algo.world_model.clip_gradients,
+                dist),
+        clipped(instantiate(cfg.algo.actor.optimizer, list(actor.parameters())), cfg.algo.actor.clip_gradients, dist),
+        clipped(instantiate(cfg.algo.critic.optimizer, list(critic.parameters())), cfg.algo.critic.clip_gradients,
+                dist),
     )
 
 
@@ -335,7 +343,8 @@ class CriticStream(NamedTuple):
     reward: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
 
 
-def make_behaviour_step(wm: WorldModel, cfg: Config, apply, is_continuous: bool, actions_dim: Sequence[int]):
+def make_behaviour_step(wm: WorldModel, cfg: Config, apply, is_continuous: bool, actions_dim: Sequence[int],
+                        dist: Any = None):
     """Returns ``behaviour_step(actor, actor_opt, streams, terminated, zs, hs,
     noise) -> (policy_loss, value_losses, moments)``: one actor update
     through imagination on the world model as updated this step, against
@@ -381,7 +390,7 @@ def make_behaviour_step(wm: WorldModel, cfg: Config, apply, is_continuous: bool,
             for s, v, lv in zip(streams, values, lvs):
                 m, offset, invscale = update_moments(
                     s.moments, lv, float(moments_cfg.decay), float(moments_cfg.max),
-                    float(moments_cfg.percentile.low), float(moments_cfg.percentile.high),
+                    float(moments_cfg.percentile.low), float(moments_cfg.percentile.high), dist=dist,
                 )
                 moments.append(m)
                 advantage = advantage + ((lv - offset) / invscale - (v[:-1] - offset) / invscale) * (
@@ -434,6 +443,7 @@ def make_train_fn(
     cfg: Config,
     is_continuous: bool,
     actions_dim: Sequence[int],
+    dist: Any = None,
 ):
     """Returns ``train(moments, batches, noise=None, generator=None) ->
     (moments, metrics)``: G gradient steps over ``batches`` [G, T, B, ...]
@@ -443,12 +453,15 @@ def make_train_fn(
 
     Under a bf16 ``fabric.precision`` every forward of ``wm``, ``actor`` and
     ``critic`` crosses the cast boundary (``PrecisionApplies``), which casts
-    each module's parameters once per phase of the step."""
+    each module's parameters once per phase of the step. With a
+    ``Distributed`` (``parallel/mesh.py``) ``batches`` are this rank's
+    columns: Moments take the global batch's quantiles, and the optimizers
+    built with the same ``dist`` average the gradients over the ranks."""
     apply = make_precision_applies(cfg)
     tau = float(cfg.algo.critic.tau)
     target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
     world_model_step = make_world_model_step(wm, optimizers.wm, cfg, apply)
-    behaviour_step = make_behaviour_step(wm, cfg, apply, is_continuous, actions_dim)
+    behaviour_step = make_behaviour_step(wm, cfg, apply, is_continuous, actions_dim, dist=dist)
 
     def one_step(batch, moments, noise):
         zs, hs, metrics = world_model_step(batch, noise)
@@ -568,16 +581,20 @@ class DV3Stepper:
     overlap engine). ``p_step`` counts the env steps taken."""
 
     def __init__(self, cfg: Config, envs, actions_dim: Sequence[int], is_continuous: bool, player_init, player_step,
-                 player_gen: torch.Generator, mirror, p_step: int, learning_starts: int, random_warmup: bool = True):
+                 player_gen: torch.Generator, mirror, p_step: int, learning_starts: int, random_warmup: bool = True,
+                 env_steps: Optional[int] = None, first_env: int = 0):
         self.cfg, self.envs, self.actions_dim, self.is_continuous = cfg, envs, list(actions_dim), is_continuous
         self.player_init, self.player_step, self.player_gen, self.mirror = player_init, player_step, player_gen, mirror
         self.p_step, self.learning_starts, self.random_warmup = p_step, learning_starts, random_warmup
         self.num_envs = int(cfg.env.num_envs)
+        # policy steps a call counts: the run's, every rank's envs (N ranks)
+        self.env_steps = int(env_steps) if env_steps else self.num_envs
         self.cnn_keys, self.mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
         self.obs_keys = self.cnn_keys + self.mlp_keys
         self.is_multidiscrete = isinstance(envs.single_action_space, spaces.MultiDiscrete)
         self.clip_rewards = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
-        self.obs, _ = envs.reset(seed=int(cfg.seed))
+        # env i resets with the seed of the run's env first_env + i (N ranks: the rank's block)
+        self.obs, _ = envs.reset(seed=int(cfg.seed) + first_env)
         n, act_total = self.num_envs, int(sum(actions_dim))
         self.step_data: Dict[str, np.ndarray] = {k: np.asarray(self.obs[k])[np.newaxis] for k in self.obs_keys}
         self.step_data["actions"] = np.zeros((1, n, act_total), np.float32)
@@ -618,7 +635,7 @@ class DV3Stepper:
         step_data["actions"] = actions_np.reshape(1, n, -1)
         sink.add(step_data, validate_args=cfg.buffer.validate_args)
         next_obs, rewards, terminated, truncated, info = self.envs.step(actions_env)
-        self.p_step += n
+        self.p_step += self.env_steps
         dones = np.logical_or(terminated, truncated)
         for ep_rew, ep_len in episode_stats(info):
             sink.stat("Rewards/rew_avg", ep_rew)
@@ -663,30 +680,46 @@ class DV3Stepper:
         self.obs = next_obs
 
 
-@register_algorithm(name="dreamer_v3")
+@register_algorithm(name="dreamer_v3", mesh=True)
 def main(cfg: Config) -> None:
     """The DreamerV3 training loop: act, store, train G steps per the replay
     ratio; overlapped (player thread) or serial; checkpoints, the RunGuard's
-    preemption drain and resume; one greedy test episode at the end."""
+    preemption drain and resume; one greedy test episode at the end.
+
+    On N ranks (``parallel/mesh.py``) rank ``d`` steps env block ``d`` into
+    its own buffer and trains on its ``per_rank_batch_size`` columns, the
+    gradients averaged over the ranks and Moments over the global batch; the
+    Ratio ledger counts every rank's env steps (``ratio(policy_step /
+    world_size)``), so every rank runs the same bursts; the overlapped loop
+    takes one packet per iteration, so the schedule depends on nothing
+    timed. Rank 0 logs the global metrics, checkpoints (the buffer gathered
+    by env block), tests and registers."""
     fleet_on = FleetEngine.configured(cfg)
     precision = check_precision(cfg)
-    device = get_device(cfg)
+    dist = current_distributed(cfg)
+    rank, world = dist.rank, dist.world_size
+    if fleet_on and world > 1:
+        raise NotImplementedError(f"the actor fleet on N ranks waits for {WAITS_FOR_ALGOS}")
+    device = dist.device
     seed = int(cfg.seed)
-    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    print(f"[dreamer_v3] log_dir={log_dir}", flush=True)
+    log_dir = run_log_dir(cfg, dist)
+    if rank == 0:
+        print(f"[dreamer_v3] log_dir={log_dir}", flush=True)
     MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
     log_on = not MetricAggregator.disabled
 
     state = None
     if cfg.checkpoint.resume_from:
         state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
+    saved_gens = rank_resume(state, dist)
     torch.manual_seed(seed)
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(seed + rank)
+    # this rank's env block: env.num_envs of them at world size 1
+    lcfg = local_cfg(cfg, dist)
 
     # under the fleet the worker processes own the envs: the spaces alone here
-    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(cfg, seed, 0, restart_handled_by_loop=True)
+    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(lcfg, seed, rank, restart_handled_by_loop=True)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -700,7 +733,7 @@ def main(cfg: Config) -> None:
     wm, actor, critic, target_critic = build_agent(cfg, obs_space, actions_dim, is_continuous, device)
     for m in (wm, actor, critic, target_critic):
         m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-    optimizers = build_optimizers(cfg, wm, actor, critic)
+    optimizers = build_optimizers(cfg, wm, actor, critic, dist if dist.collective else None)
     moments = init_moments(device)
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
     if state:
@@ -711,18 +744,19 @@ def main(cfg: Config) -> None:
         optimizers.step = int(state["opt_states"]["step"])
         moments = MomentsState(state["moments"]["low"], state["moments"]["high"])
         ratio.load_state_dict(state["ratio"])
-        _set_gen_state(generator, state["generators"]["train"], "train")
+        _set_gen_state(generator, saved_gens["train"], "train")
 
     seq_len = int(cfg.algo.per_rank_sequence_length)
     buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
     memmap = bool(cfg.buffer.memmap)
     rb = EnvIndependentReplayBuffer(
-        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed,
-        memmap=memmap, memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if memmap else None,
+        buffer_size, n_envs=int(lcfg.env.num_envs), obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer,
+        seed=seed + 1024 * rank,
+        memmap=memmap, memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None,
         memmap_fast_resume=bool(cfg.buffer.memmap_fast_resume),
     )
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], rank, world))
     # [G, T, B, ...] replay batches: the device ring where the mirrored
     # buffer fits (buffer.device_cache), else host samples staged one
     # iteration ahead through pinned memory
@@ -730,20 +764,22 @@ def main(cfg: Config) -> None:
         cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len, cnn_keys=cnn_keys,
         row_bytes_hint=estimate_row_bytes(obs_space, act_total),
     )
-    train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
+    train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim,
+                          dist=dist if dist.collective else None)
     # the player acts with its own copy of {wm, actor} (the train step
     # updates the learner's in place) and its own generator
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed, host=fleet_on)
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed + rank, host=fleet_on)
     if state:
-        _set_gen_state(player_gen, state["generators"]["player"], "player")
+        _set_gen_state(player_gen, saved_gens["player"], "player")
     mods0 = mirror.current()
-    player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous, num_envs)
+    player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous,
+                                           int(lcfg.env.num_envs))
 
-    logger = get_logger(cfg, log_dir)
-    telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    logger = get_logger(cfg, log_dir, rank)
+    telem = Telemetry.setup(cfg, log_dir, rank, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
     aggregator = telem.aggregator
-    ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
-    guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem)
+    ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=rank == 0)
+    guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem, dist=dist)
     ckpt = guard.ckpt
 
     total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else 4 * num_envs
@@ -769,8 +805,13 @@ def main(cfg: Config) -> None:
     costed = False  # the model FLOPs and bytes of a gradient step, counted on the first burst
     t0 = time.perf_counter()
     # the player's env steps (== policy_step serially)
-    interact = None if fleet.enabled else DV3Stepper(cfg, envs, actions_dim, is_continuous, player_init,
-                                                     player_step, player_gen, mirror, policy_step, learning_starts)
+    interact = None if fleet.enabled else DV3Stepper(lcfg, envs, actions_dim, is_continuous, player_init,
+                                                     player_step, player_gen, mirror, policy_step, learning_starts,
+                                                     env_steps=num_envs, first_env=dist.local_envs(num_envs)[0])
+    # the Ratio ledger's step: per rank, as the JAX package's ratio(policy_step / world_size)
+    ledger_step = (lambda step: step / world) if world > 1 else (lambda step: step)
+    # one packet per iteration on N ranks: every rank runs the same bursts in the same order
+    take_packets = 1 if world > 1 else 0
 
     def _ckpt_state() -> Dict[str, Any]:
         s: Dict[str, Any] = {
@@ -794,8 +835,9 @@ def main(cfg: Config) -> None:
                 "player": player_gen_state if engine.enabled else _gen_state(player_gen),
             },
         }
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
+        s.update(ranks_state(dist, s["generators"]))
+        if cfg.buffer.checkpoint:  # by env block, gathered to rank 0 on N ranks
+            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
         return s
 
     def burst(g: int) -> None:
@@ -821,10 +863,11 @@ def main(cfg: Config) -> None:
             for k, v in m.items():
                 aggregator.update(k, v.cpu().numpy())
         pending.clear()
+        dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global means
         # the run's own counters beside the interval's: what a reader of the
         # stream needs to line a record up with the loop's ledger
         telem.log(policy_step, fields={"grad_steps": optimizers.step, "elapsed_s": time.perf_counter() - t0,
-                                       "mirror": mirror.stats()})
+                                       "mirror": mirror.stats(), **collective_fields(dist)})
         last_log = policy_step
 
     def maybe_checkpoint() -> None:
@@ -897,8 +940,8 @@ def main(cfg: Config) -> None:
                     if guard.stop_reached(policy_step, total_steps, None, save=False):
                         stopped = True
                         break
-                    packets = engine.take()
-                    if not packets:
+                    packets = engine.take(max_packets=take_packets)
+                    if dist.any(not packets):  # N ranks: one rank's player ended, all stop here
                         break
                     # ack packets in FIFO order, feeding the Ratio ledger exactly
                     # as the serial loop would (one call per num_envs env steps)
@@ -907,7 +950,7 @@ def main(cfg: Config) -> None:
                         absorb(pkt)
                         policy_step += pkt.env_steps
                         if policy_step >= learning_starts:
-                            gs.append(ratio(policy_step))
+                            gs.append(ratio(ledger_step(policy_step)))
                             telem.record_grad_steps(gs[-1])
                     # one train call per owed burst; each launches
                     # asynchronously, so staging the next burst's batch
@@ -924,7 +967,7 @@ def main(cfg: Config) -> None:
                         mirror.refresh({"wm": wm, "actor": actor})
                     engine.published()  # release take()'s claim every iteration
                     if learning_starts <= policy_step < total_steps:
-                        prefetch.stage(ratio.peek(policy_step + num_envs))
+                        prefetch.stage(ratio.peek(ledger_step(policy_step + num_envs)))
                     flush_logs()
                     maybe_checkpoint()
             finally:
@@ -945,14 +988,14 @@ def main(cfg: Config) -> None:
                     interact(sink)
                 policy_step = interact.p_step
                 if policy_step >= learning_starts:
-                    g = ratio(policy_step)
+                    g = ratio(ledger_step(policy_step))
                     telem.record_grad_steps(g)
                     if g > 0:
                         burst(g)
                         mirror.refresh({"wm": wm, "actor": actor})
                     if policy_step < total_steps:
                         # the next burst's batch, while the card computes this one
-                        prefetch.stage(ratio.peek(policy_step + num_envs))
+                        prefetch.stage(ratio.peek(ledger_step(policy_step + num_envs)))
                 flush_logs()
                 maybe_checkpoint()
     finally:
@@ -960,15 +1003,16 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
         telem.close(policy_step)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and rank == 0:
         test_env = single_env(cfg, seed)
         # the player acts in f32 (bf16-true keeps bf16 parameters)
         t_wm, t_actor = (wm, actor) if precision.param_dtype == torch.float32 else (
             copy.deepcopy(wm).float(), copy.deepcopy(actor).float())
         t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, test_env, cfg, generator, logger=logger)
-    register_model(cfg, {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target_critic,
-                         "moments": {"low": moments.low, "high": moments.high}}, log_dir)
+    if rank == 0:
+        register_model(cfg, {"world_model": wm, "actor": actor, "critic": critic, "target_critic": target_critic,
+                             "moments": {"low": moments.low, "high": moments.high}}, log_dir)
     if logger is not None:
         logger.close()
 

@@ -46,10 +46,15 @@ def update_moments(
     max_: float = 1.0,
     percentile_low: float = 0.05,
     percentile_high: float = 0.95,
+    dist: Any = None,
 ) -> Tuple[MomentsState, torch.Tensor, torch.Tensor]:
     """Returns (new_state, offset, invscale); ``torch.quantile`` interpolates
-    linearly, as ``jnp.quantile`` does."""
+    linearly, as ``jnp.quantile`` does. With a ``Distributed`` the quantiles
+    are of the global batch: every rank's values are gathered first (the
+    JAX package's ``jnp.quantile`` runs on the global array)."""
     x = x.detach().float().flatten()
+    if dist is not None:
+        x = dist.all_gather(x)
     low = torch.quantile(x, percentile_low)
     high = torch.quantile(x, percentile_high)
     new_low = decay * state.low + (1 - decay) * low

@@ -45,17 +45,19 @@ from ...fleet.engine import PROGRAMS, refuse_fleet
 from ...fleet.programs import merge_ppo_round
 from ...ops import gae
 from ...optim import Clipped, clipped
+from ...parallel.mesh import WAITS_FOR_ALGOS, collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...parallel.precision import disable_tf32
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
 from ...utils.checkpoint import CheckpointManager, gen_state, param_sums, set_gen_state
 from ...utils.env import episode_stats, probe_env_spaces, single_env, vectorize
-from ...utils.logger import get_log_dir, get_logger
+from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
-from ...utils.utils import get_device, linear_annealing, save_configs
+from ...utils.utils import get_device, linear_annealing
 from .agent import PPOAgent, actions_and_log_probs, build_agent
 from .loss import entropy_loss, policy_loss, value_loss
 from .utils import AGGREGATOR_KEYS, env_actions, prepare_obs, test
@@ -69,21 +71,27 @@ def start_run(cfg: Config, algo: str):
     make the run's log dir with its config and print ``[<algo>]
     log_dir=...``, load ``checkpoint.resume_from``, seed and build the vector
     env (under the fleet, ``probe_env_spaces``: the workers own the envs).
+    On N ranks (``parallel/mesh.py``) the device is the rank's, rank 0 makes
+    the log dir and the vector env is the rank's env block.
     Returns ``(device, seed, log_dir, state, envs)``."""
     refuse_fleet(cfg, algo)
     fleet = FleetEngine.configured(cfg)
-    device = get_device(cfg)
+    dist = current_distributed(cfg)
+    if fleet and dist.world_size > 1:
+        raise NotImplementedError(f"the actor fleet on N ranks waits for {WAITS_FOR_ALGOS}")
+    device = dist.device
     disable_tf32()
     seed = int(cfg.seed)
-    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    print(f"[{algo}] log_dir={log_dir}", flush=True)
+    log_dir = run_log_dir(cfg, dist)
+    if dist.is_global_zero:
+        print(f"[{algo}] log_dir={log_dir}", flush=True)
     MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
     state = None
     if cfg.checkpoint.resume_from:
         state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
     torch.manual_seed(seed)
-    envs = probe_env_spaces(cfg, seed) if fleet else vectorize(cfg, seed, 0)
+    # N ranks: this rank's env block, seeded as the JAX package seeds those envs
+    envs = probe_env_spaces(cfg, seed) if fleet else vectorize(local_cfg(cfg, dist), seed, dist.rank)
     if not isinstance(envs.single_observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {envs.single_observation_space}")
     return device, seed, log_dir, state, envs
@@ -168,17 +176,41 @@ def optimizer_step(optimizer: Clipped, loss: torch.Tensor) -> None:
     optimizer.step()
 
 
-def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, num_minibatches: int, mb_size: int) -> Callable:
+def global_normalize(x: torch.Tensor, dist: Any = None) -> torch.Tensor:
+    """``(x - mean) / (std + 1e-8)`` with the population std, as ``jnp.std``.
+    With a ``Distributed`` the mean and the std are the global minibatch's:
+    the count and the sum, then the sum of squared deviations, all-reduced."""
+    if dist is None:
+        return (x - x.mean()) / (x.std(correction=0) + 1e-8)
+    n_sum = dist.all_reduce_sum(torch.stack([torch.tensor(float(x.numel()), device=x.device), x.sum()]))
+    mean = n_sum[1] / n_sum[0]
+    var = dist.all_reduce_sum((x - mean).square().sum()) / n_sum[0]
+    return (x - mean) / (var.sqrt() + 1e-8)
+
+
+def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, num_minibatches: int, mb_size: int,
+                   dist: Any = None) -> Callable:
     """``update(data, coefs, perms) -> metrics``: ``data`` maps
     ``obs:<key>``, ``actions``, ``logprobs``, ``values``, ``returns`` and
     ``advantages`` to ``[batch, ...]`` tensors on the learner's device,
     ``perms`` is ``[update_epochs, batch]``. The agent and the optimizer are
     updated in place; the metrics are the mean losses over every minibatch,
-    as tensors (no host sync)."""
+    as tensors (no host sync).
+
+    With a ``Distributed`` (``parallel/mesh.py``), ``data`` is the whole
+    rollout on every rank and ``mb_size`` the global minibatch: rank ``d``
+    takes slice ``d`` of each (the JAX package's batch sharding), the
+    advantages are normalised over the global minibatch, and the optimizer
+    (built with the same ``dist``) averages the gradients; a ``sum``
+    reduction scales the rank's loss by the world size, so the average is
+    the global sum's gradient, and its metrics likewise."""
     update_epochs = int(cfg.algo.update_epochs)
     clip_vloss = bool(cfg.algo.clip_vloss)
     normalize_advantages = bool(cfg.algo.normalize_advantages)
     reduction = str(cfg.algo.loss_reduction)
+    world, rank = (dist.world_size, dist.rank) if dist is not None else (1, 0)
+    local = mb_size // world
+    scale = float(world) if reduction != "mean" else 1.0
 
     def loss_fn(mb: Dict[str, torch.Tensor], coefs: Dict[str, Any]):
         obs = {k[4:]: v for k, v in mb.items() if k.startswith("obs:")}
@@ -186,17 +218,20 @@ def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, num_minibat
         _, new_logprobs, entropy = actions_and_log_probs(actor_out, agent.is_continuous, actions=mb["actions"])
         advantages = mb["advantages"]
         if normalize_advantages:
-            advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            advantages = global_normalize(advantages, dist if world > 1 else None)
         pg = policy_loss(new_logprobs, mb["logprobs"], advantages, coefs["clip_coef"], reduction)
         vl = value_loss(new_values, mb["values"], mb["returns"], coefs["clip_coef"], clip_vloss, reduction)
         el = entropy_loss(entropy, reduction)
-        return pg + coefs["vf_coef"] * vl + coefs["ent_coef"] * el, torch.stack([pg, vl, el]).detach()
+        loss, aux = pg + coefs["vf_coef"] * vl + coefs["ent_coef"] * el, torch.stack([pg, vl, el]).detach()
+        return (loss * scale, aux * scale) if scale != 1.0 else (loss, aux)
 
     def update(data: Dict[str, torch.Tensor], coefs: Dict[str, Any], perms: torch.Tensor) -> Dict[str, torch.Tensor]:
         sums = None
         with scaled_lr(optimizer.optimizer, float(coefs["lr_frac"])):
             for e in range(update_epochs):
                 idxs = perms[e][: num_minibatches * mb_size].reshape(num_minibatches, mb_size)
+                if world > 1:  # this rank's slice of each global minibatch
+                    idxs = idxs[:, rank * local:(rank + 1) * local]
                 for j in range(num_minibatches):
                     mb = {k: v.index_select(0, idxs[j]) for k, v in data.items()}
                     loss, aux = loss_fn(mb, coefs)
@@ -307,47 +342,58 @@ class Rollout:
         return {k: buf[k] for k in buf.keys()}, next_value.cpu().numpy(), ep_stats
 
 
-@register_algorithm(name="ppo")
+@register_algorithm(name="ppo", mesh=True)
 def main(cfg: Config) -> None:
     """PPO's training loop: rollout, GAE, the update; overlapped in strict
     on-policy mode or serial; checkpoints, the RunGuard and resume; one
-    greedy test episode at the end."""
+    greedy test episode at the end.
+
+    On N ranks (``parallel/mesh.py``) rank ``d`` rolls out env block ``d``;
+    the ranks all-gather the iteration's rollout, draw the same minibatch
+    permutations from one seeded generator and each trains on its slice of
+    every global minibatch of ``per_rank_batch_size × world_size`` rows.
+    Rank 0 logs the global metrics, checkpoints, tests and registers."""
     device, seed, log_dir, state, envs = start_run(cfg, "ppo")
+    dist = current_distributed(cfg)
+    rank, world = dist.rank, dist.world_size
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     num_envs = int(cfg.env.num_envs)
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
+    saved_gens = rank_resume(state, dist)
 
     agent = build_agent(cfg, obs_space, action_space, device)
-    optimizer = clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"))
+    optimizer = clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"),
+                        dist if dist.collective else None)
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(seed)  # the same on every rank: the minibatch permutations
     if state:
         agent.load_state_dict(state["agent"])
         optimizer.optimizer.load_state_dict(state["opt_state"])
-        set_gen_state(generator, state["generators"]["train"], "train", tag="ppo")
+        set_gen_state(generator, saved_gens["train"], "train", tag="ppo")
 
     rollout_steps = int(cfg.algo.rollout_steps)
     total_batch = rollout_steps * num_envs
-    mb_size = int(cfg.algo.per_rank_batch_size)
+    mb_size = int(cfg.algo.per_rank_batch_size) * world
     if total_batch % mb_size != 0:
-        raise ValueError(f"rollout_steps*num_envs ({total_batch}) must be divisible by per_rank_batch_size ({mb_size})")
+        raise ValueError(f"rollout_steps*num_envs ({total_batch}) must be divisible by "
+                         f"per_rank_batch_size*world_size ({mb_size})")
     num_minibatches = total_batch // mb_size
     update_epochs = int(cfg.algo.update_epochs)
-    update = make_update_fn(agent, optimizer, cfg, num_minibatches, mb_size)
+    update = make_update_fn(agent, optimizer, cfg, num_minibatches, mb_size, dist if dist.collective else None)
     # the player acts with its own copy of the agent and its own generator;
     # a blocking refresh after every update keeps PPO on-policy (the fleet
     # publishes from a host copy)
     fleet_on = FleetEngine.configured(cfg)
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed, host=fleet_on)
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed + rank, host=fleet_on)
     if state:
-        set_gen_state(player_gen, state["generators"]["player"], "player", tag="ppo")
+        set_gen_state(player_gen, saved_gens["player"], "player", tag="ppo")
 
-    logger = get_logger(cfg, log_dir)
-    telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    logger = get_logger(cfg, log_dir, rank)
+    telem = Telemetry.setup(cfg, log_dir, rank, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
     aggregator = telem.aggregator
-    ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
-    guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem)
+    ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=rank == 0)
+    guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem, dist=dist)
     ckpt = guard.ckpt
 
     policy_steps_per_iter = num_envs * rollout_steps
@@ -355,9 +401,10 @@ def main(cfg: Config) -> None:
     start_iter, policy_step, last_log, last_checkpoint = resume_counters(cfg, state, agent, "ppo")
     grad_steps = (start_iter - 1) * num_minibatches * update_epochs
 
-    rollout = Rollout(cfg, envs, mirror, pdev, player_gen, agent.is_continuous, make_act_fn(), make_value_fn())
+    lcfg = local_cfg(cfg, dist)  # the rollout's envs: this rank's block
+    rollout = Rollout(lcfg, envs, mirror, pdev, player_gen, agent.is_continuous, make_act_fn(), make_value_fn())
     if not fleet_on:
-        rollout.reset(seed)
+        rollout.reset(seed + dist.local_envs(num_envs)[0])  # env i of the block resets as the JAX package's env lo+i
     player_gen_state = gen_state(player_gen)  # after the last rollout the learner consumed
     completed_update = start_iter - 1
     update_s: List[float] = []  # wall seconds of each update since the last log
@@ -366,6 +413,7 @@ def main(cfg: Config) -> None:
     def _ckpt_state() -> Dict[str, Any]:
         # `update` is the last update whose parameters the checkpoint holds
         # (the overlapped loop can break at the top of an iteration)
+        gens = {"train": gen_state(generator), "player": player_gen_state}
         return {
             "agent": agent.state_dict(),
             "opt_state": optimizer.optimizer.state_dict(),
@@ -373,7 +421,8 @@ def main(cfg: Config) -> None:
             "policy_step": policy_step,
             "last_log": last_log,
             "last_checkpoint": last_checkpoint,
-            "generators": {"train": gen_state(generator), "player": player_gen_state},
+            "generators": gens,
+            **ranks_state(dist, gens),
         }
 
     def record_ep_stats(ep_stats) -> None:
@@ -385,6 +434,10 @@ def main(cfg: Config) -> None:
         """GAE and the update on one rollout, the mirror refreshed (learner)."""
         nonlocal grad_steps
         ts = time.perf_counter()
+        if world > 1:  # every rank's env block, in rank order: the JAX package's [T, num_envs] rollout
+            parts = dist.all_gather_object((local, next_value))
+            local = {k: np.concatenate([p[0][k] for p in parts], axis=1) for k in local}
+            next_value = np.concatenate([p[1] for p in parts], axis=0)
         data = rollout_batch(local, next_value, cfg, device)
         perms = draw_perms(generator, update_epochs, total_batch, device)
         metrics = update(data, make_coefs(cfg, update_iter, num_updates, device), perms)
@@ -398,10 +451,11 @@ def main(cfg: Config) -> None:
     def flush_logs() -> None:
         nonlocal last_log
         if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or completed_update == num_updates:
+            dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global means
             telem.log(policy_step, fields={"updates": completed_update, "grad_steps": grad_steps,
                                            "elapsed_s": time.perf_counter() - t0,
                                            "update_ms": 1e3 * sum(update_s) / len(update_s) if update_s else None,
-                                           "mirror": mirror.stats()})
+                                           "mirror": mirror.stats(), **collective_fields(dist)})
             update_s.clear()
             last_log = policy_step
 
@@ -460,7 +514,7 @@ def main(cfg: Config) -> None:
             # player collects rollout k+1 once the update on rollout k is
             # published; queue_depth + 1 rollout buffers cycle round-robin, so
             # a buffer is refilled only after the learner consumed it
-            bufs = [rollout_buffer(cfg, rollout_steps, num_envs, obs_keys, log_dir, f"rank_0_overlap{i}",
+            bufs = [rollout_buffer(cfg, rollout_steps, rollout.num_envs, obs_keys, log_dir, f"rank_{rank}_overlap{i}",
                                    seed + 7 * i) for i in range(engine.queue_depth + 1)]
             player_stream = torch.cuda.Stream(pdev) if pdev.type == "cuda" else None
             n_played = [0]
@@ -483,7 +537,7 @@ def main(cfg: Config) -> None:
                         stopped = True
                         break
                     pkts = engine.take(max_packets=1)
-                    if not pkts:
+                    if dist.any(not pkts):  # N ranks: one rank's player ended, all stop here
                         break
                     local, next_value, ep_stats, player_gen_state = pkts[0].payload
                     policy_step += pkts[0].env_steps
@@ -503,7 +557,7 @@ def main(cfg: Config) -> None:
                 ckpt.save(policy_step, _ckpt_state())
         else:
             # ---- serial loop (the reference's semantics) --------------------
-            rb = rollout_buffer(cfg, rollout_steps, num_envs, obs_keys, log_dir, "rank_0", seed)
+            rb = rollout_buffer(cfg, rollout_steps, rollout.num_envs, obs_keys, log_dir, f"rank_{rank}", seed)
             for update_iter in range(start_iter, num_updates + 1):
                 telem.tick(policy_step)
                 with telem.span("Time/env_interaction_time"):
@@ -522,14 +576,15 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
         telem.close(policy_step)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and rank == 0:
         test(agent, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"agent": agent}, log_dir)
+    if rank == 0:
+        register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 
 
-@register_evaluation("ppo")
+@register_evaluation(["ppo", "ppo_decoupled"])
 def evaluate_ppo(cfg: Config, state: Dict[str, Any]) -> None:
     """One greedy episode (``eval checkpoint_path=...``) through the serving
     stack's ``InferencePolicy`` (``serve/evaluate.py``), so evaluation and

@@ -46,6 +46,9 @@ from ...engine import BufferOpSink, OverlapEngine, Packet, RecordingSink
 from ...envs import spaces
 from ...fleet import FleetEngine
 from ...fleet.engine import PROGRAMS
+from ...data.buffers import env_block, gather_env_blocks
+from ...parallel.mesh import collective_fields, rank_resume, ranks_state
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...parallel.precision import disable_tf32
 from ...resilience.guard import RunGuard
@@ -125,12 +128,23 @@ def draw_noise(g: int, batch: int, act_dim: int, generator: Optional[torch.Gener
     return torch.randn((g, 2, batch, act_dim), generator=generator, device=device)
 
 
-def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_entropy: float) -> Callable:
+def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_entropy: float,
+                  dist: Any = None) -> Callable:
     """``train(batches, noise=None, generator=None) -> metrics``: ``batches``
     maps ``observations``, ``next_observations``, ``actions``, ``rewards``
     and ``terminated`` to ``[G, B, ...]`` tensors; ``noise`` is
     ``draw_noise``'s (drawn from ``generator`` when not given). The metrics
-    are the losses' means over the G steps, as tensors (no host sync)."""
+    are the losses' means over the G steps, as tensors (no host sync). With
+    a ``Distributed`` (``parallel/mesh.py``) the batches are this rank's
+    columns and each optimizer step takes the ranks' mean gradient (one
+    flattened all-reduce per optimizer)."""
+
+    def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        grads = torch.autograd.grad(loss, params)
+        if dist is not None:
+            dist.all_reduce_mean(grads)
+        return grads
+
     gamma = float(cfg.algo.gamma)
     tau = float(cfg.algo.tau)
     tnf = int(cfg.algo.critic.target_network_frequency)
@@ -147,16 +161,16 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
             min_target = target_q.amin(0) - torch.exp(agent.log_alpha) * next_logprobs
             y = batch["rewards"] + (1.0 - batch["terminated"]) * gamma * min_target
         qf_loss = critic_loss(critic(obs, batch["actions"]), y)
-        apply_grads(optimizers["critic"], critic_params, torch.autograd.grad(qf_loss, critic_params))
+        apply_grads(optimizers["critic"], critic_params, grads_of(qf_loss, critic_params))
 
         mean, log_std = actor(obs)
         actions, logprobs = sample_actions(actor, mean, log_std, noise[1])
         min_q = critic(obs, actions).amin(0)
         a_loss = policy_loss(torch.exp(agent.log_alpha).detach(), logprobs, min_q)
-        apply_grads(optimizers["actor"], actor_params, torch.autograd.grad(a_loss, actor_params))
+        apply_grads(optimizers["actor"], actor_params, grads_of(a_loss, actor_params))
 
         al_loss = entropy_loss(agent.log_alpha, logprobs.detach(), target_entropy)
-        apply_grads(optimizers["alpha"], [agent.log_alpha], torch.autograd.grad(al_loss, [agent.log_alpha]))
+        apply_grads(optimizers["alpha"], [agent.log_alpha], grads_of(al_loss, [agent.log_alpha]))
 
         optimizers.step += 1
         if optimizers.step % tnf == 0:
@@ -221,23 +235,29 @@ class OffPolicyLoop:
                  params: Dict[str, torch.nn.Module], aggregator_keys: Any = None, dry_run_steps: int = 1):
         self.cfg, self.algo, self.device, self.envs = cfg, algo, device, envs
         self.mirror, self.player_gen, self.train_gen, self.params = mirror, player_gen, train_gen, params
-        self.num_envs = int(cfg.env.num_envs)
+        self.dist = current_distributed(cfg)
+        self.rank, self.world = self.dist.rank, self.dist.world_size
+        # the env steps of one call of the ledger (every rank's) and this rank's envs
+        self.env_steps = int(cfg.env.num_envs)
+        lo, hi = self.dist.local_envs(self.env_steps)
+        self.num_envs, self.first_env = hi - lo, lo
         keys = AGGREGATOR_KEYS_ALL if aggregator_keys is None else aggregator_keys
-        self.telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=keys, device=device)
+        self.telem = Telemetry.setup(cfg, log_dir, self.rank, logger=logger, aggregator_keys=keys, device=device)
         self.aggregator = self.telem.aggregator
-        ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last)
-        self.guard = RunGuard.setup(cfg, ckpt, log_dir, telem=self.telem)
+        ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=self.rank == 0)
+        self.guard = RunGuard.setup(cfg, ckpt, log_dir, telem=self.telem, dist=self.dist)
         self.ckpt = self.guard.ckpt
         self.ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
-        self.total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else dry_run_steps * self.num_envs
+        self.total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else dry_run_steps * self.env_steps
         self.learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
         self.policy_step = self.last_log = self.last_checkpoint = self.grad_steps = 0
         if state:
+            saved_gens = rank_resume(state, self.dist)
             self.ratio.load_state_dict(state["ratio"])
             for k in ("policy_step", "last_log", "last_checkpoint", "grad_steps"):
                 setattr(self, k, int(state[k]))
-            set_gen_state(train_gen, state["generators"]["train"], "train", tag=algo)
-            set_gen_state(player_gen, state["generators"]["player"], "player", tag=algo)
+            set_gen_state(train_gen, saved_gens["train"], "train", tag=algo)
+            set_gen_state(player_gen, saved_gens["player"], "player", tag=algo)
             print(f"[{algo}] resumed " + json.dumps({
                 "checkpoint": str(cfg.checkpoint.resume_from), "policy_step": self.policy_step,
                 "grad_steps": self.grad_steps, "ratio": self.ratio.state_dict(), "last_log": self.last_log,
@@ -257,11 +277,17 @@ class OffPolicyLoop:
         """The player acts at random up to ``learning_starts`` (inclusive)."""
         return self.p_step <= self.learning_starts
 
+    def ledger(self, step: int) -> float:
+        """The Ratio ledger's step: per rank, as the JAX package's
+        ``ratio(policy_step / world_size)``."""
+        return step / self.world if self.world > 1 else step
+
     def checkpoint_state(self, algo_state: Dict[str, Any], overlapped: bool) -> Dict[str, Any]:
+        gens = {"train": gen_state(self.train_gen),
+                "player": self.player_gen_state if overlapped else gen_state(self.player_gen)}
         return {**algo_state, "ratio": self.ratio.state_dict(), "policy_step": self.policy_step,
                 "last_log": self.last_log, "last_checkpoint": self.last_checkpoint, "grad_steps": self.grad_steps,
-                "generators": {"train": gen_state(self.train_gen),
-                               "player": self.player_gen_state if overlapped else gen_state(self.player_gen)}}
+                "generators": gens, **ranks_state(self.dist, gens)}
 
     def run(self, rb: ReplayBuffer, interact: Callable[[Any], None],
             burst: Callable[[int], Dict[str, torch.Tensor]], refresh: Callable[[], None], stage: Callable[[int], None],
@@ -301,11 +327,13 @@ class OffPolicyLoop:
                 for k, v in m.items():
                     self.aggregator.update(k, v)
             self.pending.clear()
-            extra = ({"Params/replay_ratio": self.grad_steps / self.policy_step} if self.policy_step > 0 else None)
+            self.dist.reduce_metrics(self.aggregator)  # N ranks: rank 0 logs the global means
+            extra = ({"Params/replay_ratio": self.grad_steps * self.world / self.policy_step}
+                     if self.policy_step > 0 else None)
             telem.log(self.policy_step, extra_metrics=extra, fields={
                 "grad_steps": self.grad_steps, "elapsed_s": time.perf_counter() - self.t0,
                 "update_ms": 1e3 * sum(self.burst_s) / len(self.burst_s) if self.burst_s else None,
-                "mirror": self.mirror.stats()})
+                "mirror": self.mirror.stats(), **collective_fields(self.dist)})
             self.burst_s.clear()
             self.last_log = self.policy_step
 
@@ -329,7 +357,7 @@ class OffPolicyLoop:
                     with torch.cuda.stream(player_stream) if player_stream is not None else contextlib.nullcontext():
                         with telem.span("Time/env_interaction_time"):
                             interact(rec)
-                    return Packet((rec, gen_state(self.player_gen)), self.num_envs)
+                    return Packet((rec, gen_state(self.player_gen)), self.env_steps)
 
                 def absorb(pkt: Packet) -> None:
                     rec, self.player_gen_state = pkt.payload
@@ -343,8 +371,9 @@ class OffPolicyLoop:
                         if guard.stop_reached(self.policy_step, self.total_steps, None, save=False):
                             stopped = True
                             break
-                        packets = engine.take()
-                        if not packets:
+                        # one packet per iteration on N ranks: every rank runs the same bursts
+                        packets = engine.take(max_packets=1 if self.world > 1 else 0)
+                        if self.dist.any(not packets):  # N ranks: one rank's player ended, all stop here
                             break
                         # FIFO acks feed the Ratio ledger exactly as the serial loop would
                         gs = []
@@ -352,7 +381,7 @@ class OffPolicyLoop:
                             absorb(pkt)
                             self.policy_step += pkt.env_steps
                             if self.policy_step >= self.learning_starts:
-                                gs.append(ratio(self.policy_step))
+                                gs.append(ratio(self.ledger(self.policy_step)))
                                 telem.record_grad_steps(gs[-1])
                         trained = False
                         for i, g in enumerate(gs):
@@ -366,7 +395,7 @@ class OffPolicyLoop:
                             refresh()
                         engine.published()  # release take()'s claim every iteration
                         if self.learning_starts <= self.policy_step < self.total_steps:
-                            stage(ratio.peek(self.policy_step + self.num_envs))
+                            stage(ratio.peek(self.ledger(self.policy_step + self.env_steps)))
                         flush_logs()
                         maybe_checkpoint()
                 finally:
@@ -385,13 +414,13 @@ class OffPolicyLoop:
                         interact(sink)
                     self.policy_step = self.p_step
                     if self.policy_step >= self.learning_starts:
-                        g = ratio(self.policy_step)
+                        g = ratio(self.ledger(self.policy_step))
                         telem.record_grad_steps(g)
                         if g > 0:
                             train(g)
                             refresh()
                         if self.policy_step < self.total_steps:
-                            stage(ratio.peek(self.policy_step + self.num_envs))
+                            stage(ratio.peek(self.ledger(self.policy_step + self.env_steps)))
                     flush_logs()
                     maybe_checkpoint()
         finally:
@@ -475,7 +504,7 @@ def make_vector_interact(loop: OffPolicyLoop, actor_of: Callable[[], Any], obs_k
     cfg, envs, n = loop.cfg, loop.envs, loop.num_envs
     action_space = envs.single_action_space
     act_dim = int(np.prod(action_space.shape))
-    obs, _ = envs.reset(seed=int(cfg.seed))
+    obs, _ = envs.reset(seed=int(cfg.seed) + loop.first_env)  # N ranks: the block's envs, seeded as the run's
     current = {"obs": flatten_obs(obs, obs_keys, n)}
 
     def interact(sink) -> None:
@@ -489,7 +518,7 @@ def make_vector_interact(loop: OffPolicyLoop, actor_of: Callable[[], Any], obs_k
                 acts, _ = sample_actions(actor, mean, log_std, generator=loop.player_gen)
             actions = acts.cpu().numpy().reshape(n, act_dim)
         next_obs, rewards, terminated, truncated, info = envs.step(actions)
-        loop.p_step += n
+        loop.p_step += loop.env_steps
         row, current["obs"] = transition(obs_vec, next_obs, actions, rewards, terminated, truncated, info, obs_keys, n)
         sink.add(row, validate_args=cfg.buffer.validate_args)
         for ep_rew, ep_len in episode_stats(info):
@@ -499,19 +528,32 @@ def make_vector_interact(loop: OffPolicyLoop, actor_of: Callable[[], Any], obs_k
     return interact
 
 
-def replay_buffer(cfg: Config, log_dir: str, seed: int, obs_keys: Sequence[str] = ("observations",)) -> ReplayBuffer:
+def replay_buffer(cfg: Config, log_dir: str, seed: int, obs_keys: Sequence[str] = ("observations",),
+                  dist: Any = None) -> ReplayBuffer:
+    """The loop's uniform buffer; on N ranks (``dist``) rank ``d``'s holds its
+    env block, seeded ``seed + 1024·d`` as the JAX package seeds a rank's."""
     num_envs = int(cfg.env.num_envs)
     size = int(cfg.buffer.size) if not cfg.dry_run else max(2 * num_envs, 8)
     memmap = bool(cfg.buffer.memmap)
-    return ReplayBuffer(size, num_envs, obs_keys=obs_keys, memmap=memmap,
-                        memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if memmap else None, seed=seed)
+    rank, n_envs = 0, num_envs
+    if dist is not None:
+        lo, hi = dist.local_envs(num_envs)
+        rank, n_envs = dist.rank, hi - lo
+    return ReplayBuffer(size, n_envs, obs_keys=obs_keys, memmap=memmap,
+                        memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None,
+                        seed=seed + 1024 * rank)
 
 
-@register_algorithm(name="sac")
+@register_algorithm(name="sac", mesh=True)
 def main(cfg: Config) -> None:
     """SAC's training loop: overlapped (the default) or serial, with
-    checkpoints, the RunGuard and resume; one greedy test episode at the end."""
+    checkpoints, the RunGuard and resume; one greedy test episode at the end.
+    On N ranks (``parallel/mesh.py``) rank ``d`` steps env block ``d`` into its
+    own buffer and trains on its ``per_rank_batch_size`` columns with the
+    ranks' mean gradients; rank 0 logs, checkpoints (the buffer gathered by
+    env block), tests and registers."""
     device, seed, log_dir, state, envs = start_run(cfg, "sac")
+    dist = current_distributed(cfg)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     act_dim = int(np.prod(action_space.shape))
@@ -521,33 +563,34 @@ def main(cfg: Config) -> None:
         agent.load_state_dict(state["agent"])
         optimizers.load_state_dict(state["opt_states"])
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed)
+    train_gen.manual_seed(seed + dist.rank)
     fleet = FleetEngine.configured(cfg)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed, host=fleet)
-    logger = get_logger(cfg, log_dir)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed + dist.rank, host=fleet)
+    logger = get_logger(cfg, log_dir, dist.rank)
     loop = OffPolicyLoop(cfg, "sac", device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params={"agent": agent})
-    rb = replay_buffer(cfg, log_dir, seed)
+    rb = replay_buffer(cfg, log_dir, seed, dist=dist)
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], dist.rank, dist.world_size))
     batch_size = int(cfg.algo.per_rank_batch_size)
     prefetch = make_uniform_prefetcher(cfg, device, rb, batch_size,
                                        row_bytes_hint=estimate_row_bytes(obs_space, act_dim))
-    train = make_train_fn(agent, optimizers, cfg, -act_dim)
+    train = make_train_fn(agent, optimizers, cfg, -act_dim, dist=dist if dist.collective else None)
     interact = None if fleet else make_vector_interact(loop, lambda: mirror.current()["actor"], mlp_keys)
 
     def algo_state() -> Dict[str, Any]:
         s = {"agent": agent.state_dict(), "opt_states": optimizers.state_dict()}
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
+        if cfg.buffer.checkpoint:  # by env block, gathered to rank 0 on N ranks
+            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
         return s
 
     loop.run(rb, interact, lambda g: train(prefetch.take(g), generator=train_gen),
              lambda: mirror.refresh({"actor": agent.actor}), prefetch.stage, algo_state,
              fleet=PROGRAMS["sac"] if fleet else None)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and dist.is_global_zero:
         test(agent.actor, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
+    if dist.is_global_zero:
+        register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
     if logger is not None:
         logger.close()
 

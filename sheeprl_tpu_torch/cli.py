@@ -36,6 +36,7 @@ from .utils.registry import algorithm_registry, get_algorithm, get_evaluation
 ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
     "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.sac.sac",
@@ -97,16 +98,33 @@ def resume_from_checkpoint(cfg: Config) -> Config:
 
 def check_configs(cfg: Config) -> None:
     """The config checks before a run: an algorithm is selected and
-    registered, and a decoupled one has the two devices it needs."""
+    registered; the mesh (``parallel/mesh.py``) takes the config
+    (``fsdp``/``tp`` > 1, ZeRO-1, more nodes or more devices than visible
+    raise); only the mesh algorithms run on more than one rank or under
+    ``fabric.strategy=ddp``; a decoupled one has its player and its trainer:
+    at ``fabric.devices >= 2``, as in the JAX package, or on one card with
+    the player on the host (``algo.player.device=host``), where the JAX
+    package's player would act anyway."""
     _register()
     algo_name = cfg.select("algo.name")
     if algo_name is None:
         raise ValueError("Missing `algo.name`: select an experiment with `exp=<name>`")
     if algo_name not in algorithm_registry:
         raise ValueError(f"Algorithm '{algo_name}' is not registered. Available: {sorted(algorithm_registry)}")
-    if algorithm_registry[algo_name]["decoupled"] and int(cfg.select("fabric.devices", 1) or 1) < 2:
-        raise RuntimeError(f"'{algo_name}' is a decoupled algorithm: it needs at least one player and one trainer "
-                           "device (fabric.devices >= 2)")
+    entry = algorithm_registry[algo_name]
+    devices = int(cfg.select("fabric.devices", 1) or 1)
+    if entry["decoupled"]:
+        one_card = (devices == 1 and str(cfg.select("fabric.accelerator", "auto")).lower() != "cpu"
+                    and cfg.select("algo.player.device") == "host")
+        if devices < 2 and not one_card:
+            raise RuntimeError(f"'{algo_name}' is a decoupled algorithm: it needs at least one player and one "
+                               "trainer device (fabric.devices >= 2)")
+    from .parallel.mesh import WAITS_FOR_ALGOS, build_distributed
+
+    dist = build_distributed(cfg)
+    if dist.needs_group and not entry["mesh"]:
+        raise NotImplementedError(f"'{algo_name}' trains on one device in the PyTorch port: fabric.devices="
+                                  f"{dist.world_size} fabric.strategy={dist.strategy} waits for {WAITS_FOR_ALGOS}")
 
 
 def exploration_surgery(cfg: Config) -> Config:
@@ -145,6 +163,11 @@ def run_algorithm(cfg: Config) -> None:
     fn = entry["fn"]
     if entry.get("requires_exploration_cfg"):
         fn = functools.partial(fn, exploration_cfg=exploration_surgery(cfg))
+    if entry["mesh"]:
+        # one rank here, or fabric.devices spawned ranks (parallel/mesh.py)
+        from .parallel.mesh import launch
+
+        fn = functools.partial(launch, functools.partial(_run_registered, cfg.algo.name))
     attempts = int(cfg.select("resilience.supervisor.attempts", 1) or 1)
     if attempts > 1:
         from .resilience.supervisor import supervise
@@ -153,6 +176,12 @@ def run_algorithm(cfg: Config) -> None:
                   max_backoff_s=float(cfg.select("resilience.supervisor.max_backoff_s", 120.0)))
     else:
         fn(cfg)
+
+
+def _run_registered(name: str, cfg: Config) -> None:
+    """A mesh algorithm's entry point on one rank (picklable for spawned ranks)."""
+    _register()
+    get_algorithm(name)["fn"](cfg)
 
 
 def run(args: Optional[Sequence[str]] = None) -> None:
@@ -207,6 +236,7 @@ def eval_algorithm(cfg: Config) -> None:
     from .utils.checkpoint import CheckpointManager
 
     cfg.set_path("fabric.devices", 1)
+    cfg.set_path("fabric.strategy", "auto")
     cfg.set_path("env.num_envs", 1)
     entry = get_evaluation(cfg.algo.name)
     state = CheckpointManager.load_for_inference(cfg.checkpoint_path)

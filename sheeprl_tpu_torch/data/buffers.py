@@ -630,3 +630,42 @@ class EpisodeBuffer:
         if state.get("rng") is not None:
             self._rng.bit_generator.state = state["rng"]
         return self
+
+
+def gather_env_blocks(states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """One buffer's checkpoint state over all envs from the ranks' states of
+    their env blocks, in rank order (``parallel/mesh.py``): an
+    ``EnvIndependentReplayBuffer``'s sub-buffers are listed block after
+    block, a ``ReplayBuffer``'s rows joined along the env axis (the ranks add
+    in lockstep, so their write heads agree). What the JAX package's single
+    buffer over ``env.num_envs`` envs holds; each rank's sampling generator
+    rides along under ``rank_rngs``."""
+    states = list(states)
+    if len(states) == 1:
+        return states[0]
+    if any(s.get("__memmap_ref__") or any(b.get("__memmap_ref__") for b in s.get("buffers", ())) for s in states):
+        raise NotImplementedError("buffer.memmap_fast_resume on N ranks: each rank's memmap files are its own, "
+                                  "so a checkpoint cannot reference them")
+    rngs = [s.get("rng") for s in states]
+    if "buffers" in states[0]:
+        return {"buffers": [b for s in states for b in s["buffers"]], "rng": rngs[0], "rank_rngs": rngs}
+    if len({(int(s["pos"]), bool(s["full"])) for s in states}) != 1:
+        raise RuntimeError("the ranks' replay buffers are out of step: "
+                           f"{[(s['pos'], s['full']) for s in states]}")
+    return {**states[0], "buffer": {k: np.concatenate([s["buffer"][k] for s in states], axis=1)
+                                    for k in states[0]["buffer"]}, "rank_rngs": rngs}
+
+
+def env_block(state: Dict[str, Any], rank: int, world_size: int) -> Dict[str, Any]:
+    """Rank ``rank``'s share of ``gather_env_blocks``' state: its env block
+    and its own sampling generator (``state`` itself at world size 1)."""
+    if world_size == 1:
+        return state
+    rng = state["rank_rngs"][rank]
+    if "buffers" in state:
+        epd = len(state["buffers"]) // world_size
+        return {"buffers": state["buffers"][rank * epd:(rank + 1) * epd], "rng": rng}
+    n_envs = next(iter(state["buffer"].values())).shape[1]
+    epd = n_envs // world_size
+    return {**{k: v for k, v in state.items() if k != "rank_rngs"}, "rng": rng,
+            "buffer": {k: v[:, rank * epd:(rank + 1) * epd] for k, v in state["buffer"].items()}}

@@ -176,11 +176,16 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 
 
 class Clipped:
-    """An optimizer with global-norm gradient clipping in front of its step."""
+    """An optimizer with global-norm gradient clipping in front of its step.
+    Given a ``Distributed`` (``parallel/mesh.py``) with a process group, the
+    step first averages the gradients over the ranks in one flattened
+    all-reduce, so the clipping sees the averaged gradient, as optax clips
+    the gradient XLA already averaged."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float]):
+    def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None):
         self.optimizer = optimizer
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm and max_grad_norm > 0 else None
+        self.dist = dist
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -190,13 +195,15 @@ class Clipped:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        if self.max_grad_norm is not None:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            if grads:
-                clip_by_global_norm_(grads, self.max_grad_norm)
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.dist is not None:
+            self.dist.all_reduce_mean(grads)
+        if self.max_grad_norm is not None and grads:
+            clip_by_global_norm_(grads, self.max_grad_norm)
         self.optimizer.step()
 
 
-def clipped(optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float]) -> Clipped:
-    """Compose global-norm clipping in front of an optimizer."""
-    return Clipped(optimizer, max_grad_norm)
+def clipped(optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None) -> Clipped:
+    """Compose global-norm clipping (and, with ``dist``, the ranks' gradient
+    average) in front of an optimizer."""
+    return Clipped(optimizer, max_grad_norm, dist)

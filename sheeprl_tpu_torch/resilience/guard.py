@@ -16,6 +16,12 @@ It owns, behind ``setup`` / ``stop_reached`` / ``close``:
 and writes the ``resume``, ``preempt`` and ``watchdog`` events to the
 telemetry stream (``telem.emit``) where the JAX package's does.
 
+On N ranks (``parallel/mesh.py``; ``dist``) every rank calls
+``stop_reached`` and ``close`` at the same points: the stop is agreed (any
+rank's preemption or spent wall budget stops all of them), the final
+checkpoint's state is built on every rank (it gathers the replay buffer)
+and written by rank 0, whose manager alone is enabled.
+
 The overlapped loop integrates through two surfaces: the player thread
 polls ``guard.preempted`` from the engine's waits, so it stops feeding as
 soon as the signal lands; the learner breaks at its own ``stop_reached``
@@ -45,8 +51,10 @@ class RunGuard:
         preempt: Optional[PreemptionGuard] = None,
         telem: Any = None,
         watchdog: Optional[HeartbeatWatchdog] = None,
+        dist: Any = None,
     ):
         self.cfg = cfg
+        self.dist = dist if dist is not None and dist.world_size > 1 else None
         self.ckpt = ckpt
         self.wall = wall
         self.preempt = preempt
@@ -60,7 +68,8 @@ class RunGuard:
             self.telem.emit(rec)
 
     @classmethod
-    def setup(cls, cfg: Any, ckpt_manager: Any, log_dir: Optional[str] = None, telem: Any = None) -> "RunGuard":
+    def setup(cls, cfg: Any, ckpt_manager: Any, log_dir: Optional[str] = None, telem: Any = None,
+              dist: Any = None) -> "RunGuard":
         sel = cfg.select
         on_write = None
         if log_dir:
@@ -100,7 +109,7 @@ class RunGuard:
                 trace_dir=f"{log_dir}/watchdog_trace" if log_dir else None,
                 trace_s=float(sel("resilience.watchdog.trace_s", 3.0)),
             ).start()
-        guard = cls(cfg, writer, WallClockStopper(cfg), preempt, telem, watchdog)
+        guard = cls(cfg, writer, WallClockStopper(cfg), preempt, telem, watchdog, dist)
         if sel("checkpoint.resume_from"):
             guard._emit({"event": "resume", "step": 0, "checkpoint": str(sel("checkpoint.resume_from"))})
         return guard
@@ -121,6 +130,8 @@ class RunGuard:
         final checkpoint when ``save``. Beats the watchdog."""
         if self.watchdog is not None:
             self.watchdog.beat(policy_step)
+        if self.dist is not None:
+            return self._stop_agreed(policy_step, total_steps, state_fn, save)
         if self.preempt is not None and self.preempt.poll():
             if not self._preempt_logged:
                 self._preempt_logged = True
@@ -130,6 +141,35 @@ class RunGuard:
                 self._final_save(policy_step, state_fn)
             return True
         return wall_cap_reached(self.wall, policy_step, total_steps, self.ckpt, state_fn, self.cfg, save=save)
+
+    def stop_local(self, policy_step: int, total_steps: int) -> bool:
+        """This process's preemption or spent wall budget, without a
+        collective or a checkpoint: what a decoupled player thread polls on
+        rank 0 (the trainers learn of the stop from rank 0)."""
+        if self.preempt is not None and self.preempt.poll():
+            return True
+        return self.wall.expired(policy_step, total_steps)
+
+    def _stop_agreed(self, policy_step: int, total_steps: int, state_fn: Optional[Callable[[], Dict[str, Any]]],
+                     save: bool) -> bool:
+        """``stop_reached`` on N ranks: each rank's preemption and wall cap,
+        one gather, the same answer everywhere, and the final checkpoint's
+        state built on all of them."""
+        preempted = self.preempt is not None and self.preempt.poll()
+        if preempted and not self._preempt_logged:
+            self._preempt_logged = True
+            self._emit({"event": "preempt", "step": int(policy_step), "action": "requested",
+                        "signal": str(self.preempt.signal_name), "grace_s": self.preempt.grace_s})
+        flags = self.dist.all_gather_object((preempted, (not preempted) and self.wall.expired(policy_step,
+                                                                                           total_steps)))
+        any_preempted, stop = any(f[0] for f in flags), any(f[0] or f[1] for f in flags)
+        if stop and save and state_fn is not None and (any_preempted or self.cfg.checkpoint.save_last):
+            state = state_fn()
+            if any_preempted:
+                self._final_save(policy_step, lambda: state)
+            else:
+                self.ckpt.save(policy_step, state)
+        return stop
 
     def _final_save(self, policy_step: int, state_fn: Callable[[], Dict[str, Any]]) -> None:
         """The preemption drain: one last checkpoint, flushed to disk inside
@@ -168,7 +208,11 @@ class RunGuard:
             return
         self._closed = True
         try:
-            if self.preempted and state_fn is not None:
+            preempted = self.preempted if self.dist is None else any(self.dist.all_gather_object(self.preempted))
+            if preempted and state_fn is not None:
+                if self.dist is not None:  # the state gathers on every rank, whatever rank 0 then writes
+                    state = state_fn()
+                    state_fn = lambda: state  # noqa: E731
                 self._final_save(policy_step, state_fn)
         finally:
             deadline = self.preempt.deadline_remaining() if self.preempted and self.preempt else float("inf")

@@ -272,7 +272,7 @@ def serve_device(cfg: Any) -> torch.device:
     from ..parallel.placement import player_device
     from ..utils.utils import get_device
 
-    return player_device(cfg, get_device(cfg))
+    return player_device(cfg, get_device(cfg, single=True))
 
 
 class InferencePolicy:

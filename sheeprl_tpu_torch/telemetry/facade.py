@@ -38,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel import mesh
 from ..utils.metric import MetricAggregator
 from . import device as device_counters
 from .memory import MemorySampler, host_rss_bytes, memory_snapshot
@@ -82,7 +83,11 @@ class Telemetry:
                                             if aggregator_keys is None or k in aggregator_keys})
 
         self._info = device_info(self.device)
+        # the run's process group (parallel/mesh.py): its backend, or "none" at world size 1 under auto
+        # (a key beyond the reference's schema, which allows extra keys)
+        active = mesh.active()
         self._info.update(rank=self.rank, world_size=int(sel("fabric.devices", 1) or 1),
+                          backend=str(active.backend) if active is not None and active.backend else "none",
                           algo=str(sel("algo.name", "") or ""), run_name=str(sel("run_name", "") or ""),
                           rss_bytes=host_rss_bytes())
         self.jsonl: Optional[JsonlSink] = None

@@ -47,6 +47,21 @@ class RunningMetric:
         else:
             self._value = float(np.mean(value))
 
+    def state(self) -> tuple:
+        return (self._total, self._count, self._value)
+
+    def combine(self, states: Iterable[tuple]) -> None:
+        """Become the reducer of several reducers' ``state()`` of this kind
+        (the ranks' intervals): means and sums add totals and counts,
+        ``max``/``min`` take the extreme, ``last`` the mean of the newest."""
+        states = list(states)
+        self.reset()
+        self._total = float(sum(s[0] for s in states))
+        self._count = int(sum(s[1] for s in states))
+        values = [s[2] for s in states if s[2] is not None]
+        if values:
+            self._value = {"max": max, "min": min}.get(self.kind, lambda v: float(np.mean(v)))(values)
+
     def compute(self) -> Optional[float]:
         if self.kind == "mean":
             return self._total / self._count if self._count else None
@@ -83,3 +98,13 @@ class MetricAggregator:
     def reset(self) -> None:
         for metric in self.metrics.values():
             metric.reset()
+
+    def states(self) -> Dict[str, tuple]:
+        return {name: metric.state() for name, metric in self.metrics.items()}
+
+    def combine(self, states: Iterable[Mapping[str, tuple]]) -> None:
+        """Become the aggregate of several aggregators' ``states()`` (this
+        one's among them), name by name."""
+        states = list(states)
+        for name, metric in self.metrics.items():
+            metric.combine([s[name] for s in states if name in s])

@@ -112,9 +112,12 @@ class ModelManager:
 def register_model(cfg: Any, models: Dict[str, Any], log_dir: str) -> None:
     """End-of-training hook: register each of ``models`` (group name →
     module or state) as ``<algo>_<env>_<group>`` when the model manager is
-    enabled."""
+    enabled; on N ranks, rank 0 alone registers (``parallel/mesh.py``)."""
+    from ..parallel.mesh import active
+
     mm_cfg = cfg.select("model_manager") or {}
-    if mm_cfg.get("disabled", True):
+    run = active()
+    if mm_cfg.get("disabled", True) or (run is not None and not run.is_global_zero):
         return
     manager = ModelManager()
     for name, params in models.items():

@@ -4,6 +4,7 @@ training entry point, ``@register_evaluation`` name → evaluation entry
 point; the CLI resolves ``cfg.algo.name`` through them."""
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 algorithm_registry: Dict[str, Dict[str, Any]] = {}
@@ -11,7 +12,7 @@ evaluation_registry: Dict[str, Dict[str, Any]] = {}
 
 
 def register_algorithm(name: Optional[str] = None, decoupled: bool = False,
-                       requires_exploration_cfg: bool = False) -> Callable:
+                       requires_exploration_cfg: bool = False, mesh: bool = False) -> Callable:
     """Register a training entry point ``main(cfg) -> None`` under ``name``
     (default: the name of the function's module's package, e.g.
     ``sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3`` → ``dreamer_v3``);
@@ -19,18 +20,40 @@ def register_algorithm(name: Optional[str] = None, decoupled: bool = False,
     ``requires_exploration_cfg`` marks a finetuning entry point
     ``main(cfg, exploration_cfg)``: the CLI loads the saved config of the
     exploration run whose checkpoint ``checkpoint.exploration_ckpt_path``
-    names and passes it on (``cli.exploration_surgery``)."""
+    names and passes it on (``cli.exploration_surgery``). ``mesh``
+    algorithms run on ``fabric.devices`` ranks (``parallel/mesh.py``); the
+    others refuse more than one device."""
 
     def wrap(fn: Callable) -> Callable:
         key = name or fn.__module__.rsplit(".", 2)[-1]
         if key in algorithm_registry:
             raise ValueError(f"Algorithm '{key}' already registered")
+        fn = _restores_process_switches(fn)
         algorithm_registry[key] = {"name": key, "module": fn.__module__, "entrypoint": fn.__name__, "fn": fn,
                                    "decoupled": bool(decoupled),
-                                   "requires_exploration_cfg": bool(requires_exploration_cfg)}
+                                   "requires_exploration_cfg": bool(requires_exploration_cfg),
+                                   "mesh": bool(mesh)}
         return fn
 
     return wrap
+
+
+def _restores_process_switches(fn: Callable) -> Callable:
+    """``fn`` with the process-wide switches a loop sets from its config
+    (``MetricAggregator.disabled``, from ``metric.log_level``) put back to
+    their prior values when the run ends, whether it returns or raises: a
+    run leaves nothing behind for the next one in the same process."""
+    from .metric import MetricAggregator
+
+    @functools.wraps(fn)
+    def run(*args: Any, **kwargs: Any) -> Any:
+        prior = MetricAggregator.disabled
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            MetricAggregator.disabled = prior
+
+    return run
 
 
 def register_evaluation(algorithms: Union[str, Sequence[str]]) -> Callable:

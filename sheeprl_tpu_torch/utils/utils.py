@@ -103,19 +103,17 @@ def save_configs(cfg: Any, log_dir: str) -> None:
     save_config(cfg, f"{log_dir}/config.yaml")
 
 
-def get_device(cfg: Any) -> torch.device:
-    """``fabric.accelerator``: auto | gpu | cuda run on the card and raise
-    when there is none; cpu runs on the host. No silent fallback."""
-    accelerator = str(cfg.select("fabric.accelerator", "auto")).lower()
-    if int(cfg.select("fabric.devices", 1) or 1) != 1 or int(cfg.select("fabric.num_nodes", 1) or 1) != 1:
-        raise NotImplementedError("the PyTorch port trains on one device: set fabric.devices=1")
-    if accelerator == "cpu":
-        return torch.device("cpu")
-    if accelerator in ("auto", "gpu", "cuda"):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"fabric.accelerator={accelerator} runs on a CUDA device and none is available "
-                "(pass fabric.accelerator=cpu to run on the host)"
-            )
+def get_device(cfg: Any, single: bool = False) -> torch.device:
+    """The run's device: this rank's (``parallel/mesh.py``; ``cuda:<rank>``
+    on the card, the CPU under ``fabric.accelerator=cpu``). auto | gpu | cuda
+    raise when there is no card: no silent fallback. Outside a launch, a
+    config that asks for more ranks or ``fabric.strategy=ddp`` raises.
+    ``single``: the one device of ``fabric.accelerator`` whatever
+    ``fabric.devices`` says (serving a checkpoint of a run on N ranks)."""
+    from ..parallel.mesh import _platform, current
+
+    if single:
+        if _platform(cfg.select("fabric.accelerator", "auto")) == "cpu":
+            return torch.device("cpu")
         return torch.device("cuda", torch.cuda.current_device())
-    raise ValueError(f"fabric.accelerator must be auto | gpu | cuda | cpu, got {accelerator!r}")
+    return current(cfg).device

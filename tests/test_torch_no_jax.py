@@ -76,6 +76,9 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "         'algo.per_rank_pretrain_steps=1', 'metric.log_level=0', *tiny])\n"
         "cli.run(['exp=sac', 'env=dummy', 'env.id=continuous_dummy', 'fabric.accelerator=cpu', 'dry_run=True',\n"
         "         'env.num_envs=2', 'algo.hidden_size=16', 'algo.fleet.workers=2', 'run_name=fleet'])\n"
+        "cli.run(['exp=ppo_decoupled', 'env=dummy', 'fabric.accelerator=cpu', 'fabric.devices=2', 'dry_run=True',\n"
+        "         'env.num_envs=2', 'algo.rollout_steps=8', 'algo.per_rank_batch_size=4', 'algo.run_test=False',\n"
+        "         'fabric.timeout_s=60'])\n"
         "from sheeprl_tpu_torch.config import load_config_file\n"
         "from sheeprl_tpu_torch.serve import serve_from_checkpoint\n"
         "sckpt = sorted(glob.glob('logs/runs/sac/*/fleet/version_0/checkpoint/*.ckpt'))[-1]\n"
@@ -119,7 +122,8 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "fleet.programs", "fleet.engine", "fleet.remote", "fleet.act_service", "fleet.anakin",
                 "serve.policy", "serve.builders", "serve.batcher", "serve.reload", "serve.server", "serve.evaluate",
                 "serve.session_codec", "diag.prometheus", "diag.timeline", "diag.findings", "diag.trace",
-                "diag.doctor", "diag.aggregator", "diag.live", "prof.capture", "prof.cli", "utils.model_manager"):
+                "diag.doctor", "diag.aggregator", "diag.live", "prof.capture", "prof.cli", "utils.model_manager",
+                "parallel.mesh", "algos.ppo.ppo_decoupled"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked

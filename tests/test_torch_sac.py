@@ -311,10 +311,13 @@ def test_serial_runs_repeat_bitwise_and_resume(capsys):
 
 
 def test_sac_decoupled_is_refused_on_one_device():
+    """One device on the host: refused with the JAX package's message, also
+    with the player on the host (one device is admitted only with the trainer
+    on a card; tests/test_torch_mesh.py holds the whole rule)."""
     with pytest.raises(RuntimeError, match="decoupled algorithm: it needs at least one player and one trainer"):
         cli.run(["exp=sac_decoupled", "fabric.devices=1", "fabric.accelerator=cpu"])
-    with pytest.raises(NotImplementedError, match="one device"):
-        cli.run(["exp=sac_decoupled", "fabric.accelerator=cpu"])
+    with pytest.raises(RuntimeError, match="decoupled algorithm: it needs at least one player and one trainer"):
+        cli.run(["exp=sac_decoupled", "fabric.devices=1", "fabric.accelerator=cpu", "algo.player.device=host"])
 
 
 def test_fleet_mode_is_refused():
