@@ -139,7 +139,7 @@ that fails and then prints no result:
                            ratio 20: about 3,000 critic steps);
                sac_ae      exp=sac_ae at full width (multiplier 16, hidden
                            1024, batch 128, 64x64x3 pixels), serial,
-                           learning_starts cut to 64, 64 gradient steps;
+                           learning_starts cut to 64, 32 gradient steps;
                sac_resume  checkpoint.resume_from=<the sac leg's mid-run
                            checkpoint, which holds the buffer>: its
                            counters and parameters, and on to 1,536;
@@ -257,7 +257,7 @@ that fails and then prints no result:
                            requests, batches, occupancy and pad waste;
                fleet_dv3_chaos
                            fleet_dv3 with worker 0 crashing at a lifetime
-                           step and worker 1 hanging past fleet.hang_s=1:
+                           step and worker 1 hanging past fleet.hang_s=6:
                            the serial Ratio ledger still (policy steps,
                            gradient steps, the Ratio's state; each column
                            holds exactly one step row per env step, and a
@@ -309,7 +309,7 @@ that fails and then prints no result:
                            it says it serves on cuda:0 and the card's name,
                            and answers one request;
                anakin      run_anakin on the card (1024 lanes, chunks of
-                           256, seed 5) for 10 s: env steps/s, operations
+                           256, seed 5) for 5 s: env steps/s, operations
                            and CUDA kernels per chunk;
                no serving leg launches an LN-GRU kernel, and ppo_eval and
                sac_eval say they went through serve/evaluate.py;
@@ -356,6 +356,42 @@ that fails and then prints no result:
                the last checkpoint through serve/evaluate.py, policy
                steps/s; the phase's seconds (--mesh runs it alone after
                phases 1-2);
+5d. gateway  — the serving plane scaled out (gateway/) and the data
+               flywheel (flywheel/), every replica a process of its own on
+               cuda:0, each leg watching the card's compute processes (a
+               sample must list this process and its replicas) and reading
+               each replica's stream (memory samples of the card):
+               gateway_dv3 the run leg's mid-run checkpoint behind
+                           gateway_from_checkpoint (2 replicas, the WAL-backed
+                           inproc broker, capture on): 16 sessions x 64
+                           steps from 16 client threads (64x64x3 frames),
+                           replica 0 chaos-exiting at its 200th request; the
+                           last checkpoint published and POST
+                           /admin/rolling_reload under 8 more steps of each
+                           session: every step acked with its session's next
+                           broker version, failovers and migrations >= 1,
+                           both replicas swapped to params_version >= 1, the
+                           capture's trace ids the acked ones; requests/s,
+                           the gateway's p50/p95/p99, the crash-to-routable
+                           and reload seconds, each replica's device memory;
+               gateway_flywheel
+                           two synthetic counter fleets (capture on and
+                           off): 100 sessions x 4 rounds from 8 threads, one
+                           turn of `python -m sheeprl_tpu_torch flywheel`
+                           with flywheel.gateway_url (400 samples, trace
+                           join 1.0, ckpt_10.ckpt, the HTTP rolling reload),
+                           2 more rounds (counters continue, only
+                           params_version 1), a second turn (200 new, 400
+                           duplicates); then the act p95 with capture on and
+                           off, two arms each in turns (recorded, not gated);
+               flywheel_bc the sac leg's last checkpoint behind 2 replicas
+                           with capture on, 32 sessions x 50 sampled
+                           requests, then run_flywheel with the SAC
+                           PolicyCore on cuda:0 (greedy BC, 50 steps of
+                           batch 64): the step on cuda:0, the loss finite,
+                           the actor moved, a policy on the new actor acts;
+               no gateway leg launches an LN-GRU kernel (--gateway runs the
+               sac and run legs, then the phase, after phases 1-2);
 6. time and kernels
              — the script's whole time in seconds (one JSON line), then
                one {"kernels": [...]} line: a row for each kernel at each
@@ -1228,7 +1264,7 @@ PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
 # the off-policy legs: the presets' algorithm settings and widths on the
 # continuous dummy env, 4 envs, cut in length and buffer size only
 SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL = 1024, 1536, 1024, 256
-AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 128, 256
+AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 96, 256
 
 
 class _Tee(io.TextIOBase):
@@ -2245,7 +2281,7 @@ def walker_legs(torch, ln_gru):
 
 # the actor fleet's DreamerV3 legs: the run legs' DV3-S at 4 envs (a 64-row
 # sequence in each env's buffer from policy step 256), 2 workers of 2 envs
-FLEET_LEARNING_STARTS, FLEET_TOTAL = 256, 320
+FLEET_LEARNING_STARTS, FLEET_TOTAL = 256, 288
 FLEET_KNOBS = ["fleet.backoff_s=0.05", "fleet.stats_every_s=1.0"]
 
 
@@ -2372,7 +2408,10 @@ def fleet_dv3_args():
         "fleet_dv3": [],
         # the batched act service on the card (Sebulba): the workers ship obs and noise rows
         "fleet_dv3_inference": ["fleet.act_mode=inference"],
-        "fleet_dv3_chaos": ["fleet.hang_s=1.0", "resilience.chaos.enabled=True",
+        # hang_s above a respawned worker's first params transfer (a 65.9 MB
+        # publication, seconds on a slow host): a shorter budget flags that
+        # transfer as a hang, respawns again and nears quarantine
+        "fleet_dv3_chaos": ["fleet.hang_s=6.0", "resilience.chaos.enabled=True",
                             # lifetime steps: a worker takes FLEET_TOTAL / 2
                             f"resilience.chaos.crash_at_step={FLEET_TOTAL // 4}",
                             "resilience.chaos.crash_workers=[0]",
@@ -2501,15 +2540,15 @@ def fleet_legs(torch, ln_gru, done):
 # DreamerV3-S sessions x 64 steps; the reloader polls every 0.2 s
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SESSIONS, SERVE_STEPS = 32, 50, 16, 64
 SERVE_POLL_S, SERVE_DEADLINE_S = 0.2, 120.0
-# Anakin at bench.py's settings: 1024 lanes, chunks of 256 steps, seed 5, 10 s
-ANAKIN_SLOTS, ANAKIN_CHUNK, ANAKIN_SEED, ANAKIN_SECONDS = 1024, 256, 5, 10.0
+# Anakin at bench.py's lanes and chunks: 1024 lanes, chunks of 256 steps, seed 5, for 5 s
+ANAKIN_SLOTS, ANAKIN_CHUNK, ANAKIN_SEED, ANAKIN_SECONDS = 1024, 256, 5, 5.0
 
 
-def serve_copy(name, src_log_dir, ckpt):
+def serve_copy(name, src_log_dir, ckpt, root=RUN_ROOT):
     """A fresh run dir for a serving leg: the source run's config.yaml and
     one of its checkpoints, so the reloader sees only what the leg puts
     there. Returns the checkpoint's path in it."""
-    d = os.path.join(HERE, "logs", "runs", RUN_ROOT, name)
+    d = os.path.join(HERE, "logs", "runs", root, name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(os.path.join(d, "checkpoint"))
     shutil.copy(os.path.join(src_log_dir, "config.yaml"), d)
@@ -2631,14 +2670,16 @@ def _serve_clients_main(spec, conn):
     conn.close()
 
 
-def serve_traffic(spec, during=None):
-    """``serve_clients(spec)`` in a spawned process; ``during()`` runs here
-    meanwhile (e.g. publishing a newer checkpoint). Returns its result."""
+def serve_traffic(spec, during=None, target=None):
+    """``serve_clients(spec)`` (or ``target``'s clients) in a spawned
+    process; ``during()`` runs here meanwhile (e.g. publishing a newer
+    checkpoint). Returns its result."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_serve_clients_main, args=(spec, send), name="smoke-serve-clients", daemon=True)
+    proc = ctx.Process(target=target or _serve_clients_main, args=(spec, send), name="smoke-serve-clients",
+                       daemon=True)
     proc.start()
     send.close()
     try:
@@ -2814,7 +2855,7 @@ def serve_dv3_leg(torch, ln_gru, src_log_dir, mid, last):
 
 def anakin_leg(torch, ln_gru):
     """anakin: ``run_anakin`` on the card at bench.py's settings (1024 lanes,
-    chunks of 256 steps, seed 5) for 10 s: env steps/s, the operations one
+    chunks of 256 steps, seed 5) for 5 s: env steps/s, the operations one
     chunk dispatches, and the CUDA kernels one chunk launches as
     torch.profiler records them (None with the reason where it records
     none); the state and mean reward finite."""
@@ -2932,6 +2973,666 @@ def serve_alone(torch, ln_gru):
         report[name] = {"seconds": seconds, "reward": parsed["reward"], "route": parsed["route"]}
     report.update(serving_legs(torch, ln_gru))
     return report
+
+
+# phase gateway: the serving plane scaled out (sheeprl_tpu_torch/gateway/)
+# and the data flywheel (sheeprl_tpu_torch/flywheel/), replicas on the card.
+# Its inputs live under GATEWAY_ROOT, which phase diag's clean-up leaves be:
+# the checkpoints the serving legs served, kept by gateway_stash.
+GATEWAY_ROOT = "chip_smoke_gateway"
+GW_DV3_CRASH_AT = 200  # replica 0 os._exits at its 200th act request, first incarnation only
+GW_FLY_SESSIONS, GW_FLY_ROUNDS, GW_FLY_MORE, GW_FLY_THREADS = 100, 4, 2, 8
+GW_ARM_SESSIONS, GW_ARM_ROUNDS = 100, 2
+GW_BC_STEPS, GW_BC_BATCH = 50, 64
+GW_BC_TOL = 1e-5  # one BC step, the card against the CPU, f32 with TF32 off on both
+GW_DEADLINE_S = 180.0
+
+
+def gateway_dir(name):
+    return os.path.join(HERE, "logs", "runs", GATEWAY_ROOT, name)
+
+
+def gateway_stash(dv3_log_dir, dv3_mid, dv3_last, sac_log_dir, sac_ckpt):
+    """Keep what phase gateway serves: the DreamerV3-S run leg's config and
+    mid-run checkpoint (its last beside them, to publish), the SAC leg's
+    config and last checkpoint, each in a run dir of its own under
+    GATEWAY_ROOT (serve_copy)."""
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", GATEWAY_ROOT), ignore_errors=True)
+    serve_copy("gateway_dv3", dv3_log_dir, dv3_mid, root=GATEWAY_ROOT)
+    os.makedirs(gateway_dir("gateway_dv3_next"))
+    shutil.copy(dv3_last, gateway_dir("gateway_dv3_next"))
+    serve_copy("flywheel_bc", sac_log_dir, sac_ckpt, root=GATEWAY_ROOT)
+
+
+def gateway_clients(spec):
+    """The gateway's load generator, run in a process of its own: ``threads``
+    threads, each with one HTTP/1.1 keep-alive connection, step the sessions
+    dealt to it in rounds (round r steps each of its sessions once). Every
+    request carries its session id, a ``traceparent`` with a trace id of its
+    own and the reward; a 503 (admission's shed, with ``retry_after_s``) is
+    retried after that hint under the same trace id, any other answer is
+    final. ``spec``: ``port``, ``deadline_s``, ``obs`` (key → [shape, dtype],
+    or None for the counter policy's ``{"x": [[0.0]]}``), ``threads`` and
+    ``sessions`` (``{sid, steps, det, seed}``). Returns ``{results: [(sid,
+    step, status, latency_s, attempts, trace_id, answer)], seconds}``, the
+    answer holding the actions, params_version and session_version."""
+    import http.client
+    import threading
+    import uuid
+
+    import numpy as np
+
+    port, t_end = spec["port"], time.monotonic() + spec["deadline_s"]
+    out, lock = [], threading.Lock()
+
+    def obs(rng):
+        if spec["obs"] is None:
+            return {"x": [[0.0]]}
+        return {k: (rng.integers(0, 256, shape, dtype="uint8") if dtype == "uint8"
+                    else rng.standard_normal(shape).astype("float32")).tolist()
+                for k, (shape, dtype) in spec["obs"].items()}
+
+    def worker(mine):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        rngs = {s["sid"]: np.random.default_rng(s["seed"]) for s in mine}
+        try:
+            for step in range(max(s["steps"] for s in mine)):
+                for s in mine:
+                    if step >= s["steps"] or time.monotonic() > t_end:
+                        continue
+                    trace_id = uuid.uuid4().hex
+                    body = json.dumps({"obs": obs(rngs[s["sid"]]), "deterministic": s["det"],
+                                       "session_id": s["sid"], "reward": 1.0,
+                                       "traceparent": f"00-{trace_id}-{uuid.uuid4().hex[:16]}-01"}).encode()
+                    t0, attempts = time.perf_counter(), 0
+                    while True:
+                        attempts += 1
+                        conn.request("POST", "/v1/act", body, {"Content-Type": "application/json"})
+                        r = conn.getresponse()
+                        answer = json.loads(r.read().decode())
+                        if r.status != 503 or time.monotonic() > t_end:
+                            break
+                        time.sleep(float(answer.get("retry_after_s") or 0.25))
+                    dt = time.perf_counter() - t0
+                    keep = {k: answer.get(k) for k in ("actions", "params_version", "session_version", "replica",
+                                                       "error")}
+                    with lock:
+                        out.append((s["sid"], step, r.status, dt, attempts, trace_id, keep))
+        finally:
+            conn.close()
+
+    dealt = [spec["sessions"][t::spec["threads"]] for t in range(spec["threads"])]
+    threads = [threading.Thread(target=worker, args=(mine,)) for mine in dealt if mine]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"results": out, "seconds": time.perf_counter() - t0}
+
+
+def _gateway_clients_main(spec, conn):
+    conn.send(gateway_clients(spec))
+    conn.close()
+
+
+def gateway_cfg(ckpt=None, **settings):
+    """A gateway config: the checkpoint's run config (when serving one) with
+    the serve and gateway defaults composed in, then ``settings``
+    (dotted key → value), as the gateway command composes it."""
+    from sheeprl_tpu_torch.config import CONFIG_ROOT, Config, load_config_file
+
+    cfg = load_config_file(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "config.yaml")) if ckpt else Config()
+    for group in ("serve", "gateway"):
+        cfg[group] = load_config_file(os.path.join(CONFIG_ROOT, group, "default.yaml"))
+    base = {"gateway.replicas": 2, "gateway.http.port": 0, "gateway.replica.platform": "cuda",
+            "gateway.supervisor.health_poll_s": 0.2, "gateway.supervisor.backoff_s": 0.2,
+            "gateway.supervisor.jitter": 0.1, "gateway.telemetry.log_every_s": 1.0,
+            "gateway.replica.hot_reload.poll_interval_s": 3600.0}  # reloads only through the rolling reload
+    for key, val in {**base, **settings}.items():
+        cfg.set_path(key, val)
+    return cfg
+
+
+def gateway_routable(gw, ready):
+    if len(gw.manager.routable()) != gw.manager.num_replicas:
+        gateway_stop(gw)
+        raise AssertionError(f"{len(gw.manager.routable())} of {gw.manager.num_replicas} replicas came up")
+    return gw, ready
+
+
+def gateway_start(ckpt, **settings):
+    """A started gateway from a checkpoint, through gateway_from_checkpoint
+    as the gateway command calls it (block=False, its stdout line kept off
+    this script's). Returns (gateway, seconds until every replica
+    answered)."""
+    from sheeprl_tpu_torch.gateway import gateway_from_checkpoint
+
+    cfg = gateway_cfg(ckpt, **settings)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        gw = gateway_from_checkpoint(ckpt, cfg, block=False)
+    return gateway_routable(gw, time.perf_counter() - t0)
+
+
+def gateway_spawn(run_dir, ckpt=None, **settings):
+    """A gateway built (build_cluster, its stream under ``run_dir``) whose
+    replicas are spawned now and started later by ``gateway_ready``, so the
+    next legs' replicas come up while an earlier leg runs: the checkpoint's
+    replicas, or the synthetic counter fleet. Returns (gateway, config,
+    spawn time)."""
+    from sheeprl_tpu_torch.gateway import build_cluster
+    from sheeprl_tpu_torch.telemetry.sinks import JsonlSink
+
+    cfg = gateway_cfg(ckpt, **settings)
+    sink = JsonlSink(os.path.join(run_dir, "gateway", "telemetry.jsonl"))
+    gw = build_cluster(cfg, ckpt_path=ckpt, sink=sink, start=False, telemetry_dir=run_dir)
+    t0 = time.perf_counter()
+    gw.manager.start()
+    return gw, cfg, t0
+
+
+def gateway_ready(spawned):
+    """start_cluster on a spawned gateway; returns (gateway, seconds from
+    its spawn until every replica answered)."""
+    from sheeprl_tpu_torch.gateway import start_cluster
+
+    gw, cfg, t0 = spawned
+    start_cluster(gw, cfg)
+    return gateway_routable(gw, time.perf_counter() - t0)
+
+
+def gateway_stop(gw):
+    gw.stop()
+    gw.manager.shutdown()
+    if gw._sink is not None:
+        gw._sink.close()
+
+
+def gateway_traffic(port, sessions, threads, obs=None, during=None):
+    """``gateway_clients`` in a spawned process (the gateway keeps its GIL);
+    ``during()`` runs here meanwhile."""
+    return serve_traffic({"port": port, "deadline_s": GW_DEADLINE_S, "obs": obs, "threads": threads,
+                          "sessions": sessions}, during=during, target=_gateway_clients_main)
+
+
+def replica_streams(run_dir):
+    """Each replica incarnation's stream under ``run_dir``: path → records."""
+    import glob
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(run_dir, "replicas", "*", "telemetry.jsonl*"))):
+        with open(path) as fh:
+            out[path] = [json.loads(l) for l in fh if l.strip().startswith("{")]
+    return out
+
+
+def replicas_on_card(run_dirs, apps, baseline_rows, n):
+    """The replicas served on the card: every replica stream under the
+    ``run_dirs`` validates and its memory samples carry the card's allocator
+    numbers, and a sample of the card's compute apps listed ``n`` replica
+    processes beside what was there before (this process). Returns each
+    stream's device memory."""
+    from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
+
+    streams = {path: recs for d in run_dirs for path, recs in replica_streams(d).items()}
+    root = os.path.join(HERE, "logs", "runs", GATEWAY_ROOT)
+    memory = {}
+    for path, recs in streams.items():
+        errors = validate_jsonl(path)
+        if errors:
+            raise AssertionError(f"{path} fails the schema: {errors[:3]}")
+        mem = [r for r in recs if r["event"] == "mem"]
+        name = os.path.relpath(path, root)
+        memory[name] = {"hbm_peak_bytes": max((r.get("hbm_peak_bytes", 0) for r in mem), default=None),
+                        "hbm_bytes_reserved": max((r.get("hbm_bytes_reserved", 0) for r in mem), default=None),
+                        "rss_bytes": max((r.get("rss_bytes", 0) for r in mem), default=None)}
+        if not mem or not memory[name]["hbm_peak_bytes"]:
+            raise AssertionError(f"{name}: no memory sample of the card ({len(mem)} samples)")
+    if len(streams) < n or apps.max_rows < baseline_rows + n or not apps.samples:
+        raise AssertionError(f"{len(streams)} replica streams; the card's compute apps listed at most "
+                             f"{apps.max_rows} processes a sample ({baseline_rows} before), {apps.samples} "
+                             f"samples, {apps.error}")
+    return {"replica_device_memory": memory, "compute_apps_per_sample_max": apps.max_rows,
+            "compute_apps_before": baseline_rows}
+
+
+def compute_app_rows():
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout
+    return sum(1 for x in out.split() if x.strip().isdigit())
+
+
+def capture_records(capture_dir):
+    """Every capture record under a capture root (all replicas, all segments)."""
+    from sheeprl_tpu_torch.flywheel import iter_capture_records
+
+    return list(iter_capture_records(capture_dir))
+
+
+def latency_pcts(results):
+    lat = sorted(r[3] * 1e3 for r in results)
+    q = (lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]) if lat else (lambda p: None)
+    return {"p50_ms": q(0.50), "p95_ms": q(0.95), "p99_ms": q(0.99)}
+
+
+def gateway_dv3_leg(torch, ln_gru, base_rows):
+    """gateway_dv3: the DreamerV3-S run leg's mid-run checkpoint behind
+    gateway_from_checkpoint, 2 replicas on cuda:0, the WAL-backed inproc
+    broker, capture on; 16 sessions x 64 steps from 16 client threads (the
+    serve_dv3 leg's 64x64x3 frames, sessions 0-7 deterministic), replica 0
+    chaos-exiting at its GW_DV3_CRASH_AT-th request. Once both replicas
+    answer again, the run leg's last checkpoint is published and POST
+    /admin/rolling_reload runs under 8 more steps of each session. Every
+    step acked (its session_version the step's number: nothing acked was
+    lost or replayed), at least one failover and one migration, every live
+    replica swapped and serving params_version >= 1, and one capture record
+    for each acked act: as many records as acked trace ids, no trace id
+    twice, the same set. ``base_rows``: the card's compute processes besides
+    this leg's replicas (this process, the fleets spawned for the later
+    legs)."""
+    import threading
+    import urllib.request
+
+    run = gateway_dir("gateway_dv3")
+    ckpt = checkpoints(run)[0]
+    nxt = os.path.join(gateway_dir("gateway_dv3_next"), os.listdir(gateway_dir("gateway_dv3_next"))[0])
+    ln_gru.reset_launch_counts()
+    with ComputeApps() as apps:
+        gw, ready = gateway_start(ckpt, **{"gateway.broker.wal_dir": os.path.join(run, "wal"),
+                                                  "serve.capture.enabled": True,
+                                                  "gateway.replica.chaos": {"crash_at_step": GW_DV3_CRASH_AT}})
+        manager, obs = gw.manager, None
+        try:
+            from sheeprl_tpu_torch.utils.env import probe_env_spaces
+
+            run_cfg = gateway_cfg(ckpt)
+            space = probe_env_spaces(run_cfg, int(run_cfg.seed)).single_observation_space
+            keys = tuple(run_cfg.algo.cnn_keys.encoder) + tuple(run_cfg.algo.mlp_keys.encoder)
+            obs = {k: [list(space[k].shape), str(space[k].dtype)] for k in keys}
+            # the supervisor's view, sampled: when the crash was seen and when
+            # both replicas answered again
+            marks, stop = {}, threading.Event()
+
+            def watch():
+                while not stop.wait(0.02):
+                    if manager.crashes and "crash" not in marks:
+                        marks["crash"] = time.perf_counter()
+                    if "crash" in marks and "back" not in marks and len(manager.routable()) == 2:
+                        marks["back"] = time.perf_counter()
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            sessions = [{"sid": f"s{c}", "steps": SERVE_STEPS, "det": c < SERVE_SESSIONS // 2, "seed": 4000 + c}
+                        for c in range(SERVE_SESSIONS)]
+            phase_a = gateway_traffic(gw.port, sessions, SERVE_SESSIONS, obs)
+            stats_a = gw.stats.snapshot()
+            if not manager.wait_routable(timeout_s=GW_DEADLINE_S):
+                raise AssertionError(f"replica 0 did not come back: {[h.state for h in manager.handles]}")
+            serve_publish(nxt, ckpt)
+            reload = {}
+
+            def rolling_reload():
+                time.sleep(1.0)  # under traffic
+                t0 = time.perf_counter()
+                req = urllib.request.Request(f"http://127.0.0.1:{gw.port}/admin/rolling_reload", data=b"{}",
+                                             method="POST")
+                with urllib.request.urlopen(req, timeout=GW_DEADLINE_S) as resp:
+                    reload["results"] = json.loads(resp.read())["results"]
+                reload["seconds"] = time.perf_counter() - t0
+
+            more = [dict(s, steps=8, seed=s["seed"] + 100) for s in sessions]
+            phase_b = gateway_traffic(gw.port, more, SERVE_SESSIONS, obs, during=rolling_reload)
+            stop.set()
+            watcher.join(timeout=5)
+            # each replica's params_version, as the reload's settle poll read it
+            versions = {h.replica_id: h.params_version for h in manager.handles}
+            record = gw.gateway_record()
+            stats = gw.stats.snapshot()
+        finally:
+            gateway_stop(gw)
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    results = phase_a["results"] + [(sid, SERVE_STEPS + step, *rest) for sid, step, *rest in phase_b["results"]]
+    bad = [r for r in results if r[2] != 200]
+    lost = []
+    for c in range(SERVE_SESSIONS):
+        got = sorted((r[1], r[6]["session_version"]) for r in results if r[0] == f"s{c}" and r[2] == 200)
+        if [v for _, v in got] != list(range(1, SERVE_STEPS + 9)):
+            lost.append((f"s{c}", got[:3], len(got)))
+    swapped = [r for r in reload.get("results", []) if r.get("swapped")]
+    captured = capture_records(os.path.join(run, "capture"))
+    acked_ids = {r[5] for r in results if r[2] == 200}
+    captured_ids = [r.get("trace_id") for r in captured]
+    rep = {"ready_s": ready, "sessions": SERVE_SESSIONS, "steps": SERVE_STEPS + 8, "requests": len(results),
+           "non_200": len(bad), "retried_503": sum(r[4] - 1 for r in results),
+           "requests_per_s": len(phase_a["results"]) / phase_a["seconds"], "phase_a_seconds": phase_a["seconds"],
+           "gateway_p50_ms": record["p50_ms"], "gateway_p95_ms": record["p95_ms"], "gateway_p99_ms": record["p99_ms"],
+           "client": latency_pcts(phase_a["results"]),
+           # the replica that answered each session's first step, and its last
+           "first_replica_sessions": {str(r): sum(1 for x in results if x[1] == 0 and x[6].get("replica") == r)
+                                      for r in range(2)},
+           "last_replica_sessions": {str(r): sum(1 for x in results if x[1] == SERVE_STEPS + 7
+                                                 and x[6].get("replica") == r) for r in range(2)},
+           "failovers": stats["failovers"], "migrations": stats["migrations"], "rehydrates": stats["rehydrates"],
+           "failovers_phase_a": stats_a["failovers"], "crashes": manager.crashes,
+           "respawns": manager.total_respawns, "crash_to_routable_s": (marks["back"] - marks["crash"])
+           if {"crash", "back"} <= set(marks) else None,
+           "failover_request_max_ms": max(r[3] for r in phase_a["results"]) * 1e3,
+           "reload_seconds": reload.get("seconds"), "reload_results": reload.get("results"),
+           "params_version_by_replica": versions, "capture_records": len(captured),
+           "capture_unique_trace_ids": len(set(captured_ids)), "acked": len(acked_ids),
+           "capture_equals_acked": set(captured_ids) == acked_ids, "launches": counts,
+           **replicas_on_card([run], apps, base_rows, 2)}
+    problems = []
+    if bad or lost:
+        problems.append(f"unacked {[(r[0], r[1], r[2], r[6]) for r in bad[:3]]}, sessions off their versions {lost[:3]}")
+    if rep["failovers"] < 1 or rep["migrations"] < 1 or manager.crashes < 1:
+        problems.append(f"failovers {rep['failovers']}, migrations {rep['migrations']}, crashes {manager.crashes}")
+    if len(swapped) != 2 or any(v < 1 for v in versions.values()):
+        problems.append(f"rolling reload {reload}, params_version by replica {versions}")
+    if not rep["capture_equals_acked"] or not len(captured) == len(acked_ids) == len(set(captured_ids)):
+        problems.append(f"capture: {len(captured)} records, {len(set(captured_ids))} trace ids, "
+                        f"{len(acked_ids)} acked, equal {rep['capture_equals_acked']}")
+    if any(counts.values()):
+        problems.append(f"launched LN-GRU kernels {counts}")
+    if problems:
+        raise AssertionError(f"gateway_dv3: {'; '.join(problems)}")
+    return rep
+
+
+def flywheel_cli(run_dir, ckpt, *overrides):
+    """``python -m sheeprl_tpu_torch flywheel ...`` as users run it, in a
+    process of its own; returns (its summary, seconds)."""
+    import ast
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch", "flywheel", f"run_dir={run_dir}",
+                           f"checkpoint_path={ckpt}", "flywheel.algo=synthetic_counter", *overrides],
+                          cwd=HERE, capture_output=True, text=True, timeout=GW_DEADLINE_S)
+    seconds = time.perf_counter() - t0
+    line = [l for l in proc.stdout.splitlines() if l.startswith("[flywheel] ")]
+    if proc.returncode or not line:
+        raise AssertionError(f"the flywheel command: rc {proc.returncode}, {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    return ast.literal_eval(line[0][len("[flywheel] "):]), seconds
+
+
+def counter_sessions(prefix, n):
+    return [{"sid": f"{prefix}{i:03d}", "steps": 0, "det": True, "seed": i} for i in range(n)]
+
+
+def counter_check(results, start, mismatches, versions):
+    """The counter policy's actions continue each session's count: the
+    answer to step k is k + start."""
+    for sid, step, status, _, _, _, answer in results:
+        if status != 200 or float(answer["actions"][0][0]) != float(step + start):
+            mismatches.append((sid, step, status, answer))
+        versions.add(answer.get("params_version"))
+
+
+def gateway_flywheel_leg(torch, ln_gru, spawned_a, spawned_b, base_rows):
+    """gateway_flywheel: the JAX package's acceptance loop at its flywheel
+    runs' scale. Two synthetic counter fleets on the card (2 replicas each,
+    seeded from a checkpoint dir): A with capture on, B without. 100
+    sessions x 4 rounds from 8 threads through A; then one turn of the
+    flywheel command with flywheel.gateway_url (ingest, synthetic_counter
+    fine-tune, checkpoint, the HTTP rolling reload); 2 more rounds (the
+    counters continue, only params_version 1 answers); a second turn
+    without the gateway ingests exactly the 200 new samples and counts the
+    400 as duplicates. Then the act p95 with capture on (A) and off (B),
+    two arms each in turns (on, off, off, on), fresh sessions each arm.
+    ``spawned_a``/``spawned_b``: the fleets from flywheel_spawn."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.flywheel import run_flywheel
+
+    run_a, run_b = gateway_dir("flywheel_on"), gateway_dir("flywheel_off")
+    seed = os.path.join(run_a, "checkpoint", "ckpt_0.ckpt")
+    ln_gru.reset_launch_counts()
+    with ComputeApps() as apps:
+        gw_a, ready_a = gateway_ready(spawned_a)
+        gw_b, ready_b = gateway_ready(spawned_b)
+        try:
+            sessions = counter_sessions("u", GW_FLY_SESSIONS)
+            first = gateway_traffic(gw_a.port, [dict(s, steps=GW_FLY_ROUNDS) for s in sessions], GW_FLY_THREADS)
+            mismatches, before = [], set()
+            counter_check(first["results"], 0, mismatches, before)
+            turn1, turn1_s = flywheel_cli(run_a, seed, f"flywheel.gateway_url=http://127.0.0.1:{gw_a.port}")
+            more = gateway_traffic(gw_a.port, [dict(s, steps=GW_FLY_MORE) for s in sessions], GW_FLY_THREADS)
+            after = set()
+            counter_check(more["results"], GW_FLY_ROUNDS, mismatches, after)
+            # the second turn in this process, on the command's own composition
+            t0 = time.perf_counter()
+            turn2 = run_flywheel(*cli.flywheel_config([f"run_dir={run_a}", f"checkpoint_path={turn1['checkpoint']}",
+                                                       "flywheel.algo=synthetic_counter"]))
+            turn2_s = time.perf_counter() - t0
+            arms = []
+            for k, (name, gw) in enumerate((("on", gw_a), ("off", gw_b), ("off", gw_b), ("on", gw_a))):
+                arm = gateway_traffic(gw.port, [dict(s, steps=GW_ARM_ROUNDS) for s in counter_sessions(
+                    f"arm{k}-", GW_ARM_SESSIONS)], GW_FLY_THREADS)
+                counter_check(arm["results"], 0, mismatches, set())
+                arms.append({"capture": name, "requests": len(arm["results"]),
+                             "requests_per_s": len(arm["results"]) / arm["seconds"], **latency_pcts(arm["results"])})
+        finally:
+            gateway_stop(gw_b)
+            gateway_stop(gw_a)
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    p95 = {side: statistics.mean(a["p95_ms"] for a in arms if a["capture"] == side) for side in ("on", "off")}
+    ing1, ing2 = turn1["ingest"], turn2["ingest"]
+    reload_results = (turn1.get("reload") or {}).get("results") or []
+    rep = {"ready_s": {"capture_on": ready_a, "capture_off": ready_b},
+           "first_rounds": {"requests": len(first["results"]), "seconds": first["seconds"],
+                            **latency_pcts(first["results"])},
+           "turn1": {"seconds": turn1_s, "ingest": ing1, "finetune": turn1.get("finetune"),
+                     "checkpoint": os.path.basename(turn1.get("checkpoint", "")), "reload": turn1.get("reload"),
+                     "duration_s": turn1.get("duration_s")},
+           "turn2": {"seconds": turn2_s, "samples": ing2["samples"], "duplicates": ing2["duplicates"],
+                     "checkpoint": os.path.basename(turn2.get("checkpoint", ""))},
+           "params_versions_before": sorted(before), "params_versions_after": sorted(after),
+           "mismatches": len(mismatches), "p95_arms": arms, "p95_ms_capture_on": p95["on"],
+           "p95_ms_capture_off": p95["off"], "capture_p95_overhead": p95["on"] / p95["off"] - 1.0,
+           "launches": counts, **replicas_on_card([run_a, run_b], apps, base_rows, 4)}
+    problems = []
+    if mismatches:
+        problems.append(f"counter mismatches {mismatches[:3]}")
+    if ing1["samples"] != GW_FLY_SESSIONS * GW_FLY_ROUNDS or ing1["trace_join_frac"] != 1.0:
+        problems.append(f"turn 1 ingest {ing1}")
+    if rep["turn1"]["checkpoint"] != "ckpt_10.ckpt" or len(reload_results) != 2 or not all(
+            r.get("swapped") for r in reload_results):
+        problems.append(f"turn 1 checkpoint {rep['turn1']['checkpoint']}, reload {turn1.get('reload')}")
+    if before != {0} or after != {1}:
+        problems.append(f"params_version {before} before the reload, {after} after")
+    if ing2["samples"] != GW_FLY_SESSIONS * GW_FLY_MORE or ing2["duplicates"] != GW_FLY_SESSIONS * GW_FLY_ROUNDS:
+        problems.append(f"turn 2 ingest {ing2}")
+    if any(counts.values()):
+        problems.append(f"launched LN-GRU kernels {counts}")
+    if problems:
+        raise AssertionError(f"gateway_flywheel: {'; '.join(problems)}")
+    return rep
+
+
+def flywheel_spawn():
+    """Spawn phase gateway's later fleets together: the synthetic counter
+    fleets of gateway_flywheel (A with capture, B without; each seeded from
+    a checkpoint dir holding ckpt_0) and flywheel_bc's SAC replicas, 6
+    replica processes."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.flywheel import write_checkpoint
+
+    out = {}
+    for name, capture in (("flywheel_on", True), ("flywheel_off", False)):
+        run = gateway_dir(name)
+        write_checkpoint(os.path.join(run, "checkpoint"), 0, {"params": {"w": np.zeros((1,), np.float32)}})
+        out[name] = gateway_spawn(run, **{"gateway.replica.ckpt_dir": os.path.join(run, "checkpoint"),
+                                          "serve.capture.enabled": capture})
+    run = gateway_dir("flywheel_bc")
+    out["flywheel_bc"] = gateway_spawn(run, checkpoints(run)[0], **{"serve.capture.enabled": True})
+    return out
+
+
+def flywheel_bc_leg(torch, ln_gru, spawned, base_rows):
+    """flywheel_bc: behaviour cloning on the card over real captured
+    traffic. The SAC leg's last checkpoint behind gateway_from_checkpoint
+    (2 replicas on cuda:0, capture on); 32 sessions x 50 sampled requests;
+    then run_flywheel over that capture with the port's SAC PolicyCore on
+    cuda:0 (the generic greedy-BC step), from a seed checkpoint
+    ``{"params": core.extract_params(state), "algo": "sac_bc"}``,
+    flywheel.steps=50, batch_size=64. The step ran on cuda:0, its loss is
+    finite, the new checkpoint's actor differs from the seed's, and a
+    policy built from the new actor on the card acts. Two checks hold the
+    step's arithmetic: one BC step from the seed on the capture's first 64
+    records, on the card, agrees with the same step on the CPU (the actor
+    within GW_BC_TOL, the loss within rel GW_BC_TOL), and the turn lowers
+    the loss over the whole capture. ``spawned``: its replicas from
+    flywheel_spawn."""
+    import dataclasses
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import Config
+    from sheeprl_tpu_torch.flywheel import run_flywheel, write_checkpoint
+    from sheeprl_tpu_torch.flywheel.recipe import build_finetune_step
+    from sheeprl_tpu_torch.serve import InferencePolicy
+    from sheeprl_tpu_torch.serve.policy import get_policy_builder
+    from sheeprl_tpu_torch.utils.checkpoint import CheckpointManager
+    from sheeprl_tpu_torch.utils.env import probe_env_spaces
+
+    run = gateway_dir("flywheel_bc")
+    ckpt = checkpoints(run)[0]
+    cfg = gateway_cfg(ckpt)
+    spaces = probe_env_spaces(cfg, int(cfg.seed))
+    keys = tuple(cfg.algo.mlp_keys.encoder)
+    obs = {k: [list(spaces.single_observation_space[k].shape), "float32"] for k in keys}
+    ln_gru.reset_launch_counts()
+    with ComputeApps() as apps:
+        gw, ready = gateway_ready(spawned)
+        try:
+            traffic = gateway_traffic(gw.port, [{"sid": f"c{c}", "steps": SERVE_REQUESTS, "det": False,
+                                                 "seed": 5000 + c} for c in range(SERVE_CLIENTS)], SERVE_CLIENTS,
+                                      obs)
+        finally:
+            gateway_stop(gw)
+    bad = [r for r in traffic["results"] if r[2] != 200]
+    core = get_policy_builder(str(cfg.algo.name))(cfg, spaces.single_observation_space, spaces.single_action_space)
+    state = CheckpointManager.load_for_inference(ckpt)
+    seed = write_checkpoint(os.path.join(run, "bc_checkpoint"), 0,
+                            {"params": core.extract_params(state), "algo": "sac_bc"})
+    fw = Config({"flywheel": {"steps": GW_BC_STEPS, "batch_size": GW_BC_BATCH, "lr": 0.01, "max_version_lag": 4,
+                              "buffer_size": 100000, "seed": 0, "capture_dir": os.path.join(run, "capture")}})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_flywheel(run, seed, cfg=fw, core=core)
+    turn_s = time.perf_counter() - t0
+    new = CheckpointManager.load(out["checkpoint"])
+    old = CheckpointManager.load(seed)
+    moved = {k: float((new["params"]["actor"][k].float() - old["params"]["actor"][k].float()).abs().max())
+             for k in old["params"]["actor"]}
+    policy = InferencePolicy(dataclasses.replace(core, extract_params=lambda p: p["params"]), new, buckets=[1])
+    act = np.asarray(policy.act({k: np.zeros(spaces.single_observation_space[k].shape, np.float32) for k in keys},
+                                deterministic=True))
+    # the step's arithmetic: the card against the CPU on one fixed batch, and
+    # the whole capture's loss before and after the turn (the step returns the
+    # loss of the parameters it was given)
+    recs = capture_records(os.path.join(run, "capture"))
+    whole = {k: np.asarray([np.asarray(r["obs"][k], np.float32).reshape(-1) for r in recs], np.float32) for k in keys}
+    whole["actions"] = np.asarray([np.asarray(r["actions"], np.float32).reshape(-1) for r in recs], np.float32)
+    first = {k: v[:GW_BC_BATCH] for k, v in whole.items()}
+    cpu_cfg = Config(cfg.to_dict())
+    cpu_cfg.set_path("fabric.accelerator", "cpu")
+    cpu_core = get_policy_builder(str(cfg.algo.name))(cpu_cfg, spaces.single_observation_space,
+                                                      spaces.single_action_space)
+    card_params, card_m = build_finetune_step("sac_bc", fw, core=core)(old["params"], first)
+    cpu_params, cpu_m = build_finetune_step("sac_bc", fw, core=cpu_core)(old["params"], first)
+    step_err = max(float((card_params["actor"][k].cpu() - cpu_params["actor"][k]).abs().max())
+                   for k in cpu_params["actor"])
+    loss_rel = abs(card_m["loss"] - cpu_m["loss"]) / max(abs(cpu_m["loss"]), 1e-12)
+    measure = build_finetune_step("sac_bc", fw, core=core)
+    whole_before = measure(old["params"], whole)[1]["loss"]
+    whole_after = measure(new["params"], whole)[1]["loss"]
+    counts = {k.__name__: k.launches for k in ln_gru.KERNELS}
+    fin = out.get("finetune") or {}
+    rep = {"ready_s": ready, "requests": len(traffic["results"]), "non_200": len(bad),
+           "traffic_seconds": traffic["seconds"], **latency_pcts(traffic["results"]),
+           "ingest": {k: out["ingest"][k] for k in ("samples", "duplicates", "trace_join_frac", "torn_lines")},
+           "device": fin.get("device"), "first_loss": fin.get("first_loss"), "last_loss": fin.get("loss"),
+           "steps": fin.get("steps"), "batch_size": fin.get("batch_size"), "turn_seconds": turn_s,
+           "checkpoint": os.path.basename(out.get("checkpoint", "")), "actor_max_abs_change": max(moved.values()),
+           "policy_device": str(policy.device), "action": act.tolist(), "launches": counts,
+           "step_card_vs_cpu": {"cpu_device": cpu_m["device"], "actor_max_abs_err": step_err,
+                                "loss_rel_err": loss_rel, "tol": GW_BC_TOL},
+           "capture_loss_before": whole_before, "capture_loss_after": whole_after, "capture_rows": len(recs),
+           **replicas_on_card([run], apps, base_rows, 2)}
+    problems = []
+    if bad or out["ingest"]["samples"] != SERVE_CLIENTS * SERVE_REQUESTS:
+        problems.append(f"{len(bad)} failed requests {bad[:3]}, ingest {out['ingest']}")
+    if fin.get("device") != "cuda:0" or not np.isfinite(fin.get("loss", np.nan)):
+        problems.append(f"the BC step on {fin.get('device')}, loss {fin.get('loss')}")
+    if not max(moved.values()) > 0 or policy.device.type != "cuda" or not np.isfinite(act).all():
+        problems.append(f"actor change {moved}, policy on {policy.device}, action {act}")
+    if card_m["device"] != "cuda:0" or cpu_m["device"] != "cpu" or not (step_err <= GW_BC_TOL
+                                                                         and loss_rel <= GW_BC_TOL):
+        problems.append(f"one BC step on {card_m['device']} against {cpu_m['device']}: actor max abs err "
+                        f"{step_err}, loss rel err {loss_rel} (tolerance {GW_BC_TOL})")
+    if not whole_after < whole_before:
+        problems.append(f"the turn did not lower the loss over the capture: {whole_before} -> {whole_after}")
+    if any(counts.values()):
+        problems.append(f"launched LN-GRU kernels {counts}")
+    if problems:
+        raise AssertionError(f"flywheel_bc: {'; '.join(problems)}")
+    return rep
+
+
+def phase_gateway(torch, ln_gru):
+    """The three legs of phase gateway, each with its seconds. The fleets of
+    gateway_flywheel and flywheel_bc (6 replica processes) are spawned when
+    the phase starts and come up while gateway_dv3 runs (their ready_s count
+    from that spawn); each leg's compute-apps check counts the replicas
+    alive beside its own. The phase's inputs (GATEWAY_ROOT) are removed at
+    its end."""
+    report = {}
+    base_rows = compute_app_rows()  # this process
+    spawned = flywheel_spawn()
+    try:
+        t0 = time.perf_counter()
+        report["gateway_dv3"] = gateway_dv3_leg(torch, ln_gru, base_rows + 6)
+        report["gateway_dv3"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["gateway_flywheel"] = gateway_flywheel_leg(torch, ln_gru, spawned["flywheel_on"],
+                                                          spawned["flywheel_off"], base_rows + 2)
+        report["gateway_flywheel"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["flywheel_bc"] = flywheel_bc_leg(torch, ln_gru, spawned["flywheel_bc"], base_rows)
+        report["flywheel_bc"]["seconds"] = time.perf_counter() - t0
+    finally:
+        for gw, _, _ in spawned.values():
+            gateway_stop(gw)  # a second stop of a stopped gateway is a no-op
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", GATEWAY_ROOT), ignore_errors=True)
+    return report
+
+
+def gateway_alone(torch, ln_gru):
+    """``--gateway``: the sac and DreamerV3-S run legs (as phase 5 runs them)
+    for the checkpoints phase gateway serves, then the phase."""
+    sac = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
+           f"root_dir={RUN_ROOT}", f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
+           "checkpoint.every=512", "metric.log_every=256", "run_name=sac"]
+    dv3 = run_common() + [f"algo.total_steps={TOTAL}", "run_name=run"]
+    report = {}
+    for name, args in (("sac", sac), ("run", dv3)):
+        _, counts, seconds, _ = drive(torch, ln_gru, "run", args)
+        report[name] = {"seconds": seconds, "launches": counts}
+    gateway_keep()
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+    t0 = time.perf_counter()
+    report.update(phase_gateway(torch, ln_gru))
+    report["phase_seconds"] = time.perf_counter() - t0
+    return report
+
+
+def gateway_keep():
+    """gateway_stash from the run and sac legs' run dirs."""
+    ck = checkpoints(run_dir("run"))
+    mid = [p for p in ck if LEARNING_STARTS < int(os.path.basename(p)[5:-5]) < TOTAL]
+    gateway_stash(run_dir("run"), mid[-1], ck[-1], run_dir("sac"), checkpoints(run_dir("sac"))[-1])
 
 
 # the diag leg: DreamerV3-S on the kernels with the live plane's endpoint up,
@@ -3490,6 +4191,8 @@ USAGE = """usage: python3 chip_smoke.py                      every phase (what t
                                                     fleet_dv3 and fleet_dv3_chaos)
        python3 chip_smoke.py --mesh                 phase mesh alone: mesh_dv3 on a world-size-1 NCCL group with
                                                     its auto twin, and the decoupled pair on one card
+       python3 chip_smoke.py --gateway              phase gateway alone, after the sac and DreamerV3-S run legs
+                                                    whose checkpoints it serves
        python3 chip_smoke.py --recurrences [M L XL] the recurrent kernels alone at those shapes
        python3 chip_smoke.py --telemetry-ab         the run and serial legs with the stream on, off, on
                                                     without its per-iteration ranges and timers, and on
@@ -3501,7 +4204,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
     if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve",
-                    "--diag", "--mesh") or (
+                    "--diag", "--mesh", "--gateway") or (
             mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -3611,6 +4314,15 @@ def main(argv=None) -> int:
         except Exception as err:  # noqa: BLE001
             return fail("mesh", err)
         return 0
+    if mode == "--gateway":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            legs = gateway_alone(torch, ln_gru)
+            emit("gateway", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, legs=legs)
+        except Exception as err:  # noqa: BLE001
+            return fail("gateway", err)
+        return 0
     if mode == "--telemetry-ab":
         try:
             os.chdir(HERE)
@@ -3656,6 +4368,7 @@ def main(argv=None) -> int:
         os.chdir(HERE)  # the legs write logs/runs/chip_smoke/ in the checkout (gitignored)
         t0 = time.perf_counter()
         counts, blocks, legs = phase_run(torch, ln_gru)
+        gateway_keep()  # the checkpoints phase gateway serves, kept past phase diag's clean-up
         emit("run", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, launches=counts,
              last_launch_blocks=blocks, legs=legs)
     except Exception as err:  # noqa: BLE001
@@ -3678,6 +4391,13 @@ def main(argv=None) -> int:
         emit("mesh", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **mesh)
     except Exception as err:  # noqa: BLE001
         return fail("mesh", err)
+
+    try:
+        t0 = time.perf_counter()
+        legs = phase_gateway(torch, ln_gru)
+        emit("gateway", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, legs=legs)
+    except Exception as err:  # noqa: BLE001
+        return fail("gateway", err)
 
     replaces = {  # the pallas_call each kernel's work comes from
         "ln_gru_xproj": "sheeprl_tpu/ops/pallas_gru.py:127",

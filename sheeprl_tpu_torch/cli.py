@@ -2,7 +2,9 @@
 ``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy ...``,
 ``python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt> [key=value ...]``,
 ``python -m sheeprl_tpu_torch resume run_dir=<logs/runs/.../version_N> [key=value ...] [force=true]``,
-``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> [serve.http.port=... ...]``, the run
+``python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> [serve.http.port=... ...]``,
+``gateway checkpoint_path=<ckpt> [gateway.replicas=... ...]``, ``brokerd [gateway.broker.*=...]``,
+``flywheel run_dir=... checkpoint_path=<ckpt> [flywheel.*=...]``, the run
 diagnostics ``doctor``, ``trace``, ``top`` and ``prof`` (``run_dir=...``), ``registration
 checkpoint_path=<ckpt>`` and ``agents``.
 
@@ -16,7 +18,11 @@ checkpoint and calls the algorithm's registered evaluation on one env.
 ``resume`` relaunches a run from its newest checkpoint behind the manifest's
 fingerprint check (``resilience/resume.py``). ``serve`` serves the
 checkpoint behind the micro-batching policy server (``serve/server.py``)
-on the run's player device. ``doctor``, ``trace``, ``top`` and ``prof``
+on the run's player device; ``gateway`` behind N supervised replicas of it
+(``gateway/cluster.py``, the replicas on the card by default), with
+``brokerd`` the externalized session broker they can share
+(``gateway/brokerd.py``); ``flywheel`` takes one turn of the data flywheel
+over a serving run's capture (``flywheel/recipe.py``). ``doctor``, ``trace``, ``top`` and ``prof``
 read what a run leaves behind (``diag/``, ``prof/``); ``registration``
 splits a checkpoint into its algorithm's ``MODELS_TO_REGISTER`` groups in
 the local model registry (``utils/model_manager.py``).
@@ -282,6 +288,76 @@ def serve(args: Optional[Sequence[str]] = None) -> None:
     serve_from_checkpoint(ckpt_path, cfg)
 
 
+def gateway(args: Optional[Sequence[str]] = None) -> None:
+    """``gateway checkpoint_path=... [gateway.replicas=4 ...]``: serve a
+    trained checkpoint behind the multi-replica gateway
+    (``gateway/cluster.py``): N supervised PolicyServer replica processes
+    (on ``cuda:0`` unless ``gateway.replica.platform=cpu``), sticky-session
+    routing with broker-backed failover, admission control and rolling
+    checkpoint hot reload."""
+    argv = list(args if args is not None else sys.argv[1:])
+    ckpt_path, rest = _split_checkpoint_arg(argv, "gateway")
+    cfg = _load_config_beside(ckpt_path)
+    # a saved run config has no serve/gateway groups: compose their defaults in
+    for group in ("serve", "gateway"):
+        if cfg.select(group) is None:
+            cfg[group] = load_config_file(CONFIG_ROOT / group / "default.yaml")
+    _apply_cli_overrides(cfg, rest)
+    cfg["checkpoint_path"] = str(ckpt_path)
+    from .gateway.cluster import gateway_from_checkpoint
+
+    gateway_from_checkpoint(ckpt_path, cfg)
+
+
+def brokerd(args: Optional[Sequence[str]] = None) -> None:
+    """``brokerd [gateway.broker.listen_port=7070 gateway.broker.role=standby
+    gateway.broker.peer=host:7070 ...]``: run one externalized session-broker
+    daemon (``gateway/brokerd.py``), the WAL-durable, primary/standby
+    replicated source of truth for sticky sessions that gateways running
+    ``gateway.broker.mode=external`` speak to. Start the primary first, then
+    the standby with ``role=standby peer=<primary host:port>``."""
+    argv = list(args if args is not None else sys.argv[1:])
+    cfg = Config({"gateway": load_config_file(CONFIG_ROOT / "gateway" / "default.yaml").to_dict()})
+    _apply_cli_overrides(cfg, argv)
+    from .gateway.brokerd import run_brokerd_from_cfg
+
+    run_brokerd_from_cfg(cfg)
+
+
+def flywheel_config(argv: Sequence[str]) -> Tuple[pathlib.Path, pathlib.Path, Config]:
+    """``run_dir``, the checkpoint and the composed ``flywheel`` config of a
+    ``flywheel`` command line."""
+    run_dir: Optional[str] = None
+    rest: List[str] = []
+    for a in argv:
+        if a.startswith("run_dir="):
+            run_dir = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    if run_dir is None:
+        raise ValueError("flywheel requires `run_dir=<serving run dir>`")
+    ckpt_path, rest = _split_checkpoint_arg(rest, "flywheel")
+    cfg = Config({"flywheel": load_config_file(CONFIG_ROOT / "flywheel" / "default.yaml").to_dict()})
+    _apply_cli_overrides(cfg, rest)
+    return pathlib.Path(run_dir), ckpt_path, cfg
+
+
+def flywheel(args: Optional[Sequence[str]] = None) -> None:
+    """``flywheel run_dir=<serving run dir> checkpoint_path=<served ckpt>
+    [flywheel.steps=100 ...]``: one turn of the data flywheel
+    (``flywheel/recipe.py``): ingest the run's serve-side capture segments
+    (exactly once, torn-tail tolerant, staleness-gated by
+    ``flywheel.max_version_lag``), fine-tune ``flywheel.steps`` steps, write
+    the result beside the served checkpoint and push it through the
+    gateway's rolling reload (``flywheel.gateway_url``) or the replicas' own
+    hot-reload polls."""
+    run_dir, ckpt_path, cfg = flywheel_config(list(args if args is not None else sys.argv[1:]))
+    from .flywheel.recipe import run_flywheel
+
+    summary = run_flywheel(run_dir, ckpt_path, cfg=cfg)
+    print(f"[flywheel] {summary}", flush=True)
+
+
 def _diag_command(module: str) -> Callable[[Optional[Sequence[str]]], None]:
     """A diagnostics command: the module's ``main(argv)``, a non-zero return
     being the process's exit code."""
@@ -367,10 +443,8 @@ def _not_ported(name: str, waits_for: str) -> Callable[[Optional[Sequence[str]]]
 
 COMMANDS = {"run": run, "eval": evaluation, "resume": resume, "serve": serve, "doctor": doctor, "trace": trace,
             "top": top, "prof": prof, "registration": registration, "agents": available_agents,
-            "lint": _not_ported("lint", "the port of sheeprl_tpu/analysis/"),
-            "gateway": _not_ported("gateway", "the port of sheeprl_tpu/gateway/"),
-            "brokerd": _not_ported("brokerd", "the port of sheeprl_tpu/gateway/ (the session broker)"),
-            "flywheel": _not_ported("flywheel", "the port of sheeprl_tpu/flywheel/")}
+            "gateway": gateway, "brokerd": brokerd, "flywheel": flywheel,
+            "lint": _not_ported("lint", "the port of sheeprl_tpu/analysis/")}
 
 
 def main() -> None:

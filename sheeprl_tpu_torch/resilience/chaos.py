@@ -1,7 +1,7 @@
 """Deterministic fault injection for the actor fleet (``resilience.chaos.*``;
-the port's own copy of ``sheeprl_tpu/resilience/chaos.py``, without the
-session-broker faults of the JAX package's gateway, which the port does not
-have).
+the port's own copy of ``sheeprl_tpu/resilience/chaos.py``; of the JAX
+package's session-broker faults it keeps only the zombie primary,
+``broker_zombie_at``, which the broker's fencing tests drive).
 
 A seed-deterministic injector that the fleet worker processes (and the
 supervisor's publication path) consult at well-defined points, so every
@@ -87,6 +87,7 @@ class ChaosInjector:
         net_latency_ms: float = 0.0,
         net_jitter_ms: float = 0.0,
         net_workers: Optional[List[int]] = None,
+        broker_zombie_at: int = 0,
         seed: int = 0,
     ) -> None:
         self.worker_id = int(worker_id)
@@ -116,6 +117,10 @@ class ChaosInjector:
         self.net_latency_ms = float(net_latency_ms)
         self.net_jitter_ms = float(net_jitter_ms)
         self.net_workers = _as_int_list(net_workers)
+        # session-broker fault (gateway/brokerd.py): the zombie threshold is
+        # a WAL sequence number, the one counter primary, standby and
+        # recovery all agree on
+        self.broker_zombie_at = int(broker_zombie_at)
         self._net_partitioned = False
         self._net_corrupted = False
         self._net_reset = False
@@ -274,6 +279,13 @@ class ChaosInjector:
             delay += self._net_rng.uniform(0.0, self.net_jitter_ms)
         time.sleep(delay / 1000.0)
 
+    # -- broker hook (gateway/brokerd.py) ------------------------------------
+    def broker_zombies(self, wal_seq: int) -> bool:
+        """True once the primary should STOP heartbeating while continuing
+        to serve — the zombie whose post-promotion write the standby's
+        fencing epoch must reject."""
+        return self.broker_zombie_at > 0 and wal_seq >= self.broker_zombie_at
+
     # -- supervisor-side hook ------------------------------------------------
     def drops_publication(self, pub_seq: int) -> bool:
         return (
@@ -296,6 +308,7 @@ class ChaosInjector:
                 self.net_reset_at,
                 self.net_half_open_at,
                 self.net_latency_ms,
+                self.broker_zombie_at,
             )
         )
 

@@ -34,6 +34,9 @@ Endpoints:
     POST /admin/profile on-demand windowed torch.profiler capture
                       ({"duration_s": 2.0}): 200 {started, trace_dir} or
                       409 while a window is already open
+    POST /admin/relay   attach the in-band telemetry relay ({"url": ...}):
+                      every event the replica writes is also batched to the
+                      gateway's POST /admin/telemetry
     410 session_expired when a live session's latent was LRU-evicted (the
                       gateway re-hydrates it from the broker and retries)
     503 + Retry-After (jittered) when the queue is saturated (Backpressure)
@@ -78,7 +81,12 @@ class PolicyServer:
     executed (response lost to a timeout) returns the original response
     instead of stepping the session twice. One cached entry per session
     (the failover protocol only ever retries the latest request),
-    LRU-bounded like every other per-session map."""
+    LRU-bounded like every other per-session map.
+
+    ``capture`` is an optional flywheel
+    :class:`~sheeprl_tpu_torch.flywheel.capture.CaptureWriter`: every acked
+    HTTP act of a sampled session is appended to the replica's capture
+    segments (the data flywheel's intake)."""
 
     def __init__(
         self,
@@ -92,6 +100,7 @@ class PolicyServer:
         sink: Any = None,
         replica_id: int = 0,
         idempotency_sessions: int = 4096,
+        capture: Any = None,
     ) -> None:
         self.policy = policy
         self.batcher = batcher
@@ -104,6 +113,7 @@ class PolicyServer:
         # answers, profiler markers); None = tracing surfaces disabled
         self.sink = sink
         self.replica_id = int(replica_id)
+        self.capture = capture
         from collections import OrderedDict
 
         self._idem_lock = threading.Lock()
@@ -221,6 +231,10 @@ class PolicyServer:
         registry.gauge("idempotent_replays", "duplicate forwards answered from cache").set(
             float(self.idempotent_replays)
         )
+        if self.capture is not None:
+            snap = self.capture.snapshot()
+            registry.gauge("capture_captured", "flywheel capture records written").set(float(snap["captured"]))
+            registry.gauge("capture_skipped", "acts skipped by capture sampling").set(float(snap["skipped"]))
         return registry.render()
 
     @property
@@ -278,6 +292,11 @@ class PolicyServer:
             self.reloader.stop()
         self.profiler.stop()  # close a live on-demand capture window
         self.batcher.stop()
+        if self.capture is not None:
+            try:
+                self.capture.close()
+            except Exception:
+                pass
 
 
 def _make_handler(server: "PolicyServer"):
@@ -339,6 +358,9 @@ def _make_handler(server: "PolicyServer"):
                 return
             if self.path in ("/admin/profile",):
                 self._admin_profile()
+                return
+            if self.path in ("/admin/relay",):
+                self._admin_relay()
                 return
             if self.path not in ("/v1/act", "/act"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
@@ -447,6 +469,20 @@ def _make_handler(server: "PolicyServer"):
                 # the duplicate-forward shield: a retried forward with the
                 # same request_id replays THIS body instead of re-stepping
                 server.remember_response(str(session), str(request_id), dict(body))
+            if server.capture is not None:
+                # flywheel intake: the acked step becomes a training sample
+                # (per-session sampling + schema'd JSONL happen inside the
+                # writer; failures are counted there, never surfaced here)
+                server.capture.record(
+                    session,
+                    raw_obs,
+                    body["actions"],
+                    body["params_version"],
+                    trace_id=ctx.trace_id if ctx is not None else None,
+                    deterministic=deterministic,
+                    reward=payload.get("reward"),
+                    done=payload.get("done"),
+                )
             self._reply(200, body)
 
         def _admin_reload(self) -> None:
@@ -515,6 +551,38 @@ def _make_handler(server: "PolicyServer"):
                 return
             self._reply(200, {"started": True, "trace_dir": trace_dir, "duration_s": duration_s})
 
+        def _admin_relay(self) -> None:
+            """Attach (or retarget) the in-band telemetry relay: from here on
+            every event this replica writes locally is also batched upstream
+            to the given URL (the gateway's POST /admin/telemetry). Pushed by
+            the ReplicaManager once per healthy replica — best-effort, the
+            local stream is authoritative either way."""
+            from ..telemetry.relay import RelaySink, TeeSink, http_post_sender
+
+            payload = self._read_json()
+            url = payload.get("url")
+            if not isinstance(url, str) or not url:
+                self._reply(400, {"error": "body must carry a relay 'url'"})
+                return
+            if not isinstance(server.sink, TeeSink):
+                self._reply(409, {"error": "replica sink is not relay-capable"})
+                return
+            try:
+                relay = RelaySink(
+                    http_post_sender(url),
+                    role="replica",
+                    index=server.replica_id,
+                    sample=float(payload.get("sample", 1.0)),
+                    max_buffer=int(payload.get("max_buffer", 512)),
+                    max_batch_bytes=int(payload.get("max_batch_kb", 64)) * 1024,
+                    flush_s=float(payload.get("flush_s", 2.0)),
+                )
+            except (TypeError, ValueError) as e:
+                self._reply(400, {"error": f"bad relay options: {e}"})
+                return
+            server.sink.attach_relay(relay)
+            self._reply(200, {"attached": True, "url": url})
+
     return Handler
 
 
@@ -530,9 +598,6 @@ def serve_from_checkpoint(ckpt_path: Any, cfg: Any, block: bool = True) -> Polic
 
     ckpt_path = pathlib.Path(ckpt_path)
     sel = cfg.select
-    if bool(sel("serve.capture.enabled", False)):
-        raise NotImplementedError("serve.capture.enabled=True: serve-side trajectory capture feeds the data "
-                                  "flywheel (flywheel/), which waits for ROADMAP Queue 1 item 4.5")
     policy = InferencePolicy.from_checkpoint(ckpt_path, cfg=cfg)
     card = torch.cuda.get_device_name(policy.device) if policy.device.type == "cuda" else "host cpu"
     print(f"[serve] policy '{policy.core.name}' on {policy.device} ({card})", file=sys.stderr, flush=True)
@@ -565,6 +630,22 @@ def serve_from_checkpoint(ckpt_path: Any, cfg: Any, block: bool = True) -> Polic
             loaded_step=loaded_step,
             sink=sink,
         )
+    capture = None
+    if bool(sel("serve.capture.enabled", False)):
+        from ..flywheel.capture import capture_writer_from_spec
+
+        run_dir = ckpt_path.parent.parent
+        capture = capture_writer_from_spec(
+            {
+                "enabled": True,
+                "dir": str(sel("serve.capture.dir", "") or (run_dir / "capture")),
+                "sample_frac": float(sel("serve.capture.sample_frac", 1.0)),
+                "max_bytes": int(sel("serve.capture.max_bytes", 64 * 1024 * 1024)),
+                "log_every_s": float(sel("serve.capture.log_every_s", 10.0)),
+            },
+            replica_id=0,
+            telem_sink=sink,
+        )
     server = PolicyServer(
         policy,
         batcher,
@@ -573,6 +654,7 @@ def serve_from_checkpoint(ckpt_path: Any, cfg: Any, block: bool = True) -> Polic
         port=int(sel("serve.http.port", 8190)),
         http_enabled=bool(sel("serve.http.enabled", True)),
         sink=sink,  # traced requests write their stage spans here too
+        capture=capture,
     )
     if sink is not None:
         sink.write(batcher.serve_record())  # startup snapshot (warmup state)

@@ -18,7 +18,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-__all__ = ["MemorySampler", "device_memory_stats", "host_rss_bytes", "host_rss_peak_bytes", "memory_snapshot"]
+__all__ = ["MemorySampler", "device_memory_stats", "host_rss_bytes", "host_rss_peak_bytes", "memory_snapshot",
+           "start_sampler"]
 
 
 def _proc_status_kib(field: str) -> Optional[int]:
@@ -55,8 +56,9 @@ def host_rss_peak_bytes() -> int:
 def device_memory_stats(device: Any = None) -> Dict[str, int]:
     """``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_reserved`` and
     ``bytes_limit`` of a CUDA device (the current one by default); {} where
-    there is no card."""
-    if not torch.cuda.is_available():
+    there is no card, or in a process that has not touched it (a broker: the
+    query would open a context on the card)."""
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
         return {}
     stats = torch.cuda.memory_stats(device)
     _, total = torch.cuda.mem_get_info(device)
@@ -133,3 +135,16 @@ class MemorySampler:
             t.join(timeout=2.0)
         if final_sample:
             self.sample_once()
+
+
+def start_sampler(cfg: Any, emit: Callable[[Dict[str, Any]], None], role: str, index: Optional[int] = None,
+                  step_fn: Optional[Callable[[], int]] = None) -> Optional[MemorySampler]:
+    """Config-gated sampler construction (``diag.mem.*``): a STARTED
+    sampler, or None when sampling is disabled. ``cfg`` may be a run config,
+    a diag config or None (the code defaults) — what a gateway replica or
+    brokerd process has at hand."""
+    sel = cfg.select if cfg is not None and hasattr(cfg, "select") else (lambda p, d=None: d)
+    if not bool(sel("diag.mem.enabled", True)):
+        return None
+    return MemorySampler(emit, role, index=index, interval_s=float(sel("diag.mem.interval_s", 5.0) or 5.0),
+                         step_fn=step_fn).start()

@@ -26,7 +26,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["RelaySink", "TeeSink"]
+__all__ = ["RelaySink", "TeeSink", "http_post_sender"]
 
 DEFAULT_MAX_BUFFER = 512
 DEFAULT_MAX_BATCH_BYTES = 64 * 1024
@@ -226,3 +226,21 @@ class TeeSink:
                 pass
         if self.primary is not None:
             self.primary.close()
+
+
+def http_post_sender(url: str, timeout_s: float = 2.0) -> Callable[[Dict[str, Any]], bool]:
+    """A RelaySink ``send`` callable POSTing JSON batches to ``url`` (the
+    gateway's ``/admin/telemetry`` or any compatible ingest endpoint)."""
+    import json
+    import urllib.request
+
+    def send(batch: Dict[str, Any]) -> bool:
+        body = json.dumps(batch).encode()
+        req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+                return 200 <= resp.status < 300
+        except Exception:
+            return False
+
+    return send

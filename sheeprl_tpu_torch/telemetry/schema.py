@@ -5,8 +5,9 @@ types the port emits (``startup``, ``log``, ``shutdown``, ``metrics``,
 ``trace``, ``rotate``, ``overlap``, ``ckpt_async``, ``preempt``,
 ``resume``, ``mem``, ``roofline``, and the actor fleet's ``fleet``,
 ``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``, the
-serving stack's ``serve``, ``reload`` and ``session``, and the live
-aggregator's ``alert``). Field names and types are the
+serving stack's ``serve``, ``reload`` and ``session``, the serving
+plane's ``replica``, ``gateway`` and ``broker``, the data flywheel's
+``capture`` and ``flywheel``, and the live aggregator's ``alert``). Field names and types are the
 reference's, letter for letter, so the JAX package's ``validate_jsonl``
 accepts a port run's ``telemetry.jsonl``. Every record is
 ``{"event": <type>, ...}``; required keys and types are checked per event
@@ -315,6 +316,112 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "t": (False, _NUM),
     },
     # an SLO burn rule's transition (diag/aggregator.py), on the main stream
+    # the session broker (gateway/wal.py, brokerd.py, broker_client.py):
+    # primary/standby lifecycle, WAL recovery and the daemon's interval
+    # snapshot (`action`: promote | fenced | demote | zombie | repl_timeout |
+    # wal_torn_tail | wal_rehydrate | rehydrate_failed | compact |
+    # client_reconnect | client_failover | client_partition | interval ...)
+    "broker": {
+        "action": (True, _STR),
+        "role": (False, _STR),  # primary | standby | demoted
+        "epoch": (False, _NUM),  # the fencing token
+        "seq": (False, _NUM),  # WAL sequence number
+        "version": (False, _NUM),
+        "sessions": (False, _NUM),
+        "puts": (False, _NUM),
+        "gets": (False, _NUM),
+        "fenced_writes": (False, _NUM),
+        "standbys": (False, _NUM),
+        "lag": (False, _NUM),  # replication lag high-water (records)
+        "count": (False, _NUM),
+        "bytes": (False, _NUM),
+        "promotion_s": (False, _NUM),
+        "repl_wait_p95_ms": (False, _NUM),
+        "fsync_p95_ms": (False, _NUM),
+        "detail": (False, _STR),
+    },
+    # one served step captured by the data flywheel (flywheel/capture.py),
+    # written to the replica's own capture segments, not the telemetry
+    # stream; numbers only (the obs tree and the action row)
+    "capture": {
+        "session_id": (True, _STR),
+        "step": (True, _NUM),
+        "obs": (True, _DICT),
+        "actions": (True, list),
+        "params_version": (True, _NUM),
+        "trace_id": (False, _STR),
+        "replica": (False, _NUM),
+        "incarnation": (False, _NUM),
+        "deterministic": (False, bool),
+        "reward": (False, _NUM),
+        "done": (False, bool),
+        "t": (False, _NUM),
+    },
+    # data-flywheel lifecycle (flywheel/): capture_interval | ingest |
+    # dropped_stale | finetune | reload
+    "flywheel": {
+        "action": (True, _STR),
+        "samples": (False, _NUM),
+        "duplicates": (False, _NUM),
+        "torn_lines": (False, _NUM),
+        "segments": (False, _NUM),
+        "captured": (False, _NUM),
+        "skipped": (False, _NUM),
+        "bytes": (False, _NUM),
+        "dropped_stale": (False, _NUM),
+        "samples_per_s": (False, _NUM),
+        "unrewarded_tails": (False, _NUM),
+        "version_min": (False, _NUM),
+        "version_max": (False, _NUM),
+        "serving_version": (False, _NUM),
+        "version_lag": (False, _NUM),
+        "steps": (False, _NUM),
+        "step": (False, _NUM),
+        "params_version": (False, _NUM),
+        "replica": (False, _NUM),
+        "loss": (False, _NUM),
+        "detail": (False, _STR),
+        "t": (False, _NUM),
+    },
+    # serving-replica supervision (gateway/replica.py): spawn | respawn |
+    # ready | crash | hang | quarantine | drain | reload
+    "replica": {
+        "action": (True, _STR),
+        "replica": (False, _NUM),
+        "incarnation": (False, _NUM),
+        "pid": (False, _NUM),
+        "port": (False, _NUM),
+        "fails_in_window": (False, _NUM),
+        "params_version": (False, _NUM),
+        "detail": (False, _STR),
+    },
+    # the gateway's stat snapshot (gateway/gateway.py)
+    "gateway": {
+        "requests": (True, _NUM),
+        "acked": (False, _NUM),
+        "errors": (False, _NUM),
+        "failovers": (False, _NUM),
+        "migrations": (False, _NUM),
+        "rehydrates": (False, _NUM),
+        "expired": (False, _NUM),
+        "lost": (False, _NUM),
+        "retries": (False, _NUM),
+        "broker_unavailable": (False, _NUM),
+        "p50_ms": (False, _NUM),
+        "p95_ms": (False, _NUM),
+        "p99_ms": (False, _NUM),
+        "replicas": (False, _NUM),
+        "routable": (False, _NUM),
+        "quarantined": (False, _NUM),
+        "respawns": (False, _NUM),
+        "sessions": (False, _NUM),
+        "broker_sessions": (False, _NUM),
+        "admission_inflight": (False, _NUM),
+        "admission_admitted": (False, _NUM),
+        "admission_shed": (False, _NUM),
+        "admission_shed_low": (False, _NUM),
+        "admission_tokens": (False, _NUM),
+    },
     "alert": {
         "rule": (True, _STR),
         "state": (True, _STR),  # firing | resolved

@@ -52,6 +52,32 @@ def snapshot(tree: Any) -> Any:
     return out
 
 
+def save_atomic(path: os.PathLike, payload: Any) -> None:
+    """``torch.save`` a host payload to ``path`` durably and atomically: a
+    tmp file, fsync, rename, fsync of the directory. After a crash either
+    the old file or the new one exists, never a torn one."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    os.replace(tmp, path)
+    try:
+        fd = os.open(path.parent, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    except OSError:
+        pass  # directories are not fsync-able on some filesystems
+
+
 class CheckpointManager:
     """Writes ``ckpt_{policy_step}.ckpt`` under ``<log_dir>/checkpoint``."""
 
@@ -76,29 +102,9 @@ class CheckpointManager:
         if not self.enabled:
             return None
         path = self.dir / f"ckpt_{step}.ckpt"
-        tmp = path.with_suffix(".tmp")
-        try:
-            with open(tmp, "wb") as f:
-                torch.save(payload, f)
-                f.flush()
-                os.fsync(f.fileno())
-        except BaseException:
-            tmp.unlink(missing_ok=True)
-            raise
-        os.replace(tmp, path)
-        self._fsync_dir()
+        save_atomic(path, payload)
         self._prune()
         return str(path)
-
-    def _fsync_dir(self) -> None:
-        try:
-            fd = os.open(self.dir, os.O_RDONLY)
-            try:
-                os.fsync(fd)
-            finally:
-                os.close(fd)
-        except OSError:
-            pass  # directories are not fsync-able on some filesystems
 
     def _prune(self) -> None:
         if not self.keep_last:

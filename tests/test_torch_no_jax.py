@@ -6,7 +6,7 @@ path (DreamerV3, PPO on pixels with the watchdog on, SAC, SAC-AE, DreamerV2
 on the episode buffer, DreamerV1 on a continuous action, P2E-DV3's
 exploration→finetuning chain and P2E-DV2's exploration, at cut widths, and
 a 2-worker SAC actor fleet, whose checkpoint is then served in process
-through the serving stack) run there, and the loaded modules are checked,
+through the serving stack, and a data-flywheel turn) run there, and the loaded modules are checked,
 those of the fleet's spawned worker processes too (each worker's last
 stream record names the top-level packages it loaded); every import statement of the
 port's sources is scanned, and no config of the port names a class of the
@@ -88,6 +88,14 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
         "server = serve_from_checkpoint(sckpt, scfg, block=False)\n"
         "assert server.act({'state': [0.0] * 10}, deterministic=True).shape == (1, 2)\n"
         "server.stop()\n"
+        "import numpy as np\n"
+        "from sheeprl_tpu_torch.flywheel import CaptureWriter, run_flywheel, write_checkpoint\n"
+        "cw = CaptureWriter('fw/capture/replica_000/capture.jsonl')\n"
+        "for i in range(4): cw.record('s', {'x': [[1.0]]}, [[2.0]], 0, trace_id=f't{i}')\n"
+        "cw.close()\n"
+        "seed = write_checkpoint('fw/checkpoint', 0, {'params': {'w': np.zeros((1,), np.float32)}})\n"
+        "assert run_flywheel('fw', seed, cfg=scfg.__class__({'flywheel': {'algo': 'synthetic_counter',\n"
+        "                    'steps': 2, 'batch_size': 2}}))['checkpoint'].endswith('ckpt_2.ckpt')\n"
         "workers = [[json.loads(l) for l in open(p)][-2:] for p in\n"
         "           sorted(glob.glob('logs/runs/sac/*/fleet/version_0/workers/*/telemetry.jsonl'))]\n"
         "print(json.dumps({'imported': mods, 'loaded': after_import, 'after_run': sorted(sys.modules),\n"
@@ -123,7 +131,9 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "serve.policy", "serve.builders", "serve.batcher", "serve.reload", "serve.server", "serve.evaluate",
                 "serve.session_codec", "diag.prometheus", "diag.timeline", "diag.findings", "diag.trace",
                 "diag.doctor", "diag.aggregator", "diag.live", "prof.capture", "prof.cli", "utils.model_manager",
-                "parallel.mesh", "algos.ppo.ppo_decoupled"):
+                "parallel.mesh", "algos.ppo.ppo_decoupled", "gateway.admission", "gateway.broker", "gateway.wal",
+                "gateway.replica", "gateway.gateway", "gateway.cluster", "gateway.brokerd", "gateway.broker_client",
+                "flywheel.capture", "flywheel.ingest", "flywheel.recipe"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked
@@ -169,6 +179,7 @@ def test_port_and_chip_smoke_sources_import_no_jax():
     assert PORT / "serve" / "server.py" in files and PORT / "diag" / "prometheus.py" in files
     assert PORT / "diag" / "doctor.py" in files and PORT / "prof" / "capture.py" in files
     assert PORT / "utils" / "model_manager.py" in files
+    assert PORT / "gateway" / "brokerd.py" in files and PORT / "flywheel" / "recipe.py" in files
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
 

@@ -281,11 +281,37 @@ def test_cli_serve_composes_serve_config(ppo_ckpt, monkeypatch):
         cli.serve([])
 
 
-def test_capture_is_refused_until_the_flywheel(ppo_ckpt):
-    from sheeprl_tpu_torch import cli
+def test_capture_is_refused_until_the_flywheel(ppo_ckpt, tmp_path):
+    """The flywheel is ported: ``serve.capture.enabled=True`` no longer
+    raises, it writes capture segments — one record per acked act of a
+    session, none for a sessionless act, valid for both packages — and the
+    ``capture_*`` gauges reach ``/metrics``."""
+    from sheeprl_tpu.telemetry.schema import validate_jsonl as jax_validate
+    from sheeprl_tpu_torch.config import load_config_file
+    from sheeprl_tpu_torch.serve import serve_from_checkpoint
+    from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4.5"):
-        cli.serve([f"checkpoint_path={ppo_ckpt}", "serve.capture.enabled=True"])
+    cfg = load_config_file(ppo_ckpt.parent.parent / "config.yaml")
+    cfg["serve"] = load_config_file(REPO / "sheeprl_tpu_torch" / "configs" / "serve" / "default.yaml")
+    for key, val in {"serve.http.port": 0, "serve.hot_reload.enabled": False, "serve.telemetry.jsonl": False,
+                     "serve.capture.enabled": True, "serve.capture.dir": str(tmp_path / "capture")}.items():
+        cfg.set_path(key, val)
+    server = serve_from_checkpoint(ppo_ckpt, cfg, block=False)
+    try:
+        for step in range(3):
+            code, _, _ = _http(server.port, "/v1/act", {"obs": {"state": [float(step)] * 10}, "session_id": "u1",
+                                                        "deterministic": True, "reward": 0.5})
+            assert code == 200
+        assert _http(server.port, "/v1/act", {"obs": {"state": [0.0] * 10}})[0] == 200
+        code, body, _ = _http(server.port, "/metrics")
+        assert "sheeprl_serve_capture_captured 3" in body and "sheeprl_serve_capture_skipped 1" in body
+    finally:
+        server.stop()
+    segment = tmp_path / "capture" / "replica_000" / "capture.jsonl"
+    recs = [json.loads(line) for line in open(segment)]
+    assert [(r["session_id"], r["step"], r["params_version"]) for r in recs] == [("u1", i, 0) for i in range(3)]
+    assert recs[1]["obs"] == {"state": [1.0] * 10} and recs[1]["reward"] == 0.5
+    assert validate_jsonl(str(segment)) == [] and jax_validate(str(segment)) == []
 
 
 # -- sessions ------------------------------------------------------------------

@@ -145,6 +145,38 @@ def test_each_telemetry_switch_turns_its_part_off(off, tmp_path, capsys):
     assert on == want
 
 
+def test_serving_plane_records_pass_both_validators(tmp_path, capsys):
+    """Records of the five serving-plane types, each written by the port's
+    own code: ``broker`` (a WAL rehydrate), ``capture`` (the capture
+    writer), ``flywheel`` (an ingest pass), ``replica`` (a fault routed by
+    the replica manager) and ``gateway`` (the gateway's snapshot)."""
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+    from sheeprl_tpu_torch.flywheel import CaptureWriter, ingest
+    from sheeprl_tpu_torch.gateway import Gateway, WalStore
+    from sheeprl_tpu_torch.gateway.replica import ReplicaManager
+
+    sink = JsonlSink(str(tmp_path / "telemetry.jsonl"))
+    store = WalStore(tmp_path / "wal", max_sessions=1, durability="wal", emit=sink.write)
+    store.put("a", "A")
+    store.put("b", "B")
+    assert store.get("a") == (1, "A")  # evicted, rehydrated from the log
+    store.close()
+    writer = CaptureWriter(str(tmp_path / "capture" / "capture.jsonl"))
+    assert writer.record("s", {"x": [[1.0]]}, [[0.5]], 0, trace_id="t", reward=1.0, done=False)
+    writer.close()
+    ingest(tmp_path / "capture", ReplayBuffer(8, n_envs=1), emit=sink.write)
+    manager = ReplicaManager({"mode": "synthetic"}, num_replicas=1, sink=sink, replica_platform="cpu")
+    manager.handles[0].state = "running"
+    manager.fault(manager.handles[0], "hang", detail="test")
+    sink.write(Gateway(manager).gateway_record())
+    sink.close()
+    events = {r["event"] for r in _events(tmp_path / "telemetry.jsonl")}
+    assert {"broker", "flywheel", "replica", "gateway"} <= events
+    _both_validate(tmp_path / "telemetry.jsonl")
+    _both_validate(tmp_path / "capture" / "capture.jsonl")
+    assert "replica 0 fault: hang" in capsys.readouterr().err
+
+
 def test_jsonl_sink_rotation(tmp_path):
     """Past ``max_bytes`` the live file rolls to ``telemetry.jsonl.1``,
     ``.2``, ...; every fresh segment opens with a ``rotate`` record naming
