@@ -354,8 +354,18 @@ that fails and then prints no result:
                the trainer rank 0 on the card under NCCL, the player thread
                on the host, the ledger of the JAX package's formula, eval of
                the last checkpoint through serve/evaluate.py, policy
-               steps/s; the phase's seconds (--mesh runs it alone after
-               phases 1-2);
+               steps/s; then the other algorithms under ddp: mesh_dv2
+               (DreamerV2 at the preset) bitwise its auto twin,
+               mesh_p2e_dv3_finetuning at XL from phase run's decoupled
+               exploration checkpoint (every LN-GRU kernel launched under
+               the group, three all-reduces and one Moments all-gather a
+               gradient step with their bytes, the ledger of the JAX
+               package's formula, the switch to the task actor at
+               learning_starts), and one leg each of a2c, ppo_recurrent,
+               droq, sac_ae, dreamer_v1 and P2E-DV2's and DV1's
+               exploration to its first checkpoint after learning_starts;
+               the phase's seconds (--mesh runs it alone after phases 1-2,
+               with an XL exploration run of its own);
 5d. gateway  — the serving plane scaled out (gateway/) and the data
                flywheel (flywheel/), every replica a process of its own on
                cuda:0, each leg watching the card's compute processes (a
@@ -400,7 +410,8 @@ that fails and then prints no result:
                run_M leg or the p2e_dv3_finetuning leg (and, in
                launches_by_path, each leg's own count: at S the run leg's,
                fleet_dv3's and fleet_dv3_inference's learners', the diag
-               leg's and mesh_dv3's apart), times
+               leg's and mesh_dv3's apart; at XL p2e_dv3_finetuning's and
+               mesh_p2e_dv3_finetuning's), times
                from phase 3, the bound (the operations and bytes bounds
                apart are in phase 3's record), the kernel's arithmetic
                (3xtf32 or f32-simt), largest error at that shape (and,
@@ -1263,8 +1274,8 @@ ALGOS = ("dreamer_v3", "ppo", "ppo_decoupled", "a2c", "ppo_recurrent", "sac", "s
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
 # the off-policy legs: the presets' algorithm settings and widths on the
 # continuous dummy env, 4 envs, cut in length and buffer size only
-SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL = 1024, 1536, 1024, 256
-AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 96, 256
+SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL = 640, 1024, 1024, 140
+AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 80, 256
 
 
 class _Tee(io.TextIOBase):
@@ -1873,7 +1884,7 @@ def offpolicy_legs(torch, ln_gru):
 # ratio 0.2); the multidiscrete dummy's 129-step episodes outlast the episode
 # buffer's minimum length (the sequence, 50), the discrete dummy's 5 do not
 DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 256, 320, 512
-DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 320
+DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 224
 DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 512, 1024
 
 
@@ -2055,7 +2066,7 @@ def dreamer_legs(torch, ln_gru):
 # sequences: a sequence in each env's buffer from policy step 256), DV2 and
 # DV1 at theirs on one env; cut in length, buffer size and learning_starts
 P2E_LEARNING_STARTS, P2E_TOTAL, P2E_DEC_TOTAL, P2E_FT_MID, P2E_FT_TOTAL, P2E_RESUME_TOTAL = 256, 264, 260, 260, 264, 272
-P2E_DREAMER = {"dv2": ("discrete_dummy", 64, 128, 96), "dv1": ("continuous_dummy", 64, 224, 176)}
+P2E_DREAMER = {"dv2": ("discrete_dummy", 64, 96, 96), "dv1": ("continuous_dummy", 64, 160, 176)}
 
 
 def p2e_legs(torch, ln_gru):
@@ -2224,9 +2235,10 @@ def p2e_dv3_step(torch, ln_gru, dev="cuda", reps=3):
                                     if isinstance(device_ms, float) else "not measured")}
 
 
-# the walker legs train 64 policy steps after learning_starts (PR 16 cut them
-# from 128, the resume's from 64 more to 64, to keep the script under 900 s)
-WALKER_TOTAL, WALKER_RESUME_TOTAL = 192, 256
+# the walker legs train 32 policy steps after learning_starts, the resume 32
+# more (PR 16 cut them from 128 to 64 and PR 18 to 32, to keep the script
+# under 900 s)
+WALKER_TOTAL, WALKER_RESUME_TOTAL = 160, 192
 
 
 def walker_legs(torch, ln_gru):
@@ -3929,12 +3941,19 @@ def live_plane_cost(spent, seconds):
 # aggregator
 # phase mesh: the DV3-S legs' length, and the decoupled legs' (PPO: two
 # updates of 4 envs x 128 steps; SAC: the off-policy legs' settings)
-MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 192, 1024, 512, 100
+MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 160, 1024, 512, 100
+# the other algorithms under ddp: DV2's twins at the preset (one env: the
+# first burst, the pretraining, at learning_starts), the P2E-DV3 finetuning
+# at XL on the kernels, and each other entry point to its first checkpoint
+# after learning_starts
+MESH_DV2_TOTAL = DV2_LEARNING_STARTS + 8
+MESH_ROOT = "chip_smoke_mesh"  # what phase mesh keeps of phase run past phase diag's clean-up
 
 
 def state_diff(torch, a, b):
-    """The largest |a - b| over two checkpoints' parameters and optimizer
-    states (0.0: bitwise equal) and the names that differ."""
+    """The largest |a - b| over two checkpoints' parameters, optimizer
+    states and Moments, where the algorithm has them (0.0: bitwise equal),
+    and the names that differ."""
     worst, names = 0.0, []
 
     def walk(x, y, name):
@@ -3953,7 +3972,8 @@ def state_diff(torch, a, b):
             names.append(name)
 
     for key in ("wm", "actor", "critic", "target_critic", "opt_states", "moments"):
-        walk(a[key], b[key], key)
+        if key in a or key in b:
+            walk(a[key], b[key], key)
     return worst, names
 
 
@@ -3973,6 +3993,173 @@ def deterministic_kernels(torch):
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prior[:2]
         torch.use_deterministic_algorithms(prior[2], warn_only=prior[3])
+
+
+def mesh_keep():
+    """Keep the decoupled P2E-DV3 exploration leg's config and last
+    checkpoint (under MESH_ROOT, the layout the finetuning's surgery reads)
+    for phase mesh's finetuning leg: the checkpoint hard-linked, not copied
+    (gigabytes at XL)."""
+    src = run_dir("p2e_dv3_exploration_decoupled")
+    ckpt = checkpoints(src)[-1]
+    d = os.path.join(HERE, "logs", "runs", MESH_ROOT, "p2e_dv3_exploration")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(d, "checkpoint"))
+    shutil.copy(os.path.join(src, "config.yaml"), d)
+    dst = os.path.join(d, "checkpoint", os.path.basename(ckpt))
+    try:
+        os.link(ckpt, dst)
+    except OSError:
+        shutil.copy(ckpt, dst)
+
+
+def mesh_explored(torch, ln_gru, report):
+    """The XL P2E-DV3 exploration checkpoint (decoupled, pallas_gru=True)
+    phase mesh finetunes from: phase run's, kept by ``mesh_keep``, or, when
+    phase mesh runs alone, a short exploration leg of its own."""
+    kept = os.path.join(HERE, "logs", "runs", MESH_ROOT, "p2e_dv3_exploration", "checkpoint")
+    if os.path.isdir(kept) and os.listdir(kept):
+        return checkpoints(os.path.dirname(kept))[-1]
+    parsed, counts, seconds, _ = drive(torch, ln_gru, "run", [
+        "exp=p2e_dv3_exploration", "env=dummy", "algo.run_test=False", f"root_dir={RUN_ROOT}",
+        f"algo.learning_starts={P2E_LEARNING_STARTS}", "buffer.size=1024", "metric.log_every=4",
+        f"algo.total_steps={P2E_DEC_TOTAL}", "checkpoint.every=0", "algo.world_model.decoupled_rssm=True",
+        "algo.world_model.pallas_gru=True", "run_name=mesh_p2e_dv3_exploration"])
+    report["mesh_p2e_dv3_exploration"] = {"seconds": seconds, "launches": counts}
+    return checkpoints(parsed["log_dir"])[-1]
+
+
+def jax_ratio_ledger(cfg, total, env_steps):
+    """The gradient steps and the Ratio state of the JAX package's
+    off-policy loops at world size 1 from a fresh run: ``ratio(policy_step /
+    world_size)`` once per vector-env step from ``learning_starts``."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    ratio, grads = Ratio(float(cfg.algo.replay_ratio), pretrain_steps=int(cfg.algo.per_rank_pretrain_steps)), 0
+    for step in range(env_steps, total + 1, env_steps):
+        if step >= int(cfg.algo.learning_starts):
+            grads += ratio(step / 1)
+    return grads, ratio.state_dict()
+
+
+def mesh_other_legs(torch, ln_gru, report):
+    """The algorithms the mesh admitted last (``cli.check_configs``), each
+    under ``fabric.strategy=ddp`` on a world-size-1 NCCL group:
+
+    * ``mesh_dv2``: DreamerV2 at the preset, serial, with its twin
+      ``mesh_dv2_auto`` under ``auto`` from the same seed on deterministic
+      kernels: the same ledger and bitwise the same checkpoint state; one
+      all-reduce per optimizer step (three a gradient step);
+    * ``mesh_p2e_dv3_finetuning``: P2E-DV3's finetuning at XL from the
+      decoupled exploration checkpoint (``mesh_explored``), inheriting
+      ``decoupled_rssm=True pallas_gru=True``: every LN-GRU kernel launched
+      at XL (the streamed instance) under the group, the all-reduces and
+      Moments' all-gathers in its log records with their bytes, the ledger
+      of the JAX package's formula, the switch to the task actor at
+      ``learning_starts``;
+    * ``mesh_<algo>`` for a2c, ppo_recurrent, droq, sac_ae, dreamer_v1 and
+      P2E-DV2's and DV1's exploration, each to its first checkpoint after
+      ``learning_starts``, with collectives in its log records.
+    Returns the XL finetuning leg's launch counts."""
+    from sheeprl_tpu_torch.config import compose
+
+    base = ["env=dummy", "algo.run_test=False", f"root_dir={RUN_ROOT}", "fabric.devices=1"]
+
+    def ddp_leg(name, args, learning_starts, strategy="ddp"):
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        argv = args + [f"run_name={name}", f"fabric.strategy={strategy}"]
+        parsed, counts, seconds, peak = drive(torch, ln_gru, "run", argv)
+        start, logs = parsed["startup"], parsed["logs"]
+        want = "nccl" if strategy == "ddp" else "none"
+        if start.get("backend") != want or start.get("world_size") != 1:
+            raise AssertionError(f"{name}: startup names backend {start.get('backend')} at world size "
+                                 f"{start.get('world_size')}, not {want} at 1")
+        coll = logs[-1].get("collectives") if logs else None
+        if strategy == "ddp" and (not coll or coll["all_reduce"] < 1 or coll["all_reduce_bytes"] < 1):
+            raise AssertionError(f"{name}: its log records carry no all-reduce: {coll}")
+        ckpts = checkpoints(parsed["log_dir"])
+        state = torch.load(ckpts[-1], map_location="cpu", weights_only=False)
+        if state["policy_step"] < learning_starts:
+            raise AssertionError(f"{name}: its last checkpoint is at policy step {state['policy_step']}, before "
+                                 f"learning_starts {learning_starts}")
+        report[name] = offpolicy_summary(parsed, seconds, peak, before, learning_starts)
+        report[name].update(collectives=coll, checkpoint_step=state["policy_step"], launches=counts)
+        return parsed, counts, state, compose("config", argv)
+
+    # DreamerV2 and its twin, in turns
+    dv2 = ["exp=dreamer_v2", *base, "env.id=discrete_dummy", "env.num_envs=1",
+           f"algo.learning_starts={DV2_LEARNING_STARTS}", f"algo.total_steps={MESH_DV2_TOTAL}",
+           "algo.per_rank_pretrain_steps=1", "algo.replay_ratio=0.5", f"buffer.size={DV2_BUFFER}",
+           "checkpoint.every=0", "metric.log_every=4"]
+    ends = {}
+    for name, strategy in (("mesh_dv2_auto", "auto"), ("mesh_dv2", "ddp")):
+        with deterministic_kernels(torch):
+            _, _, ends[name], cfg = ddp_leg(name, dv2, DV2_LEARNING_STARTS, strategy)
+    a, b = ends["mesh_dv2"], ends["mesh_dv2_auto"]
+    la, lb = ({k: s[k] for k in ("policy_step", "grad_steps", "ratio")} for s in (a, b))
+    worst, names = state_diff(torch, a, b)
+    if la != lb or names:
+        raise AssertionError(f"mesh_dv2 and mesh_dv2_auto differ: ledgers {la} / {lb}, state {names[:8]} "
+                             f"(max |diff| {worst})")
+    grads, ratio = jax_ratio_ledger(cfg, MESH_DV2_TOTAL, 1)
+    coll = report["mesh_dv2"]["collectives"]
+    if la["grad_steps"] != grads or la["ratio"]["_prev"] != ratio["_prev"] or coll["all_reduce"] != 3 * grads:
+        raise AssertionError(f"mesh_dv2: ledger {la}, the JAX package's formula gives {grads} gradient steps; "
+                             f"collectives {coll}")
+    report["mesh_dv2"]["twin"] = {"ledger": la, "bitwise_equal": True}
+
+    # P2E-DV3's finetuning at XL on the kernels
+    explored = mesh_explored(torch, ln_gru, report)
+    ft = ["exp=p2e_dv3_finetuning", *base, f"checkpoint.exploration_ckpt_path={explored}",
+          f"algo.learning_starts={P2E_LEARNING_STARTS}", f"algo.total_steps={P2E_FT_TOTAL}", "buffer.size=1024",
+          "metric.log_every=4", "checkpoint.every=0"]
+    parsed, counts, state, cfg = ddp_leg("mesh_p2e_dv3_finetuning", ft, P2E_LEARNING_STARTS)
+    if min(counts.values()) < 1:
+        raise AssertionError(f"mesh_p2e_dv3_finetuning launched {counts}: every LN-GRU kernel at XL expected")
+    grads, ratio = jax_ratio_ledger(cfg, P2E_FT_TOTAL, int(cfg.env.num_envs))
+    coll = report["mesh_p2e_dv3_finetuning"]["collectives"]
+    got = {"policy_step": state["policy_step"], "grad_steps": state["grad_steps"], "ratio": state["ratio"]["_prev"]}
+    if got != {"policy_step": P2E_FT_TOTAL, "grad_steps": grads, "ratio": ratio["_prev"]} \
+            or coll["all_reduce"] != 3 * grads or coll["all_gather"] != grads:
+        raise AssertionError(f"mesh_p2e_dv3_finetuning: ledger {got}, the JAX package's formula gives {grads} "
+                             f"gradient steps; collectives {coll} (three all-reduces and one all-gather a step)")
+    if parsed["acting"] != [("exploration", 0), ("task", P2E_LEARNING_STARTS)]:
+        raise AssertionError(f"mesh_p2e_dv3_finetuning's player: {parsed['acting']}")
+    report["mesh_p2e_dv3_finetuning"].update(
+        ledger=got, acting=parsed["acting"], shape={"F": 1024, "H": 4096, "instance": ln_gru.launch_layout(4096)[0]},
+        collectives_per_grad_step={k: coll[k] / grads for k in ("all_reduce", "all_reduce_bytes", "all_gather",
+                                                                   "all_gather_bytes")})
+
+    # the other entry points, each to its first checkpoint after learning_starts
+    off = [*base, "env.id=continuous_dummy", "env.num_envs=4"]
+    legs = {
+        "mesh_a2c": (["exp=a2c", *base, "algo.total_steps=200", "checkpoint.every=0", "metric.log_every=100"], 0),
+        "mesh_ppo_recurrent": (["exp=ppo_recurrent", *base, "env.num_envs=2", "algo.total_steps=1024",
+                                "checkpoint.every=0"], 0),
+        "mesh_droq": (["exp=droq", *off, "algo.learning_starts=100", "algo.total_steps=104", "buffer.size=256",
+                       "checkpoint.every=0", "metric.log_every=4"], 100),
+        "mesh_sac_ae": (["exp=sac_ae", *off, f"algo.learning_starts={AE_LEARNING_STARTS}",
+                         f"algo.total_steps={AE_LEARNING_STARTS + 8}", f"buffer.size={AE_BUFFER}",
+                         "checkpoint.every=0", "metric.log_every=4"], AE_LEARNING_STARTS),
+        "mesh_dreamer_v1": (["exp=dreamer_v1", *base, "env.id=continuous_dummy",
+                             f"algo.learning_starts={DV1_LEARNING_STARTS}", f"algo.total_steps={DV1_LEARNING_STARTS + 8}",
+                             f"buffer.size={DV1_BUFFER}", "algo.replay_ratio=0.5", "algo.per_rank_pretrain_steps=1",
+                             "checkpoint.every=0", "metric.log_every=4"], DV1_LEARNING_STARTS),
+    }
+    for v, (env_id, ls, _, _) in P2E_DREAMER.items():
+        legs[f"mesh_p2e_{v}_exploration"] = ([f"exp=p2e_{v}_exploration", *base, f"env.id={env_id}",
+                                              f"algo.learning_starts={ls}", f"algo.total_steps={ls + 8}",
+                                              "algo.replay_ratio=0.5", "algo.per_rank_pretrain_steps=1",
+                                              "buffer.size=512", "checkpoint.every=0", "metric.log_every=4"], ls)
+    for name, (args, learning_starts) in legs.items():
+        _, counts, state, _ = ddp_leg(name, args, learning_starts)
+        if any(counts.values()):
+            raise AssertionError(f"the {name} leg launched LN-GRU kernels: {counts}")
+        grads = state.get("grad_steps", state.get("update"))
+        if not grads:
+            raise AssertionError(f"{name}: no gradient step by policy step {state['policy_step']}")
+    return report["mesh_p2e_dv3_finetuning"]["launches"]
 
 
 def phase_mesh(torch, ln_gru):
@@ -3995,8 +4182,12 @@ def phase_mesh(torch, ln_gru):
       the trainer is rank 0 on the card under NCCL, the player thread acts
       on the host; the ledger of
       the JAX package's formula, a checkpoint, and ``eval`` of it through
-      ``serve/evaluate.py``; policy steps/s.
-    Returns the report; its ``launches`` are mesh_dv3's."""
+      ``serve/evaluate.py``; policy steps/s;
+    * the other algorithms under ``ddp`` (``mesh_other_legs``): DreamerV2's
+      bitwise twins, P2E-DV3's finetuning at XL on the LN-GRU kernels, and
+      each other newly admitted entry point.
+    Returns the report; its ``launches`` are mesh_dv3's (S) and
+    ``launches_xl`` the XL finetuning leg's."""
     from sheeprl_tpu_torch.utils.utils import Ratio
 
     report = {}
@@ -4086,6 +4277,8 @@ def phase_mesh(torch, ln_gru):
         if ev["reward"] is None or not (ev["route"] or "").startswith(f"{name[5:]} through serve/evaluate.py"):
             raise AssertionError(f"{name}: eval printed reward {ev['reward']} by route {ev['route']}")
         report[name]["eval"] = {"seconds": ev_s, "reward": ev["reward"], "route": ev["route"]}
+    report["launches_xl"] = mesh_other_legs(torch, ln_gru, report)
+    shutil.rmtree(os.path.join(HERE, "logs", "runs", MESH_ROOT), ignore_errors=True)
     report["launches"] = report["mesh_dv3"]["launches"]
     return report
 
@@ -4369,6 +4562,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         counts, blocks, legs = phase_run(torch, ln_gru)
         gateway_keep()  # the checkpoints phase gateway serves, kept past phase diag's clean-up
+        mesh_keep()  # the P2E-DV3 exploration checkpoint phase mesh finetunes from
         emit("run", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, launches=counts,
              last_launch_blocks=blocks, legs=legs)
     except Exception as err:  # noqa: BLE001
@@ -4388,6 +4582,7 @@ def main(argv=None) -> int:
         mesh = phase_mesh(torch, ln_gru)
         shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
         counts["S"]["mesh_dv3"] = mesh["launches"]  # a path of its own: zeroed before the leg, read after
+        counts["XL"]["mesh_p2e_dv3_finetuning"] = mesh["launches_xl"]
         emit("mesh", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **mesh)
     except Exception as err:  # noqa: BLE001
         return fail("mesh", err)

@@ -6,6 +6,14 @@ accumulation over minibatches), with the JAX package's RMSprop
 (``optim.rmsprop``, optax's ``eps_in_sqrt`` form). The loop is serial, as
 in the JAX package; checkpoints, resume, the RunGuard and the telemetry
 stream as in PPO's loop.
+
+On N ranks (``parallel/mesh.py``) rank ``d`` rolls out env block ``d`` and
+computes the loss over its own rows. Under the default
+``algo.loss_reduction: sum`` the JAX package's loss is the sum over the
+whole rollout of all envs, so the global gradient is the SUM of the ranks'
+gradients: the optimizer sums them (one flattened all-reduce), then clips
+with ``max_grad_norm``; the logged losses are the global sums. Under
+``mean`` the ranks' gradients and losses are averaged (equal rows a rank).
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ import torch
 
 from ...config import Config, instantiate
 from ...optim import Clipped, clipped
+from ...parallel.mesh import collective, collective_fields, local_cfg, rank_resume, ranks_state
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
@@ -35,9 +45,13 @@ AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Los
 MODELS_TO_REGISTER = {"agent"}
 
 
-def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config) -> Callable:
+def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, dist: Any = None) -> Callable:
     """``update(data) -> metrics``: one clipped optimizer step on the whole
-    ``[batch, ...]`` rollout; the metrics stay tensors (no host sync)."""
+    ``[batch, ...]`` rollout; the metrics stay tensors (no host sync). With
+    a ``Distributed`` ``data`` is this rank's rows; the optimizer (built by
+    ``build_optimizer`` with the same ``dist``) sums or averages the ranks'
+    gradients as ``algo.loss_reduction`` says, and the metrics are the
+    global losses likewise."""
     reduction = str(cfg.algo.loss_reduction)
 
     def update(data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -47,32 +61,50 @@ def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config) -> Callable
         pg = policy_loss(logprobs, data["advantages"], reduction)
         vl = value_loss(new_values, data["returns"], reduction)
         optimizer_step(optimizer, pg + vl)
-        return {"Loss/policy_loss": pg.detach(), "Loss/value_loss": vl.detach()}
+        losses = torch.stack([pg.detach(), vl.detach()])
+        if dist is not None:
+            losses = dist.all_reduce_sum(losses)
+            if reduction == "mean":
+                losses = losses / dist.world_size
+        return {"Loss/policy_loss": losses[0], "Loss/value_loss": losses[1]}
 
     return update
 
 
-@register_algorithm(name="a2c")
+def build_optimizer(cfg: Config, agent: PPOAgent, dist: Any = None) -> Clipped:
+    """The clipped optimizer; with a ``Distributed`` its step sums the
+    ranks' gradients under ``algo.loss_reduction: sum`` (the gradient of the
+    loss over the global rollout) and averages them under ``mean``."""
+    reduce = "mean" if str(cfg.algo.loss_reduction) == "mean" else "sum"
+    return clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"),
+                   dist, reduce)
+
+
+@register_algorithm(name="a2c", mesh=True)
 def main(cfg: Config) -> None:
     device, seed, log_dir, state, envs = start_run(cfg, "a2c")
+    dist = current_distributed(cfg)
+    rank = dist.rank
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     num_envs = int(cfg.env.num_envs)
     obs_keys = tuple(cfg.algo.mlp_keys.encoder)
+    saved_gens = rank_resume(state, dist)
 
     agent = build_agent(cfg, obs_space, action_space, device)
-    optimizer = clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"))
+    optimizer = build_optimizer(cfg, agent, collective(cfg))
     if state:
         agent.load_state_dict(state["agent"])
         optimizer.optimizer.load_state_dict(state["opt_state"])
-    update = make_update_fn(agent, optimizer, cfg)
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed)
+    update = make_update_fn(agent, optimizer, cfg, collective(cfg))
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed + rank)
     if state:
-        set_gen_state(player_gen, state["generators"]["player"], "player", tag="a2c")
+        set_gen_state(player_gen, saved_gens["player"], "player", tag="a2c")
 
-    logger = get_logger(cfg, log_dir)
-    telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    logger = get_logger(cfg, log_dir, rank)
+    telem = Telemetry.setup(cfg, log_dir, rank, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
     aggregator = telem.aggregator
-    guard = RunGuard.setup(cfg, CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last), log_dir, telem=telem)
+    guard = RunGuard.setup(cfg, CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=rank == 0),
+                           log_dir, telem=telem, dist=dist)
     ckpt = guard.ckpt
 
     rollout_steps = int(cfg.algo.rollout_steps)
@@ -80,17 +112,20 @@ def main(cfg: Config) -> None:
     num_updates = int(cfg.algo.total_steps) // policy_steps_per_iter if not cfg.dry_run else 1
     start_iter, policy_step, last_log, last_checkpoint = resume_counters(cfg, state, agent, "a2c")
 
-    rb = rollout_buffer(cfg, rollout_steps, num_envs, obs_keys, log_dir, "rank_0", seed)
-    rollout = Rollout(cfg, envs, mirror, pdev, player_gen, agent.is_continuous, make_act_fn(), make_value_fn())
-    rollout.reset(seed)
+    # N ranks: this rank's env block, reset as the JAX package's envs lo..hi
+    rollout = Rollout(local_cfg(cfg, dist), envs, mirror, pdev, player_gen, agent.is_continuous, make_act_fn(),
+                      make_value_fn())
+    rb = rollout_buffer(cfg, rollout_steps, rollout.num_envs, obs_keys, log_dir, f"rank_{rank}", seed)
+    rollout.reset(seed + dist.local_envs(num_envs)[0])
     completed_update = start_iter - 1
     update_s: List[float] = []
     t0 = time.perf_counter()
 
     def _ckpt_state() -> Dict[str, Any]:
+        gens = {"player": gen_state(player_gen)}
         return {"agent": agent.state_dict(), "opt_state": optimizer.optimizer.state_dict(), "update": completed_update,
                 "policy_step": policy_step, "last_log": last_log, "last_checkpoint": last_checkpoint,
-                "generators": {"player": gen_state(player_gen)}}
+                "generators": gens, **ranks_state(dist, gens)}
 
     try:
         for update_iter in range(start_iter, num_updates + 1):
@@ -111,9 +146,11 @@ def main(cfg: Config) -> None:
                 update_s.append(time.perf_counter() - ts)
             completed_update = update_iter
             if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or update_iter == num_updates:
+                dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global metrics
                 telem.log(policy_step, fields={"updates": completed_update, "grad_steps": completed_update,
                                                "elapsed_s": time.perf_counter() - t0,
-                                               "update_ms": 1e3 * sum(update_s) / len(update_s)})
+                                               "update_ms": 1e3 * sum(update_s) / len(update_s),
+                                               **collective_fields(dist)})
                 update_s.clear()
                 last_log = policy_step
             every = int(cfg.checkpoint.every)
@@ -126,9 +163,10 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
         telem.close(policy_step)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and rank == 0:
         test(agent, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"agent": agent}, log_dir)
+    if rank == 0:
+        register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 

@@ -39,14 +39,17 @@ from ...distributions import Bernoulli, Independent, Normal, OneHotCategoricalSt
 from ...envs import spaces
 from ...fleet.engine import refuse_fleet
 from ...ops.transforms import unrolled_cumprod
+from ...data.buffers import env_block, gather_env_blocks
+from ...parallel.mesh import collective, local_cfg, rank_resume, run_log_dir
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...utils.checkpoint import CheckpointManager
 from ...utils.env import episode_stats, patch_restarted_envs, single_env, vectorize
-from ...utils.logger import get_log_dir, get_logger
+from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model, registry_names
 from ...utils.registry import register_algorithm, register_evaluation
-from ...utils.utils import get_device, save_configs
+from ...utils.utils import get_device
 from ..dreamer_v3.dreamer_v3 import DV3Optimizers, LoopParts, _actions_dim, _apply_grads, build_optimizers
 from ..dreamer_v3.utils import check_precision, make_precision_applies
 from ..sac.sac import OffPolicyLoop
@@ -369,15 +372,18 @@ def make_player(wm: torch.nn.Module, actor: DV2Actor, cfg: Config, actions_dim, 
     return init_state, step, expl_amount_at
 
 
-def build_buffer(cfg: Config, num_envs: int, obs_keys, log_dir: str, seed: int, buffer_type: Optional[str] = None):
+def build_buffer(cfg: Config, num_envs: int, obs_keys, log_dir: str, seed: int, buffer_type: Optional[str] = None,
+                 rank: int = 0):
     """``buffer_type`` (default ``buffer.type``): ``sequential`` (per-env
     sequential buffers) or ``episode`` (``EpisodeBuffer``, episodes at least
-    a sequence long)."""
+    a sequence long); rank ``rank``'s (``num_envs``: its env block), seeded
+    ``seed + 1024·rank`` as the JAX package seeds a rank's buffer."""
     seq_len = int(cfg.algo.per_rank_sequence_length)
     buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
     buffer_type = str(buffer_type or cfg.buffer.select("type") or "sequential").lower()
     memmap = bool(cfg.buffer.memmap)
-    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0") if memmap else None
+    memmap_dir = os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None
+    seed = seed + 1024 * rank
     if buffer_type == "sequential":
         return EnvIndependentReplayBuffer(buffer_size, n_envs=num_envs, obs_keys=obs_keys, memmap=memmap,
                                           memmap_dir=memmap_dir, buffer_cls=SequentialReplayBuffer, seed=seed,
@@ -407,7 +413,7 @@ def run_dreamer(cfg: Config, algo: str, build: Callable, train_fn: Callable, pla
             named["target_critic"] = target_critic
         for m in named.values():
             m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-        optimizers = build_optimizers(cfg, wm, actor, critic)
+        optimizers = build_optimizers(cfg, wm, actor, critic, collective(cfg))
         if state:
             for name, m in named.items():
                 m.load_state_dict(state[name])
@@ -445,27 +451,27 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     after a step with its action, reward, ``terminated`` and ``truncated``,
     and (``is_first``) whether the previous row ended an episode; the first
     row is the reset observation with zeros. One greedy test episode with
-    ``parts.task_actor`` at the end."""
+    ``parts.task_actor`` at the end.
+
+    On N ranks (``parallel/mesh.py``, ``start_ranks``) rank ``d`` steps env
+    block ``d`` into its own buffer and trains on its columns, each
+    optimizer step on the ranks' mean gradient (the optimizers ``setup``
+    builds with ``mesh.collective(cfg)``); rank 0 logs, checkpoints (a
+    sequential buffer gathered by env block, the ranks' episode buffers side
+    by side), tests and registers."""
     refuse_fleet(cfg, algo)
     precision = check_precision(cfg)
-    device = get_device(cfg)
-    seed = int(cfg.seed)
-    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    print(f"[{algo}] log_dir={log_dir}", flush=True)
-    MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
-    state = None
-    if cfg.checkpoint.resume_from:
-        state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
-    torch.manual_seed(seed)
-    num_envs = int(cfg.env.num_envs)
+    dist, device, seed, log_dir, state = start_ranks(cfg, algo)
+    rank = dist.rank
+    lo, hi = dist.local_envs(int(cfg.env.num_envs))
+    num_envs = hi - lo  # this rank's env block
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
-    rb = buffer_fn(cfg, num_envs, obs_keys, log_dir, seed)
+    rb = buffer_fn(cfg, num_envs, obs_keys, log_dir, seed, rank=rank)
     episodic = isinstance(rb, EpisodeBuffer)
     # only the sequential buffer can mark an in-flight env restart; with the
     # episode buffer the env reports it as a truncation
-    envs = vectorize(cfg, seed, 0, restart_handled_by_loop=not episodic)
+    envs = vectorize(local_cfg(cfg, dist), seed, rank, restart_handled_by_loop=not episodic)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     is_continuous = isinstance(action_space, spaces.Box)
     is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
@@ -473,24 +479,24 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     act_total = int(sum(actions_dim))
     parts = setup(cfg, device, precision, obs_space, actions_dim, is_continuous, state)
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], rank, dist.world_size))
     elif state is None and parts.rb_state is not None:
-        rb.load_state_dict(parts.rb_state)
+        rb.load_state_dict(env_block(parts.rb_state, rank, dist.world_size))
 
     learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
     wm = parts.named["wm"]
     acting = [parts.player_actor((int(state["policy_step"]) if state else 0) >= learning_starts)]
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed)
-    logger = get_logger(cfg, log_dir)
+    train_gen.manual_seed(seed + rank)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed + rank)
+    logger = get_logger(cfg, log_dir, rank)
     loop = OffPolicyLoop(cfg, algo, device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params=parts.named,
                          aggregator_keys=parts.aggregator_keys, dry_run_steps=4)
     prefetch = make_sequential_prefetcher(cfg, device, rb, int(cfg.algo.per_rank_batch_size),
                                           int(cfg.algo.per_rank_sequence_length), cnn_keys=cnn_keys,
                                           row_bytes_hint=estimate_row_bytes(obs_space, act_total))
-    if parts.player_actor(False) is not parts.player_actor(True):  # a phase that switches actors
+    if parts.player_actor(False) is not parts.player_actor(True) and rank == 0:  # a phase that switches actors
         kind = "task" if acting[0] is parts.task_actor else "exploration"
         print(f"[{algo}] the player acts with the {kind} actor from policy step {loop.p_step}", flush=True)
     mods0 = mirror.current()
@@ -499,7 +505,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
     force_done = bool(cfg.dry_run) and episodic
 
-    obs, _ = envs.reset(seed=seed)
+    obs, _ = envs.reset(seed=seed + loop.first_env)  # N ranks: the block's envs, seeded as the run's
     step_data: Dict[str, np.ndarray] = {k: np.asarray(obs[k])[np.newaxis] for k in obs_keys}
     step_data["actions"] = np.zeros((1, num_envs, act_total), np.float32)
     step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
@@ -519,7 +525,8 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
         if actor is not acting[0]:  # the switch to the task actor, before the step that uses it
             acting[0] = actor
             mirror.refresh({"wm": wm, "actor": actor})
-            print(f"[{algo}] the player acts with the task actor from policy step {loop.p_step}", flush=True)
+            if rank == 0:
+                print(f"[{algo}] the player acts with the task actor from policy step {loop.p_step}", flush=True)
         mods = mirror.current()
         if current["state"] is None:
             current["state"] = player_init(modules=mods)
@@ -546,7 +553,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
                 actions_env = actions_env.reshape(num_envs)
         prev_done = np.logical_or(step_data["terminated"], step_data["truncated"]).astype(np.float32)
         next_obs, rewards, terminated, truncated, info = envs.step(actions_env)
-        loop.p_step += num_envs
+        loop.p_step += loop.env_steps
         dones = np.logical_or(terminated, truncated)
         if force_done:  # a dry run commits an episode every step
             terminated, truncated, dones = np.ones_like(terminated), np.ones_like(truncated), np.ones_like(dones)
@@ -581,23 +588,54 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     def burst(g: int) -> Dict[str, torch.Tensor]:
         return {k: v.mean() for k, v in parts.train(prefetch.take(g), train_gen).items()}
 
-    def algo_state() -> Dict[str, Any]:
-        s = parts.algo_state()
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
-        return s
-
     loop.run(rb, interact, burst, lambda: mirror.refresh({"wm": wm, "actor": acting[0]}), prefetch.stage,
-             algo_state, overlap=False)
-    if cfg.algo.run_test:
+             buffer_state(cfg, dist, rb, parts.algo_state), overlap=False)
+    if cfg.algo.run_test and rank == 0:
         # the player acts in f32 (bf16-true keeps bf16 parameters)
         t_wm, t_actor = (wm, parts.task_actor) if precision.param_dtype == torch.float32 else (
             copy.deepcopy(wm).float(), copy.deepcopy(parts.task_actor).float())
         t_init, t_step, _ = player_fn(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, single_env(cfg, seed), cfg, train_gen, logger=logger)
-    register_model(cfg, parts.registered(), log_dir)
+    if rank == 0:
+        register_model(cfg, parts.registered(), log_dir)
     if logger is not None:
         logger.close()
+
+
+def start_ranks(cfg: Config, algo: str):
+    """The start of the Dreamer-family serial loops on ``fabric.devices``
+    ranks: the rank's ``Distributed`` and device, the seed, the log dir
+    (rank 0 makes it, writes ``config.yaml`` and prints ``[<algo>]
+    log_dir=...``), the aggregator switch and the checkpoint of
+    ``checkpoint.resume_from`` (one of another world size raises here,
+    before anything loads it). Returns ``(dist, device, seed, log_dir,
+    state)``."""
+    dist = current_distributed(cfg)
+    seed = int(cfg.seed)
+    log_dir = run_log_dir(cfg, dist)
+    if dist.is_global_zero:
+        print(f"[{algo}] log_dir={log_dir}", flush=True)
+    MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
+    state = None
+    if cfg.checkpoint.resume_from:
+        state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=dist.device)
+        rank_resume(state, dist)
+    torch.manual_seed(seed)
+    return dist, dist.device, seed, log_dir, state
+
+
+def buffer_state(cfg: Config, dist: Any, rb: Any, algo_state: Callable[[], Dict[str, Any]]):
+    """The loop's ``state()``: the phase's part of a checkpoint and, with
+    ``buffer.checkpoint``, the buffer: by env block, gathered to rank 0 on
+    N ranks (``gather_env_blocks``)."""
+
+    def state() -> Dict[str, Any]:
+        s = algo_state()
+        if cfg.buffer.checkpoint:
+            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
+        return s
+
+    return state
 
 
 def evaluate_dreamer(cfg: Config, state: Dict[str, Any], build: Callable, player_fn: Callable) -> None:
@@ -620,7 +658,7 @@ def evaluate_dreamer(cfg: Config, state: Dict[str, Any], build: Callable, player
     test(t_init, t_step, env, cfg, gen)
 
 
-@register_algorithm(name="dreamer_v2")
+@register_algorithm(name="dreamer_v2", mesh=True)
 def main(cfg: Config) -> None:
     """DreamerV2's serial training loop (``run_dreamer``)."""
     run_dreamer(cfg, "dreamer_v2", build_agent, make_train_fn, make_player, AGGREGATOR_KEYS, is_first=True)

@@ -62,7 +62,7 @@ from ...ops import lambda_values as lambda_values_op
 from ...ops import ln_gru
 from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
-from ...parallel.mesh import WAITS_FOR_ALGOS, collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
+from ...parallel.mesh import collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
 from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
@@ -698,8 +698,6 @@ def main(cfg: Config) -> None:
     precision = check_precision(cfg)
     dist = current_distributed(cfg)
     rank, world = dist.rank, dist.world_size
-    if fleet_on and world > 1:
-        raise NotImplementedError(f"the actor fleet on N ranks waits for {WAITS_FOR_ALGOS}")
     device = dist.device
     seed = int(cfg.seed)
     log_dir = run_log_dir(cfg, dist)

@@ -10,7 +10,12 @@
 * ``main``: the serial loop (as in the JAX package) of ``sac.OffPolicyLoop``,
   sampling the critic batch of B·G rows and the actor batch of B rows
   straight from the buffer; CNN keys are dropped with the JAX package's
-  warning;
+  warning. On N ranks (``parallel/mesh.py``) rank ``d`` steps env block
+  ``d`` into its own buffer, samples its ``per_rank_batch_size`` columns of
+  every step's batch (the JAX package shards axis 1 of the ``[G, B]``
+  critic batch), draws its dropout masks from its own generator and takes
+  the ranks' mean gradient at every optimizer step; rank 0 logs,
+  checkpoints (the buffer gathered by env block), tests and registers;
 * ``evaluate_droq``: the ``eval`` entry, one greedy episode.
 """
 from __future__ import annotations
@@ -22,6 +27,9 @@ import numpy as np
 import torch
 
 from ...config import Config
+from ...data.buffers import env_block, gather_env_blocks
+from ...parallel.mesh import collective
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...utils.env import single_env
 from ...utils.logger import get_logger
@@ -30,7 +38,7 @@ from ...utils.registry import register_algorithm, register_evaluation
 from ..sac.agent import SACAgent, sample_actions
 from ..sac.loss import critic_loss, entropy_loss, policy_loss
 from ..sac.sac import (LOSS_KEYS, OffPolicyLoop, Optimizers, apply_grads, build_optimizers, ema_, evaluate_agent,
-                       make_vector_interact, replay_buffer, start_run)
+                       make_vector_interact, rank_grads, replay_buffer, start_run)
 from ..sac.utils import test
 from .agent import build_agent, critic_masks
 
@@ -50,12 +58,19 @@ def draw(agent: SACAgent, g: int, batch: int, generator: Optional[torch.Generato
     return {"critic": steps, "actor": {"noise": normal(), "masks": critic_masks(critic, batch, generator, device)}}
 
 
-def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_entropy: float) -> Callable:
+def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_entropy: float,
+                  dist: Any = None) -> Callable:
     """``train(critic_batches, actor_batch, draws=None, generator=None) ->
     metrics``: ``critic_batches`` are ``[G, B, ...]``, ``actor_batch``
     ``[B, ...]`` (the keys of SAC's batches); ``draws`` are ``draw``'s. The
     metrics: the mean critic loss over the G steps and the actor and alpha
-    losses, as tensors."""
+    losses, as tensors. With a ``Distributed`` the batches are this rank's
+    columns and each optimizer step takes the ranks' mean gradient (one
+    flattened all-reduce per optimizer step, before the step)."""
+
+    def grads_of(loss: torch.Tensor, params) -> Any:
+        return rank_grads(loss, params, dist)
+
     gamma = float(cfg.algo.gamma)
     tau = float(cfg.algo.tau)
     actor, critic, target = agent.actor, agent.critic, agent.target_critic
@@ -70,7 +85,7 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
             min_target = target_q.amin(0) - torch.exp(agent.log_alpha) * next_logprobs
             y = batch["rewards"] + (1.0 - batch["terminated"]) * gamma * min_target
         qf_loss = critic_loss(critic(batch["observations"], batch["actions"], d["masks"]), y)
-        apply_grads(optimizers["critic"], critic_params, torch.autograd.grad(qf_loss, critic_params))
+        apply_grads(optimizers["critic"], critic_params, grads_of(qf_loss, critic_params))
         ema_(target_params, critic_params, tau)  # every step
         optimizers.step += 1
         return qf_loss.detach()
@@ -88,15 +103,15 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
         actions, logprobs = sample_actions(actor, mean, log_std, draws["actor"]["noise"])
         mean_q = critic(obs, actions, draws["actor"]["masks"]).mean(0)
         a_loss = policy_loss(torch.exp(agent.log_alpha).detach(), logprobs, mean_q)
-        apply_grads(optimizers["actor"], actor_params, torch.autograd.grad(a_loss, actor_params))
+        apply_grads(optimizers["actor"], actor_params, grads_of(a_loss, actor_params))
         al_loss = entropy_loss(agent.log_alpha, logprobs.detach(), target_entropy)
-        apply_grads(optimizers["alpha"], [agent.log_alpha], torch.autograd.grad(al_loss, [agent.log_alpha]))
+        apply_grads(optimizers["alpha"], [agent.log_alpha], grads_of(al_loss, [agent.log_alpha]))
         return dict(zip(LOSS_KEYS, (qf, a_loss.detach(), al_loss.detach())))
 
     return train
 
 
-@register_algorithm(name="droq")
+@register_algorithm(name="droq", mesh=True)
 def main(cfg: Config) -> None:
     """DroQ's serial training loop, with checkpoints, the RunGuard and resume;
     one greedy test episode at the end."""
@@ -104,6 +119,7 @@ def main(cfg: Config) -> None:
         warnings.warn("DroQ cannot use image observations; CNN keys are ignored")
         cfg.algo.cnn_keys.encoder = []
     device, seed, log_dir, state, envs = start_run(cfg, "droq")
+    dist = current_distributed(cfg)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     act_dim = int(np.prod(action_space.shape))
@@ -113,16 +129,16 @@ def main(cfg: Config) -> None:
         agent.load_state_dict(state["agent"])
         optimizers.load_state_dict(state["opt_states"])
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed)
-    logger = get_logger(cfg, log_dir)
+    train_gen.manual_seed(seed + dist.rank)  # N ranks: each rank's draws and dropout masks its own
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"actor": agent.actor}, seed + dist.rank)
+    logger = get_logger(cfg, log_dir, dist.rank)
     loop = OffPolicyLoop(cfg, "droq", device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params={"agent": agent})
-    rb = replay_buffer(cfg, log_dir, seed)
+    rb = replay_buffer(cfg, log_dir, seed, dist=dist)
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], dist.rank, dist.world_size))
     batch_size = int(cfg.algo.per_rank_batch_size)
-    train = make_train_fn(agent, optimizers, cfg, -act_dim)
+    train = make_train_fn(agent, optimizers, cfg, -act_dim, dist=collective(cfg))
 
     def to_device(sample: Dict[str, np.ndarray], lead) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v.reshape(*lead, *v.shape[2:]))).to(device)
@@ -135,15 +151,16 @@ def main(cfg: Config) -> None:
 
     def algo_state() -> Dict[str, Any]:
         s = {"agent": agent.state_dict(), "opt_states": optimizers.state_dict()}
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
+        if cfg.buffer.checkpoint:  # by env block, gathered to rank 0 on N ranks
+            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
         return s
 
     loop.run(rb, make_vector_interact(loop, lambda: mirror.current()["actor"], mlp_keys), burst,
              lambda: mirror.refresh({"actor": agent.actor}), lambda g: None, algo_state, overlap=False)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and dist.is_global_zero:
         test(agent.actor, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
+    if dist.is_global_zero:
+        register_model(cfg, {"actor": agent.actor, "critic": agent.critic}, log_dir)
     if logger is not None:
         logger.close()
 

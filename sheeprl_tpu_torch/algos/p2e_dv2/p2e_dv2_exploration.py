@@ -29,6 +29,7 @@ from torch import nn
 from ...config import Config
 from ...distributions import Independent, Normal, gumbel_noise
 from ...models import apply_ensembles
+from ...parallel.mesh import collective
 from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm, register_evaluation
 from ..dreamer_v2.dreamer_v2 import (
@@ -58,12 +59,13 @@ MODELS_TO_REGISTER = {"world_model", "ensembles", "actor_task", "critic_task", "
                       "actor_exploration", "critic_exploration", "target_critic_exploration"}
 
 
-def build_optimizers(cfg: Config, mods: Dict[str, nn.Module]) -> P2EOptimizers:
-    """The six clipped optimizers of the DreamerV1/V2 exploration steps."""
+def build_optimizers(cfg: Config, mods: Dict[str, nn.Module], dist: Any = None) -> P2EOptimizers:
+    """The six clipped optimizers of the DreamerV1/V2 exploration steps
+    (with a ``Distributed``, each averages its gradients over the ranks)."""
     a = cfg.algo
     sections = {"wm": a.world_model, "ensembles": a.ensembles, "actor_task": a.actor, "critic_task": a.critic,
                 "actor_exploration": a.actor, "critic_exploration": a.critic}
-    return P2EOptimizers(**{k: clipped_optimizer(v, mods[k]) for k, v in sections.items()})
+    return P2EOptimizers(**{k: clipped_optimizer(v, mods[k], dist) for k, v in sections.items()})
 
 
 def draw_train_noise(cfg: Config, T: int, B: int, actor, generator, device,
@@ -168,7 +170,7 @@ def exploration_setup(build: Callable, train_fn: Callable, optimizers_fn: Callab
         mods = build(cfg, obs_space, actions_dim, is_continuous, device)
         for m in mods.values():
             m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-        optimizers = optimizers_fn(cfg, mods)
+        optimizers = optimizers_fn(cfg, mods, collective(cfg))
         if state:
             for k, m in mods.items():
                 m.load_state_dict(state[k])
@@ -192,7 +194,7 @@ def expl_stat(cfg: Config) -> Callable[[bool], str]:
     return lambda task_phase: f"Params/exploration_amount_{cfg.algo.player.actor_type}"
 
 
-@register_algorithm(name="p2e_dv2_exploration")
+@register_algorithm(name="p2e_dv2_exploration", mesh=True)
 def main(cfg: Config) -> None:
     """P2E-DV2's exploration phase (``dreamer_v2.run_serial``)."""
     run_serial(cfg, "p2e_dv2_exploration", exploration_setup(build_agent, make_train_fn, build_optimizers,

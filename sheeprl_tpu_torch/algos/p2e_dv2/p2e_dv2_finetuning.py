@@ -19,6 +19,8 @@ import json
 from typing import Any, Callable, Dict, Sequence
 
 from ...config import Config
+from ...parallel.mesh import collective
+from ...parallel.mesh import current as current_distributed
 from ...utils.checkpoint import CheckpointManager, param_sums
 from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm
@@ -54,7 +56,7 @@ def finetune(cfg: Config, exploration_cfg: Config, algo: str, build: Callable, t
             named["target_critic"] = target_critic
         for m in named.values():
             m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-        optimizers = build_optimizers(cfg, wm, actor, critic)
+        optimizers = build_optimizers(cfg, wm, actor, critic, collective(cfg))
         rb_state = None
         if state:
             for k, m in named.items():
@@ -66,8 +68,10 @@ def finetune(cfg: Config, exploration_cfg: Config, algo: str, build: Callable, t
             explo = CheckpointManager.load(cfg.checkpoint.exploration_ckpt_path, map_location=device)
             for k, m in named.items():
                 m.load_state_dict(explo[FROM_EXPLORATION[k]])
-            print(f"[{algo}] from exploration " + json.dumps({
-                "checkpoint": str(cfg.checkpoint.exploration_ckpt_path), "param_sums": param_sums(named)}), flush=True)
+            if current_distributed(cfg).is_global_zero:
+                print(f"[{algo}] from exploration " + json.dumps({
+                    "checkpoint": str(cfg.checkpoint.exploration_ckpt_path), "param_sums": param_sums(named)}),
+                    flush=True)
             if cfg.buffer.select("load_from_exploration") and "rb" in explo:
                 rb_state = explo["rb"]
         train = train_fn(*([wm, actor, critic] + ([target_critic] if target_critic is not None else [])),
@@ -91,7 +95,7 @@ def finetune(cfg: Config, exploration_cfg: Config, algo: str, build: Callable, t
                    "task" if task_phase or actor_type == "task" else "exploration"))
 
 
-@register_algorithm(name="p2e_dv2_finetuning", requires_exploration_cfg=True)
+@register_algorithm(name="p2e_dv2_finetuning", requires_exploration_cfg=True, mesh=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:
     """P2E-DV2's finetuning phase from the exploration run whose config is
     ``exploration_cfg``."""

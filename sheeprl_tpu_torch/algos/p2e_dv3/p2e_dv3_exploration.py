@@ -48,14 +48,14 @@ from ...envs import spaces
 from ...fleet.engine import refuse_fleet
 from ...models import apply_ensembles
 from ...optim import Clipped, clipped
+from ...data.buffers import env_block
+from ...parallel.mesh import collective, local_cfg
 from ...parallel.placement import make_param_mirror
-from ...utils.checkpoint import CheckpointManager
 from ...utils.env import single_env, vectorize
-from ...utils.logger import get_log_dir, get_logger
-from ...utils.metric import MetricAggregator
+from ...utils.logger import get_logger
 from ...utils.model_manager import register_model, registry_names
 from ...utils.registry import register_algorithm, register_evaluation
-from ...utils.utils import get_device, save_configs
+from ...utils.utils import get_device
 from ..dreamer_v3.agent import build_agent as dv3_build_agent
 from ..dreamer_v3.dreamer_v3 import (
     CriticStream,
@@ -71,6 +71,7 @@ from ..dreamer_v3.dreamer_v3 import (
     make_world_model_step,
 )
 from ..dreamer_v3.utils import MomentsState, check_precision, init_moments, make_precision_applies, test
+from ..dreamer_v2.dreamer_v2 import buffer_state, start_ranks
 from ..sac.sac import OffPolicyLoop
 from .agent import build_agent
 
@@ -102,10 +103,11 @@ def aggregator_keys(cfg: Config) -> set:
     return {"Rewards/rew_avg", "Game/ep_len_avg", *metric_keys(cfg)}
 
 
-def clipped_optimizer(section: Config, module: nn.Module) -> Clipped:
+def clipped_optimizer(section: Config, module: nn.Module, dist: Any = None) -> Clipped:
     """``section.optimizer`` over ``module``'s parameters, its gradients
-    clipped to ``section.clip_gradients``."""
-    return clipped(instantiate(section.optimizer, list(module.parameters())), section.clip_gradients)
+    clipped to ``section.clip_gradients`` (with a ``Distributed``, after
+    their mean over the ranks)."""
+    return clipped(instantiate(section.optimizer, list(module.parameters())), section.clip_gradients, dist)
 
 
 class P2EOptimizers:
@@ -137,14 +139,17 @@ class P2EOptimizers:
         self.step = int(state["step"])
 
 
-def build_optimizers(cfg: Config, mods: Dict[str, nn.Module]) -> P2EOptimizers:
+def build_optimizers(cfg: Config, mods: Dict[str, nn.Module], dist: Any = None) -> P2EOptimizers:
+    """Every optimizer of the exploration step, one per exploration critic;
+    with a ``Distributed`` each averages its gradients over the ranks."""
     a = cfg.algo
     return P2EOptimizers(
-        wm=clipped_optimizer(a.world_model, mods["wm"]), ensembles=clipped_optimizer(a.ensembles, mods["ensembles"]),
-        actor_task=clipped_optimizer(a.actor, mods["actor_task"]),
-        critic_task=clipped_optimizer(a.critic, mods["critic_task"]),
-        actor_exploration=clipped_optimizer(a.actor, mods["actor_exploration"]),
-        critics_exploration={k: clipped_optimizer(a.critic, v["critic"])
+        wm=clipped_optimizer(a.world_model, mods["wm"], dist),
+        ensembles=clipped_optimizer(a.ensembles, mods["ensembles"], dist),
+        actor_task=clipped_optimizer(a.actor, mods["actor_task"], dist),
+        critic_task=clipped_optimizer(a.critic, mods["critic_task"], dist),
+        actor_exploration=clipped_optimizer(a.actor, mods["actor_exploration"], dist),
+        critics_exploration={k: clipped_optimizer(a.critic, v["critic"], dist)
                              for k, v in mods["critics_exploration"].items()})
 
 
@@ -174,12 +179,15 @@ def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bo
 
 
 def make_train_fn(mods: Dict[str, nn.Module], optimizers: P2EOptimizers, cfg: Config, is_continuous: bool,
-                  actions_dim: Sequence[int]):
+                  actions_dim: Sequence[int], dist: Any = None):
     """Returns ``train(moments, batches, noise=None, generator=None) ->
     (moments, metrics)``: G exploration steps over ``batches`` [G, T, B,
     ...]; ``moments`` is ``{"task": MomentsState, "exploration": {name:
     MomentsState}}``; ``noise`` a list of G ``draw_train_noise`` dicts, else
-    the draws come from ``generator``. Metrics are [G] tensors (``metric_keys``)."""
+    the draws come from ``generator``. Metrics are [G] tensors (``metric_keys``).
+    With a ``Distributed`` the batches are this rank's columns and every
+    Moments takes its quantiles of the global λ-returns (the optimizers,
+    built with the same ``dist``, average the gradients)."""
     apply = make_precision_applies(cfg)
     wm, ens = mods["wm"], mods["ensembles"]
     critics = mods["critics_exploration"]
@@ -189,7 +197,7 @@ def make_train_fn(mods: Dict[str, nn.Module], optimizers: P2EOptimizers, cfg: Co
     target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
     keys = metric_keys(cfg)
     world_model_step = make_world_model_step(wm, optimizers.wm, cfg, apply, force_coupled=True, detach_heads=True)
-    behaviour_step = make_behaviour_step(wm, cfg, apply, is_continuous, actions_dim)
+    behaviour_step = make_behaviour_step(wm, cfg, apply, is_continuous, actions_dim, dist=dist)
 
     def members(x: torch.Tensor) -> torch.Tensor:
         return apply(lambda v: apply_ensembles(ens, v), x)
@@ -254,24 +262,19 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     ``setup(cfg, device, precision, obs_space, actions_dim, is_continuous,
     state)`` builds the phase's ``LoopParts`` (``state``: the checkpoint of
     ``checkpoint.resume_from``, or None). One greedy test episode with the
-    task actor at the end."""
+    task actor at the end. On N ranks as ``dreamer_v2.run_serial``: rank
+    ``d`` steps env block ``d`` into its own buffer; rank 0 logs,
+    checkpoints (the buffer gathered by env block), tests and registers."""
     refuse_fleet(cfg, algo)
     precision = check_precision(cfg)
-    device = get_device(cfg)
-    seed = int(cfg.seed)
-    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    print(f"[{algo}] log_dir={log_dir}", flush=True)
-    MetricAggregator.disabled = int(cfg.metric.select("log_level", 1) or 0) == 0
-    state = None
-    if cfg.checkpoint.resume_from:
-        state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
-    torch.manual_seed(seed)
-    envs = vectorize(cfg, seed, 0, restart_handled_by_loop=True)
+    dist, device, seed, log_dir, state = start_ranks(cfg, algo)
+    rank = dist.rank
+    lcfg = local_cfg(cfg, dist)  # this rank's env block
+    envs = vectorize(lcfg, seed, rank, restart_handled_by_loop=True)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     is_continuous = isinstance(action_space, spaces.Box)
     actions_dim = _actions_dim(action_space)
-    num_envs = int(cfg.env.num_envs)
+    num_envs = int(lcfg.env.num_envs)
     parts = setup(cfg, device, precision, obs_space, actions_dim, is_continuous, state)
 
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
@@ -280,14 +283,14 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     memmap = bool(cfg.buffer.memmap)
     rb = EnvIndependentReplayBuffer(
         int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64), n_envs=num_envs, obs_keys=obs_keys,
-        buffer_cls=SequentialReplayBuffer, seed=seed, memmap=memmap,
-        memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if memmap else None,
+        buffer_cls=SequentialReplayBuffer, seed=seed + 1024 * rank, memmap=memmap,
+        memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None,
         memmap_fast_resume=bool(cfg.buffer.memmap_fast_resume),
     )
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], rank, dist.world_size))
     elif state is None and parts.rb_state is not None:
-        rb.load_state_dict(parts.rb_state)
+        rb.load_state_dict(env_block(parts.rb_state, rank, dist.world_size))
     prefetch = make_sequential_prefetcher(cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len,
                                           cnn_keys=cnn_keys,
                                           row_bytes_hint=estimate_row_bytes(obs_space, int(sum(actions_dim))))
@@ -296,47 +299,44 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     wm = parts.named["wm"]
     acting = [parts.player_actor(p_step0 >= learning_starts)]
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed)
-    logger = get_logger(cfg, log_dir)
+    train_gen.manual_seed(seed + rank)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed + rank)
+    logger = get_logger(cfg, log_dir, rank)
     loop = OffPolicyLoop(cfg, algo, device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params=parts.named,
                          aggregator_keys=parts.aggregator_keys, dry_run_steps=4)
-    if parts.player_actor(False) is not parts.player_actor(True):  # a phase that switches actors
+    if parts.player_actor(False) is not parts.player_actor(True) and rank == 0:  # a phase that switches actors
         kind = "task" if acting[0] is parts.task_actor else "exploration"
         print(f"[{algo}] the player acts with the {kind} actor from policy step {loop.p_step}", flush=True)
     mods0 = mirror.current()
     player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous, num_envs)
-    stepper = DV3Stepper(cfg, envs, actions_dim, is_continuous, player_init, player_step, player_gen, mirror,
-                         loop.p_step, loop.learning_starts, random_warmup=parts.random_warmup)
+    stepper = DV3Stepper(lcfg, envs, actions_dim, is_continuous, player_init, player_step, player_gen, mirror,
+                         loop.p_step, loop.learning_starts, random_warmup=parts.random_warmup,
+                         env_steps=loop.env_steps, first_env=loop.first_env)
 
     def interact(sink) -> None:
         actor = parts.player_actor(loop.p_step >= loop.learning_starts)
         if actor is not acting[0]:  # the switch to the task actor, before the step that uses it
             acting[0] = actor
             mirror.refresh({"wm": wm, "actor": actor})
-            print(f"[{algo}] the player acts with the task actor from policy step {loop.p_step}", flush=True)
+            if rank == 0:
+                print(f"[{algo}] the player acts with the task actor from policy step {loop.p_step}", flush=True)
         stepper(sink)
         loop.p_step = stepper.p_step
 
     def burst(g: int) -> Dict[str, torch.Tensor]:
         return {k: v.mean() for k, v in parts.train(prefetch.take(g), train_gen).items()}
 
-    def algo_state() -> Dict[str, Any]:
-        s = parts.algo_state()
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
-        return s
-
     loop.run(rb, interact, burst, lambda: mirror.refresh({"wm": wm, "actor": acting[0]}), prefetch.stage,
-             algo_state, overlap=False)
-    if cfg.algo.run_test:
+             buffer_state(cfg, dist, rb, parts.algo_state), overlap=False)
+    if cfg.algo.run_test and rank == 0:
         # the player acts in f32 (bf16-true keeps bf16 parameters)
         t_wm, t_actor = (wm, parts.task_actor) if precision.param_dtype == torch.float32 else (
             copy.deepcopy(wm).float(), copy.deepcopy(parts.task_actor).float())
         t_init, t_step = make_player(t_wm, t_actor, cfg, actions_dim, is_continuous, 1)
         test(t_init, t_step, single_env(cfg, seed), cfg, train_gen, logger=logger)
-    register_model(cfg, parts.registered(), log_dir)
+    if rank == 0:
+        register_model(cfg, parts.registered(), log_dir)
     if logger is not None:
         logger.close()
 
@@ -345,14 +345,14 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
     mods = build_agent(cfg, obs_space, actions_dim, is_continuous, device)
     for m in mods.values():
         m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-    optimizers = build_optimizers(cfg, mods)
+    optimizers = build_optimizers(cfg, mods, collective(cfg))
     moments = {"now": init_p2e_moments(cfg, device)}
     if state:
         for k, m in mods.items():
             m.load_state_dict(state[k])
         optimizers.load_state_dict(state["opt_states"])
         moments["now"] = load_moments(state["moments"])
-    train_fn = make_train_fn(mods, optimizers, cfg, is_continuous, actions_dim)
+    train_fn = make_train_fn(mods, optimizers, cfg, is_continuous, actions_dim, dist=collective(cfg))
 
     def train(batches, generator):
         moments["now"], metrics = train_fn(moments["now"], batches, generator=generator)
@@ -369,7 +369,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                      aggregator_keys(cfg), lambda: registry_names(mods))
 
 
-@register_algorithm(name="p2e_dv3_exploration")
+@register_algorithm(name="p2e_dv3_exploration", mesh=True)
 def main(cfg: Config) -> None:
     """P2E-DV3's exploration phase (``run_serial``)."""
     run_serial(cfg, "p2e_dv3_exploration", _setup)

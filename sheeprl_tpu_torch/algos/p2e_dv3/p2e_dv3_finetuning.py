@@ -24,6 +24,8 @@ import json
 from typing import Any, Dict
 
 from ...config import Config
+from ...parallel.mesh import collective
+from ...parallel.mesh import current as current_distributed
 from ...utils.checkpoint import CheckpointManager, param_sums
 from ...utils.model_manager import registry_names
 from ...utils.registry import register_algorithm
@@ -57,7 +59,8 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
              "actor_exploration": actor_exploration}
     for m in named.values():
         m.to(precision.param_dtype)  # bf16-true: the parameters themselves are bf16
-    optimizers = build_optimizers(cfg, wm, actor, critic)
+    dist = collective(cfg)
+    optimizers = build_optimizers(cfg, wm, actor, critic, dist)
     rb_state = None
     if state:
         for k, m in named.items():
@@ -72,11 +75,13 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                        ("target_critic", "target_critic_task"), ("actor_exploration", "actor_exploration")):
             named[k].load_state_dict(explo[src])
         moments = MomentsState(explo["moments"]["task"]["low"], explo["moments"]["task"]["high"])
-        print("[p2e_dv3_finetuning] from exploration " + json.dumps({
-            "checkpoint": str(cfg.checkpoint.exploration_ckpt_path), "param_sums": param_sums(named)}), flush=True)
+        if current_distributed(cfg).is_global_zero:
+            print("[p2e_dv3_finetuning] from exploration " + json.dumps({
+                "checkpoint": str(cfg.checkpoint.exploration_ckpt_path), "param_sums": param_sums(named)}),
+                flush=True)
         if cfg.buffer.select("load_from_exploration") and "rb" in explo:
             rb_state = explo["rb"]
-    train_fn = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim)
+    train_fn = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim, dist)
     current = {"moments": moments}
 
     def train(batches, generator):
@@ -101,7 +106,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                      algo_state, actor, AGGREGATOR_KEYS, registered, random_warmup=False, rb_state=rb_state)
 
 
-@register_algorithm(name="p2e_dv3_finetuning", requires_exploration_cfg=True)
+@register_algorithm(name="p2e_dv3_finetuning", requires_exploration_cfg=True, mesh=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:
     """P2E-DV3's finetuning phase (``run_serial``) from the exploration run
     whose config is ``exploration_cfg``."""

@@ -45,7 +45,7 @@ from ...fleet.engine import PROGRAMS, refuse_fleet
 from ...fleet.programs import merge_ppo_round
 from ...ops import gae
 from ...optim import Clipped, clipped
-from ...parallel.mesh import WAITS_FOR_ALGOS, collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
+from ...parallel.mesh import collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
 from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...parallel.precision import disable_tf32
@@ -75,10 +75,8 @@ def start_run(cfg: Config, algo: str):
     the log dir and the vector env is the rank's env block.
     Returns ``(device, seed, log_dir, state, envs)``."""
     refuse_fleet(cfg, algo)
-    fleet = FleetEngine.configured(cfg)
+    fleet = FleetEngine.configured(cfg)  # off on N ranks: each rank keeps its env loop
     dist = current_distributed(cfg)
-    if fleet and dist.world_size > 1:
-        raise NotImplementedError(f"the actor fleet on N ranks waits for {WAITS_FOR_ALGOS}")
     device = dist.device
     disable_tf32()
     seed = int(cfg.seed)

@@ -12,6 +12,15 @@
   as in PPO's update;
 * the loop is serial, as in the JAX package; checkpoints, resume, the
   RunGuard and the telemetry stream as in PPO's loop.
+
+On N ranks (``parallel/mesh.py``) rank ``d`` rolls out env block ``d``; the
+ranks all-gather the iteration's rollout with its ``hx0``/``cx0`` chunk
+carries, so every rank holds the JAX package's sequences over all envs
+(``s = chunk*N + env``); one permutation of all sequences per epoch
+(``per_rank_num_batches × world_size`` global minibatches, the same draws on
+every rank) and each rank trains on its column block of every global
+minibatch, the advantages normalised over the global minibatch and the
+gradients averaged. Rank 0 logs, checkpoints, tests and registers.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from ...config import Config, instantiate
 from ...envs import spaces
 from ...ops import gae
 from ...optim import Clipped, clipped
+from ...parallel.mesh import collective, collective_fields, rank_resume, ranks_state
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
 from ...telemetry.facade import Telemetry
@@ -34,8 +45,8 @@ from ...utils.logger import get_logger
 from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..ppo.loss import entropy_loss, policy_loss, value_loss
-from ..ppo.ppo import (LOSS_KEYS, bootstrap_truncated, draw_perms, evaluate_agent, make_coefs, optimizer_step,
-                       resume_counters, rollout_buffer, scaled_lr, start_run)
+from ..ppo.ppo import (LOSS_KEYS, bootstrap_truncated, draw_perms, evaluate_agent, global_normalize, make_coefs,
+                       optimizer_step, resume_counters, rollout_buffer, scaled_lr, start_run)
 from ..ppo.utils import env_actions
 from .agent import Carry, RecurrentPPOAgent, actions_and_log_probs, build_agent
 from .utils import AGGREGATOR_KEYS, one_hot_actions, prepare_obs, test
@@ -75,17 +86,29 @@ def to_seq(x: Any, seq_len: int) -> np.ndarray:
 
 
 def make_update_fn(agent: RecurrentPPOAgent, optimizer: Clipped, cfg: Config, num_minibatches: int,
-                   mb_size: int) -> Callable:
+                   mb_size: int, dist: Any = None) -> Callable:
     """``update(data, coefs, perms) -> metrics``: ``data`` holds
     sequence-major ``[S, L, ...]`` tensors (``obs:<key>``, ``actions``,
     ``prev_actions``, ``is_first``, ``logprobs``, ``values``, ``returns``,
     ``advantages``) and ``cx0``/``hx0`` ``[S, H]``; ``perms`` is
-    ``[update_epochs, S]``."""
+    ``[update_epochs, S]``.
+
+    With a ``Distributed``, ``data`` holds every rank's sequences and
+    ``mb_size`` is the global minibatch: rank ``d`` takes block ``d`` of each
+    (the JAX package's batch sharding), the advantages are normalised over
+    the global minibatch and the optimizer (built with the same ``dist``)
+    averages the gradients; a ``sum`` reduction scales the rank's loss by
+    the world size, as PPO's update does."""
     update_epochs = int(cfg.algo.update_epochs)
     clip_vloss = bool(cfg.algo.clip_vloss)
     normalize_advantages = bool(cfg.algo.normalize_advantages)
     reduction = str(cfg.algo.loss_reduction)
     obs_keys = tuple(cfg.algo.cnn_keys.encoder) + tuple(cfg.algo.mlp_keys.encoder)
+    world, rank = (dist.world_size, dist.rank) if dist is not None else (1, 0)
+    if mb_size % world:
+        raise ValueError(f"the global minibatch of {mb_size} sequences must divide by the world size ({world})")
+    local = mb_size // world
+    scale = float(world) if reduction != "mean" else 1.0
 
     def loss_fn(mb: Dict[str, torch.Tensor], coefs: Dict[str, Any]):
         def tm(x):  # sequence-major → time-major
@@ -96,17 +119,20 @@ def make_update_fn(agent: RecurrentPPOAgent, optimizer: Clipped, cfg: Config, nu
         _, new_logprobs, entropy = actions_and_log_probs(actor_out, agent.is_continuous, actions=tm(mb["actions"]))
         advantages = tm(mb["advantages"])
         if normalize_advantages:
-            advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            advantages = global_normalize(advantages, dist if world > 1 else None)
         pg = policy_loss(new_logprobs, tm(mb["logprobs"]), advantages, coefs["clip_coef"], reduction)
         vl = value_loss(new_values, tm(mb["values"]), tm(mb["returns"]), coefs["clip_coef"], clip_vloss, reduction)
         el = entropy_loss(entropy, reduction)
-        return pg + coefs["vf_coef"] * vl + coefs["ent_coef"] * el, torch.stack([pg, vl, el]).detach()
+        loss, aux = pg + coefs["vf_coef"] * vl + coefs["ent_coef"] * el, torch.stack([pg, vl, el]).detach()
+        return (loss * scale, aux * scale) if scale != 1.0 else (loss, aux)
 
     def update(data: Dict[str, torch.Tensor], coefs: Dict[str, Any], perms: torch.Tensor) -> Dict[str, torch.Tensor]:
         sums = None
         with scaled_lr(optimizer.optimizer, float(coefs["lr_frac"])):
             for e in range(update_epochs):
                 idxs = perms[e][: num_minibatches * mb_size].reshape(num_minibatches, mb_size)
+                if world > 1:  # this rank's block of each global minibatch
+                    idxs = idxs[:, rank * local:(rank + 1) * local]
                 for j in range(num_minibatches):
                     loss, aux = loss_fn({k: v.index_select(0, idxs[j]) for k, v in data.items()}, coefs)
                     optimizer_step(optimizer, loss)
@@ -145,11 +171,16 @@ def sequence_batch(local: Dict[str, np.ndarray], next_value: np.ndarray, chunk_c
     return data
 
 
-@register_algorithm(name="ppo_recurrent")
+@register_algorithm(name="ppo_recurrent", mesh=True)
 def main(cfg: Config) -> None:
     device, seed, log_dir, state, envs = start_run(cfg, "ppo_recurrent")
+    dist = current_distributed(cfg)
+    rank, world = dist.rank, dist.world_size
+    saved_gens = rank_resume(state, dist)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
-    num_envs = int(cfg.env.num_envs)
+    num_envs = int(cfg.env.num_envs)  # every rank's: the sequences the update sees
+    lo, hi = dist.local_envs(num_envs)
+    n_local = hi - lo  # this rank's env block, which it rolls out
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     multi = isinstance(action_space, spaces.MultiDiscrete)
@@ -158,33 +189,34 @@ def main(cfg: Config) -> None:
     actions_dim, act_width, H = agent.actions_dim, sum(agent.actions_dim), agent.lstm_hidden_size
     reset_on_done = bool(cfg.algo.reset_recurrent_state_on_done)
     optimizer = clipped(instantiate(cfg.algo.optimizer, [p for p in agent.parameters() if p.requires_grad]),
-                        cfg.algo.select("max_grad_norm"))
+                        cfg.algo.select("max_grad_norm"), collective(cfg))
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(seed)  # the same on every rank: the permutations of the sequences
     if state:
         agent.load_state_dict(state["agent"])
         optimizer.optimizer.load_state_dict(state["opt_state"])
-        set_gen_state(generator, state["generators"]["train"], "train", tag="ppo_recurrent")
+        set_gen_state(generator, saved_gens["train"], "train", tag="ppo_recurrent")
 
     rollout_steps = int(cfg.algo.rollout_steps)
     seq_len = int(cfg.algo.per_rank_sequence_length)
     if rollout_steps % seq_len != 0:
         raise ValueError(f"rollout_steps ({rollout_steps}) must be divisible by per_rank_sequence_length ({seq_len})")
     num_sequences = rollout_steps // seq_len * num_envs
-    num_batches = int(cfg.algo.per_rank_num_batches)
+    num_batches = int(cfg.algo.per_rank_num_batches) * world
     mb_size = max(num_sequences // num_batches, 1) if num_batches > 0 else 1
     num_minibatches = num_sequences // mb_size
     update_epochs = int(cfg.algo.update_epochs)
     act, value_fn = make_act_fn(), make_value_fn()
-    update = make_update_fn(agent, optimizer, cfg, num_minibatches, mb_size)
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed)
+    update = make_update_fn(agent, optimizer, cfg, num_minibatches, mb_size, collective(cfg))
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"agent": agent}, seed + rank)
     if state:
-        set_gen_state(player_gen, state["generators"]["player"], "player", tag="ppo_recurrent")
+        set_gen_state(player_gen, saved_gens["player"], "player", tag="ppo_recurrent")
 
-    logger = get_logger(cfg, log_dir)
-    telem = Telemetry.setup(cfg, log_dir, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    logger = get_logger(cfg, log_dir, rank)
+    telem = Telemetry.setup(cfg, log_dir, rank, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
     aggregator = telem.aggregator
-    guard = RunGuard.setup(cfg, CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last), log_dir, telem=telem)
+    guard = RunGuard.setup(cfg, CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=rank == 0),
+                           log_dir, telem=telem, dist=dist)
     ckpt = guard.ckpt
 
     policy_steps_per_iter = num_envs * rollout_steps
@@ -192,10 +224,10 @@ def main(cfg: Config) -> None:
     start_iter, policy_step, last_log, last_checkpoint = resume_counters(cfg, state, agent, "ppo_recurrent")
     grad_steps = (start_iter - 1) * num_minibatches * update_epochs
 
-    rb = rollout_buffer(cfg, rollout_steps, num_envs, obs_keys, log_dir, "rank_0", seed)
-    obs, _ = envs.reset(seed=seed)
-    carry = agent.initial_states(num_envs, pdev)
-    prev_actions = np.zeros((num_envs, act_width), np.float32)
+    rb = rollout_buffer(cfg, rollout_steps, n_local, obs_keys, log_dir, f"rank_{rank}", seed)
+    obs, _ = envs.reset(seed=seed + lo)  # env i of the block resets as the JAX package's env lo+i
+    carry = agent.initial_states(n_local, pdev)
+    prev_actions = np.zeros((n_local, act_width), np.float32)
     completed_update = start_iter - 1
     update_s: List[float] = []
     t0 = time.perf_counter()
@@ -211,9 +243,10 @@ def main(cfg: Config) -> None:
         return c[0][i], c[1][i]
 
     def _ckpt_state() -> Dict[str, Any]:
+        gens = {"train": gen_state(generator), "player": gen_state(player_gen)}
         return {"agent": agent.state_dict(), "opt_state": optimizer.optimizer.state_dict(), "update": completed_update,
                 "policy_step": policy_step, "last_log": last_log, "last_checkpoint": last_checkpoint,
-                "generators": {"train": gen_state(generator), "player": gen_state(player_gen)}}
+                "generators": gens, **ranks_state(dist, gens)}
 
     try:
         for update_iter in range(start_iter, num_updates + 1):
@@ -225,7 +258,7 @@ def main(cfg: Config) -> None:
                     if t % seq_len == 0:  # the carry that seeds this chunk's training sequences
                         chunk_cx.append(carry[0].cpu().numpy())
                         chunk_hx.append(carry[1].cpu().numpy())
-                    actions, logprobs, values, carry = act(pa, prep(obs, num_envs), as_prev(prev_actions), carry,
+                    actions, logprobs, values, carry = act(pa, prep(obs, n_local), as_prev(prev_actions), carry,
                                                            generator=player_gen)
                     # one device-to-host copy a step (small int actions are exact in f32)
                     host = torch.cat([actions.float(), logprobs, values], dim=-1).cpu().numpy()
@@ -233,23 +266,23 @@ def main(cfg: Config) -> None:
                     if not agent.is_continuous:
                         np_actions = np_actions.astype(np.int64)
                     next_obs, rewards, terminated, truncated, info = envs.step(
-                        env_actions(np_actions, agent.is_continuous, num_envs, multi))
-                    rewards = np.asarray(rewards, dtype=np.float32).reshape(num_envs, 1)
-                    dones = np.logical_or(terminated, truncated).astype(np.float32).reshape(num_envs, 1)
+                        env_actions(np_actions, agent.is_continuous, n_local, multi))
+                    rewards = np.asarray(rewards, dtype=np.float32).reshape(n_local, 1)
+                    dones = np.logical_or(terminated, truncated).astype(np.float32).reshape(n_local, 1)
                     actions_oh = one_hot_actions(np_actions, actions_dim, agent.is_continuous)
                     # truncation bootstrapping: the final obs's value under the post-step carry
                     bootstrap_truncated(rewards, truncated, info, obs_keys,
                                         lambda o, idx: value_fn(pa, prep(o, len(idx)), as_prev(actions_oh[idx]),
                                                                 sub_carry(carry, idx)).cpu(),
                                         float(cfg.algo.gamma))
-                    step_data = {f"obs:{k}": np.asarray(obs[k]).reshape(1, num_envs, *obs_space[k].shape)
+                    step_data = {f"obs:{k}": np.asarray(obs[k]).reshape(1, n_local, *obs_space[k].shape)
                                  for k in obs_keys}
-                    step_data["actions"] = np_actions.reshape(1, num_envs, -1).astype(np.float32)
-                    step_data["prev_actions"] = prev_actions.reshape(1, num_envs, act_width)
-                    step_data["logprobs"] = logprobs.reshape(1, num_envs, 1)
-                    step_data["values"] = values.reshape(1, num_envs, 1)
-                    step_data["rewards"] = rewards.reshape(1, num_envs, 1)
-                    step_data["dones"] = dones.reshape(1, num_envs, 1)
+                    step_data["actions"] = np_actions.reshape(1, n_local, -1).astype(np.float32)
+                    step_data["prev_actions"] = prev_actions.reshape(1, n_local, act_width)
+                    step_data["logprobs"] = logprobs.reshape(1, n_local, 1)
+                    step_data["values"] = values.reshape(1, n_local, 1)
+                    step_data["rewards"] = rewards.reshape(1, n_local, 1)
+                    step_data["dones"] = dones.reshape(1, n_local, 1)
                     rb.add(step_data, validate_args=cfg.buffer.validate_args)
                     # the host-side resets between steps
                     prev_actions = (1.0 - dones) * actions_oh
@@ -263,10 +296,15 @@ def main(cfg: Config) -> None:
             policy_step += policy_steps_per_iter
             with telem.span("Time/train_time"):
                 ts = time.perf_counter()
-                next_value = value_fn(mirror.current()["agent"], prep(obs, num_envs), as_prev(prev_actions), carry)
+                next_value = value_fn(mirror.current()["agent"], prep(obs, n_local), as_prev(prev_actions), carry)
                 local = {k: rb[k] for k in rb.keys()}
-                data = sequence_batch(local, next_value.cpu().numpy(), (np.stack(chunk_cx), np.stack(chunk_hx)), cfg,
-                                      device)
+                next_value, chunks = next_value.cpu().numpy(), (np.stack(chunk_cx), np.stack(chunk_hx))
+                if world > 1:  # every rank's env block, in rank order: the JAX package's [T, num_envs] rollout
+                    parts = dist.all_gather_object((local, next_value, chunks))
+                    local = {k: np.concatenate([p[0][k] for p in parts], axis=1) for k in local}
+                    next_value = np.concatenate([p[1] for p in parts], axis=0)
+                    chunks = tuple(np.concatenate([p[2][i] for p in parts], axis=1) for i in range(2))
+                data = sequence_batch(local, next_value, chunks, cfg, device)
                 perms = draw_perms(generator, update_epochs, num_sequences, device)
                 metrics = update(data, make_coefs(cfg, update_iter, num_updates, device), perms)
                 grad_steps += num_minibatches * update_epochs
@@ -277,9 +315,11 @@ def main(cfg: Config) -> None:
                 update_s.append(time.perf_counter() - ts)
             completed_update = update_iter
             if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or update_iter == num_updates:
+                dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global means
                 telem.log(policy_step, fields={"updates": completed_update, "grad_steps": grad_steps,
                                                "elapsed_s": time.perf_counter() - t0,
-                                               "update_ms": 1e3 * sum(update_s) / len(update_s)})
+                                               "update_ms": 1e3 * sum(update_s) / len(update_s),
+                                               **collective_fields(dist)})
                 update_s.clear()
                 last_log = policy_step
             every = int(cfg.checkpoint.every)
@@ -292,9 +332,10 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
         telem.close(policy_step)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and rank == 0:
         test(agent, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"agent": agent}, log_dir)
+    if rank == 0:
+        register_model(cfg, {"agent": agent}, log_dir)
     if logger is not None:
         logger.close()
 

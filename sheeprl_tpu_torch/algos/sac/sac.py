@@ -122,6 +122,16 @@ def build_optimizers(cfg: Config, agent: SACAgent) -> Optimizers:
     )
 
 
+def rank_grads(loss: torch.Tensor, params: Sequence[torch.Tensor], dist: Any = None) -> Sequence[torch.Tensor]:
+    """The gradients of ``loss`` over ``params``; with a ``Distributed``
+    their mean over the ranks (one flattened all-reduce), as XLA averages a
+    sharded batch's gradients in the JAX package's step."""
+    grads = torch.autograd.grad(loss, params)
+    if dist is not None:
+        dist.all_reduce_mean(grads)
+    return grads
+
+
 def draw_noise(g: int, batch: int, act_dim: int, generator: Optional[torch.Generator], device: Any) -> torch.Tensor:
     """A burst's standard normals ``[G, 2, B, act_dim]``: per step the target
     action's and the actor's."""
@@ -140,10 +150,7 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
     flattened all-reduce per optimizer)."""
 
     def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-        grads = torch.autograd.grad(loss, params)
-        if dist is not None:
-            dist.all_reduce_mean(grads)
-        return grads
+        return rank_grads(loss, params, dist)
 
     gamma = float(cfg.algo.gamma)
     tau = float(cfg.algo.tau)
@@ -258,6 +265,7 @@ class OffPolicyLoop:
                 setattr(self, k, int(state[k]))
             set_gen_state(train_gen, saved_gens["train"], "train", tag=algo)
             set_gen_state(player_gen, saved_gens["player"], "player", tag=algo)
+        if state and self.rank == 0:
             print(f"[{algo}] resumed " + json.dumps({
                 "checkpoint": str(cfg.checkpoint.resume_from), "policy_step": self.policy_step,
                 "grad_steps": self.grad_steps, "ratio": self.ratio.state_dict(), "last_log": self.last_log,

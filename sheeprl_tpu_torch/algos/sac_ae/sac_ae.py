@@ -24,7 +24,13 @@ normals and the dither of each image key per step).
 
 ``main`` is the serial loop of ``sac.OffPolicyLoop`` (as in the JAX
 package), fed by ``make_uniform_prefetcher`` with the image keys and their
-``next_`` twins kept uint8; ``evaluate_sac_ae`` is the ``eval`` entry.
+``next_`` twins kept uint8; ``evaluate_sac_ae`` is the ``eval`` entry. On N
+ranks (``parallel/mesh.py``) rank ``d`` steps env block ``d`` into its own
+buffer and trains on its ``per_rank_batch_size`` columns; every update that
+is due (critic, actor and alpha, encoder with decoder) takes the ranks' mean
+gradient in one flattened all-reduce; the updates that are not due step on
+zero gradients on every rank alike, since the step counter that decides
+them is global.
 """
 from __future__ import annotations
 
@@ -34,7 +40,10 @@ import numpy as np
 import torch
 
 from ...config import Config, instantiate
+from ...data.buffers import env_block, gather_env_blocks
 from ...data.device_ring import estimate_row_bytes, make_uniform_prefetcher
+from ...parallel.mesh import collective
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
@@ -42,7 +51,8 @@ from ...utils.model_manager import register_model
 from ...utils.registry import register_algorithm, register_evaluation
 from ..sac.agent import sample_actions
 from ..sac.loss import critic_loss, entropy_loss, policy_loss
-from ..sac.sac import LOSS_KEYS, OffPolicyLoop, Optimizers, apply_grads, ema_, evaluate_agent, replay_buffer, start_run
+from ..sac.sac import (LOSS_KEYS, OffPolicyLoop, Optimizers, apply_grads, ema_, evaluate_agent, rank_grads,
+                       replay_buffer, start_run)
 from .agent import SACAEAgent, build_agent
 from .utils import normalize_obs, prepare_obs, preprocess_obs, test
 
@@ -76,11 +86,17 @@ def draw(g: int, batch: Dict[str, torch.Tensor], cnn_keys: Sequence[str], act_di
 
 
 def make_train_fn(agent: SACAEAgent, optimizers: Optimizers, cfg: Config, target_entropy: float,
-                  cnn_keys: Sequence[str], mlp_keys: Sequence[str]) -> Callable:
+                  cnn_keys: Sequence[str], mlp_keys: Sequence[str], dist: Any = None) -> Callable:
     """``train(batches, draws=None, generator=None) -> metrics``: ``batches``
     are ``[G, B, ...]`` (the observation keys and their ``next_`` twins,
     ``actions``, ``rewards``, ``terminated``); the metrics are the losses'
-    means over the G steps, as tensors."""
+    means over the G steps, as tensors. With a ``Distributed`` the batches
+    are this rank's columns and every update that is due takes the ranks'
+    mean gradient."""
+
+    def grads_of(loss: torch.Tensor, params) -> Any:
+        return rank_grads(loss, params, dist)
+
     algo = cfg.algo
     gamma, tau, enc_tau = float(algo.gamma), float(algo.tau), float(algo.encoder.tau)
     target_freq = int(algo.critic.per_rank_target_network_update_freq)
@@ -105,7 +121,7 @@ def make_train_fn(agent: SACAEAgent, optimizers: Optimizers, cfg: Config, target
             y = batch["rewards"] + (1.0 - batch["terminated"]) * gamma * min_target
         qf_loss = critic_loss(qs(encoder(obs), batch["actions"]), y)
         qf_params = enc_params + qs_params
-        apply_grads(optimizers["qf"], qf_params, torch.autograd.grad(qf_loss, qf_params))
+        apply_grads(optimizers["qf"], qf_params, grads_of(qf_loss, qf_params))
 
         optimizers.step += 1
         step = optimizers.step
@@ -119,10 +135,10 @@ def make_train_fn(agent: SACAEAgent, optimizers: Optimizers, cfg: Config, target
         mean, log_std = actor(feat)
         actions, logprobs = sample_actions(actor, mean, log_std, d["actor"])
         a_loss = policy_loss(torch.exp(agent.log_alpha).detach(), logprobs, qs(feat, actions).amin(0))
-        grads = torch.autograd.grad(a_loss, actor_params) if do_actor else None
+        grads = grads_of(a_loss, actor_params) if do_actor else None
         apply_grads(optimizers["actor"], actor_params, grads, apply=do_actor)
         al_loss = entropy_loss(agent.log_alpha, logprobs.detach(), target_entropy)
-        grads = torch.autograd.grad(al_loss, [agent.log_alpha]) if do_actor else None
+        grads = grads_of(al_loss, [agent.log_alpha]) if do_actor else None
         apply_grads(optimizers["alpha"], [agent.log_alpha], grads, apply=do_actor)
 
         do_decoder = step % decoder_freq == 0
@@ -134,7 +150,7 @@ def make_train_fn(agent: SACAEAgent, optimizers: Optimizers, cfg: Config, target
             rec_loss = rec_loss + torch.mean(torch.square(preprocess_obs(batch[k], 5, d["dither"][i]) - rec[k])) + l2
         for k in mlp_keys:
             rec_loss = rec_loss + torch.mean(torch.square(batch[k] - rec[k])) + l2
-        grads = torch.autograd.grad(rec_loss, enc_params + dec_params) if do_decoder else [None] * (
+        grads = grads_of(rec_loss, enc_params + dec_params) if do_decoder else [None] * (
             len(enc_params) + len(dec_params))
         apply_grads(optimizers["encoder"], enc_params, grads[:len(enc_params)], apply=do_decoder)
         apply_grads(optimizers["decoder"], dec_params, grads[len(enc_params):], apply=do_decoder)
@@ -159,7 +175,7 @@ def make_interact(loop: OffPolicyLoop, modules_of: Callable[[], Dict[str, torch.
     cfg, envs, n = loop.cfg, loop.envs, loop.num_envs
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     act_dim = int(np.prod(action_space.shape))
-    obs, _ = envs.reset(seed=int(cfg.seed))
+    obs, _ = envs.reset(seed=int(cfg.seed) + loop.first_env)  # N ranks: the block's envs, seeded as the run's
     current = {"obs": obs}
 
     def interact(sink) -> None:
@@ -174,7 +190,7 @@ def make_interact(loop: OffPolicyLoop, modules_of: Callable[[], Dict[str, torch.
                 acts, _ = sample_actions(mods["actor"], mean, log_std, generator=loop.player_gen)
             actions = acts.cpu().numpy().reshape(n, act_dim)
         next_obs, rewards, terminated, truncated, info = envs.step(actions)
-        loop.p_step += n
+        loop.p_step += loop.env_steps
         row: Dict[str, np.ndarray] = {}
         for k in cnn_keys:
             row[k] = np.asarray(obs[k]).reshape(1, n, *obs_space[k].shape)
@@ -202,11 +218,12 @@ def make_interact(loop: OffPolicyLoop, modules_of: Callable[[], Dict[str, torch.
     return interact
 
 
-@register_algorithm(name="sac_ae")
+@register_algorithm(name="sac_ae", mesh=True)
 def main(cfg: Config) -> None:
     """SAC-AE's serial training loop, with checkpoints, the RunGuard and
     resume; one greedy test episode at the end."""
     device, seed, log_dir, state, envs = start_run(cfg, "sac_ae")
+    dist = current_distributed(cfg)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     act_dim = int(np.prod(action_space.shape))
@@ -216,33 +233,35 @@ def main(cfg: Config) -> None:
         agent.load_state_dict(state["agent"])
         optimizers.load_state_dict(state["opt_states"])
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"encoder": agent.encoder, "actor": agent.actor}, seed)
-    logger = get_logger(cfg, log_dir)
+    train_gen.manual_seed(seed + dist.rank)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"encoder": agent.encoder, "actor": agent.actor},
+                                              seed + dist.rank)
+    logger = get_logger(cfg, log_dir, dist.rank)
     loop = OffPolicyLoop(cfg, "sac_ae", device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params={"agent": agent})
-    rb = replay_buffer(cfg, log_dir, seed, obs_keys=cnn_keys + mlp_keys)
+    rb = replay_buffer(cfg, log_dir, seed, obs_keys=cnn_keys + mlp_keys, dist=dist)
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(state["rb"])
+        rb.load_state_dict(env_block(state["rb"], dist.rank, dist.world_size))
     # the next_ frames are stored too: twice the observations in a row
     prefetch = make_uniform_prefetcher(cfg, device, rb, int(cfg.algo.per_rank_batch_size),
                                        cnn_keys=cnn_keys + tuple(f"next_{k}" for k in cnn_keys),
                                        row_bytes_hint=2 * estimate_row_bytes(obs_space, act_dim))
-    train = make_train_fn(agent, optimizers, cfg, -act_dim, cnn_keys, mlp_keys)
+    train = make_train_fn(agent, optimizers, cfg, -act_dim, cnn_keys, mlp_keys, dist=collective(cfg))
 
     def algo_state() -> Dict[str, Any]:
         s = {"agent": agent.state_dict(), "opt_states": optimizers.state_dict()}
-        if cfg.buffer.checkpoint:
-            s["rb"] = rb.checkpoint_state_dict()
+        if cfg.buffer.checkpoint:  # by env block, gathered to rank 0 on N ranks
+            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
         return s
 
     modules = {"encoder": agent.encoder, "actor": agent.actor}
     loop.run(rb, make_interact(loop, mirror.current, cnn_keys, mlp_keys),
              lambda g: train(prefetch.take(g), generator=train_gen), lambda: mirror.refresh(modules),
              prefetch.stage, algo_state, overlap=False)
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and dist.is_global_zero:
         test(agent, single_env(cfg, seed), cfg, device, logger)
-    register_model(cfg, {"encoder": agent.encoder, "decoder": agent.decoder, "actor": agent.actor}, log_dir)
+    if dist.is_global_zero:
+        register_model(cfg, {"encoder": agent.encoder, "decoder": agent.decoder, "actor": agent.actor}, log_dir)
     if logger is not None:
         logger.close()
 

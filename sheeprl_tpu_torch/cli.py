@@ -106,8 +106,8 @@ def check_configs(cfg: Config) -> None:
     """The config checks before a run: an algorithm is selected and
     registered; the mesh (``parallel/mesh.py``) takes the config
     (``fsdp``/``tp`` > 1, ZeRO-1, more nodes or more devices than visible
-    raise); only the mesh algorithms run on more than one rank or under
-    ``fabric.strategy=ddp``; a decoupled one has its player and its trainer:
+    raise); an algorithm registered without ``mesh`` runs on one device
+    alone; a decoupled one has its player and its trainer:
     at ``fabric.devices >= 2``, as in the JAX package, or on one card with
     the player on the host (``algo.player.device=host``), where the JAX
     package's player would act anyway."""
@@ -125,12 +125,12 @@ def check_configs(cfg: Config) -> None:
         if devices < 2 and not one_card:
             raise RuntimeError(f"'{algo_name}' is a decoupled algorithm: it needs at least one player and one "
                                "trainer device (fabric.devices >= 2)")
-    from .parallel.mesh import WAITS_FOR_ALGOS, build_distributed
+    from .parallel.mesh import build_distributed
 
     dist = build_distributed(cfg)
     if dist.needs_group and not entry["mesh"]:
-        raise NotImplementedError(f"'{algo_name}' trains on one device in the PyTorch port: fabric.devices="
-                                  f"{dist.world_size} fabric.strategy={dist.strategy} waits for {WAITS_FOR_ALGOS}")
+        raise NotImplementedError(f"'{algo_name}' is registered without mesh=True: it trains on one device, not on "
+                                  f"fabric.devices={dist.world_size} fabric.strategy={dist.strategy}")
 
 
 def exploration_surgery(cfg: Config) -> Config:
@@ -167,13 +167,14 @@ def run_algorithm(cfg: Config) -> None:
     check_configs(cfg)
     entry = get_algorithm(cfg.algo.name)
     fn = entry["fn"]
-    if entry.get("requires_exploration_cfg"):
-        fn = functools.partial(fn, exploration_cfg=exploration_surgery(cfg))
+    exploration = exploration_surgery(cfg).to_dict() if entry.get("requires_exploration_cfg") else None
     if entry["mesh"]:
         # one rank here, or fabric.devices spawned ranks (parallel/mesh.py)
         from .parallel.mesh import launch
 
-        fn = functools.partial(launch, functools.partial(_run_registered, cfg.algo.name))
+        fn = functools.partial(launch, functools.partial(_run_registered, cfg.algo.name, exploration=exploration))
+    elif exploration is not None:
+        fn = functools.partial(fn, exploration_cfg=Config(exploration))
     attempts = int(cfg.select("resilience.supervisor.attempts", 1) or 1)
     if attempts > 1:
         from .resilience.supervisor import supervise
@@ -184,10 +185,15 @@ def run_algorithm(cfg: Config) -> None:
         fn(cfg)
 
 
-def _run_registered(name: str, cfg: Config) -> None:
-    """A mesh algorithm's entry point on one rank (picklable for spawned ranks)."""
+def _run_registered(name: str, cfg: Config, exploration: Optional[dict] = None) -> None:
+    """A mesh algorithm's entry point on one rank (picklable for spawned
+    ranks); a finetuning one gets the exploration run's config
+    (``exploration``, as a dict)."""
     _register()
-    get_algorithm(name)["fn"](cfg)
+    fn = get_algorithm(name)["fn"]
+    if exploration is not None:
+        fn = functools.partial(fn, exploration_cfg=Config(exploration))
+    fn(cfg)
 
 
 def run(args: Optional[Sequence[str]] = None) -> None:

@@ -639,10 +639,13 @@ def gather_env_blocks(states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     block, a ``ReplayBuffer``'s rows joined along the env axis (the ranks add
     in lockstep, so their write heads agree). What the JAX package's single
     buffer over ``env.num_envs`` envs holds; each rank's sampling generator
-    rides along under ``rank_rngs``."""
+    rides along under ``rank_rngs``. ``EpisodeBuffer`` states, whose
+    episodes have no env layout, are kept side by side (``rank_states``)."""
     states = list(states)
     if len(states) == 1:
         return states[0]
+    if "episodes" in states[0]:
+        return {"rank_states": states}
     if any(s.get("__memmap_ref__") or any(b.get("__memmap_ref__") for b in s.get("buffers", ())) for s in states):
         raise NotImplementedError("buffer.memmap_fast_resume on N ranks: each rank's memmap files are its own, "
                                   "so a checkpoint cannot reference them")
@@ -658,10 +661,19 @@ def gather_env_blocks(states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 def env_block(state: Dict[str, Any], rank: int, world_size: int) -> Dict[str, Any]:
     """Rank ``rank``'s share of ``gather_env_blocks``' state: its env block
-    and its own sampling generator (``state`` itself at world size 1)."""
+    and its own sampling generator (``state`` itself at world size 1; a state
+    written on one rank leaves each rank its own generator). Episode buffers
+    come back only on as many ranks as wrote them."""
+    if "rank_states" in state:
+        if len(state["rank_states"]) != world_size:
+            raise NotImplementedError(f"the episode buffers were written on {len(state['rank_states'])} ranks and "
+                                      f"this run has {world_size}: they resume at the same world size only")
+        return state["rank_states"][rank]
     if world_size == 1:
         return state
-    rng = state["rank_rngs"][rank]
+    if "episodes" in state:
+        raise NotImplementedError(f"an episode buffer written on one rank cannot be split over {world_size} ranks")
+    rng = state["rank_rngs"][rank] if "rank_rngs" in state else None
     if "buffers" in state:
         epd = len(state["buffers"]) // world_size
         return {"buffers": state["buffers"][rank * epd:(rank + 1) * epd], "rng": rng}

@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from ..parallel.mesh import FLEET_DISABLED, active
 from .protocol import FleetPacket, TornPacketError, decode_packet
 from .supervisor import FleetSupervisor
 
@@ -61,6 +62,17 @@ PROGRAMS = {
     "sac": "sheeprl_tpu_torch.fleet.programs:sac_program",
     "ppo": "sheeprl_tpu_torch.fleet.programs:ppo_program",
 }
+
+
+def _ranks() -> int:
+    """The world size of the run in progress (``parallel/mesh.py``)."""
+    dist = active()
+    return 1 if dist is None else dist.world_size
+
+
+def _rank() -> int:
+    dist = active()
+    return 0 if dist is None else dist.rank
 
 
 def refuse_fleet(cfg: Any, algo: str) -> None:
@@ -166,15 +178,17 @@ class FleetEngine:
     # -- construction ------------------------------------------------------
     @staticmethod
     def configured(cfg: Any) -> bool:
-        """True when this run will use the fleet (``algo.fleet.workers > 0``;
-        the port runs one process, so it is always the single controller) —
-        the early check the algo mains use to skip building their own envs.
+        """True when this run will use the fleet (``algo.fleet.workers > 0``
+        at world size 1; on N ranks, which are processes, the fleet is off as
+        the JAX package's is in more than one process, and each rank keeps
+        its env loop) — the early check the algo mains use to skip building
+        their own envs.
         Raises, before the run writes anything, for an unknown
         ``fleet.act_mode`` and for ``fleet.act_mode=inference`` on a program
         without an act core (PPO's strict on-policy rollouts act in the
         workers)."""
         sel = cfg.select if hasattr(cfg, "select") else (lambda p, d=None: d)
-        if int(sel("algo.fleet.workers", 0) or 0) <= 0:
+        if int(sel("algo.fleet.workers", 0) or 0) <= 0 or _ranks() > 1:
             return False
         act_mode = str(sel("fleet.act_mode", "worker") or "worker")
         if act_mode not in ("worker", "inference"):
@@ -200,6 +214,8 @@ class FleetEngine:
     ) -> "FleetEngine":
         sel = cfg.select if hasattr(cfg, "select") else (lambda p, d=None: d)
         workers = int(sel("algo.fleet.workers", 0) or 0) if cls.configured(cfg) else 0
+        if int(sel("algo.fleet.workers", 0) or 0) > 0 and _ranks() > 1 and _rank() == 0:
+            print(FLEET_DISABLED, file=sys.stderr, flush=True)
 
         def opt(path: str, default: Any) -> Any:
             # None-safe: an explicit 0 (max_fails=0 = quarantine on first

@@ -20,7 +20,8 @@ package lays out a multi-host run, and keeps the config's meaning:
 * rank ``d`` steps env block ``d`` (``local_envs``) and samples its
   ``batch / world_size`` columns from its own block;
 * ``all_reduce_mean`` averages a list of tensors in one flattened
-  all-reduce (the gradients of one optimizer step); ``all_gather``
+  all-reduce (the gradients of one optimizer step), ``all_reduce_sum_``
+  sums them (A2C's ``sum`` reduction over the whole rollout); ``all_gather``
   concatenates along the leading axis (DreamerV3's Moments take quantiles
   of the global batch); ``broadcast``, ``scatter`` and the ``*_object``
   collectives carry what is not a tensor on the card (rollouts, buffer
@@ -52,7 +53,10 @@ from .precision import Precision, get_precision
 MESH_AXES = ("dp", "fsdp", "tp")
 # what the refusals name (ROADMAP.md, Queue 1)
 WAITS_FOR_SHARDING = "ROADMAP Queue 1 item 4 (the mesh's FSDP2 and tensor parallelism)"
-WAITS_FOR_ALGOS = "ROADMAP Queue 1 item 3a (the other algorithms on N ranks)"
+# the JAX package's rule for the actor fleet in more than one process
+# (sheeprl_tpu/fleet/engine.py): the port's ranks are processes
+FLEET_DISABLED = ("[fleet] actor fleet disabled: the fleet is a single-controller layout (multi-host runs keep "
+                  "their per-process env loops)")
 DEFAULT_TIMEOUT_S = 600.0
 DEFAULT_MIN_SHARD_SIZE = 2**14
 
@@ -290,6 +294,15 @@ class Distributed:
     def all_reduce_mean(self, tensors: Sequence[torch.Tensor]) -> None:
         """In place: each tensor becomes its mean over the ranks, in one
         flattened all-reduce (the identity without a group)."""
+        self._all_reduce_flat(tensors, mean=True)
+
+    @torch.no_grad()
+    def all_reduce_sum_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """In place: each tensor becomes its sum over the ranks, in one
+        flattened all-reduce (the identity without a group)."""
+        self._all_reduce_flat(tensors, mean=False)
+
+    def _all_reduce_flat(self, tensors: Sequence[torch.Tensor], mean: bool) -> None:
         tensors = [t for t in tensors if t is not None]
         if self.group is None or not tensors:
             return
@@ -298,7 +311,8 @@ class Distributed:
         flat = torch.cat([t.reshape(-1) for t in tensors])
         self._count("all_reduce", flat.numel() * flat.element_size())
         tdist.all_reduce(flat)
-        flat.div_(self._world)
+        if mean:
+            flat.div_(self._world)
         offset = 0
         for t in tensors:
             n = t.numel()
@@ -500,6 +514,13 @@ def current(cfg: Any) -> Distributed:
         raise RuntimeError(f"fabric.devices={dist.world_size} fabric.strategy={dist.strategy} needs a process "
                            "group: launch the run through sheeprl_tpu_torch.cli (run_algorithm)")
     return dist
+
+
+def collective(cfg: Any) -> Optional[Distributed]:
+    """The run's ``Distributed`` where its collectives run (what a train
+    step and its optimizers take to average gradients), else None."""
+    dist = current(cfg)
+    return dist if dist.collective else None
 
 
 def rendezvous(parent: Optional[str] = None) -> Tuple[str, str]:

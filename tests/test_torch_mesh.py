@@ -5,9 +5,10 @@ the CPU, against the JAX package's ``Distributed``:
   the mesh shapes of the JAX package's (``resolve_mesh_shape``, its errors);
 * what the port refuses where the JAX package builds a mesh: ``fsdp``/``tp``
   > 1 and ``fabric.shard_optimizer_state`` (ROADMAP Queue 1 item 4), more
-  nodes, more devices than there are, the other algorithms on more ranks or
-  under ``fabric.strategy=ddp`` (item 3a), a config needing a group outside
-  a launch;
+  nodes, more devices than there are, a config needing a group outside a
+  launch; every algorithm is admitted on more ranks and under
+  ``fabric.strategy=ddp``, and sharding, ZeRO-1 and more nodes still refuse
+  at the CLI's check;
 * the decoupled admission rule: two devices as in the JAX package, or one
   card with the player on the host; refused otherwise with the JAX message;
 * the collectives on two gloo ranks (every one once), a failing rank
@@ -98,15 +99,39 @@ def test_refusals_name_what_they_wait_for(fabric, error, match):
             jax_build(JaxConfig({"fabric": jax_spec}))
 
 
-@pytest.mark.parametrize("exp", ["a2c", "ppo_recurrent", "droq", "sac_ae", "dreamer_v2", "dreamer_v1",
-                                 "p2e_dv3_exploration"])
-def test_other_algorithms_refuse_more_ranks(exp):
+ADMITTED = ["a2c", "ppo_recurrent", "droq", "sac_ae", "dreamer_v2", "dreamer_v1", "p2e_dv3_exploration",
+            "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
+            "p2e_dv1_finetuning"]
+
+
+def _exp_args(exp):
     base = [f"exp={exp}", "env=dummy", "fabric.accelerator=cpu"]
     if exp in ("droq", "sac_ae"):
         base.append("env.id=continuous_dummy")
+    if exp.endswith("_finetuning"):
+        base.append("checkpoint.exploration_ckpt_path=exploration/checkpoint/ckpt_1.ckpt")
+    return base
+
+
+@pytest.mark.parametrize("exp", ADMITTED)
+def test_every_algorithm_is_admitted_on_more_ranks(exp):
+    """The algorithms that refused N ranks until the slice that ported them
+    to the mesh: each is registered ``mesh=True`` (the CLI launches it on
+    ``fabric.devices`` ranks) and the checks admit two devices and
+    ``fabric.strategy=ddp``."""
     for extra in (["fabric.devices=2", "env.num_envs=2"], ["fabric.strategy=ddp"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3a"):
-            cli.check_configs(compose("config", base + extra))
+        cli.check_configs(compose("config", _exp_args(exp) + extra))
+    assert cli.get_algorithm(exp)["mesh"]
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["fabric.mesh.fsdp=2", "fabric.mesh.dp=1"], "fsdp=2 tp=1.*ROADMAP Queue 1 item 4"),
+    (["fabric.shard_optimizer_state=True"], "ZeRO-1.*ROADMAP Queue 1 item 4"),
+    (["fabric.num_nodes=2"], "num_nodes=2.*ROADMAP Queue 1 item 4"),
+])
+def test_sharding_zero1_and_more_nodes_still_refuse(extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.check_configs(compose("config", _exp_args("dreamer_v2") + ["fabric.devices=2", "env.num_envs=2", *extra]))
 
 
 def test_a_group_is_needed_outside_a_launch():

@@ -63,8 +63,8 @@ def test_ppo_on_two_ranks_from_the_command_line_keeps_the_jax_ledger(tmp_path, m
         out, err = proc.communicate(timeout=W.DEADLINE_S)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its ranks
-        proc.communicate()
-        raise
+        out, err = proc.communicate()
+        pytest.fail(f"the two-rank run did not end within {W.DEADLINE_S} s; its stderr ends with:\n{err[-3000:]}")
     assert proc.returncode == 0, err[-3000:]
     assert out.count("[ppo] log_dir=") == 1  # rank 0 alone
     port = _port_ckpts(tmp_path)

@@ -15,7 +15,13 @@ from ``rank_<d>.pt``.
   PPO and SAC on the rank's column block of a global batch (the JAX
   package's batch sharding);
 * ``run_cli(argv, ...)``: a CLI run (``run_algorithm``'s launch) with a
-  deadline.
+  deadline;
+* ``run_jobs``: a list of jobs in one launch, each a train step of another
+  algorithm on the rank's columns (``droq_step``, ``sac_ae_step``,
+  ``dreamer_step``, ``p2e_step``, ``a2c_update``, ``ppo_recurrent_update``)
+  or a CLI run in the ranks' own group (``cli_job``);
+  ``launch_steps_and_runs`` runs a file's CLI runs in a second launch while
+  its JAX references are computed.
 """
 from __future__ import annotations
 
@@ -30,8 +36,11 @@ import torch
 from sheeprl_tpu_torch.config import Config, compose, instantiate
 from sheeprl_tpu_torch.parallel import mesh
 
-TIMEOUT_S = 60.0
-DEADLINE_S = 120.0
+# bounds on a hang, not on the work: the tier-1 run shares the host's cores
+# between six workers, under which a two-rank run takes several times as
+# long as it does alone
+TIMEOUT_S = 180.0
+DEADLINE_S = 360.0
 
 
 def _entry(fn: Callable, payload_path: str, out_dir: str, cfg: Any) -> None:
@@ -163,7 +172,11 @@ def run_cli(argv: Sequence[str], deadline_s: float = DEADLINE_S) -> None:
     if cfg.select("checkpoint.resume_from"):
         cfg = cli.resume_from_checkpoint(cfg)
     cli.check_configs(cfg)
-    mesh.launch(functools.partial(cli._run_registered, cfg.algo.name), cfg, deadline_s=deadline_s)
+    exploration = None
+    if cli.get_algorithm(cfg.algo.name).get("requires_exploration_cfg"):
+        exploration = cli.exploration_surgery(cfg).to_dict()
+    mesh.launch(functools.partial(cli._run_registered, cfg.algo.name, exploration=exploration), cfg,
+                deadline_s=deadline_s)
 
 
 def collectives(dist: Any, p: Dict[str, Any]) -> Dict[str, Any]:
@@ -192,3 +205,193 @@ def sleep_long(dist: Any, p: Dict[str, Any]) -> None:
     import time
 
     time.sleep(600)
+
+
+# -- the other algorithms (tests/test_torch_mesh_{offpolicy,onpolicy,p2e}.py) --
+# One launch per file: ``run_jobs`` runs a list of jobs on each rank, each a
+# train step (its inputs already cut to every rank's columns by the parent,
+# ``job["ranks"][rank]``) or a CLI run in the ranks' own process group.
+def _t(tree: Any) -> Any:
+    """numpy leaves → tensors (lists and dicts kept)."""
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_t(v) for v in tree)
+    return torch.from_numpy(np.ascontiguousarray(tree)) if isinstance(tree, np.ndarray) else tree
+
+
+def _floats(metrics: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: np.asarray(v.detach() if torch.is_tensor(v) else v, dtype=np.float64) for k, v in metrics.items()}
+
+
+def droq_step(dist: Any, job: Dict[str, Any], mine: Dict[str, Any]) -> Dict[str, Any]:
+    """One DroQ burst on the rank's columns with the JAX step's draws and masks."""
+    from sheeprl_tpu_torch.algos.droq.droq import make_train_fn
+    from sheeprl_tpu_torch.algos.sac.sac import build_optimizers
+
+    cfg, agent = Config(job["cfg"]), job["agent"]
+    opts = build_optimizers(cfg, agent)
+    opts.load_state_dict(job["opt_states"])
+    train = make_train_fn(agent, opts, cfg, job["target_entropy"], dist=dist if dist.collective else None)
+    metrics = train(_t(mine["critic_batches"]), _t(mine["actor_batch"]), draws=_t(mine["draws"]))
+    return {"agent": agent.state_dict(), "opt_states": opts.state_dict(), "metrics": _floats(metrics)}
+
+
+def sac_ae_step(dist: Any, job: Dict[str, Any], mine: Dict[str, Any]) -> Dict[str, Any]:
+    """One SAC-AE burst on the rank's columns with the JAX step's draws."""
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import build_optimizers, make_train_fn
+
+    cfg, agent = Config(job["cfg"]), job["agent"]
+    opts = build_optimizers(cfg, agent)
+    opts.load_state_dict(job["opt_states"])
+    train = make_train_fn(agent, opts, cfg, job["target_entropy"], ("rgb",), ("state",),
+                          dist=dist if dist.collective else None)
+    metrics = train(_t(mine["batches"]), draws=_t(mine["draws"]))
+    return {"agent": agent.state_dict(), "opt_states": opts.state_dict(), "metrics": _floats(metrics)}
+
+
+def dreamer_step(dist: Any, job: Dict[str, Any], mine: Dict[str, Any]) -> Dict[str, Any]:
+    """One DreamerV2 or V1 burst (``job["algo"]``) on the rank's columns
+    with the JAX step's draws."""
+    import importlib
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers
+
+    algo = importlib.import_module(f"sheeprl_tpu_torch.algos.{job['algo']}.{job['algo']}")
+    cfg, mods = Config(job["cfg"]), job["modules"]
+    opts = build_optimizers(cfg, *mods[:3], dist if dist.collective else None)
+    for name in ("wm", "actor", "critic"):
+        getattr(opts, name).optimizer.load_state_dict(job["opt_states"][name])
+    train = algo.make_train_fn(*mods, opts, cfg, job["continuous"], job["actions_dim"])
+    metrics = train(_t(mine["batch"]), noise=_t(mine["noise"]))
+    return {"state": [m.state_dict() for m in mods], "step": opts.step, "metrics": _floats(metrics),
+            "opt_states": {k: getattr(opts, k).optimizer.state_dict() for k in ("wm", "actor", "critic")}}
+
+
+def p2e_step(dist: Any, job: Dict[str, Any], mine: Dict[str, Any]) -> Dict[str, Any]:
+    """One Plan2Explore exploration burst (``job["algo"]``: p2e_dv3 or
+    p2e_dv2) on the rank's columns with the JAX step's draws."""
+    coll = dist if dist.collective else None
+    cfg, mods = Config(job["cfg"]), job["modules"]
+    out: Dict[str, Any] = {}
+    if job["algo"] == "p2e_dv3":
+        from sheeprl_tpu_torch.algos.dreamer_v3.utils import MomentsState
+        from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+
+        opts = p2e.build_optimizers(cfg, mods, coll)
+        opts.load_state_dict(job["opt_states"])
+        train = p2e.make_train_fn(mods, opts, cfg, job["continuous"], job["actions_dim"], dist=coll)
+        moments = job.get("moments") or {"task": MomentsState(torch.tensor(0.0), torch.tensor(0.0)),
+                                         "exploration": {k: MomentsState(torch.tensor(0.0), torch.tensor(0.0))
+                                                         for k in cfg.algo.critics_exploration}}
+        moments, metrics = train(moments, _t(mine["batch"]), noise=_t(mine["noise"]))
+        out["moments"] = {"task": (float(moments["task"].low), float(moments["task"].high)),
+                          **{k: (float(m.low), float(m.high)) for k, m in moments["exploration"].items()}}
+    else:
+        from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as p2e
+
+        opts = p2e.build_optimizers(cfg, mods, coll)
+        opts.load_state_dict(job["opt_states"])
+        train = p2e.make_train_fn(mods, opts, cfg, job["continuous"], job["actions_dim"])
+        metrics = train(_t(mine["batch"]), noise=_t(mine["noise"]))
+    return {**out, "state": {k: m.state_dict() for k, m in mods.items()}, "opt_states": opts.state_dict(),
+            "metrics": _floats(metrics)}
+
+
+def a2c_update(dist: Any, job: Dict[str, Any], mine: Dict[str, Any]) -> Dict[str, Any]:
+    """One A2C update on the rank's rows of the rollout."""
+    from sheeprl_tpu_torch.algos.a2c.a2c import build_optimizer, make_update_fn
+
+    cfg, agent = Config(job["cfg"]), job["agent"]
+    coll = dist if dist.collective else None
+    opt = build_optimizer(cfg, agent, coll)
+    opt.optimizer.load_state_dict(job["opt_state"])
+    metrics = make_update_fn(agent, opt, cfg, coll)(_t(mine["data"]))
+    return {"agent": agent.state_dict(), "metrics": _floats(metrics), "opt_state": opt.optimizer.state_dict()}
+
+
+def ppo_recurrent_update(dist: Any, job: Dict[str, Any], mine: Any) -> Dict[str, Any]:
+    """One recurrent PPO update on the whole set of sequences with the JAX
+    permutations: the rank trains on its block of each global minibatch."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_update_fn
+    from sheeprl_tpu_torch.optim import clipped
+
+    cfg, agent = Config(job["cfg"]), job["agent"]
+    coll = dist if dist.collective else None
+    opt = clipped(instantiate(cfg.algo.optimizer, [p for p in agent.parameters() if p.requires_grad]),
+                  cfg.algo.select("max_grad_norm"), coll)
+    opt.optimizer.load_state_dict(job["opt_state"])
+    S, mb = job["data"]["advantages"].shape[0], job["mb_size"]
+    coefs = {k: torch.tensor(v, dtype=torch.float32) for k, v in job["coefs"].items() if k != "lr_frac"}
+    coefs["lr_frac"] = float(job["coefs"].get("lr_frac", 1.0))
+    metrics = make_update_fn(agent, opt, cfg, S // mb, mb, coll)(_t(job["data"]), coefs, torch.from_numpy(job["perms"]))
+    return {"agent": agent.state_dict(), "metrics": _floats(metrics), "opt_state": opt.optimizer.state_dict()}
+
+
+def cli_job(dist: Any, job: Dict[str, Any], mine: Any) -> Dict[str, Any]:
+    """``run <job["argv"]>`` on these ranks, in their process group (the
+    CLI's checks and, for a finetuning entry point, its surgery, on each
+    rank); what it printed on stdout and stderr."""
+    import contextlib
+    import io
+
+    from sheeprl_tpu_torch import cli
+
+    cfg = compose("config", list(job["argv"]))
+    if cfg.select("checkpoint.resume_from"):
+        cfg = cli.resume_from_checkpoint(cfg)
+    cli.check_configs(cfg)
+    exploration = None
+    if cli.get_algorithm(cfg.algo.name).get("requires_exploration_cfg"):
+        exploration = cli.exploration_surgery(cfg).to_dict()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli._run_registered(cfg.algo.name, cfg, exploration=exploration)
+    return {"stdout": out.getvalue(), "stderr": err.getvalue()}
+
+
+JOBS = {"droq": droq_step, "sac_ae": sac_ae_step, "dreamer": dreamer_step, "p2e": p2e_step, "a2c": a2c_update,
+        "ppo_recurrent": ppo_recurrent_update, "cli": cli_job}
+
+
+def run_jobs(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Each job of ``p["jobs"]`` in order (``JOBS[job["kind"]]``), each with
+    the collectives it ran (``stats``); the ranks meet after every job, so a
+    checkpoint rank 0 wrote is there for the next job on every rank."""
+    outs = []
+    for job in p["jobs"]:
+        dist.reset_stats()
+        mine = job["ranks"][dist.rank] if "ranks" in job else None
+        out = JOBS[job["kind"]](dist, job, mine)
+        out["stats"] = dict(dist.stats)
+        dist.broadcast_object(None)
+        outs.append(out)
+    return outs
+
+
+def launch_steps_and_runs(build_steps: Callable[[], Any], runs: Sequence[Dict[str, Any]], tmp_path: Path,
+                          world: int = 2, deadline_s: float = 2 * DEADLINE_S):
+    """A file's two launches: its CLI ``runs`` (``cli`` jobs) on ``world``
+    ranks in the background while ``build_steps()`` computes the JAX
+    references here and returns ``(step jobs, references)``, then the step
+    jobs in one launch. The ranks' working directory is ``tmp_path`` (their
+    ``logs/``). Returns ``(references, step outputs, run outputs)``, each
+    output a list over the jobs of the ranks' returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp_path = Path(tmp_path)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)  # spawned ranks start here
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(launch_ranks, run_jobs, {"jobs": list(runs)}, tmp_path / "runs", world, deadline_s)
+            jobs, refs = build_steps()
+            steps = launch_ranks(run_jobs, {"jobs": jobs}, tmp_path / "steps", world, deadline_s) if jobs else None
+            ran = pending.result()
+    finally:
+        os.chdir(cwd)
+
+    def by_job(outs):
+        return [[o[i] for o in outs] for i in range(len(outs[0]))] if outs else []
+
+    return refs, by_job(steps), by_job(ran)
