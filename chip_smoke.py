@@ -1397,15 +1397,16 @@ def column_rows(torch, path):
     return out
 
 
-def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True):
+def leg_summary(parsed, counts, seconds, peak, learning_starts, trains=True, window_from=None):
     """The numbers of one training leg; fails if it did not train or printed
-    no result."""
+    no result. Its policy steps/s are read from the first line at or after
+    ``learning_starts`` (``window_from`` when given) to the last."""
     lines = parsed["lines"]
     if not lines:
         raise AssertionError("the leg printed no [dreamer_v3] policy_step line")
     if trains and min(counts.values()) < 1:
         raise AssertionError(f"the leg launched {counts}")
-    after = [l for l in lines if l["policy_step"] >= learning_starts]
+    after = [l for l in lines if l["policy_step"] >= (learning_starts if window_from is None else window_from)]
     first, last = after[0], after[-1]
     sps = ((last["policy_step"] - first["policy_step"]) / (last["elapsed_s"] - first["elapsed_s"])
            if last["elapsed_s"] > first["elapsed_s"] else None)
@@ -1883,7 +1884,7 @@ def offpolicy_legs(torch, ln_gru):
 # buffer size only. DV2's first burst takes its 20 pretrain steps (100 at
 # ratio 0.2); the multidiscrete dummy's 129-step episodes outlast the episode
 # buffer's minimum length (the sequence, 50), the discrete dummy's 5 do not
-DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 256, 320, 512
+DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 192, 320, 512
 DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 224
 DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 512, 1024
 
@@ -3941,7 +3942,11 @@ def live_plane_cost(spent, seconds):
 # aggregator
 # phase mesh: the DV3-S legs' length, and the decoupled legs' (PPO: two
 # updates of 4 envs x 128 steps; SAC: the off-policy legs' settings)
-MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 160, 1024, 512, 100
+MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 192, 1024, 512, 100
+# the DV3-S legs' steps/s are read from here on: the first log interval
+# after learning_starts holds the pretraining burst and the group's first
+# collective (NCCL's set-up), which the steady state does not pay
+MESH_WARM = LEARNING_STARTS + 32
 # the other algorithms under ddp: DV2's twins at the preset (one env: the
 # first burst, the pretraining, at learning_starts), the P2E-DV3 finetuning
 # at XL on the kernels, and each other entry point to its first checkpoint
@@ -4176,7 +4181,8 @@ def phase_mesh(torch, ln_gru):
       Moments (the legs on deterministic kernels: ``deterministic_kernels``);
       the legs run in turns (auto, ddp, ddp, auto: ``mesh_dv3_2`` and
       ``mesh_dv3_auto_2`` are the repeats, all four bitwise equal), with
-      each one's policy steps/s after ``learning_starts``;
+      each one's policy steps/s from ``MESH_WARM`` on (past the first
+      interval after ``learning_starts``);
     * ``mesh_ppo_decoupled``, ``mesh_sac_decoupled``: the decoupled pair at
       ``fabric.devices=1 algo.player.device=host`` (and ``fabric.strategy=ddp``):
       the trainer is rank 0 on the card under NCCL, the player thread acts
@@ -4200,7 +4206,7 @@ def phase_mesh(torch, ln_gru):
         with deterministic_kernels(torch):
             parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
                 f"run_name={name}", f"fabric.strategy={strategy}", "fabric.devices=1"])
-        report[name] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS)
+        report[name] = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, window_from=MESH_WARM)
         start, last = parsed["startup"], parsed["logs"][-1]
         want_backend = "nccl" if strategy == "ddp" else "none"
         if start.get("backend") != want_backend or start.get("world_size") != 1:

@@ -11,7 +11,8 @@ On N ranks (``parallel/mesh.py``) rank ``d`` rolls out env block ``d`` and
 computes the loss over its own rows. Under the default
 ``algo.loss_reduction: sum`` the JAX package's loss is the sum over the
 whole rollout of all envs, so the global gradient is the SUM of the ranks'
-gradients: the optimizer sums them (one flattened all-reduce), then clips
+gradients: the rank's loss is scaled by the world size, so the optimizer's
+average (one flattened all-reduce, as PPO's) is that sum, then it clips
 with ``max_grad_norm``; the logged losses are the global sums. Under
 ``mean`` the ranks' gradients and losses are averaged (equal rows a rank).
 """
@@ -48,11 +49,12 @@ MODELS_TO_REGISTER = {"agent"}
 def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, dist: Any = None) -> Callable:
     """``update(data) -> metrics``: one clipped optimizer step on the whole
     ``[batch, ...]`` rollout; the metrics stay tensors (no host sync). With
-    a ``Distributed`` ``data`` is this rank's rows; the optimizer (built by
-    ``build_optimizer`` with the same ``dist``) sums or averages the ranks'
-    gradients as ``algo.loss_reduction`` says, and the metrics are the
-    global losses likewise."""
+    a ``Distributed`` ``data`` is this rank's rows and the optimizer (built
+    with the same ``dist``) averages the ranks' gradients; a ``sum``
+    reduction scales the rank's loss by the world size, so the average is
+    the global sum's gradient. The metrics are the global losses."""
     reduction = str(cfg.algo.loss_reduction)
+    scale = float(dist.world_size) if dist is not None and reduction != "mean" else 1.0
 
     def update(data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         obs = {k[4:]: v for k, v in data.items() if k.startswith("obs:")}
@@ -60,7 +62,7 @@ def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, dist: Any =
         _, logprobs, _ = actions_and_log_probs(actor_out, agent.is_continuous, actions=data["actions"])
         pg = policy_loss(logprobs, data["advantages"], reduction)
         vl = value_loss(new_values, data["returns"], reduction)
-        optimizer_step(optimizer, pg + vl)
+        optimizer_step(optimizer, (pg + vl) * scale if scale != 1.0 else pg + vl)
         losses = torch.stack([pg.detach(), vl.detach()])
         if dist is not None:
             losses = dist.all_reduce_sum(losses)
@@ -72,15 +74,12 @@ def make_update_fn(agent: PPOAgent, optimizer: Clipped, cfg: Config, dist: Any =
 
 
 def build_optimizer(cfg: Config, agent: PPOAgent, dist: Any = None) -> Clipped:
-    """The clipped optimizer; with a ``Distributed`` its step sums the
-    ranks' gradients under ``algo.loss_reduction: sum`` (the gradient of the
-    loss over the global rollout) and averages them under ``mean``."""
-    reduce = "mean" if str(cfg.algo.loss_reduction) == "mean" else "sum"
-    return clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"),
-                   dist, reduce)
+    """The clipped optimizer; with a ``Distributed`` its step averages the
+    ranks' gradients."""
+    return clipped(instantiate(cfg.algo.optimizer, list(agent.parameters())), cfg.algo.select("max_grad_norm"), dist)
 
 
-@register_algorithm(name="a2c", mesh=True)
+@register_algorithm(name="a2c")
 def main(cfg: Config) -> None:
     device, seed, log_dir, state, envs = start_run(cfg, "a2c")
     dist = current_distributed(cfg)

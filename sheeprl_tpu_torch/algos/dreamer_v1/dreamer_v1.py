@@ -219,7 +219,7 @@ def make_player(wm, actor, cfg: Config, actions_dim, is_continuous: bool, num_en
                                stoch_width=int(cfg.algo.world_model.stochastic_size))
 
 
-@register_algorithm(name="dreamer_v1", mesh=True)
+@register_algorithm(name="dreamer_v1")
 def main(cfg: Config) -> None:
     """DreamerV1's serial training loop (``dreamer_v2.run_dreamer``): rows
     without ``is_first`` (its RSSM never resets within a sequence), the

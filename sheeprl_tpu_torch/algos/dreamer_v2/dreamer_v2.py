@@ -658,7 +658,7 @@ def evaluate_dreamer(cfg: Config, state: Dict[str, Any], build: Callable, player
     test(t_init, t_step, env, cfg, gen)
 
 
-@register_algorithm(name="dreamer_v2", mesh=True)
+@register_algorithm(name="dreamer_v2")
 def main(cfg: Config) -> None:
     """DreamerV2's serial training loop (``run_dreamer``)."""
     run_dreamer(cfg, "dreamer_v2", build_agent, make_train_fn, make_player, AGGREGATOR_KEYS, is_first=True)

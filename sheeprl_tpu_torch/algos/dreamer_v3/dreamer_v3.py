@@ -680,7 +680,7 @@ class DV3Stepper:
         self.obs = next_obs
 
 
-@register_algorithm(name="dreamer_v3", mesh=True)
+@register_algorithm(name="dreamer_v3")
 def main(cfg: Config) -> None:
     """The DreamerV3 training loop: act, store, train G steps per the replay
     ratio; overlapped (player thread) or serial; checkpoints, the RunGuard's

@@ -111,7 +111,7 @@ def make_train_fn(agent: SACAgent, optimizers: Optimizers, cfg: Config, target_e
     return train
 
 
-@register_algorithm(name="droq", mesh=True)
+@register_algorithm(name="droq")
 def main(cfg: Config) -> None:
     """DroQ's serial training loop, with checkpoints, the RunGuard and resume;
     one greedy test episode at the end."""

@@ -96,7 +96,7 @@ def make_train_fn(mods: Dict[str, nn.Module], optimizers: P2EOptimizers, cfg: Co
     return train
 
 
-@register_algorithm(name="p2e_dv1_exploration", mesh=True)
+@register_algorithm(name="p2e_dv1_exploration")
 def main(cfg: Config) -> None:
     """P2E-DV1's exploration phase (``dreamer_v2.run_serial`` with
     DreamerV1's rows and the sequential buffer)."""

@@ -22,7 +22,7 @@ AGGREGATOR_KEYS = DV1_AGGREGATOR_KEYS | {"Params/exploration_amount_task", "Para
 MODELS_TO_REGISTER = {"world_model", "actor", "critic"}
 
 
-@register_algorithm(name="p2e_dv1_finetuning", requires_exploration_cfg=True, mesh=True)
+@register_algorithm(name="p2e_dv1_finetuning", requires_exploration_cfg=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:
     """P2E-DV1's finetuning phase from the exploration run whose config is
     ``exploration_cfg``."""

@@ -194,7 +194,7 @@ def expl_stat(cfg: Config) -> Callable[[bool], str]:
     return lambda task_phase: f"Params/exploration_amount_{cfg.algo.player.actor_type}"
 
 
-@register_algorithm(name="p2e_dv2_exploration", mesh=True)
+@register_algorithm(name="p2e_dv2_exploration")
 def main(cfg: Config) -> None:
     """P2E-DV2's exploration phase (``dreamer_v2.run_serial``)."""
     run_serial(cfg, "p2e_dv2_exploration", exploration_setup(build_agent, make_train_fn, build_optimizers,

@@ -95,7 +95,7 @@ def finetune(cfg: Config, exploration_cfg: Config, algo: str, build: Callable, t
                    "task" if task_phase or actor_type == "task" else "exploration"))
 
 
-@register_algorithm(name="p2e_dv2_finetuning", requires_exploration_cfg=True, mesh=True)
+@register_algorithm(name="p2e_dv2_finetuning", requires_exploration_cfg=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:
     """P2E-DV2's finetuning phase from the exploration run whose config is
     ``exploration_cfg``."""

@@ -369,7 +369,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                      aggregator_keys(cfg), lambda: registry_names(mods))
 
 
-@register_algorithm(name="p2e_dv3_exploration", mesh=True)
+@register_algorithm(name="p2e_dv3_exploration")
 def main(cfg: Config) -> None:
     """P2E-DV3's exploration phase (``run_serial``)."""
     run_serial(cfg, "p2e_dv3_exploration", _setup)

@@ -106,7 +106,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                      algo_state, actor, AGGREGATOR_KEYS, registered, random_warmup=False, rb_state=rb_state)
 
 
-@register_algorithm(name="p2e_dv3_finetuning", requires_exploration_cfg=True, mesh=True)
+@register_algorithm(name="p2e_dv3_finetuning", requires_exploration_cfg=True)
 def main(cfg: Config, exploration_cfg: Config) -> None:
     """P2E-DV3's finetuning phase (``run_serial``) from the exploration run
     whose config is ``exploration_cfg``."""

@@ -340,7 +340,7 @@ class Rollout:
         return {k: buf[k] for k in buf.keys()}, next_value.cpu().numpy(), ep_stats
 
 
-@register_algorithm(name="ppo", mesh=True)
+@register_algorithm(name="ppo")
 def main(cfg: Config) -> None:
     """PPO's training loop: rollout, GAE, the update; overlapped in strict
     on-policy mode or serial; checkpoints, the RunGuard and resume; one

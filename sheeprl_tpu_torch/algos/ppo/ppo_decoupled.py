@@ -97,7 +97,7 @@ def _player_loop(cfg: Config, rollout: Rollout, log_dir: str, telem: Telemetry, 
         raise
 
 
-@register_algorithm(name="ppo_decoupled", decoupled=True, mesh=True)
+@register_algorithm(name="ppo_decoupled", decoupled=True)
 def main(cfg: Config) -> None:
     """The decoupled PPO loop: rank 0's player thread rolls out, every rank
     trains on its share of the broadcast rollout."""

@@ -171,7 +171,7 @@ def sequence_batch(local: Dict[str, np.ndarray], next_value: np.ndarray, chunk_c
     return data
 
 
-@register_algorithm(name="ppo_recurrent", mesh=True)
+@register_algorithm(name="ppo_recurrent")
 def main(cfg: Config) -> None:
     device, seed, log_dir, state, envs = start_run(cfg, "ppo_recurrent")
     dist = current_distributed(cfg)

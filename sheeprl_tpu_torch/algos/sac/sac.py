@@ -552,7 +552,7 @@ def replay_buffer(cfg: Config, log_dir: str, seed: int, obs_keys: Sequence[str] 
                         seed=seed + 1024 * rank)
 
 
-@register_algorithm(name="sac", mesh=True)
+@register_algorithm(name="sac")
 def main(cfg: Config) -> None:
     """SAC's training loop: overlapped (the default) or serial, with
     checkpoints, the RunGuard and resume; one greedy test episode at the end.

@@ -141,7 +141,7 @@ def _scatter_columns(dist: Any, batches: Optional[Dict[str, np.ndarray]], header
     return out
 
 
-@register_algorithm(name="sac_decoupled", decoupled=True, mesh=True)
+@register_algorithm(name="sac_decoupled", decoupled=True)
 def main(cfg: Config) -> None:
     """The decoupled SAC loop: rank 0's player thread steps and samples,
     every rank trains on its columns of each burst's batch."""

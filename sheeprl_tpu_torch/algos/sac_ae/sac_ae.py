@@ -218,7 +218,7 @@ def make_interact(loop: OffPolicyLoop, modules_of: Callable[[], Dict[str, torch.
     return interact
 
 
-@register_algorithm(name="sac_ae", mesh=True)
+@register_algorithm(name="sac_ae")
 def main(cfg: Config) -> None:
     """SAC-AE's serial training loop, with checkpoints, the RunGuard and
     resume; one greedy test episode at the end."""

@@ -106,8 +106,7 @@ def check_configs(cfg: Config) -> None:
     """The config checks before a run: an algorithm is selected and
     registered; the mesh (``parallel/mesh.py``) takes the config
     (``fsdp``/``tp`` > 1, ZeRO-1, more nodes or more devices than visible
-    raise); an algorithm registered without ``mesh`` runs on one device
-    alone; a decoupled one has its player and its trainer:
+    raise); a decoupled algorithm has its player and its trainer:
     at ``fabric.devices >= 2``, as in the JAX package, or on one card with
     the player on the host (``algo.player.device=host``), where the JAX
     package's player would act anyway."""
@@ -127,10 +126,7 @@ def check_configs(cfg: Config) -> None:
                                "trainer device (fabric.devices >= 2)")
     from .parallel.mesh import build_distributed
 
-    dist = build_distributed(cfg)
-    if dist.needs_group and not entry["mesh"]:
-        raise NotImplementedError(f"'{algo_name}' is registered without mesh=True: it trains on one device, not on "
-                                  f"fabric.devices={dist.world_size} fabric.strategy={dist.strategy}")
+    build_distributed(cfg)
 
 
 def exploration_surgery(cfg: Config) -> Config:
@@ -165,16 +161,12 @@ def run_algorithm(cfg: Config) -> None:
     exploration run's config (``exploration_surgery``), also when the run
     is resumed or restarted."""
     check_configs(cfg)
-    entry = get_algorithm(cfg.algo.name)
-    fn = entry["fn"]
-    exploration = exploration_surgery(cfg).to_dict() if entry.get("requires_exploration_cfg") else None
-    if entry["mesh"]:
-        # one rank here, or fabric.devices spawned ranks (parallel/mesh.py)
-        from .parallel.mesh import launch
+    from .parallel.mesh import launch
 
-        fn = functools.partial(launch, functools.partial(_run_registered, cfg.algo.name, exploration=exploration))
-    elif exploration is not None:
-        fn = functools.partial(fn, exploration_cfg=Config(exploration))
+    entry = get_algorithm(cfg.algo.name)
+    exploration = exploration_surgery(cfg).to_dict() if entry.get("requires_exploration_cfg") else None
+    # one rank here, or fabric.devices spawned ranks (parallel/mesh.py)
+    fn = functools.partial(launch, functools.partial(_run_registered, cfg.algo.name, exploration=exploration))
     attempts = int(cfg.select("resilience.supervisor.attempts", 1) or 1)
     if attempts > 1:
         from .resilience.supervisor import supervise
@@ -186,7 +178,7 @@ def run_algorithm(cfg: Config) -> None:
 
 
 def _run_registered(name: str, cfg: Config, exploration: Optional[dict] = None) -> None:
-    """A mesh algorithm's entry point on one rank (picklable for spawned
+    """An algorithm's entry point on one rank (picklable for spawned
     ranks); a finetuning one gets the exploration run's config
     (``exploration``, as a dict)."""
     _register()

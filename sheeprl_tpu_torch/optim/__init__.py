@@ -180,18 +180,12 @@ class Clipped:
     Given a ``Distributed`` (``parallel/mesh.py``) with a process group, the
     step first averages the gradients over the ranks in one flattened
     all-reduce, so the clipping sees the averaged gradient, as optax clips
-    the gradient XLA already averaged; with ``reduce="sum"`` it sums them
-    instead (a loss summed over the global batch: each rank's gradient is
-    its share of the sum)."""
+    the gradient XLA already averaged."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None,
-                 reduce: str = "mean"):
-        if reduce not in ("mean", "sum"):
-            raise ValueError(f"reduce must be mean | sum, got {reduce!r}")
+    def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None):
         self.optimizer = optimizer
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm and max_grad_norm > 0 else None
         self.dist = dist
-        self.reduce = reduce
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
@@ -203,14 +197,13 @@ class Clipped:
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.dist is not None:
-            (self.dist.all_reduce_sum_ if self.reduce == "sum" else self.dist.all_reduce_mean)(grads)
+            self.dist.all_reduce_mean(grads)
         if self.max_grad_norm is not None and grads:
             clip_by_global_norm_(grads, self.max_grad_norm)
         self.optimizer.step()
 
 
-def clipped(optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None,
-            reduce: str = "mean") -> Clipped:
+def clipped(optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None) -> Clipped:
     """Compose global-norm clipping (and, with ``dist``, the ranks' gradient
-    average, or their sum with ``reduce="sum"``) in front of an optimizer."""
-    return Clipped(optimizer, max_grad_norm, dist, reduce)
+    average) in front of an optimizer."""
+    return Clipped(optimizer, max_grad_norm, dist)

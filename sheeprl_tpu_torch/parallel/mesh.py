@@ -20,8 +20,7 @@ package lays out a multi-host run, and keeps the config's meaning:
 * rank ``d`` steps env block ``d`` (``local_envs``) and samples its
   ``batch / world_size`` columns from its own block;
 * ``all_reduce_mean`` averages a list of tensors in one flattened
-  all-reduce (the gradients of one optimizer step), ``all_reduce_sum_``
-  sums them (A2C's ``sum`` reduction over the whole rollout); ``all_gather``
+  all-reduce (the gradients of one optimizer step); ``all_gather``
   concatenates along the leading axis (DreamerV3's Moments take quantiles
   of the global batch); ``broadcast``, ``scatter`` and the ``*_object``
   collectives carry what is not a tensor on the card (rollouts, buffer
@@ -294,15 +293,6 @@ class Distributed:
     def all_reduce_mean(self, tensors: Sequence[torch.Tensor]) -> None:
         """In place: each tensor becomes its mean over the ranks, in one
         flattened all-reduce (the identity without a group)."""
-        self._all_reduce_flat(tensors, mean=True)
-
-    @torch.no_grad()
-    def all_reduce_sum_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """In place: each tensor becomes its sum over the ranks, in one
-        flattened all-reduce (the identity without a group)."""
-        self._all_reduce_flat(tensors, mean=False)
-
-    def _all_reduce_flat(self, tensors: Sequence[torch.Tensor], mean: bool) -> None:
         tensors = [t for t in tensors if t is not None]
         if self.group is None or not tensors:
             return
@@ -311,8 +301,7 @@ class Distributed:
         flat = torch.cat([t.reshape(-1) for t in tensors])
         self._count("all_reduce", flat.numel() * flat.element_size())
         tdist.all_reduce(flat)
-        if mean:
-            flat.div_(self._world)
+        flat.div_(self._world)
         offset = 0
         for t in tensors:
             n = t.numel()

@@ -12,7 +12,7 @@ evaluation_registry: Dict[str, Dict[str, Any]] = {}
 
 
 def register_algorithm(name: Optional[str] = None, decoupled: bool = False,
-                       requires_exploration_cfg: bool = False, mesh: bool = False) -> Callable:
+                       requires_exploration_cfg: bool = False) -> Callable:
     """Register a training entry point ``main(cfg) -> None`` under ``name``
     (default: the name of the function's module's package, e.g.
     ``sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3`` → ``dreamer_v3``);
@@ -20,9 +20,8 @@ def register_algorithm(name: Optional[str] = None, decoupled: bool = False,
     ``requires_exploration_cfg`` marks a finetuning entry point
     ``main(cfg, exploration_cfg)``: the CLI loads the saved config of the
     exploration run whose checkpoint ``checkpoint.exploration_ckpt_path``
-    names and passes it on (``cli.exploration_surgery``). ``mesh``
-    algorithms run on ``fabric.devices`` ranks (``parallel/mesh.py``); the
-    others refuse more than one device."""
+    names and passes it on (``cli.exploration_surgery``). The CLI launches
+    every algorithm on ``fabric.devices`` ranks (``parallel/mesh.py``)."""
 
     def wrap(fn: Callable) -> Callable:
         key = name or fn.__module__.rsplit(".", 2)[-1]
@@ -31,8 +30,7 @@ def register_algorithm(name: Optional[str] = None, decoupled: bool = False,
         fn = _restores_process_switches(fn)
         algorithm_registry[key] = {"name": key, "module": fn.__module__, "entrypoint": fn.__name__, "fn": fn,
                                    "decoupled": bool(decoupled),
-                                   "requires_exploration_cfg": bool(requires_exploration_cfg),
-                                   "mesh": bool(mesh)}
+                                   "requires_exploration_cfg": bool(requires_exploration_cfg)}
         return fn
 
     return wrap

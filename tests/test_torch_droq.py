@@ -131,9 +131,17 @@ def test_the_jax_packages_vmapped_critic_runs_without_dropout():
     np.testing.assert_array_equal(np.asarray(q_train), np.asarray(q_eval))
 
 
-def jax_burst(jcfg, actor, critic, params, opt_states, critic_batches, actor_batch, keys, actor_key):
+def jax_train_fn(jcfg, actor, critic):
+    """The JAX package's optimizers and its jitted train step."""
     txs = {k: jax_instantiate(jcfg.algo[k].optimizer) for k in ("actor", "critic", "alpha")}
-    train = jax_make_train_fn(actor, critic, txs, jcfg, -float(ACT))
+    return txs, jax_make_train_fn(actor, critic, txs, jcfg, -float(ACT))
+
+
+def jax_burst(jcfg, actor, critic, params, opt_states, critic_batches, actor_batch, keys, actor_key, train=None):
+    """One JAX burst; ``train`` (``jax_train_fn``'s) lets bursts of the same
+    shapes share one compile."""
+    txs, own = jax_train_fn(jcfg, actor, critic)
+    train = train or own
     if opt_states is None:
         opt_states = {"actor": txs["actor"].init(params["actor"]), "critic": txs["critic"].init(params["critic"]),
                       "alpha": txs["alpha"].init(params["log_alpha"])}

@@ -114,14 +114,20 @@ def _exp_args(exp):
 
 
 @pytest.mark.parametrize("exp", ADMITTED)
-def test_every_algorithm_is_admitted_on_more_ranks(exp):
+def test_every_algorithm_is_admitted_on_more_ranks(exp, monkeypatch):
     """The algorithms that refused N ranks until the slice that ported them
-    to the mesh: each is registered ``mesh=True`` (the CLI launches it on
-    ``fabric.devices`` ranks) and the checks admit two devices and
-    ``fabric.strategy=ddp``."""
+    to the mesh: the checks admit two devices and ``fabric.strategy=ddp``,
+    and the CLI launches the entry point on ``fabric.devices`` ranks through
+    ``parallel/mesh.launch``."""
     for extra in (["fabric.devices=2", "env.num_envs=2"], ["fabric.strategy=ddp"]):
         cli.check_configs(compose("config", _exp_args(exp) + extra))
-    assert cli.get_algorithm(exp)["mesh"]
+    launched = []
+    monkeypatch.setattr(mesh, "launch", lambda fn, cfg: launched.append((fn, cfg.select("fabric.devices"))))
+    monkeypatch.setattr(cli, "exploration_surgery", lambda cfg: Config({"algo": {"name": "exploration"}}))
+    cli.run_algorithm(compose("config", _exp_args(exp) + ["fabric.devices=2", "env.num_envs=2"]))
+    (fn, devices), = launched
+    assert (fn.func, fn.args, devices) == (cli._run_registered, (exp,), 2)
+    assert (fn.keywords["exploration"] is not None) == exp.endswith("_finetuning")
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -5,7 +5,8 @@
   the bursts of tests/test_torch_droq.py (G = 3 critic steps of 8 rows, the
   actor and alpha step; without dropout, as the JAX package's vmapped critic
   runs) and tests/test_torch_sac_ae.py (G = 2 steps of 4 rows), from the
-  converted parameters and Adam states after a first JAX burst, with the
+  converted parameters and Adam states after a first JAX burst of the same
+  shapes (one compile for both), with the
   JAX step's own draws. The JAX step takes the batch sharded along its batch
   axis over a two-device mesh, each port rank its column block of the batch
   and of the draws; every optimizer step averages the ranks' gradients in
@@ -53,7 +54,7 @@ def run_argv(name, tmp):
 
 
 def droq_job():
-    from test_torch_droq import LAYERS, N, agents, jax_burst, jax_draws
+    from test_torch_droq import LAYERS, N, agents, jax_burst, jax_draws, jax_train_fn
     from sheeprl_tpu_torch.algos.sac.sac import build_optimizers
     from torch_offpolicy import ACT, replay_batch
 
@@ -61,16 +62,21 @@ def droq_job():
     G, B = 3, 8
     rng = np.random.default_rng(5)
     jdist = jax_dist()
+    _, train = jax_train_fn(jcfg, actor, critic)  # one compile: the warm-up burst takes the same shapes
+
+    def sharded(critic_batches, actor_batch):
+        return ({k: jax.device_put(jnp.asarray(v), jdist.shard_batch_axis(1)) for k, v in critic_batches.items()},
+                {k: jax.device_put(jnp.asarray(v), jdist.batch_sharding) for k, v in actor_batch.items()})
+
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        p1, s1, _ = jax_burst(jcfg, actor, critic, params, None, replay_batch(rng, (2, B)), replay_batch(rng, (B,)),
-                              jax.random.split(jax.random.PRNGKey(1), 2), jax.random.PRNGKey(9))
+        p1, s1, _ = jax_burst(jcfg, actor, critic, params, None, *sharded(replay_batch(rng, (G, B)),
+                                                                          replay_batch(rng, (B,))),
+                              jax.random.split(jax.random.PRNGKey(1), G), jax.random.PRNGKey(9), train=train)
         critic_batches, actor_batch = replay_batch(rng, (G, B)), replay_batch(rng, (B,))
         keys, actor_key = jax.random.split(jax.random.PRNGKey(2), G), jax.random.PRNGKey(3)
-        p2, s2, j_metrics = jax_burst(
-            jcfg, actor, critic, p1, s1,
-            {k: jax.device_put(jnp.asarray(v), jdist.shard_batch_axis(1)) for k, v in critic_batches.items()},
-            {k: jax.device_put(jnp.asarray(v), jdist.batch_sharding) for k, v in actor_batch.items()}, keys, actor_key)
+        p2, s2, j_metrics = jax_burst(jcfg, actor, critic, p1, s1, *sharded(critic_batches, actor_batch), keys,
+                                      actor_key, train=train)
     optimizers = build_optimizers(tcfg, agent)
     convert.load_droq(p1, agent, s1, optimizers)
     # flax draws no mask at rate 0; the port's critic takes masks of ones
@@ -91,7 +97,7 @@ def droq_job():
 
 
 def sac_ae_job():
-    from test_torch_sac_ae import IMG, STATE, agents, jax_burst, jax_draws
+    from test_torch_sac_ae import IMG, STATE, agents, jax_burst, jax_draws, jax_train_fn
     from sheeprl_tpu_torch.algos.sac_ae.sac_ae import build_optimizers
     from torch_offpolicy import ACT, replay_batch
 
@@ -99,13 +105,17 @@ def sac_ae_job():
     G, B = 2, 4
     rng = np.random.default_rng(5)
     spec = {"rgb": IMG, "state": (STATE,)}
-    p1, s1, _ = jax_burst(jcfg, mods, params, None, replay_batch(rng, (1, B), spec, vector_obs=False),
-                          jax.random.split(jax.random.PRNGKey(1), 1))
+    jdist = jax_dist()
+    _, train = jax_train_fn(jcfg, mods)  # one compile: the warm-up burst takes the same shapes
+
+    def sharded(batches):
+        return {k: jax.device_put(jnp.asarray(v), jdist.shard_batch_axis(1)) for k, v in batches.items()}
+
+    p1, s1, _ = jax_burst(jcfg, mods, params, None, sharded(replay_batch(rng, (G, B), spec, vector_obs=False)),
+                          jax.random.split(jax.random.PRNGKey(1), G), train=train)
     batches = replay_batch(rng, (G, B), spec, vector_obs=False)
     keys = jax.random.split(jax.random.PRNGKey(2), G)
-    jdist = jax_dist()
-    p2, s2, j_metrics = jax_burst(jcfg, mods, p1, s1, {k: jax.device_put(jnp.asarray(v), jdist.shard_batch_axis(1))
-                                                       for k, v in batches.items()}, keys)
+    p2, s2, j_metrics = jax_burst(jcfg, mods, p1, s1, sharded(batches), keys, train=train)
     optimizers = build_optimizers(tcfg, agent)
     convert.load_sac_ae(p1, agent, s1, optimizers)
     draws = to_numpy(jax_draws(keys, B))
@@ -185,12 +195,13 @@ def test_sac_ae_burst_at_dp2_matches_jax(ranks):
                "encoder": agent.encoder, "decoder": agent.decoder}
     for name, module in modules.items():
         adam_diff(opts[name], module, s2[name], DECODER_MOMENT_RTOL if name == "decoder" else MOMENT_RTOL, name)
-    assert opts.step == int(s2["step"]) == 1 + G
-    # steps 2 and 3: the critic every step, the actor with alpha and the
+    assert opts.step == int(s2["step"]) == 2 * G  # the warm-up burst's G steps, then the burst's
+    # steps G+1..2G: the critic every step, the actor with alpha and the
     # encoder with the decoder where due; a masked update that is not due
     # runs no collective
     actor_freq, decoder_freq = tcfg.algo.actor.per_rank_update_freq, tcfg.algo.decoder.per_rank_update_freq
-    assert a["stats"]["all_reduce"] == sum(1 + 2 * (s % actor_freq == 0) + (s % decoder_freq == 0) for s in (2, 3))
+    assert a["stats"]["all_reduce"] == sum(1 + 2 * (s % actor_freq == 0) + (s % decoder_freq == 0)
+                                           for s in range(G + 1, 2 * G + 1))
 
 
 @pytest.mark.parametrize("name", sorted(LEDGERS))

@@ -169,13 +169,21 @@ def test_masked_update_advances_the_state_and_keeps_the_parameters(weight_decay)
     np.testing.assert_allclose(w.detach().numpy(), np.asarray(p), rtol=0, atol=1e-6)
 
 
-def jax_burst(jcfg, mods, params, opt_states, batches, keys):
+def jax_train_fn(jcfg, mods):
+    """The JAX package's optimizers and its jitted train step."""
     encoder, decoder, qs, actor = mods
     txs = {"actor": jax_instantiate(jcfg.algo.actor.optimizer), "qf": jax_instantiate(jcfg.algo.critic.optimizer),
            "alpha": jax_instantiate(jcfg.algo.alpha.optimizer),
            "encoder": jax_instantiate(jcfg.algo.encoder.optimizer),
            "decoder": jax_instantiate(jcfg.algo.decoder.optimizer)}
-    train = jax_make_train_fn(encoder, decoder, qs, actor, txs, jcfg, -float(ACT), ("rgb",), ("state",))
+    return txs, jax_make_train_fn(encoder, decoder, qs, actor, txs, jcfg, -float(ACT), ("rgb",), ("state",))
+
+
+def jax_burst(jcfg, mods, params, opt_states, batches, keys, train=None):
+    """One JAX burst; ``train`` (``jax_train_fn``'s) lets bursts of the same
+    shapes share one compile."""
+    txs, own = jax_train_fn(jcfg, mods)
+    train = train or own
     if opt_states is None:
         opt_states = {"actor": txs["actor"].init(params["actor"]),
                       "qf": txs["qf"].init({"encoder": params["encoder"], "qs": params["qs"]}),

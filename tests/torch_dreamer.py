@@ -25,7 +25,7 @@ import torch
 from sheeprl_tpu.config import instantiate as jax_instantiate
 from sheeprl_tpu.optim import clipped as jax_clipped
 from sheeprl_tpu_torch.envs import spaces
-from torch_offpolicy import configs, dist, numpy_tree, t  # noqa: F401 - re-exported
+from torch_offpolicy import configs, dist, jit_build, numpy_tree, t  # noqa: F401 - re-exported
 
 IMG = (64, 64, 3)
 STATE = 6
@@ -99,7 +99,8 @@ def _jax_params(exp: str, shape_overrides: Tuple[str, ...], continuous: bool, se
     jcfg, _ = configs(exp, [*base, *shape_overrides])
     jagent = import_module(f"sheeprl_tpu.algos.{exp[:10]}.agent")
     jo, _ = jax_spaces(continuous)
-    *_, params = jagent.build_agent(dist(), jcfg, jo, actions_dim(continuous), continuous, jax.random.PRNGKey(seed))
+    *_, params = jit_build(lambda k: jagent.build_agent(dist(), jcfg, jo, actions_dim(continuous), continuous, k),
+                           jax.random.PRNGKey(seed))
     return numpy_tree(params)
 
 

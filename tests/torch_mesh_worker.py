@@ -36,11 +36,13 @@ import torch
 from sheeprl_tpu_torch.config import Config, compose, instantiate
 from sheeprl_tpu_torch.parallel import mesh
 
-# bounds on a hang, not on the work: the tier-1 run shares the host's cores
-# between six workers, under which a two-rank run takes several times as
-# long as it does alone
-TIMEOUT_S = 180.0
-DEADLINE_S = 360.0
+# bounds on a hang, not on the work, from a whole tier-1 run (six workers
+# sharing the host's cores): DEADLINE_S, a launch's and a CLI child's wait,
+# is twice the longest two-rank launch seen there (117 s, its test's whole
+# time); TIMEOUT_S, every gloo collective's and the rendezvous's, is far
+# above the longest wait a rank had there in one of them (5 s)
+TIMEOUT_S = 60.0
+DEADLINE_S = 240.0
 
 
 def _entry(fn: Callable, payload_path: str, out_dir: str, cfg: Any) -> None:
@@ -331,11 +333,15 @@ def ppo_recurrent_update(dist: Any, job: Dict[str, Any], mine: Any) -> Dict[str,
 def cli_job(dist: Any, job: Dict[str, Any], mine: Any) -> Dict[str, Any]:
     """``run <job["argv"]>`` on these ranks, in their process group (the
     CLI's checks and, for a finetuning entry point, its surgery, on each
-    rank); what it printed on stdout and stderr."""
+    rank); what it printed on stdout and stderr. One intra-op thread a
+    rank: the models are tiny, and the tier-1 run's workers share the
+    host's cores, where more threads a rank only wait on each other."""
     import contextlib
     import io
 
     from sheeprl_tpu_torch import cli
+
+    torch.set_num_threads(1)
 
     cfg = compose("config", list(job["argv"]))
     if cfg.select("checkpoint.resume_from"):
@@ -370,7 +376,7 @@ def run_jobs(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 
 def launch_steps_and_runs(build_steps: Callable[[], Any], runs: Sequence[Dict[str, Any]], tmp_path: Path,
-                          world: int = 2, deadline_s: float = 2 * DEADLINE_S):
+                          world: int = 2, deadline_s: float = DEADLINE_S):
     """A file's two launches: its CLI ``runs`` (``cli`` jobs) on ``world``
     ranks in the background while ``build_steps()`` computes the JAX
     references here and returns ``(step jobs, references)``, then the step

@@ -56,6 +56,22 @@ def dist():
     return Distributed(devices=1)
 
 
+def jit_build(build, key):
+    """``build(key)``, a JAX package ``build_agent`` call whose last return
+    is the parameters, with the flax init traced under one ``jax.jit``: the
+    same parameters bitwise, in one compile instead of one per initializer
+    op; the other returns (modules, apply functions) come from the trace."""
+    rest = []
+
+    def init(k):
+        *mods, params = build(k)
+        rest[:] = mods
+        return params
+
+    params = jax.jit(init)(key)
+    return (*rest, params)
+
+
 def replay_batch(rng: np.random.Generator, lead: Sequence[int], obs: Dict[str, Sequence[int]] = None,
                  vector_obs: bool = True) -> Dict[str, np.ndarray]:
     """A random ``[*lead, ...]`` replay batch: flattened ``observations`` and

@@ -28,7 +28,7 @@ from sheeprl_tpu.optim import clipped as jax_clipped
 from sheeprl_tpu_torch import convert
 from sheeprl_tpu_torch.envs import spaces
 from torch_dreamer import TINY_V1, TINY_V2, _action_draws, actions_dim, jax_spaces, torch_spaces
-from torch_offpolicy import adam_diff, configs, dist, max_diff, numpy_tree, t  # noqa: F401 - re-exported
+from torch_offpolicy import adam_diff, configs, dist, jit_build, max_diff, numpy_tree, t  # noqa: F401 - re-exported
 
 N_ACT = 4
 # DreamerV3 at the JAX package's tiny test widths (tests/dreamer_tiny.py),
@@ -104,7 +104,8 @@ def dv3_agents(overrides: Sequence[str] = (), seed: int = 0):
     jcfg, tcfg = configs("p2e_dv3_exploration", [*TINY_DV3, *overrides])
     tcfg.set_path("fabric.accelerator", "cpu")
     jo, to = dv3_spaces()
-    wm, actor, critic, ens_apply, params = jax_build(dist(), jcfg, jo, [N_ACT], False, jax.random.PRNGKey(seed))
+    wm, actor, critic, ens_apply, params = jit_build(lambda k: jax_build(dist(), jcfg, jo, [N_ACT], False, k),
+                                                     jax.random.PRNGKey(seed))
     params = condition_two_hot_heads(numpy_tree(params))
     torch.manual_seed(seed)
     mods = torch_build(tcfg, to, [N_ACT], False, torch.device("cpu"))
