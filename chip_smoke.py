@@ -349,7 +349,15 @@ that fails and then prints no result:
                under fabric.strategy=auto (no group), in turns (auto, ddp,
                ddp, auto), every leg on deterministic kernels: the same
                ledger and bitwise the same parameters, optimizer states and
-               Moments, each leg's policy steps/s; then ppo_decoupled and
+               Moments, each leg's policy steps/s; then mesh_dv3_sharded,
+               the same leg through the sharded mesh's path
+               (fabric.mesh.dp=1 fsdp=1 tp=1, fabric.shard_optimizer_state
+               =True: the rule engine's layout on the group's DeviceMesh),
+               bitwise mesh_dv3, its sharding events every parameter and
+               optimizer-state leaf replicated with bytes_per_chip equal to
+               total_bytes in both summaries, doctor on it without
+               replicated_giant, the five kernels launched; then
+               ppo_decoupled and
                sac_decoupled at fabric.devices=1 algo.player.device=host:
                the trainer rank 0 on the card under NCCL, the player thread
                on the host, the ledger of the JAX package's formula, eval of
@@ -470,7 +478,14 @@ def emit(phase: str, **fields) -> None:
 
 
 def fail(phase: str, err: BaseException) -> int:
-    emit(phase, ok=False, error=f"{type(err).__name__}: {err}")
+    """Report a failed phase on stdout (its JSON line) and on stderr (the
+    traceback's end and the error), so either stream's tail says why."""
+    import traceback
+
+    error = f"{type(err).__name__}: {err}"
+    emit(phase, ok=False, error=error)
+    print("".join(traceback.format_exception(err))[-4000:], file=sys.stderr)
+    print(f"[chip_smoke] phase {phase} failed: {error[:4000]}", file=sys.stderr, flush=True)
     return 1
 
 
@@ -1884,9 +1899,9 @@ def offpolicy_legs(torch, ln_gru):
 # buffer size only. DV2's first burst takes its 20 pretrain steps (100 at
 # ratio 0.2); the multidiscrete dummy's 129-step episodes outlast the episode
 # buffer's minimum length (the sequence, 50), the discrete dummy's 5 do not
-DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 192, 320, 512
+DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 160, 320, 512
 DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 224
-DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 512, 1024
+DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 416, 1024
 
 
 def dreamer_step(torch, ln_gru, algo, env_id, n_act, continuous, dev="cuda", reps=3):
@@ -3216,10 +3231,14 @@ def compute_app_rows():
     return sum(1 for x in out.split() if x.strip().isdigit())
 
 
-def capture_records(capture_dir):
-    """Every capture record under a capture root (all replicas, all segments)."""
-    from sheeprl_tpu_torch.flywheel import iter_capture_records
+def capture_records(capture_dir, every=False):
+    """The capture records under a capture root (all replicas, all
+    segments) as the flywheel's reader gives them, or ``every`` one written."""
+    from sheeprl_tpu_torch.diag.timeline import iter_events
+    from sheeprl_tpu_torch.flywheel import discover_capture_streams, iter_capture_records
 
+    if every:
+        return [r for s in discover_capture_streams(capture_dir) for r in iter_events(s) if r.get("event") == "capture"]
     return list(iter_capture_records(capture_dir))
 
 
@@ -3241,7 +3260,9 @@ def gateway_dv3_leg(torch, ln_gru, base_rows):
     lost or replayed), at least one failover and one migration, every live
     replica swapped and serving params_version >= 1, and one capture record
     for each acked act: as many records as acked trace ids, no trace id
-    twice, the same set. ``base_rows``: the card's compute processes besides
+    twice, the same set, as the capture reader gives them (a record that the
+    killed replica wrote for an act it never answered gives way to the
+    retry's). ``base_rows``: the card's compute processes besides
     this leg's replicas (this process, the fleets spawned for the later
     legs)."""
     import threading
@@ -3314,6 +3335,7 @@ def gateway_dv3_leg(torch, ln_gru, base_rows):
             lost.append((f"s{c}", got[:3], len(got)))
     swapped = [r for r in reload.get("results", []) if r.get("swapped")]
     captured = capture_records(os.path.join(run, "capture"))
+    written = capture_records(os.path.join(run, "capture"), every=True)
     acked_ids = {r[5] for r in results if r[2] == 200}
     captured_ids = [r.get("trace_id") for r in captured]
     rep = {"ready_s": ready, "sessions": SERVE_SESSIONS, "steps": SERVE_STEPS + 8, "requests": len(results),
@@ -3334,6 +3356,7 @@ def gateway_dv3_leg(torch, ln_gru, base_rows):
            "reload_seconds": reload.get("seconds"), "reload_results": reload.get("results"),
            "params_version_by_replica": versions, "capture_records": len(captured),
            "capture_unique_trace_ids": len(set(captured_ids)), "acked": len(acked_ids),
+           "capture_written": len(written), "capture_retried": sum(1 for r in captured if r.get("attempt")),
            "capture_equals_acked": set(captured_ids) == acked_ids, "launches": counts,
            **replicas_on_card([run], apps, base_rows, 2)}
     problems = []
@@ -3940,9 +3963,9 @@ def live_plane_cost(spent, seconds):
 # the telemetry A/B's arms: the stream on, off, on without its
 # per-iteration trace ranges and span timers, and on without the live
 # aggregator
-# phase mesh: the DV3-S legs' length, and the decoupled legs' (PPO: two
-# updates of 4 envs x 128 steps; SAC: the off-policy legs' settings)
-MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 192, 1024, 512, 100
+# phase mesh: the DV3-S legs' length, and the decoupled legs' (PPO: one
+# update of 4 envs x 128 steps; SAC: the off-policy legs' settings)
+MESH_TOTAL, MESH_PPO_TOTAL, MESH_SAC_TOTAL, MESH_SAC_LEARNING_STARTS = 192, 512, 512, 100
 # the DV3-S legs' steps/s are read from here on: the first log interval
 # after learning_starts holds the pretraining burst and the group's first
 # collective (NCCL's set-up), which the steady state does not pay
@@ -4183,6 +4206,9 @@ def phase_mesh(torch, ln_gru):
       ``mesh_dv3_auto_2`` are the repeats, all four bitwise equal), with
       each one's policy steps/s from ``MESH_WARM`` on (past the first
       interval after ``learning_starts``);
+    * ``mesh_dv3_sharded`` (``mesh_sharded_leg``): ``mesh_dv3``'s leg through
+      the sharded mesh's path at ``(1,1,1)`` with ZeRO-1, bitwise
+      ``mesh_dv3``;
     * ``mesh_ppo_decoupled``, ``mesh_sac_decoupled``: the decoupled pair at
       ``fabric.devices=1 algo.player.device=host`` (and ``fabric.strategy=ddp``):
       the trainer is rank 0 on the card under NCCL, the player thread acts
@@ -4236,6 +4262,7 @@ def phase_mesh(torch, ln_gru):
     report["mesh_dv3"]["twin"] = {"ledger": la, "bitwise_equal": True}
     report["mesh_dv3"]["sps_in_turns"] = {n: report[n]["policy_steps_per_s_after_learning_starts"]
                                           for n in ("mesh_dv3_auto", "mesh_dv3", "mesh_dv3_2", "mesh_dv3_auto_2")}
+    report["mesh_dv3_sharded"] = mesh_sharded_leg(torch, ln_gru, common, a, la)
 
     # the decoupled pair: trainer rank 0 on the card (NCCL), player on the host
     decoupled = ["fabric.devices=1", "fabric.strategy=ddp", "algo.player.device=host", "env=dummy",
@@ -4287,6 +4314,54 @@ def phase_mesh(torch, ln_gru):
     shutil.rmtree(os.path.join(HERE, "logs", "runs", MESH_ROOT), ignore_errors=True)
     report["launches"] = report["mesh_dv3"]["launches"]
     return report
+
+
+def mesh_sharded_leg(torch, ln_gru, common, twin, twin_ledger):
+    """``mesh_dv3_sharded``: mesh_dv3's leg through the sharded mesh's path
+    (``fabric.mesh.dp=1 fsdp=1 tp=1`` stated, ``fabric.shard_optimizer_state=True``:
+    ``maybe_shard_params``/``maybe_shard_opt_state`` on a world-size-1 NCCL
+    group's ``DeviceMesh``), on deterministic kernels. The degeneracy
+    contract of ``parallel/sharding.py``: every parameter and optimizer-state
+    leaf is replicated, ``bytes_per_chip == total_bytes`` in both summaries,
+    and the run ends bitwise where ``mesh_dv3`` ends (``twin``, its
+    checkpoint; ``twin_ledger``, its ledger); ``doctor`` on the run finds no
+    ``replicated_giant``. Returns the leg's report (its ``launches``: the
+    five LN-GRU kernels, at S)."""
+    with deterministic_kernels(torch):
+        parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
+            "run_name=mesh_dv3_sharded", "fabric.strategy=ddp", "fabric.devices=1", "fabric.mesh.dp=1",
+            "fabric.mesh.fsdp=1", "fabric.mesh.tp=1", "fabric.shard_optimizer_state=True"])
+    out = leg_summary(parsed, counts, seconds, peak, LEARNING_STARTS, window_from=MESH_WARM)
+    s = torch.load(checkpoints(parsed["log_dir"])[-1], map_location="cpu", weights_only=False)
+    ledger_s = {k: s[k] for k in ("policy_step", "ratio", "last_checkpoint")} | {"grad_steps": s["opt_states"]["step"]}
+    worst, names = state_diff(torch, twin, s)
+    if ledger_s != twin_ledger or names:
+        raise AssertionError(f"mesh_dv3_sharded and mesh_dv3 differ: ledgers {ledger_s} / {twin_ledger}, state "
+                             f"{names[:8]} (max |diff| {worst})")
+    with open(os.path.join(parsed["log_dir"], "telemetry.jsonl")) as f:
+        stream = [json.loads(line) for line in f if line.strip()]
+    events = [r for r in stream if r.get("event") == "sharding"]
+    n_params = sum(len(s[k]) for k in ("wm", "actor", "critic", "target_critic"))
+    n_trained = sum(len(s["opt_states"][k]["state"]) for k in ("wm", "actor", "critic"))
+    leaves = {g: [r for r in events if r["action"] == "leaf" and r["group"] == g] for g in ("params", "opt_state")}
+    summaries = {r["group"]: r for r in events if r["action"] == "summary"}
+    want = {"params": n_params, "opt_state": 1 + 3 + 2 * n_trained}  # the EMA step, three counts, mu and nu
+    got = {g: len(v) for g, v in leaves.items()}
+    sharded = [r["path"] for v in leaves.values() for r in v if r["spec"] != "replicated"]
+    if got != want or sharded or set(summaries) != {"params", "opt_state"} or any(
+            r["bytes_per_chip"] != r["total_bytes"] or (r["dp"], r["fsdp"], r["tp"]) != (1, 1, 1)
+            for r in summaries.values()):
+        raise AssertionError(f"mesh_dv3_sharded's sharding events: leaves {got} (want {want}), sharded {sharded[:4]}, "
+                             f"summaries {summaries}")
+    doctor = diag_cli("doctor", [f"run_dir={parsed['log_dir']}", "json=true"])
+    codes = [f["code"] for f in doctor["findings"]]
+    if "replicated_giant" in codes:
+        raise AssertionError(f"doctor on mesh_dv3_sharded: {codes}")
+    out.update({"twin": {"of": "mesh_dv3", "bitwise_equal": True}, "sharding_leaves": got,
+                "sharding_summaries": {g: {k: r[k] for k in ("leaves", "total_bytes", "bytes_per_chip")}
+                                       for g, r in summaries.items()},
+                "doctor_findings": codes})
+    return out
 
 
 TELEMETRY_ARMS = {
@@ -4588,6 +4663,7 @@ def main(argv=None) -> int:
         mesh = phase_mesh(torch, ln_gru)
         shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
         counts["S"]["mesh_dv3"] = mesh["launches"]  # a path of its own: zeroed before the leg, read after
+        counts["S"]["mesh_dv3_sharded"] = mesh["mesh_dv3_sharded"]["launches"]
         counts["XL"]["mesh_p2e_dv3_finetuning"] = mesh["launches_xl"]
         emit("mesh", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **mesh)
     except Exception as err:  # noqa: BLE001

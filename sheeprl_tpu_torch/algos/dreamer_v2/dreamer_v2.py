@@ -632,7 +632,7 @@ def buffer_state(cfg: Config, dist: Any, rb: Any, algo_state: Callable[[], Dict[
     def state() -> Dict[str, Any]:
         s = algo_state()
         if cfg.buffer.checkpoint:
-            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
+            s["rb"] = gather_env_blocks(dist.data_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}]))
         return s
 
     return state

@@ -62,7 +62,8 @@ from ...ops import lambda_values as lambda_values_op
 from ...ops import ln_gru
 from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
-from ...parallel.mesh import collective_fields, local_cfg, rank_resume, ranks_state, run_log_dir
+from ...parallel.mesh import (collective_fields, emit_sharding_reports, local_cfg, maybe_shard_opt_state,
+                               maybe_shard_params, rank_resume, ranks_state, run_log_dir)
 from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
@@ -166,7 +167,7 @@ def draw_train_noise(cfg: Config, T: int, B: int, actions_dim, is_continuous: bo
 def _apply_grads(opt: Clipped, grads: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
     """Step ``opt``; a parameter without a gradient gets zeros, so Adam's
     moments decay for it exactly as optax updates every leaf."""
-    params = opt.params
+    params = opt.grad_params
     if grads is not None:
         for p, g in zip(params, grads):
             p.grad = g
@@ -408,7 +409,7 @@ def make_behaviour_step(wm: WorldModel, cfg: Config, apply, is_continuous: bool,
             entropy = ent_coef * sum(d.entropy() for d in dists)[..., None]
             policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
             # the optimizer holds the master parameters, not the cast copies
-            grads = torch.autograd.grad(policy_loss, actor_opt.params, allow_unused=True)
+            grads = torch.autograd.grad(policy_loss, actor_opt.grad_params, allow_unused=True)
             _apply_grads(actor_opt, grads)
 
             traj_sg = trajectories.detach()
@@ -456,7 +457,8 @@ def make_train_fn(
     each module's parameters once per phase of the step. With a
     ``Distributed`` (``parallel/mesh.py``) ``batches`` are this rank's
     columns: Moments take the global batch's quantiles, and the optimizers
-    built with the same ``dist`` average the gradients over the ranks."""
+    built with the same ``dist`` average the gradients over the ranks (and,
+    laid out by ``parallel/layout.py``, step this rank's moment slices)."""
     apply = make_precision_applies(cfg)
     tau = float(cfg.algo.critic.tau)
     target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
@@ -693,11 +695,18 @@ def main(cfg: Config) -> None:
     world_size)``), so every rank runs the same bursts; the overlapped loop
     takes one packet per iteration, so the schedule depends on nothing
     timed. Rank 0 logs the global metrics, checkpoints (the buffer gathered
-    by env block), tests and registers."""
+    by env block), tests and registers. On a mesh with fsdp or tp > 1 (or
+    under ``fabric.shard_optimizer_state``) the rule engine lays out the
+    optimizer states (``maybe_shard_opt_state``; the parameters stay whole,
+    ``maybe_shard_params``); the ranks of a tp group step one env block and
+    train on one batch (their data rank's), and a checkpoint holds every
+    moment whole, gathered by every rank."""
     fleet_on = FleetEngine.configured(cfg)
     precision = check_precision(cfg)
     dist = current_distributed(cfg)
     rank, world = dist.rank, dist.world_size
+    # a tp group's ranks share their data rank: its env block, its seeds, its batch
+    drank = dist.data_rank
     device = dist.device
     seed = int(cfg.seed)
     log_dir = run_log_dir(cfg, dist)
@@ -709,15 +718,15 @@ def main(cfg: Config) -> None:
     state = None
     if cfg.checkpoint.resume_from:
         state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
-    saved_gens = rank_resume(state, dist)
+    saved_gens = rank_resume(state, dist, any_world=True)
     torch.manual_seed(seed)
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed + rank)
+    generator.manual_seed(seed + drank)
     # this rank's env block: env.num_envs of them at world size 1
     lcfg = local_cfg(cfg, dist)
 
     # under the fleet the worker processes own the envs: the spaces alone here
-    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(lcfg, seed, rank, restart_handled_by_loop=True)
+    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(lcfg, seed, drank, restart_handled_by_loop=True)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -741,20 +750,25 @@ def main(cfg: Config) -> None:
             getattr(optimizers, name).optimizer.load_state_dict(state["opt_states"][name])
         optimizers.step = int(state["opt_states"]["step"])
         moments = MomentsState(state["moments"]["low"], state["moments"]["high"])
-        ratio.load_state_dict(state["ratio"])
-        _set_gen_state(generator, saved_gens["train"], "train")
+        # the ledger counts policy_step / world_size: rescaled to this run's ranks
+        ledger = dict(state["ratio"])
+        if ledger["_prev"] is not None:
+            ledger["_prev"] = ledger["_prev"] * int(state.get("world_size", 1)) / world
+        ratio.load_state_dict(ledger)
+        if saved_gens:
+            _set_gen_state(generator, saved_gens["train"], "train")
 
     seq_len = int(cfg.algo.per_rank_sequence_length)
     buffer_size = int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64)
     memmap = bool(cfg.buffer.memmap)
     rb = EnvIndependentReplayBuffer(
         buffer_size, n_envs=int(lcfg.env.num_envs), obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer,
-        seed=seed + 1024 * rank,
+        seed=seed + 1024 * drank,
         memmap=memmap, memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None,
         memmap_fast_resume=bool(cfg.buffer.memmap_fast_resume),
     )
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(env_block(state["rb"], rank, world))
+        rb.load_state_dict(env_block(state["rb"], drank, dist.data_parallel_size))
     # [G, T, B, ...] replay batches: the device ring where the mirrored
     # buffer fits (buffer.device_cache), else host samples staged one
     # iteration ahead through pinned memory
@@ -762,12 +776,18 @@ def main(cfg: Config) -> None:
         cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len, cnn_keys=cnn_keys,
         row_bytes_hint=estimate_row_bytes(obs_space, act_total),
     )
-    train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim,
-                          dist=dist if dist.collective else None)
     # the player acts with its own copy of {wm, actor} (the train step
     # updates the learner's in place) and its own generator
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed + rank, host=fleet_on)
-    if state:
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed + drank, host=fleet_on)
+    # the mesh's layout (a no-op on a pure-dp mesh): the parameters stay whole,
+    # the optimizer states, fresh or resumed alike, are cut to this rank's slices
+    layout = maybe_shard_params(cfg, dist, {"wm": wm, "actor": actor, "critic": critic,
+                                            "target_critic": target_critic})
+    maybe_shard_opt_state(cfg, dist, layout, {"actor": (optimizers.actor, actor), "critic": (optimizers.critic, critic),
+                                              "wm": (optimizers.wm, wm)}, counters=("step",))
+    train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim,
+                          dist=dist if dist.collective else None)
+    if saved_gens:
         _set_gen_state(player_gen, saved_gens["player"], "player")
     mods0 = mirror.current()
     player_init, player_step = make_player(mods0["wm"], mods0["actor"], cfg, actions_dim, is_continuous,
@@ -775,6 +795,7 @@ def main(cfg: Config) -> None:
 
     logger = get_logger(cfg, log_dir, rank)
     telem = Telemetry.setup(cfg, log_dir, rank, logger=logger, aggregator_keys=AGGREGATOR_KEYS, device=device)
+    emit_sharding_reports(telem, dist)
     aggregator = telem.aggregator
     ckpt = CheckpointManager(log_dir, keep_last=cfg.checkpoint.keep_last, enabled=rank == 0)
     guard = RunGuard.setup(cfg, ckpt, log_dir, telem=telem, dist=dist)
@@ -818,9 +839,9 @@ def main(cfg: Config) -> None:
             "critic": critic.state_dict(),
             "target_critic": target_critic.state_dict(),
             "opt_states": {
-                "wm": optimizers.wm.optimizer.state_dict(),
-                "actor": optimizers.actor.optimizer.state_dict(),
-                "critic": optimizers.critic.optimizer.state_dict(),
+                "wm": layout.full_opt_state(optimizers.wm),
+                "actor": layout.full_opt_state(optimizers.actor),
+                "critic": layout.full_opt_state(optimizers.critic),
                 "step": optimizers.step,
             },
             "moments": {"low": moments.low, "high": moments.high},
@@ -835,7 +856,7 @@ def main(cfg: Config) -> None:
         }
         s.update(ranks_state(dist, s["generators"]))
         if cfg.buffer.checkpoint:  # by env block, gathered to rank 0 on N ranks
-            s["rb"] = gather_env_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}])
+            s["rb"] = gather_env_blocks(dist.data_blocks(dist.gather_object(rb.checkpoint_state_dict()) or [{}]))
         return s
 
     def burst(g: int) -> None:

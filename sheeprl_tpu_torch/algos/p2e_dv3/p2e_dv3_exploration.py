@@ -49,7 +49,9 @@ from ...fleet.engine import refuse_fleet
 from ...models import apply_ensembles
 from ...optim import Clipped, clipped
 from ...data.buffers import env_block
-from ...parallel.mesh import collective, local_cfg
+from ...parallel.layout import ParamLayout
+from ...parallel.mesh import collective, emit_sharding_reports, local_cfg, maybe_shard_opt_state
+from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...utils.env import single_env, vectorize
 from ...utils.logger import get_logger
@@ -120,11 +122,28 @@ class P2EOptimizers:
         self.names = tuple(optimizers)
         self.step = 0
 
+    layout: Any = None  # the mesh's ParamLayout, once the states are laid out
+
     def state_dict(self) -> Dict[str, Any]:
+        """Every state whole (a collective under a sharded layout)."""
         def sd(o):
-            return {k: sd(v) for k, v in o.items()} if isinstance(o, dict) else o.optimizer.state_dict()
+            if isinstance(o, dict):
+                return {k: sd(v) for k, v in o.items()}
+            return self.layout.full_opt_state(o) if self.layout is not None else o.optimizer.state_dict()
 
         return {**{k: sd(getattr(self, k)) for k in self.names}, "step": self.step}
+
+    def by_module(self, mods: Dict[str, nn.Module]) -> Dict[str, Any]:
+        """``{name: (optimizer, module)}``, named as the JAX package's
+        optimizer-state tree (an exploration critic's ``critics_exploration/<k>``)."""
+        out = {}
+        for k in self.names:
+            o = getattr(self, k)
+            if isinstance(o, dict):
+                out.update({f"{k}/{c}": (v, mods[k][c]["critic"]) for c, v in o.items()})
+            else:
+                out[k] = (o, mods[k])
+        return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         def load(o, s):
@@ -269,8 +288,9 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     precision = check_precision(cfg)
     dist, device, seed, log_dir, state = start_ranks(cfg, algo)
     rank = dist.rank
+    drank = dist.data_rank  # a tp group's ranks share their data rank: its env block, seeds and batch
     lcfg = local_cfg(cfg, dist)  # this rank's env block
-    envs = vectorize(lcfg, seed, rank, restart_handled_by_loop=True)
+    envs = vectorize(lcfg, seed, drank, restart_handled_by_loop=True)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     is_continuous = isinstance(action_space, spaces.Box)
     actions_dim = _actions_dim(action_space)
@@ -283,14 +303,14 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     memmap = bool(cfg.buffer.memmap)
     rb = EnvIndependentReplayBuffer(
         int(cfg.buffer.size) if not cfg.dry_run else max(4 * seq_len, 64), n_envs=num_envs, obs_keys=obs_keys,
-        buffer_cls=SequentialReplayBuffer, seed=seed + 1024 * rank, memmap=memmap,
+        buffer_cls=SequentialReplayBuffer, seed=seed + 1024 * drank, memmap=memmap,
         memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}") if memmap else None,
         memmap_fast_resume=bool(cfg.buffer.memmap_fast_resume),
     )
     if state and cfg.buffer.checkpoint and "rb" in state:
-        rb.load_state_dict(env_block(state["rb"], rank, dist.world_size))
+        rb.load_state_dict(env_block(state["rb"], drank, dist.data_parallel_size))
     elif state is None and parts.rb_state is not None:
-        rb.load_state_dict(env_block(parts.rb_state, rank, dist.world_size))
+        rb.load_state_dict(env_block(parts.rb_state, drank, dist.data_parallel_size))
     prefetch = make_sequential_prefetcher(cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len,
                                           cnn_keys=cnn_keys,
                                           row_bytes_hint=estimate_row_bytes(obs_space, int(sum(actions_dim))))
@@ -299,12 +319,13 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     wm = parts.named["wm"]
     acting = [parts.player_actor(p_step0 >= learning_starts)]
     train_gen = torch.Generator(device=device)
-    train_gen.manual_seed(seed + rank)
-    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed + rank)
+    train_gen.manual_seed(seed + drank)
+    mirror, _, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": acting[0]}, seed + drank)
     logger = get_logger(cfg, log_dir, rank)
     loop = OffPolicyLoop(cfg, algo, device=device, log_dir=log_dir, state=state, envs=envs, mirror=mirror,
                          player_gen=player_gen, train_gen=train_gen, logger=logger, params=parts.named,
                          aggregator_keys=parts.aggregator_keys, dry_run_steps=4)
+    emit_sharding_reports(loop.telem, dist)
     if parts.player_actor(False) is not parts.player_actor(True) and rank == 0:  # a phase that switches actors
         kind = "task" if acting[0] is parts.task_actor else "exploration"
         print(f"[{algo}] the player acts with the {kind} actor from policy step {loop.p_step}", flush=True)
@@ -352,6 +373,11 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
             m.load_state_dict(state[k])
         optimizers.load_state_dict(state["opt_states"])
         moments["now"] = load_moments(state["moments"])
+    # the optimizer states' layout on the mesh (the parameters stay whole on
+    # every rank, as the JAX package leaves them), fresh or resumed alike
+    layout = ParamLayout(current_distributed(cfg), mods)
+    maybe_shard_opt_state(cfg, current_distributed(cfg), layout, optimizers.by_module(mods), counters=("step",))
+    optimizers.layout = layout
     train_fn = make_train_fn(mods, optimizers, cfg, is_continuous, actions_dim, dist=collective(cfg))
 
     def train(batches, generator):

@@ -24,7 +24,8 @@ import json
 from typing import Any, Dict
 
 from ...config import Config
-from ...parallel.mesh import collective
+from ...parallel.layout import ParamLayout
+from ...parallel.mesh import collective, maybe_shard_opt_state
 from ...parallel.mesh import current as current_distributed
 from ...utils.checkpoint import CheckpointManager, param_sums
 from ...utils.model_manager import registry_names
@@ -81,6 +82,12 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
                 flush=True)
         if cfg.buffer.select("load_from_exploration") and "rb" in explo:
             rb_state = explo["rb"]
+    # the optimizer states' layout on the mesh (the parameters stay whole on
+    # every rank, as the JAX package leaves them), fresh or resumed alike
+    layout = ParamLayout(current_distributed(cfg), named)
+    maybe_shard_opt_state(cfg, current_distributed(cfg), layout, {"actor": (optimizers.actor, actor),
+                                                                  "critic": (optimizers.critic, critic),
+                                                                  "wm": (optimizers.wm, wm)}, counters=("step",))
     train_fn = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim, dist)
     current = {"moments": moments}
 
@@ -91,7 +98,7 @@ def _setup(cfg: Config, device, precision, obs_space, actions_dim, is_continuous
     def algo_state() -> Dict[str, Any]:
         m = current["moments"]
         return {**{k: v.state_dict() for k, v in named.items()},
-                "opt_states": {**{k: getattr(optimizers, k).optimizer.state_dict() for k in ("wm", "actor", "critic")},
+                "opt_states": {**{k: layout.full_opt_state(getattr(optimizers, k)) for k in ("wm", "actor", "critic")},
                                "step": optimizers.step},
                 "moments": {"low": m.low, "high": m.high}}
 

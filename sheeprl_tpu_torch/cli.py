@@ -68,10 +68,12 @@ def _register() -> None:
         importlib.import_module(mod)
 
 
-def resume_from_checkpoint(cfg: Config) -> Config:
+def resume_from_checkpoint(cfg: Config, overrides: Sequence[str] = ()) -> Config:
     """Merge the old run's saved config under the new one, keeping the keys
     a resume may change (``algo.total_steps``, ``algo.learning_starts``,
-    ``root_dir``, ``run_name``, ``checkpoint.resume_from``) as given."""
+    ``root_dir``, ``run_name``, ``checkpoint.resume_from``) as given, and
+    the ``fabric.*`` keys among the command line's ``overrides``: a
+    resume may run on another mesh (DreamerV3 at another world size too)."""
     ckpt_path = pathlib.Path(cfg.checkpoint.resume_from)
     old_cfg_path = ckpt_path.parent.parent / "config.yaml"
     if not old_cfg_path.is_file():
@@ -99,17 +101,28 @@ def resume_from_checkpoint(cfg: Config) -> Config:
     for path, value in protected.items():
         if value is not None:
             merged.set_path(path, value)
+    _apply_cli_overrides(merged, [ov for ov in overrides if ov.startswith("fabric.")])
     return merged
+
+
+# the entry points that lay their parameters and optimizer states out over
+# the mesh (maybe_shard_params / maybe_shard_opt_state), as the JAX package's do
+SHARDED_ALGOS = ("dreamer_v3", "p2e_dv3_exploration", "p2e_dv3_finetuning")
 
 
 def check_configs(cfg: Config) -> None:
     """The config checks before a run: an algorithm is selected and
-    registered; the mesh (``parallel/mesh.py``) takes the config
-    (``fsdp``/``tp`` > 1, ZeRO-1, more nodes or more devices than visible
-    raise); a decoupled algorithm has its player and its trainer:
-    at ``fabric.devices >= 2``, as in the JAX package, or on one card with
-    the player on the host (``algo.player.device=host``), where the JAX
-    package's player would act anyway."""
+    registered; the mesh (``parallel/mesh.py``) takes the config (a shape
+    that does not multiply out, more devices than visible, raise); a
+    decoupled algorithm has its player and its trainer: at
+    ``fabric.devices >= 2``, as in the JAX package, or on one card with the
+    player on the host (``algo.player.device=host``), where the JAX
+    package's player would act anyway. DreamerV3 and the P2E-DV3 phases
+    take any mesh, ZeRO-1 and more nodes; every other entry point runs on
+    ``dp × fsdp`` as data parallelism with its parameters whole on every
+    rank, as the JAX package runs it there, and refuses ``tp > 1`` and
+    ``fabric.shard_optimizer_state`` (it lays out no parameter or optimizer
+    state)."""
     _register()
     algo_name = cfg.select("algo.name")
     if algo_name is None:
@@ -126,7 +139,12 @@ def check_configs(cfg: Config) -> None:
                                "trainer device (fabric.devices >= 2)")
     from .parallel.mesh import build_distributed
 
-    build_distributed(cfg)
+    dist = build_distributed(cfg)
+    if algo_name not in SHARDED_ALGOS and (dist.tp > 1 or dist.shard_optimizer_state):
+        what = f"fabric.mesh.tp={dist.tp}" if dist.tp > 1 else "fabric.shard_optimizer_state=True"
+        raise NotImplementedError(f"{what}: '{algo_name}' lays out no parameter or optimizer state over the mesh "
+                                  f"(the entry points that do: {', '.join(SHARDED_ALGOS)}); it runs on dp × fsdp "
+                                  "ranks as data parallelism")
 
 
 def exploration_surgery(cfg: Config) -> Config:
@@ -193,7 +211,7 @@ def run(args: Optional[Sequence[str]] = None) -> None:
     argv = list(args if args is not None else sys.argv[1:])
     cfg = compose("config", argv)
     if cfg.select("checkpoint.resume_from"):
-        cfg = resume_from_checkpoint(cfg)
+        cfg = resume_from_checkpoint(cfg, argv)
     check_configs(cfg)
     run_algorithm(cfg)
 

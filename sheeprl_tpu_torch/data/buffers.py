@@ -673,7 +673,8 @@ def env_block(state: Dict[str, Any], rank: int, world_size: int) -> Dict[str, An
         return state
     if "episodes" in state:
         raise NotImplementedError(f"an episode buffer written on one rank cannot be split over {world_size} ranks")
-    rng = state["rank_rngs"][rank] if "rank_rngs" in state else None
+    rngs = state.get("rank_rngs")
+    rng = rngs[rank] if rngs is not None and len(rngs) == world_size else None  # else the buffer's own seed
     if "buffers" in state:
         epd = len(state["buffers"]) // world_size
         return {"buffers": state["buffers"][rank * epd:(rank + 1) * epd], "rng": rng}

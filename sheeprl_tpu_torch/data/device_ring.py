@@ -27,7 +27,9 @@ batches with the host buffer's own index draw (``ReplayBuffer.sample_indices``).
 The host buffer stays the source of truth for checkpoints and restarts: an
 in-place edit (``mark_restart`` rewrites a row's flags) reaches the ring
 through ``mark_dirty``, and ``resync()`` rebuilds it after a checkpoint load.
-The scatter and the gather are PyTorch indexing ops.
+The scatter and the gather are PyTorch indexing ops. On a multi-axis mesh
+(fsdp or tp > 1) the sequential feed stays host-staged, with the JAX
+package's message (``_pure_dp_or_staged``).
 """
 from __future__ import annotations
 
@@ -338,6 +340,23 @@ def _use_ring(cfg: Any, device: torch.device, row_bytes_hint: Optional[int], rb_
     return torch.device(device).type != "cpu" and (row_bytes_hint or 0) * rb_rows <= cap
 
 
+def _pure_dp_or_staged(cfg: Any) -> bool:
+    """Whether the run's mesh takes the ring: a multi-axis mesh (fsdp or tp >
+    1) stays host-staged, as the JAX package's sharded ring does (its
+    message; under a forced ``buffer.device_cache=true`` it raises)."""
+    from ..parallel.mesh import active
+
+    dist = active()
+    if dist is None or dist.is_pure_dp:
+        return True
+    msg = (f"sharded device ring is pure-dp only (mesh is dp={dist.dp} fsdp={dist.fsdp} tp={dist.tp}); "
+           "multi-axis meshes stay host-staged")
+    if _ring_mode(cfg) == "true":
+        raise ValueError(msg)
+    print(f"[device_ring] {msg}; falling back to host-staged batches", file=sys.stderr)
+    return False
+
+
 def estimate_row_bytes(obs_space: Any, act_dim: int) -> int:
     """Bytes one (time, env) replay row takes in the ring: the observations
     at their stored dtypes (images stay uint8), the action, and the four f32
@@ -364,7 +383,7 @@ def make_sequential_prefetcher(cfg: Any, device: torch.device, rb: EnvIndependen
         s = rb.sample(batch_size, sequence_length=sequence_length, n_samples=g, out=out)
         return {k: v if k in cnn_keys else np.asarray(v, np.float32) for k, v in s.items()}
 
-    if not episodic and _use_ring(cfg, device, row_bytes_hint, rows):
+    if not episodic and _use_ring(cfg, device, row_bytes_hint, rows) and _pure_dp_or_staged(cfg):
         pf = DeviceRingPrefetcher(rb, batch_size, sequence_length, cnn_keys=cnn_keys, device=device)
     else:
         pf = StagedPrefetcher(host_sample, device)

@@ -24,6 +24,11 @@ Record shape (telemetry/schema.py ``capture``):
 * ``trace_id`` — the distributed-tracing id of the gateway request
   that produced this step: every ingested sample joins back to its gateway
   request (and its per-stage latency breakdown in the trace report).
+* ``attempt`` — set on a gateway retry (1, 2, …). A replica killed between
+  writing a record and sending its answer leaves a record of a step the
+  gateway never acked; the gateway replays that step on another replica
+  under the same ``trace_id`` and a higher attempt, and
+  ``ingest.iter_capture_records`` keeps only a trace's highest attempt.
 * ``params_version`` — which policy produced the action: the staleness axis
   the fine-tune recipe's ``max_version_lag`` filters on.
 * ``obs`` / ``actions`` / ``reward`` / ``done`` — the sample itself.
@@ -130,6 +135,7 @@ class CaptureWriter:
         deterministic: bool = False,
         reward: Optional[float] = None,
         done: Optional[bool] = None,
+        attempt: Optional[int] = None,
     ) -> bool:
         """Capture one served step; returns True when a record was written.
         Sessionless requests are never captured (no trajectory to join);
@@ -156,6 +162,8 @@ class CaptureWriter:
         }
         if trace_id:
             rec["trace_id"] = str(trace_id)
+        if attempt:
+            rec["attempt"] = int(attempt)
         # client-reported fields: coerce defensively — a malformed reward
         # must cost the sample its reward, not the act request a 500
         if reward is not None:

@@ -141,19 +141,51 @@ def discover_capture_streams(capture_root: Any) -> List[pathlib.Path]:
     return out
 
 
+def _latest_attempts(streams: List[pathlib.Path]) -> Dict[str, int]:
+    """Trace id → its highest gateway retry ``attempt``, from the records
+    that carry one (only lines naming the key are parsed)."""
+    latest: Dict[str, int] = {}
+    for stream in streams:
+        for segment in rotated_segments(stream):
+            try:
+                with open(segment) as fh:
+                    for line in fh:
+                        if '"attempt"' not in line:
+                            continue
+                        try:
+                            rec = json.loads(line)
+                        except ValueError:
+                            continue  # a torn line: the main pass reports it
+                        trace = rec.get("trace_id")
+                        if rec.get("event") == "capture" and trace:
+                            latest[trace] = max(latest.get(trace, 0), int(rec.get("attempt") or 0))
+            except OSError:
+                continue
+    return latest
+
+
 def iter_capture_records(
     capture_root: Any, errors: Optional[List[str]] = None
 ) -> Iterator[Dict[str, Any]]:
     """Yield every ``capture`` record under the root, stream by stream,
     oldest segment first within each stream. Rotate markers and any other
-    event types are skipped; unparseable (torn) lines land in ``errors``."""
-    for stream in discover_capture_streams(capture_root):
+    event types are skipped; unparseable (torn) lines land in ``errors``.
+
+    A record whose trace has a record of a later gateway ``attempt`` is
+    skipped: the gateway retries an act only after the attempt before it
+    got no answer, and acks at most the last one, so the earlier record is
+    a step that a replica captured and died before answering."""
+    streams = discover_capture_streams(capture_root)
+    latest = _latest_attempts(streams)
+    for stream in streams:
         for rec in iter_events(stream, errors=errors):
             if rec.get("event") != "capture":
                 continue
             if rec.get("session_id") is None or rec.get("step") is None:
                 if errors is not None:
                     errors.append(f"{stream}: capture record missing session_id/step")
+                continue
+            if int(rec.get("attempt") or 0) < latest.get(rec.get("trace_id") or "", 0):
                 continue
             yield rec
 

@@ -536,6 +536,11 @@ class Gateway:
                 body["session_id"] = sid
                 body["request_id"] = request_id
                 body["return_state"] = True
+                if attempt:
+                    # a retry: an earlier attempt may have stepped and been
+                    # captured on a replica that died before answering; the
+                    # capture reader keeps only the trace's latest attempt
+                    body["attempt"] = attempt
                 if needs_state or force_state:
                     try:
                         # ask for the state AT the last acked version: the

@@ -180,21 +180,37 @@ class Clipped:
     Given a ``Distributed`` (``parallel/mesh.py``) with a process group, the
     step first averages the gradients over the ranks in one flattened
     all-reduce, so the clipping sees the averaged gradient, as optax clips
-    the gradient XLA already averaged."""
+    the gradient XLA already averaged. Under a ``ParamLayout``
+    (``parallel/layout.py``, set by ``shard_opt_state``) the optimizer owns
+    this rank's slices and the layout takes the step: the clipping norm is
+    the whole averaged gradient's, whatever the slices."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None):
         self.optimizer = optimizer
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm and max_grad_norm > 0 else None
         self.dist = dist
+        self.layout: Any = None
 
     @property
     def params(self) -> List[torch.nn.Parameter]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
+    @property
+    def grad_params(self) -> List[torch.nn.Parameter]:
+        """The tensors the step's graph reads and its gradients land on: the
+        optimizer's parameters, or under a layout the whole parameters its
+        slices are cut from."""
+        return self.layout.compute_params(self) if self.layout is not None else self.params
+
     def zero_grad(self) -> None:
+        if self.layout is not None:
+            self.layout.zero_grad(self)
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        if self.layout is not None:
+            self.layout.step(self)
+            return
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.dist is not None:
             self.dist.all_reduce_mean(grads)

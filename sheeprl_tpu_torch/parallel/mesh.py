@@ -1,37 +1,55 @@
-"""Data parallelism on ``torch.distributed`` (counterpart of
-``sheeprl_tpu/parallel/mesh.py``'s ``Distributed`` and ``build_distributed``
-at ``(dp=N, fsdp=1, tp=1)``).
+"""The device mesh on ``torch.distributed`` (counterpart of
+``sheeprl_tpu/parallel/mesh.py``'s ``Distributed``, ``build_distributed``,
+``maybe_shard_params`` and ``maybe_shard_opt_state``).
 
 The JAX package is single-controller: one process steps ``env.num_envs``
-envs, samples a global batch of ``per_rank_batch_size × world_size`` and
-shards it along the batch axis, and XLA averages the gradients inside the
-jitted step. The port runs one process per device instead, as the JAX
-package lays out a multi-host run, and keeps the config's meaning:
+envs, samples a global batch of ``per_rank_batch_size × dp·fsdp`` and shards
+it along the batch axis, and XLA averages the gradients inside the jitted
+step. The port runs one process per device instead, as the JAX package lays
+out a multi-host run, and keeps the config's meaning:
 
 * ``launch(fn, cfg)`` runs ``fn(cfg)`` on ``fabric.devices`` ranks: in this
   process at world size 1, else in that many processes started with the
-  ``spawn`` method. Each rank gets a device (``cuda:<rank>`` on the card,
-  the CPU under ``fabric.accelerator=cpu``) and a process group (NCCL on the
-  card, gloo on the CPU) with a timeout, so a collective that one rank never
-  reaches fails the run instead of hanging it. At world size 1 a group is
-  made only under ``fabric.strategy=ddp`` (Lightning Fabric's meaning: the
-  collective path on one device); under ``auto`` there is none, and every
-  collective is the identity, as a one-device JAX mesh emits no psum;
-* rank ``d`` steps env block ``d`` (``local_envs``) and samples its
-  ``batch / world_size`` columns from its own block;
-* ``all_reduce_mean`` averages a list of tensors in one flattened
-  all-reduce (the gradients of one optimizer step); ``all_gather``
-  concatenates along the leading axis (DreamerV3's Moments take quantiles
-  of the global batch); ``broadcast``, ``scatter`` and the ``*_object``
-  collectives carry what is not a tensor on the card (rollouts, buffer
-  states, the log directory) over a gloo group;
+  ``spawn`` method. Each rank gets a device (``cuda:<local rank>`` on the
+  card, the CPU under ``fabric.accelerator=cpu``) and a process group (NCCL
+  on the card, gloo on the CPU) with a timeout, so a collective that one
+  rank never reaches fails the run instead of hanging it. At world size 1 a
+  group is made only under ``fabric.strategy=ddp`` (Lightning Fabric's
+  meaning: the collective path on one device); under ``auto`` there is
+  none, and every collective is the identity, as a one-device JAX mesh
+  emits no psum. With ``fabric.num_nodes > 1`` each node runs ``launch``
+  once: its rank in the nodes (``GROUP_RANK``, or ``NODE_RANK``), the
+  rendezvous address (``MASTER_ADDR``, ``MASTER_PORT``) and the world size
+  (``WORLD_SIZE``, which must be ``num_nodes × devices``) come from the
+  environment variables ``torchrun`` sets, and global rank = node rank ×
+  devices + local rank (under ``torchrun`` itself, which started this
+  process as ``LOCAL_RANK``, the launch runs that one rank here);
+* the group's ``DeviceMesh`` (``init_device_mesh`` over ``("dp", "fsdp",
+  "tp")``, ranks laid out row-major) and the ``SpecEngine`` of
+  ``parallel/sharding.py``. The parameters stay whole on every rank
+  (``maybe_shard_params`` records a ``params`` report that says so); the
+  engine lays out the optimizer states (``shard_opt_state``,
+  ``parallel/layout.py``): each moment follows its parameter's spec, a
+  replicated one falls back to ZeRO-1. Each report becomes ``sharding``
+  telemetry events (``take_sharding_reports``). Both are no-ops on a
+  pure-dp mesh unless ``fabric.shard_optimizer_state`` asks for ZeRO-1
+  over dp, as in the JAX package;
+* the data ranks are the dp × fsdp coordinates (``data_rank``,
+  ``data_parallel_size``); the ranks of a tp group share one: rank ``d``'s
+  data block ``d // tp`` steps env block ``d // tp`` (``local_envs``) and
+  trains on its ``batch / (dp·fsdp)`` columns;
+* ``all_reduce_mean`` averages a list of tensors over the data ranks in one
+  flattened all-reduce (the gradients of one optimizer step); ``all_gather``
+  concatenates the data ranks' tensors along the leading axis (DreamerV3's
+  Moments take quantiles of the global batch); ``broadcast``, ``scatter``
+  and the ``*_object`` collectives carry what is not a tensor on the card
+  (rollouts, buffer states, the log directory) over a gloo group;
 * every collective that runs counts its calls and bytes in ``stats``.
 
 ``running()`` makes the group, makes this ``Distributed`` the one the loops
 read (``current``) and saves the generators' states; when the run ends, in
-any way, it destroys the group and restores both. ``fsdp``/``tp`` > 1,
-``fabric.shard_optimizer_state`` and ``num_nodes > 1`` raise, naming the
-ROADMAP item that will take them.
+any way, it destroys the group and restores both. A mesh that asks for more
+devices than the node has raises.
 """
 from __future__ import annotations
 
@@ -48,42 +66,16 @@ import numpy as np
 import torch
 
 from .precision import Precision, get_precision
+from .sharding import (DEFAULT_MIN_SHARD_SIZE, MESH_AXES, Leaf, ShardingReport, SpecEngine, adam_leaves,
+                       adam_prefix, infer_tree_specs, module_leaves, resolve_mesh_shape)
 
-MESH_AXES = ("dp", "fsdp", "tp")
-# what the refusals name (ROADMAP.md, Queue 1)
-WAITS_FOR_SHARDING = "ROADMAP Queue 1 item 4 (the mesh's FSDP2 and tensor parallelism)"
 # the JAX package's rule for the actor fleet in more than one process
 # (sheeprl_tpu/fleet/engine.py): the port's ranks are processes
 FLEET_DISABLED = ("[fleet] actor fleet disabled: the fleet is a single-controller layout (multi-host runs keep "
                   "their per-process env loops)")
 DEFAULT_TIMEOUT_S = 600.0
-DEFAULT_MIN_SHARD_SIZE = 2**14
 
 _ACTIVE: Optional["Distributed"] = None
-
-
-def resolve_mesh_shape(n_devices: int, dp: int = -1, fsdp: int = 1, tp: int = 1) -> Tuple[int, int, int]:
-    """``fabric.mesh.{dp,fsdp,tp}`` as a concrete ``(dp, fsdp, tp)`` whose
-    product is ``n_devices``; at most one axis may be -1 (auto-fill). The
-    JAX package's ``resolve_mesh_shape``, with its messages."""
-    sizes = {"dp": int(dp), "fsdp": int(fsdp), "tp": int(tp)}
-    autos = [name for name, s in sizes.items() if s == -1]
-    if len(autos) > 1:
-        raise ValueError(f"fabric.mesh: at most one axis may be -1, got {sizes}")
-    for name, s in sizes.items():
-        if s != -1 and s < 1:
-            raise ValueError(f"fabric.mesh.{name} must be >= 1 or -1, got {s}")
-    if autos:
-        fixed = int(np.prod([s for name, s in sizes.items() if name != autos[0]]))
-        if n_devices % fixed:
-            raise ValueError(f"fabric.mesh: {n_devices} devices not divisible by the fixed axes "
-                             f"{ {k: v for k, v in sizes.items() if k != autos[0]} }")
-        sizes[autos[0]] = n_devices // fixed
-    prod = sizes["dp"] * sizes["fsdp"] * sizes["tp"]
-    if prod != n_devices:
-        raise ValueError(f"fabric.mesh: dp*fsdp*tp = {prod} but the mesh has {n_devices} devices ({sizes}); "
-                         "set one axis to -1 to auto-fill")
-    return sizes["dp"], sizes["fsdp"], sizes["tp"]
 
 
 def _platform(accelerator: str) -> str:
@@ -108,7 +100,7 @@ def _get(node: Any, key: str, default: Any) -> Any:
 
 
 class Distributed:
-    """The rank's view of a ``(dp=N, fsdp=1, tp=1)`` mesh on
+    """The rank's view of the ``(dp, fsdp, tp)`` mesh on
     ``torch.distributed``, threaded through the training loops."""
 
     def __init__(self, devices: Any = 1, accelerator: str = "auto", precision: str = "32-true", num_nodes: int = 1,
@@ -118,36 +110,35 @@ class Distributed:
         if strategy not in ("auto", "ddp", "dp"):
             raise ValueError(f"Unsupported fabric.strategy '{strategy}': data parallelism is expressed by the "
                              "device mesh; use fabric.devices to scale")
-        if int(num_nodes) > 1:
-            raise NotImplementedError(f"fabric.num_nodes={num_nodes}: the PyTorch port runs on one host; more "
-                                      f"nodes wait for {WAITS_FOR_SHARDING}")
         self.platform = _platform(accelerator)
         available = torch.cuda.device_count() if self.platform == "cuda" else (os.cpu_count() or 1)
-        n = available if devices in ("auto", -1, "-1", None) else int(devices)
-        if n < 1:
+        per_node = available if devices in ("auto", -1, "-1", None) else int(devices)
+        if per_node < 1:
             raise ValueError(f"fabric.devices must be >= 1, got {devices}")
-        if n > available:
-            raise RuntimeError(f"Requested {n} devices but only {available} available ({self.platform})")
+        if per_node > available:
+            raise RuntimeError(f"Requested {per_node} devices but only {available} available ({self.platform})")
+        if int(num_nodes) < 1:
+            raise ValueError(f"fabric.num_nodes must be >= 1, got {num_nodes}")
+        n = per_node * int(num_nodes)
         dp, fsdp, tp = resolve_mesh_shape(n, dp=int(_get(mesh, "dp", -1)), fsdp=int(_get(mesh, "fsdp", 1)),
                                           tp=int(_get(mesh, "tp", 1)))
-        if fsdp > 1 or tp > 1:
-            raise NotImplementedError(f"fabric.mesh fsdp={fsdp} tp={tp}: the PyTorch port shards the batch only "
-                                      f"(dp); parameter and tensor sharding wait for {WAITS_FOR_SHARDING}")
-        if bool(shard_optimizer_state):
-            raise NotImplementedError("fabric.shard_optimizer_state=True (ZeRO-1 optimizer sharding) waits for "
-                                      f"{WAITS_FOR_SHARDING}")
         if not 0 <= int(rank) < n:
             raise ValueError(f"rank {rank} outside a world of {n}")
         self.axis_sizes: Dict[str, int] = {"dp": dp, "fsdp": fsdp, "tp": tp}
-        # the JAX package's floor under which a leaf is never sharded: kept for
-        # the FSDP half (ROADMAP Queue 1 item 4), which nothing runs yet
         self.min_shard_size = int(_get(mesh, "min_shard_size", DEFAULT_MIN_SHARD_SIZE))
+        self.spec_engine = SpecEngine(self.axis_sizes, min_shard_size=self.min_shard_size)
+        # reports of maybe_shard_params/shard_opt_state until a loop emits them
+        self.sharding_reports: List[ShardingReport] = []
+        self.shard_optimizer_state = bool(shard_optimizer_state)
         self.strategy = strategy
         self.precision: Precision = get_precision(str(precision))
         self.num_nodes = int(num_nodes)
+        self.devices_per_node = per_node
         self.rank = int(rank)
         self._world = n
         self.group: Any = None  # the default process group, once made
+        self.device_mesh: Any = None  # its DeviceMesh over MESH_AXES
+        self._data: Any = None  # the group of this rank's data ranks (its tp coordinate's), under tp > 1
         self._objects: Any = None  # a gloo group for object collectives under NCCL
         self.backend: Optional[str] = None
         self.stats: Dict[str, int] = {}
@@ -180,6 +171,17 @@ class Distributed:
         return self.fsdp == 1 and self.tp == 1
 
     @property
+    def coordinate(self) -> Tuple[int, int, int]:
+        """This rank's ``(dp, fsdp, tp)`` coordinate (ranks laid out row-major)."""
+        return (self.rank // (self.fsdp * self.tp), (self.rank // self.tp) % self.fsdp, self.rank % self.tp)
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index among the data ranks (dp × fsdp): the ranks of a
+        tp group share it, their batch and their env block."""
+        return self.rank // self.tp
+
+    @property
     def process_index(self) -> int:
         return self.rank
 
@@ -190,7 +192,8 @@ class Distributed:
     @property
     def device(self) -> torch.device:
         if self.platform == "cuda":
-            return torch.device("cuda", self.rank if self._world > 1 else torch.cuda.current_device())
+            local = self.rank % self.devices_per_node
+            return torch.device("cuda", local if self._world > 1 else torch.cuda.current_device())
         return torch.device("cpu")
 
     @property
@@ -205,13 +208,20 @@ class Distributed:
         return self.group is not None
 
     def local_envs(self, num_envs: int) -> Tuple[int, int]:
-        """This rank's env block ``[lo, hi)`` of ``num_envs`` envs (they must
-        divide by the world size)."""
-        if num_envs % self._world:
-            raise ValueError(f"env.num_envs ({num_envs}) must be divisible by the world size ({self._world}): each "
-                             "rank steps an equal env block")
-        epd = num_envs // self._world
-        return self.rank * epd, (self.rank + 1) * epd
+        """This rank's env block ``[lo, hi)`` of ``num_envs`` envs: its data
+        rank's (the envs must divide by the data ranks, dp × fsdp)."""
+        n = self.data_parallel_size
+        if num_envs % n:
+            what = "world size" if n == self._world else "data-parallel size (dp·fsdp)"
+            raise ValueError(f"env.num_envs ({num_envs}) must be divisible by the {what} ({n}): each data rank "
+                             "steps an equal env block")
+        epd = num_envs // n
+        return self.data_rank * epd, (self.data_rank + 1) * epd
+
+    def data_blocks(self, per_rank: Sequence[Any]) -> List[Any]:
+        """Of a list with one entry per rank (``gather_object``'s), those of
+        the data ranks in order: a tp group's ranks hold the same block."""
+        return list(per_rank)[::self.tp]
 
     def seed_everything(self, seed: int) -> int:
         """Seed Python's, numpy's and torch's global generators (``running``
@@ -228,11 +238,33 @@ class Distributed:
         self.backend = "nccl" if self.platform == "cuda" else "gloo"
         if self.platform == "cuda":
             torch.cuda.set_device(self.device)
+        timeout = datetime.timedelta(seconds=float(timeout_s))
         tdist.init_process_group(self.backend, init_method=init_method, world_size=self._world, rank=self.rank,
-                                 timeout=datetime.timedelta(seconds=float(timeout_s)))
+                                 timeout=timeout)
+        self.adopt_group(timeout_s)
+
+    def adopt_group(self, timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+        """Use the process group this process made already (``init_group``,
+        or another library's) as this mesh's: its ``DeviceMesh`` and data
+        groups are made on it. Every rank calls it, in the same order."""
+        import torch.distributed as tdist
+
+        if (tdist.get_world_size(), tdist.get_rank()) != (self._world, self.rank):
+            raise ValueError(f"the process group's rank {tdist.get_rank()} of {tdist.get_world_size()} is not this "
+                             f"mesh's rank {self.rank} of {self._world}")
+        timeout = datetime.timedelta(seconds=float(timeout_s))
+        self.backend = tdist.get_backend()
         self.group = tdist.group.WORLD
         if self.backend == "nccl" and self._world > 1:
-            self._objects = tdist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=float(timeout_s)))
+            self._objects = tdist.new_group(backend="gloo", timeout=timeout)
+        from torch.distributed.device_mesh import init_device_mesh
+
+        self.device_mesh = init_device_mesh(self.platform, (self.dp, self.fsdp, self.tp), mesh_dim_names=MESH_AXES)
+        if self.tp > 1:  # every rank makes every data group, in the same order
+            for t in range(self.tp):
+                g = tdist.new_group(list(range(t, self._world, self.tp)), timeout=timeout)
+                if t == self.rank % self.tp:
+                    self._data = g
 
     def destroy(self) -> None:
         if self.group is None:
@@ -243,7 +275,7 @@ class Distributed:
             if tdist.is_initialized():
                 tdist.destroy_process_group()
         finally:
-            self.group = self._objects = None
+            self.group = self._objects = self._data = self.device_mesh = None
 
     @contextlib.contextmanager
     def running(self, init_method: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S,
@@ -284,14 +316,15 @@ class Distributed:
                       for suffix in ("", "_bytes")}
         self.stats["object"] = 0  # the pickled collectives (rollouts, buffer states, stop flags): calls only
 
-    def _count(self, op: str, nbytes: int = 0) -> None:
+    def count_collective(self, op: str, nbytes: int = 0) -> None:
+        """Count one collective of ``op`` moving ``nbytes``."""
         self.stats[op] += 1
         if op != "object":
             self.stats[f"{op}_bytes"] += int(nbytes)
 
     @torch.no_grad()
     def all_reduce_mean(self, tensors: Sequence[torch.Tensor]) -> None:
-        """In place: each tensor becomes its mean over the ranks, in one
+        """In place: each tensor becomes its mean over the data ranks, in one
         flattened all-reduce (the identity without a group)."""
         tensors = [t for t in tensors if t is not None]
         if self.group is None or not tensors:
@@ -299,9 +332,9 @@ class Distributed:
         import torch.distributed as tdist
 
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        self._count("all_reduce", flat.numel() * flat.element_size())
-        tdist.all_reduce(flat)
-        flat.div_(self._world)
+        self.count_collective("all_reduce", flat.numel() * flat.element_size())
+        tdist.all_reduce(flat, group=self._data)
+        flat.div_(self.data_parallel_size)
         offset = 0
         for t in tensors:
             n = t.numel()
@@ -316,22 +349,24 @@ class Distributed:
         import torch.distributed as tdist
 
         out = tensor.detach().clone()
-        self._count("all_reduce", out.numel() * out.element_size())
+        self.count_collective("all_reduce", out.numel() * out.element_size())
         tdist.all_reduce(out)
         return out
 
     @torch.no_grad()
     def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``tensor`` (same shape on each) concatenated along the
-        leading axis in rank order (``tensor`` itself without a group)."""
+        """Every data rank's ``tensor`` (same shape on each) concatenated
+        along the leading axis in rank order (``tensor`` itself without a
+        group)."""
         if self.group is None:
             return tensor
         import torch.distributed as tdist
 
         t = tensor.detach().contiguous()
-        parts = [torch.empty_like(t) for _ in range(self._world)]
-        self._count("all_gather", t.numel() * t.element_size() * self._world)
-        tdist.all_gather(parts, t)
+        n = self.data_parallel_size
+        parts = [torch.empty_like(t) for _ in range(n)]
+        self.count_collective("all_gather", t.numel() * t.element_size() * n)
+        tdist.all_gather(parts, t, group=self._data)
         return torch.cat(parts)
 
     @torch.no_grad()
@@ -342,7 +377,7 @@ class Distributed:
         import torch.distributed as tdist
 
         for t in tensors:
-            self._count("broadcast", t.numel() * t.element_size())
+            self.count_collective("broadcast", t.numel() * t.element_size())
             tdist.broadcast(t, src)
 
     @torch.no_grad()
@@ -354,7 +389,7 @@ class Distributed:
         import torch.distributed as tdist
 
         out = torch.empty_like(like)
-        self._count("scatter", out.numel() * out.element_size())
+        self.count_collective("scatter", out.numel() * out.element_size())
         if self.backend == "nccl":  # NCCL has no scatter: a broadcast per rank
             for d in range(self._world):
                 buf = chunks[d].contiguous() if self.rank == src else torch.empty_like(like)
@@ -376,7 +411,7 @@ class Distributed:
 
         box = [obj if self.rank == src else None]
         tdist.broadcast_object_list(box, src=src, group=self._object_group())
-        self._count("object")
+        self.count_collective("object")
         return box[0]
 
     def all_gather_object(self, obj: Any) -> List[Any]:
@@ -387,7 +422,7 @@ class Distributed:
 
         out: List[Any] = [None] * self._world
         tdist.all_gather_object(out, obj, group=self._object_group())
-        self._count("object")
+        self.count_collective("object")
         return out
 
     def gather_object(self, obj: Any, dst: int = 0) -> Optional[List[Any]]:
@@ -398,7 +433,7 @@ class Distributed:
 
         out: Optional[List[Any]] = [None] * self._world if self.rank == dst else None
         tdist.gather_object(obj, out, dst=dst, group=self._object_group())
-        self._count("object")
+        self.count_collective("object")
         return out
 
     def reduce_metrics(self, aggregator: Any) -> None:
@@ -408,7 +443,7 @@ class Distributed:
             return
         states = self.gather_object(aggregator.states())
         if states is not None:
-            aggregator.combine(states)
+            aggregator.combine(self.data_blocks(states))
 
     def any(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on any (a stop decision
@@ -416,6 +451,74 @@ class Distributed:
         if self.group is None or self._world == 1:
             return bool(flag)
         return any(self.all_gather_object(bool(flag)))
+
+
+    # -- the layout of the optimizer states ----------------------------------
+    def shard_opt_state(self, layout: Any, optimizers: Dict[str, Any], counters: Sequence[str] = (),
+                        min_size: int = DEFAULT_MIN_SHARD_SIZE) -> Any:
+        """The optimizer-state layout of ``optimizers`` (``{name: (clipped
+        optimizer, module)}``, one Adam each) over ``layout``'s modules:
+        moments follow their parameters' specs, and a replicated parameter's
+        moments take the leading-axis ZeRO-1 layout (over fsdp, or dp on a
+        pure-dp mesh) where it divides and the leaf has ``min_size``
+        elements. ``counters`` name the loop's own step counters of the
+        JAX package's optimizer-state tree (DreamerV3's ``step``). The
+        report is recorded and the optimizers step their slices from here on."""
+        leaves = [Leaf(c, (), 4, ()) for c in counters]
+        for name, (opt, module) in optimizers.items():
+            leaves += adam_leaves(name, module, opt.max_grad_norm is not None)
+        leaves.sort(key=lambda lf: lf.path.split("/"))
+        report = infer_tree_specs(self.spec_engine, leaves, group="opt_state", zero1_fallback=True,
+                                  zero1_min_size=min_size)
+        self.sharding_reports.append(report)
+        if any(not d.replicated for d in report.decisions):
+            self._need_mesh("the optimizer state's")
+            by_path = {d.path: d for d in report.decisions}
+            for name, (opt, module) in optimizers.items():
+                layout.shard_opt_state(opt, module, by_path, f"{name}/{adam_prefix(opt.max_grad_norm is not None)}/mu/")
+        return layout
+
+    def take_sharding_reports(self) -> List[ShardingReport]:
+        """The recorded reports, once (a loop emits them as telemetry)."""
+        out, self.sharding_reports = self.sharding_reports, []
+        return out
+
+    def _need_mesh(self, what: str) -> None:
+        if self.device_mesh is None:
+            raise RuntimeError(f"the {what} sharding of a {self.axis_sizes} mesh needs its process group: launch "
+                               "the run through sheeprl_tpu_torch.cli (run_algorithm) or mesh.launch")
+
+
+def maybe_shard_params(cfg: Any, dist: Optional[Distributed], modules: Dict[str, torch.nn.Module]) -> Any:
+    """The layout of ``modules`` (``ParamLayout``, which the optimizer
+    states are laid out over). The parameters stay whole on every rank: on
+    a multi-axis mesh, or under ZeRO-1, the ``params`` report is recorded
+    with every leaf whole (``layout.kept_whole``)."""
+    from .layout import ParamLayout, kept_whole
+
+    if dist is not None and (not dist.is_pure_dp or dist.shard_optimizer_state):
+        leaves = [lf for lf, *_ in module_leaves(modules)]
+        dist.sharding_reports.append(kept_whole(infer_tree_specs(dist.spec_engine, leaves, group="params")))
+    return ParamLayout(dist, modules)
+
+
+def maybe_shard_opt_state(cfg: Any, dist: Optional[Distributed], layout: Any, optimizers: Dict[str, Any],
+                          counters: Sequence[str] = ()) -> Any:
+    """The optimizer states' layout, applied once to fresh and resumed state
+    alike: on a multi-axis mesh always (moments follow their parameters'
+    specs, replicated ones fall back to ZeRO-1); on a pure-dp mesh only
+    under ``fabric.shard_optimizer_state`` (ZeRO-1 over dp)."""
+    if dist is not None and (not dist.is_pure_dp or dist.shard_optimizer_state):
+        dist.shard_opt_state(layout, optimizers, counters)
+    return layout
+
+
+def emit_sharding_reports(telem: Any, dist: Distributed) -> None:
+    """Every recorded report as ``sharding`` events, once, after the
+    telemetry facade is set up."""
+    for report in dist.take_sharding_reports():
+        for ev in report.events():
+            telem.emit(ev)
 
 
 # -- what a training loop on N ranks needs beside the collectives ------------
@@ -454,16 +557,26 @@ def ranks_state(dist: Distributed, generators: Dict[str, Any]) -> Dict[str, Any]
     return {"world_size": dist.world_size, "rank_generators": dist.all_gather_object(generators)}
 
 
-def rank_resume(state: Optional[Dict[str, Any]], dist: Distributed) -> Optional[Dict[str, Any]]:
-    """This rank's generators of a checkpoint (None for a fresh run). A
-    checkpoint of another world size raises: its env blocks and generators
-    do not map onto these ranks."""
+def rank_resume(state: Optional[Dict[str, Any]], dist: Distributed,
+                any_world: bool = False) -> Optional[Dict[str, Any]]:
+    """This rank's generators of a checkpoint (None for a fresh run). Its
+    mesh may differ from this run's: the parameters and optimizer states it
+    holds whole are laid out anew. A checkpoint of another world size
+    raises, unless ``any_world`` (a loop that re-splits the buffer's env
+    blocks and rescales its Ratio ledger): its generators do not map onto
+    these ranks, so they start from the run's seed, and None is returned."""
     if not state:
         return None
     saved = int(state.get("world_size", 1))
     if saved != dist.world_size:
-        raise NotImplementedError(f"the checkpoint was written on {saved} ranks and this run has "
-                                  f"{dist.world_size}: resuming at another world size is not supported")
+        if not any_world:
+            raise NotImplementedError(f"the checkpoint was written on {saved} ranks and this run has "
+                                      f"{dist.world_size}: resuming at another world size is not supported")
+        if dist.is_global_zero:
+            print(f"[resume] the checkpoint was written on {saved} ranks and this run has {dist.world_size}: the "
+                  "parameters, optimizer states and the buffer's env blocks carry over, the generators start "
+                  "from the seed", flush=True)
+        return None
     return state["rank_generators"][dist.rank] if saved > 1 else state["generators"]
 
 
@@ -522,19 +635,38 @@ def rendezvous(parent: Optional[str] = None) -> Tuple[str, str]:
     return f"file://{os.path.join(own, 'store')}", own
 
 
-def _rank_main(rank: int, fn: Callable[[Any], None], cfg_dict: Dict[str, Any], init_method: str,
-               timeout_s: float) -> None:
-    """A spawned rank: its ``Distributed``, its group, ``fn(cfg)``. On the
-    host the ranks share its cores: each takes its share of them for
-    PyTorch's intra-op threads."""
+def _rank_main(local_rank: int, fn: Callable[[Any], None], cfg_dict: Dict[str, Any], init_method: str,
+               timeout_s: float, first_rank: int = 0) -> None:
+    """A rank: its ``Distributed`` (global rank ``first_rank + local_rank``),
+    its group, ``fn(cfg)``. On the host the node's ranks share its cores:
+    each takes its share of them for PyTorch's intra-op threads, unless
+    ``OMP_NUM_THREADS`` says how many."""
     from ..config import Config
 
     cfg = Config(cfg_dict)
-    dist = build_distributed(cfg, rank=rank)
-    if dist.platform == "cpu":
-        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // dist.world_size))
+    dist = build_distributed(cfg, rank=first_rank + local_rank)
+    if dist.platform == "cpu" and not os.environ.get("OMP_NUM_THREADS"):
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // dist.devices_per_node))
     with dist.running(init_method, timeout_s):
         fn(cfg)
+
+
+def node_rendezvous(dist: Distributed) -> Tuple[int, str]:
+    """This node's rank and the rendezvous of a run on ``fabric.num_nodes``
+    nodes, from the environment ``torchrun`` sets: ``GROUP_RANK`` (or
+    ``NODE_RANK``), ``MASTER_ADDR``, ``MASTER_PORT`` and ``WORLD_SIZE``."""
+    env = os.environ
+    node = env.get("GROUP_RANK", env.get("NODE_RANK"))
+    missing = [k for k in ("MASTER_ADDR", "MASTER_PORT") if not env.get(k)] + ([] if node else ["GROUP_RANK"])
+    if missing:
+        raise RuntimeError(f"fabric.num_nodes={dist.num_nodes}: set {', '.join(missing)} (as torchrun does) on "
+                           "every node")
+    world = int(env.get("WORLD_SIZE", dist.world_size))
+    if world != dist.world_size:
+        raise ValueError(f"WORLD_SIZE={world} but fabric.num_nodes × fabric.devices = {dist.world_size}")
+    if not 0 <= int(node) < dist.num_nodes:
+        raise ValueError(f"node rank {node} outside fabric.num_nodes={dist.num_nodes}")
+    return int(node), f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
 
 
 def launch(fn: Callable[[Any], None], cfg: Any, deadline_s: Optional[float] = None) -> None:
@@ -543,9 +675,11 @@ def launch(fn: Callable[[Any], None], cfg: Any, deadline_s: Optional[float] = No
     function or a partial of one). A rank that fails ends the others and the
     launch raises its error. The rendezvous is a ``file://`` store in a fresh
     directory under ``fabric.rendezvous_dir`` (the system's temporary
-    directory when null), removed when the run ends. ``deadline_s`` bounds
-    the wait for the spawned ranks: past it they are killed and the launch
-    raises ``TimeoutError``."""
+    directory when null), removed when the run ends; on more nodes, the
+    address ``node_rendezvous`` reads (each node launches its own ranks, or,
+    under ``torchrun``'s one process per device, runs its ``LOCAL_RANK``
+    here). ``deadline_s`` bounds the wait for the spawned ranks: past it they
+    are killed and the launch raises ``TimeoutError``."""
     dist = build_distributed(cfg)
     timeout_s = float(cfg.select("fabric.timeout_s", DEFAULT_TIMEOUT_S) or DEFAULT_TIMEOUT_S)
     parent = cfg.select("fabric.rendezvous_dir")
@@ -553,21 +687,31 @@ def launch(fn: Callable[[Any], None], cfg: Any, deadline_s: Optional[float] = No
         with dist.running(None, timeout_s, rendezvous_dir=parent):
             fn(cfg)
         return
+    own_dir = None
+    first = 0
+    if dist.num_nodes > 1:
+        node, init_method = node_rendezvous(dist)
+        first = node * dist.devices_per_node
+        if os.environ.get("LOCAL_RANK"):  # torchrun started this process for one device
+            _rank_main(int(os.environ["LOCAL_RANK"]), fn, cfg.to_dict(), "env://", timeout_s, first)
+            return
+    else:
+        init_method, own_dir = rendezvous(parent)
     import torch.multiprocessing as tmp
 
-    init_method, own_dir = rendezvous(parent)
     ctx = None
     try:
-        ctx = tmp.start_processes(_rank_main, args=(fn, cfg.to_dict(), init_method, timeout_s),
-                                  nprocs=dist.world_size, join=False, start_method="spawn")
+        ctx = tmp.start_processes(_rank_main, args=(fn, cfg.to_dict(), init_method, timeout_s, first),
+                                  nprocs=dist.devices_per_node, join=False, start_method="spawn")
         end = None if deadline_s is None else time.monotonic() + float(deadline_s)
         while not ctx.join(timeout=1.0):  # raises when a rank failed, after ending the others
             if end is not None and time.monotonic() > end:
-                raise TimeoutError(f"the {dist.world_size} ranks did not finish within {deadline_s} s")
+                raise TimeoutError(f"the {dist.devices_per_node} ranks did not finish within {deadline_s} s")
     finally:
         if ctx is not None:  # every rank ends with the launch, however it ends
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                 p.join(timeout=10)
-        shutil.rmtree(own_dir, ignore_errors=True)
+        if own_dir is not None:
+            shutil.rmtree(own_dir, ignore_errors=True)

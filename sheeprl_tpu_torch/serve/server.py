@@ -86,7 +86,8 @@ class PolicyServer:
     ``capture`` is an optional flywheel
     :class:`~sheeprl_tpu_torch.flywheel.capture.CaptureWriter`: every acked
     HTTP act of a sampled session is appended to the replica's capture
-    segments (the data flywheel's intake)."""
+    segments (the data flywheel's intake), before the answer is sent, with
+    the gateway's ``attempt`` when the act is a retry."""
 
     def __init__(
         self,
@@ -482,6 +483,7 @@ def _make_handler(server: "PolicyServer"):
                     deterministic=deterministic,
                     reward=payload.get("reward"),
                     done=payload.get("done"),
+                    attempt=payload.get("attempt"),
                 )
             self._reply(200, body)
 

@@ -7,12 +7,14 @@ types the port emits (``startup``, ``log``, ``shutdown``, ``metrics``,
 ``net``, ``chaos``, ``trace_span``, ``clock`` and ``relay``, the
 serving stack's ``serve``, ``reload`` and ``session``, the serving
 plane's ``replica``, ``gateway`` and ``broker``, the data flywheel's
-``capture`` and ``flywheel``, and the live aggregator's ``alert``). Field names and types are the
+``capture`` and ``flywheel``, the live aggregator's ``alert``, and the
+mesh layout's ``sharding``). Field names and types are the
 reference's, letter for letter, so the JAX package's ``validate_jsonl``
 accepts a port run's ``telemetry.jsonl``. Every record is
 ``{"event": <type>, ...}``; required keys and types are checked per event
 type, and unknown extra keys are allowed (the port adds a few, e.g. the
-``log`` record's ``device`` counters).
+``log`` record's ``device`` counters and a retried ``capture``'s
+``attempt``).
 """
 from __future__ import annotations
 
@@ -432,6 +434,28 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "window_s": (False, _NUM),
         "severity": (False, _STR),  # critical | warning
         "detail": (False, _STR),
+    },
+    # one decision of the mesh's rule engine (parallel/sharding.py): a
+    # parameter or optimizer-state leaf's spec, rule, reason and bytes per
+    # rank ("leaf"), or a tree's totals ("summary"); dp/fsdp/tp are the axis
+    # sizes; doctor's replicated_giant reads the leaves
+    "sharding": {
+        "action": (True, _STR),  # leaf | summary
+        "group": (False, _STR),  # params | opt_state
+        "path": (False, _STR),
+        "shape": (False, list),
+        "spec": (False, _STR),
+        "rule": (False, _STR),
+        "reason": (False, _STR),
+        "bytes": (False, _NUM),
+        "bytes_per_chip": (False, _NUM),
+        "dp": (False, _NUM),
+        "fsdp": (False, _NUM),
+        "tp": (False, _NUM),
+        "leaves": (False, _NUM),
+        "replicated_leaves": (False, _NUM),
+        "total_bytes": (False, _NUM),
+        "replicated_bytes": (False, _NUM),
     },
 }
 

@@ -16,6 +16,7 @@ losses rel 1e-5 (measured: 2.1e-7); the update's metrics rel 1e-4
 (measured: 4.8e-7) and parameters atol 1e-5 (measured: 6.0e-8).
 The measured values: ``python scripts/onpolicy_parity_report.py``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

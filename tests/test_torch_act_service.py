@@ -18,6 +18,7 @@ the CPU.
   both packages' validators, the service served requests, and no worker
   initialised CUDA.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import json
 import sys

@@ -7,6 +7,7 @@ with a horizon longer than the steps run, then across episodic resets whose
 fresh states are the JAX package's draws, passed in through ``reset_rows``.
 Also: the same seed gives the same run, and the fleet program adopts a
 publication of its policy's shapes and ignores any other."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import numpy as np
 import torch

@@ -17,6 +17,7 @@
 * ``build_broker``'s mode switch and the ``brokerd`` command composing its
   config.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import os
 import pathlib
 import signal

@@ -4,6 +4,7 @@ same script; the round trip carries a PRNG key there and a torch generator
 state here), a snapshot that a later burst does not change, the async
 writer's snapshot isolation, the replay buffer's state against the JAX
 buffer's, and the RunGuard's drain and wall cap."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import numpy as np
 import pytest
 import torch

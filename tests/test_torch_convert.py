@@ -2,6 +2,7 @@
 the JAX package and its PyTorch counterpart give the same outputs on the
 same numpy inputs once the flax parameters are converted (rtol = atol =
 1e-5, f32), and one clipped Adam update moves the parameters alike."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

@@ -10,6 +10,7 @@ of the checkpoint plays a greedy episode through ``serve/evaluate.py``; a
 player thread that raises fails the run on both ranks, each saying so.
 (``sac_decoupled``: tests/test_torch_decoupled_sac.py.)
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 from pathlib import Path
 
 import pytest

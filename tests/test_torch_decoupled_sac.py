@@ -10,6 +10,7 @@ the JAX package's in tests/test_torch_mesh_steps.py. ``eval`` of the
 checkpoint goes through SAC's evaluation; a player thread that raises fails
 the run on both ranks, each saying so.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 from pathlib import Path
 
 import pytest

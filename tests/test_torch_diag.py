@@ -11,6 +11,7 @@ data, severities and ranking included, must be equal. A CPU PPO run with
 ``metric.telemetry.prometheus_port`` answers ``/metrics`` and ``/live``
 mid-run; its scrape renders what the JAX package's ``Registry`` renders for
 the events the run had written by then."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import contextlib
 import io
 import json

@@ -23,6 +23,7 @@ tests/torch_dreamer.py``): the cell, forwards and the player atol 1e-5
 weight by at most lr = 6e-4), the Adam moments rel 1e-4 of each tensor's
 largest (2.0e-5).
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import flax.linen as fnn

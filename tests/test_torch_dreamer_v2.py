@@ -46,6 +46,7 @@ step moves a weight by at most lr = 3e-4, and only a gradient of rounding
 size could move one by a visible share of it), the Adam moments rel 1e-4 of
 each tensor's largest (1.9e-5).
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import jax

@@ -9,6 +9,7 @@ measured: 3e-7) and the updated parameters to atol 5e-6 (measured: 5e-7) —
 a first Adam step moves a parameter by at most lr (1e-4 / 8e-5 here), and
 where a gradient is as small as Adam's eps the step amplifies the last-bit
 differences of that gradient."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import os
 import subprocess

@@ -3,6 +3,7 @@ package: the step-by-step decoupled scan, and the LN-GRU sequence path
 (the JAX package's Pallas kernel in interpret mode against the port's
 kernels' plain passes on the CPU). Harness and tolerances: see
 test_torch_dreamer_v3.py."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 from test_torch_dreamer_v3 import burst_parity
 
 DEC = ["algo.world_model.decoupled_rssm=True"]

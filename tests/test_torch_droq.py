@@ -27,6 +27,7 @@ tests/test_torch_sac.py for why an Adam step bounds a parameter's error.
 The masks are the JAX package's bits, injected: equal by construction.
 The measured values: ``PYTHONPATH=. python tests/torch_offpolicy.py``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import warnings
 

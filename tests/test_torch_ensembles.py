@@ -6,6 +6,7 @@ one and with two leading axes.
 
 Tolerance: atol 1e-5 (float32 products of widths 16-40 summed in another
 order; measured with ``PYTHONPATH=. python tests/torch_p2e.py``: 7.2e-7)."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

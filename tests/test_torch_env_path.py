@@ -9,6 +9,7 @@ buffer).
 DMC renders through EGL (``MUJOCO_GL=egl``); the walker checks run in a
 child process with that variable set and skip where rendering is
 unavailable, as tests/test_envs.py does."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import os
 import subprocess

@@ -2,6 +2,7 @@
 vector env and episode statistics) against the JAX package's gymnasium
 vector env on the dummy env: same observations, rewards, done flags, final
 observations and episode statistics, step for step."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import numpy as np
 import pytest
 

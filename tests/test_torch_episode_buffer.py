@@ -8,6 +8,7 @@ generator); memmap storage and the removal of an evicted episode's files;
 and the replay feed: the staged prefetcher serves an episode buffer's
 batches (also with ``buffer.device_cache=true``, which the sequential
 device ring would take) and stages nothing before an episode is stored."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import numpy as np
 import pytest
 import torch

@@ -25,6 +25,7 @@ loop on the same arguments.
 No run leaves a ``fleet-`` thread behind. All of it lives in one file, so
 ``--dist loadfile`` keeps these runs on one test worker.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import json
 import threading

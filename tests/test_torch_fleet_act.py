@@ -12,6 +12,7 @@ exactly. A row's action is unchanged when the batch is padded with other
 rows (atol 1e-6), and the port's slot generators give each slot its own
 draws whatever the batch width.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import gymnasium as gym
 import jax
 import jax.numpy as jnp

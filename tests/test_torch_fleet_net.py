@@ -18,6 +18,7 @@
   token exits 2;
 * the drain budget and the transport come from the config.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import os
 import pickle
 import socket

@@ -15,6 +15,7 @@ spawned here):
 * the span and clock records, the relay's bounded and drop-counted
   batches and the on-demand ``torch.profiler`` window.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import pickle
 from collections import deque
 

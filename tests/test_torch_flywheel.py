@@ -21,6 +21,7 @@ the CPU, held against the JAX package's ``sheeprl_tpu/flywheel/``.
   48 samples, ``ckpt_3.ckpt``, versions {0} then {1}, re-ingest 24 new / 48
   duplicates, then 0 / 72.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import pathlib
 import shutil

@@ -8,8 +8,10 @@
   token bucket's reserve, jittered ``Retry-After``) under the same
   ``random.seed`` in both packages and must decide the same, exactly.
 * The protocol: 410 ``session_lost`` only for stateful sessions, the
-  replica's idempotent replay of a duplicate forward, and a retried forward
-  whose first attempt executed never stepping the session twice.
+  replica's idempotent replay of a duplicate forward, a retried forward
+  whose first attempt executed never stepping the session twice, and a
+  replica that captured an act and died before answering leaving only the
+  retry's record to the capture reader.
 * The ``gateway`` command composing its config; a chaos-killed synthetic
   replica failing over with zero acked loss (and doctor's ``replica_flap``);
   checkpoint replicas serving a tiny PPO checkpoint of the port with the
@@ -20,6 +22,7 @@
 Replicas run with ``gateway.replica.platform=cpu``; every cluster is shut
 down in ``finally``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import json
 import os
@@ -318,6 +321,57 @@ def test_gateway_retry_after_executed_timeout_never_double_steps():
         assert gw.stats.snapshot()["failovers"] == 1 and server.idempotent_replays == 1
     finally:
         server.stop()
+
+
+def test_a_replica_killed_between_capture_and_answer_leaves_only_the_retrys_record(tmp_path):
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+    from sheeprl_tpu_torch.flywheel import ingest, iter_capture_records
+    from sheeprl_tpu_torch.flywheel.capture import CaptureWriter
+
+    handles, servers = _handles(treplica, 2), []
+    for rid, handle in enumerate(handles):
+        policy = _counter_policy()
+        capture = CaptureWriter(str(tmp_path / f"replica_{rid:03d}" / "capture.jsonl"), replica_id=rid)
+        servers.append(PolicyServer(policy, MicroBatcher(policy, max_wait_ms=0.0), port=0, capture=capture))
+        servers[-1].start()
+        handle.port = servers[-1].port
+    try:
+        gw = Gateway(_FakeManager(handles), broker=SessionBroker())
+        real_post, bodies = Gateway._post, []
+
+        def dies_before_answering(url, body, timeout_s):
+            bodies.append(dict(body))
+            out = real_post(gw, url, body, timeout_s)
+            if len(bodies) == 2:  # the second act stepped and was captured; its replica is gone
+                next(h for h in handles if url.startswith(h.url)).state = "stopped"
+                raise OSError("simulated: the replica died before answering")
+            return out
+
+        gw._post = dies_before_answering
+        traces = [f"{k + 1:032x}" for k in range(3)]
+        answers = []
+        for trace in traces:
+            status, body, _ = gw.handle_act({"obs": {"x": [[0.0]]}, "session_id": "s",
+                                             "traceparent": f"00-{trace}-{'1' * 16}-01"})
+            assert status == 200
+            answers.append(body)
+        assert [b["actions"] for b in answers] == [[[0.0]], [[1.0]], [[2.0]]]
+        assert answers[1]["replica"] != answers[0]["replica"]  # the retry ran on the survivor
+        assert "attempt" not in bodies[1] and bodies[2]["attempt"] == 1
+        assert bodies[2]["request_id"] == bodies[1]["request_id"]
+        assert bodies[2]["traceparent"].split("-")[1] == bodies[1]["traceparent"].split("-")[1] == traces[1]
+    finally:
+        for server in servers:
+            server.stop()
+    raw = [json.loads(line) for path in sorted(tmp_path.glob("replica_*/capture.jsonl")) for line in open(path)]
+    assert sorted(r["trace_id"] for r in raw if r["event"] == "capture") == sorted([traces[0], *traces[1:2] * 2,
+                                                                                   traces[2]])
+    kept = list(iter_capture_records(tmp_path))
+    assert sorted(r["trace_id"] for r in kept) == traces
+    retried = [r for r in kept if r["trace_id"] == traces[1]]
+    assert len(retried) == 1 and retried[0]["attempt"] == 1 and retried[0]["replica"] == answers[1]["replica"]
+    assert {r["trace_id"]: r["actions"] for r in kept} == {t: b["actions"] for t, b in zip(traces, answers)}
+    assert ingest(tmp_path, ReplayBuffer(10, n_envs=1))["samples"] == 3
 
 
 def test_cli_gateway_composes_gateway_config(tmp_path, monkeypatch):

@@ -15,6 +15,7 @@ the CPU:
   straight-through one-hot values and the masked heads' probabilities to
   atol 1e-6.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ tests/test_torch_ln_gru_cuda.py.
 
 Tolerances: rtol = atol = 1e-5 for hidden states, 1e-4 for gradients (f32
 sums over F+H and over T·B rows taken in different orders)."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

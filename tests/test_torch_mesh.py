@@ -3,12 +3,13 @@ the CPU, against the JAX package's ``Distributed``:
 
 * ``Distributed`` at two devices: the properties, the precision table and
   the mesh shapes of the JAX package's (``resolve_mesh_shape``, its errors);
-* what the port refuses where the JAX package builds a mesh: ``fsdp``/``tp``
-  > 1 and ``fabric.shard_optimizer_state`` (ROADMAP Queue 1 item 4), more
-  nodes, more devices than there are, a config needing a group outside a
-  launch; every algorithm is admitted on more ranks and under
-  ``fabric.strategy=ddp``, and sharding, ZeRO-1 and more nodes still refuse
-  at the CLI's check;
+* what the port refuses, with the JAX package's messages where it raises
+  too: mesh shapes that do not multiply out to the devices, more devices
+  than there are, an unknown strategy, no node; a config needing a group
+  outside a launch; every algorithm is admitted on more ranks and under
+  ``fabric.strategy=ddp``; DreamerV3 and the P2E-DV3 phases at fsdp=2,
+  tp=2, ZeRO-1 and two nodes (the other entry points as the JAX package
+  takes those meshes: tests/test_torch_mesh_sharded.py runs the steps);
 * the decoupled admission rule: two devices as in the JAX package, or one
   card with the player on the host; refused otherwise with the JAX message;
 * the collectives on two gloo ranks (every one once), a failing rank
@@ -22,6 +23,7 @@ the CPU, against the JAX package's ``Distributed``:
 * a loop leaves ``MetricAggregator.disabled`` as it found it, whether it
   returns or raises.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import random
 
@@ -71,31 +73,44 @@ def test_distributed_matches_the_jax_packages_at_two_devices():
         assert str(terr.value) == str(jerr.value), bad
     with pytest.raises(ValueError, match="env.num_envs .5. must be divisible by the world size .2."):
         mesh.build_distributed(_fabric()).local_envs(5)
+    # the mesh of the JAX package's at four devices, fsdp=2 and tp=2: the tp
+    # ranks of a data rank share its env block
+    jd = JaxDistributed(devices=4, mesh={"dp": 1, "fsdp": 2, "tp": 2})
+    for rank in range(4):
+        td = mesh.build_distributed(Config({"fabric": {"devices": 4, "accelerator": "cpu",
+                                                       "mesh": {"dp": 1, "fsdp": 2, "tp": 2}}}), rank=rank)
+        for prop in ("world_size", "dp", "fsdp", "tp", "data_parallel_size", "is_pure_dp"):
+            assert getattr(td, prop) == getattr(jd, prop), prop
+        assert td.coordinate == (0, rank // 2, rank % 2) and td.data_rank == rank // 2
+        assert td.local_envs(4) == ((0, 2), (2, 4))[rank // 2]
+        assert td.spec_engine.data_axes() == jd.spec_engine.data_axes() == ("fsdp",)
 
 
 @pytest.mark.parametrize("fabric,error,match", [
-    ({"mesh": {"dp": 1, "fsdp": 2, "tp": 1}}, NotImplementedError, "fsdp=2 tp=1.*ROADMAP Queue 1 item 4"),
-    ({"mesh": {"dp": 1, "fsdp": 1, "tp": 2}}, NotImplementedError, "fsdp=1 tp=2.*ROADMAP Queue 1 item 4"),
-    ({"shard_optimizer_state": True}, NotImplementedError, "ZeRO-1.*ROADMAP Queue 1 item 4"),
-    ({"num_nodes": 2}, NotImplementedError, "num_nodes=2.*ROADMAP Queue 1 item 4"),
+    ({"mesh": {"dp": 1, "fsdp": 4, "tp": 1}}, ValueError, "dp\\*fsdp\\*tp = 4 but the mesh has 2 devices"),
+    ({"mesh": {"dp": 1, "fsdp": 1, "tp": 4}}, ValueError, "dp\\*fsdp\\*tp = 4 but the mesh has 2 devices"),
+    ({"mesh": {"dp": -1, "fsdp": 3, "tp": 1}}, ValueError, "not divisible by the fixed axes"),
+    ({"num_nodes": 0}, ValueError, "fabric.num_nodes must be >= 1"),
     ({"devices": 100000}, RuntimeError, "Requested 100000 devices but only"),
     ({"strategy": "fsdp"}, ValueError, "Unsupported fabric.strategy"),
 ])
 def test_refusals_name_what_they_wait_for(fabric, error, match):
-    """The port raises where the JAX package builds the mesh (fsdp, tp,
-    ZeRO-1) or raises itself (more devices than it has, an unknown strategy)."""
+    """The port raises where the JAX package raises (a mesh that does not
+    multiply out to the devices, more devices than it has) with its
+    message, and on a strategy or a node count it does not take."""
     from sheeprl_tpu.config import Config as JaxConfig
     from sheeprl_tpu.parallel.mesh import build_distributed as jax_build
 
     spec = {"devices": 2, "accelerator": "cpu", **fabric}
-    with pytest.raises(error, match=match):
+    with pytest.raises(error, match=match) as terr:
         mesh.build_distributed(Config({"fabric": spec}))
     jax_spec = {**spec, "accelerator": "auto"}
-    if "mesh" in fabric or "shard_optimizer_state" in fabric:
-        jd = jax_build(JaxConfig({"fabric": jax_spec}))
-        assert (jd.fsdp, jd.tp) == (fabric.get("mesh", {}).get("fsdp", 1), fabric.get("mesh", {}).get("tp", 1))
+    if "mesh" in fabric:
+        with pytest.raises(error) as jerr:
+            jax_build(JaxConfig({"fabric": jax_spec}))
+        assert str(jerr.value) == str(terr.value)
     elif "devices" in fabric:
-        with pytest.raises(RuntimeError, match="Requested 100000 devices but only"):
+        with pytest.raises(error, match=match):
             jax_build(JaxConfig({"fabric": jax_spec}))
 
 
@@ -130,14 +145,51 @@ def test_every_algorithm_is_admitted_on_more_ranks(exp, monkeypatch):
     assert (fn.keywords["exploration"] is not None) == exp.endswith("_finetuning")
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["fabric.mesh.fsdp=2", "fabric.mesh.dp=1"], "fsdp=2 tp=1.*ROADMAP Queue 1 item 4"),
-    (["fabric.shard_optimizer_state=True"], "ZeRO-1.*ROADMAP Queue 1 item 4"),
-    (["fabric.num_nodes=2"], "num_nodes=2.*ROADMAP Queue 1 item 4"),
-])
-def test_sharding_zero1_and_more_nodes_still_refuse(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.check_configs(compose("config", _exp_args("dreamer_v2") + ["fabric.devices=2", "env.num_envs=2", *extra]))
+SHARDED_MESHES = {
+    "fsdp2": ["fabric.devices=2", "fabric.mesh.dp=1", "fabric.mesh.fsdp=2"],
+    "tp2": ["fabric.devices=2", "fabric.mesh.dp=1", "fabric.mesh.tp=2"],
+    "zero1": ["fabric.devices=2", "fabric.shard_optimizer_state=True"],
+    "two_nodes": ["fabric.devices=2", "fabric.num_nodes=2"],
+}
+
+
+@pytest.mark.parametrize("mesh_name", list(SHARDED_MESHES))
+@pytest.mark.parametrize("exp", ["dreamer_v3", "p2e_dv3_exploration", "p2e_dv3_finetuning"])
+def test_dreamer_v3_and_p2e_dv3_take_the_sharded_meshes(exp, mesh_name, monkeypatch):
+    """DreamerV3 and the P2E-DV3 phases pass the CLI's checks at fsdp=2,
+    tp=2, ZeRO-1 and on two nodes, and launch on that mesh (two nodes: the
+    node's two ranks of a world of four)."""
+    argv = _exp_args(exp) + ["env.num_envs=4", *SHARDED_MESHES[mesh_name]]
+    cfg = compose("config", argv)
+    cli.check_configs(cfg)
+    d = mesh.build_distributed(cfg)
+    assert (d.world_size, d.dp, d.fsdp, d.tp, d.shard_optimizer_state) == {
+        "fsdp2": (2, 1, 2, 1, False), "tp2": (2, 1, 1, 2, False), "zero1": (2, 2, 1, 1, True),
+        "two_nodes": (4, 4, 1, 1, False)}[mesh_name]
+    launched = []
+    monkeypatch.setattr(mesh, "launch", lambda fn, cfg: launched.append(cfg.select("fabric")))
+    monkeypatch.setattr(cli, "exploration_surgery", lambda cfg: Config({"algo": {"name": "exploration"}}))
+    cli.run_algorithm(cfg)
+    assert len(launched) == 1 and launched[0].devices == 2
+
+
+OTHERS = [e for e in ADMITTED if not e.startswith("p2e_dv3")] + ["ppo", "sac"]
+
+
+@pytest.mark.parametrize("exp", OTHERS)
+def test_the_other_entry_points_take_fsdp_as_data_parallelism(exp):
+    """The JAX package runs every other entry point at fsdp=2 as data
+    parallelism over dp × fsdp with its parameters replicated: so does the
+    port (the ranks are its data ranks); tp > 1 and ZeRO-1, which those
+    entry points do not lay out, are refused with the reason."""
+    base = _exp_args(exp) + ["env.num_envs=4", "fabric.devices=2"]
+    cli.check_configs(compose("config", base + ["fabric.mesh.dp=1", "fabric.mesh.fsdp=2"]))
+    d = mesh.build_distributed(compose("config", base + ["fabric.mesh.dp=1", "fabric.mesh.fsdp=2"]), rank=1)
+    assert (d.data_parallel_size, d.data_rank, d.local_envs(4)) == (2, 1, (2, 4))
+    for extra, match in ((["fabric.mesh.dp=1", "fabric.mesh.tp=2"], "fabric.mesh.tp=2"),
+                         (["fabric.shard_optimizer_state=True"], "fabric.shard_optimizer_state=True")):
+        with pytest.raises(NotImplementedError, match=f"{match}: '{exp}' lays out no parameter"):
+            cli.check_configs(compose("config", base + extra))
 
 
 def test_a_group_is_needed_outside_a_launch():
@@ -335,3 +387,28 @@ def test_dreamer_v3_under_ddp_at_world_size_one_is_bitwise_the_auto_run(tmp_path
                 assert torch.equal(v, ends["auto"]["opt_states"][key]["state"][idx][m]), (key, idx, m)
     assert ends["ddp"]["moments"]["low"] == ends["auto"]["moments"]["low"]
     assert ends["ddp"]["ratio"] == ends["auto"]["ratio"]
+
+
+def test_a_multi_axis_mesh_keeps_the_ring_host_staged_with_the_jax_message(monkeypatch, capsys):
+    """On fsdp/tp > 1 the sequential feed stays host-staged with the JAX
+    package's line (sheeprl_tpu/data/device_ring.py), and a forced
+    ``buffer.device_cache=true`` raises it; a pure-dp mesh keeps the ring."""
+    from sheeprl_tpu_torch.data import device_ring
+
+    rb = EnvIndependentReplayBuffer(16, n_envs=1, obs_keys=("state",), buffer_cls=SequentialReplayBuffer)
+    msg = "sharded device ring is pure-dp only (mesh is dp=1 fsdp=2 tp=2); multi-axis meshes stay host-staged"
+    sharded = mesh.build_distributed(Config({"fabric": {"devices": 4, "accelerator": "cpu",
+                                                        "mesh": {"dp": 1, "fsdp": 2, "tp": 2}}}))
+    monkeypatch.setattr(mesh, "active", lambda: sharded)
+    with pytest.raises(ValueError, match=msg.replace("(", r"\(").replace(")", r"\)")):
+        device_ring.make_sequential_prefetcher(Config({"buffer": {"device_cache": True}}), torch.device("cpu"), rb, 2,
+                                               2)
+    monkeypatch.setattr(device_ring, "_use_ring", lambda *a: True)  # as auto would on a card
+    pf = device_ring.make_sequential_prefetcher(Config({"buffer": {"device_cache": "auto"}}), torch.device("cpu"), rb,
+                                                2, 2)
+    assert type(pf).__name__ == "StagedPrefetcher"
+    assert f"[device_ring] {msg}; falling back to host-staged batches" in capsys.readouterr().err
+    monkeypatch.setattr(mesh, "active", lambda: mesh.build_distributed(_fabric()))  # (dp=2, 1, 1)
+    pf = device_ring.make_sequential_prefetcher(Config({"buffer": {"device_cache": "auto"}}), torch.device("cpu"), rb,
+                                                2, 2)
+    assert type(pf).__name__ == "DeviceRingPrefetcher"

@@ -24,6 +24,7 @@
   gathered by env block, the ranks' episode buffers side by side, and those
   resume only at the world size that wrote them.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

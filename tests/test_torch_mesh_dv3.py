@@ -13,6 +13,7 @@ rank's in one all-reduce, and takes Moments' quantiles of the gathered
 the Adam moments at rel 1e-4 of their tensor's largest entry, Moments at rel
 1e-4. Both ranks end with bitwise the same parameters.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

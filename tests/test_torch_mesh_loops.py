@@ -21,6 +21,7 @@ backend and two ranks, the ``log`` records the collectives; no process group
 and no rendezvous file outlive a run; a checkpoint of two ranks refuses a
 resume on one.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 from pathlib import Path
 

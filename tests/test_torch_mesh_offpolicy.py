@@ -22,6 +22,7 @@
   alone prints and checkpoints the buffer, the ranks' env blocks side by
   side, with both ranks' generators.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import warnings
 
 import jax

@@ -28,6 +28,7 @@ another the CLI runs, in the background while the JAX updates compile:
   package's line ``[fleet] actor fleet disabled: ...``
   (``sheeprl_tpu/fleet/engine.py``), and each rank trains on its env loop.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 from pathlib import Path
 

@@ -26,6 +26,7 @@ package at ``fabric.devices=2``.
   finetuning run switches the player to the task actor at
   ``learning_starts``; rank 0 alone prints and checkpoints.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import os
 from pathlib import Path

@@ -11,6 +11,7 @@ runs serially: its overlapped loop takes whatever packets are ready, so its
 checkpoints land where its takes do, while the port's takes one packet an
 iteration on N ranks, which puts them where the serial loop's are.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import os
 import signal
 import subprocess

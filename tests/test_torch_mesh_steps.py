@@ -21,6 +21,7 @@ held against the port at one rank on the whole batch at the same
 tolerances (the gradients are summed in another order).
 """
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ checkpoint_path=...`` splits a port checkpoint into its algorithm's
 ``MODELS_TO_REGISTER`` groups (the JAX package's, algorithm by algorithm),
 and a download loads back into fresh modules that give the checkpoint's
 outputs; ``backend=mlflow`` is refused."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import contextlib
 import io
 import json

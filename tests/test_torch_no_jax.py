@@ -16,6 +16,7 @@ The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
 imported by their adapters only, inside the functions that make an env or
 transform an image: importing the port or running it on the dummy env loads
 none of them (the card's machine has none)."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import ast
 import json
 import os

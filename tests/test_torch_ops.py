@@ -1,6 +1,7 @@
 """The port's numeric leaves against the JAX package on the same numpy
 inputs: transforms, return estimators and the DreamerV3 distributions
 (rtol = atol = 1e-5 unless stated)."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ overlapped DreamerV3 loop, held against the JAX package.
 
 Every join and wait has a timeout: a stuck player fails its test.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import os
 import threading

@@ -18,6 +18,7 @@ tests/torch_p2e.py``): losses and metrics rel 1e-5 (7.8e-7), parameters
 atol 5e-6 (1.5e-6), Adam moments rel 1e-4 of each tensor's largest
 (2.3e-5).
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import jax

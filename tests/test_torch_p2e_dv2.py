@@ -20,6 +20,7 @@ tests/torch_p2e.py``): losses and metrics rel 1e-5 (7.3e-6), parameters
 atol 5e-6 (4.4e-7), Adam moments rel 1e-4 of each tensor's largest
 (7.6e-5, the tanh-normal burst's).
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import jax

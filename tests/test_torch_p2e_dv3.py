@@ -32,6 +32,7 @@ burst 2.4e-7; an Adam step moves a weight by at most lr, 1e-4 here),
 Moments atol 1e-5 (9.5e-7), Adam moments rel 1e-4 of each tensor's
 largest (3.2e-5).
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import os
 

@@ -22,6 +22,7 @@ metrics rel 1e-4 (measured: 3.9e-7) and parameters atol 1e-5 (measured:
 two loops' parameters: exactly equal.
 The measured values: ``python scripts/onpolicy_parity_report.py``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ Tolerances: the LSTM step and the agent's outputs atol 1e-5 (measured:
 atol 1e-5 (measured: 1.2e-7); the reset against a fresh sequence atol 1e-6.
 The measured values: ``python scripts/onpolicy_parity_report.py``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ op's output, and the two accumulate a product's terms in different orders.
 Measured on this burst: at most 0.97% (the coupled policy loss; the world
 model's losses within 0.3%), against 3e-7 under 32-true. bf16-mixed itself
 moves the losses by up to 0.9% from 32-true on this burst."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import jax
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ CPU run of the port renders through the ``prof`` CLI with the run's
 roofline events folded in; the argv grammar is the JAX package's, and the
 report's keys are those of the JAX ``summarize_capture`` on its own golden
 fixture."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import contextlib
 import gzip
 import io

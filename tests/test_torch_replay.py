@@ -2,6 +2,7 @@
 sample, checkpoint and resume, ``memmap_fast_resume`` included), the host
 C++ gather, the staged prefetcher and the device ring (on the CPU here), all
 fed from numpy seeds. Batches are compared bit for bit."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import copy
 import json
 import os

@@ -17,6 +17,7 @@ mirroring tests/test_resilience.py on the port:
   loudly without a checkpoint.
 
 Every wait has a deadline of a few seconds."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import time
 from pathlib import Path

@@ -32,6 +32,7 @@ were rounding noise could differ by lr (3e-4): none does at these shapes,
 and the 1e-5 bound would catch one. The measured values:
 ``PYTHONPATH=. python tests/torch_offpolicy.py``.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import jax

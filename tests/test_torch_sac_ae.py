@@ -39,6 +39,8 @@ moments: the decoder's Adam moments rel 5e-2 of each tensor's largest
 (measured: 1.9e-2), the other optimizers' rel 1e-4. The measured values:
 ``PYTHONPATH=. python tests/torch_offpolicy.py``.
 """
+import torch_threads
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 
 import jax
@@ -219,7 +221,8 @@ def test_train_burst_matches_jax(conv_impl, decoder_every):
     convert.load_sac_ae(p1, agent, s1, optimizers)
     assert optimizers.step == 1
     train = torch_make_train_fn(agent, optimizers, tcfg, -float(ACT), ("rgb",), ("state",))
-    t_metrics = train(to_torch(batches), draws=jax_draws(keys, B))
+    with torch_threads.default_threads():  # held at the default count (ROADMAP Queue 3 item 15)
+        t_metrics = train(to_torch(batches), draws=jax_draws(keys, B))
     assert_losses(t_metrics, j_metrics, BURST_RTOL)
     for key in ("encoder", "qs", "actor", "decoder", "target_encoder", "target_qs"):
         max_diff(getattr(agent, key), p2[key], PARAM_ATOL, key, outliers=(OUTLIER_SHARE, G * 1e-3))

@@ -23,6 +23,7 @@
   packages' validators, and the ``serve`` command answering ``/v1/act`` from
   a subprocess.
 """
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import glob
 import json
 import os

@@ -5,6 +5,7 @@ letter for letter; the JSONL sink's size-bounded rotation, the TensorBoard
 logger's fallback stream, the span tracker, the throughput and roofline
 arithmetic (held against the reference's functions on the same inputs), the
 model-cost counter, the memory sampler and the resilience events."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
 import sys
 

@@ -8,6 +8,7 @@ Tolerance: the 3xTF32 product's largest error against float64 is at most
 plain float32 product's error (the same factor ``chip_smoke.py`` holds the
 kernels to against ``torch.mm`` on the card). Plain TF32 (one product of the
 rounded operands) misses both by two orders of magnitude."""
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import numpy as np
 import pytest
 import torch

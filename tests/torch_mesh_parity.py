@@ -89,3 +89,29 @@ def rank_zero_alone(outs: Any) -> None:
     a, b = outs
     assert a["stdout"].count("log_dir=") == 1 and not b["stdout"]
     assert a["stats"]["all_reduce"] > 0
+
+
+def tiny_dv3_trainer(overrides=(), devices: int = 1, mesh: Optional[Dict[str, Any]] = None):
+    """``dreamer_tiny.make_trainer``'s JAX trainer (``TINY_DV3`` and
+    ``overrides``: the train function, the parameters, the optimizer states
+    and Moments) on ``Distributed(devices, mesh)``, with the flax init traced
+    under one ``jax.jit`` (``torch_offpolicy.jit_build``: the same
+    parameters, one compile instead of one per initializer); the
+    Distributed last."""
+    import gymnasium as gym
+
+    from dreamer_tiny import N_ACT, TINY_DV3
+    from sheeprl_tpu.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import build_optimizers, make_train_fn
+    from sheeprl_tpu.algos.dreamer_v3.utils import init_moments
+    from sheeprl_tpu.config import compose
+    from sheeprl_tpu.parallel import Distributed
+    from torch_offpolicy import jit_build
+
+    cfg = compose("config", TINY_DV3 + list(overrides))
+    dist = Distributed(devices=devices, mesh=mesh)
+    obs_space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    wm, actor, critic, params = jit_build(lambda k: build_agent(dist, cfg, obs_space, [N_ACT], False, k),
+                                          jax.random.key(0))
+    txs, opt_states = build_optimizers(cfg, params)
+    return make_train_fn(wm, actor, critic, txs, cfg, False, [N_ACT]), params, opt_states, init_moments(), dist

@@ -172,7 +172,7 @@ def run_cli(argv: Sequence[str], deadline_s: float = DEADLINE_S) -> None:
 
     cfg = compose("config", list(argv))
     if cfg.select("checkpoint.resume_from"):
-        cfg = cli.resume_from_checkpoint(cfg)
+        cfg = cli.resume_from_checkpoint(cfg, argv)
     cli.check_configs(cfg)
     exploration = None
     if cli.get_algorithm(cfg.algo.name).get("requires_exploration_cfg"):
@@ -345,7 +345,7 @@ def cli_job(dist: Any, job: Dict[str, Any], mine: Any) -> Dict[str, Any]:
 
     cfg = compose("config", list(job["argv"]))
     if cfg.select("checkpoint.resume_from"):
-        cfg = cli.resume_from_checkpoint(cfg)
+        cfg = cli.resume_from_checkpoint(cfg, job["argv"])
     cli.check_configs(cfg)
     exploration = None
     if cli.get_algorithm(cfg.algo.name).get("requires_exploration_cfg"):
@@ -401,3 +401,117 @@ def launch_steps_and_runs(build_steps: Callable[[], Any], runs: Sequence[Dict[st
         return [[o[i] for o in outs] for i in range(len(outs[0]))] if outs else []
 
     return refs, by_job(steps), by_job(ran)
+
+
+def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """One DreamerV3 burst per case of ``p["cases"]`` (``{"mesh": {dp, fsdp,
+    tp[, min_shard_size]}, "zero1": bool, "clip": max norm}``), each on its own mesh over this
+    launch's ranks (``Distributed.adopt_group``), from ``p["modules"]`` and
+    ``p["opt_states"]``: the parameters and optimizer states laid out as
+    ``dreamer_v3.main`` lays them out, the rank's data block of ``p["batch"]``
+    and of ``p["noise"]``. The player's mirror is made first, as
+    ``dreamer_v3.main`` makes it, and refreshed after the burst; the rank's
+    peak bytes over the burst and the refresh (``MemTracker``: parameters,
+    gradients, moments, the mirror, activations and temporaries) are
+    recorded beside what the rank holds. With ``p["resume"]`` (``{"from": i,
+    "mesh": ...}``) the whole state after case ``i`` is written by rank 0,
+    read back by every rank on that mesh, laid out again and gathered
+    whole."""
+    import copy
+
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class BurstTracker(MemTracker):
+        """The live bytes of every tensor, without MemTracker's per-module
+        statistics (which refuse a module called twice in one step)."""
+
+        def _pre_fw_hook(self, *args, **kwargs): pass
+        def _post_fw_hook(self, *args, **kwargs): pass
+        def _pre_bw_hook(self, *args, **kwargs): pass
+        def _post_bw_hook(self, *args, **kwargs): pass
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as tdv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import MomentsState
+    from sheeprl_tpu_torch.parallel.placement import make_param_mirror
+
+    T = p["batch"]["rewards"].shape[1]
+    names = ("wm", "actor", "critic", "target_critic")
+
+    def case_cfg(case):
+        c = Config(p["cfg"])
+        if "clip" in case:  # every optimizer's global-norm clip
+            for section in ("world_model", "actor", "critic"):
+                c.set_path(f"algo.{section}.clip_gradients", case["clip"])
+        return c
+
+    def laid_out(case, modules, opt_states):
+        cfg = case_cfg(case)
+        d = mesh.Distributed(devices=dist.world_size, accelerator="cpu", mesh=case["mesh"],
+                             shard_optimizer_state=case.get("zero1", False), rank=dist.rank)
+        d.adopt_group(TIMEOUT_S)
+        wm, actor, critic, target = (modules[k] for k in names)
+        opts = tdv3.build_optimizers(cfg, wm, actor, critic, d)
+        for name in ("wm", "actor", "critic"):
+            getattr(opts, name).optimizer.load_state_dict(opt_states[name])
+        layout = mesh.maybe_shard_params(cfg, d, dict(zip(names, (wm, actor, critic, target))))
+        mesh.maybe_shard_opt_state(cfg, d, layout, {"actor": (opts.actor, actor), "critic": (opts.critic, critic),
+                                                    "wm": (opts.wm, wm)}, counters=("step",))
+        return d, opts, layout
+
+    def whole(layout, opts, modules):
+        state = {k: {n: t.clone() for n, t in modules[k].state_dict().items()} for k in names}
+        return state, copy.deepcopy({k: layout.full_opt_state(getattr(opts, k)) for k in ("wm", "actor", "critic")})
+
+    def param_bytes(modules):
+        return sum(q.numel() * q.element_size() for k in names for q in modules[k].parameters())
+
+    outs = []
+    for case in p["cases"]:
+        modules = copy.deepcopy(p["modules"])
+        player = {"wm": modules["wm"], "actor": modules["actor"]}
+        mirror = make_param_mirror(case_cfg(case), torch.device("cpu"), player, 0)[0]
+        d, opts, layout = laid_out(case, modules, copy.deepcopy(p["opt_states"]))
+        reports = {r.group: r for r in d.take_sharding_reports()}
+        train = tdv3.make_train_fn(*(modules[k] for k in names), opts, case_cfg(case), False, p["actions_dim"],
+                                   dist=d)
+        n, r = d.data_parallel_size, d.data_rank
+        batch = {k: torch.from_numpy(np.ascontiguousarray(columns(v, 2, r, n))) for k, v in p["batch"].items()}
+        noise = [dv3_noise_columns(x, T, r, n) for x in p["noise"]]
+        d.reset_stats()
+        tracker = BurstTracker()
+        tracker.track_external(*(modules[k] for k in names), *(getattr(opts, k).optimizer
+                                                                for k in ("wm", "actor", "critic")),
+                               *(m for slot in mirror._slots for m in slot.values()))
+        with tracker:
+            moments, metrics = train(MomentsState(torch.tensor(0.0), torch.tensor(0.0)), batch, noise=noise)
+            mirror.refresh(player)
+        peak = tracker.get_tracker_snapshot("peak")[torch.device("cpu")]
+        moments_bytes = sum(layout.opt_local_bytes(getattr(opts, k)) for k in ("wm", "actor", "critic"))
+        state, opt_states = whole(layout, opts, modules)
+        outs.append({"state": state, "opt_states": opt_states,
+                     "moments": (float(moments.low), float(moments.high)),
+                     "metrics": {k: float(v.mean()) for k, v in metrics.items()}, "stats": dict(d.stats),
+                     "summaries": {g: rep.summary() for g, rep in reports.items()},
+                     "moment_leaf_bytes": sum(x.bytes_per_chip(rep.axis_sizes) for rep in reports.values()
+                                              for x in rep.decisions if "/mu/" in x.path or "/nu/" in x.path),
+                     "param_bytes": param_bytes(modules), "moments_bytes": moments_bytes,
+                     "mirror_bytes": sum(t.numel() * t.element_size() for ts in mirror._dst for t in ts),
+                     "peak_bytes": int(peak["Total"]),
+                     "coordinate": d.coordinate, "data_rank": r})
+        d.device_mesh = None
+    resume = p.get("resume")
+    if resume:
+        src = outs[resume["from"]]
+        path = os.path.join(p["dir"], "ckpt.pt")
+        if dist.rank == 0:
+            torch.save({**src["state"], "opt_states": src["opt_states"]}, path)
+        torch.distributed.barrier()
+        saved = torch.load(path, weights_only=False)
+        modules = copy.deepcopy(p["modules"])
+        for k in names:
+            modules[k].load_state_dict(saved[k])
+        d, opts, layout = laid_out({"mesh": resume["mesh"], "zero1": resume.get("zero1", False)}, modules,
+                                   saved["opt_states"])
+        state, opt_states = whole(layout, opts, modules)
+        outs.append({"state": state, "opt_states": opt_states, "param_bytes": param_bytes(modules)})
+    return outs
