@@ -4262,7 +4262,8 @@ def phase_mesh(torch, ln_gru):
     report["mesh_dv3"]["twin"] = {"ledger": la, "bitwise_equal": True}
     report["mesh_dv3"]["sps_in_turns"] = {n: report[n]["policy_steps_per_s_after_learning_starts"]
                                           for n in ("mesh_dv3_auto", "mesh_dv3", "mesh_dv3_2", "mesh_dv3_auto_2")}
-    report["mesh_dv3_sharded"] = mesh_sharded_leg(torch, ln_gru, common, a, la)
+    report["mesh_dv3_sharded"] = mesh_sharded_leg(torch, ln_gru, common, a, la,
+                                                  report["mesh_dv3"]["peak_device_memory"])
 
     # the decoupled pair: trainer rank 0 on the card (NCCL), player on the host
     decoupled = ["fabric.devices=1", "fabric.strategy=ddp", "algo.player.device=host", "env=dummy",
@@ -4316,16 +4317,20 @@ def phase_mesh(torch, ln_gru):
     return report
 
 
-def mesh_sharded_leg(torch, ln_gru, common, twin, twin_ledger):
+def mesh_sharded_leg(torch, ln_gru, common, twin, twin_ledger, twin_peak):
     """``mesh_dv3_sharded``: mesh_dv3's leg through the sharded mesh's path
     (``fabric.mesh.dp=1 fsdp=1 tp=1`` stated, ``fabric.shard_optimizer_state=True``:
     ``maybe_shard_params``/``maybe_shard_opt_state`` on a world-size-1 NCCL
     group's ``DeviceMesh``), on deterministic kernels. The degeneracy
     contract of ``parallel/sharding.py``: every parameter and optimizer-state
-    leaf is replicated, ``bytes_per_chip == total_bytes`` in both summaries,
-    and the run ends bitwise where ``mesh_dv3`` ends (``twin``, its
-    checkpoint; ``twin_ledger``, its ledger); ``doctor`` on the run finds no
-    ``replicated_giant``. Returns the leg's report (its ``launches``: the
+    leaf is replicated, each by the engine's own reason (the ``params``
+    report is the JAX package's ``shard_params`` one), ``bytes_per_chip ==
+    total_bytes`` in both summaries, no parameter is laid out, and the run
+    ends bitwise where ``mesh_dv3`` ends (``twin``, its checkpoint;
+    ``twin_ledger``, its ledger); ``doctor`` on the run finds no
+    ``replicated_giant``. The leg's peak device memory is printed beside
+    ``mesh_dv3``'s (``twin_peak``): at world size 1 nothing is sharded, so
+    the two should be equal. Returns the leg's report (its ``launches``: the
     five LN-GRU kernels, at S)."""
     with deterministic_kernels(torch):
         parsed, counts, seconds, peak = drive(torch, ln_gru, "run", common + [
@@ -4347,7 +4352,8 @@ def mesh_sharded_leg(torch, ln_gru, common, twin, twin_ledger):
     summaries = {r["group"]: r for r in events if r["action"] == "summary"}
     want = {"params": n_params, "opt_state": 1 + 3 + 2 * n_trained}  # the EMA step, three counts, mu and nu
     got = {g: len(v) for g, v in leaves.items()}
-    sharded = [r["path"] for v in leaves.values() for r in v if r["spec"] != "replicated"]
+    sharded = [r["path"] for v in leaves.values() for r in v
+               if r["spec"] != "replicated" or r["reason"].startswith("kept whole")]
     if got != want or sharded or set(summaries) != {"params", "opt_state"} or any(
             r["bytes_per_chip"] != r["total_bytes"] or (r["dp"], r["fsdp"], r["tp"]) != (1, 1, 1)
             for r in summaries.values()):
@@ -4357,6 +4363,10 @@ def mesh_sharded_leg(torch, ln_gru, common, twin, twin_ledger):
     codes = [f["code"] for f in doctor["findings"]]
     if "replicated_giant" in codes:
         raise AssertionError(f"doctor on mesh_dv3_sharded: {codes}")
+    out["peak_device_memory_beside_mesh_dv3"] = {"mesh_dv3_sharded": peak, "mesh_dv3": twin_peak,
+                                                 "equal": peak == twin_peak}
+    print(f"[mesh] peak device memory: mesh_dv3_sharded {peak}, mesh_dv3 {twin_peak} bytes", file=sys.stderr,
+          flush=True)
     out.update({"twin": {"of": "mesh_dv3", "bitwise_equal": True}, "sharding_leaves": got,
                 "sharding_summaries": {g: {k: r[k] for k in ("leaves", "total_bytes", "bytes_per_chip")}
                                        for g, r in summaries.items()},

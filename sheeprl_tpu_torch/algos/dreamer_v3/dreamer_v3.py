@@ -62,8 +62,9 @@ from ...ops import lambda_values as lambda_values_op
 from ...ops import ln_gru
 from ...ops.transforms import unrolled_cumprod
 from ...optim import Clipped, clipped
+from ...parallel.layout import gathered
 from ...parallel.mesh import (collective_fields, emit_sharding_reports, local_cfg, maybe_shard_opt_state,
-                               maybe_shard_params, rank_resume, ranks_state, run_log_dir)
+                               maybe_shard_params, params_sharded, rank_resume, ranks_state, run_log_dir)
 from ...parallel.mesh import current as current_distributed
 from ...parallel.placement import make_param_mirror
 from ...resilience.guard import RunGuard
@@ -238,10 +239,14 @@ def make_world_model_step(wm: WorldModel, optimizer: Clipped, cfg: Config, apply
                     a_in = (1 - is_first) * batch_actions
                     feats = rssm.recurrent_features(torch.cat([z_in, a_in], dim=-1))
                     gru = rssm.recurrent_model.gru
-                    hs = ln_gru.gru_sequence(
-                        feats, is_first, h0_row, gru.fused.weight.t(), gru.LayerNorm_0.weight,
-                        gru.LayerNorm_0.bias, plain=gru_plain,
-                    )
+                    # the kernels take the whole fused weight: gathered for
+                    # the call on a parameter-sharded mesh (its dW comes back
+                    # as the rank's shard)
+                    with gathered(optimizer.layout, gru.fused):
+                        hs = ln_gru.gru_sequence(
+                            feats, is_first, h0_row, gru.fused.weight.t(), gru.LayerNorm_0.weight,
+                            gru.LayerNorm_0.bias, plain=gru_plain,
+                        )
                     prior_logits = rssm._transition(hs)
                 else:
                     # the scans run inside the cast boundary: their inputs
@@ -458,7 +463,9 @@ def make_train_fn(
     ``Distributed`` (``parallel/mesh.py``) ``batches`` are this rank's
     columns: Moments take the global batch's quantiles, and the optimizers
     built with the same ``dist`` average the gradients over the ranks (and,
-    laid out by ``parallel/layout.py``, step this rank's moment slices)."""
+    laid out by ``parallel/layout.py``, step this rank's shards and moment
+    slices; a sharded module's whole weights are gathered one module at a
+    time, in its forward and its backward)."""
     apply = make_precision_applies(cfg)
     tau = float(cfg.algo.critic.tau)
     target_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
@@ -695,12 +702,16 @@ def main(cfg: Config) -> None:
     world_size)``), so every rank runs the same bursts; the overlapped loop
     takes one packet per iteration, so the schedule depends on nothing
     timed. Rank 0 logs the global metrics, checkpoints (the buffer gathered
-    by env block), tests and registers. On a mesh with fsdp or tp > 1 (or
-    under ``fabric.shard_optimizer_state``) the rule engine lays out the
-    optimizer states (``maybe_shard_opt_state``; the parameters stay whole,
-    ``maybe_shard_params``); the ranks of a tp group step one env block and
-    train on one batch (their data rank's), and a checkpoint holds every
-    moment whole, gathered by every rank."""
+    by env block), tests and registers. On a mesh with fsdp or tp > 1 the
+    rule engine lays out the parameters (``maybe_shard_params``: each rank
+    keeps its shard of every leaf the ``params`` report does not replicate,
+    with its gradient, and ``algo.player.device=auto`` puts the player's
+    mirror on the host) and the optimizer states (``maybe_shard_opt_state``;
+    ZeRO-1 alone under ``fabric.shard_optimizer_state`` on a pure-dp mesh);
+    the ranks of a tp group step one env block and train on one batch
+    (their data rank's); a checkpoint holds every parameter and moment
+    whole, gathered by every rank, and the parameters are gathered whole
+    once training ends (the test episode, the registry)."""
     fleet_on = FleetEngine.configured(cfg)
     precision = check_precision(cfg)
     dist = current_distributed(cfg)
@@ -776,15 +787,21 @@ def main(cfg: Config) -> None:
         cfg, device, rb, int(cfg.algo.per_rank_batch_size), seq_len, cnn_keys=cnn_keys,
         row_bytes_hint=estimate_row_bytes(obs_space, act_total),
     )
+    named = {"wm": wm, "actor": actor, "critic": critic, "target_critic": target_critic}
+    resumed_sums = param_sums(named) if state else None  # the whole parameters, before any layout
     # the player acts with its own copy of {wm, actor} (the train step
-    # updates the learner's in place) and its own generator
-    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed + drank, host=fleet_on)
-    # the mesh's layout (a no-op on a pure-dp mesh): the parameters stay whole,
-    # the optimizer states, fresh or resumed alike, are cut to this rank's slices
-    layout = maybe_shard_params(cfg, dist, {"wm": wm, "actor": actor, "critic": critic,
-                                            "target_critic": target_critic})
+    # updates the learner's in place) and its own generator, made while the
+    # parameters are still whole
+    mirror, pdev, player_gen = make_param_mirror(cfg, device, {"wm": wm, "actor": actor}, seed + drank, host=fleet_on,
+                                                 params_sharded=params_sharded(dist, named))
+    # the mesh's layout (a no-op on a pure-dp mesh): each rank keeps its shard
+    # of the parameters, and the optimizer states, fresh or resumed alike, are
+    # cut to this rank's slices
+    layout = maybe_shard_params(cfg, dist, named)
     maybe_shard_opt_state(cfg, dist, layout, {"actor": (optimizers.actor, actor), "critic": (optimizers.critic, critic),
                                               "wm": (optimizers.wm, wm)}, counters=("step",))
+    if layout.sharded:  # the mirror's refresh gathers the whole parameters from the shards
+        mirror.layout = layout
     train = make_train_fn(wm, actor, critic, target_critic, optimizers, cfg, is_continuous, actions_dim,
                           dist=dist if dist.collective else None)
     if saved_gens:
@@ -811,7 +828,7 @@ def main(cfg: Config) -> None:
         print("[dreamer_v3] resumed " + json.dumps({
             "checkpoint": str(cfg.checkpoint.resume_from), "policy_step": policy_step, "grad_steps": optimizers.step,
             "ratio": ratio.state_dict(), "last_log": last_log, "last_checkpoint": last_checkpoint,
-            "param_sums": param_sums({"wm": wm, "actor": actor, "critic": critic, "target_critic": target_critic}),
+            "param_sums": resumed_sums,
         }), flush=True)
 
     pending: List[Dict[str, torch.Tensor]] = []
@@ -834,10 +851,7 @@ def main(cfg: Config) -> None:
 
     def _ckpt_state() -> Dict[str, Any]:
         s: Dict[str, Any] = {
-            "wm": wm.state_dict(),
-            "actor": actor.state_dict(),
-            "critic": critic.state_dict(),
-            "target_critic": target_critic.state_dict(),
+            **{name: layout.state_dict(m) for name, m in named.items()},
             "opt_states": {
                 "wm": layout.full_opt_state(optimizers.wm),
                 "actor": layout.full_opt_state(optimizers.actor),
@@ -1022,6 +1036,7 @@ def main(cfg: Config) -> None:
         guard.close(policy_step, _ckpt_state)
         envs.close()
         telem.close(policy_step)
+    layout.unshard()  # every rank: the parameters whole again for the test episode and the registry
     if cfg.algo.run_test and rank == 0:
         test_env = single_env(cfg, seed)
         # the player acts in f32 (bf16-true keeps bf16 parameters)

@@ -253,11 +253,15 @@ def _apply_cli_overrides(cfg: Config, overrides: Sequence[str]) -> None:
 
 
 def eval_algorithm(cfg: Config) -> None:
-    """One env, one device, the checkpoint's inference state."""
+    """One env, one device (whatever mesh and nodes the run had), the
+    checkpoint's inference state."""
     _register()
     from .utils.checkpoint import CheckpointManager
 
     cfg.set_path("fabric.devices", 1)
+    cfg.set_path("fabric.num_nodes", 1)
+    for axis in ("dp", "fsdp", "tp"):
+        cfg.set_path(f"fabric.mesh.{axis}", 1)
     cfg.set_path("fabric.strategy", "auto")
     cfg.set_path("env.num_envs", 1)
     entry = get_evaluation(cfg.algo.name)

@@ -182,8 +182,8 @@ class Clipped:
     all-reduce, so the clipping sees the averaged gradient, as optax clips
     the gradient XLA already averaged. Under a ``ParamLayout``
     (``parallel/layout.py``, set by ``shard_opt_state``) the optimizer owns
-    this rank's slices and the layout takes the step: the clipping norm is
-    the whole averaged gradient's, whatever the slices."""
+    this rank's shards and slices and the layout takes the step: the
+    clipping norm is the whole averaged gradient's, whatever the shards."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, max_grad_norm: Optional[float], dist: Any = None):
         self.optimizer = optimizer
@@ -198,8 +198,9 @@ class Clipped:
     @property
     def grad_params(self) -> List[torch.nn.Parameter]:
         """The tensors the step's graph reads and its gradients land on: the
-        optimizer's parameters, or under a layout the whole parameters its
-        slices are cut from."""
+        optimizer's parameters, or under a layout the modules' registered
+        parameters (a sharded one holds its shard; a ZeRO-1 slice's is the
+        whole parameter it is cut from)."""
         return self.layout.compute_params(self) if self.layout is not None else self.params
 
     def zero_grad(self) -> None:

@@ -26,14 +26,14 @@ out a multi-host run, and keeps the config's meaning:
   process as ``LOCAL_RANK``, the launch runs that one rank here);
 * the group's ``DeviceMesh`` (``init_device_mesh`` over ``("dp", "fsdp",
   "tp")``, ranks laid out row-major) and the ``SpecEngine`` of
-  ``parallel/sharding.py``. The parameters stay whole on every rank
-  (``maybe_shard_params`` records a ``params`` report that says so); the
-  engine lays out the optimizer states (``shard_opt_state``,
-  ``parallel/layout.py``): each moment follows its parameter's spec, a
-  replicated one falls back to ZeRO-1. Each report becomes ``sharding``
-  telemetry events (``take_sharding_reports``). Both are no-ops on a
-  pure-dp mesh unless ``fabric.shard_optimizer_state`` asks for ZeRO-1
-  over dp, as in the JAX package;
+  ``parallel/sharding.py``. The engine lays out DreamerV3's parameters
+  (``maybe_shard_params``: each rank keeps its shard of every leaf the
+  ``params`` report does not replicate, ``parallel/layout.py``) and the
+  optimizer states (``shard_opt_state``): each moment follows its
+  parameter's spec, a replicated one falls back to ZeRO-1. Each report
+  becomes ``sharding`` telemetry events (``take_sharding_reports``). Both
+  are no-ops on a pure-dp mesh (where only ``fabric.shard_optimizer_state``
+  asks for ZeRO-1 over dp), as in the JAX package;
 * the data ranks are the dp × fsdp coordinates (``data_rank``,
   ``data_parallel_size``); the ranks of a tp group share one: rank ``d``'s
   data block ``d // tp`` steps env block ``d // tp`` (``local_envs``) and
@@ -342,6 +342,14 @@ class Distributed:
             offset += n
 
     @torch.no_grad()
+    def mean_over_data(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The mean of ``tensor`` over the data ranks (a new tensor; a copy
+        without a group)."""
+        out = tensor.detach().clone(memory_format=torch.contiguous_format)
+        self.all_reduce_mean([out])
+        return out
+
+    @torch.no_grad()
     def all_reduce_sum(self, tensor: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of ``tensor`` (a new tensor)."""
         if self.group is None:
@@ -466,13 +474,13 @@ class Distributed:
         report is recorded and the optimizers step their slices from here on."""
         leaves = [Leaf(c, (), 4, ()) for c in counters]
         for name, (opt, module) in optimizers.items():
-            leaves += adam_leaves(name, module, opt.max_grad_norm is not None)
+            leaves += adam_leaves(name, module, opt.max_grad_norm is not None, shape_of=layout.leaf_shape)
         leaves.sort(key=lambda lf: lf.path.split("/"))
         report = infer_tree_specs(self.spec_engine, leaves, group="opt_state", zero1_fallback=True,
                                   zero1_min_size=min_size)
         self.sharding_reports.append(report)
         if any(not d.replicated for d in report.decisions):
-            self._need_mesh("the optimizer state's")
+            self._need_mesh("optimizer state's")
             by_path = {d.path: d for d in report.decisions}
             for name, (opt, module) in optimizers.items():
                 layout.shard_opt_state(opt, module, by_path, f"{name}/{adam_prefix(opt.max_grad_norm is not None)}/mu/")
@@ -489,17 +497,38 @@ class Distributed:
                                "the run through sheeprl_tpu_torch.cli (run_algorithm) or mesh.launch")
 
 
+def params_report(dist: Distributed, modules: Dict[str, torch.nn.Module]) -> ShardingReport:
+    """The engine's ``params`` report of ``modules`` on ``dist``'s mesh (the
+    JAX package's ``shard_params`` report of the same tree)."""
+    return infer_tree_specs(dist.spec_engine, [lf for lf, *_ in module_leaves(modules)], group="params")
+
+
+def params_sharded(dist: Optional[Distributed], modules: Dict[str, torch.nn.Module]) -> bool:
+    """Whether ``maybe_shard_params`` cuts any of ``modules``' parameters on
+    ``dist``'s mesh."""
+    return (dist is not None and not dist.is_pure_dp
+            and any(not d.replicated for d in params_report(dist, modules).decisions))
+
+
 def maybe_shard_params(cfg: Any, dist: Optional[Distributed], modules: Dict[str, torch.nn.Module]) -> Any:
     """The layout of ``modules`` (``ParamLayout``, which the optimizer
-    states are laid out over). The parameters stay whole on every rank: on
-    a multi-axis mesh, or under ZeRO-1, the ``params`` report is recorded
-    with every leaf whole (``layout.kept_whole``)."""
-    from .layout import ParamLayout, kept_whole
+    states are laid out over). On a multi-axis mesh every leaf goes through
+    the rule engine and each rank keeps its shard of every leaf the
+    ``params`` report does not replicate (``ParamLayout.shard_params``); on
+    a pure-dp mesh the parameters are left as they are, as the JAX
+    package's ``maybe_shard_params`` leaves them (the 1-D path stays
+    bit-identical), and under ZeRO-1 the report is recorded, every leaf
+    replicated."""
+    from .layout import ParamLayout
 
+    layout = ParamLayout(dist, modules)
     if dist is not None and (not dist.is_pure_dp or dist.shard_optimizer_state):
-        leaves = [lf for lf, *_ in module_leaves(modules)]
-        dist.sharding_reports.append(kept_whole(infer_tree_specs(dist.spec_engine, leaves, group="params")))
-    return ParamLayout(dist, modules)
+        report = params_report(dist, modules)
+        dist.sharding_reports.append(report)
+        if not dist.is_pure_dp and any(not d.replicated for d in report.decisions):
+            dist._need_mesh("parameters'")
+            layout.shard_params(report)
+    return layout
 
 
 def maybe_shard_opt_state(cfg: Any, dist: Optional[Distributed], layout: Any, optimizers: Dict[str, Any],

@@ -11,7 +11,10 @@ every burst.
 * ``auto`` (default): the learner's device. The JAX package's ``auto`` puts
   the player on the host CPU whenever the backend is an accelerator, a choice
   made for a TPU reached over a network link; a card on the local PCIe bus
-  has no such link, so the port keeps the player beside the learner;
+  has no such link, so the port keeps the player beside the learner, except
+  where the learner's parameters are sharded (``params_sharded``): there the
+  mirror's two whole copies would take back on the card what the shards
+  save, so ``auto`` is the host CPU, as the JAX package's is;
 * ``host``: the CPU; the refresh is a device-to-host copy into pinned memory;
 * ``accelerator``: the CUDA device; raises when there is none.
 
@@ -28,11 +31,12 @@ import numpy as np
 import torch
 
 
-def player_device(cfg: Any, learner: torch.device) -> torch.device:
-    """Resolve ``algo.player.device`` against the learner's device."""
+def player_device(cfg: Any, learner: torch.device, params_sharded: bool = False) -> torch.device:
+    """Resolve ``algo.player.device`` against the learner's device (and
+    whether the learner's parameters are sharded)."""
     mode = (cfg.select("algo.player.device", "auto") if cfg is not None else None) or "auto"
     if mode == "auto":
-        return learner
+        return torch.device("cpu") if params_sharded else learner
     if mode == "host":
         return torch.device("cpu")
     if mode == "accelerator":
@@ -67,6 +71,10 @@ class ParamMirror:
     card it records a "released" event on its stream, which the learner's
     stream waits on before it writes that slot again. The pending-slot
     handoff takes a small lock, once per env step and once per burst.
+
+    With a ``layout`` (``parallel/layout.py``) whose parameters are sharded,
+    ``refresh`` fills each whole copy from the shards, one parameter at a
+    time: a collective that every rank calls, in the same order.
     """
 
     def __init__(self, modules: Dict[str, torch.nn.Module], device: torch.device, async_refresh: bool = False):
@@ -90,6 +98,7 @@ class ParamMirror:
         self._player_wait_s = 0.0  # host-player time spent waiting for a copy
         self._copies: List[Any] = []  # (start, end) timing events of copies on the card not yet read
         self._copy_ms, self._copies_read = 0.0, 0
+        self.layout: Any = None  # the learner's ParamLayout, where its parameters are sharded
 
     def _clone(self, modules: Dict[str, torch.nn.Module], pin: bool) -> Dict[str, torch.nn.Module]:
         out = {}
@@ -119,7 +128,10 @@ class ParamMirror:
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
         with torch.no_grad():
-            if src[0].device == dst[0].device:
+            if self.layout is not None:  # one whole parameter at a time, gathered from the shards
+                for d, s in zip(dst, src):
+                    d.copy_(self.layout.whole_tensor(s), non_blocking=True)
+            elif src[0].device == dst[0].device:
                 torch._foreach_copy_(dst, src)
             else:
                 for d, s in zip(dst, src):
@@ -181,14 +193,16 @@ class ParamMirror:
 
 
 def make_param_mirror(cfg: Any, learner: torch.device, modules: Dict[str, torch.nn.Module], seed: int,
-                      host: bool = False):
+                      host: bool = False, params_sharded: bool = False):
     """The player's setup in one place: its device, the mirror of its
     modules there, and its own random generator (``torch.Generator`` is not
     thread-safe, so the player never shares the train step's), seeded from
     the run's seed. ``host`` puts the mirror on the CPU whatever
-    ``algo.player.device`` says (the actor fleet publishes host arrays).
+    ``algo.player.device`` says (the actor fleet publishes host arrays);
+    ``params_sharded`` says that the learner's parameters will be sharded
+    (``auto`` is then the host). The modules are still whole here.
     Returns ``(mirror, device, generator)``."""
-    pdev = torch.device("cpu") if host else player_device(cfg, learner)
+    pdev = torch.device("cpu") if host else player_device(cfg, learner, params_sharded)
     mirror = ParamMirror(modules, pdev, async_refresh=bool(cfg.select("algo.player.async_refresh", False)))
     gen = torch.Generator(device=pdev)
     # the second child of the run seed's SeedSequence (the train step's

@@ -303,21 +303,22 @@ class Leaf(NamedTuple):
     dims: Tuple[int, ...]
 
 
-def torch_leaf(module: Any, name: str, tensor: Any, prefix: str = "") -> Leaf:
+def torch_leaf(module: Any, name: str, tensor: Any, prefix: str = "", shape: Optional[Sequence[int]] = None) -> Leaf:
     """The flax path, flax shape and dimension map of ``module``'s parameter
     ``name`` (a state-dict key): the inverse of ``convert.torch_key`` and
     ``convert.kernel_to_torch``. A Linear's ``weight`` [out, in] is the
     kernel [in, out]; a convolution's (or transposed convolution's) OIHW
     weight is the HWIO kernel; a LayerNorm's ``weight`` is its ``scale``
     under the JAX package's extra ``LayerNorm_0`` level; anything else keeps
-    its name and layout."""
+    its name and layout. ``shape`` is the tensor's whole torch shape where
+    the tensor itself is a shard."""
     from torch import nn
 
     from ..models.models import EnsembleLayerNorm, LayerNorm
 
     mod_path, _, leaf = name.rpartition(".")
     owner = module.get_submodule(mod_path) if mod_path else module
-    shape = tuple(int(s) for s in tensor.shape)
+    shape = tuple(int(s) for s in (tensor.shape if shape is None else shape))
     dims = tuple(range(len(shape)))
     parts = mod_path.split(".") if mod_path else []
     if isinstance(owner, (nn.LayerNorm, LayerNorm, EnsembleLayerNorm)):
@@ -346,12 +347,14 @@ def adam_prefix(clipped: bool) -> str:
     return "1/0" if clipped else "0"
 
 
-def adam_leaves(name: str, module: Any, clipped: bool) -> List[Leaf]:
+def adam_leaves(name: str, module: Any, clipped: bool, shape_of: Any = None) -> List[Leaf]:
     """The leaves of one optax Adam state over ``module``'s parameters:
     ``count`` (int32) and a ``mu`` and ``nu`` per parameter, named as the
-    JAX package's optimizer-state tree names them."""
+    JAX package's optimizer-state tree names them. ``shape_of(p)`` gives a
+    parameter's whole shape where it holds a shard."""
     pre = f"{name}/{adam_prefix(clipped)}"
-    params = [torch_leaf(module, n, p) for n, p in module.named_parameters() if p.requires_grad]
+    params = [torch_leaf(module, n, p, shape=shape_of(p) if shape_of else None)
+              for n, p in module.named_parameters() if p.requires_grad]
     out = [Leaf(f"{pre}/count", (), 4, ())]
     for moment in ("mu", "nu"):
         out += [Leaf(f"{pre}/{moment}/{lf.path}", lf.shape, lf.dtype_bytes, lf.dims) for lf in params]

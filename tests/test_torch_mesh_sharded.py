@@ -3,7 +3,7 @@
 case's ``(dp, fsdp, tp)`` mesh, laid out as ``dreamer_v3.main`` lays it out
 (``maybe_shard_params``, ``maybe_shard_opt_state``), and the unsharded dp=4
 step, while this process takes the JAX package's step on each of
-``(1,2,2)``, ``(2,1,2)``, ``(2,2,1)`` and ``(4,1,1)`` with ZeRO-1 from the
+``(1,2,2)``, ``(2,1,2)``, ``(2,2,1)``, ``(1,4,1)`` and ``(4,1,1)`` with ZeRO-1 from the
 same converted parameters, the same global batch and the JAX step's own
 draws: ``dreamer_tiny.make_trainer(devices=4, mesh=...)``'s step, its train
 function built once (``build_agent`` uses the mesh only to replicate the
@@ -16,26 +16,34 @@ the layouts themselves are held against the JAX package's in
 tests/test_torch_sharding.py.
 
 Decoupled on the LN-GRU sequence (``pallas_gru=True``: the plain versions
-here, which take the whole fused weight every rank holds; the JAX package's
-interpret-mode Pallas kernels), ``algo.dense_units=128`` so that the heads'
-moments are big enough for ZeRO-1's floor (2**14 elements), and the
-engine's ``min_shard_size`` 64 on the fsdp and tp meshes so that fsdp shards
-the tiny model. Tolerances as tests/test_torch_dreamer_v3.py. Besides:
+here, which take the whole fused weight, gathered for the call; the JAX
+package's interpret-mode Pallas kernels), ``algo.dense_units=128`` so that
+the heads' moments are big enough for ZeRO-1's floor (2**14 elements), and
+the engine's ``min_shard_size`` 64 on the fsdp and tp meshes so that fsdp
+shards the tiny model. Tolerances as tests/test_torch_dreamer_v3.py.
+Besides:
 
-* every rank holds the whole parameters, as the ``params`` report says,
-  and its Adam moments take exactly the optimizer-state report's
-  ``bytes_per_chip`` (below ``total_bytes`` where fsdp·tp > 1, and under
-  ZeRO-1); a rank's peak bytes over a burst and the mirror's refresh hold
-  the whole parameters, the mirror and the moments' slices, and ZeRO-1's
-  and (2,2,1)'s peaks are the unsharded dp=4 step's less their moment
-  savings, byte for byte;
-* ZeRO-1 at dp=4, and (2,2,1) whose data ranks are dp=4's, are bitwise the
-  unsharded dp=4 step; the tp meshes' steps (the whole fused weight into
-  the LN-GRU passes, the gradient averaged over two data ranks) agree with
-  it to float rounding;
+* at rest after the step each rank holds its shard of every parameter the
+  ``params`` report does not replicate and of its gradient: parameter bytes
+  equal the report's ``bytes_per_chip`` (below ``total_bytes`` where
+  fsdp·tp > 1), gradient bytes the same over the leaves that have one (all
+  but the target critic's); its Adam moments take exactly the
+  optimizer-state report's ``bytes_per_chip``;
+* on (1,4,1) and (2,2,1), whose data ranks are dp=4's, each rank's peak
+  over the burst is below the unsharded dp=4 step's by at least twice the
+  bytes the parameters' layout saves at rest less twice the largest unit's
+  whole parameters (the one a rank gathers at a time); the mirror's refresh
+  is measured apart and fills the whole copies from the shards;
+* ZeRO-1 at dp=4 (a pure-dp mesh: no parameter is laid out) is bitwise the
+  unsharded dp=4 step; the sharded meshes' steps (each module's whole
+  weights gathered, the sharded gradients averaged in the backward, one
+  module at a time, the replicated ones in the step) agree with it to float
+  rounding: for (2,2,1) the sums' order is the only difference
+  (``tests/torch_dv3_fsdp_f64.py`` runs both sides in float64);
 * with every optimizer's clip at 1e-3 (all of them clip), (1,2,2) and
   (2,2,1) agree with the clipped dp=4 step as above: the clip takes the
-  norm of the whole averaged gradient, not of a rank's shards;
+  norm of the whole averaged gradient, summed from the shards, not of a
+  rank's shards;
 * the state after the (1,2,2) step, written whole by rank 0, resumes at
   (4,1,1) with ZeRO-1 and gathers back to the same tensors;
 * a CLI run at ``fabric.devices=4 fabric.mesh.fsdp=2 fabric.mesh.tp=2``
@@ -69,11 +77,12 @@ def _mesh(dp, fsdp, tp):
 # the cases held to the JAX package's step, then the port's own: the clipped
 # steps and the dp=4 steps the others are held to
 JAX_CASES = [{"mesh": _mesh(1, 2, 2)}, {"mesh": _mesh(2, 1, 2)}, {"mesh": _mesh(2, 2, 1)},
-             {"mesh": _mesh(4, 1, 1), "zero1": True}]
-TP, DP = (0, 1), (2, 3)
+             {"mesh": _mesh(1, 4, 1)}, {"mesh": _mesh(4, 1, 1), "zero1": True}]
+TP, FSDP, ZERO1 = (0, 1), (2, 3), 4
 CASES = JAX_CASES + [{"mesh": _mesh(1, 2, 2), "clip": CLIP}, {"mesh": _mesh(2, 2, 1), "clip": CLIP},
-                     {"mesh": _mesh(4, 1, 1), "clip": CLIP}, {"mesh": _mesh(4, 1, 1)}]
-CLIPPED_TP, CLIPPED_DP, CLIPPED_DP4, DP4 = 4, 5, 6, 7
+                     {"mesh": _mesh(4, 1, 1), "clip": CLIP}, {"mesh": _mesh(4, 1, 1)},
+                     {"mesh": _mesh(2, 2, 1), "precision": "bf16-mixed"}, {"mesh": _mesh(4, 1, 1), "precision": "bf16-mixed"}]
+CLIPPED_TP, CLIPPED_DP, CLIPPED_DP4, DP4, BF16_DP, BF16_DP4 = 5, 6, 7, 8, 9, 10
 
 
 @pytest.fixture(scope="module")
@@ -154,13 +163,19 @@ def _check_against_jax(outs, refs, tover, i):
     np.testing.assert_allclose(outs[0][i]["moments"], [float(j_moments.low), float(j_moments.high)],
                                rtol=METRIC_RTOL)
 
-    # the memory each rank holds is the reports': the parameters whole, the moments sharded
+    # the memory each rank holds at rest is the reports': its shards of the
+    # parameters and their gradients, its slices of the moments
     summaries = outs[0][i]["summaries"]
     assert set(summaries) == {"params", "opt_state"}
     for o in outs:
         assert o[i]["param_bytes"] == summaries["params"]["bytes_per_chip"], case
+        assert o[i]["grad_bytes"] == o[i]["grad_leaf_bytes"], case
         assert o[i]["moments_bytes"] == o[i]["moment_leaf_bytes"], case
-    assert summaries["params"]["bytes_per_chip"] == summaries["params"]["total_bytes"], case
+    params = summaries["params"]
+    if mesh["fsdp"] * mesh["tp"] > 1:
+        assert params["bytes_per_chip"] < params["total_bytes"], case
+    else:
+        assert params["bytes_per_chip"] == params["total_bytes"], case
     assert summaries["opt_state"]["bytes_per_chip"] < summaries["opt_state"]["total_bytes"], case
 
 
@@ -188,14 +203,19 @@ def test_dreamer_v3_on_the_tp_meshes_matches_jax_and_resumes_at_another_mesh(run
 
 
 def test_dreamer_v3_on_the_fsdp_and_zero1_meshes_matches_jax_bitwise_the_dp_step(run):
-    """(2,2,1) and (4,1,1) with ZeRO-1 against the JAX package's step and bit
-    for bit the unsharded dp=4 step (their data ranks are dp=4's)."""
+    """(2,2,1), (1,4,1) and (4,1,1) with ZeRO-1 against the JAX package's
+    step; ZeRO-1 bit for bit the unsharded dp=4 step, the parameter-sharded
+    meshes (their data ranks are dp=4's, their sums in another order) to
+    rounding, at the tp meshes' tolerance."""
     outs, refs, tover = run
     base = outs[0][DP4]
-    for i in DP:
+    for i in (*FSDP, ZERO1):
         _check_against_jax(outs, refs, tover, i)
         assert base["param_bytes"] == outs[0][i]["summaries"]["params"]["total_bytes"]
-        _same(outs[0][i], base, CASES[i])
+    _same(outs[0][ZERO1], base, CASES[ZERO1])
+    for i in FSDP:
+        for k in NAMES:
+            _close_state(outs[0][i]["state"][k], base["state"][k], 1e-7, k)
 
 
 def test_the_global_norm_clip_takes_the_whole_gradients_norm(run):
@@ -207,39 +227,77 @@ def test_the_global_norm_clip_takes_the_whole_gradients_norm(run):
     moved = {k: max(float((clipped["state"][k][n] - plain["state"][k][n]).abs().max()) for n in plain["state"][k])
              for k in ("wm", "actor", "critic")}
     assert all(v > 1e-7 for v in moved.values()), moved  # the clip changed every optimizer's step
-    _same(outs[0][CLIPPED_DP], clipped, "(2,2,1) clipped")
+    for i in (CLIPPED_TP, CLIPPED_DP):
+        for k in NAMES:
+            _close_state(outs[0][i]["state"][k], clipped["state"][k], 1e-7, k)
+
+
+def test_bf16_mixed_on_the_sharded_parameters_computes_the_dp_steps_forward(run):
+    """Under ``fabric.precision=bf16-mixed`` a unit's gathered whole copy is
+    cast into bf16 for its forward as the unsharded step casts its whole
+    parameters: (2,2,1), whose data ranks are dp=4's, reads the same bf16
+    weights on the same columns, so its losses are the bf16 dp=4 step's bit
+    for bit and its update agrees with that step's to the gradients'
+    summation order, at the tp meshes' tolerance; its shards are the
+    report's."""
+    outs, _, _ = run
+    a, b = outs[0][BF16_DP], outs[0][BF16_DP4]
+    assert a["metrics"] == b["metrics"]
     for k in NAMES:
-        _close_state(outs[0][CLIPPED_TP]["state"][k], clipped["state"][k], 1e-7, k)
+        _close_state(a["state"][k], b["state"][k], 1e-7, k)
+    for o in outs:
+        assert o[BF16_DP]["param_bytes"] == a["summaries"]["params"]["bytes_per_chip"]
+        assert o[BF16_DP]["grad_bytes"] == o[BF16_DP]["grad_leaf_bytes"]
 
 
 def test_a_ranks_peak_during_a_burst_holds_the_whole_parameters_and_its_moment_slices(run):
-    """Every case: each rank's peak bytes over the burst and the mirror's
-    refresh are at least the whole parameters, the mirror and its moment
-    slices (the parameters are whole on every rank during the step). ZeRO-1
-    at dp=4 and (2,2,1) run the unsharded dp=4 step's computation on the
-    same columns, and each one's peak is that step's less exactly the bytes
-    its moments save."""
+    """Every case: at rest after the step a rank holds the report's
+    ``bytes_per_chip`` of parameters and of gradients. On (1,4,1) and
+    (2,2,1), which run the dp=4 step's computation on the same columns with
+    one unit's whole weights gathered at a time, each rank's peak over the
+    burst is below the unsharded dp=4 step's by at least 2 · (``total_bytes``
+    − ``bytes_per_chip``) − 2 · (the largest unit's whole bytes). On every
+    mesh the layout never holds more whole-copy bytes at once than the
+    largest unit's (with its bf16 cast under bf16-mixed). The
+    mirror's refresh, measured apart, fills the player's whole copies from
+    the shards (a collective, one parameter at a time)."""
     outs, _, _ = run
-    for i in range(len(CASES)):
+    for i, case in enumerate(CASES):
         for o in outs:
-            held = o[i]["param_bytes"] + o[i]["mirror_bytes"] + o[i]["moments_bytes"]
-            assert o[i]["peak_bytes"] >= held, (CASES[i], o[i]["peak_bytes"], held)
-    for i in DP:
+            params = o[i]["summaries"].get("params")
+            if params is not None:
+                assert o[i]["param_bytes"] == params["bytes_per_chip"], case
+                assert o[i]["grad_bytes"] == o[i]["grad_leaf_bytes"], case
+            for k in ("wm", "actor"):
+                for n, t in o[i]["state"][k].items():
+                    assert torch.equal(o[i]["mirror"][k][n], t), (case, k, n)
+            assert o[i]["refresh_peak_bytes"] >= o[i]["mirror_bytes"], case
+            # one module's whole weights at a time (with their bf16 cast under bf16-mixed)
+            held = o[i]["unit_bytes"] * (3 if case.get("precision") == "bf16-mixed" else 2) // 2
+            assert o[i]["gathered_peak_bytes"] <= held, (case, o[i]["gathered_peak_bytes"], held)
+    for i in FSDP:
+        params = outs[0][i]["summaries"]["params"]
         for o in outs:
-            saved = o[DP4]["moments_bytes"] - o[i]["moments_bytes"]
-            assert saved > 0 and o[DP4]["peak_bytes"] - o[i]["peak_bytes"] == saved, (CASES[i], saved)
-    print("peak bytes, moment bytes of rank 0 by case:",
-          [(c["mesh"], outs[0][i]["peak_bytes"], outs[0][i]["moments_bytes"]) for i, c in enumerate(CASES)])
+            margin = 2 * (params["total_bytes"] - params["bytes_per_chip"]) - 2 * o[i]["unit_bytes"]
+            assert margin > 0 and o[DP4]["peak_bytes"] - o[i]["peak_bytes"] >= margin, (
+                CASES[i], o[DP4]["peak_bytes"], o[i]["peak_bytes"], margin)
+    print("rank 0 by case: mesh, peak bytes over the burst, over the refresh, parameter, gradient and moment "
+          "bytes, the largest unit's whole bytes, the most whole-copy bytes held at once:",
+          [(c["mesh"], outs[0][i]["peak_bytes"], outs[0][i]["refresh_peak_bytes"], outs[0][i]["param_bytes"],
+            outs[0][i]["grad_bytes"], outs[0][i]["moments_bytes"], outs[0][i]["unit_bytes"],
+            outs[0][i]["gathered_peak_bytes"])
+           for i, c in enumerate(CASES)])
 
 
 def test_dreamer_v3_cli_run_at_fsdp2_tp2_writes_valid_sharding_events_and_whole_checkpoints(tmp_path, monkeypatch,
                                                                                           capsys):
     """``run exp=dreamer_v3 fabric.devices=4 fabric.mesh.fsdp=2
     fabric.mesh.tp=2`` on the CPU: it trains; its stream passes both
-    packages' validators and carries the two reports (the parameters whole,
-    each rank's moments below their total); its checkpoint holds every
-    tensor whole, and a run on one rank resumes from it: the parameters it
-    prints are the checkpoint's, and it trains on to its own last step."""
+    packages' validators and carries the two reports (each rank's
+    parameters and moments below their totals); its checkpoint holds every
+    tensor whole, ``serve``'s policy and ``eval`` load it, and a run on one
+    rank resumes from it: the parameters it prints are the checkpoint's, and
+    it trains on to its own last step."""
     from sheeprl_tpu.telemetry.schema import validate_jsonl as jax_validate
     from sheeprl_tpu_torch.telemetry.schema import validate_jsonl
 
@@ -265,7 +323,7 @@ def test_dreamer_v3_cli_run_at_fsdp2_tp2_writes_valid_sharding_events_and_whole_
     assert set(summaries) == {"params", "opt_state"}
     for r in summaries.values():
         assert (r["dp"], r["fsdp"], r["tp"]) == (1, 2, 2)
-    assert summaries["params"]["bytes_per_chip"] == summaries["params"]["total_bytes"]
+    assert summaries["params"]["bytes_per_chip"] < summaries["params"]["total_bytes"]
     assert summaries["opt_state"]["bytes_per_chip"] < summaries["opt_state"]["total_bytes"]
     state = torch.load(f"{run_dir}/checkpoint/ckpt_48.ckpt", weights_only=False)
     assert state["policy_step"] == 48 and state["opt_states"]["step"] > 0
@@ -275,6 +333,17 @@ def test_dreamer_v3_cli_run_at_fsdp2_tp2_writes_valid_sharding_events_and_whole_
     n_saved = sum(t.numel() for k in NAMES for t in state[k].values())
     assert n_saved == sum(int(np.prod(s)) for s in leaves.values())
     assert all(type(t) is torch.Tensor for k in NAMES for t in state[k].values())
+
+    # serve and eval read it as an unsharded run's checkpoint
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serve.policy import InferencePolicy
+
+    ckpt = f"{run_dir}/checkpoint/ckpt_48.ckpt"
+    policy = InferencePolicy.from_checkpoint(ckpt, buckets=[1])
+    assert policy.warmup() == 2
+    capsys.readouterr()
+    cli.evaluation([f"checkpoint_path={ckpt}", "fabric.accelerator=cpu"])
+    assert "Test - Reward:" in capsys.readouterr().out
 
     # the (1,2,2) checkpoint at one rank
     capsys.readouterr()

@@ -332,6 +332,20 @@ def test_player_device_modes(monkeypatch):
         player_device(cfg("accelerator"), cpu)
 
 
+def test_player_device_auto_is_the_host_where_the_parameters_are_sharded():
+    """On a mesh whose ``params`` report shards a leaf, ``auto`` keeps the
+    mirror's two whole copies off the learner's card (the JAX package's
+    ``auto``); ``accelerator`` still puts them there, ``host`` on the host."""
+    from sheeprl_tpu_torch.config import Config
+
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    cfg = lambda mode: Config({"algo": {"player": {"device": mode}}})  # noqa: E731
+    assert player_device(cfg("auto"), card, params_sharded=True) == cpu
+    assert player_device(cfg("auto"), card, params_sharded=False) == card
+    assert player_device(cfg("accelerator"), card, params_sharded=True) == card
+    assert player_device(cfg("host"), card, params_sharded=True) == cpu
+
+
 # ---------------------------------------------------------------------------
 # end to end through the CLI, on the CPU
 # ---------------------------------------------------------------------------

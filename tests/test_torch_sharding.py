@@ -79,6 +79,41 @@ def test_optimizer_state_report_equals_the_jax_packages(tiny, mesh, min_size):
     assert [{k: v for k, v in e.items()} for e in trep.events()] == jrep.events()
 
 
+# the meshes DreamerV3's parameters are laid out on in tests/test_torch_mesh_sharded.py
+# (min_shard_size 64 where fsdp·tp > 1, so that fsdp shards the tiny model)
+PARAM_MESHES = [({"dp": 1, "fsdp": 2, "tp": 2}, False), ({"dp": 2, "fsdp": 1, "tp": 2}, False),
+                ({"dp": 2, "fsdp": 2, "tp": 1}, False), ({"dp": 1, "fsdp": 4, "tp": 1}, False),
+                ({"dp": 4, "fsdp": 1, "tp": 1}, True)]
+
+
+@pytest.mark.parametrize("mesh,zero1", PARAM_MESHES,
+                         ids=["x".join(str(v) for v in m.values()) + ("-zero1" if z else "") for m, z in PARAM_MESHES])
+def test_params_report_equals_the_jax_packages_shard_params(tiny, mesh, zero1):
+    """The ``params`` report ``maybe_shard_params`` records for the port's
+    DreamerV3 equals the report of the JAX package's ``shard_params`` for the
+    same tree (``infer_tree_specs`` over the parameters): paths, specs, rules,
+    reasons and bytes per chip, leaf for leaf, and the summary. On every mesh
+    with fsdp·tp > 1 it shards, so a rank holds less than the whole."""
+    from sheeprl_tpu_torch.parallel import mesh as tmesh
+
+    params, _, modules = tiny
+    min_size = 64 if mesh["fsdp"] * mesh["tp"] > 1 else jsh.DEFAULT_MIN_SHARD_SIZE
+    _, jrep = jsh.infer_tree_specs(jsh.SpecEngine(mesh, min_shard_size=min_size), params, group="params")
+    dist = tmesh.Distributed(devices=4, accelerator="cpu", mesh={**mesh, "min_shard_size": min_size},
+                             shard_optimizer_state=zero1)
+    if zero1:  # a pure-dp mesh: recorded, and nothing laid out
+        layout = tmesh.maybe_shard_params(None, dist, modules)
+        trep, = dist.take_sharding_reports()
+        assert layout.sharded == []
+    else:
+        trep = tmesh.params_report(dist, modules)
+        assert tmesh.params_sharded(dist, modules)
+        assert trep.bytes_per_chip < trep.total_bytes
+    assert _rows(trep.decisions, mesh) == _rows(jrep.decisions, mesh)
+    assert trep.summary() == jrep.summary()
+    assert trep.events() == jrep.events()
+
+
 # (engine axis sizes, engine min_shard_size, method, args): the inputs of
 # tests/test_sharding.py's unit cases
 UNIT_CASES = [

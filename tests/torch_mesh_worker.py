@@ -405,18 +405,22 @@ def launch_steps_and_runs(build_steps: Callable[[], Any], runs: Sequence[Dict[st
 
 def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
     """One DreamerV3 burst per case of ``p["cases"]`` (``{"mesh": {dp, fsdp,
-    tp[, min_shard_size]}, "zero1": bool, "clip": max norm}``), each on its own mesh over this
+    tp[, min_shard_size]}, "zero1": bool, "clip": max norm, "precision": fabric.precision}``), each on its own
+    mesh over this
     launch's ranks (``Distributed.adopt_group``), from ``p["modules"]`` and
     ``p["opt_states"]``: the parameters and optimizer states laid out as
     ``dreamer_v3.main`` lays them out, the rank's data block of ``p["batch"]``
-    and of ``p["noise"]``. The player's mirror is made first, as
-    ``dreamer_v3.main`` makes it, and refreshed after the burst; the rank's
-    peak bytes over the burst and the refresh (``MemTracker``: parameters,
-    gradients, moments, the mirror, activations and temporaries) are
-    recorded beside what the rank holds. With ``p["resume"]`` (``{"from": i,
-    "mesh": ...}``) the whole state after case ``i`` is written by rank 0,
-    read back by every rank on that mesh, laid out again and gathered
-    whole."""
+    and of ``p["noise"]``. The player's mirror is made first, from the whole
+    modules, as ``dreamer_v3.main`` makes it, and refreshed after the burst.
+    Recorded beside what the rank holds at rest after the step (parameter
+    and gradient bytes, the moments): its peak bytes over the burst and,
+    apart, over the mirror's refresh (``MemTracker``: parameters, gradients,
+    moments, the mirror, gathered copies, activations and temporaries), the
+    largest unit's whole parameter bytes and the most whole-copy bytes the
+    layout held at once during the burst. With ``p["resume"]``
+    (``{"from": i, "mesh": ...}``) the whole state after case ``i`` is
+    written by rank 0, read back by every rank on that mesh, laid out again
+    and gathered whole."""
     import copy
 
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -442,13 +446,18 @@ def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
         if "clip" in case:  # every optimizer's global-norm clip
             for section in ("world_model", "actor", "critic"):
                 c.set_path(f"algo.{section}.clip_gradients", case["clip"])
+        if "precision" in case:
+            c.set_path("fabric.precision", case["precision"])
         return c
 
-    def laid_out(case, modules, opt_states):
-        cfg = case_cfg(case)
+    def case_dist(case):
         d = mesh.Distributed(devices=dist.world_size, accelerator="cpu", mesh=case["mesh"],
                              shard_optimizer_state=case.get("zero1", False), rank=dist.rank)
         d.adopt_group(TIMEOUT_S)
+        return d
+
+    def laid_out(case, d, modules, opt_states):
+        cfg = case_cfg(case)
         wm, actor, critic, target = (modules[k] for k in names)
         opts = tdv3.build_optimizers(cfg, wm, actor, critic, d)
         for name in ("wm", "actor", "critic"):
@@ -456,21 +465,29 @@ def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
         layout = mesh.maybe_shard_params(cfg, d, dict(zip(names, (wm, actor, critic, target))))
         mesh.maybe_shard_opt_state(cfg, d, layout, {"actor": (opts.actor, actor), "critic": (opts.critic, critic),
                                                     "wm": (opts.wm, wm)}, counters=("step",))
-        return d, opts, layout
+        return opts, layout
 
     def whole(layout, opts, modules):
-        state = {k: {n: t.clone() for n, t in modules[k].state_dict().items()} for k in names}
+        state = {k: {n: t.clone() for n, t in layout.state_dict(modules[k]).items()} for k in names}
         return state, copy.deepcopy({k: layout.full_opt_state(getattr(opts, k)) for k in ("wm", "actor", "critic")})
 
-    def param_bytes(modules):
-        return sum(q.numel() * q.element_size() for k in names for q in modules[k].parameters())
+    def held(modules, what):
+        ts = [getattr(q, what) for k in names for q in modules[k].parameters()]
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def peak(tracker):
+        return int(tracker.get_tracker_snapshot("peak")[torch.device("cpu")]["Total"])
 
     outs = []
     for case in p["cases"]:
         modules = copy.deepcopy(p["modules"])
         player = {"wm": modules["wm"], "actor": modules["actor"]}
-        mirror = make_param_mirror(case_cfg(case), torch.device("cpu"), player, 0)[0]
-        d, opts, layout = laid_out(case, modules, copy.deepcopy(p["opt_states"]))
+        d = case_dist(case)
+        sharded = mesh.params_sharded(d, dict(zip(names, (modules[k] for k in names))))
+        mirror, pdev, _ = make_param_mirror(case_cfg(case), torch.device("cpu"), player, 0, params_sharded=sharded)
+        opts, layout = laid_out(case, d, modules, copy.deepcopy(p["opt_states"]))
+        if layout.sharded:
+            mirror.layout = layout
         reports = {r.group: r for r in d.take_sharding_reports()}
         train = tdv3.make_train_fn(*(modules[k] for k in names), opts, case_cfg(case), False, p["actions_dim"],
                                    dist=d)
@@ -478,25 +495,37 @@ def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
         batch = {k: torch.from_numpy(np.ascontiguousarray(columns(v, 2, r, n))) for k, v in p["batch"].items()}
         noise = [dv3_noise_columns(x, T, r, n) for x in p["noise"]]
         d.reset_stats()
+        layout.gathered_peak_bytes = 0
+        external = (*(modules[k] for k in names), *(getattr(opts, k).optimizer for k in ("wm", "actor", "critic")),
+                    *(m for slot in mirror._slots for m in slot.values()))
         tracker = BurstTracker()
-        tracker.track_external(*(modules[k] for k in names), *(getattr(opts, k).optimizer
-                                                                for k in ("wm", "actor", "critic")),
-                               *(m for slot in mirror._slots for m in slot.values()))
+        tracker.track_external(*external)
         with tracker:
             moments, metrics = train(MomentsState(torch.tensor(0.0), torch.tensor(0.0)), batch, noise=noise)
+        rest = {"param_bytes": held(modules, "data"), "grad_bytes": held(modules, "grad")}
+        refresh = BurstTracker()
+        refresh.track_external(*external)
+        with refresh:
             mirror.refresh(player)
-        peak = tracker.get_tracker_snapshot("peak")[torch.device("cpu")]
         moments_bytes = sum(layout.opt_local_bytes(getattr(opts, k)) for k in ("wm", "actor", "critic"))
         state, opt_states = whole(layout, opts, modules)
-        outs.append({"state": state, "opt_states": opt_states,
+        mirror_state = {k: {n: t.clone() for n, t in m.state_dict().items()} for k, m in mirror.current().items()}
+        params = reports.get("params")
+        outs.append({"state": state, "opt_states": opt_states, "mirror": mirror_state,
                      "moments": (float(moments.low), float(moments.high)),
                      "metrics": {k: float(v.mean()) for k, v in metrics.items()}, "stats": dict(d.stats),
                      "summaries": {g: rep.summary() for g, rep in reports.items()},
                      "moment_leaf_bytes": sum(x.bytes_per_chip(rep.axis_sizes) for rep in reports.values()
                                               for x in rep.decisions if "/mu/" in x.path or "/nu/" in x.path),
-                     "param_bytes": param_bytes(modules), "moments_bytes": moments_bytes,
+                     "grad_leaf_bytes": None if params is None else sum(
+                         x.bytes_per_chip(params.axis_sizes) for x in params.decisions
+                         if not x.path.startswith("target_critic/")),
+                     "unit_bytes": max((sum(e.leaf.dtype_bytes * int(np.prod(e.shape)) for e in es)
+                                        for es in layout._units.values()), default=0),
+                     "gathered_peak_bytes": layout.gathered_peak_bytes,
+                     **rest, "moments_bytes": moments_bytes,
                      "mirror_bytes": sum(t.numel() * t.element_size() for ts in mirror._dst for t in ts),
-                     "peak_bytes": int(peak["Total"]),
+                     "mirror_device": str(pdev), "peak_bytes": peak(tracker), "refresh_peak_bytes": peak(refresh),
                      "coordinate": d.coordinate, "data_rank": r})
         d.device_mesh = None
     resume = p.get("resume")
@@ -510,8 +539,8 @@ def dv3_sharded_steps(dist: Any, p: Dict[str, Any]) -> List[Dict[str, Any]]:
         modules = copy.deepcopy(p["modules"])
         for k in names:
             modules[k].load_state_dict(saved[k])
-        d, opts, layout = laid_out({"mesh": resume["mesh"], "zero1": resume.get("zero1", False)}, modules,
-                                   saved["opt_states"])
+        case = {"mesh": resume["mesh"], "zero1": resume.get("zero1", False)}
+        opts, layout = laid_out(case, case_dist(case), modules, saved["opt_states"])
         state, opt_states = whole(layout, opts, modules)
-        outs.append({"state": state, "opt_states": opt_states, "param_bytes": param_bytes(modules)})
+        outs.append({"state": state, "opt_states": opt_states, "param_bytes": held(modules, "data")})
     return outs
