@@ -89,6 +89,16 @@ that fails and then prints no result:
                            the file's, and it must reach its target;
                eval        eval checkpoint_path=<the run leg's last
                            checkpoint>: one greedy episode on the card;
+               dv3_ms_pacman
+                           exp=dreamer_v3_100k_ms_pacman (DreamerV3-S at
+                           the preset's widths, batch 16, sequence 64,
+                           replay ratio 1, one env, coupled 32-true) on the
+                           discrete dummy env, learning_starts, total_steps
+                           and buffer.size cut (PRESET_*): policy steps/s
+                           after learning_starts, peak device memory, and
+                           from utils/run_info.py the first burst's end
+                           (steady_step, inside the run), the steady-state
+                           policy steps/s after it and the run's log_dir;
                walker_ring, walker_staged
                            the DMC walker-walk preset's settings (coupled,
                            bf16-mixed, memmap, action repeat 2) on the
@@ -127,8 +137,9 @@ that fails and then prints no result:
                sac         exp=sac on the continuous dummy env (4 envs, the
                            preset's widths and settings: hidden 256, two
                            critics, batch 256, replay ratio 1), the default
-                           overlapped loop (staleness bound 1), to 1,024
-                           policy steps, a mid-run checkpoint and the last;
+                           overlapped loop (staleness bound 1), to
+                           SAC_TOTAL policy steps, a mid-run checkpoint and
+                           the last;
                sac_serial  the same, serial, fed by the device ring (which
                            device_cache: auto takes at this buffer size):
                            the same Ratio ledger as sac;
@@ -142,7 +153,8 @@ that fails and then prints no result:
                            learning_starts cut to 64, 32 gradient steps;
                sac_resume  checkpoint.resume_from=<the sac leg's mid-run
                            checkpoint, which holds the buffer>: its
-                           counters and parameters, and on to 1,536;
+                           counters and parameters, and on to
+                           SAC_RESUME_TOTAL;
                sac_eval, droq_eval, sac_ae_eval
                            eval checkpoint_path=<each leg's last one>;
                sac_ae_step one SAC-AE gradient step at the preset's width
@@ -1289,7 +1301,7 @@ ALGOS = ("dreamer_v3", "ppo", "ppo_decoupled", "a2c", "ppo_recurrent", "sac", "s
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
 # the off-policy legs: the presets' algorithm settings and widths on the
 # continuous dummy env, 4 envs, cut in length and buffer size only
-SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL = 640, 1024, 1024, 140
+SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL, SAC_CKPT_EVERY = 384, 640, 1024, 140, 256
 AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 80, 256
 
 
@@ -1536,6 +1548,7 @@ def phase_run(torch, ln_gru, overrides=()):
     # DreamerV3-M decoupled on the kernels: the streamed instance on the main path
     report["run_M"] = leg_summary(parsed_m, counts_m, seconds_m, peak_m, LEARNING_STARTS)
     report["run_M"]["args"] = m_args
+    report["dv3_ms_pacman"] = preset_leg(torch, ln_gru)
     report.update(walker_legs(torch, ln_gru))
     report.update(ppo_legs(torch, ln_gru))
     report.update(offpolicy_legs(torch, ln_gru))
@@ -1552,6 +1565,62 @@ def phase_run(torch, ln_gru, overrides=()):
                    "fleet_dv3_inference": report["fleet_dv3_inference"]["launches"]},
              "M": {"run_M": report["run_M"]["launches"]}, "XL": {"p2e_dv3_finetuning": counts_xl}}
     return paths, {"S": blocks, "M": blocks_m, "XL": blocks_xl}, report
+
+
+# the reference's MsPacman preset (exp=dreamer_v3_100k_ms_pacman: DreamerV3-S,
+# batch 16, sequence 64, replay ratio 1, one env, coupled 32-true) on the
+# discrete dummy env, cut in learning_starts, total_steps and buffer.size
+# only; its log cadence is the leg's own, so that its rate can be read
+PRESET_LEARNING_STARTS, PRESET_TOTAL, PRESET_BUFFER = 64, 112, 1024
+PRESET_SHAPE = {"algo.per_rank_batch_size": 16, "algo.per_rank_sequence_length": 64, "algo.replay_ratio": 1,
+                "env.num_envs": 1, "fabric.precision": "32-true", "algo.world_model.decoupled_rssm": False,
+                "algo.dense_units": 512, "algo.world_model.recurrent_model.recurrent_state_size": 512,
+                "algo.world_model.encoder.cnn_channels_multiplier": 32, "algo.horizon": 15}
+
+
+def preset_leg(torch, ln_gru):
+    """``dv3_ms_pacman`` (phase 5): the preset through the CLI on
+    ``cuda:0``. Its policy steps/s after learning_starts (from its log
+    records) and peak device memory; from ``utils/run_info.py`` the end of
+    its first burst (``steady_step``, ``steady_t``), the steady-state policy
+    steps/s after it, as a bench computes it (to the CLI call's return), and
+    the run's ``log_dir``. Fails if ``steady_step`` is missing or outside the
+    run, if the leg did not train or if it launched an LN-GRU kernel (the
+    preset's RSSM is coupled)."""
+    from sheeprl_tpu_torch.config import load_config_file
+    from sheeprl_tpu_torch.utils import run_info
+
+    args = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy",
+            f"algo.learning_starts={PRESET_LEARNING_STARTS}", f"algo.total_steps={PRESET_TOTAL}",
+            f"buffer.size={PRESET_BUFFER}", "metric.log_every=16", f"root_dir={RUN_ROOT}", "run_name=dv3_ms_pacman"]
+    run_info.last_run.clear()
+    t_start = time.perf_counter()
+    parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args)
+    t_end = time.perf_counter()
+    last = dict(run_info.last_run)
+    run_info.last_run.clear()
+    if any(counts.values()):
+        raise AssertionError(f"the dv3_ms_pacman leg launched LN-GRU kernels {counts}: its RSSM is coupled")
+    out = leg_summary(parsed, counts, seconds, peak, PRESET_LEARNING_STARTS, trains=False)
+    if out["policy_step"] != PRESET_TOTAL or out["grad_steps"] < PRESET_TOTAL - PRESET_LEARNING_STARTS - 1:
+        raise AssertionError(f"the dv3_ms_pacman leg: {out['policy_step']} of {PRESET_TOTAL} policy steps, "
+                             f"{out['grad_steps']} gradient steps")
+    steady_step, steady_t = last.get("steady_step"), last.get("steady_t")
+    if steady_step is None or not PRESET_LEARNING_STARTS <= steady_step < PRESET_TOTAL \
+            or not t_start < steady_t < t_end:
+        raise AssertionError(f"run_info.last_run {last}: no steady_step inside the run "
+                             f"[{PRESET_LEARNING_STARTS}, {PRESET_TOTAL})")
+    if last.get("log_dir") != parsed["log_dir"]:
+        raise AssertionError(f"run_info.last_run's log_dir {last.get('log_dir')} is not the leg's {parsed['log_dir']}")
+    # the run's own config: the preset's widths and shape, uncut
+    cfg = load_config_file(os.path.join(parsed["log_dir"], "config.yaml"))
+    shape = {k: cfg.select(k) for k in PRESET_SHAPE}
+    if shape != PRESET_SHAPE:
+        raise AssertionError(f"the dv3_ms_pacman leg ran {shape}, the preset is {PRESET_SHAPE}")
+    out.update(args=args, shape=shape, steady_step=steady_step, startup_seconds=steady_t - t_start,
+               steady_state_policy_steps_per_s=(out["policy_step"] - steady_step) / (t_end - steady_t),
+               log_dir=last["log_dir"])
+    return out
 
 
 def onpolicy_summary(parsed, seconds, peak):
@@ -1826,14 +1895,14 @@ def offpolicy_legs(torch, ln_gru):
 
     common = ["env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
               f"root_dir={RUN_ROOT}"]
-    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}", "checkpoint.every=512",
-           "metric.log_every=256"]
+    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
+           f"checkpoint.every={SAC_CKPT_EVERY}", "metric.log_every=256"]
     report, logs, feeds = {}, {}, {}
     leg = make_leg(torch, ln_gru, report, logs, feeds)
 
     leg("sac", sac, 100)
     ckpts = checkpoints(logs["sac"])
-    steps = [int(os.path.basename(p)[5:-5]) for p in ckpts]  # overlapped: a mid-run one where a take crossed 512
+    steps = [int(os.path.basename(p)[5:-5]) for p in ckpts]  # overlapped: a mid-run one where a take crossed 256
     if len(steps) != 2 or not 100 < steps[0] < SAC_TOTAL or steps[-1] != SAC_TOTAL:
         raise AssertionError(f"the sac leg's checkpoints {ckpts}: not a mid-run one and the last one")
     eng = [r for r in (json.loads(l) for l in open(os.path.join(logs["sac"], "telemetry.jsonl")))
@@ -2414,7 +2483,8 @@ def fleet_twins(torch, ln_gru):
     report, logs, feeds = {}, {}, {}
     common = ["env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
               f"root_dir={RUN_ROOT}"]
-    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}", "checkpoint.every=512",
+    sac = ["exp=sac", *common, f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
+           f"checkpoint.every={SAC_CKPT_EVERY}",
            "metric.log_every=256", "algo.overlap.enabled=False"]
     make_leg(torch, ln_gru, report, logs, feeds)("sac_serial", sac, 100)
     report["sac_serial"]["ledger_equal"], _ = offpolicy_ledger(torch, checkpoints(logs["sac_serial"])[-1])
@@ -2988,7 +3058,7 @@ def serve_alone(torch, ln_gru):
            f"algo.total_steps={PPO_TOTAL}", "checkpoint.every=2048", "run_name=ppo"]
     sac = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
            f"root_dir={RUN_ROOT}", f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
-           "checkpoint.every=512", "metric.log_every=256", "run_name=sac"]
+           f"checkpoint.every={SAC_CKPT_EVERY}", "metric.log_every=256", "run_name=sac"]
     dv3 = run_common() + [f"algo.total_steps={TOTAL}", "run_name=run"]
     for name, args in (("ppo", ppo), ("sac", sac), ("run", dv3)):
         _, counts, seconds, _ = drive(torch, ln_gru, "run", args)
@@ -3650,7 +3720,7 @@ def gateway_alone(torch, ln_gru):
     for the checkpoints phase gateway serves, then the phase."""
     sac = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=4", "algo.run_test=False",
            f"root_dir={RUN_ROOT}", f"algo.total_steps={SAC_TOTAL}", f"buffer.size={SAC_BUFFER}",
-           "checkpoint.every=512", "metric.log_every=256", "run_name=sac"]
+           f"checkpoint.every={SAC_CKPT_EVERY}", "metric.log_every=256", "run_name=sac"]
     dv3 = run_common() + [f"algo.total_steps={TOTAL}", "run_name=run"]
     report = {}
     for name, args in (("sac", sac), ("run", dv3)):
@@ -4466,6 +4536,7 @@ def recurrences(torch, ln_gru, labels):
 
 
 USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
+       python3 chip_smoke.py --preset               phase 5's dv3_ms_pacman leg alone
        python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
        python3 chip_smoke.py --p2e                  phase 5's Plan2Explore legs and step alone
        python3 chip_smoke.py --fleet                phase 5's actor-fleet legs alone, with the serial twins
@@ -4487,7 +4558,7 @@ def main(argv=None) -> int:
     t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     mode = argv[0] if argv else None
-    if mode not in (None, "--recurrences", "--telemetry-ab", "--dreamer", "--p2e", "--fleet", "--serve",
+    if mode not in (None, "--recurrences", "--telemetry-ab", "--preset", "--dreamer", "--p2e", "--fleet", "--serve",
                     "--diag", "--mesh", "--gateway") or (
             mode == "--recurrences" and not set(argv[1:]) <= set(SHAPES)):
         print(USAGE, file=sys.stderr)
@@ -4532,6 +4603,16 @@ def main(argv=None) -> int:
                  by_shape=recurrences(torch, ln_gru, argv[1:] or ["M", "L", "XL"]))
         except Exception as err:  # noqa: BLE001
             return fail("recurrences", err)
+        return 0
+    if mode == "--preset":
+        try:
+            os.chdir(HERE)
+            t0 = time.perf_counter()
+            leg = preset_leg(torch, ln_gru)
+            shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
+            emit("preset", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, dv3_ms_pacman=leg)
+        except Exception as err:  # noqa: BLE001
+            return fail("preset", err)
         return 0
     if mode == "--dreamer":
         try:

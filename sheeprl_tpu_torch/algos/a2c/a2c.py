@@ -34,6 +34,7 @@ from ...utils.checkpoint import CheckpointManager, gen_state, set_gen_state
 from ...utils.env import single_env
 from ...utils.logger import get_logger
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ..ppo.agent import PPOAgent, actions_and_log_probs
 from ..ppo.ppo import (Rollout, evaluate_agent, make_act_fn, make_value_fn, optimizer_step, resume_counters,
@@ -126,6 +127,7 @@ def main(cfg: Config) -> None:
                 "policy_step": policy_step, "last_log": last_log, "last_checkpoint": last_checkpoint,
                 "generators": gens, **ranks_state(dist, gens)}
 
+    steady_sync = run_info.device_sync(device)  # the first update's end, for run_info.mark_steady
     try:
         for update_iter in range(start_iter, num_updates + 1):
             telem.tick(policy_step)
@@ -141,8 +143,9 @@ def main(cfg: Config) -> None:
                 telem.record_grad_steps(1)
                 mirror.refresh({"agent": agent})  # blocking: the next rollout acts with these
                 for k, v in metrics.items():
-                    aggregator.update(k, float(v))
+                    aggregator.update(k, float(v))  # host-sync: ok (update cadence)
                 update_s.append(time.perf_counter() - ts)
+                run_info.mark_steady(policy_step, sync=steady_sync)
             completed_update = update_iter
             if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or update_iter == num_updates:
                 dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global metrics

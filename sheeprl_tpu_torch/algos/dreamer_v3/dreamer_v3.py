@@ -76,6 +76,7 @@ from ...utils.env import episode_stats, patch_restarted_envs, probe_env_spaces, 
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio, get_device
 from .agent import Actor, WorldModel, actor_dists, build_agent, compute_stochastic_state, sample_actor_actions
@@ -719,6 +720,7 @@ def main(cfg: Config) -> None:
     # a tp group's ranks share their data rank: its env block, its seeds, its batch
     drank = dist.data_rank
     device = dist.device
+    steady_sync = run_info.device_sync(device)  # the first burst's end, for run_info.mark_steady
     seed = int(cfg.seed)
     log_dir = run_log_dir(cfg, dist)
     if rank == 0:
@@ -939,6 +941,7 @@ def main(cfg: Config) -> None:
                             burst(g)
                             mirror.refresh({"wm": wm, "actor": actor})
                             fleet.publish(mirror.current())
+                            run_info.mark_steady(policy_step, sync=steady_sync)
                         if policy_step < total_steps:
                             prefetch.stage(ratio.peek(policy_step + num_envs))
                     flush_logs()
@@ -998,6 +1001,7 @@ def main(cfg: Config) -> None:
                                 prefetch.stage(nxt)
                     if trained:
                         mirror.refresh({"wm": wm, "actor": actor})
+                        run_info.mark_steady(policy_step, sync=steady_sync)  # on the learner thread
                     engine.published()  # release take()'s claim every iteration
                     if learning_starts <= policy_step < total_steps:
                         prefetch.stage(ratio.peek(ledger_step(policy_step + num_envs)))
@@ -1026,6 +1030,7 @@ def main(cfg: Config) -> None:
                     if g > 0:
                         burst(g)
                         mirror.refresh({"wm": wm, "actor": actor})
+                        run_info.mark_steady(policy_step, sync=steady_sync)
                     if policy_step < total_steps:
                         # the next burst's batch, while the card computes this one
                         prefetch.stage(ratio.peek(ledger_step(policy_step + num_envs)))

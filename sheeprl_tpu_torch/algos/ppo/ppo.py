@@ -56,6 +56,7 @@ from ...utils.env import episode_stats, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import get_device, linear_annealing
 from .agent import PPOAgent, actions_and_log_probs, build_agent
@@ -352,6 +353,7 @@ def main(cfg: Config) -> None:
     every global minibatch of ``per_rank_batch_size × world_size`` rows.
     Rank 0 logs the global metrics, checkpoints, tests and registers."""
     device, seed, log_dir, state, envs = start_run(cfg, "ppo")
+    steady_sync = run_info.device_sync(device)  # the first update's end, for run_info.mark_steady
     dist = current_distributed(cfg)
     rank, world = dist.rank, dist.world_size
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
@@ -443,7 +445,7 @@ def main(cfg: Config) -> None:
         telem.record_grad_steps(num_minibatches * update_epochs)
         mirror.refresh({"agent": agent})  # blocking: the next rollout acts with these
         for k, v in metrics.items():
-            aggregator.update(k, float(v))  # the host sync, once per update
+            aggregator.update(k, float(v))  # host-sync: ok (update cadence)
         update_s.append(time.perf_counter() - ts)
 
     def flush_logs() -> None:
@@ -497,6 +499,7 @@ def main(cfg: Config) -> None:
                     with telem.span("Time/train_time"):
                         update_from(local, next_value, update_iter)
                         fleet.publish(mirror.current())  # releases the parked workers
+                        run_info.mark_steady(policy_step, sync=steady_sync)
                     completed_update = update_iter
                     flush_logs()
                     maybe_checkpoint(update_iter)
@@ -543,6 +546,7 @@ def main(cfg: Config) -> None:
                     with telem.span("Time/train_time"):
                         update_from(local, next_value, update_iter)
                         engine.published()  # releases the strict player
+                        run_info.mark_steady(policy_step, sync=steady_sync)  # on the learner thread
                     completed_update = update_iter
                     flush_logs()
                     maybe_checkpoint(update_iter)
@@ -565,6 +569,7 @@ def main(cfg: Config) -> None:
                 record_ep_stats(ep_stats)
                 with telem.span("Time/train_time"):
                     update_from(local, next_value, update_iter)
+                    run_info.mark_steady(policy_step, sync=steady_sync)
                 completed_update = update_iter
                 flush_logs()
                 maybe_checkpoint(update_iter)

@@ -46,6 +46,7 @@ from ...utils.env import probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm
 from .agent import build_agent
 from .ppo import (Rollout, draw_perms, make_act_fn, make_coefs, make_update_fn, make_value_fn, resume_counters,
@@ -192,6 +193,7 @@ def main(cfg: Config) -> None:
             raise PlayerCrashed(f"rank {rank}: the player thread crashed ({msg[1]})")
         return msg[1] if msg[0] == "data" else None
 
+    steady_sync = run_info.device_sync(device)  # the first update's end, for run_info.mark_steady
     try:
         for update_iter in range(start_iter, num_updates + 1):
             item = next_rollout()
@@ -212,8 +214,9 @@ def main(cfg: Config) -> None:
                 if mirror is not None:
                     mirror.refresh({"agent": agent})  # the next rollout acts with these
                 for k, v in metrics.items():
-                    aggregator.update(k, float(v))
+                    aggregator.update(k, float(v))  # host-sync: ok (update cadence)
                 update_s.append(time.perf_counter() - ts)
+                run_info.mark_steady(policy_step, sync=steady_sync)
             completed_update = update_iter
             # logs and checkpoints while the player waits for its go-ahead
             if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or update_iter == num_updates:

@@ -43,6 +43,7 @@ from ...utils.checkpoint import CheckpointManager, gen_state, set_gen_state
 from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ..ppo.loss import entropy_loss, policy_loss, value_loss
 from ..ppo.ppo import (LOSS_KEYS, bootstrap_truncated, draw_perms, evaluate_agent, global_normalize, make_coefs,
@@ -248,6 +249,7 @@ def main(cfg: Config) -> None:
                 "policy_step": policy_step, "last_log": last_log, "last_checkpoint": last_checkpoint,
                 "generators": gens, **ranks_state(dist, gens)}
 
+    steady_sync = run_info.device_sync(device)  # the first update's end, for run_info.mark_steady
     try:
         for update_iter in range(start_iter, num_updates + 1):
             telem.tick(policy_step)
@@ -311,8 +313,9 @@ def main(cfg: Config) -> None:
                 telem.record_grad_steps(num_minibatches * update_epochs)
                 mirror.refresh({"agent": agent})  # blocking: the next rollout acts with these
                 for k, v in metrics.items():
-                    aggregator.update(k, float(v))
+                    aggregator.update(k, float(v))  # host-sync: ok (update cadence)
                 update_s.append(time.perf_counter() - ts)
+                run_info.mark_steady(policy_step, sync=steady_sync)
             completed_update = update_iter
             if policy_step - last_log >= int(cfg.metric.log_every) or cfg.dry_run or update_iter == num_updates:
                 dist.reduce_metrics(aggregator)  # N ranks: rank 0 logs the global means

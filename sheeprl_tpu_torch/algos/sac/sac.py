@@ -59,6 +59,7 @@ from ...utils.env import episode_stats, single_env
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio, get_device
 from .agent import SACAgent, build_agent, sample_actions
@@ -280,6 +281,7 @@ class OffPolicyLoop:
         self.burst_s: List[float] = []
         self.costed = False
         self.t0 = time.perf_counter()
+        self.steady_sync = run_info.device_sync(device)  # the first burst's end, for run_info.mark_steady
 
     def random_phase(self) -> bool:
         """The player acts at random up to ``learning_starts`` (inclusive)."""
@@ -401,6 +403,7 @@ class OffPolicyLoop:
                                     stage(nxt)
                         if trained:
                             refresh()
+                            run_info.mark_steady(self.policy_step, sync=self.steady_sync)  # on the learner thread
                         engine.published()  # release take()'s claim every iteration
                         if self.learning_starts <= self.policy_step < self.total_steps:
                             stage(ratio.peek(self.ledger(self.policy_step + self.env_steps)))
@@ -427,6 +430,7 @@ class OffPolicyLoop:
                         if g > 0:
                             train(g)
                             refresh()
+                            run_info.mark_steady(self.policy_step, sync=self.steady_sync)
                         if self.policy_step < self.total_steps:
                             stage(ratio.peek(self.ledger(self.policy_step + self.env_steps)))
                     flush_logs()
@@ -469,6 +473,7 @@ class OffPolicyLoop:
                         train(g)
                         refresh()
                         fleet.publish(self.mirror.current())
+                        run_info.mark_steady(self.policy_step, sync=self.steady_sync)
                     if self.policy_step < self.total_steps:
                         stage(ratio.peek(self.policy_step + self.num_envs))
                 flush_logs()

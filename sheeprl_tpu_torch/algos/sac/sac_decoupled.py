@@ -47,6 +47,7 @@ from ...utils.env import episode_stats, probe_env_spaces, single_env, vectorize
 from ...utils.logger import get_logger
 from ...utils.metric import MetricAggregator
 from ...utils.model_manager import register_model
+from ...utils import run_info
 from ...utils.registry import register_algorithm, register_evaluation
 from ...utils.utils import Ratio
 from ..ppo.ppo_decoupled import PlayerCrashed, chaos_raise_at
@@ -241,6 +242,7 @@ def main(cfg: Config) -> None:
         local = _scatter_columns(dist, item[2] if item is not None else None, header, device)
         return p_step, g, local, r_state, ep, p_gen
 
+    steady_sync = run_info.device_sync(device)  # the first burst's end, for run_info.mark_steady
     try:
         while True:
             item = next_burst()
@@ -254,12 +256,13 @@ def main(cfg: Config) -> None:
             with telem.span("Time/train_time"):
                 ts = time.perf_counter()
                 metrics = train(batches, generator=train_gen)
-                values = torch.stack(list(metrics.values())).cpu()
+                values = torch.stack(list(metrics.values())).cpu()  # host-sync: ok (trainer-iteration cadence)
                 burst_s.append(time.perf_counter() - ts)
             grad_steps += g
             telem.record_grad_steps(g)
             if mirror is not None:
                 mirror.refresh({"actor": agent.actor})
+            run_info.mark_steady(policy_step, sync=steady_sync)
             for k, v in zip(metrics, values.numpy()):
                 aggregator.update(k, v)
             # logs and checkpoints while the player waits for its go-ahead

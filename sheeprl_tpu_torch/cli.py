@@ -402,6 +402,11 @@ top = _diag_command("sheeprl_tpu_torch.diag.live")
 # ``prof run_dir=... [capture=<dir>] [top_k=15] [json=true]``: where the
 # card's time went in the run's torch.profiler captures (prof/cli.py)
 prof = _diag_command("sheeprl_tpu_torch.prof.cli")
+# ``lint [paths...] [--json] [--rule r1,r2] [--list-rules]``: the static
+# analysis pass over the port (default: the whole package; analysis/),
+# exit 1 on an unsuppressed finding, 2 on a usage error or a rule the port
+# does not have; suppress a line with ``# lint: ok[<rule>] <reason>``
+lint = _diag_command("sheeprl_tpu_torch.analysis.engine")
 
 
 def registration(args: Optional[Sequence[str]] = None) -> None:
@@ -454,17 +459,9 @@ def available_agents(args: Optional[Sequence[str]] = None) -> None:
             print(f"{name}: {info['module']}.{info['entrypoint']} decoupled={info['decoupled']}")
 
 
-def _not_ported(name: str, waits_for: str) -> Callable[[Optional[Sequence[str]]], None]:
-    def command(args: Optional[Sequence[str]] = None) -> None:
-        raise SystemExit(f"`{name}` is not in the PyTorch port yet: it waits for {waits_for}")
-
-    return command
-
-
 COMMANDS = {"run": run, "eval": evaluation, "resume": resume, "serve": serve, "doctor": doctor, "trace": trace,
             "top": top, "prof": prof, "registration": registration, "agents": available_agents,
-            "gateway": gateway, "brokerd": brokerd, "flywheel": flywheel,
-            "lint": _not_ported("lint", "the port of sheeprl_tpu/analysis/")}
+            "gateway": gateway, "brokerd": brokerd, "flywheel": flywheel, "lint": lint}
 
 
 def main() -> None:

@@ -1144,7 +1144,7 @@ class WorkerSocketChannel:
                     n = self._attempt
                 delay = min(self.net.max_backoff_s, self.net.backoff_s * (2 ** max(0, n - 1)))
                 delay *= max(0.0, 1.0 + self._rng.uniform(-self.net.jitter, self.net.jitter))
-                _emit(  # once per reconnect attempt, backoff-bounded
+                _emit(  # lint: ok[hot-loop-emit] once per reconnect attempt, backoff-bounded
                     self.emit,
                     {
                         "event": "net",

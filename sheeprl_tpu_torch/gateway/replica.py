@@ -622,8 +622,7 @@ class ReplicaManager:
             elif handle.state == "backoff" and now >= handle.respawn_at:
                 handle.incarnation += 1
                 handle.respawns += 1
-                # respawns happen only in the monitor sweep — tests drive
-                # monitor_once synchronously with the thread stopped, never both
+                # lint: ok[thread-shared-state] respawns happen only in the monitor sweep — tests drive monitor_once synchronously with the thread stopped, never both
                 self.total_respawns += 1
                 self._spawn(handle)
 

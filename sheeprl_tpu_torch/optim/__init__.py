@@ -1,5 +1,5 @@
 """Optimizers (counterpart of ``sheeprl_tpu/optim/__init__.py``: ``adam``,
-``rmsprop``, ``rmsprop_tf`` and ``clipped``).
+``sgd``, ``rmsprop``, ``rmsprop_tf`` and ``clipped``).
 
 ``adam`` is ``torch.optim.Adam`` — the same update as optax adam, with eps
 outside the square root: ``lr · m̂ / (sqrt(v̂) + eps)`` — or ``AdamW`` when
@@ -8,6 +8,12 @@ global-norm clipping in front of an optimizer exactly as
 ``optax.clip_by_global_norm`` does: the gradients are scaled by
 ``max_norm / ‖g‖`` only when ``‖g‖ >= max_norm`` (no epsilon, unlike
 ``torch.nn.utils.clip_grad_norm_``).
+
+``sgd`` is ``torch.optim.SGD`` with the JAX package's meaning
+(``optax.chain(add_decayed_weights(wd), sgd(lr, momentum or None,
+nesterov))``): ``momentum=0`` keeps no trace; the decayed weights join the
+gradient before the trace, which starts at the first gradient (torch's
+``dampening=0``); with Nesterov the step is ``g + momentum · trace``.
 
 ``rmsprop`` is the JAX package's ``optax.rmsprop``, not
 ``torch.optim.RMSprop``: optax (``eps_in_sqrt=True``, its default) scales a
@@ -38,6 +44,18 @@ def adam(
     if weight_decay:
         return torch.optim.AdamW(params, lr=float(lr), betas=betas, eps=float(eps), weight_decay=float(weight_decay))
     return torch.optim.Adam(params, lr=float(lr), betas=betas, eps=float(eps))
+
+
+def sgd(
+    params: Iterable[torch.nn.Parameter],
+    lr: float = 1e-2,
+    momentum: float = 0.0,
+    nesterov: bool = False,
+    weight_decay: float = 0.0,
+    **_: Any,
+) -> torch.optim.Optimizer:
+    return torch.optim.SGD(params, lr=float(lr), momentum=float(momentum or 0.0), dampening=0.0,
+                           weight_decay=float(weight_decay or 0.0), nesterov=bool(nesterov) and bool(momentum))
 
 
 class RMSprop(torch.optim.Optimizer):

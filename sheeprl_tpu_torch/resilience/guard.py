@@ -34,6 +34,7 @@ import queue
 import sys
 from typing import Any, Callable, Dict, Optional
 
+from ..utils import run_info
 from ..utils.utils import WallClockStopper, wall_cap_reached
 from .ckpt_async import AsyncCheckpointWriter
 from .preemption import PreemptionGuard, clear_preemption
@@ -139,6 +140,7 @@ class RunGuard:
                             "signal": str(self.preempt.signal_name), "grace_s": self.preempt.grace_s})
             if save and state_fn is not None:
                 self._final_save(policy_step, state_fn)
+            run_info.last_run.update(policy_step=int(policy_step), total_steps=int(total_steps), preempted=True)
             return True
         return wall_cap_reached(self.wall, policy_step, total_steps, self.ckpt, state_fn, self.cfg, save=save)
 
@@ -169,6 +171,9 @@ class RunGuard:
                 self._final_save(policy_step, lambda: state)
             else:
                 self.ckpt.save(policy_step, state)
+        if stop:
+            run_info.last_run.update(policy_step=int(policy_step), total_steps=int(total_steps),
+                                     **({"preempted": True} if any_preempted else {"wall_capped": True}))
         return stop
 
     def _final_save(self, policy_step: int, state_fn: Callable[[], Dict[str, Any]]) -> None:

@@ -98,6 +98,10 @@ class Telemetry:
                                    max_bytes=DEFAULT_JSONL_MAX_BYTES if max_bytes is None else int(max_bytes),
                                    on_rotate=lambda marker: self.prom.observe_event(marker)
                                    if self.prom is not None else None)
+            # post-run callers (a benchmark script) need the stream's location
+            from ..utils import run_info
+
+            run_info.last_run["log_dir"] = str(log_dir)
         self.live: Any = None
         self.prom: Any = None
         self._prom_server: Any = None

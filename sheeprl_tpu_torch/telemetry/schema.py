@@ -64,6 +64,8 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "xla": (False, _DICT),
         "spans": (False, _DICT),
         "total_grad_steps": (False, _NUM),
+        # the card's health at the end (Telemetry.device_health)
+        "device": (False, _DICT),
     },
     # the TensorBoard logger's fallback stream (metrics are never dropped)
     "metrics": {
@@ -236,6 +238,7 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
     "ckpt_async": {
         "action": (True, _STR),  # enqueued | written | failed
         "step": (True, _NUM),
+        "snapshot_ms": (False, _NUM),  # the device-to-host copy of the state
         "block_ms": (False, _NUM),
         "write_ms": (False, _NUM),
         "bytes": (False, _NUM),
@@ -256,8 +259,10 @@ EVENT_SCHEMAS: Dict[str, Dict[str, Tuple[bool, type]]] = {
         "player_stall_s": (False, _NUM),
         "learner_stall_s": (False, _NUM),
         "player_stall_frac": (False, _NUM),
+        "learner_stall_frac": (False, _NUM),
         "staleness_max": (False, _NUM),
         "interval_s": (False, _NUM),
+        "staleness_seen_max": (False, _NUM),  # the run's largest staleness so far
     },
     "resume": {
         "step": (True, _NUM),

@@ -87,13 +87,18 @@ def wall_cap_reached(
     wall: WallClockStopper, policy_step: int, total_steps: int, ckpt, state_fn, cfg, save: bool = True
 ) -> bool:
     """The wall-cap stop policy of the training loops: when the budget is
-    spent, write the final checkpoint (iff ``checkpoint.save_last``) and tell
-    the caller to break. ``save=False`` leaves the final checkpoint to the
-    caller (the overlapped loop saves after the player has joined)."""
+    spent, write the final checkpoint (iff ``checkpoint.save_last``), record
+    where the run actually stopped for in-process callers
+    (``utils/run_info.py``) and tell the caller to break. ``save=False``
+    leaves the final checkpoint to the caller (the overlapped loop saves
+    after the player has joined)."""
     if not wall.expired(policy_step, total_steps):
         return False
     if save and cfg.checkpoint.save_last:
         ckpt.save(policy_step, state_fn())
+    from . import run_info
+
+    run_info.last_run.update(policy_step=int(policy_step), total_steps=int(total_steps), wall_capped=True)
     return True
 
 

@@ -7,6 +7,7 @@ arithmetic (held against the reference's functions on the same inputs), the
 model-cost counter, the memory sampler and the resilience events."""
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import json
+import numbers
 import sys
 
 import numpy as np
@@ -34,12 +35,20 @@ def _both_validate(path):
     assert jax_schema.validate_jsonl(path) == []
 
 
+# the fields the port's emit sites write that the reference's schema does
+# not declare: optional, so the reference's validator accepts them as extras
+PORT_FIELDS = {"shutdown": {"device": (False, dict)}, "ckpt_async": {"snapshot_ms": (False, numbers.Number)},
+               "overlap": {"learner_stall_frac": (False, numbers.Number),
+                           "staleness_seen_max": (False, numbers.Number)}}
+
+
 def test_schema_fields_are_the_references():
     """Every event type the port emits has the reference's fields, each with
-    the same required flag and type."""
+    the same required flag and type, and besides them only the port's own
+    optional fields (``PORT_FIELDS``)."""
     assert schema.SCHEMA_VERSION == jax_schema.SCHEMA_VERSION
     for event, fields in schema.EVENT_SCHEMAS.items():
-        assert jax_schema.EVENT_SCHEMAS[event] == fields, event
+        assert {**jax_schema.EVENT_SCHEMAS[event], **PORT_FIELDS.get(event, {})} == fields, event
     for event in ("startup", "log", "shutdown", "metrics", "overlap", "ckpt_async", "preempt", "resume", "mem",
                   "roofline", "retry", "watchdog"):
         assert event in schema.EVENT_SCHEMAS, event
