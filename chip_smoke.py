@@ -99,6 +99,17 @@ that fails and then prints no result:
                            from utils/run_info.py the first burst's end
                            (steady_step, inside the run), the steady-state
                            policy steps/s after it and the run's log_dir;
+               dv3_XL_crafter
+                           exp=dreamer_v3_XL_crafter (DreamerV3-XL at the
+                           preset's widths, batch 16, sequence 64, replay
+                           ratio 0.5, one env, coupled 32-true, encoder keys
+                           rgb and reward) on the crafter stand-in
+                           (tests/torch_suite_stubs) through the port's
+                           CrafterWrapper, learning_starts, total_steps,
+                           buffer.size and the checkpoint cadence cut
+                           (CRAFTER_*): 32 gradient steps, no LN-GRU launch,
+                           the same readings as dv3_ms_pacman, on a line of
+                           its own;
                walker_ring, walker_staged
                            the DMC walker-walk preset's settings (coupled,
                            bf16-mixed, memmap, action repeat 2) on the
@@ -1301,7 +1312,7 @@ ALGOS = ("dreamer_v3", "ppo", "ppo_decoupled", "a2c", "ppo_recurrent", "sac", "s
 PPO_TOTAL, PPO_SHORT, PPO_RESUME_TOTAL, A2C_TOTAL = 4096, 2048, 6144, 2000
 # the off-policy legs: the presets' algorithm settings and widths on the
 # continuous dummy env, 4 envs, cut in length and buffer size only
-SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL, SAC_CKPT_EVERY = 384, 640, 1024, 140, 256
+SAC_TOTAL, SAC_RESUME_TOTAL, SAC_BUFFER, DROQ_TOTAL, SAC_CKPT_EVERY = 288, 640, 1024, 140, 256
 AE_LEARNING_STARTS, AE_TOTAL, AE_BUFFER = 64, 80, 256
 
 
@@ -1549,6 +1560,7 @@ def phase_run(torch, ln_gru, overrides=()):
     report["run_M"] = leg_summary(parsed_m, counts_m, seconds_m, peak_m, LEARNING_STARTS)
     report["run_M"]["args"] = m_args
     report["dv3_ms_pacman"] = preset_leg(torch, ln_gru)
+    report["dv3_XL_crafter"] = crafter_leg(torch, ln_gru)
     report.update(walker_legs(torch, ln_gru))
     report.update(ppo_legs(torch, ln_gru))
     report.update(offpolicy_legs(torch, ln_gru))
@@ -1576,23 +1588,38 @@ PRESET_SHAPE = {"algo.per_rank_batch_size": 16, "algo.per_rank_sequence_length":
                 "env.num_envs": 1, "fabric.precision": "32-true", "algo.world_model.decoupled_rssm": False,
                 "algo.dense_units": 512, "algo.world_model.recurrent_model.recurrent_state_size": 512,
                 "algo.world_model.encoder.cnn_channels_multiplier": 32, "algo.horizon": 15}
+# the reference's Crafter preset (exp=dreamer_v3_XL_crafter: DreamerV3-XL, batch
+# 16, sequence 64, replay ratio 0.5, one env, coupled 32-true, encoder keys rgb
+# and reward) on the crafter stand-in (tests/torch_suite_stubs: the card's
+# machine has no crafter) through the port's CrafterWrapper and
+# RewardAsObservationWrapper, cut in learning_starts, total_steps (32 gradient
+# steps), buffer.size and the checkpoint cadence only
+CRAFTER_LEARNING_STARTS, CRAFTER_TOTAL, CRAFTER_BUFFER = 64, 128, 1024
+CRAFTER_GRAD_STEPS = 32
+CRAFTER_SHAPE = {"algo.per_rank_batch_size": 16, "algo.per_rank_sequence_length": 64, "algo.replay_ratio": 0.5,
+                 "env.num_envs": 1, "fabric.precision": "32-true", "algo.world_model.decoupled_rssm": False,
+                 "algo.dense_units": 1024, "algo.world_model.recurrent_model.recurrent_state_size": 4096,
+                 "algo.world_model.encoder.cnn_channels_multiplier": 96, "algo.horizon": 15,
+                 "algo.cnn_keys.encoder": ["rgb"], "algo.mlp_keys.encoder": ["reward"], "env.id": "crafter_reward",
+                 "env.reward_as_observation": True, "env.wrapper._target_": "sheeprl_tpu_torch.envs.crafter.CrafterWrapper"}
+STUBS = os.path.join(HERE, "tests", "torch_suite_stubs")
 
 
-def preset_leg(torch, ln_gru):
-    """``dv3_ms_pacman`` (phase 5): the preset through the CLI on
-    ``cuda:0``. Its policy steps/s after learning_starts (from its log
-    records) and peak device memory; from ``utils/run_info.py`` the end of
-    its first burst (``steady_step``, ``steady_t``), the steady-state policy
-    steps/s after it, as a bench computes it (to the CLI call's return), and
-    the run's ``log_dir``. Fails if ``steady_step`` is missing or outside the
-    run, if the leg did not train or if it launched an LN-GRU kernel (the
-    preset's RSSM is coupled)."""
+def run_preset(torch, ln_gru, name, args, learning_starts, total, shape, grad_steps):
+    """One preset through the CLI on ``cuda:0`` (leg ``name``). Its policy
+    steps/s after learning_starts (from its log records) and peak device
+    memory; from ``utils/run_info.py`` the end of its first burst
+    (``steady_step``, ``steady_t``), the steady-state policy steps/s after it,
+    as a bench computes it (to the CLI call's return), and the run's
+    ``log_dir``. Fails if ``steady_step`` is missing or outside the run, if
+    the leg did not take ``total`` policy steps and ``grad_steps`` gradient
+    steps, if its own ``config.yaml`` does not hold ``shape`` or if it
+    launched an LN-GRU kernel (the presets' RSSM is coupled)."""
     from sheeprl_tpu_torch.config import load_config_file
     from sheeprl_tpu_torch.utils import run_info
 
-    args = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy",
-            f"algo.learning_starts={PRESET_LEARNING_STARTS}", f"algo.total_steps={PRESET_TOTAL}",
-            f"buffer.size={PRESET_BUFFER}", "metric.log_every=16", f"root_dir={RUN_ROOT}", "run_name=dv3_ms_pacman"]
+    args = [*args, f"algo.learning_starts={learning_starts}", f"algo.total_steps={total}", "metric.log_every=16",
+            f"root_dir={RUN_ROOT}", f"run_name={name}"]
     run_info.last_run.clear()
     t_start = time.perf_counter()
     parsed, counts, seconds, peak = drive(torch, ln_gru, "run", args)
@@ -1600,26 +1627,70 @@ def preset_leg(torch, ln_gru):
     last = dict(run_info.last_run)
     run_info.last_run.clear()
     if any(counts.values()):
-        raise AssertionError(f"the dv3_ms_pacman leg launched LN-GRU kernels {counts}: its RSSM is coupled")
-    out = leg_summary(parsed, counts, seconds, peak, PRESET_LEARNING_STARTS, trains=False)
-    if out["policy_step"] != PRESET_TOTAL or out["grad_steps"] < PRESET_TOTAL - PRESET_LEARNING_STARTS - 1:
-        raise AssertionError(f"the dv3_ms_pacman leg: {out['policy_step']} of {PRESET_TOTAL} policy steps, "
-                             f"{out['grad_steps']} gradient steps")
+        raise AssertionError(f"the {name} leg launched LN-GRU kernels {counts}: its RSSM is coupled")
+    out = leg_summary(parsed, counts, seconds, peak, learning_starts, trains=False)
+    if out["policy_step"] != total or out["grad_steps"] < grad_steps:
+        raise AssertionError(f"the {name} leg: {out['policy_step']} of {total} policy steps, "
+                             f"{out['grad_steps']} gradient steps (at least {grad_steps})")
     steady_step, steady_t = last.get("steady_step"), last.get("steady_t")
-    if steady_step is None or not PRESET_LEARNING_STARTS <= steady_step < PRESET_TOTAL \
-            or not t_start < steady_t < t_end:
-        raise AssertionError(f"run_info.last_run {last}: no steady_step inside the run "
-                             f"[{PRESET_LEARNING_STARTS}, {PRESET_TOTAL})")
+    if steady_step is None or not learning_starts <= steady_step < total or not t_start < steady_t < t_end:
+        raise AssertionError(f"run_info.last_run {last}: no steady_step inside the run [{learning_starts}, {total})")
     if last.get("log_dir") != parsed["log_dir"]:
         raise AssertionError(f"run_info.last_run's log_dir {last.get('log_dir')} is not the leg's {parsed['log_dir']}")
     # the run's own config: the preset's widths and shape, uncut
     cfg = load_config_file(os.path.join(parsed["log_dir"], "config.yaml"))
-    shape = {k: cfg.select(k) for k in PRESET_SHAPE}
-    if shape != PRESET_SHAPE:
-        raise AssertionError(f"the dv3_ms_pacman leg ran {shape}, the preset is {PRESET_SHAPE}")
-    out.update(args=args, shape=shape, steady_step=steady_step, startup_seconds=steady_t - t_start,
+    ran = {k: cfg.select(k) for k in shape}
+    if ran != shape:
+        raise AssertionError(f"the {name} leg ran {ran}, the preset is {shape}")
+    out.update(args=args, shape=ran, steady_step=steady_step, startup_seconds=steady_t - t_start,
                steady_state_policy_steps_per_s=(out["policy_step"] - steady_step) / (t_end - steady_t),
                log_dir=last["log_dir"])
+    return out
+
+
+def preset_leg(torch, ln_gru):
+    """``dv3_ms_pacman`` (phase 5): the MsPacman preset (``run_preset``);
+    at replay ratio 1 a gradient step for each policy step after
+    learning_starts but the first."""
+    args = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy", f"buffer.size={PRESET_BUFFER}"]
+    return run_preset(torch, ln_gru, "dv3_ms_pacman", args, PRESET_LEARNING_STARTS, PRESET_TOTAL, PRESET_SHAPE,
+                      PRESET_TOTAL - PRESET_LEARNING_STARTS - 1)
+
+
+def crafter_leg(torch, ln_gru):
+    """``dv3_XL_crafter`` (phase 5): the XL Crafter preset (``run_preset``)
+    on the crafter stand-in, which is importable for this leg alone: its
+    directory leads ``sys.path`` and the port's suite gates are read again,
+    both undone after the leg. Exactly ``CRAFTER_GRAD_STEPS`` gradient
+    steps. Prints its own line (``suite: stand-in``)."""
+    import importlib
+    import importlib.util
+
+    from sheeprl_tpu_torch.utils import imports
+
+    sys.path.insert(0, STUBS)
+    importlib.reload(imports)
+    try:
+        found = importlib.util.find_spec("crafter")
+        if not imports._IS_CRAFTER_AVAILABLE or not found.origin.startswith(STUBS):
+            raise AssertionError(f"the crafter stand-in in {STUBS} is not the one found: {found}")
+        args = ["exp=dreamer_v3_XL_crafter", f"buffer.size={CRAFTER_BUFFER}", f"checkpoint.every={CRAFTER_TOTAL}"]
+        out = run_preset(torch, ln_gru, "dv3_XL_crafter", args, CRAFTER_LEARNING_STARTS, CRAFTER_TOTAL,
+                         CRAFTER_SHAPE, CRAFTER_GRAD_STEPS)
+    finally:
+        sys.path.remove(STUBS)
+        for name in [m for m, mod in sys.modules.items() if (getattr(mod, "__file__", None) or "").startswith(STUBS)]:
+            del sys.modules[name]
+        importlib.reload(imports)
+    if out["grad_steps"] != CRAFTER_GRAD_STEPS:
+        raise AssertionError(f"the dv3_XL_crafter leg took {out['grad_steps']} gradient steps, not {CRAFTER_GRAD_STEPS}")
+    out["suite"] = "stand-in"
+    emit("dv3_XL_crafter", ok=True, suite="stand-in", seconds=out["seconds"], policy_step=out["policy_step"],
+         grad_steps=out["grad_steps"],
+         policy_steps_per_s_after_learning_starts=out["policy_steps_per_s_after_learning_starts"],
+         steady_state_policy_steps_per_s=out["steady_state_policy_steps_per_s"], steady_step=out["steady_step"],
+         startup_seconds=out["startup_seconds"], peak_device_memory=out["peak_device_memory"],
+         launches=out["launches"], checkpoints=out["checkpoints"])
     return out
 
 
@@ -1968,7 +2039,7 @@ def offpolicy_legs(torch, ln_gru):
 # buffer size only. DV2's first burst takes its 20 pretrain steps (100 at
 # ratio 0.2); the multidiscrete dummy's 129-step episodes outlast the episode
 # buffer's minimum length (the sequence, 50), the discrete dummy's 5 do not
-DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 160, 320, 512
+DV2_LEARNING_STARTS, DV2_TOTAL, DV2_RESUME_TOTAL, DV2_BUFFER = 64, 160, 224, 512
 DV2_EP_LEARNING_STARTS, DV2_EP_TOTAL = 160, 224
 DV1_LEARNING_STARTS, DV1_TOTAL, DV1_BUFFER = 128, 416, 1024
 
@@ -4536,7 +4607,7 @@ def recurrences(torch, ln_gru, labels):
 
 
 USAGE = """usage: python3 chip_smoke.py                      every phase (what the contract runs)
-       python3 chip_smoke.py --preset               phase 5's dv3_ms_pacman leg alone
+       python3 chip_smoke.py --preset               phase 5's preset legs alone (dv3_ms_pacman, dv3_XL_crafter)
        python3 chip_smoke.py --dreamer              phase 5's DreamerV1/V2 legs and steps alone
        python3 chip_smoke.py --p2e                  phase 5's Plan2Explore legs and step alone
        python3 chip_smoke.py --fleet                phase 5's actor-fleet legs alone, with the serial twins
@@ -4608,9 +4679,9 @@ def main(argv=None) -> int:
         try:
             os.chdir(HERE)
             t0 = time.perf_counter()
-            leg = preset_leg(torch, ln_gru)
+            legs = {"dv3_ms_pacman": preset_leg(torch, ln_gru), "dv3_XL_crafter": crafter_leg(torch, ln_gru)}
             shutil.rmtree(os.path.join(HERE, "logs", "runs", RUN_ROOT), ignore_errors=True)
-            emit("preset", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, dv3_ms_pacman=leg)
+            emit("preset", ok=True, nvidia_smi=smi, seconds=time.perf_counter() - t0, **legs)
         except Exception as err:  # noqa: BLE001
             return fail("preset", err)
         return 0

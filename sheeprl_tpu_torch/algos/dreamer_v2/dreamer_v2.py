@@ -471,7 +471,8 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts], player_f
     episodic = isinstance(rb, EpisodeBuffer)
     # only the sequential buffer can mark an in-flight env restart; with the
     # episode buffer the env reports it as a truncation
-    envs = vectorize(local_cfg(cfg, dist), seed, rank, restart_handled_by_loop=not episodic)
+    envs = vectorize(local_cfg(cfg, dist), seed, rank, restart_handled_by_loop=not episodic,
+                     run_name=log_dir)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     is_continuous = isinstance(action_space, spaces.Box)
     is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)

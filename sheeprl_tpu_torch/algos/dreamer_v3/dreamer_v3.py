@@ -739,7 +739,8 @@ def main(cfg: Config) -> None:
     lcfg = local_cfg(cfg, dist)
 
     # under the fleet the worker processes own the envs: the spaces alone here
-    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(lcfg, seed, drank, restart_handled_by_loop=True)
+    envs = probe_env_spaces(cfg, seed) if fleet_on else vectorize(lcfg, seed, drank, restart_handled_by_loop=True,
+                                                                            run_name=log_dir)
     obs_space = envs.single_observation_space
     action_space = envs.single_action_space
     num_envs = int(cfg.env.num_envs)
@@ -1043,7 +1044,7 @@ def main(cfg: Config) -> None:
         telem.close(policy_step)
     layout.unshard()  # every rank: the parameters whole again for the test episode and the registry
     if cfg.algo.run_test and rank == 0:
-        test_env = single_env(cfg, seed)
+        test_env = single_env(cfg, seed, run_name=log_dir)
         # the player acts in f32 (bf16-true keeps bf16 parameters)
         t_wm, t_actor = (wm, actor) if precision.param_dtype == torch.float32 else (
             copy.deepcopy(wm).float(), copy.deepcopy(actor).float())

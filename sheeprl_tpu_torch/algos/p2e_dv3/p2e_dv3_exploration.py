@@ -290,7 +290,7 @@ def run_serial(cfg: Config, algo: str, setup: Callable[..., LoopParts]) -> None:
     rank = dist.rank
     drank = dist.data_rank  # a tp group's ranks share their data rank: its env block, seeds and batch
     lcfg = local_cfg(cfg, dist)  # this rank's env block
-    envs = vectorize(lcfg, seed, drank, restart_handled_by_loop=True)
+    envs = vectorize(lcfg, seed, drank, restart_handled_by_loop=True, run_name=log_dir)
     obs_space, action_space = envs.single_observation_space, envs.single_action_space
     is_continuous = isinstance(action_space, spaces.Box)
     actions_dim = _actions_dim(action_space)

@@ -90,7 +90,7 @@ def start_run(cfg: Config, algo: str):
         state = CheckpointManager.load(cfg.checkpoint.resume_from, map_location=device)
     torch.manual_seed(seed)
     # N ranks: this rank's env block, seeded as the JAX package seeds those envs
-    envs = probe_env_spaces(cfg, seed) if fleet else vectorize(local_cfg(cfg, dist), seed, dist.rank)
+    envs = probe_env_spaces(cfg, seed) if fleet else vectorize(local_cfg(cfg, dist), seed, dist.rank, run_name=log_dir)
     if not isinstance(envs.single_observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {envs.single_observation_space}")
     return device, seed, log_dir, state, envs

@@ -161,7 +161,7 @@ def main(cfg: Config) -> None:
         if state:
             set_gen_state(player_gen, saved_gens["player"], "player", tag="ppo_decoupled")
         player_gen_state = gen_state(player_gen)
-        rollout = Rollout(cfg, vectorize(cfg, seed, 0), mirror, pdev, player_gen, agent.is_continuous, make_act_fn(),
+        rollout = Rollout(cfg, vectorize(cfg, seed, 0, run_name=log_dir), mirror, pdev, player_gen, agent.is_continuous, make_act_fn(),
                           make_value_fn())
         player = threading.Thread(target=_player_loop, name="ppo-player", daemon=True, args=(
             cfg, rollout, log_dir, telem, data_q, params_q, start_iter, num_updates, policy_step))

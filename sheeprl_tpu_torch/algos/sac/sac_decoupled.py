@@ -60,13 +60,13 @@ class _Player:
     """Rank 0's env-stepping half: the envs, the buffer and the Ratio ledger."""
 
     def __init__(self, cfg: Config, mirror: Any, generator: torch.Generator, rb: ReplayBuffer, ratio: Ratio,
-                 policy_step: int, batch_size: int, world_size: int, guard: RunGuard):
+                 policy_step: int, batch_size: int, world_size: int, guard: RunGuard, log_dir: str):
         self.cfg, self.mirror, self.generator, self.rb, self.ratio = cfg, mirror, generator, rb, ratio
         self.policy_step, self.batch_size, self.world_size, self.guard = policy_step, batch_size, world_size, guard
         self.num_envs = int(cfg.env.num_envs)
         self.total_steps = int(cfg.algo.total_steps) if not cfg.dry_run else self.num_envs
         self.learning_starts = int(cfg.algo.learning_starts) if not cfg.dry_run else 0
-        self.envs = vectorize(cfg, int(cfg.seed), 0)
+        self.envs = vectorize(cfg, int(cfg.seed), 0, run_name=log_dir)
 
     def run(self, data_q: "queue.Queue", params_q: "queue.Queue", telem: Telemetry) -> None:
         """Step, store, and hand over ``(policy_step, G, batches, ratio
@@ -202,7 +202,7 @@ def main(cfg: Config) -> None:
         ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
         if state:
             ratio.load_state_dict(state["ratio"])
-        player = _Player(cfg, mirror, player_gen, rb, ratio, policy_step, batch_size, world, guard)
+        player = _Player(cfg, mirror, player_gen, rb, ratio, policy_step, batch_size, world, guard, log_dir)
         thread = threading.Thread(target=player.run, args=(data_q, params_q, telem), name="sac-player", daemon=True)
         thread.start()
     burst_s: List[float] = []

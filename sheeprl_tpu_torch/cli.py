@@ -25,7 +25,8 @@ on the run's player device; ``gateway`` behind N supervised replicas of it
 over a serving run's capture (``flywheel/recipe.py``). ``doctor``, ``trace``, ``top`` and ``prof``
 read what a run leaves behind (``diag/``, ``prof/``); ``registration``
 splits a checkpoint into its algorithm's ``MODELS_TO_REGISTER`` groups in
-the local model registry (``utils/model_manager.py``).
+the local model registry (``utils/model_manager.py``) or, with
+``backend=mlflow``, on an MLflow server (``utils/mlflow_registry.py``).
 """
 from __future__ import annotations
 
@@ -200,6 +201,11 @@ def _run_registered(name: str, cfg: Config, exploration: Optional[dict] = None) 
     ranks); a finetuning one gets the exploration run's config
     (``exploration``, as a dict)."""
     _register()
+    from .utils.timer import timer
+
+    # a class-level switch: set both ways, so a run never inherits it from an
+    # earlier run in the same process
+    timer.disabled = bool(cfg.select("metric.disable_timer", False))
     fn = get_algorithm(name)["fn"]
     if exploration is not None:
         fn = functools.partial(fn, exploration_cfg=Config(exploration))
@@ -410,11 +416,13 @@ lint = _diag_command("sheeprl_tpu_torch.analysis.engine")
 
 
 def registration(args: Optional[Sequence[str]] = None) -> None:
-    """``registration checkpoint_path=... [backend=local]``: register a
-    trained checkpoint, split per the algorithm's ``MODELS_TO_REGISTER``,
-    in the local file registry (``utils/model_manager.py``).
-    ``backend=mlflow`` needs the ``mlflow`` package, which the port does not
-    ship a registry for: it is refused."""
+    """``registration checkpoint_path=... [backend=local|mlflow]``: register
+    a trained checkpoint, split per the algorithm's ``MODELS_TO_REGISTER``,
+    in the local file registry (``utils/model_manager.py``, the default) or
+    on an MLflow server (``backend=mlflow``: ``utils/mlflow_registry.py``,
+    which needs the ``mlflow`` package and ``MLFLOW_TRACKING_URI``; it takes
+    no other argument, since the models and their labels come from the
+    run's config)."""
     argv = list(args if args is not None else sys.argv[1:])
     _register()
     from .utils.model_manager import register_models_from_checkpoint
@@ -432,11 +440,21 @@ def registration(args: Optional[Sequence[str]] = None) -> None:
     if ckpt is None:
         raise ValueError("registration requires `checkpoint_path=<path to .ckpt>`")
     if backend == "mlflow":
-        raise ValueError("registration backend=mlflow needs the mlflow package and a remote registry, which the "
-                         "PyTorch port does not have: use backend=local")
-    if backend != "local":
+        # the remote registry takes no per-model overrides: refusing the rest
+        # beats the local backend using them and MLflow dropping them
+        if rest:
+            raise ValueError(
+                f"backend=mlflow does not accept extra overrides, got {rest}; "
+                "model selection/labels come from the experiment config "
+                "(MODELS_TO_REGISTER) — drop the extra arguments or use backend=local"
+            )
+        from .utils.mlflow_registry import register_models_from_checkpoint_remote
+
+        register_models_from_checkpoint_remote(pathlib.Path(ckpt))
+    elif backend == "local":
+        register_models_from_checkpoint(pathlib.Path(ckpt), rest)
+    else:
         raise ValueError(f"Unknown registration backend '{backend}' (local | mlflow)")
-    register_models_from_checkpoint(pathlib.Path(ckpt), rest)
 
 
 def available_agents(args: Optional[Sequence[str]] = None) -> None:

@@ -46,6 +46,10 @@ class BaseDummyEnv:
         self._current_step = 0
         return self.get_obs(), {}
 
+    def render(self):
+        """The current ``rgb`` observation (a video recorder's frame)."""
+        return self.get_obs()["rgb"]
+
     def close(self):
         pass
 

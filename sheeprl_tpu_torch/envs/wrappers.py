@@ -1,7 +1,8 @@
 """Env wrappers (the port's own copies of ``sheeprl_tpu/envs/wrappers.py``):
 ``MaskVelocityWrapper``, ``ActionRepeat``, ``RestartOnException``,
 ``FrameStack`` (with dilation), ``RewardAsObservationWrapper``,
-``ActionsAsObservationWrapper`` and ``GrayscaleRenderWrapper``. Reward
+``ActionsAsObservationWrapper`` and ``GrayscaleRenderWrapper``, and
+``RecordVideo`` (gymnasium's, on the port's wrapper). Reward
 clipping (``env.clip_rewards``) is the training loop's, as in the JAX
 package.
 
@@ -13,9 +14,10 @@ Images are NHWC.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -333,3 +335,79 @@ class GrayscaleRenderWrapper(Wrapper):
         if frame is not None and frame.ndim == 3 and frame.shape[-1] == 3:
             frame = np.repeat(np.expand_dims(frame.mean(-1).astype(frame.dtype), axis=-1), 3, axis=-1)
         return frame
+
+
+def capped_cubic_video_schedule(episode_id: int) -> bool:
+    """gymnasium's default video trigger: the cubes below 1000, then every
+    1000th episode."""
+    if episode_id < 1000:
+        return int(round(episode_id ** (1.0 / 3))) ** 3 == episode_id
+    return episode_id % 1000 == 0
+
+
+def moviepy_writer() -> Callable[[List[np.ndarray], str, float], None]:
+    """A writer of ``frames`` to an mp4 at ``path`` through moviepy's
+    ``ImageSequenceClip``, as gymnasium's RecordVideo writes; raises
+    ImportError where moviepy is not installed."""
+    from moviepy.video.io.ImageSequenceClip import ImageSequenceClip
+
+    def write(frames: List[np.ndarray], path: str, fps: float) -> None:
+        ImageSequenceClip(frames, fps=fps).write_videofile(path, logger=None)
+
+    return write
+
+
+class RecordVideo(Wrapper):
+    """The ``render()`` frames of every episode ``episode_trigger`` picks
+    (gymnasium's capped cubic schedule by default) written, when the episode
+    ends, as ``<video_folder>/<name_prefix>-episode-<id>.mp4`` at the env's
+    ``metadata["render_fps"]`` (30 where unset). ``writer(frames, path,
+    fps)`` writes one video; the default is moviepy's, and without moviepy
+    the constructor raises ImportError, as gymnasium's RecordVideo raises
+    that the dependency is not installed."""
+
+    def __init__(self, env: Any, video_folder: str, episode_trigger: Optional[Callable[[int], bool]] = None,
+                 name_prefix: str = "rl-video", writer: Optional[Callable[..., None]] = None):
+        super().__init__(env)
+        self._writer = writer if writer is not None else moviepy_writer()
+        self.video_folder = os.path.abspath(video_folder)
+        os.makedirs(self.video_folder, exist_ok=True)
+        self.episode_trigger = episode_trigger or capped_cubic_video_schedule
+        self.name_prefix = name_prefix
+        self.episode_id = -1
+        self._frames: List[np.ndarray] = []
+        self._recording = False
+
+    def _capture(self) -> None:
+        frame = self.env.render()
+        if frame is not None:
+            self._frames.append(np.asarray(frame))
+
+    def _flush(self) -> None:
+        if self._frames:
+            fps = (getattr(self.env, "metadata", None) or {}).get("render_fps", 30)
+            path = os.path.join(self.video_folder, f"{self.name_prefix}-episode-{self.episode_id}.mp4")
+            self._writer(self._frames, path, fps)
+        self._frames = []
+        self._recording = False
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        self._flush()
+        self.episode_id += 1
+        self._recording = self.episode_trigger(self.episode_id)
+        if self._recording:
+            self._capture()
+        return obs, info
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        if self._recording:
+            self._capture()
+            if terminated or truncated:
+                self._flush()
+        return obs, reward, terminated, truncated, info
+
+    def close(self) -> None:
+        self._flush()
+        super().close()

@@ -3,10 +3,13 @@
 ``episode_stats`` and ``get_dummy_env``.
 
 ``make_env`` builds the JAX package's pipeline: ``env.wrapper`` →
-ActionRepeat → MaskVelocity → dict observations (a vector-only env rendered
-to pixels or lifted into a one-key dict) → resize to ``env.screen_size`` and
-grayscale → FrameStack → ActionsAsObservation → RewardAsObservation →
-seeding → TimeLimit → RecordEpisodeStatistics. Images stay NHWC.
+ActionRepeat (not for DIAMBRA, whose engine repeats) → MaskVelocity → dict
+observations (a vector-only env rendered to pixels or lifted into a one-key
+dict) → resize to ``env.screen_size`` and grayscale → FrameStack →
+ActionsAsObservation → RewardAsObservation → seeding → TimeLimit →
+RecordEpisodeStatistics → RecordVideo (``env.capture_video`` on rank 0's
+first env of a run with a log dir; where no video writer imports, a warning
+and the run goes on, as in the JAX package). Images stay NHWC.
 
 The vector envs, the time limit and the episode statistics are the port's
 own versions of gymnasium's ``SyncVectorEnv``/``AsyncVectorEnv`` (same-step
@@ -20,6 +23,7 @@ resized or turned gray.
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
 import warnings
 from functools import partial
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -32,8 +36,10 @@ from ..envs.wrappers import (
     ActionRepeat,
     ActionsAsObservationWrapper,
     FrameStack,
+    GrayscaleRenderWrapper,
     MaskVelocityWrapper,
     ObservationWrapper,
+    RecordVideo,
     RestartOnException,
     RewardAsObservationWrapper,
     Wrapper,
@@ -165,8 +171,10 @@ class _EnvFactory:
     """Builds one env of the pipeline; picklable, so an env worker process
     can build its own."""
 
-    def __init__(self, cfg: Config, seed: int, rank: int, vector_env_idx: int):
+    def __init__(self, cfg: Config, seed: int, rank: int, vector_env_idx: int, run_name: Optional[str] = None,
+                 prefix: str = ""):
         self.cfg, self.seed, self.rank, self.vector_env_idx = cfg, seed, rank, vector_env_idx
+        self.run_name, self.prefix = run_name, prefix
 
     def __call__(self) -> Any:
         cfg, seed, rank, vector_env_idx = self.cfg, self.seed, self.rank, self.vector_env_idx
@@ -177,7 +185,8 @@ class _EnvFactory:
         if "rank" in wrapper_cfg:
             kwargs["rank"] = rank + vector_env_idx
         env = instantiate(wrapper_cfg, **kwargs)
-        if cfg.env.get("action_repeat", 1) > 1:
+        # DIAMBRA repeats in its engine (the wrapper's repeat_action): not twice
+        if cfg.env.get("action_repeat", 1) > 1 and "diambra" not in str(wrapper_cfg.get("_target_", "")).lower():
             env = ActionRepeat(env, cfg.env.action_repeat)
         if cfg.env.get("mask_velocities", False):
             env = MaskVelocityWrapper(env)
@@ -232,13 +241,24 @@ class _EnvFactory:
         env.observation_space.seed(seed)
         if cfg.env.get("max_episode_steps", None) and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, cfg.env.max_episode_steps)
-        if cfg.env.get("capture_video", False):
-            raise NotImplementedError("env.capture_video=True: video capture is not ported")
-        return RecordEpisodeStatistics(env)
+        env = RecordEpisodeStatistics(env)
+        if cfg.env.get("capture_video", False) and rank == 0 and vector_env_idx == 0 and self.run_name is not None:
+            if cfg.env.get("grayscale", False):
+                env = GrayscaleRenderWrapper(env)
+            video_dir = os.path.join(self.run_name, self.prefix + "_videos" if self.prefix else "videos")
+            try:
+                env = RecordVideo(env, video_dir)
+            except ImportError:
+                warnings.warn("Video capture unavailable; continuing without RecordVideo")
+        return env
 
 
-def make_env(cfg: Config, seed: int, rank: int, vector_env_idx: int = 0) -> Callable[[], Any]:
-    return _EnvFactory(cfg, seed, rank, vector_env_idx)
+def make_env(cfg: Config, seed: int, rank: int, vector_env_idx: int = 0, run_name: Optional[str] = None,
+             prefix: str = "") -> Callable[[], Any]:
+    """The constructor of env ``vector_env_idx`` of rank ``rank``; with
+    ``env.capture_video``, rank 0's env 0 records into ``<run_name>/videos``
+    (``<run_name>/<prefix>_videos``)."""
+    return _EnvFactory(cfg, seed, rank, vector_env_idx, run_name, prefix)
 
 
 def _step_one(env: Any, action: Any) -> Tuple[Any, float, bool, bool, Dict[str, Any], Any]:
@@ -253,11 +273,18 @@ def _step_one(env: Any, action: Any) -> Tuple[Any, float, bool, bool, Dict[str, 
     return obs, float(r), bool(te), bool(tr), info, final_obs
 
 
-def _stack(obs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    return {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+def _stack(obs: List[Dict[str, np.ndarray]], space: Any) -> Dict[str, np.ndarray]:
+    """The envs' observations stacked, each key in its space's dtype (as
+    gymnasium's vector envs batch them)."""
+    out = {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+    for k, v in out.items():
+        dtype = getattr(space.spaces.get(k), "dtype", None) if hasattr(space, "spaces") else None
+        if dtype is not None:
+            out[k] = v.astype(dtype, copy=False)
+    return out
 
 
-def _merge(results: List[Tuple[Any, float, bool, bool, Dict[str, Any], Any]]):
+def _merge(results: List[Tuple[Any, float, bool, bool, Dict[str, Any], Any]], space: Any):
     """The vector env's step result from each env's ``_step_one``."""
     n = len(results)
     rewards = np.array([r[1] for r in results], np.float64)
@@ -277,7 +304,7 @@ def _merge(results: List[Tuple[Any, float, bool, bool, Dict[str, Any], Any]]):
     restarted = np.array([bool(r[4].get("restart_on_exception", False)) for r in results])
     if restarted.any():
         info["restart_on_exception"], info["_restart_on_exception"] = restarted, restarted
-    return _stack([r[0] for r in results]), rewards, terminated, truncated, info
+    return _stack([r[0] for r in results], space), rewards, terminated, truncated, info
 
 
 class SyncVectorEnv:
@@ -292,10 +319,10 @@ class SyncVectorEnv:
 
     def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
         obs = [env.reset(seed=None if seed is None else seed + i)[0] for i, env in enumerate(self.envs)]
-        return _stack(obs), {}
+        return _stack(obs, self.single_observation_space), {}
 
     def step(self, actions: Any):
-        return _merge([_step_one(env, actions[i]) for i, env in enumerate(self.envs)])
+        return _merge([_step_one(env, actions[i]) for i, env in enumerate(self.envs)], self.single_observation_space)
 
     def close(self) -> None:
         for env in self.envs:
@@ -353,12 +380,12 @@ class AsyncVectorEnv:
     def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
         for i, c in enumerate(self._conns):
             c.send(("reset", None if seed is None else seed + i))
-        return _stack([self._recv(c)[0] for c in self._conns]), {}
+        return _stack([self._recv(c)[0] for c in self._conns], self.single_observation_space), {}
 
     def step(self, actions: Any):
         for i, c in enumerate(self._conns):
             c.send(("step", actions[i]))
-        return _merge([self._recv(c) for c in self._conns])
+        return _merge([self._recv(c) for c in self._conns], self.single_observation_space)
 
     def close(self) -> None:
         if self._closed:
@@ -376,9 +403,11 @@ class AsyncVectorEnv:
                 p.terminate()
 
 
-def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool = False) -> Any:
+def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool = False,
+              run_name: Optional[str] = None, prefix: str = "") -> Any:
     """The vector env of ``env.num_envs`` envs: in this process
-    (``env.sync_env``) or one process each.
+    (``env.sync_env``) or one process each. ``run_name`` (the run's log
+    dir) is where ``env.capture_video`` records.
 
     Envs of the crash-prone suites (MineRL, DIAMBRA, MineDojo, read from
     ``env.wrapper._target_``) or any env with ``env.restart_on_exception``
@@ -390,7 +419,8 @@ def vectorize(cfg: Config, seed: int, rank: int, restart_handled_by_loop: bool =
     A transient failure while the vector env is built (an ``OSError`` and
     the like, not a configuration error) is retried with jittered backoff
     (``resilience.retries``, ``resilience/supervisor.py``)."""
-    thunks = [make_env(cfg, seed + rank * cfg.env.num_envs + i, rank, i) for i in range(cfg.env.num_envs)]
+    thunks = [make_env(cfg, seed + rank * cfg.env.num_envs + i, rank, i, run_name, prefix)
+              for i in range(cfg.env.num_envs)]
     target = str(cfg.select("env.wrapper._target_") or "").lower()
     crash_prone = any(s in target for s in ("minerl", "diambra", "minedojo"))
     restart = cfg.env.get("restart_on_exception", None)
@@ -434,11 +464,12 @@ def probe_env_spaces(cfg: Config, seed: int) -> ProbedSpaces:
         env.close()
 
 
-def single_env(cfg: Config, seed: int) -> Any:
+def single_env(cfg: Config, seed: int, run_name: Optional[str] = None) -> Any:
     """The first env of the run's pipeline (restarts included), in this
-    process: the greedy test episode's."""
+    process: the greedy test episode's (recorded under ``run_name`` with
+    ``env.capture_video``)."""
     one = Config({**cfg.to_dict(), "env": {**cfg.env.to_dict(), "num_envs": 1, "sync_env": True}})
-    return vectorize(one, seed, 0).envs[0]
+    return vectorize(one, seed, 0, run_name=run_name).envs[0]
 
 
 def patch_restarted_envs(info: Dict[str, Any], dones: Any, rb: Any, step_data: Optional[Dict[str, Any]] = None):
@@ -489,9 +520,3 @@ def get_dummy_env(id: str, **suite_kwargs: Any) -> Any:
         return DiscreteDummyEnv()
     raise ValueError(f"Unrecognized dummy environment: {id}")
 
-
-def get_diambra_env(id: str, **wrapper_kwargs: Any) -> Any:
-    """DIAMBRA Arena's environments (``env=diambra``) are not ported: the
-    presets that name them compose, and a run raises here."""
-    raise NotImplementedError(f"env.id={id}: the DIAMBRA environments are not ported; the presets that name them "
-                              "only compose (run them with env=dummy)")

@@ -1,11 +1,12 @@
-"""Run directories and the TensorBoard logger (the port's own copy of
-``sheeprl_tpu/utils/logger.py``).
+"""Run directories and the TensorBoard and MLflow loggers (the port's own
+copy of ``sheeprl_tpu/utils/logger.py``).
 
 ``TensorBoardLogger`` writes scalars with ``torch.utils.tensorboard`` where
 ``tensorboard`` imports; where it does not, it says so once and writes them
 to ``<log_dir>/metrics_fallback.jsonl`` as schema'd ``metrics`` events, as
-the reference does, so no metric is dropped. ``metric.logger=mlflow`` raises:
-MLflow is not installed here.
+the reference does, so no metric is dropped. ``MLflowLogger``
+(``logger@metric.logger=mlflow``) tracks the run on an MLflow server; it
+needs the ``mlflow`` package, imported when the logger is made.
 """
 from __future__ import annotations
 
@@ -111,19 +112,86 @@ class TensorBoardLogger:
             self._fallback = None
 
 
-def get_logger(cfg: Any, log_dir: str, process_index: int = 0) -> Optional[TensorBoardLogger]:
-    """The rank-0 logger (None on other ranks or with ``metric.log_level=0``):
-    ``metric.logger`` names the backend, ``tensorboard`` (the default) or
-    ``mlflow``, which raises here."""
-    if process_index != 0 or cfg.select("metric.log_level", 1) == 0:
-        return None
+class MLflowLogger:
+    """MLflow experiment tracking, with ``TensorBoardLogger``'s surface: a
+    run of ``experiment_name`` on the server of ``tracking_uri`` (or
+    ``$MLFLOW_TRACKING_URI``), tagged with ``tags``. Needs the ``mlflow``
+    package: without it the constructor raises ``ModuleNotFoundError``."""
+
+    def __init__(self, experiment_name: str, run_name: str, tracking_uri: Optional[str] = None,
+                 tags: Optional[Dict[str, Any]] = None):
+        import mlflow
+
+        self._mlflow = mlflow
+        uri = tracking_uri or os.environ.get("MLFLOW_TRACKING_URI")
+        if uri:
+            mlflow.set_tracking_uri(uri)
+        mlflow.set_experiment(experiment_name)
+        self._run = mlflow.start_run(run_name=run_name)
+        if tags:
+            mlflow.set_tags(dict(tags))
+
+    @property
+    def run_id(self) -> str:
+        return self._run.info.run_id
+
+    def log_metrics(self, metrics: Dict[str, Any], step: int) -> None:
+        clean = _scalars(metrics)
+        if clean:
+            self._mlflow.log_metrics(clean, step=step)
+
+    def log_hyperparams(self, cfg: Dict[str, Any]) -> None:
+        """The flattened config (``a.b.c`` keys) as run parameters, in sorted
+        batches of 400 (MLflow takes at most 500 in one call); a batch the
+        server refuses is reported and the rest go on."""
+        def flatten(node: Any, prefix: str = "") -> Dict[str, Any]:
+            out: Dict[str, Any] = {}
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    out.update(flatten(v, f"{prefix}{k}."))
+            else:
+                out[prefix[:-1]] = node
+            return out
+
+        params = flatten(cfg)
+        keys = sorted(params)
+        for i in range(0, len(keys), 400):
+            chunk = {k: params[k] for k in keys[i : i + 400]}
+            try:
+                self._mlflow.log_params(chunk)
+            except Exception as err:  # noqa: BLE001 - the server's refusal of one batch
+                print(f"[mlflow] log_params chunk failed: {err}", file=sys.stderr)
+
+    def close(self) -> None:
+        self._mlflow.end_run()
+
+
+def build_logger(cfg: Any, log_dir: str):
+    """The backend ``metric.logger`` names: ``tensorboard`` (the default) or
+    ``mlflow`` (its experiment and run names default to ``root_dir`` and
+    ``run_name``)."""
     node = cfg.select("metric.logger", "tensorboard")
     kind = node if isinstance(node, str) else str(node.get("type", "tensorboard"))
+    if kind == "tensorboard":
+        return TensorBoardLogger(log_dir)
     if kind == "mlflow":
-        raise NotImplementedError("metric.logger=mlflow: MLflow is not installed, so the port has no MLflow logger")
-    if kind != "tensorboard":
-        raise ValueError(f"Unknown metric.logger '{kind}' (options: tensorboard, mlflow)")
-    logger = TensorBoardLogger(log_dir)
+        opts = node if isinstance(node, dict) else {}
+        return MLflowLogger(
+            experiment_name=str(opts.get("experiment_name") or cfg.select("root_dir") or "sheeprl_tpu"),
+            run_name=str(opts.get("run_name") or cfg.select("run_name") or "run"),
+            tracking_uri=opts.get("tracking_uri"),
+            tags=opts.get("tags"),
+        )
+    raise ValueError(f"Unknown metric.logger '{kind}' (options: tensorboard, mlflow)")
+
+
+def get_logger(cfg: Any, log_dir: str, process_index: int = 0):
+    """The rank-0 logger (None on other ranks or with ``metric.log_level=0``):
+    ``metric.logger`` names the backend, ``tensorboard`` (the default) or
+    ``mlflow`` (``logger@metric.logger=mlflow``)."""
+    if process_index != 0 or cfg.select("metric.log_level", 1) == 0:
+        return None
+    logger = build_logger(cfg, log_dir)
     try:
         logger.log_hyperparams(cfg.to_dict())
     except Exception as err:  # noqa: BLE001 - the hyperparameters are best effort; metrics must flow

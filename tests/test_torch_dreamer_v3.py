@@ -203,11 +203,12 @@ def test_cli_dry_run_on_cpu(tmp_path):
 
 def test_cli_refuses_overlap_and_mixed_precision(tmp_path, monkeypatch):
     """The CLI refuses what the port does not run, before it writes
-    anything: an unknown fleet act mode, video capture and a precision the
-    policy table does not hold. (The overlap engine, memmap buffers,
-    bf16-mixed, the fleet's worker mode and its batched act service,
-    refused here before they were ported, run now: the act service's runs
-    are in tests/test_torch_act_service.py.)"""
+    anything: an unknown fleet act mode and a precision the policy table
+    does not hold. (The overlap engine, memmap buffers, bf16-mixed, the
+    fleet's worker mode and its batched act service, refused here before
+    they were ported, run now: the act service's runs are in
+    tests/test_torch_act_service.py. Video capture runs too: where no video
+    writer imports it warns, as the JAX package does, and the run goes on.)"""
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.fleet.engine import FleetEngine
@@ -220,8 +221,11 @@ def test_cli_refuses_overlap_and_mixed_precision(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="Unknown precision '16-mixed'"):
         cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "fabric.precision=16-mixed"])
     assert not (tmp_path / "logs").exists()
-    with pytest.raises(NotImplementedError, match="capture_video"):
-        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "env.capture_video=True"])
+    with pytest.warns(UserWarning, match="Video capture unavailable; continuing without RecordVideo"):
+        cli.run(TINY_DV3 + ["fabric.accelerator=cpu", "env.capture_video=True", "dry_run=True", "env.num_envs=1",
+                            "algo.per_rank_sequence_length=2",
+                            "buffer.memmap=False", "metric.log_level=0", "algo.run_test=False"])
+    assert list((tmp_path / "logs").rglob("*.ckpt")), "the run went on past the warning"
 
 
 def test_config_refuses_what_the_port_does_not_run():

@@ -7,7 +7,8 @@ loops register their groups at the end of a CPU run; ``registration
 checkpoint_path=...`` splits a port checkpoint into its algorithm's
 ``MODELS_TO_REGISTER`` groups (the JAX package's, algorithm by algorithm),
 and a download loads back into fresh modules that give the checkpoint's
-outputs; ``backend=mlflow`` is refused."""
+outputs; ``backend=mlflow`` (tests/test_torch_mlflow.py) takes no other
+argument and, without the mlflow package, raises."""
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import contextlib
 import io
@@ -155,8 +156,10 @@ def test_ppo_end_of_run_and_registration_from_its_checkpoint(tmp_path, monkeypat
     assert end.keys() == state["agent"].keys() and all(torch.equal(end[k], state["agent"][k]) for k in end)
     cli.COMMANDS["registration"]([f"checkpoint_path={ckpt}"])
     assert manager.get_latest_version("ppo_discrete_dummy_agent") == 2
-    with pytest.raises(ValueError, match="mlflow"):
+    with pytest.raises(ModuleNotFoundError, match="mlflow"):
         cli.COMMANDS["registration"]([f"checkpoint_path={ckpt}", "backend=mlflow"])
+    with pytest.raises(ValueError, match="backend=mlflow does not accept extra overrides"):
+        cli.COMMANDS["registration"]([f"checkpoint_path={ckpt}", "backend=mlflow", "seed=1"])
     with pytest.raises(ValueError, match="checkpoint_path"):
         cli.COMMANDS["registration"]([])
 

@@ -12,10 +12,12 @@ stream record names the top-level packages it loaded); every import statement of
 port's sources is scanned, and no config of the port names a class of the
 JAX package.
 
-The env suites' packages (gymnasium, dm_control and dm_env, cv2) are
-imported by their adapters only, inside the functions that make an env or
-transform an image: importing the port or running it on the dummy env loads
-none of them (the card's machine has none)."""
+The env suites' packages (gymnasium, dm_control and dm_env, cv2, crafter,
+gym_super_mario_bros and nes_py, diambra, minedojo, minerl and the legacy
+gym), mlflow and moviepy are imported by their adapters only, inside the
+functions that make an env, a logger, a registry or a video, or transform
+an image: importing the port or running it on the dummy env loads none of
+them (the card's machine has none)."""
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread for the module)
 import ast
 import json
@@ -27,12 +29,24 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "sheeprl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu")
-SUITES = ("gymnasium", "dm_control", "dm_env", "cv2")
+SUITES = ("gymnasium", "dm_control", "dm_env", "cv2", "crafter", "gym_super_mario_bros", "nes_py", "diambra",
+          "minedojo", "minerl", "gym", "mlflow", "moviepy")
 # the env adapters, and the suite packages each may import lazily
 ADAPTERS = {
     PORT / "envs" / "gym_env.py": ("gymnasium",),
     PORT / "envs" / "dmc.py": ("dm_control", "dm_env"),
     PORT / "utils" / "env.py": ("cv2",),
+    PORT / "envs" / "crafter.py": ("crafter",),
+    PORT / "envs" / "super_mario_bros.py": ("gym_super_mario_bros", "nes_py"),
+    PORT / "envs" / "diambra.py": ("diambra",),
+    PORT / "envs" / "minedojo.py": ("minedojo",),
+    PORT / "envs" / "minerl.py": ("gym", "minerl"),
+    PORT / "envs" / "minerl_envs" / "backend.py": ("minerl",),
+    PORT / "envs" / "minerl_envs" / "navigate.py": ("minerl",),
+    PORT / "envs" / "minerl_envs" / "obtain.py": ("minerl",),
+    PORT / "envs" / "wrappers.py": ("moviepy",),
+    PORT / "utils" / "logger.py": ("mlflow",),
+    PORT / "utils" / "mlflow_registry.py": ("mlflow",),
 }
 
 
@@ -134,7 +148,10 @@ def test_importing_every_port_module_loads_no_jax(tmp_path):
                 "diag.doctor", "diag.aggregator", "diag.live", "prof.capture", "prof.cli", "utils.model_manager",
                 "parallel.mesh", "algos.ppo.ppo_decoupled", "gateway.admission", "gateway.broker", "gateway.wal",
                 "gateway.replica", "gateway.gateway", "gateway.cluster", "gateway.brokerd", "gateway.broker_client",
-                "flywheel.capture", "flywheel.ingest", "flywheel.recipe"):
+                "flywheel.capture", "flywheel.ingest", "flywheel.recipe", "utils.imports", "utils.timer",
+                "utils.mlflow_registry", "envs.legacy", "envs.crafter", "envs.super_mario_bros", "envs.diambra",
+                "envs.minedojo", "envs.minerl", "envs.minerl_envs", "envs.minerl_envs.backend",
+                "envs.minerl_envs.navigate", "envs.minerl_envs.obtain"):
         assert f"sheeprl_tpu_torch.{mod}" in out["imported"], mod
     leaked = [m for m in out["loaded"] if _forbidden(m, FORBIDDEN + SUITES)]
     assert not leaked, leaked

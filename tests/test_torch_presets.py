@@ -3,8 +3,10 @@ package's:
 
 * each composes in the port to the JAX package's ``algo``, ``buffer`` and
   ``env`` (restricted to the keys the port reads, its optimizer targets for
-  the JAX package's), and to its ``seed`` and ``checkpoint``; the DIAMBRA
-  presets compose only (the suite is not installed); ``exp=default``
+  the JAX package's, its env adapters for the JAX package's), and to its
+  ``seed`` and ``checkpoint``: the DIAMBRA, Crafter, MineRL, MineDojo and
+  Super Mario Bros presets among them (their runs on stand-ins of the
+  suites are tests/test_torch_suites.py's); ``exp=default``
   (``run_benchmarks``) and ``logger=tensorboard`` compose beside an
   experiment;
 * ``exp=dreamer_v3_100k_ms_pacman`` runs a few steps at tiny widths on the
@@ -31,14 +33,13 @@ from torch_offpolicy import configs, within
 
 PRESETS = ["dreamer_v3_100k_ms_pacman", "dreamer_v3_100k_boxing", "dreamer_v3_dmc_cartpole_swingup_sparse",
            "dreamer_v3_benchmarks", "ppo_benchmarks", "a2c_benchmarks", "dreamer_v3_L_doapp",
-           "dreamer_v3_L_doapp_128px_gray_combo_discrete"]
+           "dreamer_v3_L_doapp_128px_gray_combo_discrete", "dreamer_v2_crafter", "dreamer_v3_L_navigate",
+           "dreamer_v3_XL_crafter", "dreamer_v3_minedojo", "dreamer_v3_super_mario_bros", "ppo_super_mario_bros"]
 # env keys of the port's own (its env/default.yaml: velocity masking and the
 # in-flight env restarts) that the JAX package's env configs do not hold
 PORT_ONLY_ENV = {"mask_velocities", "restart_on_exception", "restart_window", "restart_maxfails", "restart_wait"}
 # exp=default sets run_benchmarks alone: beside algo=ppo the keys exp=ppo would set
 PPO_MANDATORY = ["algo.total_steps=64", "algo.per_rank_batch_size=16", "buffer.size=64"]
-# the port's env=diambra adapter: it raises that the suite is not ported
-DIAMBRA_REFUSAL = "sheeprl_tpu_torch.utils.env.get_diambra_env"
 
 
 @pytest.mark.parametrize("exp", PRESETS)
@@ -47,9 +48,6 @@ def test_presets_compose_to_the_jax_packages(exp):
     within(tcfg.algo.to_dict(), jcfg.algo.to_dict())
     within(tcfg.buffer.to_dict(), jcfg.buffer.to_dict(), "buffer")
     env = {k: v for k, v in tcfg.env.to_dict().items() if k not in PORT_ONLY_ENV}
-    if env["wrapper"]["_target_"] == DIAMBRA_REFUSAL:  # DIAMBRA is not installed: its presets compose only
-        assert jcfg.env.wrapper["_target_"] == "sheeprl_tpu.envs.diambra.DiambraWrapper"
-        env["wrapper"] = {k: v for k, v in env["wrapper"].items() if k != "_target_"}
     within(env, jcfg.env.to_dict(), "env")
     within(tcfg.checkpoint.to_dict(), jcfg.checkpoint.to_dict(), "checkpoint")
     assert tcfg.seed == jcfg.seed

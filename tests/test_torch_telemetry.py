@@ -245,7 +245,8 @@ def test_tensorboard_logger_falls_back_to_jsonl(tmp_path, monkeypatch):
 def test_logger_and_facade_refuse_what_is_not_ported(tmp_path):
     from sheeprl_tpu_torch.config import compose
 
-    with pytest.raises(NotImplementedError, match="mlflow"):
+    # the MLflow logger is ported (tests/test_torch_mlflow.py): without the package it raises
+    with pytest.raises(ModuleNotFoundError, match="mlflow"):
         get_logger(compose("config", ["exp=dreamer_v3", "metric.logger=mlflow"]), str(tmp_path))
     assert get_logger(compose("config", ["exp=dreamer_v3", "metric.log_level=0"]), str(tmp_path)) is None
     # the Prometheus export is ported: the facade serves /metrics and /live
